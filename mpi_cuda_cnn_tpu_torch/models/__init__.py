@@ -1,0 +1,1 @@
+"""Part of the PyTorch port; see the package docstring."""
