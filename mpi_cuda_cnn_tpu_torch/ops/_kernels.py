@@ -31,6 +31,9 @@ KERNELS = {
     "paged_attention": ("paged_attention_launch",
                         [_P] * 8 + [_I] * 9 + [_P]),
     "int8_gemm": ("int8_gemm_launch", [_P] * 4 + [_I] * 3 + [_P]),
+    "gemm_f32": ("gemm_f32_launch", [_P] * 5 + [_I] * 7 + [_P]),
+    "conv_direct": ("conv_direct_launch", [_P] * 3 + [_I] * 14 + [_P]),
+    "conv_dw": ("conv_dw_launch", [_P] * 4 + [_I] * 12 + [_P]),
 }
 
 launches: dict[str, int] = {name: 0 for name in KERNELS}

@@ -5,7 +5,7 @@ Drives the PagedEngine with a seeded workload of mixed prompt/output
 lengths and prints, per mode, one JSON summary line: throughput, TTFT
 and per-output-token latency percentiles, decode-tick, prefill-chunk and
 preemption counts, the state-digest chain — the reference's line — plus
-the device name and the CUDA kernel launches of the measured run.
+the device name and the serving kernels' launches in the measured run.
 Weights are random, made from --seed.
 
     python -m mpi_cuda_cnn_tpu_torch serve-bench --device cpu \\
@@ -22,6 +22,9 @@ import numpy as np
 import torch
 
 from .scheduler import Request
+
+# The kernels of the serving path, whose launches the summary line reports.
+SERVE_KERNELS = ("paged_attention", "int8_gemm")
 
 
 def make_workload(*, n: int, vocab: int, prompt_min: int, prompt_max: int,
@@ -158,7 +161,7 @@ def serve_bench(argv: list[str] | None = None) -> dict:
             "spec": "off", "spec_k": 8,
             **result.summary(),
             "kernel_launches": {k: _kernels.launches[k] - before[k]
-                                for k in _kernels.launches},
+                                for k in SERVE_KERNELS},
             "warmup_forwards": warm.decode_ticks + warm.prefill_chunks,
         })
     return {"lines": lines, "results": results, "engine": engine,
