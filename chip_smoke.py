@@ -8,12 +8,13 @@ Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without the final line:
 
 1. device   the card's name and `nvidia-smi` name and power limit.
-2. build    builds every CUDA kernel of the serving and CNN-training
-            paths from csrc/ (one nvcc per source, all started
-            together); seconds taken.
+2. build    builds every CUDA kernel of the serving, CNN-training and
+            LM-training paths from csrc/ (eight sources, one nvcc each,
+            all started together); seconds taken, ptxas registers.
 3. kernels  each kernel against its plain PyTorch version on the card
             at the shapes its path gives it (one `kernel_case` line per
-            shape): max error against the stated tolerance, median time
+            shape): max error against the stated tolerance (bf16 flash
+            outputs: also a relative L2 error, per row or whole), median time
             over 30 launches (CUDA events), the plain version's time,
             one PyTorch library call's time where one computes the same
             function (TF32 off), and the least time the card could take.
@@ -21,7 +22,11 @@ exits non-zero without the final line:
             reference_cnn's batch-32 step: the float32 GEMM (K3) at its
             9 products, the direct conv (K4) at both forwards and at
             conv2's input gradient (K4'), the conv weight gradient (K5)
-            at both convs.
+            at both convs. The LM's causal attention: flash forward (K7),
+            dq (K8) and dk/dv (K9) at the flagship's B 8, S 2048, H 8,
+            D 64 in float32 and bf16, and at a GQA shape (8 query over 2
+            kv heads, B 2), with SDPA's forward and forward + backward
+            as the yardstick.
 4. serve    the serving bench at the full width of the decode flagship
             (d512 x 8 layers, 8 query / 2 KV heads, vocab 8192; random
             weights from --seed) through K1 and K2, with the launch
@@ -41,12 +46,27 @@ exits non-zero without the final line:
 7. train_agree  50 steps from one init on the kernels and on PyTorch's
             own ops (TF32 off); params within a stated tolerance, eval
             predictions equal or tied (top-2 logit gap < 1e-3).
+8. lm       `lm` at the LM flagship's width (d512 x 8 layers, 8 heads,
+            seq 2048, batch 8; synthetic corpus, vocab 251) with flash
+            attention: 30 steps and the eval, launches of K7/K8/K9 held
+            to 8/8/8 per step and 8/0/0 per eval, the loss held to fall
+            well below the first step's.
+9. lm_bench `lm-bench` at the flagship (vocab 8192): {f32, bf16} x
+            {oracle, flash} and bf16 + flash + chunked CE, 10 timed
+            steps each; tokens/s and mfu per row, then the summary.
+10. lm_profile  torch.profiler over flagship f32 and bf16 flash steps:
+            device busy ms per step, idle share, the flash kernels' ms.
+11. lm_agree  10 float32 steps from one init with attention on the
+            kernels and on the oracle (TF32 off); the first step's
+            gradients (per leaf), per-step losses and params within
+            stated tolerances.
 
 Then `nvidia-smi`'s name and power limit, the kernels line
-({"kernels": [...]}, launches of K1/K2 from the serve phase and of
-K3/K4/K5 from the train phase) and, last, the device line
-{"ok": true, "device": {...}}. Without a CUDA device, or without the
-package beside it, the script fails before any result.
+({"kernels": [...]}, launches of K1/K2 from the serve phase, of
+K3/K4/K5 from the train phase and of K7/K8/K9 from the lm phase) and,
+last, the device line {"ok": true, "device": {...}}. Without a CUDA
+device, or without the package beside it, the script fails before any
+result.
 """
 
 from __future__ import annotations
@@ -63,7 +83,7 @@ HERE = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and the
 # float32 rate outside the tensor cores, which is what every kernel here
-# computes in.
+# computes in (and the bound of float32 work).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
@@ -125,6 +145,71 @@ ACCURACY_MARGIN = 0.01
 # them by the order of the params themselves (0.1).
 AGREE_STEPS = 50
 AGREE_PARAM_ATOL = 5e-3
+
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet): the bound of
+# the flash kernels on bf16 inputs, whatever units the kernel itself uses.
+BF16_FLOPS = 989e12
+# Flash attention (K7-K9) against their plain versions on the card.
+# float32: both sides sum up to 2,048 float32 products in other orders,
+# and the kernel's online softmax rescales per 64-key tile: 1e-5 of
+# max|.|. bf16: the outputs carry 8 bits of mantissa, so the max error
+# is only a guard against outliers (2e-2 of max|.|); the sharp checks are
+# relative L2 errors. K7's o: per row (query, head), because late rows
+# average more keys and are small (|o| ~ sqrt(e / row)), so a norm over
+# the whole tensor would hide them. The kernel rounds p to bf16 against a
+# running max per 64-key tile where the plain version rounds it against
+# the row max, and both round o: each rounding is up to 2^-9 relative,
+# a few of them per row make a few 1e-3, so 1e-2. K8, K9: whole-tensor
+# L2 (a row of dq can be all cancellation, e.g. the first query's),
+# 1e-3: they rebuild p from the same lse and round ds and p^T as their
+# plain versions do, and came
+# out bitwise equal on the card; 1e-3 leaves room for a bf16 ulp flipped
+# by another summation order, and catches a gradient off by 0.1%.
+FLASH_RTOL_OF_MAX = {"float32": 1e-5, "bfloat16": 2e-2}
+FLASH_BF16_REL_L2 = {"flash_fwd": ("row", 1e-2), "flash_bwd_dq": ("tensor", 1e-3),
+                     "flash_bwd_dkv": ("tensor", 1e-3)}
+# (dtype, B, S, H, Hkv, D), causal: the LM flagship's attention (d512,
+# 8 heads) in both types, and a GQA case (8 query heads over 2 kv heads).
+FLASH_SHAPES = [("float32", 8, 2048, 8, 8, 64), ("bfloat16", 8, 2048, 8, 8, 64),
+                ("float32", 2, 2048, 8, 2, 64), ("bfloat16", 2, 2048, 8, 2, 64)]
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# The lm phase: the LM flagship's width (scripts/bench_lm.py:101-116:
+# d512, 8 layers, 8 heads, seq 2048, batch 8) through `lm` on the
+# synthetic corpus (vocab 251) with flash attention: 30 steps, then the
+# eval. Per step 8 launches of each kernel (one per layer); per eval 8 of
+# K7 (no backward). The loss of the cyclic synthetic stream must fall
+# well below the first step's (on the CPU at d128 it halves by step 25).
+LM_MODEL_ARGS = ["--corpus", "synthetic", "--dim", "512", "--depth", "8",
+                 "--heads", "8", "--seq-len", "2048", "--batch-size", "8",
+                 "--lr", "1e-3"]
+LM_ARGS = LM_MODEL_ARGS + ["--attn-impl", "flash", "--steps", "30",
+                           "--warmup-steps", "5", "--log-every", "10"]
+LM_STEPS = 30
+LM_PER_STEP = {"flash_fwd": 8, "flash_bwd_dq": 8, "flash_bwd_dkv": 8}
+LM_PER_EVAL = {"flash_fwd": 8, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+LM_LOSS_DROP = 0.7      # final loss below 0.7 x the first step's
+# lm-bench at the flagship (vocab 8192): the full matrix, 10 timed steps
+# after 3 warm-up steps each.
+LM_BENCH_ARGS = ["--steps", "10"]
+LM_BENCH_STEPS = 13
+# lm_agree: 10 float32 steps of the lm phase's configuration from one
+# init, attention on the kernels and on the oracle (TF32 off). The two
+# attentions differ by float32 summation order (about 1e-6 relative), so
+# the per-step losses of 16,384 tokens agree far inside 1e-4. Params:
+# Adam divides each update by the root of its second moment, so where a
+# gradient is about 0 a rounding difference can flip an update of size
+# lr; over 10 steps params can differ by up to 2 x lr x steps there (the
+# limit on the max) and by about lr x 1e-6 elsewhere: at most 0.1% of
+# the params may end more than 1e-5 apart (the CPU test's 99.9%
+# quantile). Adam's update does not see a gradient scaled by a
+# constant, so the first step's gradients of the two attentions are
+# also compared, leaf by leaf: float32 summation order moves them by
+# about 1e-6 relative (L2), a wrong dq, dk or dv by far more than 1e-4.
+LM_AGREE_ARGS = LM_MODEL_ARGS + ["--steps", "10", "--warmup-steps", "2",
+                                 "--log-every", "1"]
+LM_AGREE_LOSS_ATOL = 1e-4
+LM_AGREE_APART_SHARE = 1e-3
+LM_AGREE_GRAD_REL_L2 = 1e-4
 
 
 def emit(obj) -> None:
@@ -401,6 +486,121 @@ def conv_dw_case(torch, dev, h: int, w: int, cin: int, cout: int,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def rel_l2(got, want, *, per_row: bool) -> float:
+    """||got - want|| / ||want||: over the whole tensor, or the largest of
+    it over the rows (the last dim)."""
+    if per_row:
+        return ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def sdpa_ms(torch, q, k, v, g) -> dict:
+    """The yardstick: F.scaled_dot_product_attention (causal, GQA through
+    enable_gqa) on the same inputs in its (B, H, S, D) layout, forward
+    alone and forward + backward (dq, dk, dv)."""
+    F = torch.nn.functional
+    gqa = k.shape[2] != q.shape[2]
+    qt, kt, vt, gt = (t.transpose(1, 2).contiguous() for t in (q, k, v, g))
+    leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+
+    def fwd():
+        return F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                              enable_gqa=gqa)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), leaves, gt)
+
+    with torch.no_grad():
+        fwd_ms = median_ms(torch, fwd)
+    return {"library_fwd_ms": fwd_ms, "library_fwd_bwd_ms": median_ms(torch, fwd_bwd)}
+
+
+def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
+                d: int, gen) -> list[dict]:
+    """K7, K8 and K9 on one causal attention shape (q (B, S, H, D), k/v
+    (B, S, Hkv, D)), each against its plain version on the same inputs;
+    the backward kernels take the plain forward's o and lse and a random
+    cotangent. Bound: the causal pairs S (S + 1) / 2 per (batch, query
+    head) times 2 D flops for each of the kernel's products (K7: q k^T and
+    p v; K8: also dO v^T and ds k, less p v; K9: q k^T, dO v^T, p^T dO and
+    ds^T q), at the input type's peak; or each input read once and each
+    output written once at the HBM rate, if that is longer."""
+    from mpi_cuda_cnn_tpu_torch.ops import flash_attention as fa
+
+    tdt = getattr(torch, dtype)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev).to(tdt)
+
+    q, k, v, g = randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d), \
+        randn(b, s, h, d)
+    o, lse = fa.flash_forward_plain(q, k, v, True)
+    dvec = fa.row_dvec(o, g)
+    el = q.element_size()
+    rows_q, rows_kv, rows = b * s * h * d, b * s * hkv * d, 4 * b * h * s
+    runs = {
+        "flash_fwd": (lambda: fa.flash_forward(q, k, v, True),
+                      lambda: fa.flash_forward_plain(q, k, v, True), 2,
+                      el * (2 * rows_q + 2 * rows_kv) + rows),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, g, lse, dvec, True),
+                         lambda: fa.flash_bwd_dq_plain(q, k, v, g, lse, dvec,
+                                                       True), 3,
+                         el * (3 * rows_q + 2 * rows_kv) + 2 * rows),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, g, lse, dvec, True),
+                          lambda: fa.flash_bwd_dkv_plain(q, k, v, g, lse,
+                                                         dvec, True), 4,
+                          el * (2 * rows_q + 4 * rows_kv) + 2 * rows)}
+    lib = sdpa_ms(torch, q, k, v, g)
+    pairs = s * (s + 1) // 2
+    peak = F32_FLOPS if dtype == "float32" else BF16_FLOPS
+    out = []
+    for name, (run, plain, products, nbytes) in runs.items():
+        got, want = run(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = tol = 0.0
+        rel = None
+        for i, (a, w) in enumerate(zip(got, want)):
+            # lse is float32 arithmetic on either input type
+            rtol = FLASH_RTOL_OF_MAX["float32" if a.dtype == torch.float32
+                                     else dtype]
+            what = f"{name} {dtype} B={b} H={h} Hkv={hkv} output {i}"
+            e, t = _check_err(what, a.float(), w.float(), rtol)
+            err, tol = max(err, e), max(tol, t)
+            if a.dtype == torch.bfloat16:
+                over, rtol_l2 = FLASH_BF16_REL_L2[name]
+                r = rel_l2(a.float(), w.float(), per_row=over == "row")
+                if not r <= rtol_l2:
+                    raise AssertionError(f"{what}: relative L2 error {r} "
+                                         f"(per {over}) > {rtol_l2}")
+                rel = {"rel_l2_err": max(r, (rel or {}).get("rel_l2_err", 0.0)),
+                       "rel_l2_tolerance": rtol_l2, "rel_l2_per": over}
+        flops = 2 * d * products * b * h * pairs
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / peak * 1e3
+        bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                              else (t_ops, "operations"))
+        out.append({"kernel": name, "dtype": dtype, "B": b, "S": s, "H": h,
+                    "Hkv": hkv, "D": d, "causal": True,
+                    "max_abs_err": err, "tolerance": tol, **(rel or {}),
+                    "ms": median_ms(torch, run),
+                    "plain_ms": median_ms(torch, plain),
+                    "library_ms": (lib["library_fwd_ms"]
+                                   if name == "flash_fwd" else None),
+                    **lib, "flops": flops, "bound_ms": bound_ms,
+                    "bound_by": bound_by})
+    return out
+
+
+def phase_flash_kernels(torch, dev, gen) -> list[dict]:
+    cases = []
+    for shape in FLASH_SHAPES:
+        for case in flash_cases(torch, dev, *shape, gen):
+            emit({"phase": "kernel_case", **case})
+            cases.append(case)
+    return cases
+
+
 def phase_kernels(torch, dev) -> list[dict]:
     gen = torch.Generator().manual_seed(0)
     cases = []
@@ -626,27 +826,20 @@ def phase_train(torch) -> dict:
     return launches
 
 
-def profile_steps(torch, trainer, steps: int = 50) -> dict:
-    """Device time of `steps` training steps of the device-resident path
-    (the same gather, normalize, one-hot and step as `run_epoch`) under
-    torch.profiler: kernel time by name, summed, against the window's
-    wall time. The profiler slows the host, so the idle share is read
-    against the unprofiled step time by the caller."""
+def profile_device(torch, run, steps: int, match: tuple = ()) -> dict:
+    """`run()` called `steps` times under torch.profiler: kernel time by
+    name, summed, against the window's wall time, and the time of the
+    kernels whose names hold one of `match`. The profiler slows the host,
+    so an idle share is read against an unprofiled step time by the
+    caller."""
     from torch.profiler import ProfilerActivity, profile
 
-    from mpi_cuda_cnn_tpu_torch.data.pipeline import PIXEL_SCALE
-
-    b = trainer.cfg.batch_size
-    perm = torch.arange(steps * b, device=trainer.device).reshape(steps, b)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for idx in perm:
-            x = trainer._dev_images.index_select(0, idx).float() / PIXEL_SCALE
-            y = (trainer._dev_labels.index_select(0, idx)[:, None]
-                 == trainer._classes).float()
-            trainer.train_step(x, y)
+        for _ in range(steps):
+            run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages()
@@ -657,10 +850,34 @@ def profile_steps(torch, trainer, steps: int = 50) -> dict:
               for e in events}
     total = sum(dev_us.values())
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
-    return {"steps": steps, "profiled_wall_ms_per_step": 1e3 * wall / steps,
-            "device_busy_ms_per_step": total / 1e3 / steps if total else None,
-            "kernels_per_step": sum(e.count for e in events) / steps,
-            "top_device_us_per_step": {k: v / steps for k, v in top}}
+    out = {"steps": steps, "profiled_wall_ms_per_step": 1e3 * wall / steps,
+           "device_busy_ms_per_step": total / 1e3 / steps if total else None,
+           "kernels_per_step": sum(e.count for e in events) / steps,
+           "top_device_us_per_step": {k: v / steps for k, v in top}}
+    if match:
+        out["matched_ms_per_step"] = sum(
+            v for k, v in dev_us.items() if any(m in k for m in match)
+        ) / 1e3 / steps
+    return out
+
+
+def profile_steps(torch, trainer, steps: int = 50) -> dict:
+    """Device time of `steps` training steps of the device-resident path
+    (the same gather, normalize, one-hot and step as `run_epoch`)."""
+    from mpi_cuda_cnn_tpu_torch.data.pipeline import PIXEL_SCALE
+
+    b = trainer.cfg.batch_size
+    batches = iter(torch.arange(steps * b, device=trainer.device)
+                   .reshape(steps, b))
+
+    def run():
+        idx = next(batches)
+        x = trainer._dev_images.index_select(0, idx).float() / PIXEL_SCALE
+        y = (trainer._dev_labels.index_select(0, idx)[:, None]
+             == trainer._classes).float()
+        trainer.train_step(x, y)
+
+    return profile_device(torch, run, steps)
 
 
 def phase_train_agree(torch) -> dict:
@@ -712,12 +929,193 @@ def phase_train_agree(torch) -> dict:
             "logit_max_abs_diff": (lk - lt).abs().max().item()}
 
 
+class RecordingMetrics:
+    """A MetricsLogger that keeps the trainer's records and prints none."""
+
+    def __init__(self):
+        self.records = []
+
+    def log(self, event: str, **fields) -> None:
+        self.records.append({"event": event, **fields})
+
+
+def phase_lm(torch) -> dict:
+    """`lm` at the flagship width through the flash kernels, with the
+    launch counts zeroed just before `train` (the steps and the eval) and
+    read just after. Returns the launches per kernel."""
+    import math
+
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+    from mpi_cuda_cnn_tpu_torch.train.lm import count_params, get_attn_fn, lm_loss
+    from mpi_cuda_cnn_tpu_torch.train.lm_trainer import LMTrainer
+    from mpi_cuda_cnn_tpu_torch.utils.config import parse_lm_args
+
+    cfg = parse_lm_args(LM_ARGS)
+    metrics = RecordingMetrics()
+    trainer = LMTrainer(cfg, metrics=metrics)
+    if trainer.attn_impl != "flash" or trainer.device.type != "cuda":
+        raise AssertionError(f"lm: {trainer.attn_impl} on {trainer.device}")
+    # The first step's loss: step 0's batch through the initial params.
+    tokens, targets = (trainer._to_device(a) for a in trainer._sample_batch(0))
+    with torch.no_grad():
+        first = float(lm_loss(trainer.model, trainer.state["params"], tokens,
+                              targets, attn_fn=get_attn_fn("flash")))
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    result = trainer.train()
+    wall_s = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    for name in _kernels.KERNELS:
+        want = (LM_PER_STEP[name] * LM_STEPS + LM_PER_EVAL[name]
+                if name in LM_PER_STEP else 0)
+        if launches[name] != want:
+            raise AssertionError(f"lm: {name} launched {launches[name]} "
+                                 f"times, want {want}")
+    if not (math.isfinite(result.eval_loss) and math.isfinite(result.final_loss)
+            and result.final_loss < LM_LOSS_DROP * first):
+        raise AssertionError(f"lm: first loss {first}, final "
+                             f"{result.final_loss}, eval {result.eval_loss}")
+    tokens_per_step = cfg.batch_size * cfg.seq_len
+    emit({"phase": "lm", "steps": result.steps_run, "first_loss": first,
+          "logged_losses": {r["step"]: r["loss"] for r in metrics.records},
+          "loss": result.final_loss, "eval_loss": result.eval_loss,
+          "eval_ppl": result.eval_ppl, "tokens_per_s": result.tokens_per_s,
+          "step_ms": 1e3 * tokens_per_step / result.tokens_per_s,
+          "wall_s": wall_s, "vocab": trainer.model.vocab,
+          "params": count_params(trainer.state["params"]),
+          "attn_impl": trainer.attn_impl, "launches": launches,
+          "per_step": LM_PER_STEP, "per_eval": LM_PER_EVAL,
+          "loss_drop": LM_LOSS_DROP})
+    return launches
+
+
+def phase_lm_bench(torch) -> dict:
+    """`lm-bench` at the flagship: the full matrix."""
+    import math
+
+    from mpi_cuda_cnn_tpu_torch.train.lm_bench import lm_bench
+
+    out = lm_bench(LM_BENCH_ARGS)
+    for line in out["lines"]:
+        want = LM_BENCH_STEPS * 8 if line["attn"] == "flash" else 0
+        if (set(line["kernel_launches"].values()) != {want}
+                or not math.isfinite(line["loss"])):
+            raise AssertionError(f"lm_bench: {line}")
+        emit({"phase": "lm_bench", **line})
+    emit({"phase": "lm_bench", **out["summary"]})
+    return out
+
+
+def phase_lm_profile(torch, steps: int = 3) -> None:
+    """torch.profiler over a few flagship steps (vocab 8192, flash), f32
+    and bf16: device busy ms per step against the unprofiled step time,
+    the flash kernels' share, the top device kernels."""
+    from mpi_cuda_cnn_tpu_torch.models.transformer import TransformerLM
+    from mpi_cuda_cnn_tpu_torch.train.lm import make_lm_state, make_lm_train_step
+    from mpi_cuda_cnn_tpu_torch.train.optimizer import make_optimizer
+
+    dev = torch.device("cuda")
+    model = TransformerLM(vocab=8192, dim=512, heads=8, depth=8, max_seq=2048)
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, model.vocab, (8, 2049), generator=gen).to(dev)
+    for dtype in (None, torch.bfloat16):
+        opt = make_optimizer(3e-4, opt="adamw", schedule="constant")
+        step = make_lm_train_step(model, opt, attn_impl="flash", seq_len=2048,
+                                  device=dev, compute_dtype=dtype)
+        state = make_lm_state(model, opt, 0, device=dev)
+
+        def run():
+            step(state, toks[:, :-1], toks[:, 1:])
+
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / steps
+        prof = profile_device(torch, run, steps, match=("flash_",))
+        busy = prof["device_busy_ms_per_step"]
+        emit({"phase": "lm_profile",
+              "dtype": "bfloat16" if dtype else "float32", "attn": "flash",
+              "step_ms": step_ms,
+              "device_idle_share": None if busy is None else 1 - busy / step_ms,
+              **prof})
+        del state
+        torch.cuda.empty_cache()
+
+
+def first_grads_rel_l2(torch, trainer, get_attn_fn, lm_loss,
+                       tree_leaves) -> dict:
+    """Relative L2 gap, per param leaf, between the gradients of step 0's
+    batch at the trainer's initial params with attention on the kernels
+    and on the oracle (the leaves are named by their index)."""
+    leaves = tree_leaves(trainer.state["params"])
+    tokens, targets = (trainer._to_device(a) for a in trainer._sample_batch(0))
+    grads = {impl: torch.autograd.grad(
+        lm_loss(trainer.model, trainer.state["params"], tokens, targets,
+                attn_fn=get_attn_fn(impl)), leaves)
+        for impl in ("flash", "oracle")}
+    return {i: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+            for i, (a, b) in enumerate(zip(grads["flash"], grads["oracle"]))}
+
+
+def phase_lm_agree(torch) -> dict:
+    """LM_AGREE_ARGS' 10 float32 steps from one init, attention on the
+    kernels and on the oracle; the first step's gradients, per-step
+    losses and final params held to the stated tolerances."""
+    from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
+    from mpi_cuda_cnn_tpu_torch.train.lm import get_attn_fn, lm_loss
+    from mpi_cuda_cnn_tpu_torch.train.lm_trainer import LMTrainer
+    from mpi_cuda_cnn_tpu_torch.utils.config import parse_lm_args
+
+    runs, grad_rel = {}, None
+    for impl in ("flash", "oracle"):
+        cfg = parse_lm_args(LM_AGREE_ARGS + ["--attn-impl", impl])
+        metrics = RecordingMetrics()
+        trainer = LMTrainer(cfg, metrics=metrics)
+        if grad_rel is None:
+            grad_rel = first_grads_rel_l2(torch, trainer, get_attn_fn, lm_loss,
+                                          tree_leaves)
+        result = trainer.train()
+        runs[impl] = ([r["loss"] for r in metrics.records], result,
+                      [t.detach() for t in tree_leaves(trainer.state["params"])])
+        del trainer
+        torch.cuda.empty_cache()
+    (lf, rf, pf), (lo, ro, po) = runs["flash"], runs["oracle"]
+    loss_diff = max(abs(a - b) for a, b in zip(lf, lo))
+    param_diff = max((a - b).abs().max().item() for a, b in zip(pf, po))
+    moved = sum(int(((a - b).abs() > 1e-5).sum()) for a, b in zip(pf, po))
+    total = sum(a.numel() for a in pf)
+    lr, steps = cfg.lr, cfg.steps
+    worst_grad = max(grad_rel.values())
+    if len(lf) != steps or not loss_diff <= LM_AGREE_LOSS_ATOL \
+            or not param_diff <= 2 * lr * steps \
+            or not moved <= LM_AGREE_APART_SHARE * total \
+            or not worst_grad <= LM_AGREE_GRAD_REL_L2:
+        raise AssertionError(f"lm_agree: losses {lf} vs {lo} (max diff "
+                             f"{loss_diff}), params differ by {param_diff}, "
+                             f"{moved} of {total} apart by > 1e-5, first "
+                             f"gradients by {grad_rel}")
+    return {"steps": steps, "losses": {"flash": lf, "oracle": lo},
+            "loss_max_abs_diff": loss_diff, "loss_tolerance": LM_AGREE_LOSS_ATOL,
+            "param_max_abs_diff": param_diff, "param_tolerance": 2 * lr * steps,
+            "params_apart_1e-5": moved, "params": total,
+            "apart_share_tolerance": LM_AGREE_APART_SHARE,
+            "first_grad_rel_l2_max": worst_grad,
+            "first_grad_rel_l2_tolerance": LM_AGREE_GRAD_REL_L2,
+            "eval_loss": {"flash": rf.eval_loss, "oracle": ro.eval_loss}}
+
+
 def kernels_line(cases: list[dict], launches: dict) -> dict:
     """The per-kernel record: launches from each kernel's own path (serve
-    for K1/K2, train for K3/K4/K5), the largest error over every case,
-    and the times at one shape of the main path: the decode tick (int8
-    pages at B = slots; the head's 512 x 8192 weight) and, for the CNN
-    kernels, fc1's forward, conv2's forward and conv1's weight gradient."""
+    for K1/K2, train for K3/K4/K5, lm for K7/K8/K9), the largest error
+    over every case, and the times at one shape of the main path: the
+    decode tick (int8 pages at B = slots; the head's 512 x 8192 weight),
+    for the CNN kernels fc1's forward, conv2's forward and conv1's weight
+    gradient, and for the flash kernels the LM flagship's attention in
+    float32."""
     summary = []
     for name, src, replaces, rep in (
             ("paged_attention", "mpi_cuda_cnn_tpu_torch/csrc/paged_attention.cu",
@@ -734,7 +1132,13 @@ def kernels_line(cases: list[dict], launches: dict) -> dict:
              lambda c: c["role"] == "forward" and c["C"] == 16),
             ("conv_dw", "mpi_cuda_cnn_tpu_torch/csrc/conv_dw.cu",
              "mpi_cuda_cnn_tpu/ops/pallas_ops.py:264",
-             lambda c: c["C"] == 1)):
+             lambda c: c["C"] == 1),
+            ("flash_fwd", "mpi_cuda_cnn_tpu_torch/csrc/flash_fwd.cu",
+             "mpi_cuda_cnn_tpu/ops/pallas_attention.py:249", _flagship_f32),
+            ("flash_bwd_dq", "mpi_cuda_cnn_tpu_torch/csrc/flash_bwd_dq.cu",
+             "mpi_cuda_cnn_tpu/ops/pallas_attention.py:434", _flagship_f32),
+            ("flash_bwd_dkv", "mpi_cuda_cnn_tpu_torch/csrc/flash_bwd_dkv.cu",
+             "mpi_cuda_cnn_tpu/ops/pallas_attention.py:460", _flagship_f32)):
         mine = [c for c in cases if c["kernel"] == name]
         r = next(c for c in mine if rep(c))
         summary.append({
@@ -745,9 +1149,13 @@ def kernels_line(cases: list[dict], launches: dict) -> dict:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "shape": {k: r[k] for k in ("dtype", "B", "kk", "L", "N", "din",
-                                        "dout", "role", "M", "K", "H", "W",
-                                        "C", "O") if k in r}})
+                                        "dout", "role", "M", "K", "S", "H",
+                                        "Hkv", "D", "W", "C", "O") if k in r}})
     return {"kernels": summary}
+
+
+def _flagship_f32(case: dict) -> bool:
+    return case["dtype"] == "float32" and case["B"] == 8
 
 
 def main() -> int:
@@ -787,14 +1195,21 @@ def main() -> int:
           "kernels": sorted(_kernels.KERNELS), "ptxas": report})
 
     cases = phase_kernels(torch, torch.device("cuda"))
+    cases += phase_flash_kernels(torch, torch.device("cuda"),
+                                 torch.Generator().manual_seed(1))
 
     out, serve_launches = phase_serve(torch, SERVE_ARGS)
     emit({"phase": "agree", **phase_agree(torch, out)})
     train_launches = phase_train(torch)
     emit({"phase": "train_agree", **phase_train_agree(torch)})
+    lm_launches = phase_lm(torch)
+    phase_lm_bench(torch)
+    phase_lm_profile(torch)
+    emit({"phase": "lm_agree", **phase_lm_agree(torch)})
     launches = {**{k: serve_launches[k] for k in ("paged_attention",
                                                   "int8_gemm")},
-                **{k: train_launches[k] for k in PER_STEP}}
+                **{k: train_launches[k] for k in PER_STEP},
+                **{k: lm_launches[k] for k in FLASH_KERNELS}}
     line = kernels_line(cases, launches)
     print(smi, flush=True)
     emit(line)

@@ -6,6 +6,9 @@
     train-bench   the MNIST-shaped epoch wall-clock bench (train/bench.py)
     serve-bench   the paged continuous-batching serving bench
                   (serve/bench.py)
+    lm            the transformer-LM trainer (train/lm_trainer.py; exit 2
+                  on a bad or unported flag)
+    lm-bench      the LM pretraining throughput matrix (train/lm_bench.py)
 
 Every command runs on the card unless given --device cpu.
 """
@@ -15,7 +18,7 @@ from __future__ import annotations
 import sys
 
 _USAGE = ("usage: python -m mpi_cuda_cnn_tpu_torch "
-          "{train,train-bench,serve-bench} [flags]")
+          "{train,train-bench,serve-bench,lm,lm-bench} [flags]")
 
 
 def run_train(argv: list[str]) -> int:
@@ -70,6 +73,39 @@ def run_train(argv: list[str]) -> int:
     return 0
 
 
+def run_lm(argv: list[str]) -> int:
+    """The `lm` command, mirroring the reference's `cli.run_lm` on one
+    device."""
+    from ._device import resolve_device
+    from .train.lm_trainer import LMTrainer
+    from .utils.config import check_lm_supported, parse_lm_args
+    from .utils.logging import MetricsLogger, get_logger
+
+    try:
+        cfg = parse_lm_args(argv)
+    except SystemExit as e:  # argparse: 2 on a bad flag, 0 on --help
+        return e.code if isinstance(e.code, int) else 2
+    log = get_logger()
+    try:
+        check_lm_supported(cfg)
+        resolve_device(cfg.device)
+    except (NotImplementedError, RuntimeError, ValueError) as e:
+        log.error("%s", e)
+        return 2
+    try:
+        trainer = LMTrainer(cfg, metrics=MetricsLogger())
+    except (OSError, ValueError) as e:
+        log.error("lm setup failed: %s", e)
+        return 2
+    log.info("lm model=d%dx%d h%d seq=%d vocab=%d device=%s attn=%s",
+             cfg.dim, cfg.depth, cfg.heads, cfg.seq_len, trainer.model.vocab,
+             trainer.device, trainer.attn_impl)
+    result = trainer.train()
+    log.info("done: steps=%d eval_ppl=%.3f tokens/s=%.0f", result.steps_run,
+             result.eval_ppl, result.tokens_per_s)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "train":
@@ -82,5 +118,11 @@ def main(argv: list[str] | None = None) -> int:
         from .serve.bench import serve_bench_main
 
         return serve_bench_main(argv[1:])
+    if argv and argv[0] == "lm":
+        return run_lm(argv[1:])
+    if argv and argv[0] == "lm-bench":
+        from .train.lm_bench import lm_bench_main
+
+        return lm_bench_main(argv[1:])
     print(_USAGE, file=sys.stderr)
     return 2

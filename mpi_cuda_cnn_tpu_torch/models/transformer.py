@@ -1,22 +1,38 @@
-"""Decoder-only transformer LM: config, parameters and the QKV
-projection (counterpart of the reference's `models/transformer.py`).
+"""Decoder-only transformer LM: config, parameters, the QKV projection
+the decode forward shares, and the training forward `apply`
+(counterpart of the reference's `models/transformer.py`).
 
 Parameters are a plain dict with the reference's names and shapes, so
 `convert.params_from_jax` maps one onto the other leaf for leaf. Weight
-matrices stay (din, dout) so `x @ W` matches the reference. Only what
-the decode forward needs is here; the training `apply` comes with the
-LM-training slice.
+matrices stay (din, dout) so `x @ W` matches the reference.
+
+Numerics as the reference's: master params are float32;
+`compute_dtype=torch.bfloat16` runs every weight product and the
+residual stream in bf16, with layernorm statistics and the head's
+logits in float32. Pre-LN blocks, 4x MLP with the tanh-approximated
+gelu (`jax.nn.gelu`'s default). MoE blocks are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from collections.abc import Callable
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import rope
-from ..ops.gemv import qmatmul, tree_to
+from ..ops.attention import attention, rope
+from ..ops.gemv import QuantW, qmatmul, tree_to
+
+
+def _weight_cast(cd: torch.dtype | None):
+    """The compute-dtype weight cast; int8 `QuantW` leaves keep their own
+    storage type (qmatmul dequantizes them in its kernel)."""
+    if cd is None:
+        return lambda t: t
+    return lambda t: t if isinstance(t, QuantW) else t.to(cd)
 
 
 def _layernorm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
@@ -109,18 +125,21 @@ class TransformerLM:
         return tree_to(params, device)
 
     def project_qkv(self, blk: dict, y: torch.Tensor, *,
-                    positions: torch.Tensor):
+                    positions: torch.Tensor,
+                    compute_dtype: torch.dtype | None = None):
         """QKV projections + head reshape + rotary. y: (B, S, dim);
         positions (S,) or (B, S). Weight matmuls go through `qmatmul`,
-        so int8 `QuantW` leaves take the int8 kernel.
+        so int8 `QuantW` leaves take the int8 kernel; other weights are
+        cast to `compute_dtype` when one is given.
         Returns q: (B, S, H, hd); k, v: (B, S, Hkv, hd)."""
         b, s, _ = y.shape
         h, hd, hkv = self.heads, self.head_dim, self.n_kv
+        w = _weight_cast(compute_dtype)
         if hkv == h:
-            q, k, v = torch.chunk(qmatmul(y, blk["wqkv"]), 3, dim=-1)
+            q, k, v = torch.chunk(qmatmul(y, w(blk["wqkv"])), 3, dim=-1)
         else:
-            q = qmatmul(y, blk["wq"])
-            k, v = torch.chunk(qmatmul(y, blk["wkv"]), 2, dim=-1)
+            q = qmatmul(y, w(blk["wq"]))
+            k, v = torch.chunk(qmatmul(y, w(blk["wkv"])), 2, dim=-1)
         q = q.reshape(b, s, h, hd)
         k = k.reshape(b, s, hkv, hd)
         v = v.reshape(b, s, hkv, hd)
@@ -129,3 +148,66 @@ class TransformerLM:
             k = rope(k, positions)
         return q, k, v
 
+    def apply_block(self, blk: dict, x: torch.Tensor, *,
+                    pos: torch.Tensor, attn: Callable,
+                    compute_dtype: torch.dtype | None = None):
+        """One pre-LN block: attention + MLP with residuals. Returns
+        (x, aux) with aux the MoE balance loss, 0 for a dense block."""
+        if self.moe_experts:
+            raise NotImplementedError(
+                "MoE blocks are not ported yet (ROADMAP queue F item 2)")
+        b, s, _ = x.shape
+        w = _weight_cast(compute_dtype)
+        y = _layernorm(x, blk["ln1"]["g"], blk["ln1"]["b"])
+        q, k, v = self.project_qkv(blk, y, positions=pos,
+                                   compute_dtype=compute_dtype)
+        o = attn(q, k, v).reshape(b, s, self.heads * self.head_dim)
+        x = x + qmatmul(o.to(x.dtype), w(blk["wo"]))
+        y = _layernorm(x, blk["ln2"]["g"], blk["ln2"]["b"])
+        hidden = F.gelu(qmatmul(y, w(blk["w1"])), approximate="tanh")
+        return (x + qmatmul(hidden, w(blk["w2"])),
+                torch.zeros((), device=x.device))
+
+    def apply(self, params: dict, tokens: torch.Tensor, *,
+              attn_fn: Callable | None = None,
+              pos_offset: int | torch.Tensor = 0, causal: bool = True,
+              remat: bool = False, return_aux: bool = False,
+              compute_dtype: torch.dtype | None = None,
+              return_features: bool = False):
+        """The training forward: tokens (B, S) -> float32 logits
+        (B, S, vocab), or the final-LN features (B, S, dim) with
+        `return_features` (for losses that fuse the head); with
+        `return_aux` also the MoE balance loss (0 here).
+
+        attn_fn (q, k, v) -> o replaces the causal oracle; pos_offset
+        shifts the absolute positions; remat recomputes each block in
+        the backward (`torch.utils.checkpoint`)."""
+        b, s = tokens.shape
+        if s > self.max_seq:
+            raise ValueError(f"sequence length {s} exceeds max_seq {self.max_seq}")
+        cd = compute_dtype
+        w = _weight_cast(cd)
+        attn = attn_fn or (lambda q, k, v: attention(q, k, v, causal=causal))
+        pos = pos_offset + torch.arange(s, device=tokens.device)
+        x = params["tok_emb"][tokens.long()]
+        if self.pos == "learned":
+            x = x + params["pos_emb"][pos][None, :, :]
+        x = w(x)
+
+        def block(blk, x):
+            return self.apply_block(blk, x, pos=pos, attn=attn,
+                                    compute_dtype=cd)
+
+        aux_total = torch.zeros((), device=x.device)
+        for blk in params["blocks"]:
+            if remat:
+                x, aux = checkpoint(block, blk, x, use_reentrant=False)
+            else:
+                x, aux = block(blk, x)
+            aux_total = aux_total + aux
+        x = _layernorm(x, params["ln_f"]["g"], params["ln_f"]["b"])
+        if return_features:
+            return (x, aux_total) if return_aux else x
+        # The head product in the compute type; logits come back float32.
+        logits = qmatmul(x, w(params["head"])).to(torch.float32)
+        return (logits, aux_total) if return_aux else logits

@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` exports a plain C launch function and is compiled
 on first use by `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC` into `build/torch_kernels/lib<name>-<hash>.so` at the
-repository root (the hash is of the source, so an edited kernel
-rebuilds), then loaded with `ctypes`. Nothing here runs at import time:
-the CPU tests import every module on a machine with no `nvcc`.
+repository root (the hash is of the source and of the shared
+`csrc/*.cuh` headers, so an edited kernel rebuilds), then loaded with
+`ctypes`. Nothing here runs at import time: the CPU tests import every
+module on a machine with no `nvcc`.
 
 `launches` counts, per kernel, the launches its wrapper made (one per
 successful launch, nowhere else); `reset_launches()` zeroes it.
@@ -34,6 +35,9 @@ KERNELS = {
     "gemm_f32": ("gemm_f32_launch", [_P] * 5 + [_I] * 7 + [_P]),
     "conv_direct": ("conv_direct_launch", [_P] * 3 + [_I] * 14 + [_P]),
     "conv_dw": ("conv_dw_launch", [_P] * 4 + [_I] * 12 + [_P]),
+    "flash_fwd": ("flash_fwd_launch", [_P] * 5 + [_I] * 7 + [_P]),
+    "flash_bwd_dq": ("flash_bwd_dq_launch", [_P] * 7 + [_I] * 7 + [_P]),
+    "flash_bwd_dkv": ("flash_bwd_dkv_launch", [_P] * 8 + [_I] * 7 + [_P]),
 }
 
 launches: dict[str, int] = {name: 0 for name in KERNELS}
@@ -56,7 +60,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

@@ -1,0 +1,144 @@
+"""Language-model training: the transformer's train step and loss
+(counterpart of the reference's `train/lm.py`).
+
+One step is the forward, the causal-LM cross-entropy, the backward
+(`torch.autograd.grad`) and the AdamW update in place, on one device.
+The levers are the reference's:
+
+- `attn_impl`: "flash" (the fused attention on the hand-written CUDA
+  kernels K7-K9, `ops/flash_attention.py`), "oracle" (the quadratic
+  PyTorch attention, `ops/attention.attention`), or "auto";
+- `compute_dtype`: bf16 weight products and residual stream, float32
+  master params;
+- `remat`: `torch.utils.checkpoint` per block;
+- `ce_chunk`: the chunked cross-entropy fused with the head product.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..models.layers import tree_leaves
+from ..models.transformer import TransformerLM
+from ..ops.gemv import tree_map
+
+
+def pick_attn_impl(impl: str, seq_len: int,
+                   device: torch.device | str = "cuda") -> str:
+    """Resolve "auto": the flash kernels on a CUDA device whenever their
+    block constraint (S % 128 == 0) holds, the oracle on the CPU (where
+    the kernels' plain versions are full-matrix math, no faster than the
+    oracle) or for an unaligned S.
+
+    The reference routes float32 below S = 3072 to the oracle
+    (`_F32_FLASH_MIN_SEQ`); that crossover was measured on a TPU v5e and
+    is not carried over. `lm-bench`'s float32 oracle and flash rows on
+    the card are the data for this card's own."""
+    if impl != "auto":
+        return impl
+    if torch.device(device).type != "cuda" or seq_len % 128:
+        return "oracle"
+    return "flash"
+
+
+def get_attn_fn(impl: str):
+    """Concrete causal attention callable (q, k, v) -> o for `impl`."""
+    if impl == "flash":
+        from ..ops.flash_attention import flash_attention
+
+        return lambda q, k, v: flash_attention(q, k, v, True)
+    if impl == "oracle":
+        from ..ops.attention import attention
+
+        return lambda q, k, v: attention(q, k, v, causal=True)
+    raise ValueError(
+        f"unknown attention impl {impl!r}; use 'flash' or 'oracle' "
+        "(resolve 'auto' with pick_attn_impl first)")
+
+
+def lm_loss(model: TransformerLM, params: dict, tokens: torch.Tensor,
+            targets: torch.Tensor, *, attn_fn=None,
+            compute_dtype: torch.dtype | None = None, remat: bool = False,
+            moe_aux_weight: float = 0.01, ce_chunk: int = 0) -> torch.Tensor:
+    """Mean next-token NLL (plus the MoE balance loss, 0 for a dense
+    model); the softmax in float32. ce_chunk > 0 fuses the head product
+    into the chunked cross-entropy (`ops.losses.chunked_ce_mean`), which
+    never forms the (B, S, V) float32 logits; it must divide S."""
+    if ce_chunk:
+        from ..ops.losses import chunked_ce_mean
+
+        feats, aux = model.apply(params, tokens, attn_fn=attn_fn, remat=remat,
+                                 compute_dtype=compute_dtype, return_aux=True,
+                                 return_features=True)
+        nll = chunked_ce_mean(feats, params["head"], targets, ce_chunk,
+                              compute_dtype)
+        return nll + moe_aux_weight * aux
+    logits, aux = model.apply(params, tokens, attn_fn=attn_fn, remat=remat,
+                              compute_dtype=compute_dtype, return_aux=True)
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])
+    return nll.mean() + moe_aux_weight * aux
+
+
+def make_lm_state(model: TransformerLM, optimizer, seed: int = 0, *,
+                  params: dict | None = None,
+                  device: torch.device | str = "cpu") -> dict:
+    """Fresh {"params", "opt_state", "step"} for the LM train step: a
+    seeded `model.init` (a torch generator: other values than the
+    reference's for the same seed), or `params` (e.g.
+    `convert.params_from_jax` of the reference's), on `device`. Each
+    leaf is a fresh float32 tensor that requires grad."""
+    if params is None:
+        params = model.init(torch.Generator().manual_seed(seed))
+    params = tree_map(lambda t: t.detach().to(device, torch.float32).clone()
+                      .requires_grad_(True), params)
+    return {"params": params,
+            "opt_state": optimizer.init(tree_leaves(params)), "step": 0}
+
+
+def make_lm_train_step(model: TransformerLM, optimizer, *,
+                       attn_impl: str = "auto", seq_len: int | None = None,
+                       device: torch.device | str = "cuda",
+                       compute_dtype: torch.dtype | None = None,
+                       remat: bool = False, moe_aux_weight: float = 0.01,
+                       ce_chunk: int = 0):
+    """step(state, tokens, targets) -> (state, {"loss": loss}): forward,
+    loss, gradients, and the optimizer update in place on the state's
+    params (the state dict itself is returned, updated). The loss stays
+    on the device: reading it is the caller's host sync."""
+    impl = pick_attn_impl(attn_impl, seq_len or model.max_seq, device)
+    attn_fn = get_attn_fn(impl)
+
+    def step(state, tokens, targets):
+        leaves = tree_leaves(state["params"])
+        loss = lm_loss(model, state["params"], tokens, targets,
+                       attn_fn=attn_fn, compute_dtype=compute_dtype,
+                       remat=remat, moe_aux_weight=moe_aux_weight,
+                       ce_chunk=ce_chunk)
+        grads = torch.autograd.grad(loss, leaves)
+        optimizer.update(leaves, grads, state["opt_state"])
+        state["step"] += 1
+        return state, {"loss": loss.detach()}
+
+    return step
+
+
+def lm_flops_per_token(model: TransformerLM, seq_len: int) -> float:
+    """Analytic forward + backward FLOPs per trained token (the MFU
+    numerator; backward = 2x forward). Per layer, per token: q proj 2d²,
+    kv proj 4·d·(Hkv·hd), attention out 2d², MLP 16d²·k (k = moe_top_k
+    for MoE blocks) plus the router 2·d·E, attention scores and values
+    2·s·d (causal: each query sees s/2 keys on average). Head: 2·d·V."""
+    d, s, v = model.dim, seq_len, model.vocab
+    kv_dim = model.n_kv * model.head_dim
+    k = model.moe_top_k if model.moe_experts else 1
+    mlp = 16 * d * d * k
+    gate = 2 * d * model.moe_experts if model.moe_experts else 0
+    per_layer = 2 * d * d + 4 * d * kv_dim + 2 * d * d + mlp + gate + 2 * s * d
+    fwd = model.depth * per_layer + 2 * d * v
+    return 3.0 * fwd
+
+
+def count_params(params) -> int:
+    return sum(t.numel() for t in tree_leaves(params))

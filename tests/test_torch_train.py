@@ -160,8 +160,12 @@ def test_optimizer_matches_optax(kw):
 
 
 def test_optimizer_refuses_the_lm_options():
-    with pytest.raises(NotImplementedError, match="adamw"):
-        make_optimizer(0.1, opt="adamw")
+    """AdamW is the LM trainer's (tests/test_torch_lm.py holds it to
+    optax); like the reference's, it refuses SGD's momentum knob."""
+    with pytest.raises(ValueError, match="momentum"):
+        make_optimizer(0.1, opt="adamw", momentum=0.9)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        make_optimizer(0.1, opt="lamb")
     with pytest.raises(ValueError):
         make_optimizer(0.1, schedule="cosine")
 
