@@ -8,9 +8,10 @@ Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without the final line:
 
 1. device   the card's name and `nvidia-smi` name and power limit.
-2. build    builds every CUDA kernel of the serving, CNN-training and
-            LM-training paths from csrc/ (eight sources, one nvcc each,
-            all started together); seconds taken, ptxas registers.
+2. build    builds every CUDA kernel of the serving, CNN-training,
+            conv-bench and LM-training paths from csrc/ (nine sources,
+            one nvcc each, all started together); seconds taken, ptxas
+            registers.
 3. kernels  each kernel against its plain PyTorch version on the card
             at the shapes its path gives it (one `kernel_case` line per
             shape): max error against the stated tolerance (bf16 flash
@@ -19,10 +20,13 @@ exits non-zero without the final line:
             one PyTorch library call's time where one computes the same
             function (TF32 off), and the least time the card could take.
             Serving: paged attention (K1), int8 weight matmul (K2).
-            reference_cnn's batch-32 step: the float32 GEMM (K3) at its
-            9 products, the direct conv (K4) at both forwards and at
-            conv2's input gradient (K4'), the conv weight gradient (K5)
-            at both convs. The LM's causal attention: flash forward (K7),
+            reference_cnn's batch-32 step, in float32 and bf16: the GEMM
+            (K3) at its 9 products, the direct conv (K4) at both
+            forwards and at conv2's input gradient (K4'), the conv
+            weight gradient (K5) at both convs. conv-bench's four
+            stride-1 shapes, in float32 and bf16: the implicit-GEMM conv
+            (K6), with F.conv2d on the same channels-last tensors as the
+            yardstick. The LM's causal attention: flash forward (K7),
             dq (K8) and dk/dv (K9) at the flagship's B 8, S 2048, H 8,
             D 64 in float32 and bf16, and at a GQA shape (8 query over 2
             kv heads, B 2), with SDPA's forward and forward + backward
@@ -46,6 +50,17 @@ exits non-zero without the final line:
 7. train_agree  50 steps from one init on the kernels and on PyTorch's
             own ops (TF32 off); params within a stated tolerance, eval
             predictions equal or tied (top-2 logit gap < 1e-3).
+7b. train_bf16  the `train` command's path (`Trainer`) with bf16
+            compute on the kernels: the train phase's data, one epoch,
+            the 10,000-sample eval; launches held to 9/3/2 per step and
+            3/2/0 per eval batch, the accuracy to the JAX package's bf16
+            accuracy on the CPU less the margin, the first step's
+            gradients on the kernels and on PyTorch's ops (both bf16)
+            to a stated relative L2 per leaf; ms per step.
+7c. conv_bench  `conv-bench` at full size (the reference's five shapes,
+            float32 then bf16, 200 calls against 400): one line per row;
+            K4 launched on every row, K6 on every stride-1 row and not
+            on the stride-2 row.
 8. lm       `lm` at the LM flagship's width (d512 x 8 layers, 8 heads,
             seq 2048, batch 8; synthetic corpus, vocab 251) with flash
             attention: 30 steps and the eval, launches of K7/K8/K9 held
@@ -63,7 +78,8 @@ exits non-zero without the final line:
 
 Then `nvidia-smi`'s name and power limit, the kernels line
 ({"kernels": [...]}, launches of K1/K2 from the serve phase, of
-K3/K4/K5 from the train phase and of K7/K8/K9 from the lm phase) and,
+K3/K4/K5 from the train phase, of K6 from conv_bench and of K7/K8/K9
+from the lm phase) and,
 last, the device line {"ok": true, "device": {...}}. Without a CUDA
 device, or without the package beside it, the script fails before any
 result.
@@ -72,6 +88,7 @@ result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -114,28 +131,52 @@ GEMM_SHAPES = [(512, 512), (512, 256), (512, 2048), (2048, 512), (512, 8192)]
 # CNN kernels against their plain versions on the card. K3 and K4: both
 # sides sum up to 1,568 (K3) or 288 (K4) float32 products in other
 # orders, relative to the output's magnitude. K5: sums over up to 6,272
-# pixels (conv1 at batch 32), relative to max|dW|.
+# pixels (conv1 at batch 32), relative to max|dW|. K6: sums of up to
+# 1,152 float32 products (k3 over 128 channels), relative to max|y|.
 CNN_GEMM_RTOL_OF_MAX = 1e-5
 CONV_RTOL_OF_MAX = 1e-5
 CONV_DW_RTOL_OF_MAX = 1e-4
+CONV_GEMM_RTOL_OF_MAX = 1e-5
+# bf16 (K3-K6): kernel and plain version both sum in float32 and round
+# once to bf16 (K3 with a bias: twice, as the JAX package's
+# `_matmul(x, w) + b`), so they differ only where a float32 sum in
+# another order lands on the other side of a bf16 rounding boundary: by
+# one bf16 ulp of that value. Held to a relative L2 error of 1e-2 and a
+# max error of one bf16 ulp (2^-7 relative to the leading power of two)
+# of the largest value rounded: max|want|, and for K3's forward also
+# max|x @ W|, rounded before the bias is added.
+BF16_REL_L2 = 1e-2
 # reference_cnn at batch 32: the three FC layers (d_in, d_out) and the
 # two convs (h, w, cin, cout) with k3 s2 p1.
 CNN_BATCH = 32
 FC_SHAPES = [(1568, 200), (200, 200), (200, 10)]
 CONV_SHAPES = [(28, 28, 1, 16), (14, 14, 16, 32)]
+CNN_DTYPES = ("float32", "bfloat16")
 # The train phase: steps of the measured epoch, launches per training
 # step and per eval batch (eval batch 2,048: 5 batches for 10,000).
 TRAIN_ARGS = ["--use-kernels", "--num-train", "60000", "--num-test", "10000",
               "--epochs", "1"]
 TRAIN_STEPS = 1875
 EVAL_BATCHES = 5
-PER_STEP = {"gemm_f32": 9, "conv_direct": 3, "conv_dw": 2}
-PER_EVAL = {"gemm_f32": 3, "conv_direct": 2, "conv_dw": 0}
+PER_STEP = {"gemm": 9, "conv_direct": 3, "conv_dw": 2}
+PER_EVAL = {"gemm": 3, "conv_direct": 2, "conv_dw": 0}
 # tools/jax_train_reference.py on the CPU, same data, seed and epochs:
-# 10,000 of 10,000 test samples. The port draws another init (a torch
+# 10,000 of 10,000 test samples, in float32 (two epochs) and, with
+# --compute-dtype bfloat16, on the Pallas kernels in bf16 (one epoch, as
+# the train_bf16 phase). The port draws another init (a torch
 # generator), hence the margin.
 JAX_CPU_ACCURACY = 1.0
+JAX_CPU_BF16_ACCURACY = 1.0
 ACCURACY_MARGIN = 0.01
+# train_bf16: one epoch of the train phase's configuration with bf16
+# compute on the kernels, then the eval. The first step's gradients on
+# the kernels and on PyTorch's own ops (both in bf16, TF32 off) from the
+# same params and batch, per leaf, relative L2: each side rounds every
+# activation and gradient to bf16 (2^-9 relative), and where the two
+# sums of a value land on two sides of a rounding boundary the flip
+# propagates. 5.1e-4 measured at worst (fc3's weights); a kernel off by
+# a factor is off by far more than 1e-2.
+TRAIN_BF16_GRAD_REL_L2 = 1e-2
 # train_agree: 50 steps from one init on both backends. Sums in other
 # orders drift by ulps per step; a pre-activation within a few ulp of 0
 # can take the other side of a ReLU in one run, which moves params by
@@ -147,8 +188,9 @@ AGREE_STEPS = 50
 AGREE_PARAM_ATOL = 5e-3
 
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet): the bound of
-# the flash kernels on bf16 inputs, whatever units the kernel itself uses.
+# every kernel on bf16 inputs, whatever units the kernel itself uses.
 BF16_FLOPS = 989e12
+PEAK = {"float32": F32_FLOPS, "bfloat16": BF16_FLOPS}
 # Flash attention (K7-K9) against their plain versions on the card.
 # float32: both sides sum up to 2,048 float32 products in other orders,
 # and the kernel's online softmax rescales per 64-key tile: 1e-5 of
@@ -243,9 +285,10 @@ def median_ms(torch, fn, reps: int = 30) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          peak: float = F32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -358,14 +401,45 @@ def _check_err(name: str, got, want, rtol_of_max: float) -> tuple[float, float]:
     return err, tol
 
 
-def cnn_gemm_case(torch, dev, role: str, d_in: int, d_out: int, gen) -> dict:
+def bf16_ulp(v: float) -> float:
+    """One bf16 ulp at magnitude v: 2^-7 of v's leading power of two."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7) if v > 0 else 0.0
+
+
+def check_case(torch, name: str, got, want, rtol_of_max: float,
+               rounded_max: float | None = None) -> dict:
+    """Kernel output against its plain version: float32 to `rtol_of_max`
+    of max|want|; bf16 (BF16_REL_L2 and one bf16 ulp of the largest
+    value rounded, max|want| unless `rounded_max` is larger) after the
+    dtype is checked. Returns the error fields of a kernel_case line."""
+    if got.dtype != want.dtype or tuple(got.shape) != tuple(want.shape):
+        raise AssertionError(f"{name}: got {got.dtype} {tuple(got.shape)}, "
+                             f"want {want.dtype} {tuple(want.shape)}")
+    if got.dtype == torch.float32:
+        err, tol = _check_err(name, got, want, rtol_of_max)
+        return {"max_abs_err": err, "tolerance": tol}
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    tol = bf16_ulp(max(want.abs().max().item(), rounded_max or 0.0))
+    rel = rel_l2(got, want, per_row=False)
+    if not (err <= tol and rel <= BF16_REL_L2):
+        raise AssertionError(f"{name}: max error {err} (limit {tol}), "
+                             f"relative L2 {rel} (limit {BF16_REL_L2})")
+    return {"max_abs_err": err, "tolerance": tol, "rel_l2_err": rel,
+            "rel_l2_tolerance": BF16_REL_L2, "rel_l2_per": "tensor"}
+
+
+def cnn_gemm_case(torch, dev, role: str, d_in: int, d_out: int, gen,
+                  dtype: str) -> dict:
     """One of K3's products in a batch-32 step of an FC layer (d_in,
     d_out): the forward x @ W + b, the input gradient g @ W^T, or the
     weight gradient x^T @ g, with the operands as the step has them."""
     from mpi_cuda_cnn_tpu_torch.ops.kernel_ops import gemm, gemm_plain
 
+    tdt = getattr(torch, dtype)
+
     def randn(*s):
-        return torch.randn(*s, generator=gen).to(dev)
+        return torch.randn(*s, generator=gen).to(dev).to(tdt)
 
     x, w, b = randn(CNN_BATCH, d_in), randn(d_in, d_out) / d_in ** 0.5, randn(d_out)
     g = randn(CNN_BATCH, d_out)
@@ -380,12 +454,15 @@ def cnn_gemm_case(torch, dev, role: str, d_in: int, d_out: int, gen) -> dict:
         library = lambda: torch.mm(x.t(), g)  # noqa: E731
     got = gemm(*args, **kw)
     want = gemm_plain(*args, **kw)
-    err, tol = _check_err(f"gemm_f32 {role} {d_in}x{d_out}", got, want,
-                          CNN_GEMM_RTOL_OF_MAX)
-    nbytes = 4 * (m * k + k * n + m * n + (n if role == "forward" else 0))
-    bound_ms, bound_by = bound(nbytes, 2 * m * n * k)
-    return {"kernel": "gemm_f32", "role": role, "M": m, "N": n, "K": k,
-            "max_abs_err": err, "tolerance": tol,
+    product = (gemm_plain(*args).float().abs().max().item()
+               if role == "forward" else None)
+    errs = check_case(torch, f"gemm {dtype} {role} {d_in}x{d_out}", got,
+                      want, CNN_GEMM_RTOL_OF_MAX, product)
+    nbytes = got.element_size() * (m * k + k * n + m * n
+                                   + (n if role == "forward" else 0))
+    bound_ms, bound_by = bound(nbytes, 2 * m * n * k, PEAK[dtype])
+    return {"kernel": "gemm", "dtype": dtype, "role": role, "M": m, "N": n,
+            "K": k, **errs,
             "ms": median_ms(torch, lambda: gemm(*args, **kw)),
             "plain_ms": median_ms(torch, lambda: gemm_plain(*args, **kw)),
             "library_ms": median_ms(torch, library),
@@ -406,7 +483,7 @@ def valid_taps(size_in: int, size_out: int, k: int, stride: int, pad: int,
 
 
 def conv_direct_case(torch, dev, role: str, h: int, w: int, cin: int,
-                     cout: int, gen) -> dict:
+                     cout: int, gen, dtype: str) -> dict:
     """K4 in reference_cnn's step: a k3 s2 p1 forward, or (K4') the
     input gradient of one, a stride-1 conv over the undilated cotangent
     with lhs dilation 2 and flipped, in/out-swapped weights."""
@@ -417,18 +494,19 @@ def conv_direct_case(torch, dev, role: str, h: int, w: int, cin: int,
     )
 
     F = torch.nn.functional
+    tdt = getattr(torch, dtype)
     oh, ow = (h + 2 - 3) // 2 + 1, (w + 2 - 3) // 2 + 1
-    wt = (torch.randn(3, 3, cin, cout, generator=gen) / (9 * cin) ** 0.5).to(dev)
+    wt = (torch.randn(3, 3, cin, cout, generator=gen) / (9 * cin) ** 0.5).to(dev).to(tdt)
     w_oihw = wt.permute(3, 2, 0, 1)
     if role == "forward":
-        x = torch.rand(CNN_BATCH, h, w, cin, generator=gen).to(dev)
+        x = torch.rand(CNN_BATCH, h, w, cin, generator=gen).to(dev).to(tdt)
         kw = dict(stride=2, pads=(1, 1, 1, 1))
         x_nchw = x.permute(0, 3, 1, 2)
         library = lambda: F.conv2d(x_nchw, w_oihw, stride=2, padding=1)  # noqa: E731
         (n_in, c, o, hin, win, hout, wout) = (CNN_BATCH, cin, cout, h, w, oh, ow)
         taps = (valid_taps(h, oh, 3, 2, 1) * valid_taps(w, ow, 3, 2, 1))
     else:
-        x = torch.randn(CNN_BATCH, oh, ow, cout, generator=gen).to(dev)
+        x = torch.randn(CNN_BATCH, oh, ow, cout, generator=gen).to(dev).to(tdt)
         kw = dict(stride=1, pads=conv_input_grad_pads(h, w, 3, 3, 2, 1, oh, ow),
                   dil=2, flip=True)
         x_nchw = x.permute(0, 3, 1, 2)
@@ -442,16 +520,16 @@ def conv_direct_case(torch, dev, role: str, h: int, w: int, cin: int,
     want = conv_direct_plain(x, wt, **kw)
     if tuple(got.shape) != (n_in, hout, wout, o):
         raise AssertionError(f"conv_direct {role}: shape {tuple(got.shape)}")
-    err, tol = _check_err(f"conv_direct {role} {h}x{w}x{cin}->{cout}", got,
-                          want, CONV_RTOL_OF_MAX)
+    errs = check_case(torch, f"conv_direct {dtype} {role} {h}x{w}x{cin}->{cout}",
+                      got, want, CONV_RTOL_OF_MAX)
     lib_out = library()
     if role != "forward" and tuple(lib_out.shape) != (n_in, o, hout, wout):
         raise AssertionError(f"conv_transpose2d shape {tuple(lib_out.shape)}")
-    nbytes = 4 * (x.numel() + wt.numel() + got.numel())
-    bound_ms, bound_by = bound(nbytes, 2 * n_in * taps * c * o)
-    return {"kernel": "conv_direct", "role": role, "N": n_in, "H": hin,
-            "W": win, "C": c, "O": o, "OH": hout, "OW": wout,
-            "max_abs_err": err, "tolerance": tol,
+    nbytes = got.element_size() * (x.numel() + wt.numel() + got.numel())
+    bound_ms, bound_by = bound(nbytes, 2 * n_in * taps * c * o, PEAK[dtype])
+    return {"kernel": "conv_direct", "dtype": dtype, "role": role, "N": n_in,
+            "H": hin, "W": win, "C": c, "O": o, "OH": hout, "OW": wout,
+            **errs,
             "ms": median_ms(torch, lambda: conv_direct(x, wt, **kw)),
             "plain_ms": median_ms(torch, lambda: conv_direct_plain(x, wt, **kw)),
             "library_ms": median_ms(torch, library),
@@ -459,30 +537,74 @@ def conv_direct_case(torch, dev, role: str, h: int, w: int, cin: int,
 
 
 def conv_dw_case(torch, dev, h: int, w: int, cin: int, cout: int,
-                 gen) -> dict:
+                 gen, dtype: str) -> dict:
     """K5 in reference_cnn's step: the weight gradient of a k3 s2 p1
     conv over a batch of 32."""
     from mpi_cuda_cnn_tpu_torch.ops.kernel_ops import conv_dw, conv_dw_plain
 
+    tdt = getattr(torch, dtype)
     oh, ow = (h + 2 - 3) // 2 + 1, (w + 2 - 3) // 2 + 1
-    x = torch.rand(CNN_BATCH, h, w, cin, generator=gen).to(dev)
-    g = torch.randn(CNN_BATCH, oh, ow, cout, generator=gen).to(dev)
+    x = torch.rand(CNN_BATCH, h, w, cin, generator=gen).to(dev).to(tdt)
+    g = torch.randn(CNN_BATCH, oh, ow, cout, generator=gen).to(dev).to(tdt)
     kw = dict(stride=2, padding=1, kh=3, kw=3)
     got = conv_dw(x, g, **kw)
     want = conv_dw_plain(x, g, **kw)
-    err, tol = _check_err(f"conv_dw {h}x{w}x{cin}->{cout}", got, want,
-                          CONV_DW_RTOL_OF_MAX)
+    errs = check_case(torch, f"conv_dw {dtype} {h}x{w}x{cin}->{cout}", got,
+                      want, CONV_DW_RTOL_OF_MAX)
     x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
     taps = valid_taps(h, oh, 3, 2, 1) * valid_taps(w, ow, 3, 2, 1)
-    nbytes = 4 * (x.numel() + g.numel() + got.numel())
-    bound_ms, bound_by = bound(nbytes, 2 * CNN_BATCH * taps * cin * cout)
-    return {"kernel": "conv_dw", "role": "weight_grad", "N": CNN_BATCH,
-            "H": h, "W": w, "C": cin, "O": cout, "OH": oh, "OW": ow,
-            "max_abs_err": err, "tolerance": tol,
+    nbytes = got.element_size() * (x.numel() + g.numel() + got.numel())
+    bound_ms, bound_by = bound(nbytes, 2 * CNN_BATCH * taps * cin * cout,
+                               PEAK[dtype])
+    return {"kernel": "conv_dw", "dtype": dtype, "role": "weight_grad",
+            "N": CNN_BATCH, "H": h, "W": w, "C": cin, "O": cout, "OH": oh,
+            "OW": ow, **errs,
             "ms": median_ms(torch, lambda: conv_dw(x, g, **kw)),
             "plain_ms": median_ms(torch, lambda: conv_dw_plain(x, g, **kw)),
             "library_ms": median_ms(torch, lambda: torch.nn.grad.conv2d_weight(
                 x_nchw, (cout, cin, 3, 3), g_nchw, stride=2, padding=1)),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def bench_conv_case(torch, dev, kernel: str, shape: tuple, gen,
+                    dtype: str) -> dict:
+    """K4 (`conv_direct`) or K6 (`conv_gemm`) forward at one of
+    conv-bench's stride-1 shapes (n, h, w, cin, k, cout, 1, padding),
+    against its plain version on the same inputs; the yardstick is
+    `F.conv2d` on the same channels-last tensors, TF32 off."""
+    from mpi_cuda_cnn_tpu_torch.ops import kernel_ops
+
+    F = torch.nn.functional
+    tdt = getattr(torch, dtype)
+    n, h, w, cin, k, cout, _, p = shape
+    if kernel == "conv_gemm":
+        run, plain, rtol = (kernel_ops.conv_gemm, kernel_ops.conv_gemm_plain,
+                            CONV_GEMM_RTOL_OF_MAX)
+        kw = dict(padding=p)
+    else:
+        run, plain, rtol = (kernel_ops.conv_direct,
+                            kernel_ops.conv_direct_plain, CONV_RTOL_OF_MAX)
+        kw = dict(stride=1, pads=(p, p, p, p))
+    x = torch.randn(n, h, w, cin, generator=gen).to(dev).to(tdt)
+    wt = (torch.randn(k, k, cin, cout, generator=gen)
+          / (k * k * cin) ** 0.5).to(dev).to(tdt)
+    got = run(x, wt, **kw)
+    want = plain(x, wt, **kw)
+    errs = check_case(torch, f"{kernel} {dtype} {n}x{h}x{w}x{cin}->{cout}",
+                      got, want, rtol)
+    x_nchw = x.permute(0, 3, 1, 2)     # channels-last memory
+    w_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    oh, ow = got.shape[1:3]
+    taps = valid_taps(h, oh, k, 1, p) * valid_taps(w, ow, k, 1, p)
+    nbytes = got.element_size() * (x.numel() + wt.numel() + got.numel())
+    bound_ms, bound_by = bound(nbytes, 2 * n * taps * cin * cout, PEAK[dtype])
+    return {"kernel": kernel, "dtype": dtype, "role": "forward", "N": n,
+            "H": h, "W": w, "C": cin, "O": cout, "k": k, "padding": p,
+            **errs,
+            "ms": median_ms(torch, lambda: run(x, wt, **kw)),
+            "plain_ms": median_ms(torch, lambda: plain(x, wt, **kw)),
+            "library_ms": median_ms(torch, lambda: F.conv2d(x_nchw, w_oihw,
+                                                            padding=p)),
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -552,7 +674,7 @@ def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
                           el * (2 * rows_q + 4 * rows_kv) + 2 * rows)}
     lib = sdpa_ms(torch, q, k, v, g)
     pairs = s * (s + 1) // 2
-    peak = F32_FLOPS if dtype == "float32" else BF16_FLOPS
+    peak = PEAK[dtype]
     out = []
     for name, (run, plain, products, nbytes) in runs.items():
         got, want = run(), plain()
@@ -612,22 +734,32 @@ def phase_kernels(torch, dev) -> list[dict]:
         for din, dout in GEMM_SHAPES:
             cases.append(gemm_case(torch, dev, n, din, dout, gen))
             emit({"phase": "kernel_case", **cases[-1]})
-    for role in ("forward", "input_grad", "weight_grad"):
-        for d_in, d_out in FC_SHAPES:
-            cases.append(cnn_gemm_case(torch, dev, role, d_in, d_out, gen))
-            emit({"phase": "kernel_case", **cases[-1]})
-    for h, w, cin, cout in CONV_SHAPES:
-        cases.append(conv_direct_case(torch, dev, "forward", h, w, cin, cout,
-                                      gen))
-        emit({"phase": "kernel_case", **cases[-1]})
-    h, w, cin, cout = CONV_SHAPES[1]   # conv1's input needs no gradient
-    cases.append(conv_direct_case(torch, dev, "input_grad", h, w, cin, cout,
-                                  gen))
-    emit({"phase": "kernel_case", **cases[-1]})
-    for h, w, cin, cout in CONV_SHAPES:
-        cases.append(conv_dw_case(torch, dev, h, w, cin, cout, gen))
-        emit({"phase": "kernel_case", **cases[-1]})
+    cases.extend(phase_cnn_kernels(torch, dev, gen))
     return cases
+
+
+def phase_cnn_kernels(torch, dev, gen):
+    """K3-K5 at reference_cnn's batch-32 step shapes, and K4 and K6 at
+    conv-bench's stride-1 shapes, in float32 and bf16: yields (and
+    prints) one kernel_case each."""
+    from mpi_cuda_cnn_tpu_torch.bench.conv_shapes import SHAPES
+
+    for dtype in CNN_DTYPES:
+        runs = [(cnn_gemm_case, (role, d_in, d_out))
+                for role in ("forward", "input_grad", "weight_grad")
+                for d_in, d_out in FC_SHAPES]
+        runs += [(conv_direct_case, ("forward", *shape))
+                 for shape in CONV_SHAPES]
+        # conv1's input needs no gradient
+        runs.append((conv_direct_case, ("input_grad", *CONV_SHAPES[1])))
+        runs += [(conv_dw_case, shape) for shape in CONV_SHAPES]
+        runs += [(bench_conv_case, (kernel, shape))
+                 for kernel in ("conv_direct", "conv_gemm")
+                 for shape in SHAPES if shape[6] == 1]
+        for fn, args in runs:
+            case = fn(torch, dev, *args, gen, dtype)
+            emit({"phase": "kernel_case", **case})
+            yield case
 
 
 def last_logits(torch, engine, ctx) -> "torch.Tensor":
@@ -762,8 +894,6 @@ def phase_train(torch) -> dict:
     just before and read just after; then one measured epoch of the same
     bench on PyTorch's own ops for comparison. Returns the launches per
     kernel."""
-    import math
-
     from mpi_cuda_cnn_tpu_torch.ops import _kernels
     from mpi_cuda_cnn_tpu_torch.train.bench import train_bench
 
@@ -772,31 +902,19 @@ def phase_train(torch) -> dict:
     torch.cuda.synchronize()
     launches = dict(_kernels.launches)
     line = out["line"]
-    if line["steps_per_epoch"] != TRAIN_STEPS or line["backend"] != "cuda":
-        raise AssertionError(f"train: {line['steps_per_epoch']} steps on "
-                             f"{line['backend']}")
-    for name in ("paged_attention", "int8_gemm"):
-        if launches[name]:
-            raise AssertionError(f"train launched {name}")
-    for name, k in PER_STEP.items():
-        measured = line["kernel_launches"][name]
-        evals = line["eval_kernel_launches"][name]
-        want_total = 2 * TRAIN_STEPS * k + EVAL_BATCHES * PER_EVAL[name]
-        if (measured != TRAIN_STEPS * k
-                or evals != EVAL_BATCHES * PER_EVAL[name]
-                or launches[name] != want_total):
-            raise AssertionError(
-                f"{name}: {measured} launches in the measured epoch (want "
-                f"{k} x {TRAIN_STEPS}), {evals} in eval (want "
-                f"{PER_EVAL[name]} x {EVAL_BATCHES}), {launches[name]} in "
-                f"all (want {want_total}, warm-up epoch included)")
-    acc = line["ncorrect"] / line["ntests"]
-    if line["ntests"] != 10_000 or acc < JAX_CPU_ACCURACY - ACCURACY_MARGIN:
-        raise AssertionError(f"train: test accuracy {acc} "
-                             f"({line['ncorrect']}/{line['ntests']}) below "
-                             f"{JAX_CPU_ACCURACY} - {ACCURACY_MARGIN}")
-    if not all(math.isfinite(line[k]) for k in ("loss", "etotal", "acc")):
-        raise AssertionError(f"train: non-finite metrics {line}")
+    if line["backend"] != "cuda":
+        raise AssertionError(f"train: ran on {line['backend']}")
+    check_cnn_epoch("train", line["kernel_launches"],
+                    line["eval_kernel_launches"], line["steps_per_epoch"],
+                    line["ntests"], line["ncorrect"],
+                    {k: line[k] for k in ("loss", "etotal", "acc")},
+                    JAX_CPU_ACCURACY)
+    for name in _kernels.KERNELS:   # the warm-up epoch is a full epoch
+        want = (2 * TRAIN_STEPS * PER_STEP.get(name, 0)
+                + EVAL_BATCHES * PER_EVAL.get(name, 0))
+        if launches[name] != want:
+            raise AssertionError(f"train: {name} launched {launches[name]} "
+                                 f"times in all, want {want}")
     emit({"phase": "train", "epoch_s": line["value"],
           "device_epoch_s": line["device_epoch_s"],
           "step_ms": line["step_ms"], "samples_per_s": line["samples_per_s"],
@@ -807,23 +925,47 @@ def phase_train(torch) -> dict:
           "eval_launches": line["eval_kernel_launches"],
           "reference_accuracy": JAX_CPU_ACCURACY,
           "accuracy_margin": ACCURACY_MARGIN, "bench_line": line})
-    prof = profile_steps(torch, out["trainer"])
-    if prof["device_busy_ms_per_step"] is not None:
-        prof["device_idle_share"] = 1 - prof["device_busy_ms_per_step"] / line["step_ms"]
-    emit({"phase": "train_profile", **prof})
+    emit({"phase": "train_profile",
+          **profile_steps(torch, out["trainer"], line["step_ms"])})
     plain_out = train_bench([a for a in TRAIN_ARGS if a != "--use-kernels"])
     plain = plain_out["line"]
-    plain_prof = profile_steps(torch, plain_out["trainer"])
-    if plain_prof["device_busy_ms_per_step"] is not None:
-        plain_prof["device_idle_share"] = (
-            1 - plain_prof["device_busy_ms_per_step"] / plain["step_ms"])
     emit({"phase": "train_torch_ops", "epoch_s": plain["value"],
           "device_epoch_s": plain["device_epoch_s"],
           "step_ms": plain["step_ms"], "samples_per_s": plain["samples_per_s"],
           "loss": plain["loss"], "acc": plain["acc"],
           "ntests": plain["ntests"], "ncorrect": plain["ncorrect"],
-          "profile": plain_prof})
+          "profile": profile_steps(torch, plain_out["trainer"],
+                                   plain["step_ms"])})
     return launches
+
+
+def check_cnn_epoch(what: str, epoch_launches: dict, eval_launches: dict,
+                    steps: int, ntests: int, ncorrect: int, metrics: dict,
+                    reference: float) -> None:
+    """The checks the train and train_bf16 phases share: a full epoch of
+    TRAIN_STEPS steps with every kernel launched PER_STEP times a step,
+    PER_EVAL times an eval batch in the eval, and no other kernel; test
+    accuracy on the 10,000 samples at least `reference` less
+    ACCURACY_MARGIN; finite epoch metrics."""
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+
+    if steps != TRAIN_STEPS:
+        raise AssertionError(f"{what}: {steps} steps, want {TRAIN_STEPS}")
+    for name in _kernels.KERNELS:
+        want = (PER_STEP.get(name, 0) * steps,
+                PER_EVAL.get(name, 0) * EVAL_BATCHES)
+        if (epoch_launches[name], eval_launches[name]) != want:
+            raise AssertionError(
+                f"{what}: {name} launched {epoch_launches[name]} times in "
+                f"the epoch and {eval_launches[name]} in the eval, want "
+                f"{want[0]} and {want[1]}")
+    acc = ncorrect / ntests
+    if ntests != 10_000 or acc < reference - ACCURACY_MARGIN:
+        raise AssertionError(f"{what}: test accuracy {acc} ({ncorrect}/"
+                             f"{ntests}) below {reference} - "
+                             f"{ACCURACY_MARGIN}")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"{what}: non-finite metrics {metrics}")
 
 
 def profile_device(torch, run, steps: int, match: tuple = ()) -> dict:
@@ -861,9 +1003,10 @@ def profile_device(torch, run, steps: int, match: tuple = ()) -> dict:
     return out
 
 
-def profile_steps(torch, trainer, steps: int = 50) -> dict:
+def profile_steps(torch, trainer, step_ms: float, steps: int = 50) -> dict:
     """Device time of `steps` training steps of the device-resident path
-    (the same gather, normalize, one-hot and step as `run_epoch`)."""
+    (the same gather, normalize, one-hot and step as `run_epoch`), and
+    the device's idle share against the unprofiled `step_ms`."""
     from mpi_cuda_cnn_tpu_torch.data.pipeline import PIXEL_SCALE
 
     b = trainer.cfg.batch_size
@@ -877,7 +1020,10 @@ def profile_steps(torch, trainer, steps: int = 50) -> dict:
              == trainer._classes).float()
         trainer.train_step(x, y)
 
-    return profile_device(torch, run, steps)
+    prof = profile_device(torch, run, steps)
+    busy = prof["device_busy_ms_per_step"]
+    prof["device_idle_share"] = None if busy is None else 1 - busy / step_ms
+    return prof
 
 
 def phase_train_agree(torch) -> dict:
@@ -927,6 +1073,111 @@ def phase_train_agree(torch) -> dict:
             "ntests": len(labels), "predictions_differ": len(differ),
             "differ_top2_gaps": gaps, "tie_gap": TIE_GAP,
             "logit_max_abs_diff": (lk - lt).abs().max().item()}
+
+
+def first_step_grads_rel_l2(torch, trainer) -> dict:
+    """Relative L2 gap, per param leaf (named by index), between the
+    gradients of the trainer's first batch at its current params on the
+    kernels and on PyTorch's own ops, both in the trainer's compute
+    dtype."""
+    import numpy as np
+
+    from mpi_cuda_cnn_tpu_torch.data.pipeline import normalize_images, one_hot
+    from mpi_cuda_cnn_tpu_torch.train.trainer import make_loss_fn
+
+    idx = trainer._epoch_order(0)[: trainer.cfg.batch_size]
+    x = torch.from_numpy(normalize_images(trainer.ds.train_images[idx]))
+    y = torch.from_numpy(one_hot(np.asarray(trainer.ds.train_labels)[idx],
+                                 trainer.ds.num_classes))
+    x, y = x.to(trainer.device), y.to(trainer.device)
+    grads = {}
+    for backend in ("cuda", "torch"):
+        loss_fn = make_loss_fn(trainer.model, backend=backend,
+                               compute_dtype=trainer.compute_dtype)
+        loss, _ = loss_fn(trainer.params, x, y)
+        grads[backend] = torch.autograd.grad(loss, trainer.leaves)
+    return {i: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+            for i, (a, b) in enumerate(zip(grads["cuda"], grads["torch"]))}
+
+
+def phase_train_bf16(torch) -> dict:
+    """The `train` command's path (`Trainer`) with bf16 compute on the
+    kernels: the train phase's data and configuration, one epoch, then
+    the 10,000-sample eval, with the launch counts zeroed just before the
+    epoch and the eval and read just after each. Before the epoch, the
+    first step's gradients on the kernels and on PyTorch's own ops; after
+    the eval, torch.profiler over 50 steps (device busy ms per step)."""
+    from mpi_cuda_cnn_tpu_torch.data.datasets import synthetic_stripes
+    from mpi_cuda_cnn_tpu_torch.models.presets import get_model
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+    from mpi_cuda_cnn_tpu_torch.train.trainer import Trainer
+    from mpi_cuda_cnn_tpu_torch.utils.config import Config
+    from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
+
+    ds = synthetic_stripes(num_train=60_000, num_test=10_000)
+    cfg = Config(model="reference_cnn", epochs=1, batch_size=CNN_BATCH,
+                 lr=0.1, seed=0, device="cuda", use_kernels=True,
+                 compute_dtype="bfloat16", log_every=0, eval_every=0)
+    tr = Trainer(get_model("reference_cnn"), ds, cfg,
+                 metrics=MetricsLogger(echo=False))
+    grad_rel = first_step_grads_rel_l2(torch, tr)
+    worst_grad = max(grad_rel.values())
+    if not worst_grad <= TRAIN_BF16_GRAD_REL_L2:
+        raise AssertionError(f"train_bf16: first-step gradients of the "
+                             f"kernels and PyTorch's ops apart by {grad_rel} "
+                             f"(limit {TRAIN_BF16_GRAD_REL_L2})")
+    _kernels.reset_launches()
+    em = tr.run_epoch(0)
+    torch.cuda.synchronize()
+    step_launches = dict(_kernels.launches)
+    _kernels.reset_launches()
+    ntests, ncorrect = tr.evaluate()
+    eval_launches = dict(_kernels.launches)
+    check_cnn_epoch("train_bf16", step_launches, eval_launches, em["steps"],
+                    ntests, ncorrect, {k: em[k] for k in ("loss", "etotal",
+                                                          "acc")},
+                    JAX_CPU_BF16_ACCURACY)
+    step_ms = 1e3 * em["seconds"] / em["steps"]
+    prof = profile_steps(torch, tr, step_ms)
+    return {"compute_dtype": "bfloat16", "steps": em["steps"],
+            "epoch_s": em["seconds"], "step_ms": step_ms,
+            "loss": em["loss"], "etotal": em["etotal"], "acc": em["acc"],
+            "ntests": ntests, "ncorrect": ncorrect,
+            "reference_accuracy": JAX_CPU_BF16_ACCURACY,
+            "accuracy_margin": ACCURACY_MARGIN,
+            "epoch_launches": step_launches, "eval_launches": eval_launches,
+            "first_grad_rel_l2": grad_rel,
+            "first_grad_rel_l2_max": worst_grad,
+            "first_grad_rel_l2_tolerance": TRAIN_BF16_GRAD_REL_L2,
+            "profile": prof}
+
+
+def phase_conv_bench(torch) -> dict:
+    """`conv-bench` at full size through its entry point, with the launch
+    counts zeroed just before and read just after: one line per row; K4
+    launched on every row, K6 on every stride-1 row and on no other, no
+    other kernel. Returns the launches per kernel."""
+    import math
+
+    from mpi_cuda_cnn_tpu_torch.bench.conv_shapes import conv_bench
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+
+    _kernels.reset_launches()
+    out = conv_bench([])
+    launches = dict(_kernels.launches)
+    for row in out["rows"]:
+        kl = row["kernel_launches"]
+        stride1 = row["stride"] == 1
+        others = {k: v for k, v in kl.items()
+                  if k not in ("conv_direct", "conv_gemm") and v}
+        if (kl["conv_direct"] < 1 or (kl["conv_gemm"] > 0) != stride1
+                or others or not math.isfinite(row["torch_ms"])
+                or not math.isfinite(row["cuda_ms"])
+                or math.isfinite(row["gemm_ms"]) != stride1):
+            raise AssertionError(f"conv_bench: row {row}")
+        emit({"phase": "conv_bench", "device": out["device"],
+              "iters": out["iters"], **row})
+    return launches
 
 
 class RecordingMetrics:
@@ -1110,29 +1361,33 @@ def phase_lm_agree(torch) -> dict:
 
 def kernels_line(cases: list[dict], launches: dict) -> dict:
     """The per-kernel record: launches from each kernel's own path (serve
-    for K1/K2, train for K3/K4/K5, lm for K7/K8/K9), the largest error
-    over every case, and the times at one shape of the main path: the
-    decode tick (int8 pages at B = slots; the head's 512 x 8192 weight),
-    for the CNN kernels fc1's forward, conv2's forward and conv1's weight
-    gradient, and for the flash kernels the LM flagship's attention in
-    float32."""
+    for K1/K2, train for K3/K4/K5, conv_bench for K6, lm for K7/K8/K9),
+    the largest error over every case, and the times at one shape of the
+    main path: the decode tick (int8 pages at B = slots; the head's 512 x
+    8192 weight), for the CNN kernels fc1's forward, conv2's forward and
+    conv1's weight gradient in float32, for K6 conv-bench's 128x32x32x64
+    -> 64 row in float32, and for the flash kernels the LM flagship's
+    attention in float32."""
     summary = []
     for name, src, replaces, rep in (
             ("paged_attention", "mpi_cuda_cnn_tpu_torch/csrc/paged_attention.cu",
-             "mpi_cuda_cnn_tpu/ops/pallas_paged_attention.py:86",
+             "mpi_cuda_cnn_tpu/ops/pallas_paged_attention.py:89",
              lambda c: c["dtype"] == "int8" and c["kk"] == 1),
             ("int8_gemm", "mpi_cuda_cnn_tpu_torch/csrc/int8_gemm.cu",
-             "mpi_cuda_cnn_tpu/ops/pallas_gemv.py:140",
+             "mpi_cuda_cnn_tpu/ops/pallas_gemv.py:143",
              lambda c: c["N"] == 8 and c["dout"] == 8192),
-            ("gemm_f32", "mpi_cuda_cnn_tpu_torch/csrc/gemm_f32.cu",
-             "mpi_cuda_cnn_tpu/ops/pallas_ops.py:59",
-             lambda c: c["role"] == "forward" and c["K"] == 1568),
+            ("gemm", "mpi_cuda_cnn_tpu_torch/csrc/gemm.cu",
+             "mpi_cuda_cnn_tpu/ops/pallas_ops.py:77",
+             lambda c: _f32(c) and c["role"] == "forward" and c["K"] == 1568),
             ("conv_direct", "mpi_cuda_cnn_tpu_torch/csrc/conv_direct.cu",
-             "mpi_cuda_cnn_tpu/ops/pallas_ops.py:136",
-             lambda c: c["role"] == "forward" and c["C"] == 16),
+             "mpi_cuda_cnn_tpu/ops/pallas_ops.py:207",
+             lambda c: _f32(c) and c["role"] == "forward" and c["C"] == 16),
             ("conv_dw", "mpi_cuda_cnn_tpu_torch/csrc/conv_dw.cu",
-             "mpi_cuda_cnn_tpu/ops/pallas_ops.py:264",
-             lambda c: c["C"] == 1),
+             "mpi_cuda_cnn_tpu/ops/pallas_ops.py:300",
+             lambda c: _f32(c) and c["C"] == 1),
+            ("conv_gemm", "mpi_cuda_cnn_tpu_torch/csrc/conv_gemm.cu",
+             "mpi_cuda_cnn_tpu/ops/pallas_conv_gemm.py:123",
+             lambda c: _f32(c) and c["H"] == 32 and c["C"] == 64),
             ("flash_fwd", "mpi_cuda_cnn_tpu_torch/csrc/flash_fwd.cu",
              "mpi_cuda_cnn_tpu/ops/pallas_attention.py:249", _flagship_f32),
             ("flash_bwd_dq", "mpi_cuda_cnn_tpu_torch/csrc/flash_bwd_dq.cu",
@@ -1154,8 +1409,12 @@ def kernels_line(cases: list[dict], launches: dict) -> dict:
     return {"kernels": summary}
 
 
+def _f32(case: dict) -> bool:
+    return case["dtype"] == "float32"
+
+
 def _flagship_f32(case: dict) -> bool:
-    return case["dtype"] == "float32" and case["B"] == 8
+    return _f32(case) and case["B"] == 8
 
 
 def main() -> int:
@@ -1202,6 +1461,8 @@ def main() -> int:
     emit({"phase": "agree", **phase_agree(torch, out)})
     train_launches = phase_train(torch)
     emit({"phase": "train_agree", **phase_train_agree(torch)})
+    emit({"phase": "train_bf16", **phase_train_bf16(torch)})
+    conv_launches = phase_conv_bench(torch)
     lm_launches = phase_lm(torch)
     phase_lm_bench(torch)
     phase_lm_profile(torch)
@@ -1209,6 +1470,7 @@ def main() -> int:
     launches = {**{k: serve_launches[k] for k in ("paged_attention",
                                                   "int8_gemm")},
                 **{k: train_launches[k] for k in PER_STEP},
+                "conv_gemm": conv_launches["conv_gemm"],
                 **{k: lm_launches[k] for k in FLASH_KERNELS}}
     line = kernels_line(cases, launches)
     print(smi, flush=True)

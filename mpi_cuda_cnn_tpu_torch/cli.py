@@ -9,6 +9,9 @@
     lm            the transformer-LM trainer (train/lm_trainer.py; exit 2
                   on a bad or unported flag)
     lm-bench      the LM pretraining throughput matrix (train/lm_bench.py)
+    conv-bench    per-shape conv forward times: PyTorch's conv, the direct
+                  kernel and the implicit-GEMM kernel
+                  (bench/conv_shapes.py)
 
 Every command runs on the card unless given --device cpu.
 """
@@ -18,7 +21,7 @@ from __future__ import annotations
 import sys
 
 _USAGE = ("usage: python -m mpi_cuda_cnn_tpu_torch "
-          "{train,train-bench,serve-bench,lm,lm-bench} [flags]")
+          "{train,train-bench,serve-bench,lm,lm-bench,conv-bench} [flags]")
 
 
 def run_train(argv: list[str]) -> int:
@@ -124,5 +127,9 @@ def main(argv: list[str] | None = None) -> int:
         from .train.lm_bench import lm_bench_main
 
         return lm_bench_main(argv[1:])
+    if argv and argv[0] == "conv-bench":
+        from .bench.conv_shapes import conv_bench_main
+
+        return conv_bench_main(argv[1:])
     print(_USAGE, file=sys.stderr)
     return 2

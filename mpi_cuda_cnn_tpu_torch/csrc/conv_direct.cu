@@ -1,5 +1,5 @@
 // Direct 2-D convolution for Hopper (sm_90a), NHWC activations and HWIO
-// weights, float32:
+// weights, float32 or bfloat16 (dtype 0 or 1, x, w and y of one type):
 //
 //   y[n, oy, ox, o] = sum over (ky, kx, c) of
 //                     xv[n, oy*stride + ky - pt, ox*stride + kx - pl, c]
@@ -33,19 +33,24 @@
 // fastest, so a warp shares one pixel (its input reads are broadcasts)
 // and reads neighbouring weights (HWIO keeps o contiguous); weights come
 // through the read-only cache (the largest here, 18 KB, stays resident).
-// Products accumulate in float32 FMA. Shared-memory tiling of input
-// windows and tensor cores are later work.
+// Products accumulate in float32 FMA for either type, in the same order,
+// and the sum is rounded to the element type once at the store (the TPU
+// kernel's float32 accumulator and `astype(o_ref.dtype)`). Shared-memory
+// tiling of input windows and tensor cores are later work.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "elem.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-conv_direct_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   float* __restrict__ y, int N, int H, int W, int C, int O,
+conv_direct_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                   T* __restrict__ y, int N, int H, int W, int C, int O,
                    int KH, int KW, int OH, int OW, int stride, int pt, int pl,
                    int dil, int flip) {
   const size_t total = static_cast<size_t>(N) * OH * OW * O;
@@ -69,19 +74,32 @@ conv_direct_kernel(const float* __restrict__ x, const float* __restrict__ w,
       if (vx < 0 || vx % dil != 0) continue;
       const int ix = vx / dil;
       if (ix >= W) continue;
-      const float* xp = x + ((static_cast<size_t>(n) * H + iy) * W + ix) * C;
+      const T* xp = x + ((static_cast<size_t>(n) * H + iy) * W + ix) * C;
       if (flip) {
-        const float* wp = w + (static_cast<size_t>(KH - 1 - ky) * KW + (KW - 1 - kx)) * O * C
+        const T* wp = w + (static_cast<size_t>(KH - 1 - ky) * KW + (KW - 1 - kx)) * O * C
                             + static_cast<size_t>(o) * C;
-        for (int c = 0; c < C; ++c) acc = fmaf(__ldg(xp + c), __ldg(wp + c), acc);
-      } else {
-        const float* wp = w + (static_cast<size_t>(ky) * KW + kx) * C * O + o;
         for (int c = 0; c < C; ++c)
-          acc = fmaf(__ldg(xp + c), __ldg(wp + static_cast<size_t>(c) * O), acc);
+          acc = fmaf(to_f32(__ldg(xp + c)), to_f32(__ldg(wp + c)), acc);
+      } else {
+        const T* wp = w + (static_cast<size_t>(ky) * KW + kx) * C * O + o;
+        for (int c = 0; c < C; ++c)
+          acc = fmaf(to_f32(__ldg(xp + c)),
+                     to_f32(__ldg(wp + static_cast<size_t>(c) * O)), acc);
       }
     }
   }
-  y[idx] = acc;
+  y[idx] = from_f32<T>(acc);
+}
+
+template <typename T>
+void launch(const void* x, const void* w, void* y, int N, int H, int W, int C,
+            int O, int KH, int KW, int OH, int OW, int stride, int pt, int pl,
+            int dil, int flip, cudaStream_t s) {
+  const size_t total = static_cast<size_t>(N) * OH * OW * O;
+  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  conv_direct_kernel<T><<<blocks, kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
+      N, H, W, C, O, KH, KW, OH, OW, stride, pt, pl, dil, flip);
 }
 
 }  // namespace
@@ -90,15 +108,22 @@ conv_direct_kernel(const float* __restrict__ x, const float* __restrict__ w,
 extern "C" int conv_direct_launch(const void* x, const void* w, void* y, int N,
                                   int H, int W, int C, int O, int KH, int KW,
                                   int OH, int OW, int stride, int pt, int pl,
-                                  int dil, int flip, void* stream) {
+                                  int dil, int flip, int dtype, void* stream) {
   if (N < 1 || H < 1 || W < 1 || C < 1 || O < 1 || KH < 1 || KW < 1 ||
       OH < 1 || OW < 1 || stride < 1 || dil < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t total = static_cast<size_t>(N) * OH * OW * O;
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  conv_direct_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<float*>(y), N, H, W, C, O, KH, KW, OH, OW, stride, pt, pl,
-      dil, flip);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kDtypeF32:
+      launch<float>(x, w, y, N, H, W, C, O, KH, KW, OH, OW, stride, pt, pl,
+                    dil, flip, s);
+      break;
+    case kDtypeBF16:
+      launch<__nv_bfloat16>(x, w, y, N, H, W, C, O, KH, KW, OH, OW, stride,
+                            pt, pl, dil, flip, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

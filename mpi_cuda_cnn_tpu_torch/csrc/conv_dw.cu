@@ -1,4 +1,5 @@
-// Convolution weight gradient for Hopper (sm_90a), NHWC / HWIO, float32:
+// Convolution weight gradient for Hopper (sm_90a), NHWC / HWIO, float32
+// or bfloat16 (dtype 0 or 1: x, g and dw of one type):
 //
 //   dw[ky, kx, c, o] = sum over pixels p = (n, oy, ox) of
 //                      x[n, oy*stride + ky - pad, ox*stride + kx - pad, c]
@@ -16,7 +17,9 @@
 // arguments and the pixel sum is split across blocks: pass 1 gives each
 // block a chunk of `chunk` pixels and a tile of 256 outputs and writes its
 // partial sums to `part` (nchunks, KH*KW*C*O); pass 2 sums the chunks of
-// each output in chunk order. No atomics: dw is the same run to run.
+// each output in chunk order. No atomics: dw is the same run to run. The
+// partial sums are float32 for either type; pass 2 rounds dw to the
+// element type once, the twin of `dw.astype(x.dtype)` (:341).
 //
 // What bounds it: at reference_cnn's batch-32 shapes the sum runs over
 // 6,272 (conv1) or 1,568 (conv2) pixels into 144 or 4,608 outputs, at
@@ -29,12 +32,15 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "elem.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-conv_dw_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
+conv_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
                        float* __restrict__ part, int N, int H, int W, int C,
                        int O, int KH, int KW, int OH, int OW, int stride,
                        int pad, int chunk) {
@@ -60,43 +66,63 @@ conv_dw_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
     const int iy = oy * stride + ky - pad;
     const int ix = ox * stride + kx - pad;
     if (iy < 0 || iy >= H || ix < 0 || ix >= W) continue;
-    acc = fmaf(__ldg(x + ((static_cast<size_t>(n) * H + iy) * W + ix) * C + c),
-               __ldg(g + static_cast<size_t>(p) * O + o), acc);
+    acc = fmaf(to_f32(__ldg(x + ((static_cast<size_t>(n) * H + iy) * W + ix) * C + c)),
+               to_f32(__ldg(g + static_cast<size_t>(p) * O + o)), acc);
   }
   part[static_cast<size_t>(blockIdx.x) * nout + e] = acc;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-conv_dw_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
+conv_dw_reduce_kernel(const float* __restrict__ part, T* __restrict__ dw,
                       int nout, int nchunks) {
   const int e = blockIdx.x * kThreads + threadIdx.x;
   if (e >= nout) return;
   float s = 0.f;
   for (int b = 0; b < nchunks; ++b) s += part[static_cast<size_t>(b) * nout + e];
-  dw[e] = s;
+  dw[e] = from_f32<T>(s);
+}
+
+template <typename T>
+void launch(const void* x, const void* g, void* part, void* dw, int N, int H,
+            int W, int C, int O, int KH, int KW, int OH, int OW, int stride,
+            int pad, int chunk, cudaStream_t s) {
+  const long long P = static_cast<long long>(N) * OH * OW;
+  const int nchunks = static_cast<int>((P + chunk - 1) / chunk);
+  const int nout = KH * KW * C * O;
+  const dim3 grid1(nchunks, (nout + kThreads - 1) / kThreads);
+  conv_dw_partial_kernel<T><<<grid1, kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g),
+      static_cast<float*>(part), N, H, W, C, O, KH, KW, OH, OW, stride, pad,
+      chunk);
+  conv_dw_reduce_kernel<T><<<(nout + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      static_cast<const float*>(part), static_cast<T*>(dw), nout, nchunks);
 }
 
 }  // namespace
 
-// `part` holds nchunks * KH*KW*C*O floats, nchunks = ceil(N*OH*OW / chunk).
-// Returns cudaGetLastError() after both passes.
+// `part` holds nchunks * KH*KW*C*O float32 values, nchunks =
+// ceil(N*OH*OW / chunk), whatever the element type. Returns
+// cudaGetLastError() after both passes.
 extern "C" int conv_dw_launch(const void* x, const void* g, void* part, void* dw,
                               int N, int H, int W, int C, int O, int KH, int KW,
                               int OH, int OW, int stride, int pad, int chunk,
-                              void* stream) {
+                              int dtype, void* stream) {
   if (N < 1 || H < 1 || W < 1 || C < 1 || O < 1 || KH < 1 || KW < 1 ||
       OH < 1 || OW < 1 || stride < 1 || chunk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long P = static_cast<long long>(N) * OH * OW;
-  const int nchunks = static_cast<int>((P + chunk - 1) / chunk);
-  const int nout = KH * KW * C * O;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid1(nchunks, (nout + kThreads - 1) / kThreads);
-  conv_dw_partial_kernel<<<grid1, kThreads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(g),
-      static_cast<float*>(part), N, H, W, C, O, KH, KW, OH, OW, stride, pad,
-      chunk);
-  conv_dw_reduce_kernel<<<(nout + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<const float*>(part), static_cast<float*>(dw), nout, nchunks);
+  switch (dtype) {
+    case kDtypeF32:
+      launch<float>(x, g, part, dw, N, H, W, C, O, KH, KW, OH, OW, stride, pad,
+                    chunk, s);
+      break;
+    case kDtypeBF16:
+      launch<__nv_bfloat16>(x, g, part, dw, N, H, W, C, O, KH, KW, OH, OW,
+                            stride, pad, chunk, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,6 +20,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "elem.cuh"
+
 namespace flash {
 
 constexpr int kTile = 64;      // query rows of a q tile, keys of a k/v tile
@@ -32,29 +34,6 @@ constexpr int kCols = 4;       // logit columns per thread
 constexpr int kLdp = kTile + 16;
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as XLA's convert
-}
-
-// v rounded to T's precision, as the TPU kernel's `astype(input dtype)` of
-// p and ds before their products (exact for float32).
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
 
 __device__ __forceinline__ float row_max(float v) {
 #pragma unroll

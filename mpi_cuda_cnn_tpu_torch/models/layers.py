@@ -223,13 +223,23 @@ class Sequential:
         return tree_map(lambda t: t.to(device), params)
 
     def apply(self, params: list[dict], x: torch.Tensor, *,
-              backend: str = "torch") -> torch.Tensor:
-        """x: (N, H, W, C) float32 -> logits (N, num_classes)."""
+              backend: str = "torch",
+              compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+        """x: (N, H, W, C) -> float32 logits (N, num_classes).
+
+        compute_dtype=torch.bfloat16 casts x and every param to bf16 on
+        entry, so every layer computes in bf16 (the kernels accumulate in
+        float32 and round once) and autograd returns float32 gradients
+        for float32 params through the cast; the logits come back in
+        float32 for the loss (the reference's `Sequential.apply`)."""
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r}: want one of {BACKENDS}")
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
+            params = tree_map(lambda t: t.to(compute_dtype), params)
         for layer, p in zip(self.layers, params):
             x = layer.apply(p, x, backend=backend)
-        return x
+        return x.float()
 
     def num_params(self, params: list[dict]) -> int:
         return sum(t.numel() for t in tree_leaves(params))

@@ -22,6 +22,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
@@ -32,13 +34,18 @@ KERNELS = {
     "paged_attention": ("paged_attention_launch",
                         [_P] * 8 + [_I] * 9 + [_P]),
     "int8_gemm": ("int8_gemm_launch", [_P] * 4 + [_I] * 3 + [_P]),
-    "gemm_f32": ("gemm_f32_launch", [_P] * 5 + [_I] * 7 + [_P]),
-    "conv_direct": ("conv_direct_launch", [_P] * 3 + [_I] * 14 + [_P]),
-    "conv_dw": ("conv_dw_launch", [_P] * 4 + [_I] * 12 + [_P]),
+    "gemm": ("gemm_launch", [_P] * 5 + [_I] * 8 + [_P]),
+    "conv_direct": ("conv_direct_launch", [_P] * 3 + [_I] * 15 + [_P]),
+    "conv_dw": ("conv_dw_launch", [_P] * 4 + [_I] * 13 + [_P]),
+    "conv_gemm": ("conv_gemm_launch", [_P] * 3 + [_I] * 9 + [_P]),
     "flash_fwd": ("flash_fwd_launch", [_P] * 5 + [_I] * 7 + [_P]),
     "flash_bwd_dq": ("flash_bwd_dq_launch", [_P] * 7 + [_I] * 7 + [_P]),
     "flash_bwd_dkv": ("flash_bwd_dkv_launch", [_P] * 8 + [_I] * 7 + [_P]),
 }
+
+# The element types the float kernels take, and their dtype code in the C
+# launch functions (`csrc/elem.cuh`).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 _fns: dict[str, object] = {}

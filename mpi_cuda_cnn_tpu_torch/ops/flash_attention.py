@@ -38,7 +38,6 @@ from . import _kernels
 from .attention import NEG_INF
 
 HEAD_DIMS = (32, 64, 128)   # head dims the kernels are built for
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -116,7 +115,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
     err = _kernels.lib("flash_fwd")(
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b, s, h, hkv, d, int(causal), _DTYPE_CODES[kdt],
+        lse.data_ptr(), b, s, h, hkv, d, int(causal), _kernels.DTYPE_CODES[kdt],
         _stream(q))
     _kernels.check("flash_fwd", err)
     _kernels.launches["flash_fwd"] += 1
@@ -199,7 +198,7 @@ def flash_bwd_dq(q, k, v, g, lse, dvec, causal: bool) -> torch.Tensor:
     err = _kernels.lib("flash_bwd_dq")(
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), gc.data_ptr(),
         lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), b, s, h, k.shape[2],
-        d, int(causal), _DTYPE_CODES[kdt], _stream(q))
+        d, int(causal), _kernels.DTYPE_CODES[kdt], _stream(q))
     _kernels.check("flash_bwd_dq", err)
     _kernels.launches["flash_bwd_dq"] += 1
     return dq.to(q.dtype)
@@ -222,7 +221,7 @@ def flash_bwd_dkv(q, k, v, g, lse, dvec, causal: bool):
     err = _kernels.lib("flash_bwd_dkv")(
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), gc.data_ptr(),
         lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s,
-        h, k.shape[2], d, int(causal), _DTYPE_CODES[kdt], _stream(q))
+        h, k.shape[2], d, int(causal), _kernels.DTYPE_CODES[kdt], _stream(q))
     _kernels.check("flash_bwd_dkv", err)
     _kernels.launches["flash_bwd_dkv"] += 1
     return dk.to(k.dtype), dv.to(v.dtype)

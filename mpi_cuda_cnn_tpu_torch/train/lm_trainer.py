@@ -23,7 +23,7 @@ import torch
 
 from .._device import resolve_device
 from ..models.transformer import TransformerLM
-from ..utils.config import check_lm_supported
+from ..utils.config import COMPUTE_DTYPES, check_lm_supported
 from ..utils.logging import MetricsLogger, get_logger
 from .lm import (
     get_attn_fn,
@@ -33,8 +33,6 @@ from .lm import (
     pick_attn_impl,
 )
 from .optimizer import make_optimizer
-
-_COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 def load_corpus(spec: str, package_root: Path | None = None) -> np.ndarray:
@@ -91,9 +89,9 @@ class LMTrainer:
         if len(self.train_tokens) < cfg.seq_len + 1:
             raise ValueError(f"corpus ({len(tokens)} tokens) shorter than "
                              f"--seq-len {cfg.seq_len}")
-        if cfg.compute_dtype not in _COMPUTE_DTYPES:
+        if cfg.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"--compute-dtype {cfg.compute_dtype!r}: "
-                             f"{' or '.join(_COMPUTE_DTYPES)}")
+                             f"{' or '.join(COMPUTE_DTYPES)}")
         if cfg.ce_chunk and cfg.seq_len % cfg.ce_chunk:
             raise ValueError(f"--ce-chunk {cfg.ce_chunk} must divide the "
                              f"sequence {cfg.seq_len}")
@@ -115,7 +113,7 @@ class LMTrainer:
             cfg.lr, opt="adamw", schedule=cfg.lr_schedule,
             total_steps=cfg.steps or None, warmup_steps=warmup,
             weight_decay=cfg.weight_decay, grad_clip=cfg.grad_clip)
-        self._compute_dtype = _COMPUTE_DTYPES[cfg.compute_dtype]
+        self._compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         self.attn_impl = pick_attn_impl(cfg.attn_impl, cfg.seq_len,
                                         self.device)
         self.train_step = make_lm_train_step(

@@ -19,6 +19,9 @@ two ways with identical arithmetic:
 A step is the forward, softmax-CE, `torch.autograd.grad` through the
 backend's ops (with `use_kernels`, the hand-written CUDA kernels of
 `ops/kernel_ops.py` in both directions) and the in-place SGD update.
+With `compute_dtype="bfloat16"` the forward and backward run in bf16
+(`Sequential.apply` casts on entry) while the params, their gradients
+and the SGD update stay float32.
 """
 
 from __future__ import annotations
@@ -41,20 +44,24 @@ from ..models.layers import tree_leaves
 from ..ops.activations import stable_softmax
 from ..ops.gemv import tree_map
 from ..ops.losses import softmax_cross_entropy, squared_error_total
-from ..utils.config import check_supported
+from ..utils.config import COMPUTE_DTYPES, check_supported
 from ..utils.logging import MetricsLogger, get_logger
 from .optimizer import make_optimizer
 
 METRICS = ("loss", "etotal", "acc")
 
 
-def make_loss_fn(model, *, backend: str = "torch"):
+def make_loss_fn(model, *, backend: str = "torch",
+                 compute_dtype: torch.dtype | None = None):
     """Softmax-CE loss + the reference's metrics (squared-error total,
     cnn.c:275-282; argmax accuracy, cnn.c:508-513). The metrics are
-    computed from detached logits: only the loss is differentiated."""
+    computed from detached logits: only the loss is differentiated. With
+    a compute_dtype the forward runs in it and the float32 logits feed
+    the loss, as in the reference."""
 
     def loss_fn(params, x, y_onehot):
-        logits = model.apply(params, x, backend=backend)
+        logits = model.apply(params, x, backend=backend,
+                             compute_dtype=compute_dtype)
         loss = softmax_cross_entropy(logits, y_onehot)
         with torch.no_grad():
             logits = logits.detach()
@@ -94,7 +101,9 @@ class Trainer:
         self.metrics = metrics or MetricsLogger()
         self.device = resolve_device(config.device)
         self.backend = "cuda" if config.use_kernels else "torch"
-        self.loss_fn = make_loss_fn(model, backend=self.backend)
+        self.compute_dtype = COMPUTE_DTYPES[config.compute_dtype]
+        self.loss_fn = make_loss_fn(model, backend=self.backend,
+                                    compute_dtype=self.compute_dtype)
 
         self.num_train = len(dataset.train_images)
         self.test_x = normalize_images(dataset.test_images)
@@ -237,7 +246,8 @@ class Trainer:
     def predict(self, x: torch.Tensor, params=None) -> torch.Tensor:
         """Logits of a device batch."""
         return self.model.apply(self.params if params is None else params, x,
-                                backend=self.backend)
+                                backend=self.backend,
+                                compute_dtype=self.compute_dtype)
 
     def evaluate(self, params=None) -> tuple[int, int]:
         """Forward argmax sweep over the test set (cnn.c:494-518). The

@@ -21,6 +21,8 @@ import argparse
 import dataclasses
 import sys
 
+import torch
+
 
 @dataclasses.dataclass
 class Config:
@@ -44,9 +46,9 @@ class Config:
     init: str = "normal"          # normal | irwin_hall | he
     augment: str = "none"         # refused unless "none"
 
-    # Numerics: float32 only in this port so far.
+    # Numerics: float32 params; compute in float32 or bfloat16.
     param_dtype: str = "float32"
-    compute_dtype: str = "float32"
+    compute_dtype: str = "float32"  # float32 | bfloat16
 
     # Execution.
     device: str = "auto"          # auto (= cuda) | cuda | cpu
@@ -74,6 +76,10 @@ class Config:
     eval_every: int = 1           # epochs
 
 
+# --compute-dtype of both trainers -> the dtype the forward casts to
+# (None: float32, no cast).
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
 # (field, value that means "off", ROADMAP queue E item, what it is)
 _REFUSED = (
     ("fsdp", False, 1, "FSDP"),
@@ -85,7 +91,6 @@ _REFUSED = (
     ("grad_accum", 1, 4, "gradient accumulation"),
     ("remat", False, 4, "rematerialization"),
     ("param_dtype", "float32", 4, "bf16 params"),
-    ("compute_dtype", "float32", 4, "bf16 compute"),
     ("augment", "none", 5, "augmentation"),
     ("metrics_jsonl", None, 6, "the JSONL metrics sink"),
     ("profile_dir", None, 6, "profiler traces"),
@@ -95,7 +100,8 @@ _REFUSED = (
 
 def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for a feature of the reference's CNN
-    trainer that this port does not have yet (ROADMAP queue E)."""
+    trainer that this port does not have yet (ROADMAP queue E), and
+    ValueError for a compute dtype other than float32 or bfloat16."""
     if cfg.num_devices > 1 or cfg.mesh_shape not in ("data", "data:1"):
         raise NotImplementedError(
             f"num_devices={cfg.num_devices}, mesh_shape={cfg.mesh_shape!r}: "
@@ -107,6 +113,9 @@ def check_supported(cfg: Config) -> None:
             raise NotImplementedError(
                 f"{flag}={getattr(cfg, name)!r}: {what} is not ported yet "
                 f"(ROADMAP queue E item {item})")
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"--compute-dtype={cfg.compute_dtype!r}: want one "
+                         f"of {'|'.join(COMPUTE_DTYPES)}")
 
 
 @dataclasses.dataclass
