@@ -11,7 +11,9 @@ exits non-zero without the final line:
 2. build    builds every CUDA kernel of the serving, CNN-training,
             conv-bench and LM-training paths from csrc/ (nine sources,
             one nvcc each, all started together); seconds taken, ptxas
-            registers.
+            registers, and each library's tensor-core instruction count
+            (`HMMA` lines of `cuobjdump -sass`), which must be above 0
+            for the mma.sync kernels (conv_direct, flash_fwd).
 3. kernels  each kernel against its plain PyTorch version on the card
             at the shapes its path gives it (one `kernel_case` line per
             shape): max error against the stated tolerance (bf16 flash
@@ -23,14 +25,17 @@ exits non-zero without the final line:
             reference_cnn's batch-32 step, in float32 and bf16: the GEMM
             (K3) at its 9 products, the direct conv (K4) at both
             forwards and at conv2's input gradient (K4'), the conv
-            weight gradient (K5) at both convs. conv-bench's four
+            weight gradient (K5) at both convs; K4 also at conv-bench's
+            second layer's input gradient (K4' at 128x32x32x64) and at a
+            ragged stride-2 forward with one-sided pads. conv-bench's four
             stride-1 shapes, in float32 and bf16: the implicit-GEMM conv
             (K6), with F.conv2d on the same channels-last tensors as the
             yardstick. The LM's causal attention: flash forward (K7),
             dq (K8) and dk/dv (K9) at the flagship's B 8, S 2048, H 8,
             D 64 in float32 and bf16, and at a GQA shape (8 query over 2
             kv heads, B 2), with SDPA's forward and forward + backward
-            as the yardstick.
+            as the yardstick; in bf16 also at D 32 and D 128 (B 2, S
+            1024, 4 over 2 heads, causal) and non-causal at D 64.
 4. serve    the serving bench at the full width of the decode flagship
             (d512 x 8 layers, 8 query / 2 KV heads, vocab 8192; random
             weights from --seed) through K1 and K2, with the launch
@@ -74,7 +79,8 @@ exits non-zero without the final line:
 11. lm_agree  10 float32 steps from one init with attention on the
             kernels and on the oracle (TF32 off); the first step's
             gradients (per leaf), per-step losses and params within
-            stated tolerances.
+            stated tolerances; then the first step's gradients in bf16
+            compute, flash against the oracle, per leaf.
 
 Then `nvidia-smi`'s name and power limit, the kernels line
 ({"kernels": [...]}, launches of K1/K2 from the serve phase, of
@@ -126,6 +132,9 @@ ATTN_ATOL = {"float32": 1e-4, "bfloat16": 1e-2, "int8": 1e-4}
 GEMM_RTOL_OF_MAX = 1e-4
 
 HEADS, KV_HEADS, HEAD_DIM, PAGE, TABLE_PAGES = 8, 2, 64, 16, 80
+# The kernels built on mma.sync: their libraries must hold tensor-core
+# instructions (HMMA in the SASS).
+TENSOR_CORE_KERNELS = ("conv_direct", "flash_fwd")
 GEMM_SHAPES = [(512, 512), (512, 256), (512, 2048), (2048, 512), (512, 8192)]
 
 # CNN kernels against their plain versions on the card. K3 and K4: both
@@ -152,6 +161,14 @@ CNN_BATCH = 32
 FC_SHAPES = [(1568, 200), (200, 200), (200, 10)]
 CONV_SHAPES = [(28, 28, 1, 16), (14, 14, 16, 32)]
 CNN_DTYPES = ("float32", "bfloat16")
+# K4 beyond reference_cnn's step, as (role, n, h, w, c, o, k, stride,
+# pads, dil, flip): conv-bench's 128x32x32x64 -> 64 layer's input
+# gradient (K4', k3 s1 p1: the transposed conv is a stride-1 conv over
+# the cotangent with pads 1, flipped weights), and a ragged stride-2
+# forward whose one-sided pads, odd extent and C = 24, O = 40 hit every
+# edge mask of the tile.
+CONV_EXTRA = [("input_grad", 128, 32, 32, 64, 64, 3, 1, (1, 1, 1, 1), 1, True),
+              ("forward", 8, 15, 15, 24, 40, 3, 2, (1, 0, 1, 0), 1, False)]
 # The train phase: steps of the measured epoch, launches per training
 # step and per eval batch (eval batch 2,048: 5 batches for 10,000).
 TRAIN_ARGS = ["--use-kernels", "--num-train", "60000", "--num-test", "10000",
@@ -214,6 +231,11 @@ FLASH_BF16_REL_L2 = {"flash_fwd": ("row", 1e-2), "flash_bwd_dq": ("tensor", 1e-3
 # 8 heads) in both types, and a GQA case (8 query heads over 2 kv heads).
 FLASH_SHAPES = [("float32", 8, 2048, 8, 8, 64), ("bfloat16", 8, 2048, 8, 8, 64),
                 ("float32", 2, 2048, 8, 2, 64), ("bfloat16", 2, 2048, 8, 2, 64)]
+# bf16 beyond the flagship, (dtype, B, S, H, Hkv, D, causal): the other
+# head widths the kernels are built for, and a non-causal case.
+FLASH_EXTRA_SHAPES = [("bfloat16", 2, 1024, 4, 2, 32, True),
+                      ("bfloat16", 2, 1024, 4, 2, 128, True),
+                      ("bfloat16", 2, 1024, 4, 2, 64, False)]
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # The lm phase: the LM flagship's width (scripts/bench_lm.py:101-116:
 # d512, 8 layers, 8 heads, seq 2048, batch 8) through `lm` on the
@@ -252,6 +274,14 @@ LM_AGREE_ARGS = LM_MODEL_ARGS + ["--steps", "10", "--warmup-steps", "2",
 LM_AGREE_LOSS_ATOL = 1e-4
 LM_AGREE_APART_SHARE = 1e-3
 LM_AGREE_GRAD_REL_L2 = 1e-4
+# lm_agree in bf16 compute: the first step's gradients with flash and
+# with the oracle, per leaf. Both round q, k, v, p and every activation
+# to bf16 (2^-9 relative), but at other places: the oracle rounds p
+# against the row max, K7 against a running max per 64-key tile, and
+# K8/K9 round ds and p^T where the oracle's autograd rounds other
+# intermediates; over 8 layers such flips add up to a few 1e-3. A wrong
+# dq, dk or dv moves a leaf by far more than 2e-2.
+LM_BF16_GRAD_REL_L2 = 2e-2
 
 
 def emit(obj) -> None:
@@ -264,6 +294,15 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_hmma(kernels, name: str) -> int:
+    """Tensor-core (HMMA) instructions in kernel `name`'s built library,
+    counted in `cuobjdump -sass` (beside nvcc in the CUDA toolkit)."""
+    cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-sass", str(kernels._lib_path(name))],
+                         capture_output=True, text=True, timeout=120, check=True)
+    return sum("HMMA" in ln for ln in out.stdout.splitlines())
 
 
 def median_ms(torch, fn, reps: int = 30) -> float:
@@ -536,6 +575,57 @@ def conv_direct_case(torch, dev, role: str, h: int, w: int, cin: int,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def conv_direct_extra_case(torch, dev, role: str, n: int, h: int, w: int,
+                           c: int, o: int, k: int, stride: int, pads: tuple,
+                           dil: int, flip: bool, gen, dtype: str) -> dict:
+    """K4 at one of CONV_EXTRA's geometries against its plain version,
+    with the other K4 rows' tolerances and bound. Yardstick: for K4' the
+    forward's transposed conv (F.conv_transpose2d, channels-last); none
+    for a forward with one-sided pads, which no single PyTorch call
+    computes."""
+    from mpi_cuda_cnn_tpu_torch.ops.kernel_ops import (
+        conv_direct,
+        conv_direct_plain,
+    )
+
+    F = torch.nn.functional
+    tdt = getattr(torch, dtype)
+    x = torch.randn(n, h, w, c, generator=gen).to(dev).to(tdt)
+    wshape = (k, k, o, c) if flip else (k, k, c, o)
+    wt = (torch.randn(*wshape, generator=gen) / (k * k * c) ** 0.5).to(dev).to(tdt)
+    kw = dict(stride=stride, pads=pads, dil=dil, flip=flip)
+    got = conv_direct(x, wt, **kw)
+    want = conv_direct_plain(x, wt, **kw)
+    oh, ow = got.shape[1:3]
+    errs = check_case(torch, f"conv_direct {dtype} {role} {n}x{h}x{w}x{c}"
+                      f"->{o} s{stride} pads {pads}", got, want,
+                      CONV_RTOL_OF_MAX)
+    library_ms = None
+    if flip:
+        # the forward conv: k, stride 1, symmetric padding k - 1 - pads
+        x_nchw = x.permute(0, 3, 1, 2)
+        w_oihw = wt.permute(3, 2, 0, 1)
+
+        def library():
+            return F.conv_transpose2d(x_nchw, w_oihw, padding=k - 1 - pads[0])
+
+        if tuple(library().shape) != (n, o, oh, ow):
+            raise AssertionError(f"conv_transpose2d shape {tuple(library().shape)}")
+        library_ms = median_ms(torch, library)
+    taps = (valid_taps(h, oh, k, stride, pads[0], dil)
+            * valid_taps(w, ow, k, stride, pads[2], dil))
+    nbytes = got.element_size() * (x.numel() + wt.numel() + got.numel())
+    bound_ms, bound_by = bound(nbytes, 2 * n * taps * c * o, PEAK[dtype])
+    return {"kernel": "conv_direct", "dtype": dtype, "role": role, "N": n,
+            "H": h, "W": w, "C": c, "O": o, "OH": oh, "OW": ow, "k": k,
+            "stride": stride, "pads": list(pads), "dil": dil, "flip": flip,
+            **errs,
+            "ms": median_ms(torch, lambda: conv_direct(x, wt, **kw)),
+            "plain_ms": median_ms(torch, lambda: conv_direct_plain(x, wt, **kw)),
+            "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def conv_dw_case(torch, dev, h: int, w: int, cin: int, cout: int,
                  gen, dtype: str) -> dict:
     """K5 in reference_cnn's step: the weight gradient of a k3 s2 p1
@@ -616,8 +706,8 @@ def rel_l2(got, want, *, per_row: bool) -> float:
     return ((got - want).norm() / want.norm()).item()
 
 
-def sdpa_ms(torch, q, k, v, g) -> dict:
-    """The yardstick: F.scaled_dot_product_attention (causal, GQA through
+def sdpa_ms(torch, q, k, v, g, causal: bool = True) -> dict:
+    """The yardstick: F.scaled_dot_product_attention (GQA through
     enable_gqa) on the same inputs in its (B, H, S, D) layout, forward
     alone and forward + backward (dq, dk, dv)."""
     F = torch.nn.functional
@@ -626,7 +716,7 @@ def sdpa_ms(torch, q, k, v, g) -> dict:
     leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
 
     def fwd():
-        return F.scaled_dot_product_attention(*leaves, is_causal=True,
+        return F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                               enable_gqa=gqa)
 
     def fwd_bwd():
@@ -638,12 +728,12 @@ def sdpa_ms(torch, q, k, v, g) -> dict:
 
 
 def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
-                d: int, gen) -> list[dict]:
-    """K7, K8 and K9 on one causal attention shape (q (B, S, H, D), k/v
-    (B, S, Hkv, D)), each against its plain version on the same inputs;
-    the backward kernels take the plain forward's o and lse and a random
-    cotangent. Bound: the causal pairs S (S + 1) / 2 per (batch, query
-    head) times 2 D flops for each of the kernel's products (K7: q k^T and
+                d: int, gen, causal: bool = True) -> list[dict]:
+    """K7, K8 and K9 on one attention shape (q (B, S, H, D), k/v (B, S,
+    Hkv, D)), each against its plain version on the same inputs; the
+    backward kernels take the plain forward's o and lse and a random
+    cotangent. Bound: the pairs (causal: S (S + 1) / 2, else S^2) per
+    (batch, query head) times 2 D flops for each of the kernel's products (K7: q k^T and
     p v; K8: also dO v^T and ds k, less p v; K9: q k^T, dO v^T, p^T dO and
     ds^T q), at the input type's peak; or each input read once and each
     output written once at the HBM rate, if that is longer."""
@@ -656,24 +746,24 @@ def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
 
     q, k, v, g = randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d), \
         randn(b, s, h, d)
-    o, lse = fa.flash_forward_plain(q, k, v, True)
+    o, lse = fa.flash_forward_plain(q, k, v, causal)
     dvec = fa.row_dvec(o, g)
     el = q.element_size()
     rows_q, rows_kv, rows = b * s * h * d, b * s * hkv * d, 4 * b * h * s
     runs = {
-        "flash_fwd": (lambda: fa.flash_forward(q, k, v, True),
-                      lambda: fa.flash_forward_plain(q, k, v, True), 2,
+        "flash_fwd": (lambda: fa.flash_forward(q, k, v, causal),
+                      lambda: fa.flash_forward_plain(q, k, v, causal), 2,
                       el * (2 * rows_q + 2 * rows_kv) + rows),
-        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, g, lse, dvec, True),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, g, lse, dvec, causal),
                          lambda: fa.flash_bwd_dq_plain(q, k, v, g, lse, dvec,
-                                                       True), 3,
+                                                       causal), 3,
                          el * (3 * rows_q + 2 * rows_kv) + 2 * rows),
-        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, g, lse, dvec, True),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, g, lse, dvec, causal),
                           lambda: fa.flash_bwd_dkv_plain(q, k, v, g, lse,
-                                                         dvec, True), 4,
+                                                         dvec, causal), 4,
                           el * (2 * rows_q + 4 * rows_kv) + 2 * rows)}
-    lib = sdpa_ms(torch, q, k, v, g)
-    pairs = s * (s + 1) // 2
+    lib = sdpa_ms(torch, q, k, v, g, causal)
+    pairs = s * (s + 1) // 2 if causal else s * s
     peak = PEAK[dtype]
     out = []
     for name, (run, plain, products, nbytes) in runs.items():
@@ -703,7 +793,7 @@ def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
         bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
                               else (t_ops, "operations"))
         out.append({"kernel": name, "dtype": dtype, "B": b, "S": s, "H": h,
-                    "Hkv": hkv, "D": d, "causal": True,
+                    "Hkv": hkv, "D": d, "causal": causal,
                     "max_abs_err": err, "tolerance": tol, **(rel or {}),
                     "ms": median_ms(torch, run),
                     "plain_ms": median_ms(torch, plain),
@@ -716,8 +806,8 @@ def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
 
 def phase_flash_kernels(torch, dev, gen) -> list[dict]:
     cases = []
-    for shape in FLASH_SHAPES:
-        for case in flash_cases(torch, dev, *shape, gen):
+    for *shape, causal in [(*s, True) for s in FLASH_SHAPES] + FLASH_EXTRA_SHAPES:
+        for case in flash_cases(torch, dev, *shape, gen, causal):
             emit({"phase": "kernel_case", **case})
             cases.append(case)
     return cases
@@ -752,6 +842,7 @@ def phase_cnn_kernels(torch, dev, gen):
                  for shape in CONV_SHAPES]
         # conv1's input needs no gradient
         runs.append((conv_direct_case, ("input_grad", *CONV_SHAPES[1])))
+        runs += [(conv_direct_extra_case, geom) for geom in CONV_EXTRA]
         runs += [(conv_dw_case, shape) for shape in CONV_SHAPES]
         runs += [(bench_conv_case, (kernel, shape))
                  for kernel in ("conv_direct", "conv_gemm")
@@ -1300,13 +1391,15 @@ def phase_lm_profile(torch, steps: int = 3) -> None:
 def first_grads_rel_l2(torch, trainer, get_attn_fn, lm_loss,
                        tree_leaves) -> dict:
     """Relative L2 gap, per param leaf, between the gradients of step 0's
-    batch at the trainer's initial params with attention on the kernels
-    and on the oracle (the leaves are named by their index)."""
+    batch at the trainer's initial params, in its compute dtype, with
+    attention on the kernels and on the oracle (the leaves are named by
+    their index)."""
     leaves = tree_leaves(trainer.state["params"])
     tokens, targets = (trainer._to_device(a) for a in trainer._sample_batch(0))
     grads = {impl: torch.autograd.grad(
         lm_loss(trainer.model, trainer.state["params"], tokens, targets,
-                attn_fn=get_attn_fn(impl)), leaves)
+                attn_fn=get_attn_fn(impl),
+                compute_dtype=trainer._compute_dtype), leaves)
         for impl in ("flash", "oracle")}
     return {i: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
             for i, (a, b) in enumerate(zip(grads["flash"], grads["oracle"]))}
@@ -1315,7 +1408,9 @@ def first_grads_rel_l2(torch, trainer, get_attn_fn, lm_loss,
 def phase_lm_agree(torch) -> dict:
     """LM_AGREE_ARGS' 10 float32 steps from one init, attention on the
     kernels and on the oracle; the first step's gradients, per-step
-    losses and final params held to the stated tolerances."""
+    losses and final params held to the stated tolerances. Then the
+    first step's gradients in bf16 compute, per leaf, flash against the
+    oracle from one init."""
     from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
     from mpi_cuda_cnn_tpu_torch.train.lm import get_attn_fn, lm_loss
     from mpi_cuda_cnn_tpu_torch.train.lm_trainer import LMTrainer
@@ -1334,6 +1429,18 @@ def phase_lm_agree(torch) -> dict:
                       [t.detach() for t in tree_leaves(trainer.state["params"])])
         del trainer
         torch.cuda.empty_cache()
+    trainer = LMTrainer(parse_lm_args(LM_AGREE_ARGS + [
+        "--attn-impl", "flash", "--compute-dtype", "bfloat16"]),
+        metrics=RecordingMetrics())
+    bf16_rel = first_grads_rel_l2(torch, trainer, get_attn_fn, lm_loss,
+                                  tree_leaves)
+    del trainer
+    torch.cuda.empty_cache()
+    worst_bf16 = max(bf16_rel.values())
+    if not worst_bf16 <= LM_BF16_GRAD_REL_L2:
+        raise AssertionError(f"lm_agree: bf16 first-step gradients of flash "
+                             f"and the oracle apart by {bf16_rel} (limit "
+                             f"{LM_BF16_GRAD_REL_L2})")
     (lf, rf, pf), (lo, ro, po) = runs["flash"], runs["oracle"]
     loss_diff = max(abs(a - b) for a, b in zip(lf, lo))
     param_diff = max((a - b).abs().max().item() for a, b in zip(pf, po))
@@ -1356,6 +1463,9 @@ def phase_lm_agree(torch) -> dict:
             "apart_share_tolerance": LM_AGREE_APART_SHARE,
             "first_grad_rel_l2_max": worst_grad,
             "first_grad_rel_l2_tolerance": LM_AGREE_GRAD_REL_L2,
+            "bf16_first_grad_rel_l2": bf16_rel,
+            "bf16_first_grad_rel_l2_max": worst_bf16,
+            "bf16_first_grad_rel_l2_tolerance": LM_BF16_GRAD_REL_L2,
             "eval_loss": {"flash": rf.eval_loss, "oracle": ro.eval_loss}}
 
 
@@ -1450,8 +1560,13 @@ def main() -> int:
     report = {name: [ln.strip() for ln in log.splitlines()
                      if "registers" in ln or "spill" in ln]
               for name, log in built["logs"].items()}
+    hmma = {name: sass_hmma(_kernels, name) for name in sorted(_kernels.KERNELS)}
     emit({"phase": "build", "seconds": round(built["seconds"], 3),
-          "kernels": sorted(_kernels.KERNELS), "ptxas": report})
+          "kernels": sorted(_kernels.KERNELS), "hmma": hmma, "ptxas": report})
+    for name in TENSOR_CORE_KERNELS:
+        if not hmma[name] > 0:
+            raise AssertionError(f"build: no HMMA instruction in {name}'s "
+                                 f"library: it does not use the tensor cores")
 
     cases = phase_kernels(torch, torch.device("cuda"))
     cases += phase_flash_kernels(torch, torch.device("cuda"),

@@ -35,7 +35,7 @@ KERNELS = {
                         [_P] * 8 + [_I] * 9 + [_P]),
     "int8_gemm": ("int8_gemm_launch", [_P] * 4 + [_I] * 3 + [_P]),
     "gemm": ("gemm_launch", [_P] * 5 + [_I] * 8 + [_P]),
-    "conv_direct": ("conv_direct_launch", [_P] * 3 + [_I] * 15 + [_P]),
+    "conv_direct": ("conv_direct_launch", [_P] * 3 + [_I] * 19 + [_P]),
     "conv_dw": ("conv_dw_launch", [_P] * 4 + [_I] * 13 + [_P]),
     "conv_gemm": ("conv_gemm_launch", [_P] * 3 + [_I] * 9 + [_P]),
     "flash_fwd": ("flash_fwd_launch", [_P] * 5 + [_I] * 7 + [_P]),

@@ -3,7 +3,8 @@ three hand-written CUDA kernels (counterpart of the reference's
 `ops/pallas_attention.py`).
 
 - K7 `flash_forward` (`csrc/flash_fwd.cu`): o and the per-row logsumexp
-  with an online softmax. Replaces `_flash_kernel`/`_flash_forward`.
+  with an online softmax; bf16 on the tensor cores (`mma.sync`), float32
+  on FMA. Replaces `_flash_kernel`/`_flash_forward`.
 - K8 `flash_bwd_dq` (`csrc/flash_bwd_dq.cu`). Replaces `_bwd_dq_kernel`.
 - K9 `flash_bwd_dkv` (`csrc/flash_bwd_dkv.cu`), the group's query heads
   summed inside the kernel. Replaces `_bwd_dkv_kernel` and the group sum

@@ -10,8 +10,10 @@ accumulating in float32 and rounding once to that type at the store:
   read transposed in place. Replaces `_matmul`.
 - K4 `conv_direct` (`csrc/conv_direct.cu`): a direct NHWC/HWIO conv with
   stride, per-side padding, input dilation and a weight flip as
-  arguments. Replaces `_conv1` with its phase split (`_conv_forward`),
-  and is also the transposed conv of the input gradient (K4').
+  arguments, run as an implicit GEMM (bf16 on the tensor cores, float32
+  on FMA) whose tiles `conv_direct_plan` picks. Replaces `_conv1` with
+  its phase split (`_conv_forward`), and is also the transposed conv of
+  the input gradient (K4').
 - K5 `conv_dw` (`csrc/conv_dw.cu`): the conv weight gradient, a
   deterministic two-pass sum over pixels. Replaces `_conv1_dw`/`_conv_dw`.
 - K6 `conv_gemm` (`csrc/conv_gemm.cu`): the stride-1 implicit-GEMM conv,
@@ -34,6 +36,8 @@ no fallback.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -45,6 +49,10 @@ _SPLIT_MIN_K = 128    # split K only into slices at least this deep
 _SPLIT_BLOCKS = 128   # aim for about this many blocks (132 SMs)
 _DW_CHUNK = 64        # pixels per block in K5's first pass
 _DW_MAX_PARTIAL = 1 << 24  # floats of K5 scratch before chunks grow
+_CONV_BM = 128        # K4: output pixels of a block tile (128 threads)
+_CONV_MAX_BN = {2: 128, 4: 64}  # K4: widest channel tile, by element size
+_CONV_STAGES = 3      # K4: K slices in shared memory
+_SMS = 132            # H100 SXM streaming multiprocessors
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -200,6 +208,54 @@ def conv_direct_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     return acc.reshape(n, oh, ow, o).to(dtype)
 
 
+class ConvPlan(NamedTuple):
+    """K4's launch plan: a block per bm x bn output tile (output pixels x
+    output channels), grid_m x grid_n blocks, 16-byte copies when `vec`;
+    `smem_bytes` is the kernel's dynamic shared memory."""
+    bm: int
+    bn: int
+    vec: bool
+    grid_m: int
+    grid_n: int
+    smem_bytes: int
+
+
+def conv_direct_plan(n: int, oh: int, ow: int, c: int, o: int, kh: int,
+                     kw: int, *, flip: bool, itemsize: int, x_ptr: int,
+                     w_ptr: int) -> ConvPlan:
+    """The tile plan of `csrc/conv_direct.cu` for an output (n, oh, ow, o)
+    over K = kh * kw * c, elements of `itemsize` bytes (4 float32, 2
+    bf16).
+
+    bn is the smallest of 16, 32, 64, 128 (float32: up to 64, its register
+    tile) that holds O, halved while the grid has fewer blocks than the
+    card has SMs. vec (16-byte copies, one tap each) needs C, and without
+    flip O, to be multiples of a 16-byte chunk; then x and w must be
+    16-byte aligned, else ValueError (a misaligned view is refused, not
+    sent down the element-wise gather)."""
+    if itemsize not in (2, 4):
+        raise ValueError(f"conv_direct_plan: itemsize {itemsize}")
+    m = n * oh * ow
+    chunk = 16 // itemsize
+    slice_k = 4 * chunk                   # 64 bytes of a row per K slice
+    bn = 16
+    while bn < min(o, _CONV_MAX_BN[itemsize]):
+        bn *= 2
+    grid_m = -(-m // _CONV_BM)
+    while bn > 16 and grid_m * -(-o // bn) < _SMS:
+        bn //= 2
+    vec = c % chunk == 0 and (flip or o % chunk == 0)
+    if vec and (x_ptr % 16 or w_ptr % 16):
+        raise ValueError(f"conv_direct: x (0x{x_ptr:x}) and w (0x{w_ptr:x}) "
+                         "must be 16-byte aligned for the 16-byte copies "
+                         "this geometry takes; pass a fresh tensor, not an "
+                         "offset view")
+    ld_a = slice_k + chunk
+    b_elems = bn * (slice_k + chunk) if flip else slice_k * (bn + chunk)
+    smem = _CONV_STAGES * (_CONV_BM * ld_a + b_elems) * itemsize
+    return ConvPlan(_CONV_BM, bn, vec, grid_m, -(-o // bn), smem)
+
+
 def conv_direct(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                 pads: tuple[int, int, int, int] = (0, 0, 0, 0),
                 dil: int = 1, flip: bool = False) -> torch.Tensor:
@@ -211,6 +267,15 @@ def conv_direct(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     if not x.is_cuda:
         return conv_direct_plain(x, w, stride=stride, pads=pads, dil=dil,
                                  flip=flip)
+    return _conv_direct_cuda(x, w, stride=stride, pads=pads, dil=dil,
+                             flip=flip)
+
+
+def _conv_direct_cuda(x: torch.Tensor, w: torch.Tensor, *, stride: int,
+                      pads: tuple[int, int, int, int], dil: int,
+                      flip: bool) -> torch.Tensor:
+    """conv_direct's launch: shapes, the tile plan (which refuses
+    misaligned operands), then the device checks and the kernel."""
     if x.dim() != 4 or w.dim() != 4:
         raise ValueError(f"conv_direct: want NHWC x and 4-d w, got "
                          f"{tuple(x.shape)}, {tuple(w.shape)}")
@@ -224,11 +289,15 @@ def conv_direct(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     oh, ow = conv_out_hw(h, wd, kh, kw, stride, pads, dil)
     if oh < 1 or ow < 1:
         raise ValueError(f"conv_direct: empty output {oh}x{ow}")
+    plan = conv_direct_plan(n, oh, ow, c, o, kh, kw, flip=flip,
+                            itemsize=x.element_size(), x_ptr=x.data_ptr(),
+                            w_ptr=w.data_ptr())
     dtype = _check("conv_direct", x, w)
     y = torch.empty((n, oh, ow, o), dtype=x.dtype, device=x.device)
     err = _kernels.lib("conv_direct")(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, c, o, kh, kw, oh,
-        ow, stride, pads[0], pads[2], dil, int(flip), dtype, _stream(x))
+        ow, stride, pads[0], pads[2], dil, int(flip), plan.bn, int(plan.vec),
+        plan.grid_m, plan.grid_n, dtype, _stream(x))
     _kernels.check("conv_direct", err)
     _kernels.launches["conv_direct"] += 1
     return y
