@@ -13,7 +13,9 @@ exits non-zero without the final line:
             one nvcc each, all started together); seconds taken, ptxas
             registers, and each library's tensor-core instruction count
             (`HMMA` lines of `cuobjdump -sass`), which must be above 0
-            for the mma.sync kernels (conv_direct, flash_fwd).
+            for the mma.sync kernels (conv_direct, flash_fwd,
+            flash_bwd_dq, flash_bwd_dkv); the bf16 flash backward
+            kernels at D 64 must show no ptxas spill stores.
 3. kernels  each kernel against its plain PyTorch version on the card
             at the shapes its path gives it (one `kernel_case` line per
             shape): max error against the stated tolerance (bf16 flash
@@ -33,8 +35,9 @@ exits non-zero without the final line:
             yardstick. The LM's causal attention: flash forward (K7),
             dq (K8) and dk/dv (K9) at the flagship's B 8, S 2048, H 8,
             D 64 in float32 and bf16, and at a GQA shape (8 query over 2
-            kv heads, B 2), with SDPA's forward and forward + backward
-            as the yardstick; in bf16 also at D 32 and D 128 (B 2, S
+            kv heads, B 2), with SDPA's forward, forward + backward
+            and backward alone as the yardsticks; in bf16 also at D 32
+            and D 128 (B 2, S
             1024, 4 over 2 heads, causal) and non-causal at D 64.
 4. serve    the serving bench at the full width of the decode flagship
             (d512 x 8 layers, 8 query / 2 KV heads, vocab 8192; random
@@ -95,6 +98,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -134,7 +138,13 @@ GEMM_RTOL_OF_MAX = 1e-4
 HEADS, KV_HEADS, HEAD_DIM, PAGE, TABLE_PAGES = 8, 2, 64, 16, 80
 # The kernels built on mma.sync: their libraries must hold tensor-core
 # instructions (HMMA in the SASS).
-TENSOR_CORE_KERNELS = ("conv_direct", "flash_fwd")
+TENSOR_CORE_KERNELS = ("conv_direct", "flash_fwd", "flash_bwd_dq",
+                       "flash_bwd_dkv")
+# Kernel instances whose ptxas report must show no spill stores: the bf16
+# flash backward at the flagship's head dim (64). (library, mangled-name
+# fragment)
+NO_SPILL = (("flash_bwd_dq", "flash_bwd_dq_bf16_kernelILi64E"),
+            ("flash_bwd_dkv", "flash_bwd_dkv_bf16_kernelILi64E"))
 GEMM_SHAPES = [(512, 512), (512, 256), (512, 2048), (2048, 512), (512, 8192)]
 
 # CNN kernels against their plain versions on the card. K3 and K4: both
@@ -303,6 +313,23 @@ def sass_hmma(kernels, name: str) -> int:
     out = subprocess.run([str(cuobjdump), "-sass", str(kernels._lib_path(name))],
                          capture_output=True, text=True, timeout=120, check=True)
     return sum("HMMA" in ln for ln in out.stdout.splitlines())
+
+
+def spill_stores(log: str) -> dict[str, int]:
+    """Bytes of spill stores per kernel (mangled name) in an `nvcc
+    -Xptxas -v` log: each "Function properties for NAME" line is followed
+    by one with "N bytes spill stores"."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name is not None:
+            out[name] = int(m.group(1))
+            name = None
+    return out
 
 
 def median_ms(torch, fn, reps: int = 30) -> float:
@@ -709,7 +736,8 @@ def rel_l2(got, want, *, per_row: bool) -> float:
 def sdpa_ms(torch, q, k, v, g, causal: bool = True) -> dict:
     """The yardstick: F.scaled_dot_product_attention (GQA through
     enable_gqa) on the same inputs in its (B, H, S, D) layout, forward
-    alone and forward + backward (dq, dk, dv)."""
+    alone, forward + backward (dq, dk, dv), and the backward alone (one
+    forward outside the timed calls, its graph kept)."""
     F = torch.nn.functional
     gqa = k.shape[2] != q.shape[2]
     qt, kt, vt, gt = (t.transpose(1, 2).contiguous() for t in (q, k, v, g))
@@ -722,9 +750,15 @@ def sdpa_ms(torch, q, k, v, g, causal: bool = True) -> dict:
     def fwd_bwd():
         torch.autograd.grad(fwd(), leaves, gt)
 
+    out = fwd()
+
+    def bwd():
+        torch.autograd.grad(out, leaves, gt, retain_graph=True)
+
     with torch.no_grad():
         fwd_ms = median_ms(torch, fwd)
-    return {"library_fwd_ms": fwd_ms, "library_fwd_bwd_ms": median_ms(torch, fwd_bwd)}
+    return {"library_fwd_ms": fwd_ms, "library_fwd_bwd_ms": median_ms(torch, fwd_bwd),
+            "library_bwd_ms": median_ms(torch, bwd)}
 
 
 def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
@@ -1561,12 +1595,20 @@ def main() -> int:
                      if "registers" in ln or "spill" in ln]
               for name, log in built["logs"].items()}
     hmma = {name: sass_hmma(_kernels, name) for name in sorted(_kernels.KERNELS)}
+    spills = {lib: {fn: n for fn, n in spill_stores(built["logs"][lib]).items()
+                    if frag in fn}
+              for lib, frag in NO_SPILL}
     emit({"phase": "build", "seconds": round(built["seconds"], 3),
-          "kernels": sorted(_kernels.KERNELS), "hmma": hmma, "ptxas": report})
+          "kernels": sorted(_kernels.KERNELS), "hmma": hmma,
+          "spill_stores": spills, "ptxas": report})
     for name in TENSOR_CORE_KERNELS:
         if not hmma[name] > 0:
             raise AssertionError(f"build: no HMMA instruction in {name}'s "
                                  f"library: it does not use the tensor cores")
+    for lib, frag in NO_SPILL:
+        if not spills[lib] or any(spills[lib].values()):
+            raise AssertionError(f"build: {frag} in {lib}: spill stores "
+                                 f"{spills[lib] or 'not reported'}")
 
     cases = phase_kernels(torch, torch.device("cuda"))
     cases += phase_flash_kernels(torch, torch.device("cuda"),

@@ -7,25 +7,47 @@
 // mpi_cuda_cnn_tpu/ops/pallas_attention.py (pallas_call at :460). That
 // kernel streams q-blocks sequentially over a grid that stays per QUERY
 // head, writes (B * H, S, D) partial dk/dv, and under GQA sums each kv
-// group's partials afterwards (:479-493). Here one block owns one
-// (batch*kv head, 64-key tile): it loops over the group's H / Hkv query
-// heads itself, in a fixed order, and over their q tiles, keeping dk and
-// dv in registers in float32. That is deterministic, needs no atomics and
-// no (B * H, S, D) scratch, and writes each gradient once in the input
-// type.
+// group's partials afterwards (:479-493).
 //
 // What bounds it: operations (four S^2 * D products per (batch, query
-// head), causal halves them), in float32 FMA at this stage: 67 TFLOP/s.
+// head), causal halves them): the bf16 path on the tensor cores, the
+// float32 path on the FMA pipe (TF32 off: 67 TFLOP/s).
 //
-// Design: k and v tiles staged once; per (query head, q tile) the q and
-// dO tiles and their lse and dvec are staged, the transposed logits
-// s^T = k q^T and dp^T = v dO^T are formed 4 x 4 a thread (rows = this
-// block's keys), p^T and ds^T are written to shared memory rounded to the
-// input type (the TPU kernel's astype before each product), then
-// dv += p^T dO and dk += ds^T q. Causal: q tiles before this key tile are
-// skipped; on the diagonal tile masked logits are NEG_INF, p exactly 0.
+// Both paths: causal q tiles before a key tile are skipped; on the
+// diagonal tile masked logits are NEG_INF and p exactly 0; p^T and ds^T
+// are rounded to the input type before their products (the TPU kernel's
+// astype); dk and dv accumulate in float32 and are rounded once.
+//
+// bf16 (`flash_bwd_dkv_bf16_kernel`, FlashAttention-2's dk/dv pass): one
+// block owns 64 keys of ONE query head, grid (B * H, S / 64) with the
+// heaviest causal key tiles (the lowest) first, so GQA has as many blocks
+// as MHA. 4 warps own 16 keys each; the k and v tiles are `ldmatrix`'d
+// into A fragments once (for D <= 64; at D 128 they are re-read from shared
+// memory and each q tile is taken as two halves of 32 queries, to stay
+// under the spill line). q/dO tiles and their 64 lse/dvec values
+// are double-buffered by `cp.async`. Per q tile: s^T = k q^T and
+// dp^T = v dO^T on `mma.sync` (q and dO as the col-major B through plain
+// `ldmatrix`); p^T and ds^T in float32 on the accumulator fragments, the
+// lane's query columns 2t, 2t + 1 reading lse/dvec from shared memory;
+// both packed to bf16 as A fragments (mma.cuh's n-tile 2j/2j+1 -> k-chunk
+// j map); dv += p^T dO and dk += ds^T q with dO and q through
+// `ldmatrix.trans`. Nothing of p or ds goes to shared memory. Under MHA
+// (H == Hkv) the block writes dk/dv in bf16. Under GQA it writes float32
+// partials to a (2, G, B, S, Hkv, D) scratch, G = H / Hkv, and a second
+// kernel of the same launch function (`flash_bwd_dkv_group_sum_kernel`)
+// sums the G slices in the fixed order g = 0..G-1 and rounds once: the
+// reference's partials-then-group-sum, deterministic, no atomics.
+//
+// float32 (`flash_bwd_dkv_kernel`, FMA only): one block owns one (batch*kv
+// head, 64-key tile) and loops over the group's H / Hkv query heads itself,
+// in a fixed order, and over their q tiles, with dk and dv in registers;
+// 256 threads, 4 x 4 transposed logits a thread (flash_common.cuh), p^T and
+// ds^T through shared memory; grid (B * Hkv, S / 64), no scratch.
+
+#include <type_traits>
 
 #include "flash_common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -163,41 +185,341 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              const __nv_bfloat16* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ dvec,
+                              __nv_bfloat16* __restrict__ dk,
+                              __nv_bfloat16* __restrict__ dv,
+                              float* __restrict__ part, int S, int H, int Hkv,
+                              int causal, float scale) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kLd = D + 8;  // row stride, 16 bytes of padding
+  constexpr int kTileElems = kTile * kLd;
+  constexpr int kChunks = D / 8;  // 16-byte copies per row
+  constexpr int kKc = D / 16;     // k-chunks of the k q^T product
+  constexpr bool kHold = D <= 64;  // k/v fragments held in registers
+  // Query sub-tiles a q tile is taken in: two of 32 at D 128, so the
+  // logit fragments beside the (16, 128) dk and dv accumulators fit in
+  // the registers.
+  constexpr int kSplit = D > 64 ? 2 : 1;
+  constexpr int kQn = kTile / kSplit;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // (64, kLd)
+  bf16* v_s = k_s + kTileElems;                   // (64, kLd)
+  bf16* q_s = v_s + kTileElems;                   // 2 x (64, kLd)
+  bf16* do_s = q_s + 2 * kTileElems;              // 2 x (64, kLd)
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTileElems);  // 2 x 64
+  float* dvec_s = lse_s + 2 * kTile;                               // 2 x 64
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int group = H / Hkv;
+  const int kvh = h / group;
+  const int kt = blockIdx.y;  // causal: the low key tiles see the most queries
+  const int k0 = kt * kTile;
+  const size_t q_rs = static_cast<size_t>(H) * D;
+  const size_t kv_rs = static_cast<size_t>(Hkv) * D;
+
+  const size_t kv_off = ((static_cast<size_t>(b) * S + k0) * Hkv + kvh) * D;
+  for (int e = tid; e < kTile * kChunks; e += kMmaThreads) {
+    const int r = e / kChunks, c = (e - r * kChunks) * 8;
+    mma::cp_async16(k_s + r * kLd + c, k + kv_off + r * kv_rs + c, true);
+    mma::cp_async16(v_s + r * kLd + c, v + kv_off + r * kv_rs + c, true);
+  }
+  auto load_q = [&](int qt, int st) {
+    const size_t off = ((static_cast<size_t>(b) * S + qt * kTile) * H + h) * D;
+    for (int e = tid; e < kTile * kChunks; e += kMmaThreads) {
+      const int r = e / kChunks, c = (e - r * kChunks) * 8;
+      mma::cp_async16(q_s + st * kTileElems + r * kLd + c,
+                      q + off + r * q_rs + c, true);
+      mma::cp_async16(do_s + st * kTileElems + r * kLd + c,
+                      dout + off + r * q_rs + c, true);
+    }
+    // 64 floats each of lse and dvec: 16 copies of 16 bytes each.
+    if (tid < 32) {
+      const size_t row = static_cast<size_t>(bh) * S + qt * kTile + (tid & 15) * 4;
+      if (tid < 16)
+        mma::cp_async16(lse_s + st * kTile + tid * 4, lse + row, true);
+      else
+        mma::cp_async16(dvec_s + st * kTile + (tid - 16) * 4, dvec + row, true);
+    }
+  };
+  const int nq = S / kTile;
+  const int qt0 = causal ? kt : 0;
+  load_q(qt0, 0);
+  mma::cp_async_commit();
+
+  // This lane's keys of the warp's 16: g and g + 8 (half 0 and 1).
+  const int g = lane >> 2, t4 = lane & 3;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+  uint32_t kf[kHold ? kKc : 1][4], vf[kHold ? kKc : 1][4];
+  // A fragment of k-chunk kc of this warp's 16 keys.
+  auto frag_a = [&](uint32_t(&r)[4], const bf16* tile, int kc) {
+    mma::ldmatrix_x4(r, tile + (16 * warp + (lane & 15)) * kLd + kc * 16 +
+                            (lane >> 4) * 8);
+  };
+
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int st = (qt - qt0) & 1;
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile qt landed; stage st ^ 1 is free again
+    if constexpr (kHold) {
+      if (qt == qt0) {
+#pragma unroll
+        for (int kc = 0; kc < kKc; ++kc) {
+          frag_a(kf[kc], k_s, kc);
+          frag_a(vf[kc], v_s, kc);
+        }
+      }
+    }
+    if (qt + 1 < nq) {
+      load_q(qt + 1, st ^ 1);
+      mma::cp_async_commit();
+    }
+    const bf16* qs = q_s + st * kTileElems;
+    const bf16* dos = do_s + st * kTileElems;
+    const float* ls = lse_s + st * kTile;
+    const float* dvs = dvec_s + st * kTile;
+
+#pragma unroll
+    for (int qh = 0; qh < kSplit; ++qh) {
+      const int qc0 = qh * kQn;  // the sub-tile's first query of the tile
+
+      // s^T = k q^T and dp^T = v dO^T: q's and dO's rows [query][d] are
+      // the col-major B operand as stored.
+      float s[kQn / 8][4], dp[kQn / 8][4];
+#pragma unroll
+      for (int j = 0; j < kQn / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < kKc; ++kc) {
+        uint32_t ak[4], av[4];
+        if constexpr (kHold) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ak[e] = kf[kc][e];
+            av[e] = vf[kc][e];
+          }
+        } else {
+          frag_a(ak, k_s, kc);
+          frag_a(av, v_s, kc);
+        }
+#pragma unroll
+        for (int np = 0; np < kQn / 16; ++np) {
+          const int at = (qc0 + np * 16 + (lane & 7) + (lane >> 4) * 8) * kLd +
+                         kc * 16 + ((lane >> 3) & 1) * 8;
+          uint32_t bb[4];
+          mma::ldmatrix_x4(bb, qs + at);
+          mma::mma_bf16(s[2 * np], ak, bb[0], bb[1]);
+          mma::mma_bf16(s[2 * np + 1], ak, bb[2], bb[3]);
+          mma::ldmatrix_x4(bb, dos + at);
+          mma::mma_bf16(dp[2 * np], av, bb[0], bb[1]);
+          mma::mma_bf16(dp[2 * np + 1], av, bb[2], bb[3]);
+        }
+      }
+
+      // p^T = exp(s^T * scale - lse[query]) into s, ds^T into dp; the
+      // lane's query columns are qc0 + j * 8 + 2 t4 + e.
+      const bool diag = causal && qt == kt;
+#pragma unroll
+      for (int j = 0; j < kQn / 8; ++j) {
+        const int col = qc0 + j * 8 + 2 * t4;
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(dvs + col);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool keep = !diag || 16 * warp + g + 8 * half <= col + e;
+            const int i = 2 * half + e;
+            const float sv = keep ? s[j][i] * scale : kNegInf;
+            const float p = expf(sv - (e ? l2.y : l2.x));
+            s[j][i] = p;
+            dp[j][i] = p * (dp[j][i] - (e ? d2.y : d2.x)) * scale;
+          }
+      }
+
+      // dv += p^T dO, dk += ds^T q: the accumulator fragments of query
+      // n-tiles 2 kc and 2 kc + 1, rounded to bf16, are the A fragments of
+      // query chunk kc; dO's and q's rows [query][d] go through .trans.
+#pragma unroll
+      for (int kc = 0; kc < kQn / 16; ++kc) {
+        const uint32_t ap[4] = {
+            mma::pack_bf16x2(s[2 * kc][0], s[2 * kc][1]),
+            mma::pack_bf16x2(s[2 * kc][2], s[2 * kc][3]),
+            mma::pack_bf16x2(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+            mma::pack_bf16x2(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+        const uint32_t ad[4] = {
+            mma::pack_bf16x2(dp[2 * kc][0], dp[2 * kc][1]),
+            mma::pack_bf16x2(dp[2 * kc][2], dp[2 * kc][3]),
+            mma::pack_bf16x2(dp[2 * kc + 1][0], dp[2 * kc + 1][1]),
+            mma::pack_bf16x2(dp[2 * kc + 1][2], dp[2 * kc + 1][3])};
+#pragma unroll
+        for (int dn = 0; dn < D / 16; ++dn) {
+          const int at = (qc0 + kc * 16 + (lane & 15)) * kLd + dn * 16 +
+                         (lane >> 4) * 8;
+          uint32_t bb[4];
+          mma::ldmatrix_x4_trans(bb, dos + at);
+          mma::mma_bf16(dv_acc[2 * dn], ap, bb[0], bb[1]);
+          mma::mma_bf16(dv_acc[2 * dn + 1], ap, bb[2], bb[3]);
+          mma::ldmatrix_x4_trans(bb, qs + at);
+          mma::mma_bf16(dk_acc[2 * dn], ad, bb[0], bb[1]);
+          mma::mma_bf16(dk_acc[2 * dn + 1], ad, bb[2], bb[3]);
+        }
+      }
+    }
+  }
+
+  // MHA: dk/dv in bf16. GQA: float32 partials into slice h % group of the
+  // (2, group, B, S, Hkv, D) scratch, at the offset of the output element.
+  const size_t n = static_cast<size_t>(gridDim.x / H) * S * Hkv * D;
+  const int gi = h - kvh * group;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = k0 + 16 * warp + g + 8 * half;
+    const size_t off = ((static_cast<size_t>(b) * S + key) * Hkv + kvh) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const size_t e = off + j * 8 + 2 * t4;
+      if (part == nullptr) {
+        *reinterpret_cast<uint32_t*>(dk + e) =
+            mma::pack_bf16x2(dk_acc[j][2 * half], dk_acc[j][2 * half + 1]);
+        *reinterpret_cast<uint32_t*>(dv + e) =
+            mma::pack_bf16x2(dv_acc[j][2 * half], dv_acc[j][2 * half + 1]);
+      } else {
+        *reinterpret_cast<float2*>(part + gi * n + e) =
+            make_float2(dk_acc[j][2 * half], dk_acc[j][2 * half + 1]);
+        *reinterpret_cast<float2*>(part + (group + gi) * n + e) =
+            make_float2(dv_acc[j][2 * half], dv_acc[j][2 * half + 1]);
+      }
+    }
+  }
+}
+
+constexpr int kSumThreads = 256;
+constexpr int kSumVec = 4;  // floats a thread sums per slice (one float4)
+
+// dk and dv from the GQA scratch: element e of each is the sum of its
+// group slices g = 0..G-1 in that order, rounded once to bf16. Thread i
+// takes 4 elements: dk's for i < n4, dv's after.
+__global__ void __launch_bounds__(kSumThreads)
+    flash_bwd_dkv_group_sum_kernel(const float* __restrict__ part,
+                                   __nv_bfloat16* __restrict__ dk,
+                                   __nv_bfloat16* __restrict__ dv,
+                                   long long n4, int group) {
+  const long long i = static_cast<long long>(blockIdx.x) * kSumThreads + threadIdx.x;
+  if (i >= 2 * n4) return;
+  const int which = i >= n4;  // 0 = dk, 1 = dv
+  const long long e = i - which * n4;
+  const float4* src = reinterpret_cast<const float4*>(part) + which * group * n4 + e;
+  float4 acc = src[0];
+  for (int g = 1; g < group; ++g) {
+    const float4 x = src[g * n4];
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  const uint2 out = make_uint2(mma::pack_bf16x2(acc.x, acc.y),
+                               mma::pack_bf16x2(acc.z, acc.w));
+  *reinterpret_cast<uint2*>((which ? dv : dk) + kSumVec * e) = out;
+}
+
+// One launch of the main kernel `kern` on the wrapper's plan, which must be
+// its own (grid (rows, S / 64), its threads, its dynamic shared memory),
+// then under GQA in bf16 the group sum over `sum_blocks` blocks.
+template <typename T, typename Kernel>
+cudaError_t launch_kernel(Kernel kern, int rows, int threads, size_t smem,
+                          const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse, const void* dvec,
+                          void* dk, void* dv, void* part, int B, int S, int H,
+                          int Hkv, int D, int causal, const Plan& plan,
+                          int sum_blocks, cudaStream_t stream) {
+  if (!plan.is(rows, S / kTile, threads, smem)) return cudaErrorInvalidValue;
+  const long long n4 = static_cast<long long>(B) * S * Hkv * D / kSumVec;
+  const bool sum = std::is_same<T, __nv_bfloat16>::value && H > Hkv;
+  if ((part != nullptr) != sum ||
+      sum_blocks != (sum ? (2 * n4 + kSumThreads - 1) / kSumThreads : 0))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  const float scale = softmax_scale(D);
+  if constexpr (std::is_same<T, float>::value) {
+    kern<<<dim3(plan.grid_x, plan.grid_y), threads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(dvec),
+        static_cast<float*>(dk), static_cast<float*>(dv), S, H, Hkv, causal,
+        scale);
+  } else {
+    using bf16 = __nv_bfloat16;
+    kern<<<dim3(plan.grid_x, plan.grid_y), threads, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(dvec),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+        static_cast<float*>(part), S, H, Hkv, causal, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || !sum) return err;
+    flash_bwd_dkv_group_sum_kernel<<<sum_blocks, kSumThreads, 0, stream>>>(
+        static_cast<const float*>(part), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), n4, H / Hkv);
+  }
+  return cudaGetLastError();
+}
+
+// float32: k, v, q, dO tiles as float32, the p^T and ds^T tiles, 64 lse
+// and dvec values; bf16: the k and v tiles and two stages of q and dO as
+// bf16, two stages of 64 lse and 64 dvec values.
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* dvec,
-                   void* dk, void* dv, int B, int S, int H, int Hkv,
-                   int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-                      (4 * kTile * (D + 1) + 2 * kTile * kLdp + 2 * kTile);
-  auto kern = flash_bwd_dkv_kernel<T, D>;
-  cudaError_t err = allow_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * Hkv, S / kTile);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dvec),
-      static_cast<T*>(dk), static_cast<T*>(dv), S, H, Hkv, causal,
-      softmax_scale(D));
-  return cudaGetLastError();
+                   void* dk, void* dv, void* part, int B, int S, int H,
+                   int Hkv, int causal, const Plan& plan, int sum_blocks,
+                   cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value) {
+    return launch_kernel<float>(
+        flash_bwd_dkv_kernel<float, D>, B * Hkv, kThreads,
+        sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * kLdp + 2 * kTile),
+        q, k, v, dout, lse, dvec, dk, dv, part, B, S, H, Hkv, D, causal, plan,
+        sum_blocks, stream);
+  } else {
+    return launch_kernel<__nv_bfloat16>(
+        flash_bwd_dkv_bf16_kernel<D>, B * H, kMmaThreads,
+        sizeof(__nv_bfloat16) * 6 * kTile * (D + 8) + sizeof(float) * 4 * kTile,
+        q, k, v, dout, lse, dvec, dk, dv, part, B, S, H, Hkv, D, causal, plan,
+        sum_blocks, stream);
+  }
 }
 
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* dvec,
-                     void* dk, void* dv, int B, int S, int H, int Hkv, int D,
-                     int causal, cudaStream_t s) {
+                     void* dk, void* dv, void* part, int B, int S, int H,
+                     int Hkv, int D, int causal, const Plan& plan,
+                     int sum_blocks, cudaStream_t s) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, dout, lse, dvec, dk, dv, B, S, H, Hkv,
-                           causal, s);
+      return launch<T, 32>(q, k, v, dout, lse, dvec, dk, dv, part, B, S, H,
+                           Hkv, causal, plan, sum_blocks, s);
     case 64:
-      return launch<T, 64>(q, k, v, dout, lse, dvec, dk, dv, B, S, H, Hkv,
-                           causal, s);
+      return launch<T, 64>(q, k, v, dout, lse, dvec, dk, dv, part, B, S, H,
+                           Hkv, causal, plan, sum_blocks, s);
     case 128:
-      return launch<T, 128>(q, k, v, dout, lse, dvec, dk, dv, B, S, H, Hkv,
-                            causal, s);
+      return launch<T, 128>(q, k, v, dout, lse, dvec, dk, dv, part, B, S, H,
+                            Hkv, causal, plan, sum_blocks, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -206,28 +528,38 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, dout (B, S, H, D); k, v, dk, dv (B, S, Hkv, D); one type for all of
-// them: dtype 0 = float32, 1 = bfloat16. lse, dvec (B * H, S) float32. S a
-// multiple of 64, H a multiple of Hkv, D in {32, 64, 128}. Returns
-// cudaGetLastError().
+// them: dtype 0 = float32 (`flash_bwd_dkv_kernel`), 1 = bfloat16
+// (`flash_bwd_dkv_bf16_kernel`). lse, dvec (B * H, S) float32. S a
+// multiple of 64, H a multiple of Hkv, D in {32, 64, 128}. The plan is the
+// wrapper's `flash_bwd_plan`: grid (grid_x, grid_y) = (B * Hkv, S / 64)
+// for float32 and (B * H, S / 64) for bf16, threads 256 / 128, the
+// kernel's dynamic shared memory, and for bf16 with H > Hkv a float32
+// scratch `part` of 2 * (H / Hkv) * B * S * Hkv * D elements and
+// `sum_blocks` = ceil(2 * B * S * Hkv * D / 4 / 256) blocks of the group
+// sum (else part null and sum_blocks 0); any other plan is refused.
+// Returns cudaGetLastError().
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* dvec,
-                                    void* dk, void* dv, int B, int S, int H,
-                                    int Hkv, int D, int causal, int dtype,
+                                    void* dk, void* dv, void* part, int B,
+                                    int S, int H, int Hkv, int D, int causal,
+                                    int dtype, int grid_x, int grid_y,
+                                    int threads, int smem, int sum_blocks,
                                     void* stream) {
   if (B < 1 || S < kTile || S % kTile != 0 || Hkv < 1 || H % Hkv != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Plan plan{grid_x, grid_y, threads, smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dtype) {
-    case 0:
-      err = launch_d<float>(q, k, v, dout, lse, dvec, dk, dv, B, S, H, Hkv, D,
-                            causal, s);
+    case kDtypeF32:
+      err = launch_d<float>(q, k, v, dout, lse, dvec, dk, dv, part, B, S, H,
+                            Hkv, D, causal, plan, sum_blocks, s);
       break;
-    case 1:
-      err = launch_d<__nv_bfloat16>(q, k, v, dout, lse, dvec, dk, dv, B, S, H,
-                                    Hkv, D, causal, s);
+    case kDtypeBF16:
+      err = launch_d<__nv_bfloat16>(q, k, v, dout, lse, dvec, dk, dv, part, B,
+                                    S, H, Hkv, D, causal, plan, sum_blocks, s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -1,14 +1,20 @@
 // Pieces shared by the three flash-attention kernels (flash_fwd.cu,
 // flash_bwd_dq.cu, flash_bwd_dkv.cu).
 //
-// Every kernel works on 64 x 64 tiles with 256 threads laid out as a
-// 16 x 16 grid: thread (ty, tx) owns tile rows ty + 16 i (i < 4) and, of
-// a 64-wide logit tile, columns tx + 16 j (j < 4); of a (64, D) output
+// The float32 kernels (`flash_fwd_kernel`, `flash_bwd_dq_kernel`,
+// `flash_bwd_dkv_kernel`) work on 64 x 64 tiles with 256 threads laid out
+// as a 16 x 16 grid: thread (ty, tx) owns tile rows ty + 16 i (i < 4) and,
+// of a 64-wide logit tile, columns tx + 16 j (j < 4); of a (64, D) output
 // tile, columns tx + 16 j (j < D / 16). The 16 threads of one row group
 // are the 16 low lanes or the 16 high lanes of one warp, so a row
 // reduction is four xor-shuffles. Tiles are staged in shared memory as
-// float32 whatever the input type (bf16 values are exact in float32), and
-// every product is a float32 FMA.
+// float32 and every product is a float32 FMA (TF32 is off, so float32
+// cannot use the tensor cores).
+//
+// The bf16 kernels (`flash_fwd_bf16_kernel`, `flash_bwd_dq_bf16_kernel`,
+// `flash_bwd_dkv_bf16_kernel`) keep the 64-row tiles but run 128 threads,
+// 4 warps of 16 rows, on `mma.sync` (mma.cuh): tiles stay bf16 in shared
+// memory and the logits live in the products' accumulator fragments.
 //
 // Tensors are (B, S, NH, D) and contiguous; lse and dvec are (B * H, S)
 // float32.
@@ -28,6 +34,7 @@ constexpr int kTile = 64;      // query rows of a q tile, keys of a k/v tile
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kRows = 4;       // tile rows per thread
 constexpr int kCols = 4;       // logit columns per thread
+constexpr int kMmaThreads = 128;  // the bf16 kernels: 4 warps x 16 rows
 // Row stride of a (64, 64) logit tile in shared memory: the two row groups
 // of a warp (rows r and r + 1) then sit 16 banks apart, so neither the
 // stores of a tile nor the broadcast reads of a row conflict.
@@ -70,6 +77,17 @@ cudaError_t allow_smem(Kernel kern, size_t bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
+
+// The launch geometry the wrapper planned (`flash_bwd_plan` in
+// ops/flash_attention.py); the backward launch functions refuse a plan
+// that is not their kernel's own.
+struct Plan {
+  int grid_x, grid_y, threads, smem;
+  bool is(int gx, int gy, int th, size_t bytes) const {
+    return grid_x == gx && grid_y == gy && threads == th &&
+           static_cast<size_t>(smem) == bytes;
+  }
+};
 
 // The scale of the TPU kernels, 1 / sqrt(D) taken in double and rounded
 // once, as Python's 1.0 / d ** 0.5 times a float32 array.

@@ -39,8 +39,8 @@ KERNELS = {
     "conv_dw": ("conv_dw_launch", [_P] * 4 + [_I] * 13 + [_P]),
     "conv_gemm": ("conv_gemm_launch", [_P] * 3 + [_I] * 9 + [_P]),
     "flash_fwd": ("flash_fwd_launch", [_P] * 5 + [_I] * 7 + [_P]),
-    "flash_bwd_dq": ("flash_bwd_dq_launch", [_P] * 7 + [_I] * 7 + [_P]),
-    "flash_bwd_dkv": ("flash_bwd_dkv_launch", [_P] * 8 + [_I] * 7 + [_P]),
+    "flash_bwd_dq": ("flash_bwd_dq_launch", [_P] * 7 + [_I] * 11 + [_P]),
+    "flash_bwd_dkv": ("flash_bwd_dkv_launch", [_P] * 9 + [_I] * 12 + [_P]),
 }
 
 # The element types the float kernels take, and their dtype code in the C
@@ -94,18 +94,26 @@ def _finish_build(name: str, proc: subprocess.Popen, tmp: Path,
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(rc {proc.returncode}):\n{log}")
+    out.with_suffix(".ptxas.txt").write_text(log)
     os.replace(tmp, out)
     return log
+
+
+def _kept_log(name: str) -> str:
+    path = _lib_path(name).with_suffix(".ptxas.txt")
+    return path.read_text() if path.exists() else ""
 
 
 def build_all() -> dict:
     """Build every kernel that is not built yet, one `nvcc` per source,
     all started together. Returns {"seconds": wall time, "logs": {name:
-    nvcc output (register/shared-memory report)}}."""
+    nvcc output (register/shared-memory report), kept beside each library
+    so that one built earlier has it too}}."""
     t0 = time.perf_counter()
     started = {name: _start_build(name) for name in KERNELS}
-    logs = {name: _finish_build(name, *job)
-            for name, job in started.items() if job is not None}
+    logs = {name: (_finish_build(name, *job) if job is not None
+                   else _kept_log(name))
+            for name, job in started.items()}
     return {"seconds": time.perf_counter() - t0, "logs": logs}
 
 

@@ -21,15 +21,20 @@ import torch.nn.functional as F
 
 from ..models.layers import tree_leaves
 from ..models.transformer import TransformerLM
+from ..ops.flash_attention import HEAD_DIMS
 from ..ops.gemv import tree_map
 
 
 def pick_attn_impl(impl: str, seq_len: int,
-                   device: torch.device | str = "cuda") -> str:
+                   device: torch.device | str = "cuda",
+                   head_dim: int | None = None) -> str:
     """Resolve "auto": the flash kernels on a CUDA device whenever their
-    block constraint (S % 128 == 0) holds, the oracle on the CPU (where
-    the kernels' plain versions are full-matrix math, no faster than the
-    oracle) or for an unaligned S.
+    block constraint (S % 128 == 0) holds and they are built for the
+    model's `head_dim` (`HEAD_DIMS`; None = not known here), the oracle
+    on the CPU (where the kernels' plain versions are full-matrix math, no
+    faster than the oracle), for an unaligned S or for another head dim.
+    An explicit "flash" is returned as asked: the kernels then refuse a
+    head dim they are not built for.
 
     The reference routes float32 below S = 3072 to the oracle
     (`_F32_FLASH_MIN_SEQ`); that crossover was measured on a TPU v5e and
@@ -37,7 +42,8 @@ def pick_attn_impl(impl: str, seq_len: int,
     the card are the data for this card's own."""
     if impl != "auto":
         return impl
-    if torch.device(device).type != "cuda" or seq_len % 128:
+    if (torch.device(device).type != "cuda" or seq_len % 128
+            or (head_dim is not None and head_dim not in HEAD_DIMS)):
         return "oracle"
     return "flash"
 
@@ -107,7 +113,8 @@ def make_lm_train_step(model: TransformerLM, optimizer, *,
     loss, gradients, and the optimizer update in place on the state's
     params (the state dict itself is returned, updated). The loss stays
     on the device: reading it is the caller's host sync."""
-    impl = pick_attn_impl(attn_impl, seq_len or model.max_seq, device)
+    impl = pick_attn_impl(attn_impl, seq_len or model.max_seq, device,
+                          model.head_dim)
     attn_fn = get_attn_fn(impl)
 
     def step(state, tokens, targets):

@@ -115,7 +115,7 @@ class LMTrainer:
             weight_decay=cfg.weight_decay, grad_clip=cfg.grad_clip)
         self._compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         self.attn_impl = pick_attn_impl(cfg.attn_impl, cfg.seq_len,
-                                        self.device)
+                                        self.device, self.model.head_dim)
         self.train_step = make_lm_train_step(
             self.model, self.optimizer, attn_impl=self.attn_impl,
             seq_len=cfg.seq_len, device=self.device,

@@ -1,0 +1,162 @@
+"""The launch plan of the flash backward kernels K8 (dq) and K9 (dk/dv)
+(`flash_attention.flash_bwd_plan`, which `flash_bwd_dq` and
+`flash_bwd_dkv` hand to `csrc/flash_bwd_dq.cu` and `csrc/flash_bwd_dkv.cu`),
+at every attention shape the port launches them at: chip_smoke.py's
+kernel cases (the LM flagship, GQA 8/2, bf16 at D 32, D 128 and
+non-causal), the LM phases' model (`lm`, `lm-bench`, `lm_profile`,
+`lm_agree`) in float32 and bf16, and every head dim the kernels are built
+for in both types.
+
+At each, the plan must:
+- cover every (batch, query head, 64-row query tile) exactly once by K8;
+- cover every (batch, query head, 64-key tile) exactly once by K9, and
+  under bf16 GQA write every (group slice, batch, key, kv head) of the
+  scratch once and have the group sum cover every (dk or dv, batch, key,
+  kv head, d) once;
+- stay within the grid limits, the threads a block may have and 227 KB
+  of shared memory;
+- hold a scratch only for K9 in bf16 with H > Hkv.
+
+The block-to-tile maps below are the kernels' own (`blockIdx` decoding in
+the two sources). CPU only: the plan is plain Python; the kernels are held
+to their plain versions on the card by chip_smoke.py.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from mpi_cuda_cnn_tpu_torch.ops import flash_attention as fa
+from mpi_cuda_cnn_tpu_torch.train import lm_bench
+from mpi_cuda_cnn_tpu_torch.utils.config import parse_lm_args
+
+SMEM_LIMIT = 227 * 1024            # a block's shared memory on the H100
+GRID_X_MAX, GRID_Y_MAX = 2 ** 31 - 1, 65535
+TILE = 64
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _lm_shape(b: int, s: int, dim: int, heads: int, kv_heads: int):
+    return (b, s, heads, kv_heads or heads, dim // heads)
+
+
+def _shapes() -> dict:
+    """name -> (dtype, B, S, H, Hkv, D)."""
+    out = {}
+    for dtype, b, s, h, hkv, d in chip_smoke.FLASH_SHAPES:
+        out[f"chip_smoke {dtype} B{b} H{h}/{hkv} D{d}"] = (dtype, b, s, h, hkv, d)
+    for dtype, b, s, h, hkv, d, causal in chip_smoke.FLASH_EXTRA_SHAPES:
+        out[f"chip_smoke {dtype} B{b} H{h}/{hkv} D{d} causal={causal}"] = (
+            dtype, b, s, h, hkv, d)
+    cfg = parse_lm_args(chip_smoke.LM_MODEL_ARGS)
+    bench = lm_bench._parser().parse_args([])
+    for dtype in DTYPES:
+        out[f"lm {dtype}"] = (dtype, *_lm_shape(
+            cfg.batch_size, cfg.seq_len, cfg.dim, cfg.heads, cfg.kv_heads))
+        out[f"lm-bench {dtype}"] = (dtype, *_lm_shape(
+            bench.batch, bench.seq, bench.dim, bench.heads, bench.kv_heads))
+        for d in fa.HEAD_DIMS:
+            out[f"{dtype} GQA D{d}"] = (dtype, 2, 1024, 4, 2, d)
+            out[f"{dtype} MHA D{d}"] = (dtype, 1, 256, 2, 2, d)
+    return out
+
+
+SHAPES = _shapes()
+
+
+def _check_limits(plan: fa.FlashBwdPlan) -> None:
+    assert 1 <= plan.grid_x <= GRID_X_MAX and 1 <= plan.grid_y <= GRID_Y_MAX
+    assert plan.threads % 32 == 0 and 0 < plan.threads <= 1024
+    assert 0 < plan.smem_bytes <= SMEM_LIMIT
+    assert plan.sum_blocks == 0 or plan.sum_blocks <= GRID_X_MAX
+
+
+@pytest.mark.parametrize("name", SHAPES)
+def test_dq_plan_covers_every_query_tile_once(name):
+    dtype, b, s, h, hkv, d = SHAPES[name]
+    plan = fa.flash_bwd_plan("dq", b, s, h, hkv, d, DTYPES[dtype])
+    _check_limits(plan)
+    assert plan.scratch is None and plan.sum_blocks == 0
+    assert plan.threads == (256 if dtype == "float32" else 128)
+    # block (x, y): bh = x -> (x // H, x % H); q tile grid_y - 1 - y
+    x, y = np.meshgrid(np.arange(plan.grid_x), np.arange(plan.grid_y),
+                       indexing="ij")
+    bb, hh, qt = x // h, x % h, plan.grid_y - 1 - y
+    assert (bb < b).all() and (qt >= 0).all() and (qt < s // TILE).all()
+    cover = np.zeros((b, h, s // TILE), np.int64)
+    np.add.at(cover, (bb, hh, qt), 1)
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("name", SHAPES)
+def test_dkv_plan_covers_every_key_tile_once(name):
+    dtype, b, s, h, hkv, d = SHAPES[name]
+    group = h // hkv
+    plan = fa.flash_bwd_plan("dkv", b, s, h, hkv, d, DTYPES[dtype])
+    _check_limits(plan)
+    x, kt = np.meshgrid(np.arange(plan.grid_x), np.arange(plan.grid_y),
+                        indexing="ij")
+    cover = np.zeros((b, h, s // TILE), np.int64)
+    if dtype == "float32":
+        # one block per (batch, kv head): it loops over the group's heads
+        assert plan.threads == 256
+        assert plan.scratch is None and plan.sum_blocks == 0
+        bb, kvh = x // hkv, x % hkv
+        assert (bb < b).all()
+        for gi in range(group):
+            np.add.at(cover, (bb, kvh * group + gi, kt), 1)
+        assert (cover == 1).all()
+        return
+    # bf16: one block per (batch, query head), the split GQA group
+    assert plan.threads == 128
+    bb, hh = x // h, x % h
+    assert (bb < b).all() and (kt < s // TILE).all()
+    np.add.at(cover, (bb, hh, kt), 1)
+    assert (cover == 1).all()
+    if group == 1:
+        assert plan.scratch is None and plan.sum_blocks == 0
+        return
+    assert plan.scratch == (2, group, b, s, hkv, d)
+    # each block writes its 64 keys of slice h % G at kv head h // G
+    written = np.zeros((group, b, s // TILE, hkv), np.int64)
+    np.add.at(written, (hh % group, bb, kt, hh // group), 1)
+    assert (written == 1).all()
+    # the group sum: thread i < 2 n4 sums 4 floats of dk (i < n4) or dv
+    n = b * s * hkv * d
+    n4 = n // 4
+    i = np.arange(plan.sum_blocks * 256)
+    assert plan.sum_blocks * 256 >= 2 * n4 > (plan.sum_blocks - 1) * 256
+    i = i[i < 2 * n4]
+    which, e = i // n4, i % n4
+    summed = np.zeros((2, n), np.int64)
+    for lane in range(4):
+        np.add.at(summed, (which, 4 * e + lane), 1)
+    summed = summed.reshape(2, b, s, hkv, d)
+    assert (summed == 1).all()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_plan_shared_memory_is_the_kernels_layout(dtype, d):
+    """The bytes the sources stage: float32 q, dO, k, v tiles of (64, D +
+    1) floats and (64, 80) logit tiles (K8 ds; K9 p^T and ds^T and 64 lse
+    and dvec values); bf16 six (64, D + 8) tiles (K9 also two stages of 64
+    lse and dvec values)."""
+    dq = fa.flash_bwd_plan("dq", 1, 128, 2, 1, d, DTYPES[dtype])
+    dkv = fa.flash_bwd_plan("dkv", 1, 128, 2, 1, d, DTYPES[dtype])
+    if dtype == "float32":
+        assert dq.smem_bytes == 4 * (4 * 64 * (d + 1) + 64 * 80)
+        assert dkv.smem_bytes == 4 * (4 * 64 * (d + 1) + 2 * 64 * 80 + 128)
+    else:
+        assert dq.smem_bytes == 2 * 6 * 64 * (d + 8)
+        assert dkv.smem_bytes == 2 * 6 * 64 * (d + 8) + 4 * 4 * 64
+
+
+def test_plan_refuses_what_the_kernels_lack():
+    with pytest.raises(ValueError):
+        fa.flash_bwd_plan("fwd", 1, 128, 2, 1, 64, torch.float32)
+    with pytest.raises(ValueError):
+        fa.flash_bwd_plan("dq", 1, 128, 2, 1, 64, torch.float16)

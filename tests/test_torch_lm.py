@@ -164,6 +164,46 @@ def test_pick_attn_impl():
     assert pick_attn_impl("oracle", 2048, "cuda") == "oracle"
 
 
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 96, 128, 256])
+def test_pick_attn_impl_auto_follows_the_kernels_head_dims(head_dim, device):
+    """"auto" takes the flash kernels only for a head dim they are built
+    for (32, 64, 128), on a CUDA device; an explicit "flash" stays flash
+    (the kernels then refuse the head dim themselves)."""
+    built = head_dim in (32, 64, 128)
+    want = "flash" if device == "cuda" and built else "oracle"
+    assert pick_attn_impl("auto", 2048, device, head_dim) == want
+    assert pick_attn_impl("auto", 2048, device, head_dim=head_dim) == want
+    assert pick_attn_impl("flash", 2048, device, head_dim) == "flash"
+    assert pick_attn_impl("oracle", 2048, device, head_dim) == "oracle"
+
+
+def test_lm_callers_pass_the_model_head_dim(monkeypatch):
+    """Both callers of pick_attn_impl hand it the model's head dim:
+    `lm --dim 256 --heads 16` (head dim 16) must not resolve "auto" to
+    kernels that are not built for it."""
+    import mpi_cuda_cnn_tpu_torch.train.lm as lm_mod
+    import mpi_cuda_cnn_tpu_torch.train.lm_trainer as trainer_mod
+
+    seen = []
+
+    def spy(impl, seq_len, device="cuda", head_dim=None):
+        seen.append(head_dim)
+        return pick_attn_impl(impl, seq_len, device, head_dim)
+
+    monkeypatch.setattr(lm_mod, "pick_attn_impl", spy)
+    monkeypatch.setattr(trainer_mod, "pick_attn_impl", spy)
+    trainer = LMTrainer(parse_lm_args(TINY))   # dim 32 over 2 heads
+    assert trainer.attn_impl == "oracle"     # the CPU
+    assert seen == [16, 16]
+    seen.clear()
+    model = TransformerLM(vocab=64, dim=256, heads=16, depth=1, max_seq=128)
+    opt = make_optimizer(1e-3, opt="adamw", schedule="constant")
+    make_lm_train_step(model, opt, attn_impl="auto", seq_len=128,
+                       device="cpu")
+    assert seen == [16]
+
+
 # ---------------------------------------------------------------------------
 # AdamW and SGD against optax
 # ---------------------------------------------------------------------------
