@@ -13,9 +13,10 @@ exits non-zero without the final line:
             one nvcc each, all started together); seconds taken, ptxas
             registers, and each library's tensor-core instruction count
             (`HMMA` lines of `cuobjdump -sass`), which must be above 0
-            for the mma.sync kernels (conv_direct, flash_fwd,
-            flash_bwd_dq, flash_bwd_dkv); the bf16 flash backward
-            kernels at D 64 must show no ptxas spill stores.
+            for the mma.sync kernels (conv_direct, conv_dw, conv_gemm,
+            flash_fwd, flash_bwd_dq, flash_bwd_dkv); the bf16 flash
+            backward kernels at D 64 and every bf16 instance of
+            conv_gemm and conv_dw must show no ptxas spill stores.
 3. kernels  each kernel against its plain PyTorch version on the card
             at the shapes its path gives it (one `kernel_case` line per
             shape): max error against the stated tolerance (bf16 flash
@@ -27,7 +28,10 @@ exits non-zero without the final line:
             reference_cnn's batch-32 step, in float32 and bf16: the GEMM
             (K3) at its 9 products, the direct conv (K4) at both
             forwards and at conv2's input gradient (K4'), the conv
-            weight gradient (K5) at both convs; K4 also at conv-bench's
+            weight gradient (K5) at both convs and at conv-bench's four
+            stride-1 rows (batch 128: vgg_small's and cifar3conv's
+            layers), run twice at conv2 and at the 32x32x64 row and
+            held equal bit for bit; K4 also at conv-bench's
             second layer's input gradient (K4' at 128x32x32x64) and at a
             ragged stride-2 forward with one-sided pads. conv-bench's four
             stride-1 shapes, in float32 and bf16: the implicit-GEMM conv
@@ -86,7 +90,8 @@ exits non-zero without the final line:
             compute, flash against the oracle, per leaf.
 
 Then `nvidia-smi`'s name and power limit, the kernels line
-({"kernels": [...]}, launches of K1/K2 from the serve phase, of
+({"kernels": [...]}, each source's C launch function and `__global__`
+kernels; launches of K1/K2 from the serve phase, of
 K3/K4/K5 from the train phase, of K6 from conv_bench and of K7/K8/K9
 from the lm phase) and,
 last, the device line {"ok": true, "device": {...}}. Without a CUDA
@@ -138,19 +143,23 @@ GEMM_RTOL_OF_MAX = 1e-4
 HEADS, KV_HEADS, HEAD_DIM, PAGE, TABLE_PAGES = 8, 2, 64, 16, 80
 # The kernels built on mma.sync: their libraries must hold tensor-core
 # instructions (HMMA in the SASS).
-TENSOR_CORE_KERNELS = ("conv_direct", "flash_fwd", "flash_bwd_dq",
-                       "flash_bwd_dkv")
+TENSOR_CORE_KERNELS = ("conv_direct", "conv_dw", "conv_gemm", "flash_fwd",
+                       "flash_bwd_dq", "flash_bwd_dkv")
 # Kernel instances whose ptxas report must show no spill stores: the bf16
-# flash backward at the flagship's head dim (64). (library, mangled-name
-# fragment)
+# flash backward at the flagship's head dim (64), and every bf16 instance
+# of the implicit-GEMM conv and of the weight gradient. (library,
+# mangled-name fragment)
 NO_SPILL = (("flash_bwd_dq", "flash_bwd_dq_bf16_kernelILi64E"),
-            ("flash_bwd_dkv", "flash_bwd_dkv_bf16_kernelILi64E"))
+            ("flash_bwd_dkv", "flash_bwd_dkv_bf16_kernelILi64E"),
+            ("conv_gemm", "conv_gemm_kernelI13__nv_bfloat16"),
+            ("conv_dw", "conv_dw_kernelI13__nv_bfloat16"))
 GEMM_SHAPES = [(512, 512), (512, 256), (512, 2048), (2048, 512), (512, 8192)]
 
 # CNN kernels against their plain versions on the card. K3 and K4: both
 # sides sum up to 1,568 (K3) or 288 (K4) float32 products in other
-# orders, relative to the output's magnitude. K5: sums over up to 6,272
-# pixels (conv1 at batch 32), relative to max|dW|. K6: sums of up to
+# orders, relative to the output's magnitude. K5: sums over up to 131,072
+# pixels (conv-bench's 32 x 32 rows at batch 128; 6,272 at reference_cnn's
+# conv1), relative to max|dW|. K6: sums of up to
 # 1,152 float32 products (k3 over 128 channels), relative to max|y|.
 CNN_GEMM_RTOL_OF_MAX = 1e-5
 CONV_RTOL_OF_MAX = 1e-5
@@ -179,6 +188,16 @@ CNN_DTYPES = ("float32", "bfloat16")
 # edge mask of the tile.
 CONV_EXTRA = [("input_grad", 128, 32, 32, 64, 64, 3, 1, (1, 1, 1, 1), 1, True),
               ("forward", 8, 15, 15, 24, 40, 3, 2, (1, 0, 1, 0), 1, False)]
+# K5's weight gradients, (n, h, w, cin, cout, stride, padding), k3:
+# reference_cnn's two convs at batch 32 (s2 p1), then conv-bench's four
+# stride-1 rows at batch 128, which are vgg_small's and cifar3conv's
+# layers (s1 p1). K5 runs twice at DW_REPEAT's shapes, whose two dw must
+# be equal bit for bit (the sum over pixel chunks has a fixed order).
+DW_SHAPES = ([(CNN_BATCH, h, w, cin, cout, 2, 1)
+              for (h, w, cin, cout) in CONV_SHAPES]
+             + [(128, 32, 32, 3, 64, 1, 1), (128, 32, 32, 64, 64, 1, 1),
+                (128, 16, 16, 64, 128, 1, 1), (128, 8, 8, 128, 256, 1, 1)])
+DW_REPEAT = ((CNN_BATCH, 14, 14, 16, 32, 2, 1), (128, 32, 32, 64, 64, 1, 1))
 # The train phase: steps of the measured epoch, launches per training
 # step and per eval batch (eval batch 2,048: 5 batches for 10,000).
 TRAIN_ARGS = ["--use-kernels", "--num-train", "60000", "--num-test", "10000",
@@ -653,33 +672,42 @@ def conv_direct_extra_case(torch, dev, role: str, n: int, h: int, w: int,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def conv_dw_case(torch, dev, h: int, w: int, cin: int, cout: int,
-                 gen, dtype: str) -> dict:
-    """K5 in reference_cnn's step: the weight gradient of a k3 s2 p1
-    conv over a batch of 32."""
+def conv_dw_case(torch, dev, n: int, h: int, w: int, cin: int, cout: int,
+                 stride: int, pad: int, gen, dtype: str) -> dict:
+    """K5, the weight gradient of a k3 conv x (n, h, w, cin) -> g (n, oh,
+    ow, cout) at the given stride and padding; at DW_REPEAT's shapes run
+    twice, the two results held equal bit for bit."""
     from mpi_cuda_cnn_tpu_torch.ops.kernel_ops import conv_dw, conv_dw_plain
 
     tdt = getattr(torch, dtype)
-    oh, ow = (h + 2 - 3) // 2 + 1, (w + 2 - 3) // 2 + 1
-    x = torch.rand(CNN_BATCH, h, w, cin, generator=gen).to(dev).to(tdt)
-    g = torch.randn(CNN_BATCH, oh, ow, cout, generator=gen).to(dev).to(tdt)
-    kw = dict(stride=2, padding=1, kh=3, kw=3)
+    oh, ow = (h + 2 * pad - 3) // stride + 1, (w + 2 * pad - 3) // stride + 1
+    x = torch.rand(n, h, w, cin, generator=gen).to(dev).to(tdt)
+    g = torch.randn(n, oh, ow, cout, generator=gen).to(dev).to(tdt)
+    kw = dict(stride=stride, padding=pad, kh=3, kw=3)
     got = conv_dw(x, g, **kw)
     want = conv_dw_plain(x, g, **kw)
-    errs = check_case(torch, f"conv_dw {dtype} {h}x{w}x{cin}->{cout}", got,
-                      want, CONV_DW_RTOL_OF_MAX)
+    errs = check_case(torch, f"conv_dw {dtype} {n}x{h}x{w}x{cin}->{cout} "
+                      f"s{stride}", got, want, CONV_DW_RTOL_OF_MAX)
+    repeat = {}
+    if (n, h, w, cin, cout, stride, pad) in DW_REPEAT:
+        again = conv_dw(x, g, **kw)
+        if not torch.equal(got, again):
+            raise AssertionError(f"conv_dw {dtype} {n}x{h}x{w}x{cin}->{cout}: "
+                                 f"two runs differ by "
+                                 f"{(got.float() - again.float()).abs().max().item()}")
+        repeat = {"bitwise_repeat": True}
     x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-    taps = valid_taps(h, oh, 3, 2, 1) * valid_taps(w, ow, 3, 2, 1)
+    taps = (valid_taps(h, oh, 3, stride, pad) * valid_taps(w, ow, 3, stride, pad))
     nbytes = got.element_size() * (x.numel() + g.numel() + got.numel())
-    bound_ms, bound_by = bound(nbytes, 2 * CNN_BATCH * taps * cin * cout,
-                               PEAK[dtype])
+    bound_ms, bound_by = bound(nbytes, 2 * n * taps * cin * cout, PEAK[dtype])
     return {"kernel": "conv_dw", "dtype": dtype, "role": "weight_grad",
-            "N": CNN_BATCH, "H": h, "W": w, "C": cin, "O": cout, "OH": oh,
-            "OW": ow, **errs,
+            "N": n, "H": h, "W": w, "C": cin, "O": cout, "OH": oh, "OW": ow,
+            "stride": stride, **errs, **repeat,
             "ms": median_ms(torch, lambda: conv_dw(x, g, **kw)),
             "plain_ms": median_ms(torch, lambda: conv_dw_plain(x, g, **kw)),
             "library_ms": median_ms(torch, lambda: torch.nn.grad.conv2d_weight(
-                x_nchw, (cout, cin, 3, 3), g_nchw, stride=2, padding=1)),
+                x_nchw, (cout, cin, 3, 3), g_nchw, stride=stride,
+                padding=pad)),
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -877,7 +905,7 @@ def phase_cnn_kernels(torch, dev, gen):
         # conv1's input needs no gradient
         runs.append((conv_direct_case, ("input_grad", *CONV_SHAPES[1])))
         runs += [(conv_direct_extra_case, geom) for geom in CONV_EXTRA]
-        runs += [(conv_dw_case, shape) for shape in CONV_SHAPES]
+        runs += [(conv_dw_case, shape) for shape in DW_SHAPES]
         runs += [(bench_conv_case, (kernel, shape))
                  for kernel in ("conv_direct", "conv_gemm")
                  for shape in SHAPES if shape[6] == 1]
@@ -1542,6 +1570,7 @@ def kernels_line(cases: list[dict], launches: dict) -> dict:
         r = next(c for c in mine if rep(c))
         summary.append({
             "name": name, "route": "cuda", "source": src,
+            "entry_points": entry_points(src),
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -1551,6 +1580,14 @@ def kernels_line(cases: list[dict], launches: dict) -> dict:
                                         "dout", "role", "M", "K", "S", "H",
                                         "Hkv", "D", "W", "C", "O") if k in r}})
     return {"kernels": summary}
+
+
+def entry_points(src: str) -> list[str]:
+    """The C launch function and the __global__ kernels of a source."""
+    text = (HERE / src).read_text()
+    return (re.findall(r'extern "C" int (\w+)\(', text)
+            + re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                         r"(\w+)\s*\(", text))
 
 
 def _f32(case: dict) -> bool:

@@ -36,8 +36,8 @@ KERNELS = {
     "int8_gemm": ("int8_gemm_launch", [_P] * 4 + [_I] * 3 + [_P]),
     "gemm": ("gemm_launch", [_P] * 5 + [_I] * 8 + [_P]),
     "conv_direct": ("conv_direct_launch", [_P] * 3 + [_I] * 19 + [_P]),
-    "conv_dw": ("conv_dw_launch", [_P] * 4 + [_I] * 13 + [_P]),
-    "conv_gemm": ("conv_gemm_launch", [_P] * 3 + [_I] * 9 + [_P]),
+    "conv_dw": ("conv_dw_launch", [_P] * 5 + [_I] * 22 + [_P]),
+    "conv_gemm": ("conv_gemm_launch", [_P] * 3 + [_I] * 19 + [_P]),
     "flash_fwd": ("flash_fwd_launch", [_P] * 5 + [_I] * 7 + [_P]),
     "flash_bwd_dq": ("flash_bwd_dq_launch", [_P] * 7 + [_I] * 11 + [_P]),
     "flash_bwd_dkv": ("flash_bwd_dkv_launch", [_P] * 9 + [_I] * 12 + [_P]),

@@ -14,10 +14,14 @@ accumulating in float32 and rounding once to that type at the store:
   on FMA) whose tiles `conv_direct_plan` picks. Replaces `_conv1` with
   its phase split (`_conv_forward`), and is also the transposed conv of
   the input gradient (K4').
-- K5 `conv_dw` (`csrc/conv_dw.cu`): the conv weight gradient, a
-  deterministic two-pass sum over pixels. Replaces `_conv1_dw`/`_conv_dw`.
-- K6 `conv_gemm` (`csrc/conv_gemm.cu`): the stride-1 implicit-GEMM conv,
-  its patch tile built in shared memory only. Replaces `_conv1_gemm`.
+- K5 `conv_dw` (`csrc/conv_dw.cu`): the conv weight gradient as the
+  transposed product dw = P^T g over pixel chunks (bf16 on the tensor
+  cores), summed across chunks in a fixed order, whose tiles
+  `conv_dw_plan` picks. Replaces `_conv1_dw`/`_conv_dw`.
+- K6 `conv_gemm` (`csrc/conv_gemm.cu`): the stride-1 implicit-GEMM conv
+  over one halo tile of x in shared memory, the patch matrix never
+  stored (bf16 on the tensor cores), whose tiles `conv_gemm_plan` picks.
+  Replaces `_conv1_gemm`.
 
 `dense_kernel`, `conv2d_kernel` and `conv2d_gemm_kernel` are the
 `torch.autograd.Function`s over them, the twins of `dense_pallas`,
@@ -47,12 +51,20 @@ _GEMM_DEPTH = 32      # K slice of the GEMM kernel; kchunk is a multiple
 _GEMM_TILE = 32       # output tile edge
 _SPLIT_MIN_K = 128    # split K only into slices at least this deep
 _SPLIT_BLOCKS = 128   # aim for about this many blocks (132 SMs)
-_DW_CHUNK = 64        # pixels per block in K5's first pass
 _DW_MAX_PARTIAL = 1 << 24  # floats of K5 scratch before chunks grow
+_DW_ONE_PASS_MAX = 1 << 17  # K5: partials one block may sum at its end
+_DW_MAX_TAPS = 9      # K5: taps of an output tile (its accumulators)
+_DW_STAGES = {2: 3, 4: 2}  # K5: pixel tiles in shared memory, by itemsize
 _CONV_BM = 128        # K4: output pixels of a block tile (128 threads)
 _CONV_MAX_BN = {2: 128, 4: 64}  # K4: widest channel tile, by element size
 _CONV_STAGES = 3      # K4: K slices in shared memory
 _SMS = 132            # H100 SXM streaming multiprocessors
+_SMEM_LIMIT = 227 * 1024    # a block's shared memory on the H100
+_TILE_PIXELS = 128    # K5, K6: output pixels of a tile (128 threads)
+_GEMM_STAGES = 4      # K6: weight slices in shared memory
+_GEMM_STEP_ROWS = {2: 32, 4: 16}  # K6: weight rows a stage holds, by itemsize
+_GEMM_SMEM_TARGET = 100 * 1024  # K6: halo slice sized for two blocks an SM
+_GEMM_BNS = {2: (64, 128), 4: (32, 64)}  # K6: channel tiles by itemsize
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -338,22 +350,161 @@ def conv_dw_plain(x: torch.Tensor, g: torch.Tensor, *, stride: int,
     return torch.stack(rows).reshape(kh, kw, c, o).to(x.dtype)
 
 
-def conv_dw_chunk(pixels: int, nout: int) -> int:
-    """Pixels per block of K5's first pass: _DW_CHUNK, grown where the
-    partial sums (chunks x outputs) would pass _DW_MAX_PARTIAL floats."""
-    chunks = max(1, min(-(-pixels // _DW_CHUNK), _DW_MAX_PARTIAL // nout))
-    return -(-pixels // chunks)
+def pixel_tile(n: int, oh: int, ow: int) -> tuple[int, int, int]:
+    """The output-pixel tile of K5 and K6: (images, rows, columns) of at
+    most _TILE_PIXELS pixels. Whole images where one fits (several at a
+    time), else whole rows, else a run of one row."""
+    if oh * ow <= _TILE_PIXELS:
+        return min(n, _TILE_PIXELS // (oh * ow)), oh, ow
+    if ow <= _TILE_PIXELS:
+        return 1, _TILE_PIXELS // ow, ow
+    return 1, 1, _TILE_PIXELS
+
+
+def halo_extent(th: int, tw: int, kh: int, kw: int,
+                stride: int) -> tuple[int, int]:
+    """Rows and columns of x under a th x tw output tile: the tile's
+    windows with the kernel's border."""
+    return stride * (th - 1) + kh, stride * (tw - 1) + kw
+
+
+def _shrink(ni: int, th: int, tw: int) -> tuple[int, int, int]:
+    """The next smaller tile, where a halo does not fit shared memory."""
+    if ni > 1:
+        return ni // 2, th, tw
+    if th > 1:
+        return ni, th // 2, tw
+    if tw > 1:
+        return ni, th, tw // 2
+    raise ValueError("no tile of one pixel fits shared memory")
+
+
+def _grid_of(n: int, oh: int, ow: int, ni: int, th: int, tw: int) -> int:
+    return -(-n // ni) * -(-oh // th) * -(-ow // tw)
+
+
+def _refuse_misaligned(name: str, **ptrs: int | None) -> None:
+    """ValueError unless each operand given (None: copied element-wise)
+    is 16-byte aligned."""
+    for operand, ptr in ptrs.items():
+        if ptr is not None and ptr % 16:
+            raise ValueError(f"{name}: {operand} (0x{ptr:x}) must be 16-byte "
+                             "aligned for the 16-byte copies this geometry "
+                             "takes; pass a fresh tensor, not an offset view")
+
+
+class ConvDwPlan(NamedTuple):
+    """K5's launch plan. Pixel tiles of ni images x th x tw output pixels;
+    an output tile of up to _DW_MAX_TAPS taps x cs channels (of C padded
+    to cp) x bn output channels; grid_m pixel chunks of tiles_per_chunk
+    tiles each, by grid_n output tiles. `x_vec`, `g_vec`: 16-byte copies
+    of x, of g. `one_pass`: the last block of an output tile sums the
+    chunks' partials (a counter per output tile), else a second kernel
+    does; `scratch` float32 partials (0 for one chunk); `smem_bytes` the
+    kernel's dynamic shared memory."""
+    ni: int
+    th: int
+    tw: int
+    cs: int
+    cp: int
+    bn: int
+    taps: int
+    x_vec: bool
+    g_vec: bool
+    tiles_per_chunk: int
+    grid_m: int
+    grid_n: int
+    one_pass: bool
+    scratch: int
+    smem_bytes: int
+
+
+def _dw_smem(ni: int, th: int, tw: int, kh: int, kw: int, stride: int,
+             cs: int, bn: int, itemsize: int) -> int:
+    """The decode tables (two of _TILE_PIXELS ints, one int a halo pixel,
+    rounded up to 16 bytes), then _DW_STAGES[itemsize] stages of (x halo
+    [pixels][cs + 16 bytes], g tile [_TILE_PIXELS][bn + 16 bytes])."""
+    hh, hw = halo_extent(th, tw, kh, kw, stride)
+    pad = 16 // itemsize
+    stage = (ni * hh * hw * (cs + pad) + _TILE_PIXELS * (bn + pad)) * itemsize
+    tables = 4 * (2 * _TILE_PIXELS + -(-(ni * hh * hw) // 4) * 4)
+    return tables + _DW_STAGES[itemsize] * stage
+
+
+def conv_dw_plan(n: int, h: int, w: int, c: int, o: int, kh: int, kw: int,
+                 oh: int, ow: int, stride: int, *, itemsize: int, x_ptr: int,
+                 g_ptr: int) -> ConvDwPlan:
+    """The tile plan of `csrc/conv_dw.cu` for the weight gradient (kh, kw,
+    c, o) of x (n, h, w, c) -> g (n, oh, ow, o).
+
+    The output tile: bf16 16 channels x 64 (one m16 tile a tap, each warp
+    16 of the 64); float32 16 x 64 where c >= 16 and o >= 64, else 4 x 32
+    (a narrow register tile for the latency-bound shapes). Pixel chunks:
+    enough for two blocks on each SM, grown while the partials pass
+    _DW_MAX_PARTIAL floats. One pass where an output tile's partials are
+    at most _DW_ONE_PASS_MAX floats. x_vec (16-byte copies of x) needs c
+    to be a multiple of a 16-byte chunk, g_vec o; where either holds, that
+    operand must be 16-byte aligned, else ValueError."""
+    if itemsize not in (2, 4):
+        raise ValueError(f"conv_dw_plan: itemsize {itemsize}")
+    chunk = 16 // itemsize
+    if itemsize == 2 or (c >= 16 and o >= 64):
+        cs, bn = 16, 64
+    else:
+        cs, bn = 4, 32
+    cp = -(-c // cs) * cs
+    ni, th, tw = pixel_tile(n, oh, ow)
+    while _dw_smem(ni, th, tw, kh, kw, stride, cs, bn, itemsize) > _SMEM_LIMIT:
+        ni, th, tw = _shrink(ni, th, tw)
+    x_vec, g_vec = c % chunk == 0, o % chunk == 0
+    _refuse_misaligned("conv_dw", x=x_ptr if x_vec else None,
+                       g=g_ptr if g_vec else None)
+    taps = min(kh * kw, _DW_MAX_TAPS)
+    grid_n = -(-(kh * kw) // taps) * (cp // cs) * -(-o // bn)
+    ntiles = _grid_of(n, oh, ow, ni, th, tw)
+    nout = kh * kw * c * o
+    chunks = min(ntiles, max(1, -(-2 * _SMS // grid_n)),
+                 max(1, _DW_MAX_PARTIAL // nout))
+    tpc = -(-ntiles // chunks)
+    grid_m = -(-ntiles // tpc)
+    tile_out = taps * min(cs, c) * min(bn, o)
+    one_pass = grid_m * tile_out <= _DW_ONE_PASS_MAX
+    scratch = grid_m * nout if grid_m > 1 else 0
+    return ConvDwPlan(ni, th, tw, cs, cp, bn, taps, x_vec, g_vec, tpc, grid_m,
+                      grid_n, one_pass, scratch,
+                      _dw_smem(ni, th, tw, kh, kw, stride, cs, bn, itemsize))
+
+
+# One int32 counter per K5 output tile and device, zero between launches:
+# the last block of a tile resets its own, so launches on one device must
+# not overlap (the port launches on PyTorch's current stream only).
+_dw_counters: dict[torch.device, torch.Tensor] = {}
+
+
+def _dw_counter_buffer(device: torch.device, count: int) -> torch.Tensor:
+    buf = _dw_counters.get(device)
+    if buf is None or buf.numel() < count:
+        buf = torch.zeros(max(count, 256), dtype=torch.int32, device=device)
+        _dw_counters[device] = buf
+    return buf
 
 
 def conv_dw(x: torch.Tensor, g: torch.Tensor, *, stride: int, padding: int,
             kh: int, kw: int) -> torch.Tensor:
     """Weight gradient (KH, KW, C, O) of the conv x (N, H, W, C) ->
     g (N, OH, OW, O) with the given stride and symmetric padding. CUDA
-    tensors launch `csrc/conv_dw.cu` (two passes, one count); CPU tensors
-    take `conv_dw_plain`."""
+    tensors launch `csrc/conv_dw.cu` (one or two kernels, one count);
+    CPU tensors take `conv_dw_plain`."""
     if not x.is_cuda:
         return conv_dw_plain(x, g, stride=stride, padding=padding, kh=kh,
                              kw=kw)
+    return _conv_dw_cuda(x, g, stride=stride, padding=padding, kh=kh, kw=kw)
+
+
+def _conv_dw_cuda(x: torch.Tensor, g: torch.Tensor, *, stride: int,
+                  padding: int, kh: int, kw: int) -> torch.Tensor:
+    """conv_dw's launch: shapes, the tile plan (which refuses misaligned
+    operands), then the device checks and the kernel."""
     if x.dim() != 4 or g.dim() != 4 or x.shape[0] != g.shape[0]:
         raise ValueError(f"conv_dw: want NHWC x and g, got {tuple(x.shape)}, "
                          f"{tuple(g.shape)}")
@@ -363,15 +514,22 @@ def conv_dw(x: torch.Tensor, g: torch.Tensor, *, stride: int, padding: int,
         raise ValueError(f"conv_dw: g {tuple(g.shape)} is not the output of "
                          f"x {tuple(x.shape)} under k{kh}x{kw} s{stride} "
                          f"p{padding}")
+    plan = conv_dw_plan(n, h, wd, c, o, kh, kw, oh, ow, stride,
+                        itemsize=x.element_size(), x_ptr=x.data_ptr(),
+                        g_ptr=g.data_ptr())
     dtype = _check("conv_dw", x, g)
-    nout = kh * kw * c * o
-    chunk = conv_dw_chunk(n * oh * ow, nout)
-    nchunks = -(-(n * oh * ow) // chunk)
-    part = torch.empty((nchunks, nout), dtype=torch.float32, device=x.device)
+    part = (torch.empty(plan.scratch, dtype=torch.float32, device=x.device)
+            if plan.scratch else None)
+    counters = (_dw_counter_buffer(x.device, plan.grid_n)
+                if plan.scratch and plan.one_pass else None)
     dw = torch.empty((kh, kw, c, o), dtype=x.dtype, device=x.device)
     err = _kernels.lib("conv_dw")(
-        x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(), n, h, wd,
-        c, o, kh, kw, oh, ow, stride, padding, chunk, dtype, _stream(x))
+        x.data_ptr(), g.data_ptr(), None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(), dw.data_ptr(), n,
+        h, wd, c, o, kh, kw, oh, ow, stride, padding, plan.ni, plan.th,
+        plan.tw, plan.cs, plan.bn, int(plan.x_vec), int(plan.g_vec),
+        plan.tiles_per_chunk, plan.grid_m, int(plan.one_pass), dtype,
+        _stream(x))
     _kernels.check("conv_dw", err)
     _kernels.launches["conv_dw"] += 1
     return dw
@@ -398,6 +556,92 @@ def conv_gemm_plain(x: torch.Tensor, w: torch.Tensor, *,
     return y.to(x.dtype).reshape(n, oh, ow, o)
 
 
+class ConvGemmPlan(NamedTuple):
+    """K6's launch plan: a block per output tile of ni images x th x tw
+    pixels (at most _TILE_PIXELS) x bn output channels, grid_m x grid_n
+    blocks. The block holds the tile's x halo in shared memory, cs
+    channels (of C padded to cp) at a time, and steps through the weight
+    rows kc channels of one tap at a time. `x_vec`, `w_vec`: 16-byte
+    copies of x, of w; `smem_bytes` the kernel's dynamic shared memory."""
+    ni: int
+    th: int
+    tw: int
+    bn: int
+    x_vec: bool
+    w_vec: bool
+    cp: int
+    cs: int
+    kc: int
+    grid_m: int
+    grid_n: int
+    smem_bytes: int
+
+
+def _gemm_smem(ni: int, th: int, tw: int, kh: int, kw: int, cs: int,
+               bn: int, itemsize: int) -> int:
+    """The weight ring [_GEMM_STAGES][_GEMM_STEP_ROWS][bn + 16 bytes] and
+    the halo [pixels][cs + 16 bytes]."""
+    hh, hw = halo_extent(th, tw, kh, kw, 1)
+    pad = 16 // itemsize
+    return itemsize * (_GEMM_STAGES * _GEMM_STEP_ROWS[itemsize] * (bn + pad)
+                       + ni * hh * hw * (cs + pad))
+
+
+def _gemm_step(cs: int, itemsize: int) -> int:
+    """Channels of one k-step: in bf16 two m16n8k16 depths (32) where the
+    slice holds them, else one; in float32 the deepest of 16, 8, 4 that
+    divides the slice."""
+    steps = (32, 16) if itemsize == 2 else (16, 8, 4)
+    return next(k for k in steps if cs % k == 0)
+
+
+def conv_gemm_plan(n: int, h: int, w: int, c: int, o: int, kh: int, kw: int,
+                   padding: int, *, itemsize: int, x_ptr: int,
+                   w_ptr: int) -> ConvGemmPlan:
+    """The tile plan of `csrc/conv_gemm.cu` for the stride-1 conv of x (n,
+    h, w, c) with w (kh, kw, c, o) and symmetric padding.
+
+    The pixel tile is `pixel_tile`'s; C is padded with zeros to a whole
+    m16n8k16 depth (16) in bf16, to a 16-byte chunk (4) in float32. The
+    halo slice cs is the largest divisor of the padded C (a multiple of
+    the padding unit) whose shared memory stays under _GEMM_SMEM_TARGET,
+    else the smallest one, while it fits 227 KB; else the tile shrinks.
+    bn is the smallest of _GEMM_BNS that holds O, halved while the grid
+    has fewer blocks than the card has SMs. x_vec (16-byte copies of x)
+    needs C to be a multiple of a 16-byte chunk, w_vec O; where either
+    holds, that operand must be 16-byte aligned, else ValueError."""
+    if itemsize not in (2, 4):
+        raise ValueError(f"conv_gemm_plan: itemsize {itemsize}")
+    oh, ow = h + 2 * padding - kh + 1, w + 2 * padding - kw + 1
+    if oh < 1 or ow < 1:
+        raise ValueError(f"conv_gemm_plan: empty output {oh}x{ow}")
+    chunk = 16 // itemsize
+    unit = 16 if itemsize == 2 else 4
+    cp = -(-c // unit) * unit
+    bns = _GEMM_BNS[itemsize]
+    bn = next((b for b in bns if b >= o), bns[-1])
+    ni, th, tw = pixel_tile(n, oh, ow)
+    while True:
+        grid_m = _grid_of(n, oh, ow, ni, th, tw)
+        slices = [d for d in range(cp, 0, -unit) if cp % d == 0]
+        fits = [d for d in slices
+                if _gemm_smem(ni, th, tw, kh, kw, d, bns[-1], itemsize)
+                <= _GEMM_SMEM_TARGET]
+        cs = fits[0] if fits else slices[-1]
+        if _gemm_smem(ni, th, tw, kh, kw, cs, bns[-1], itemsize) <= _SMEM_LIMIT:
+            break
+        ni, th, tw = _shrink(ni, th, tw)
+    while bn > bns[0] and grid_m * -(-o // bn) < _SMS:
+        bn //= 2
+    x_vec, w_vec = c % chunk == 0, o % chunk == 0
+    _refuse_misaligned("conv_gemm", x=x_ptr if x_vec else None,
+                       w=w_ptr if w_vec else None)
+    return ConvGemmPlan(ni, th, tw, bn, x_vec, w_vec, cp, cs,
+                        _gemm_step(cs, itemsize),
+                        grid_m, -(-o // bn),
+                        _gemm_smem(ni, th, tw, kh, kw, cs, bn, itemsize))
+
+
 def conv_gemm(x: torch.Tensor, w: torch.Tensor, *,
               padding: int = 0) -> torch.Tensor:
     """Stride-1 conv of NHWC x (N, H, W, C) with HWIO w (KH, KW, C, O) and
@@ -405,6 +649,13 @@ def conv_gemm(x: torch.Tensor, w: torch.Tensor, *,
     tensors take `conv_gemm_plain`."""
     if not x.is_cuda:
         return conv_gemm_plain(x, w, padding=padding)
+    return _conv_gemm_cuda(x, w, padding=padding)
+
+
+def _conv_gemm_cuda(x: torch.Tensor, w: torch.Tensor, *,
+                    padding: int) -> torch.Tensor:
+    """conv_gemm's launch: shapes, the tile plan (which refuses
+    misaligned operands), then the device checks and the kernel."""
     if x.dim() != 4 or w.dim() != 4 or w.shape[2] != x.shape[3]:
         raise ValueError(f"conv_gemm: want NHWC x and HWIO w, got "
                          f"{tuple(x.shape)}, {tuple(w.shape)}")
@@ -414,11 +665,16 @@ def conv_gemm(x: torch.Tensor, w: torch.Tensor, *,
     if padding < 0 or oh < 1 or ow < 1:
         raise ValueError(f"conv_gemm: empty output {oh}x{ow} (padding "
                          f"{padding})")
+    plan = conv_gemm_plan(n, h, wd, c, o, kh, kw, padding,
+                          itemsize=x.element_size(), x_ptr=x.data_ptr(),
+                          w_ptr=w.data_ptr())
     dtype = _check("conv_gemm", x, w)
     y = torch.empty((n, oh, ow, o), dtype=x.dtype, device=x.device)
     err = _kernels.lib("conv_gemm")(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, c, o, kh, kw,
-        padding, dtype, _stream(x))
+        padding, plan.ni, plan.th, plan.tw, plan.bn, int(plan.x_vec),
+        int(plan.w_vec), plan.cs, plan.kc, plan.grid_m, plan.grid_n, dtype,
+        _stream(x))
     _kernels.check("conv_gemm", err)
     _kernels.launches["conv_gemm"] += 1
     return y

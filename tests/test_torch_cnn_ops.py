@@ -347,12 +347,24 @@ def test_conv_direct_plain_geometry(stride, pads, dil, no_launch):
 
 
 def test_conv_dw_chunk_bounds_the_scratch():
-    # reference_cnn's conv1 and conv2 at batch 32: 98 and 25 chunks.
-    for pixels, nout, chunks in ((6272, 144, 98), (1568, 4608, 25)):
-        chunk = kernel_ops.conv_dw_chunk(pixels, nout)
-        assert chunk <= 64 and -(-pixels // chunk) == chunks
-    chunk = kernel_ops.conv_dw_chunk(32 * 32 * 32, 3 * 3 * 256 * 256)
-    assert -(-32768 // chunk) * 3 * 3 * 256 * 256 <= (1 << 24) + 3 * 3 * 256 * 256
+    """K5's plan (`conv_dw_plan`, which replaced the per-pixel chunking):
+    reference_cnn's conv1 and conv2 at batch 32 split their pixels into 64
+    and 16 chunks of whole pixel tiles, summed in the kernel; a deep
+    weight gradient (256 -> 256 channels over 32,768 pixels) keeps its
+    partials within _DW_MAX_PARTIAL floats."""
+    for (h, c, o, chunks) in ((28, 1, 16, 64), (14, 16, 32, 16)):
+        oh = (h + 2 - 3) // 2 + 1
+        for itemsize in (2, 4):
+            plan = kernel_ops.conv_dw_plan(32, h, h, c, o, 3, 3, oh, oh, 2,
+                                           itemsize=itemsize, x_ptr=0, g_ptr=0)
+            assert plan.grid_m == chunks and plan.one_pass
+            assert plan.scratch == chunks * 9 * c * o
+    nout = 3 * 3 * 256 * 256
+    for itemsize in (2, 4):
+        plan = kernel_ops.conv_dw_plan(32, 32, 32, 256, 256, 3, 3, 32, 32, 1,
+                                       itemsize=itemsize, x_ptr=0, g_ptr=0)
+        assert plan.scratch <= kernel_ops._DW_MAX_PARTIAL
+        assert plan.scratch == (plan.grid_m * nout if plan.grid_m > 1 else 0)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
