@@ -13,10 +13,11 @@ exits non-zero without the final line:
             one nvcc each, all started together); seconds taken, ptxas
             registers, and each library's tensor-core instruction count
             (`HMMA` lines of `cuobjdump -sass`), which must be above 0
-            for the mma.sync kernels (conv_direct, conv_dw, conv_gemm,
-            flash_fwd, flash_bwd_dq, flash_bwd_dkv); the bf16 flash
-            backward kernels at D 64 and every bf16 instance of
-            conv_gemm and conv_dw must show no ptxas spill stores.
+            for the mma.sync kernels (gemm, conv_direct, conv_dw,
+            conv_gemm, flash_fwd, flash_bwd_dq, flash_bwd_dkv); the
+            bf16 flash backward kernels at D 64 and every bf16 instance
+            of gemm, conv_gemm and conv_dw must show no ptxas spill
+            stores.
 3. kernels  each kernel against its plain PyTorch version on the card
             at the shapes its path gives it (one `kernel_case` line per
             shape): max error against the stated tolerance (bf16 flash
@@ -26,7 +27,9 @@ exits non-zero without the final line:
             function (TF32 off), and the least time the card could take.
             Serving: paged attention (K1), int8 weight matmul (K2).
             reference_cnn's batch-32 step, in float32 and bf16: the GEMM
-            (K3) at its 9 products, the direct conv (K4) at both
+            (K3) at its 9 products and the eval batch's 3 forwards (M
+            2,048), run twice at fc1's and fc2's forwards (split over
+            K) and held equal bit for bit, the direct conv (K4) at both
             forwards and at conv2's input gradient (K4'), the conv
             weight gradient (K5) at both convs and at conv-bench's four
             stride-1 rows (batch 128: vgg_small's and cifar3conv's
@@ -143,13 +146,14 @@ GEMM_RTOL_OF_MAX = 1e-4
 HEADS, KV_HEADS, HEAD_DIM, PAGE, TABLE_PAGES = 8, 2, 64, 16, 80
 # The kernels built on mma.sync: their libraries must hold tensor-core
 # instructions (HMMA in the SASS).
-TENSOR_CORE_KERNELS = ("conv_direct", "conv_dw", "conv_gemm", "flash_fwd",
-                       "flash_bwd_dq", "flash_bwd_dkv")
+TENSOR_CORE_KERNELS = ("gemm", "conv_direct", "conv_dw", "conv_gemm",
+                       "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # Kernel instances whose ptxas report must show no spill stores: the bf16
 # flash backward at the flagship's head dim (64), and every bf16 instance
-# of the implicit-GEMM conv and of the weight gradient. (library,
+# of the GEMM, the implicit-GEMM conv and the weight gradient. (library,
 # mangled-name fragment)
-NO_SPILL = (("flash_bwd_dq", "flash_bwd_dq_bf16_kernelILi64E"),
+NO_SPILL = (("gemm", "gemm_kernelI13__nv_bfloat16"),
+            ("flash_bwd_dq", "flash_bwd_dq_bf16_kernelILi64E"),
             ("flash_bwd_dkv", "flash_bwd_dkv_bf16_kernelILi64E"),
             ("conv_gemm", "conv_gemm_kernelI13__nv_bfloat16"),
             ("conv_dw", "conv_dw_kernelI13__nv_bfloat16"))
@@ -178,6 +182,13 @@ BF16_REL_L2 = 1e-2
 # two convs (h, w, cin, cout) with k3 s2 p1.
 CNN_BATCH = 32
 FC_SHAPES = [(1568, 200), (200, 200), (200, 10)]
+# K3 also at the eval batch's three forwards (M = 2,048, the trainer's
+# eval batch), and twice at GEMM_REPEAT's step products (role, d_in,
+# d_out): fc1's forward (split 17 ways over K = 1,568) and fc2's (K =
+# 200, split 7 ways), whose two results must be equal bit for bit (the
+# split sum has a fixed order).
+EVAL_BATCH = 2048
+GEMM_REPEAT = (("forward", 1568, 200), ("forward", 200, 200))
 CONV_SHAPES = [(28, 28, 1, 16), (14, 14, 16, 32)]
 CNN_DTYPES = ("float32", "bfloat16")
 # K4 beyond reference_cnn's step, as (role, n, h, w, c, o, k, stride,
@@ -518,7 +529,9 @@ def cnn_gemm_case(torch, dev, role: str, d_in: int, d_out: int, gen,
                   dtype: str) -> dict:
     """One of K3's products in a batch-32 step of an FC layer (d_in,
     d_out): the forward x @ W + b, the input gradient g @ W^T, or the
-    weight gradient x^T @ g, with the operands as the step has them."""
+    weight gradient x^T @ g, with the operands as the step has them; or
+    (`eval_forward`) the forward at the eval batch. At GEMM_REPEAT's
+    products run twice, the two results held equal bit for bit."""
     from mpi_cuda_cnn_tpu_torch.ops.kernel_ops import gemm, gemm_plain
 
     tdt = getattr(torch, dtype)
@@ -526,10 +539,11 @@ def cnn_gemm_case(torch, dev, role: str, d_in: int, d_out: int, gen,
     def randn(*s):
         return torch.randn(*s, generator=gen).to(dev).to(tdt)
 
-    x, w, b = randn(CNN_BATCH, d_in), randn(d_in, d_out) / d_in ** 0.5, randn(d_out)
-    g = randn(CNN_BATCH, d_out)
-    if role == "forward":
-        args, kw, m, n, k = (x, w), {"bias": b}, CNN_BATCH, d_out, d_in
+    rows = EVAL_BATCH if role == "eval_forward" else CNN_BATCH
+    x, w, b = randn(rows, d_in), randn(d_in, d_out) / d_in ** 0.5, randn(d_out)
+    g = randn(rows, d_out)
+    if role in ("forward", "eval_forward"):
+        args, kw, m, n, k = (x, w), {"bias": b}, rows, d_out, d_in
         library = lambda: torch.addmm(b, x, w)  # noqa: E731
     elif role == "input_grad":
         args, kw, m, n, k = (g, w), {"trans_b": True}, CNN_BATCH, d_in, d_out
@@ -540,14 +554,22 @@ def cnn_gemm_case(torch, dev, role: str, d_in: int, d_out: int, gen,
     got = gemm(*args, **kw)
     want = gemm_plain(*args, **kw)
     product = (gemm_plain(*args).float().abs().max().item()
-               if role == "forward" else None)
+               if "bias" in kw else None)
     errs = check_case(torch, f"gemm {dtype} {role} {d_in}x{d_out}", got,
                       want, CNN_GEMM_RTOL_OF_MAX, product)
+    repeat = {}
+    if (role, d_in, d_out) in GEMM_REPEAT:
+        again = gemm(*args, **kw)
+        if not torch.equal(got, again):
+            raise AssertionError(f"gemm {dtype} {role} {d_in}x{d_out}: two "
+                                 f"runs differ by "
+                                 f"{(got.float() - again.float()).abs().max().item()}")
+        repeat = {"bitwise_repeat": True}
     nbytes = got.element_size() * (m * k + k * n + m * n
-                                   + (n if role == "forward" else 0))
+                                   + (n if "bias" in kw else 0))
     bound_ms, bound_by = bound(nbytes, 2 * m * n * k, PEAK[dtype])
     return {"kernel": "gemm", "dtype": dtype, "role": role, "M": m, "N": n,
-            "K": k, **errs,
+            "K": k, **errs, **repeat,
             "ms": median_ms(torch, lambda: gemm(*args, **kw)),
             "plain_ms": median_ms(torch, lambda: gemm_plain(*args, **kw)),
             "library_ms": median_ms(torch, library),
@@ -898,7 +920,8 @@ def phase_cnn_kernels(torch, dev, gen):
 
     for dtype in CNN_DTYPES:
         runs = [(cnn_gemm_case, (role, d_in, d_out))
-                for role in ("forward", "input_grad", "weight_grad")
+                for role in ("forward", "input_grad", "weight_grad",
+                             "eval_forward")
                 for d_in, d_out in FC_SHAPES]
         runs += [(conv_direct_case, ("forward", *shape))
                  for shape in CONV_SHAPES]

@@ -34,7 +34,7 @@ KERNELS = {
     "paged_attention": ("paged_attention_launch",
                         [_P] * 8 + [_I] * 9 + [_P]),
     "int8_gemm": ("int8_gemm_launch", [_P] * 4 + [_I] * 3 + [_P]),
-    "gemm": ("gemm_launch", [_P] * 5 + [_I] * 8 + [_P]),
+    "gemm": ("gemm_launch", [_P] * 6 + [_I] * 11 + [_P]),
     "conv_direct": ("conv_direct_launch", [_P] * 3 + [_I] * 19 + [_P]),
     "conv_dw": ("conv_dw_launch", [_P] * 5 + [_I] * 22 + [_P]),
     "conv_gemm": ("conv_gemm_launch", [_P] * 3 + [_I] * 19 + [_P]),

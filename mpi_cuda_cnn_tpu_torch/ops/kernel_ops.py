@@ -7,7 +7,9 @@ each taking float32 or bfloat16 (every operand of one call in one type),
 accumulating in float32 and rounding once to that type at the store:
 
 - K3 `gemm` (`csrc/gemm.cu`): op(A) @ op(B) [+ bias], either operand
-  read transposed in place. Replaces `_matmul`.
+  read transposed in place (bf16 on the tensor cores, float32 on FMA),
+  K split across blocks and summed in a fixed order in the same launch,
+  as `gemm_plan` picks. Replaces `_matmul`.
 - K4 `conv_direct` (`csrc/conv_direct.cu`): a direct NHWC/HWIO conv with
   stride, per-side padding, input dilation and a weight flip as
   arguments, run as an implicit GEMM (bf16 on the tensor cores, float32
@@ -47,10 +49,12 @@ import torch.nn.functional as F
 
 from . import _kernels
 
-_GEMM_DEPTH = 32      # K slice of the GEMM kernel; kchunk is a multiple
-_GEMM_TILE = 32       # output tile edge
-_SPLIT_MIN_K = 128    # split K only into slices at least this deep
-_SPLIT_BLOCKS = 128   # aim for about this many blocks (132 SMs)
+_K3_BN = 32           # K3: output columns of a tile
+_K3_BK = 32           # K3: depth of a K slice; kchunk is a multiple
+_K3_BMS = (64, 32, 16)  # K3: output rows of a tile, largest first
+_K3_MIN_BLOCKS = 96   # K3: blocks a tile size must reach to be taken
+_K3_BLOCKS = 128      # K3: blocks the K split aims for (132 SMs)
+_K3_STAGES = {2: 4, 4: 3}  # K3: K slices in shared memory, by itemsize
 _DW_MAX_PARTIAL = 1 << 24  # floats of K5 scratch before chunks grow
 _DW_ONE_PASS_MAX = 1 << 17  # K5: partials one block may sum at its end
 _DW_MAX_TAPS = 9      # K5: taps of an output tile (its accumulators)
@@ -87,6 +91,23 @@ def _check(name: str, *tensors: torch.Tensor) -> int:
     return _kernels.DTYPE_CODES[dtype]
 
 
+# One int32 counter per output tile, per kernel (K3, K5) and device, zero
+# between launches: the last block of a tile resets its own, so launches
+# of one kernel on one device must not overlap (the port launches on
+# PyTorch's current stream only). A buffer only grows, so its address
+# stays fixed once it holds the largest grid.
+_counters: dict[tuple[str, torch.device], torch.Tensor] = {}
+
+
+def _counter_buffer(kernel: str, device: torch.device,
+                    count: int) -> torch.Tensor:
+    buf = _counters.get((kernel, device))
+    if buf is None or buf.numel() < count:
+        buf = torch.zeros(max(count, 256), dtype=torch.int32, device=device)
+        _counters[(kernel, device)] = buf
+    return buf
+
+
 # ---------------------------------------------------------------------------
 # K3: GEMM
 # ---------------------------------------------------------------------------
@@ -103,15 +124,78 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
     return y if bias is None else y + bias
 
 
-def gemm_splits(m: int, n: int, k: int) -> tuple[int, int]:
-    """(kchunk, splits) of the K split: a grid of few output tiles over
-    a deep K is cut into slices of at least _SPLIT_MIN_K, so that about
-    _SPLIT_BLOCKS blocks share the work; otherwise one slice."""
-    tiles = -(-m // _GEMM_TILE) * -(-n // _GEMM_TILE)
-    splits = max(1, min(k // _SPLIT_MIN_K, _SPLIT_BLOCKS // tiles))
-    kchunk = -(-k // splits)
-    kchunk = -(-kchunk // _GEMM_DEPTH) * _GEMM_DEPTH
-    return kchunk, -(-k // kchunk)
+class GemmPlan(NamedTuple):
+    """K3's launch plan: output tiles of bm x _K3_BN, grid_m x grid_n of
+    them, each over `splits` runs of K of `kchunk` (a multiple of
+    _K3_BK), so grid_m x grid_n x splits blocks of `threads`; `a_vec`, `b_vec`:
+    16-byte copies of A, of B; `scratch` float32 partials and `counters`
+    int32 tile counters (both 0 for one split); `smem_bytes` the kernel's
+    static shared memory."""
+    bm: int
+    kchunk: int
+    splits: int
+    a_vec: bool
+    b_vec: bool
+    grid_m: int
+    grid_n: int
+    threads: int
+    scratch: int
+    counters: int
+    smem_bytes: int
+
+
+def _k3_smem(bm: int, trans_a: bool, trans_b: bool, itemsize: int) -> int:
+    """_K3_STAGES[itemsize] stages of the A tile and the B tile, each in
+    its stored layout ([m][k] or, transposed, [k][m]; [k][n] or [n][k]),
+    every row padded by 16 bytes."""
+    pad = 16 // itemsize
+    a = _K3_BK * (bm + pad) if trans_a else bm * (_K3_BK + pad)
+    b = _K3_BN * (_K3_BK + pad) if trans_b else _K3_BK * (_K3_BN + pad)
+    return _K3_STAGES[itemsize] * itemsize * (a + b)
+
+
+def gemm_plan(m: int, n: int, k: int, *, trans_a: bool, trans_b: bool,
+              itemsize: int, a_ptr: int, b_ptr: int) -> GemmPlan:
+    """The tile and split plan of `csrc/gemm.cu` for op(A) (m, k) @ op(B)
+    (k, n), elements of `itemsize` bytes (4 float32, 2 bf16).
+
+    bm is the largest of _K3_BMS, at most M rounded up to a power of two
+    (at least 16), whose tiles times K slices reach _K3_MIN_BLOCKS
+    blocks; else 16. Where the tiles alone are fewer than _K3_BLOCKS, K is
+    split into runs of whole slices so that about _K3_BLOCKS blocks share
+    it (never a run shorter than one slice: a product of few tiles over a
+    shallow K, fc3's, stays under it). a_vec (16-byte copies of A) needs
+    A's stored rows (k, or m with trans_a) to be whole 16-byte chunks,
+    b_vec B's (n, or k with trans_b); where either holds, that operand
+    must be 16-byte aligned, else ValueError."""
+    if itemsize not in (2, 4):
+        raise ValueError(f"gemm_plan: itemsize {itemsize}")
+    if min(m, n, k) < 1:
+        raise ValueError(f"gemm_plan: empty product {m}x{n}x{k}")
+    slices = -(-k // _K3_BK)
+    cap = 16
+    while cap < min(m, _K3_BMS[0]):
+        cap *= 2
+    grid_n = -(-n // _K3_BN)
+    fits = [bm for bm in _K3_BMS if bm <= cap]
+    bm = next((b for b in fits if -(-m // b) * grid_n * slices
+               >= _K3_MIN_BLOCKS), fits[-1])
+    grid_m = -(-m // bm)
+    tiles = grid_m * grid_n
+    splits = 1 if tiles >= _K3_BLOCKS else min(slices, -(-_K3_BLOCKS // tiles))
+    kchunk = -(-slices // splits) * _K3_BK
+    splits = -(-k // kchunk)
+    chunk = 16 // itemsize
+    a_vec = (m if trans_a else k) % chunk == 0
+    b_vec = (k if trans_b else n) % chunk == 0
+    _refuse_misaligned("gemm", a=a_ptr if a_vec else None,
+                       b=b_ptr if b_vec else None)
+    threads = 128 if itemsize == 2 else bm * _K3_BN // 16
+    split = splits > 1
+    return GemmPlan(bm, kchunk, splits, a_vec, b_vec, grid_m,
+                    grid_n, threads, splits * m * n if split else 0,
+                    tiles if split else 0,
+                    _k3_smem(bm, trans_a, trans_b, itemsize))
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
@@ -119,9 +203,17 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
          bias: torch.Tensor | None = None) -> torch.Tensor:
     """op(a) @ op(b) [+ bias], float32 or bfloat16: a is (M, K), or (K, M)
     with trans_a; b is (K, N), or (N, K) with trans_b; bias (N,). CUDA
-    tensors launch `csrc/gemm.cu`; CPU tensors take `gemm_plain`."""
+    tensors launch `csrc/gemm.cu` (one launch, split or not); CPU tensors
+    take `gemm_plain`."""
     if not a.is_cuda:
         return gemm_plain(a, b, trans_a=trans_a, trans_b=trans_b, bias=bias)
+    return _gemm_cuda(a, b, trans_a=trans_a, trans_b=trans_b, bias=bias)
+
+
+def _gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool,
+               trans_b: bool, bias: torch.Tensor | None) -> torch.Tensor:
+    """gemm's launch: shapes, the plan (which refuses misaligned
+    operands), then the device checks and the kernel."""
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError(f"gemm: want 2-d operands, got {tuple(a.shape)}, "
                          f"{tuple(b.shape)}")
@@ -130,15 +222,21 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
     if kb != k or (bias is not None and tuple(bias.shape) != (n,)):
         raise ValueError(f"gemm: op(a) {m}x{k}, op(b) {kb}x{n}, bias "
                          f"{None if bias is None else tuple(bias.shape)}")
+    plan = gemm_plan(m, n, k, trans_a=trans_a, trans_b=trans_b,
+                     itemsize=a.element_size(), a_ptr=a.data_ptr(),
+                     b_ptr=b.data_ptr())
     dtype = _check("gemm", a, b, *(() if bias is None else (bias,)))
-    kchunk, splits = gemm_splits(m, n, k)
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    work = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
-            if splits > 1 else None)
+    work = (torch.empty(plan.scratch, dtype=torch.float32, device=a.device)
+            if plan.scratch else None)
+    counters = (_counter_buffer("gemm", a.device, plan.counters)
+                if plan.counters else None)
     err = _kernels.lib("gemm")(
         a.data_ptr(), b.data_ptr(), None if bias is None else bias.data_ptr(),
-        c.data_ptr(), None if work is None else work.data_ptr(), m, n, k,
-        int(trans_a), int(trans_b), kchunk, splits, dtype, _stream(a))
+        c.data_ptr(), None if work is None else work.data_ptr(),
+        None if counters is None else counters.data_ptr(), m, n, k,
+        int(trans_a), int(trans_b), plan.bm, plan.kchunk, plan.splits,
+        int(plan.a_vec), int(plan.b_vec), dtype, _stream(a))
     _kernels.check("gemm", err)
     _kernels.launches["gemm"] += 1
     return c
@@ -475,20 +573,6 @@ def conv_dw_plan(n: int, h: int, w: int, c: int, o: int, kh: int, kw: int,
                       _dw_smem(ni, th, tw, kh, kw, stride, cs, bn, itemsize))
 
 
-# One int32 counter per K5 output tile and device, zero between launches:
-# the last block of a tile resets its own, so launches on one device must
-# not overlap (the port launches on PyTorch's current stream only).
-_dw_counters: dict[torch.device, torch.Tensor] = {}
-
-
-def _dw_counter_buffer(device: torch.device, count: int) -> torch.Tensor:
-    buf = _dw_counters.get(device)
-    if buf is None or buf.numel() < count:
-        buf = torch.zeros(max(count, 256), dtype=torch.int32, device=device)
-        _dw_counters[device] = buf
-    return buf
-
-
 def conv_dw(x: torch.Tensor, g: torch.Tensor, *, stride: int, padding: int,
             kh: int, kw: int) -> torch.Tensor:
     """Weight gradient (KH, KW, C, O) of the conv x (N, H, W, C) ->
@@ -520,7 +604,7 @@ def _conv_dw_cuda(x: torch.Tensor, g: torch.Tensor, *, stride: int,
     dtype = _check("conv_dw", x, g)
     part = (torch.empty(plan.scratch, dtype=torch.float32, device=x.device)
             if plan.scratch else None)
-    counters = (_dw_counter_buffer(x.device, plan.grid_n)
+    counters = (_counter_buffer("conv_dw", x.device, plan.grid_n)
                 if plan.scratch and plan.one_pass else None)
     dw = torch.empty((kh, kw, c, o), dtype=x.dtype, device=x.device)
     err = _kernels.lib("conv_dw")(

@@ -242,19 +242,6 @@ def test_gemm_plain_transposes_in_place(trans_a, trans_b, bias, no_launch):
     _assert_close(got, want)
 
 
-@pytest.mark.parametrize("m,n,k", [(32, 200, 1568), (32, 1568, 200),
-                                   (1568, 200, 32), (2048, 10, 200),
-                                   (32, 10, 200), (5, 3, 7)])
-def test_gemm_split_covers_k(m, n, k):
-    kchunk, splits = kernel_ops.gemm_splits(m, n, k)
-    assert kchunk % 32 == 0 and splits >= 1
-    assert kchunk * splits >= k > kchunk * (splits - 1)
-    if (m, n, k) == (32, 200, 1568):
-        assert splits > 1   # fc1's forward: 7 tiles over K = 1,568
-    if (m, n, k) in ((1568, 200, 32), (2048, 10, 200)):
-        assert splits == 1
-
-
 # ---------------------------------------------------------------------------
 # Conv: torch backend, named gradient ops, and the K4/K5 plain versions
 # ---------------------------------------------------------------------------
