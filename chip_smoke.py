@@ -14,18 +14,22 @@ exits non-zero without the final line:
             registers, and each library's tensor-core instruction count
             (`HMMA` lines of `cuobjdump -sass`), which must be above 0
             for the mma.sync kernels (gemm, conv_direct, conv_dw,
-            conv_gemm, flash_fwd, flash_bwd_dq, flash_bwd_dkv); the
-            bf16 flash backward kernels at D 64 and every bf16 instance
-            of gemm, conv_gemm and conv_dw must show no ptxas spill
-            stores.
+            conv_gemm, flash_fwd, flash_bwd_dq, flash_bwd_dkv), and
+            in each head-dim instance of the float32 flash backward
+            functions themselves (3xTF32; `build_hmma` line); the
+            flash backward kernels at D 64 in both types and every
+            bf16 instance of gemm, conv_gemm and conv_dw must show no
+            ptxas spill stores.
 3. kernels  each kernel against its plain PyTorch version on the card
             at the shapes its path gives it (one `kernel_case` line per
             shape): max error against the stated tolerance (bf16 flash
-            outputs: also a relative L2 error, per row or whole), median time
+            outputs and float32 K8/K9 outputs: also a relative L2
+            error, per row or whole), median time
             over 30 launches (CUDA events), the plain version's time,
             one PyTorch library call's time where one computes the same
             function (TF32 off), and the least time the card could take.
-            Serving: paged attention (K1), int8 weight matmul (K2).
+            Serving: paged attention (K1), int8 weight matmul (K2,
+            with torch._weight_int8pack_mm as the yardstick).
             reference_cnn's batch-32 step, in float32 and bf16: the GEMM
             (K3) at its 9 products and the eval batch's 3 forwards (M
             2,048), run twice at fc1's and fc2's forwards (split over
@@ -43,9 +47,11 @@ exits non-zero without the final line:
             dq (K8) and dk/dv (K9) at the flagship's B 8, S 2048, H 8,
             D 64 in float32 and bf16, and at a GQA shape (8 query over 2
             kv heads, B 2), with SDPA's forward, forward + backward
-            and backward alone as the yardsticks; in bf16 also at D 32
-            and D 128 (B 2, S
-            1024, 4 over 2 heads, causal) and non-causal at D 64.
+            and backward alone as the yardsticks; in both types also
+            at D 32 and D 128 (B 2, S 1024, 4 over 2 heads, causal)
+            and non-causal at D 64. float32 K8 and K9 (3xTF32) run
+            twice at the flagship and GQA shapes and are held equal
+            bit for bit.
 4. serve    the serving bench at the full width of the decode flagship
             (d512 x 8 layers, 8 query / 2 KV heads, vocab 8192; random
             weights from --seed) through K1 and K2, with the launch
@@ -148,13 +154,20 @@ HEADS, KV_HEADS, HEAD_DIM, PAGE, TABLE_PAGES = 8, 2, 64, 16, 80
 # instructions (HMMA in the SASS).
 TENSOR_CORE_KERNELS = ("gemm", "conv_direct", "conv_dw", "conv_gemm",
                        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-# Kernel instances whose ptxas report must show no spill stores: the bf16
-# flash backward at the flagship's head dim (64), and every bf16 instance
-# of the GEMM, the implicit-GEMM conv and the weight gradient. (library,
-# mangled-name fragment)
+# Functions that must hold HMMA themselves, every instance of them
+# (library, mangled-name fragment): the float32 flash backward (3xTF32),
+# whose libraries would pass the check above on their bf16 kernels alone.
+TENSOR_CORE_FUNCTIONS = (("flash_bwd_dq", "flash_bwd_dq_f32_kernel"),
+                         ("flash_bwd_dkv", "flash_bwd_dkv_f32_kernel"))
+# Kernel instances whose ptxas report must show no spill stores: the
+# flash backward in both types at the flagship's head dim (64), and every
+# bf16 instance of the GEMM, the implicit-GEMM conv and the weight
+# gradient. (library, mangled-name fragment)
 NO_SPILL = (("gemm", "gemm_kernelI13__nv_bfloat16"),
             ("flash_bwd_dq", "flash_bwd_dq_bf16_kernelILi64E"),
             ("flash_bwd_dkv", "flash_bwd_dkv_bf16_kernelILi64E"),
+            ("flash_bwd_dq", "flash_bwd_dq_f32_kernelILi64E"),
+            ("flash_bwd_dkv", "flash_bwd_dkv_f32_kernelILi64E"),
             ("conv_gemm", "conv_gemm_kernelI13__nv_bfloat16"),
             ("conv_dw", "conv_dw_kernelI13__nv_bfloat16"))
 GEMM_SHAPES = [(512, 512), (512, 256), (512, 2048), (2048, 512), (512, 8192)]
@@ -248,6 +261,10 @@ AGREE_PARAM_ATOL = 5e-3
 # every kernel on bf16 inputs, whatever units the kernel itself uses.
 BF16_FLOPS = 989e12
 PEAK = {"float32": F32_FLOPS, "bfloat16": BF16_FLOPS}
+# The float32 flash backward (K8, K9) runs 3xTF32: three tf32 products
+# for each float32 one, at the H100's dense TF32 rate.
+TF32_FLOPS = 495e12
+TF32X3_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 # Flash attention (K7-K9) against their plain versions on the card.
 # float32: both sides sum up to 2,048 float32 products in other orders,
 # and the kernel's online softmax rescales per 64-key tile: 1e-5 of
@@ -265,17 +282,30 @@ PEAK = {"float32": F32_FLOPS, "bfloat16": BF16_FLOPS}
 # out bitwise equal on the card; 1e-3 leaves room for a bf16 ulp flipped
 # by another summation order, and catches a gradient off by 0.1%.
 FLASH_RTOL_OF_MAX = {"float32": 1e-5, "bfloat16": 2e-2}
+# float32 K8 and K9 run their products as 3xTF32 on the tensor cores
+# (csrc/mma.cuh): each operand split into two tf32 values, three products
+# summed in float32. Their error is that of float32 arithmetic in another
+# order (a numpy emulation of the design gives about 4e-7 relative L2,
+# tests/test_torch_flash_tf32x3.py); a whole-tensor relative L2 of 1e-5
+# beside the 1e-5-of-max check catches a wrong or plain-tf32 product
+# (about 1e-3) while leaving 20x room.
+FLASH_F32_REL_L2 = 1e-5
 FLASH_BF16_REL_L2 = {"flash_fwd": ("row", 1e-2), "flash_bwd_dq": ("tensor", 1e-3),
                      "flash_bwd_dkv": ("tensor", 1e-3)}
 # (dtype, B, S, H, Hkv, D), causal: the LM flagship's attention (d512,
 # 8 heads) in both types, and a GQA case (8 query heads over 2 kv heads).
 FLASH_SHAPES = [("float32", 8, 2048, 8, 8, 64), ("bfloat16", 8, 2048, 8, 8, 64),
                 ("float32", 2, 2048, 8, 2, 64), ("bfloat16", 2, 2048, 8, 2, 64)]
-# bf16 beyond the flagship, (dtype, B, S, H, Hkv, D, causal): the other
-# head widths the kernels are built for, and a non-causal case.
-FLASH_EXTRA_SHAPES = [("bfloat16", 2, 1024, 4, 2, 32, True),
-                      ("bfloat16", 2, 1024, 4, 2, 128, True),
-                      ("bfloat16", 2, 1024, 4, 2, 64, False)]
+# Beyond the flagship, in both types, (dtype, B, S, H, Hkv, D, causal):
+# the other head widths the kernels are built for, and a non-causal case.
+FLASH_EXTRA_SHAPES = [(dtype, 2, 1024, 4, 2, d, causal)
+                      for dtype in ("float32", "bfloat16")
+                      for d, causal in ((32, True), (128, True), (64, False))]
+# float32 K8 and K9 run twice at the flagship and GQA shapes, (B, S, H,
+# Hkv, D, causal), and are held equal to themselves bit for bit: each
+# output element is summed in one fixed order (the GQA group too).
+FLASH_REPEAT = [(b, s, h, hkv, d, True) for dtype, b, s, h, hkv, d
+                in FLASH_SHAPES if dtype == "float32"]
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # The lm phase: the LM flagship's width (scripts/bench_lm.py:101-116:
 # d512, 8 layers, 8 heads, seq 2048, batch 8) through `lm` on the
@@ -336,13 +366,22 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def sass_hmma(kernels, name: str) -> int:
-    """Tensor-core (HMMA) instructions in kernel `name`'s built library,
-    counted in `cuobjdump -sass` (beside nvcc in the CUDA toolkit)."""
+def sass_hmma_by_function(kernels, name: str) -> dict[str, int]:
+    """HMMA instructions per function (mangled name) of kernel `name`'s
+    built library, from the `Function : NAME` sections of `cuobjdump
+    -sass`."""
     cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
     out = subprocess.run([str(cuobjdump), "-sass", str(kernels._lib_path(name))],
                          capture_output=True, text=True, timeout=120, check=True)
-    return sum("HMMA" in ln for ln in out.stdout.splitlines())
+    counts, fn = {}, None
+    for ln in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in ln:
+            counts[fn] += 1
+    return counts
 
 
 def spill_stores(log: str) -> dict[str, int]:
@@ -481,11 +520,23 @@ def gemm_case(torch, dev, n: int, din: int, dout: int, gen) -> dict:
                              f"{err} > {tol}")
     ms = median_ms(torch, lambda: int8_gemv(x, w))
     plain_ms = median_ms(torch, lambda: int8_gemv_plain(x, w))
+    # Yardstick only: PyTorch's one call for x @ int8 W^T * scale, with the
+    # weight laid out [dout, din] as it wants, outside the timed call.
+    wt, scales = w.q.t().contiguous(), w.s.reshape(-1).contiguous()
+    library = {"library": "torch._weight_int8pack_mm"}
+    try:
+        lib_y = torch._weight_int8pack_mm(x, wt, scales)
+    except (AttributeError, RuntimeError) as e:
+        library.update(library_ms=None, library_refused=str(e).splitlines()[0][:300])
+    else:
+        library.update(library_ms=median_ms(
+            torch, lambda: torch._weight_int8pack_mm(x, wt, scales)),
+            library_max_abs_err=(lib_y.float() - want).abs().max().item())
     nbytes = n * din * 4 + din * dout + dout * 4 + n * dout * 4
     bound_ms, bound_by = bound(nbytes, 2 * n * din * dout)
     return {"kernel": "int8_gemm", "N": n, "din": din, "dout": dout,
             "max_abs_err": err, "tolerance": tol, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": None,
+            "plain_ms": plain_ms, **library,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -816,10 +867,14 @@ def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
     """K7, K8 and K9 on one attention shape (q (B, S, H, D), k/v (B, S,
     Hkv, D)), each against its plain version on the same inputs; the
     backward kernels take the plain forward's o and lse and a random
-    cotangent. Bound: the pairs (causal: S (S + 1) / 2, else S^2) per
-    (batch, query head) times 2 D flops for each of the kernel's products (K7: q k^T and
+    cotangent. float32 K8/K9 outputs are also held to FLASH_F32_REL_L2,
+    and at FLASH_REPEAT's shapes run twice and held equal bit for bit.
+    Bound: the pairs (causal: S (S + 1) / 2, else S^2) per (batch, query
+    head) times 2 D flops for each of the kernel's products (K7: q k^T and
     p v; K8: also dO v^T and ds k, less p v; K9: q k^T, dO v^T, p^T dO and
-    ds^T q), at the input type's peak; or each input read once and each
+    ds^T q), at the input type's peak (float32 K8/K9: three tf32 products
+    each at the TF32 peak, `bound_by` "operations (3xTF32)", with the FMA
+    figure beside it as `bound_fma_ms`); or each input read once and each
     output written once at the HBM rate, if that is longer."""
     from mpi_cuda_cnn_tpu_torch.ops import flash_attention as fa
 
@@ -848,43 +903,60 @@ def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
                           el * (2 * rows_q + 4 * rows_kv) + 2 * rows)}
     lib = sdpa_ms(torch, q, k, v, g, causal)
     pairs = s * (s + 1) // 2 if causal else s * s
-    peak = PEAK[dtype]
     out = []
     for name, (run, plain, products, nbytes) in runs.items():
+        tf32x3 = dtype == "float32" and name in TF32X3_KERNELS
         got, want = run(), plain()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         err = tol = 0.0
         rel = None
+        what = f"{name} {dtype} B={b} S={s} H={h} Hkv={hkv} D={d} causal={causal}"
         for i, (a, w) in enumerate(zip(got, want)):
             # lse is float32 arithmetic on either input type
             rtol = FLASH_RTOL_OF_MAX["float32" if a.dtype == torch.float32
                                      else dtype]
-            what = f"{name} {dtype} B={b} H={h} Hkv={hkv} output {i}"
-            e, t = _check_err(what, a.float(), w.float(), rtol)
+            e, t = _check_err(f"{what} output {i}", a.float(), w.float(), rtol)
             err, tol = max(err, e), max(tol, t)
             if a.dtype == torch.bfloat16:
                 over, rtol_l2 = FLASH_BF16_REL_L2[name]
-                r = rel_l2(a.float(), w.float(), per_row=over == "row")
-                if not r <= rtol_l2:
-                    raise AssertionError(f"{what}: relative L2 error {r} "
-                                         f"(per {over}) > {rtol_l2}")
-                rel = {"rel_l2_err": max(r, (rel or {}).get("rel_l2_err", 0.0)),
-                       "rel_l2_tolerance": rtol_l2, "rel_l2_per": over}
+            elif tf32x3:
+                over, rtol_l2 = "tensor", FLASH_F32_REL_L2
+            else:
+                continue
+            r = rel_l2(a.float(), w.float(), per_row=over == "row")
+            if not r <= rtol_l2:
+                raise AssertionError(f"{what} output {i}: relative L2 error "
+                                     f"{r} (per {over}) > {rtol_l2}")
+            rel = {"rel_l2_err": max(r, (rel or {}).get("rel_l2_err", 0.0)),
+                   "rel_l2_tolerance": rtol_l2, "rel_l2_per": over}
+        repeat = {}
+        if tf32x3 and (b, s, h, hkv, d, causal) in FLASH_REPEAT:
+            again = run()
+            again = again if isinstance(again, tuple) else (again,)
+            for i, (a, a2) in enumerate(zip(got, again)):
+                if not torch.equal(a, a2):
+                    raise AssertionError(
+                        f"{what} output {i}: two runs differ by "
+                        f"{(a - a2).abs().max().item()}")
+            repeat = {"bitwise_repeat": True}
         flops = 2 * d * products * b * h * pairs
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / peak * 1e3
-        bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
-                              else (t_ops, "operations"))
+        t_ops = (3 * flops / TF32_FLOPS if tf32x3 else flops / PEAK[dtype]) * 1e3
+        bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops else
+                              (t_ops, "operations (3xTF32)" if tf32x3
+                               else "operations"))
+        fma = {"bound_fma_ms": max(t_bytes, flops / F32_FLOPS * 1e3)} if tf32x3 else {}
         out.append({"kernel": name, "dtype": dtype, "B": b, "S": s, "H": h,
                     "Hkv": hkv, "D": d, "causal": causal,
                     "max_abs_err": err, "tolerance": tol, **(rel or {}),
+                    **repeat,
                     "ms": median_ms(torch, run),
                     "plain_ms": median_ms(torch, plain),
                     "library_ms": (lib["library_fwd_ms"]
                                    if name == "flash_fwd" else None),
                     **lib, "flops": flops, "bound_ms": bound_ms,
-                    "bound_by": bound_by})
+                    "bound_by": bound_by, **fma})
     return out
 
 
@@ -1597,7 +1669,12 @@ def kernels_line(cases: list[dict], launches: dict) -> dict:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "bound_ms": r["bound_ms"],
+            # float32 K8/K9's kernel_case reads "operations (3xTF32)"
+            "bound_by": ("operations" if r["bound_by"].startswith("operations")
+                         else r["bound_by"]),
+            **({"bound_note": "3xTF32: three tf32 products at 495 TF/s",
+                "bound_fma_ms": r["bound_fma_ms"]} if "bound_fma_ms" in r else {}),
             "library_ms": r["library_ms"],
             "shape": {k: r[k] for k in ("dtype", "B", "kk", "L", "N", "din",
                                         "dout", "role", "M", "K", "S", "H",
@@ -1654,7 +1731,9 @@ def main() -> int:
     report = {name: [ln.strip() for ln in log.splitlines()
                      if "registers" in ln or "spill" in ln]
               for name, log in built["logs"].items()}
-    hmma = {name: sass_hmma(_kernels, name) for name in sorted(_kernels.KERNELS)}
+    hmma_by_fn = {name: sass_hmma_by_function(_kernels, name)
+                  for name in sorted(_kernels.KERNELS)}
+    hmma = {name: sum(fns.values()) for name, fns in hmma_by_fn.items()}
     spills = {lib: {fn: n for fn, n in spill_stores(built["logs"][lib]).items()
                     if frag in fn}
               for lib, frag in NO_SPILL}
@@ -1665,6 +1744,15 @@ def main() -> int:
         if not hmma[name] > 0:
             raise AssertionError(f"build: no HMMA instruction in {name}'s "
                                  f"library: it does not use the tensor cores")
+    hmma_fns = {}
+    for lib, frag in TENSOR_CORE_FUNCTIONS:
+        fns = {fn: n for fn, n in hmma_by_fn[lib].items() if frag in fn}
+        hmma_fns.update(fns)
+        if len(fns) != 3 or not all(n > 0 for n in fns.values()):
+            raise AssertionError(f"build: {frag} in {lib}: HMMA per instance "
+                                 f"{fns or 'no such function'}; want all "
+                                 f"three head dims on the tensor cores")
+    emit({"phase": "build_hmma", "functions": hmma_fns})
     for lib, frag in NO_SPILL:
         if not spills[lib] or any(spills[lib].values()):
             raise AssertionError(f"build: {frag} in {lib}: spill stores "

@@ -10,39 +10,45 @@
 // group's partials afterwards (:479-493).
 //
 // What bounds it: operations (four S^2 * D products per (batch, query
-// head), causal halves them): the bf16 path on the tensor cores, the
-// float32 path on the FMA pipe (TF32 off: 67 TFLOP/s).
+// head), causal halves them), on the tensor cores in both types: bf16 at
+// 989 TFLOP/s; float32 as 3xTF32 (mma.cuh), three tf32 products at 495
+// TFLOP/s, 165 effective (TF32 stays off everywhere else).
 //
-// Both paths: causal q tiles before a key tile are skipped; on the
-// diagonal tile masked logits are NEG_INF and p exactly 0; p^T and ds^T
-// are rounded to the input type before their products (the TPU kernel's
-// astype); dk and dv accumulate in float32 and are rounded once.
+// Both paths (FlashAttention-2's dk/dv pass): one block owns 64 keys of
+// ONE query head, grid (B * H, S / 64) with the heaviest causal key tiles
+// (the lowest) first, so GQA has as many blocks as MHA. 4 warps own 16
+// keys each. q/dO tiles and their 64 lse/dvec values are double-buffered
+// by `cp.async`. Per q tile: s^T = k q^T and dp^T = v dO^T on `mma.sync`
+// (q and dO as the col-major B); p^T and ds^T in float32 on the
+// accumulator fragments, the lane's query columns 2t, 2t + 1 reading
+// lse/dvec from shared memory; dv += p^T dO and dk += ds^T q with p^T and
+// ds^T taken straight from the accumulators as the A operands. Nothing of
+// p or ds goes to shared memory. Causal q tiles before a key tile are
+// skipped; on the diagonal tile masked logits are NEG_INF and p exactly 0.
+// dk and dv accumulate in float32 and are rounded once. Under MHA
+// (H == Hkv) the block writes dk/dv. Under GQA it writes float32 partials
+// to a (2, G, B, S, Hkv, D) scratch, G = H / Hkv, and a second kernel of
+// the same launch function (`flash_bwd_dkv_group_sum_kernel<T>`) sums the
+// G slices in the fixed order g = 0..G-1 and stores once: the reference's
+// partials-then-group-sum, deterministic, no atomics.
 //
-// bf16 (`flash_bwd_dkv_bf16_kernel`, FlashAttention-2's dk/dv pass): one
-// block owns 64 keys of ONE query head, grid (B * H, S / 64) with the
-// heaviest causal key tiles (the lowest) first, so GQA has as many blocks
-// as MHA. 4 warps own 16 keys each; the k and v tiles are `ldmatrix`'d
-// into A fragments once (for D <= 64; at D 128 they are re-read from shared
-// memory and each q tile is taken as two halves of 32 queries, to stay
-// under the spill line). q/dO tiles and their 64 lse/dvec values
-// are double-buffered by `cp.async`. Per q tile: s^T = k q^T and
-// dp^T = v dO^T on `mma.sync` (q and dO as the col-major B through plain
-// `ldmatrix`); p^T and ds^T in float32 on the accumulator fragments, the
-// lane's query columns 2t, 2t + 1 reading lse/dvec from shared memory;
-// both packed to bf16 as A fragments (mma.cuh's n-tile 2j/2j+1 -> k-chunk
-// j map); dv += p^T dO and dk += ds^T q with dO and q through
-// `ldmatrix.trans`. Nothing of p or ds goes to shared memory. Under MHA
-// (H == Hkv) the block writes dk/dv in bf16. Under GQA it writes float32
-// partials to a (2, G, B, S, Hkv, D) scratch, G = H / Hkv, and a second
-// kernel of the same launch function (`flash_bwd_dkv_group_sum_kernel`)
-// sums the G slices in the fixed order g = 0..G-1 and rounds once: the
-// reference's partials-then-group-sum, deterministic, no atomics.
+// bf16 (`flash_bwd_dkv_bf16_kernel`): m16n8k16. The k and v tiles are
+// `ldmatrix`'d into A fragments once (for D <= 64; at D 128 they are
+// re-read from shared memory and each q tile is taken as two halves of 32
+// queries, to stay under the spill line); q and dO go through plain
+// `ldmatrix` as the col-major B and through `ldmatrix.trans` as the
+// row-major B; p^T and ds^T are rounded to bf16 (the TPU kernel's astype)
+// and packed as A fragments (mma.cuh's n-tile 2j/2j+1 -> k-chunk j map).
 //
-// float32 (`flash_bwd_dkv_kernel`, FMA only): one block owns one (batch*kv
-// head, 64-key tile) and loops over the group's H / Hkv query heads itself,
-// in a fixed order, and over their q tiles, with dk and dv in registers;
-// 256 threads, 4 x 4 transposed logits a thread (flash_common.cuh), p^T and
-// ds^T through shared memory; grid (B * Hkv, S / 64), no scratch.
+// float32 (`flash_bwd_dkv_f32_kernel`): m16n8k8 tf32, 3xTF32, with
+// flash_bwd_dq.cu's float32 design (flash_common.cuh): k/v (A) and q/dO
+// (B) of s^T and dp^T read as float2 with d permuted; p^T and ds^T split
+// and permuted from their accumulators into the A operands of dv += p^T
+// dO and dk += ds^T q, dO's and q's rows read in the same order; each q
+// tile's products summed from zero, 4 d-columns at once (235 registers at
+// D 64; a trial with 8 and 32-query halves spilled), and added to dv and
+// dk in float32.
+// At D 128 a q tile is taken as two halves of 32 queries, as in bf16.
 
 #include <type_traits>
 
@@ -53,136 +59,179 @@ namespace {
 
 using namespace flash;
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ dvec, T* __restrict__ dk,
-                         T* __restrict__ dv, int S, int H, int Hkv,
-                         int causal, float scale) {
-  constexpr int kLd = D + 1;
-  constexpr int kDc = D / 16;
-  extern __shared__ float smem[];
-  float* k_s = smem;                   // (64, D + 1)
-  float* v_s = k_s + kTile * kLd;      // (64, D + 1)
-  float* q_s = v_s + kTile * kLd;      // (64, D + 1)
-  float* do_s = q_s + kTile * kLd;     // (64, D + 1)
-  float* p_s = do_s + kTile * kLd;     // (64 keys, kLdp)
-  float* ds_s = p_s + kTile * kLdp;    // (64 keys, kLdp)
-  float* lse_s = ds_s + kTile * kLdp;  // (64,)
-  float* dvec_s = lse_s + kTile;       // (64,)
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ dvec,
+                             float* __restrict__ dk, float* __restrict__ dv,
+                             float* __restrict__ part, int S, int H, int Hkv,
+                             int causal, float scale) {
+  constexpr int kLd = kLdF32<D>;  // D + 4: row stride in floats
+  constexpr int kTileElems = kTile * kLd;
+  constexpr int kChunks = D / 4;  // 16-byte copies per row
+  constexpr int kKc = D / 8;      // k-chunks of the k q^T product
+  // Query sub-tiles a q tile is taken in: two of 32 at D 128, so the logit
+  // fragments and their (hi, lo) split fit in the registers beside the
+  // (16, 128) dk and dv accumulators.
+  constexpr int kSplit = D > 64 ? 2 : 1;
+  constexpr int kQn = kTile / kSplit;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* k_s = reinterpret_cast<float*>(smem_raw);  // (64, kLd)
+  float* v_s = k_s + kTileElems;                    // (64, kLd)
+  float* q_s = v_s + kTileElems;                    // 2 x (64, kLd)
+  float* do_s = q_s + 2 * kTileElems;               // 2 x (64, kLd)
+  float* lse_s = do_s + 2 * kTileElems;             // 2 x 64
+  float* dvec_s = lse_s + 2 * kTile;                // 2 x 64
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int bkv = blockIdx.x;
-  const int b = bkv / Hkv;
-  const int kvh = bkv - b * Hkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
   const int group = H / Hkv;
+  const int kvh = h / group;
   const int kt = blockIdx.y;  // causal: the low key tiles see the most queries
   const int k0 = kt * kTile;
+  const size_t q_rs = static_cast<size_t>(H) * D;
+  const size_t kv_rs = static_cast<size_t>(Hkv) * D;
+
+  const size_t kv_off = ((static_cast<size_t>(b) * S + k0) * Hkv + kvh) * D;
+  for (int e = tid; e < kTile * kChunks; e += kMmaThreads) {
+    const int r = e / kChunks, c = (e - r * kChunks) * 4;
+    mma::cp_async16(k_s + r * kLd + c, k + kv_off + r * kv_rs + c, true);
+    mma::cp_async16(v_s + r * kLd + c, v + kv_off + r * kv_rs + c, true);
+  }
+  auto load_q = [&](int qt, int st) {
+    const size_t off = ((static_cast<size_t>(b) * S + qt * kTile) * H + h) * D;
+    for (int e = tid; e < kTile * kChunks; e += kMmaThreads) {
+      const int r = e / kChunks, c = (e - r * kChunks) * 4;
+      mma::cp_async16(q_s + st * kTileElems + r * kLd + c,
+                      q + off + r * q_rs + c, true);
+      mma::cp_async16(do_s + st * kTileElems + r * kLd + c,
+                      dout + off + r * q_rs + c, true);
+    }
+    // 64 floats each of lse and dvec: 16 copies of 16 bytes each.
+    if (tid < 32) {
+      const size_t row = static_cast<size_t>(bh) * S + qt * kTile + (tid & 15) * 4;
+      if (tid < 16)
+        mma::cp_async16(lse_s + st * kTile + tid * 4, lse + row, true);
+      else
+        mma::cp_async16(dvec_s + st * kTile + (tid - 16) * 4, dvec + row, true);
+    }
+  };
   const int nq = S / kTile;
+  const int qt0 = causal ? kt : 0;
+  load_q(qt0, 0);
+  mma::cp_async_commit();
 
-  load_tile<T, D>(k_s, kLd, k, b, k0, kvh, S, Hkv);
-  load_tile<T, D>(v_s, kLd, v, b, k0, kvh, S, Hkv);
+  // This lane's keys of the warp's 16: g and g + 8 (half 0 and 1).
+  const int g = lane >> 2, t4 = lane & 3;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+  // This warp's 16 keys of the k and v tiles at column 2t (frag_a_tf32).
+  const float* ka = k_s + (16 * warp + g) * kLd + 2 * t4;
+  const float* va = v_s + (16 * warp + g) * kLd + 2 * t4;
 
-  float dk_acc[kRows][kDc], dv_acc[kRows][kDc];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kDc; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int st = (qt - qt0) & 1;
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile qt landed; stage st ^ 1 is free again
+    if (qt + 1 < nq) {
+      load_q(qt + 1, st ^ 1);
+      mma::cp_async_commit();
+    }
+    const float* qs = q_s + st * kTileElems;
+    const float* dos = do_s + st * kTileElems;
+    const float* ls = lse_s + st * kTile;
+    const float* dvs = dvec_s + st * kTile;
 
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = kvh * group + gi;
-    const size_t lrow = (static_cast<size_t>(b) * H + h) * S;
-    for (int qt = causal ? kt : 0; qt < nq; ++qt) {
-      const int q0 = qt * kTile;
-      __syncthreads();  // the previous tile's readers are done
-      load_tile<T, D>(q_s, kLd, q, b, q0, h, S, H);
-      load_tile<T, D>(do_s, kLd, dout, b, q0, h, S, H);
-      if (threadIdx.x < kTile) {
-        lse_s[threadIdx.x] = lse[lrow + q0 + threadIdx.x];
-        dvec_s[threadIdx.x] = dvec[lrow + q0 + threadIdx.x];
-      }
-      __syncthreads();
+#pragma unroll 1
+    for (int qh = 0; qh < kSplit; ++qh) {
+      const int qc0 = qh * kQn;  // the sub-tile's first query of the tile
 
-      float st[kRows][kCols], dpt[kRows][kCols];
+      // s^T = k q^T and dp^T = v dO^T: q's and dO's rows [query][d] are
+      // the col-major B (query qc0 + 8j + g; d 2t and 2t + 1 of chunk kc,
+      // flash_common.cuh).
+      float s[kQn / 8][4], dp[kQn / 8][4];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
+      for (int j = 0; j < kQn / 8; ++j)
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float kr[kRows], vr[kRows], qc[kCols], gc[kCols];
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          kr[i] = k_s[(ty + 16 * i) * kLd + d];
-          vr[i] = v_s[(ty + 16 * i) * kLd + d];
+      for (int kc = 0; kc < kKc; ++kc) {
+        uint32_t kh[4], kl[4], vh[4], vl[4];
+        frag_a_tf32<kLd>(kh, kl, ka + kc * 8);
+        frag_a_tf32<kLd>(vh, vl, va + kc * 8);
+#pragma unroll
+        for (int j = 0; j < kQn / 8; ++j) {
+          const int at = (qc0 + 8 * j + g) * kLd + kc * 8 + 2 * t4;
+          uint32_t bh[2], bl[2];
+          frag_b_tf32(bh, bl, qs + at);
+          mma::mma_tf32x3(s[j], kh, kl, bh, bl);
+          frag_b_tf32(bh, bl, dos + at);
+          mma::mma_tf32x3(dp[j], vh, vl, bh, bl);
         }
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          qc[j] = q_s[(tx + 16 * j) * kLd + d];
-          gc[j] = do_s[(tx + 16 * j) * kLd + d];
-        }
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-#pragma unroll
-          for (int j = 0; j < kCols; ++j) {
-            st[i][j] = fmaf(kr[i], qc[j], st[i][j]);
-            dpt[i][j] = fmaf(vr[i], gc[j], dpt[i][j]);
-          }
       }
 
+      // p^T = exp(s^T * scale - lse[query]) into s, ds^T into dp; the
+      // lane's query columns are qc0 + j * 8 + 2 t4 + e.
       const bool diag = causal && qt == kt;
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int key = ty + 16 * i;
+      for (int j = 0; j < kQn / 8; ++j) {
+        const int col = qc0 + j * 8 + 2 * t4;
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(dvs + col);
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          const int col = tx + 16 * j;  // query row of the tile
-          const float sv = (!diag || key <= col) ? st[i][j] * scale : kNegInf;
-          const float p = expf(sv - lse_s[col]);
-          const float ds = p * (dpt[i][j] - dvec_s[col]) * scale;
-          p_s[key * kLdp + col] = round_to<T>(p);
-          ds_s[key * kLdp + col] = round_to<T>(ds);
-        }
-      }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int r = 0; r < kTile; ++r) {
-        float pv[kRows], dsv[kRows], gd[kDc], qd[kDc];
+        for (int half = 0; half < 2; ++half)
 #pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          pv[i] = p_s[(ty + 16 * i) * kLdp + r];
-          dsv[i] = ds_s[(ty + 16 * i) * kLdp + r];
-        }
-#pragma unroll
-        for (int j = 0; j < kDc; ++j) {
-          gd[j] = do_s[r * kLd + tx + 16 * j];
-          qd[j] = q_s[r * kLd + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-#pragma unroll
-          for (int j = 0; j < kDc; ++j) {
-            dv_acc[i][j] = fmaf(pv[i], gd[j], dv_acc[i][j]);
-            dk_acc[i][j] = fmaf(dsv[i], qd[j], dk_acc[i][j]);
+          for (int e = 0; e < 2; ++e) {
+            const bool keep = !diag || 16 * warp + g + 8 * half <= col + e;
+            const int i = 2 * half + e;
+            const float sv = keep ? s[j][i] * scale : kNegInf;
+            const float p = expf(sv - (e ? l2.y : l2.x));
+            s[j][i] = p;
+            dp[j][i] = p * (dp[j][i] - (e ? d2.y : d2.x)) * scale;
           }
       }
+
+      // dv += p^T dO, then dk += ds^T q: p^T's and ds^T's accumulators,
+      // split and permuted, are the A fragments of query chunk j; dO's and
+      // q's rows [query][d] the row-major B with its rows in the same order
+      // (flash_common.cuh).
+      const int at = (qc0 + 2 * t4) * kLd + g;
+      permuted_product_tf32x3<kQn / 8, D / 8, kLd, 4>(dv_acc, s, dos + at);
+      permuted_product_tf32x3<kQn / 8, D / 8, kLd, 4>(dk_acc, dp, qs + at);
     }
   }
 
-  const size_t row_stride = static_cast<size_t>(Hkv) * D;
-  const size_t off = ((static_cast<size_t>(b) * S + k0) * Hkv + kvh) * D;
+  // MHA: dk/dv as they are. GQA: partials into slice h % group of the
+  // (2, group, B, S, Hkv, D) scratch, at the offset of the output element.
+  const size_t n = static_cast<size_t>(gridDim.x / H) * S * Hkv * D;
+  const int gi = h - kvh * group;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
+  for (int half = 0; half < 2; ++half) {
+    const int key = k0 + 16 * warp + g + 8 * half;
+    const size_t off = ((static_cast<size_t>(b) * S + key) * Hkv + kvh) * D;
 #pragma unroll
-    for (int j = 0; j < kDc; ++j) {
-      const size_t e = off + (ty + 16 * i) * row_stride + tx + 16 * j;
-      dk[e] = from_f32<T>(dk_acc[i][j]);
-      dv[e] = from_f32<T>(dv_acc[i][j]);
+    for (int j = 0; j < D / 8; ++j) {
+      const size_t e = off + j * 8 + 2 * t4;
+      const float2 kk = make_float2(dk_acc[j][2 * half], dk_acc[j][2 * half + 1]);
+      const float2 vv = make_float2(dv_acc[j][2 * half], dv_acc[j][2 * half + 1]);
+      if (part == nullptr) {
+        *reinterpret_cast<float2*>(dk + e) = kk;
+        *reinterpret_cast<float2*>(dv + e) = vv;
+      } else {
+        *reinterpret_cast<float2*>(part + gi * n + e) = kk;
+        *reinterpret_cast<float2*>(part + (group + gi) * n + e) = vv;
+      }
     }
+  }
 }
 
 template <int D>
@@ -411,13 +460,23 @@ __global__ void __launch_bounds__(kMmaThreads)
 constexpr int kSumThreads = 256;
 constexpr int kSumVec = 4;  // floats a thread sums per slice (one float4)
 
+// Four summed floats stored as the output type: float32 as they are,
+// bf16 rounded once.
+__device__ __forceinline__ void store4(float* dst, float4 v) {
+  *reinterpret_cast<float4*>(dst) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v) {
+  *reinterpret_cast<uint2*>(dst) =
+      make_uint2(mma::pack_bf16x2(v.x, v.y), mma::pack_bf16x2(v.z, v.w));
+}
+
 // dk and dv from the GQA scratch: element e of each is the sum of its
-// group slices g = 0..G-1 in that order, rounded once to bf16. Thread i
-// takes 4 elements: dk's for i < n4, dv's after.
+// group slices g = 0..G-1 in that order, in float32, stored once as T.
+// Thread i takes 4 elements: dk's for i < n4, dv's after.
+template <typename T>
 __global__ void __launch_bounds__(kSumThreads)
     flash_bwd_dkv_group_sum_kernel(const float* __restrict__ part,
-                                   __nv_bfloat16* __restrict__ dk,
-                                   __nv_bfloat16* __restrict__ dv,
+                                   T* __restrict__ dk, T* __restrict__ dv,
                                    long long n4, int group) {
   const long long i = static_cast<long long>(blockIdx.x) * kSumThreads + threadIdx.x;
   if (i >= 2 * n4) return;
@@ -432,75 +491,60 @@ __global__ void __launch_bounds__(kSumThreads)
     acc.z += x.z;
     acc.w += x.w;
   }
-  const uint2 out = make_uint2(mma::pack_bf16x2(acc.x, acc.y),
-                               mma::pack_bf16x2(acc.z, acc.w));
-  *reinterpret_cast<uint2*>((which ? dv : dk) + kSumVec * e) = out;
+  store4((which ? dv : dk) + kSumVec * e, acc);
 }
 
-// One launch of the main kernel `kern` on the wrapper's plan, which must be
-// its own (grid (rows, S / 64), its threads, its dynamic shared memory),
-// then under GQA in bf16 the group sum over `sum_blocks` blocks.
+// One launch of the main kernel `kern` (float32 or bf16) on the wrapper's
+// plan, which must be its own (grid (B * H, S / 64), 128 threads, its
+// dynamic shared memory), then under GQA the group sum over `sum_blocks`
+// blocks.
 template <typename T, typename Kernel>
-cudaError_t launch_kernel(Kernel kern, int rows, int threads, size_t smem,
-                          const void* q, const void* k, const void* v,
-                          const void* dout, const void* lse, const void* dvec,
-                          void* dk, void* dv, void* part, int B, int S, int H,
-                          int Hkv, int D, int causal, const Plan& plan,
-                          int sum_blocks, cudaStream_t stream) {
-  if (!plan.is(rows, S / kTile, threads, smem)) return cudaErrorInvalidValue;
+cudaError_t launch_kernel(Kernel kern, size_t smem, const void* q,
+                          const void* k, const void* v, const void* dout,
+                          const void* lse, const void* dvec, void* dk,
+                          void* dv, void* part, int B, int S, int H, int Hkv,
+                          int D, int causal, const Plan& plan, int sum_blocks,
+                          cudaStream_t stream) {
+  if (!plan.is(B * H, S / kTile, kMmaThreads, smem)) return cudaErrorInvalidValue;
   const long long n4 = static_cast<long long>(B) * S * Hkv * D / kSumVec;
-  const bool sum = std::is_same<T, __nv_bfloat16>::value && H > Hkv;
+  const bool sum = H > Hkv;
   if ((part != nullptr) != sum ||
       sum_blocks != (sum ? (2 * n4 + kSumThreads - 1) / kSumThreads : 0))
     return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  const float scale = softmax_scale(D);
-  if constexpr (std::is_same<T, float>::value) {
-    kern<<<dim3(plan.grid_x, plan.grid_y), threads, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(dvec),
-        static_cast<float*>(dk), static_cast<float*>(dv), S, H, Hkv, causal,
-        scale);
-  } else {
-    using bf16 = __nv_bfloat16;
-    kern<<<dim3(plan.grid_x, plan.grid_y), threads, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(dvec),
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-        static_cast<float*>(part), S, H, Hkv, causal, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess || !sum) return err;
-    flash_bwd_dkv_group_sum_kernel<<<sum_blocks, kSumThreads, 0, stream>>>(
-        static_cast<const float*>(part), static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), n4, H / Hkv);
-  }
+  kern<<<dim3(plan.grid_x, plan.grid_y), kMmaThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dvec),
+      static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(part), S,
+      H, Hkv, causal, softmax_scale(D));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !sum) return err;
+  flash_bwd_dkv_group_sum_kernel<T><<<sum_blocks, kSumThreads, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<T*>(dk),
+      static_cast<T*>(dv), n4, H / Hkv);
   return cudaGetLastError();
 }
 
-// float32: k, v, q, dO tiles as float32, the p^T and ds^T tiles, 64 lse
-// and dvec values; bf16: the k and v tiles and two stages of q and dO as
-// bf16, two stages of 64 lse and 64 dvec values.
+// Both types stage the k and v tiles and two stages of q and dO, rows
+// padded by 16 bytes, and two stages of 64 lse and 64 dvec values.
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* dvec,
                    void* dk, void* dv, void* part, int B, int S, int H,
                    int Hkv, int causal, const Plan& plan, int sum_blocks,
                    cudaStream_t stream) {
+  constexpr size_t smem =
+      6 * kTile * (sizeof(T) * D + 16) + sizeof(float) * 4 * kTile;
   if constexpr (std::is_same<T, float>::value) {
-    return launch_kernel<float>(
-        flash_bwd_dkv_kernel<float, D>, B * Hkv, kThreads,
-        sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * kLdp + 2 * kTile),
-        q, k, v, dout, lse, dvec, dk, dv, part, B, S, H, Hkv, D, causal, plan,
-        sum_blocks, stream);
+    return launch_kernel<float>(flash_bwd_dkv_f32_kernel<D>, smem, q, k, v,
+                                dout, lse, dvec, dk, dv, part, B, S, H, Hkv,
+                                D, causal, plan, sum_blocks, stream);
   } else {
     return launch_kernel<__nv_bfloat16>(
-        flash_bwd_dkv_bf16_kernel<D>, B * H, kMmaThreads,
-        sizeof(__nv_bfloat16) * 6 * kTile * (D + 8) + sizeof(float) * 4 * kTile,
-        q, k, v, dout, lse, dvec, dk, dv, part, B, S, H, Hkv, D, causal, plan,
-        sum_blocks, stream);
+        flash_bwd_dkv_bf16_kernel<D>, smem, q, k, v, dout, lse, dvec, dk, dv,
+        part, B, S, H, Hkv, D, causal, plan, sum_blocks, stream);
   }
 }
 
@@ -528,13 +572,13 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, dout (B, S, H, D); k, v, dk, dv (B, S, Hkv, D); one type for all of
-// them: dtype 0 = float32 (`flash_bwd_dkv_kernel`), 1 = bfloat16
+// them: dtype 0 = float32 (`flash_bwd_dkv_f32_kernel`), 1 = bfloat16
 // (`flash_bwd_dkv_bf16_kernel`). lse, dvec (B * H, S) float32. S a
-// multiple of 64, H a multiple of Hkv, D in {32, 64, 128}. The plan is the
-// wrapper's `flash_bwd_plan`: grid (grid_x, grid_y) = (B * Hkv, S / 64)
-// for float32 and (B * H, S / 64) for bf16, threads 256 / 128, the
-// kernel's dynamic shared memory, and for bf16 with H > Hkv a float32
-// scratch `part` of 2 * (H / Hkv) * B * S * Hkv * D elements and
+// multiple of 64, H a multiple of Hkv, D in {32, 64, 128}; every pointer
+// 16-byte aligned. The plan is the wrapper's `flash_bwd_plan`: grid
+// (grid_x, grid_y) = (B * H, S / 64), 128 threads, the kernel's dynamic
+// shared memory, and with H > Hkv a float32 scratch `part` of
+// 2 * (H / Hkv) * B * S * Hkv * D elements and
 // `sum_blocks` = ceil(2 * B * S * Hkv * D / 4 / 256) blocks of the group
 // sum (else part null and sum_blocks 0); any other plan is refused.
 // Returns cudaGetLastError().

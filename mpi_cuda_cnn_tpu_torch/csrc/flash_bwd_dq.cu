@@ -12,31 +12,49 @@
 // path does.
 //
 // What bounds it: operations (three S^2 * D products per (batch, head),
-// causal halves them): the bf16 path on the tensor cores, the float32 path
-// on the FMA pipe (TF32 off: 67 TFLOP/s).
+// causal halves them), on the tensor cores in both types: bf16 at 989
+// TFLOP/s; float32 as 3xTF32 (mma.cuh), three tf32 products at 495
+// TFLOP/s, 165 effective (TF32 stays off everywhere else).
 //
-// Both paths: grid (B * H, S / 64), the heaviest causal q tiles first;
-// causal tiles above the diagonal are skipped, masked logits on the
-// diagonal are NEG_INF so p is exactly 0; ds is rounded to the input type
-// before the ds k product (the TPU kernel's ds.astype); GQA reads kv head
-// h / (H / Hkv) in place; dq is rounded once at the store.
+// Both paths (FlashAttention-2's dq pass): grid (B * H, S / 64), the
+// heaviest causal q tiles first; 4 warps, each owning 16 query rows.
+// Causal tiles above the diagonal are skipped, masked logits on the
+// diagonal are NEG_INF so p is exactly 0; GQA reads kv head h / (H / Hkv)
+// in place. The q and dO tiles come in once by `cp.async`, the k/v tiles
+// per k tile (bf16 double-buffered, as flash_fwd.cu's; float32 in one
+// stage, below); the lane's lse and dvec (rows g and g + 8) stay in
+// registers. Per k tile: s = q k^T and
+// dp = dO v^T on `mma.sync`; p and ds in float32 on the accumulator
+// fragments, in the plain version's order of operations; dq += ds k with
+// ds taken straight from the accumulators as the A operand. Nothing of p
+// or ds goes to shared memory. dq is rounded once at the store.
 //
-// bf16 (`flash_bwd_dq_bf16_kernel`, FlashAttention-2's dq pass): 4 warps,
-// each owning 16 query rows. The q and dO tiles come in once by
-// `cp.async` and, for D <= 64, are `ldmatrix`'d into A fragments that
-// stay in registers (at D 128 they are re-read per k tile, to keep the
-// registers under the spill line); the lane's lse and dvec (rows g and
-// g + 8) stay in registers. The k/v tiles are double-buffered by
-// `cp.async`, as flash_fwd.cu's. Per k tile: s = q k^T and dp = dO v^T on
-// `mma.sync` (k and v as the col-major B through plain `ldmatrix`); p and
-// ds in float32 on the accumulator fragments, in the plain version's order
-// of operations; ds packed to bf16 as the A fragments of key chunk j from
-// n-tiles 2j and 2j + 1 (mma.cuh); dq += ds k with k as a row-major B
-// through `ldmatrix.trans`. Nothing of p or ds goes to shared memory.
+// bf16 (`flash_bwd_dq_bf16_kernel`): m16n8k16. For D <= 64 the q/dO A
+// fragments are `ldmatrix`'d once and stay in registers (at D 128 they are
+// re-read per k tile, to keep the registers under the spill line); k and
+// v are the col-major B through plain `ldmatrix`; ds is rounded to bf16
+// (the TPU kernel's ds.astype) and packed as the A fragments of key chunk
+// j from n-tiles 2j and 2j + 1 (mma.cuh); dq += ds k with k as a row-major
+// B through `ldmatrix.trans`.
 //
-// float32 (`flash_bwd_dq_kernel`, FMA only): 256 threads, 4 x 4 logits a
-// thread (flash_common.cuh); q and dO staged once, k and v per tile, ds
-// through shared memory.
+// float32 (`flash_bwd_dq_f32_kernel`): m16n8k8 tf32, 3xTF32, on the
+// float32 tile pieces of flash_common.cuh: rows of D + 4 floats; q/dO (A)
+// and k/v (B) of s and dp read as float2 with the d index permuted inside
+// each k-chunk; ds split and permuted from its accumulators into the A
+// operand of dq += ds k, k's rows read in the same permuted order (no ds
+// round trip); every operand split into (hi, lo) as it is read. The
+// splits, 480 a lane per k tile at D 64, are most of the kernel's
+// instructions, hence mma.cuh's two-operation rounding, and the kernel
+// lives on warps to switch between more than on overlap inside a block:
+// k and v take one stage, not two, so shared memory is four tiles (70 KB
+// at D 64) and three blocks fit on an SM beside their registers (168 a
+// thread) where two did with six tiles; each block's load of the next
+// tile waits behind a barrier while the others compute (on an H100 SXM
+// at 700 W, at the LM flagship 1.22 -> 0.96 ms; at D 32, where the
+// registers allow three blocks either way, 0.063 -> 0.068). Each tile's
+// ds k product is summed from zero, 8 d-columns at once, and added to dq
+// in float32, so no truncation bias of the tensor core's sums builds up
+// over the row.
 
 #include <type_traits>
 
@@ -47,113 +65,139 @@ namespace {
 
 using namespace flash;
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ dvec, T* __restrict__ dq,
-                        int S, int H, int Hkv, int causal, float scale) {
-  constexpr int kLd = D + 1;
-  constexpr int kDc = D / 16;
-  extern __shared__ float smem[];
-  float* q_s = smem;                // (64, D + 1)
-  float* do_s = q_s + kTile * kLd;  // (64, D + 1)
-  float* k_s = do_s + kTile * kLd;  // (64, D + 1)
-  float* v_s = k_s + kTile * kLd;   // (64, D + 1)
-  float* ds_s = v_s + kTile * kLd;  // (64, kLdp)
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ dvec,
+                            float* __restrict__ dq, int S, int H, int Hkv,
+                            int causal, float scale) {
+  constexpr int kLd = kLdF32<D>;  // D + 4: row stride in floats
+  constexpr int kTileElems = kTile * kLd;
+  constexpr int kChunks = D / 4;  // 16-byte copies per row
+  constexpr int kKc = D / 8;      // k-chunks of the q k^T product
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);  // (64, kLd)
+  float* do_s = q_s + kTileElems;                   // (64, kLd)
+  float* k_s = do_s + kTileElems;                   // (64, kLd)
+  float* v_s = k_s + kTileElems;                    // (64, kLd)
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
   const int kvh = h / (H / Hkv);
-  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
   const int q0 = qt * kTile;
+  const size_t q_rs = static_cast<size_t>(H) * D;
+  const size_t kv_rs = static_cast<size_t>(Hkv) * D;
 
-  load_tile<T, D>(q_s, kLd, q, b, q0, h, S, H);
-  load_tile<T, D>(do_s, kLd, dout, b, q0, h, S, H);
-  float lse_r[kRows], dvec_r[kRows], acc[kRows][kDc];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const size_t row = static_cast<size_t>(bh) * S + q0 + ty + 16 * i;
-    lse_r[i] = lse[row];
-    dvec_r[i] = dvec[row];
-#pragma unroll
-    for (int j = 0; j < kDc; ++j) acc[i][j] = 0.f;
+  const size_t q_off = ((static_cast<size_t>(b) * S + q0) * H + h) * D;
+  for (int e = tid; e < kTile * kChunks; e += kMmaThreads) {
+    const int r = e / kChunks, c = (e - r * kChunks) * 4;
+    mma::cp_async16(q_s + r * kLd + c, q + q_off + r * q_rs + c, true);
+    mma::cp_async16(do_s + r * kLd + c, dout + q_off + r * q_rs + c, true);
   }
+  auto load_kv = [&](int kt) {
+    const size_t off =
+        ((static_cast<size_t>(b) * S + kt * kTile) * Hkv + kvh) * D;
+    for (int e = tid; e < kTile * kChunks; e += kMmaThreads) {
+      const int r = e / kChunks, c = (e - r * kChunks) * 4;
+      mma::cp_async16(k_s + r * kLd + c, k + off + r * kv_rs + c, true);
+      mma::cp_async16(v_s + r * kLd + c, v + off + r * kv_rs + c, true);
+    }
+  };
+  load_kv(0);
+  mma::cp_async_commit();
+
+  // This lane's rows of the warp's 16: g and g + 8 (half 0 and 1).
+  const int g = lane >> 2, t4 = lane & 3;
+  float lse_r[2], dvec_r[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const size_t row = static_cast<size_t>(bh) * S + q0 + 16 * warp + g + 8 * half;
+    lse_r[half] = lse[row];
+    dvec_r[half] = dvec[row];
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  // This warp's 16 rows of the q and dO tiles at column 2t (frag_a_tf32).
+  const float* qa = q_s + (16 * warp + g) * kLd + 2 * t4;
+  const float* ga = do_s + (16 * warp + g) * kLd + 2 * t4;
 
   const int nk = causal ? qt + 1 : S / kTile;
   for (int kt = 0; kt < nk; ++kt) {
-    __syncthreads();
-    load_tile<T, D>(k_s, kLd, k, b, kt * kTile, kvh, S, Hkv);
-    load_tile<T, D>(v_s, kLd, v, b, kt * kTile, kvh, S, Hkv);
-    __syncthreads();
+    if (kt > 0) {
+      __syncthreads();  // every warp is done with tile kt - 1
+      load_kv(kt);
+      mma::cp_async_commit();
+    }
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile kt landed
+    const float* ks = k_s;
+    const float* vs = v_s;
 
-    float s[kRows][kCols], dp[kRows][kCols];
+    // s = q k^T and dp = dO v^T: k's and v's rows [key][d] are the
+    // col-major B (key 8j + g; d 2t and 2t + 1 of chunk kc, flash_common.cuh).
+    float s[kTile / 8][4], dp[kTile / 8][4];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+    for (int j = 0; j < kTile / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[kRows], g[kRows], kc[kCols], vc[kCols];
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        a[i] = q_s[(ty + 16 * i) * kLd + d];
-        g[i] = do_s[(ty + 16 * i) * kLd + d];
+    for (int kc = 0; kc < kKc; ++kc) {
+      uint32_t qh[4], ql[4], gh[4], gl[4];
+      frag_a_tf32<kLd>(qh, ql, qa + kc * 8);
+      frag_a_tf32<kLd>(gh, gl, ga + kc * 8);
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j) {
+        const int at = (8 * j + g) * kLd + kc * 8 + 2 * t4;
+        uint32_t bh[2], bl[2];
+        frag_b_tf32(bh, bl, ks + at);
+        mma::mma_tf32x3(s[j], qh, ql, bh, bl);
+        frag_b_tf32(bh, bl, vs + at);
+        mma::mma_tf32x3(dp[j], gh, gl, bh, bl);
       }
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        kc[j] = k_s[(tx + 16 * j) * kLd + d];
-        vc[j] = v_s[(tx + 16 * j) * kLd + d];
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          s[i][j] = fmaf(a[i], kc[j], s[i][j]);
-          dp[i][j] = fmaf(g[i], vc[j], dp[i][j]);
-        }
     }
 
+    // p = exp(s * scale - lse), ds = p * (dp - dvec) * scale, into s.
     const bool diag = causal && kt == qt;
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = ty + 16 * i;
+    for (int j = 0; j < kTile / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = tx + 16 * j;
-        const float sv = (!diag || c <= r) ? s[i][j] * scale : kNegInf;
-        const float p = expf(sv - lse_r[i]);
-        const float ds = p * (dp[i][j] - dvec_r[i]) * scale;
-        ds_s[r * kLdp + c] = round_to<T>(ds);
-      }
-    }
-    __syncthreads();
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool keep =
+              !diag || j * 8 + 2 * t4 + e <= 16 * warp + g + 8 * half;
+          const int i = 2 * half + e;
+          const float sv = keep ? s[j][i] * scale : kNegInf;
+          const float p = expf(sv - lse_r[half]);
+          s[j][i] = p * (dp[j][i] - dvec_r[half]) * scale;
+        }
 
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float dsv[kRows], kv[kDc];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) dsv[i] = ds_s[(ty + 16 * i) * kLdp + c];
-#pragma unroll
-      for (int j = 0; j < kDc; ++j) kv[j] = k_s[c * kLd + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kDc; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
-    }
+    // dq += ds k: ds's accumulators of key n-tile j, split and permuted,
+    // are the A fragment of key chunk j; k's rows [key][d] are the
+    // row-major B with its rows in the same order (flash_common.cuh).
+    permuted_product_tf32x3<kTile / 8, D / 8, kLd, 8>(
+        acc, s, ks + 2 * t4 * kLd + g);
   }
 
-  const size_t row_stride = static_cast<size_t>(H) * D;
-  T* base = dq + ((static_cast<size_t>(b) * S + q0) * H + h) * D;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
+  for (int half = 0; half < 2; ++half) {
+    const int row = q0 + 16 * warp + g + 8 * half;
+    float* out = dq + ((static_cast<size_t>(b) * S + row) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < kDc; ++j)
-      base[(ty + 16 * i) * row_stride + tx + 16 * j] = from_f32<T>(acc[i][j]);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(out + j * 8 + 2 * t4) =
+          make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
+  }
 }
 
 template <int D>
@@ -330,18 +374,18 @@ __global__ void __launch_bounds__(kMmaThreads)
 }
 
 // One launch of `kern` (float32 or bf16) on the wrapper's plan, which must
-// be the kernel's own: grid (B * H, S / 64), its threads, its dynamic
+// be the kernel's own: grid (B * H, S / 64), 128 threads, its dynamic
 // shared memory.
 template <typename T, typename Kernel>
-cudaError_t launch_kernel(Kernel kern, int threads, size_t smem, const void* q,
+cudaError_t launch_kernel(Kernel kern, size_t smem, const void* q,
                           const void* k, const void* v, const void* dout,
                           const void* lse, const void* dvec, void* dq, int B,
                           int S, int H, int Hkv, int D, int causal,
                           const Plan& plan, cudaStream_t stream) {
-  if (!plan.is(B * H, S / kTile, threads, smem)) return cudaErrorInvalidValue;
+  if (!plan.is(B * H, S / kTile, kMmaThreads, smem)) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(plan.grid_x, plan.grid_y), threads, smem, stream>>>(
+  kern<<<dim3(plan.grid_x, plan.grid_y), kMmaThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
@@ -349,23 +393,23 @@ cudaError_t launch_kernel(Kernel kern, int threads, size_t smem, const void* q,
   return cudaGetLastError();
 }
 
-// float32: q, dO, k, v tiles as float32 and the ds tile; bf16: the q and
-// dO tiles and two stages of k and v, as bf16.
+// The q and dO tiles, and k and v in two stages (bf16) or one (float32),
+// rows padded by 16 bytes.
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* dvec,
                    void* dq, int B, int S, int H, int Hkv, int causal,
                    const Plan& plan, cudaStream_t stream) {
+  constexpr size_t smem =
+      (std::is_same<T, float>::value ? 4 : 6) * kTile * (sizeof(T) * D + 16);
   if constexpr (std::is_same<T, float>::value) {
-    return launch_kernel<float>(
-        flash_bwd_dq_kernel<float, D>, kThreads,
-        sizeof(float) * (4 * kTile * (D + 1) + kTile * kLdp), q, k, v, dout,
-        lse, dvec, dq, B, S, H, Hkv, D, causal, plan, stream);
+    return launch_kernel<float>(flash_bwd_dq_f32_kernel<D>, smem, q, k, v,
+                                dout, lse, dvec, dq, B, S, H, Hkv, D, causal,
+                                plan, stream);
   } else {
-    return launch_kernel<__nv_bfloat16>(
-        flash_bwd_dq_bf16_kernel<D>, kMmaThreads,
-        sizeof(__nv_bfloat16) * 6 * kTile * (D + 8), q, k, v, dout, lse, dvec,
-        dq, B, S, H, Hkv, D, causal, plan, stream);
+    return launch_kernel<__nv_bfloat16>(flash_bwd_dq_bf16_kernel<D>, smem, q,
+                                        k, v, dout, lse, dvec, dq, B, S, H,
+                                        Hkv, D, causal, plan, stream);
   }
 }
 
@@ -392,11 +436,11 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, dout, dq (B, S, H, D); k, v (B, S, Hkv, D); one type for all of them:
-// dtype 0 = float32 (`flash_bwd_dq_kernel`), 1 = bfloat16
+// dtype 0 = float32 (`flash_bwd_dq_f32_kernel`), 1 = bfloat16
 // (`flash_bwd_dq_bf16_kernel`). lse, dvec (B * H, S) float32. S a
-// multiple of 64, H a multiple of Hkv, D in {32, 64, 128}. The plan
-// (grid_x, grid_y, threads, smem) is the wrapper's `flash_bwd_plan`: grid
-// (B * H, S / 64), 256 threads for float32 and 128 for bf16, and the
+// multiple of 64, H a multiple of Hkv, D in {32, 64, 128}; every pointer
+// 16-byte aligned. The plan (grid_x, grid_y, threads, smem) is the
+// wrapper's `flash_bwd_plan`: grid (B * H, S / 64), 128 threads, and the
 // kernel's dynamic shared memory; any other plan is refused. Returns
 // cudaGetLastError().
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,

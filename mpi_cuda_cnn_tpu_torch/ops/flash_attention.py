@@ -5,13 +5,14 @@ three hand-written CUDA kernels (counterpart of the reference's
 - K7 `flash_forward` (`csrc/flash_fwd.cu`): o and the per-row logsumexp
   with an online softmax; bf16 on the tensor cores (`mma.sync`), float32
   on FMA. Replaces `_flash_kernel`/`_flash_forward`.
-- K8 `flash_bwd_dq` (`csrc/flash_bwd_dq.cu`); bf16 on `mma.sync`,
-  float32 on FMA. Replaces `_bwd_dq_kernel`.
-- K9 `flash_bwd_dkv` (`csrc/flash_bwd_dkv.cu`); bf16 on `mma.sync`, a
+- K8 `flash_bwd_dq` (`csrc/flash_bwd_dq.cu`); on `mma.sync` in both
+  types: bf16 operands, float32 ones as 3xTF32 (each split into two tf32
+  values, three tensor-core products; float32 accuracy). Replaces
+  `_bwd_dq_kernel`.
+- K9 `flash_bwd_dkv` (`csrc/flash_bwd_dkv.cu`); on `mma.sync` as K8, a
   block per query head and, under GQA, float32 partials summed over the
-  group by a second kernel of the same launch; float32 on FMA, the
-  group's query heads summed inside the block. Replaces `_bwd_dkv_kernel`
-  and the group sum after it.
+  group in a fixed order by a second kernel of the same launch. Replaces
+  `_bwd_dkv_kernel` and the group sum after it.
 
 `flash_bwd_plan` is K8's and K9's launch geometry (grid, threads, shared
 memory, K9's GQA scratch), computed on the host and handed to the C
@@ -49,9 +50,8 @@ from .attention import NEG_INF
 
 HEAD_DIMS = (32, 64, 128)   # head dims the kernels are built for
 _TILE = 64                  # rows of a query tile, keys of a key tile
-_LDP = _TILE + 16           # float32 row stride of a (64, 64) logit tile
-_FMA_THREADS = 256          # the float32 kernels: 16 x 16 threads
-_MMA_THREADS = 128          # the bf16 kernels: 4 warps x 16 rows
+_MMA_THREADS = 128          # K8 and K9: 4 warps x 16 rows
+_ROW_PAD = 16               # bytes of padding after each staged tile row
 _SUM_THREADS, _SUM_VEC = 256, 4   # K9's group sum: 4 floats a thread
 
 
@@ -191,11 +191,9 @@ class FlashBwdPlan(NamedTuple):
     """K8's or K9's launch: a (grid_x, grid_y) grid of `threads`-thread
     blocks with `smem_bytes` of dynamic shared memory. Block (x, y) owns
     one 64-row tile of one (batch, query head) x: K8's query rows, K9's
-    keys; K9 in float32 instead owns a (batch, kv head) x and loops over
-    its group's query heads. K9 in bf16 under GQA writes float32 partials
-    to a `scratch` of shape (2, G, B, S, Hkv, D) that `sum_blocks` blocks
-    of `_SUM_THREADS` sum over G; otherwise `scratch` is None and
-    `sum_blocks` 0."""
+    keys. K9 under GQA writes float32 partials to a `scratch` of shape
+    (2, G, B, S, Hkv, D) that `sum_blocks` blocks of `_SUM_THREADS` sum
+    over G; otherwise `scratch` is None and `sum_blocks` 0."""
     grid_x: int
     grid_y: int
     threads: int
@@ -210,27 +208,25 @@ def flash_bwd_plan(kernel: str, b: int, s: int, h: int, hkv: int, d: int,
     d) and k/v (b, s, hkv, d) in the compute type `dtype` (float32 or
     bf16), as `csrc/flash_bwd_dq.cu` and `csrc/flash_bwd_dkv.cu` check it.
 
-    Shared memory: float32 stages q, dO, k and v (rows padded by one
-    float) and the (64, 80) ds tile, K9 also p^T and 64 lse and dvec
-    values; bf16 stages six (64, d + 8) bf16 tiles (two double-buffered),
-    K9 also two stages of 64 lse and 64 dvec values."""
+    Shared memory: (64, d) tiles of the input type with each row padded
+    by 16 bytes, six of them (K8: q, dO and two stages of k and v; K9: k,
+    v and two stages of q and dO) but four for K8 in float32 (k and v in
+    one stage, so three blocks fit on an SM), K9 also two stages of 64
+    float32 lse and 64 dvec values."""
     if kernel not in ("dq", "dkv") or dtype not in (torch.float32,
                                                      torch.bfloat16):
         raise ValueError(f"flash_bwd_plan: {kernel!r}, {dtype}")
     group = h // hkv
-    rows_y = s // _TILE
-    if dtype == torch.float32:
-        tile_f32 = _TILE * (d + 1)
-        floats = (4 * tile_f32 + _TILE * _LDP if kernel == "dq"
-                  else 4 * tile_f32 + 2 * _TILE * _LDP + 2 * _TILE)
-        rows_x = b * hkv if kernel == "dkv" else b * h
-        return FlashBwdPlan(rows_x, rows_y, _FMA_THREADS, 4 * floats, None, 0)
-    smem = 2 * 6 * _TILE * (d + 8) + (4 * 4 * _TILE if kernel == "dkv" else 0)
+    elem = torch.finfo(dtype).bits // 8
+    tiles = 4 if kernel == "dq" and dtype == torch.float32 else 6
+    smem = (tiles * _TILE * (elem * d + _ROW_PAD)
+            + (4 * 4 * _TILE if kernel == "dkv" else 0))
     scratch, sum_blocks = None, 0
     if kernel == "dkv" and group > 1:
         scratch = (2, group, b, s, hkv, d)
         sum_blocks = -(-2 * b * s * hkv * d // (_SUM_VEC * _SUM_THREADS))
-    return FlashBwdPlan(b * h, rows_y, _MMA_THREADS, smem, scratch, sum_blocks)
+    return FlashBwdPlan(b * h, s // _TILE, _MMA_THREADS, smem, scratch,
+                        sum_blocks)
 
 
 def _check_bwd(name: str, q, g, lse, dvec) -> None:
@@ -270,8 +266,8 @@ def flash_bwd_dq(q, k, v, g, lse, dvec, causal: bool) -> torch.Tensor:
 
 def flash_bwd_dkv(q, k, v, g, lse, dvec, causal: bool):
     """(dk, dv), each kv head's query group summed. CUDA tensors launch
-    `csrc/flash_bwd_dkv.cu` (in bf16 under GQA: the main kernel and the
-    group sum, one call and one count); CPU tensors take
+    `csrc/flash_bwd_dkv.cu` (under GQA: the main kernel and the group sum,
+    one call and one count); CPU tensors take
     `flash_bwd_dkv_plain`."""
     _check_shapes(q, k, v)
     _check_bwd("flash_bwd_dkv", q, g, lse, dvec)
@@ -319,9 +315,9 @@ def _stream(t: torch.Tensor) -> int:
 def _for_kernel(name: str, kdt: torch.dtype, *tensors: torch.Tensor,
                 d: int | None = None, device: torch.device | None = None):
     """The tensors as the kernels take them: on one CUDA device (q's), of
-    the compute type, contiguous and 16-byte aligned (the bf16 kernels'
-    `cp.async` copies; an offset view is copied); a head dim the kernels
-    are built for."""
+    the compute type, contiguous and 16-byte aligned (the `cp.async`
+    copies of K8 and K9 in either type; an offset view is copied); a head
+    dim the kernels are built for."""
     dev = device or tensors[0].device
     if any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: all tensors must be on one CUDA device, "

@@ -2,20 +2,22 @@
 (`flash_attention.flash_bwd_plan`, which `flash_bwd_dq` and
 `flash_bwd_dkv` hand to `csrc/flash_bwd_dq.cu` and `csrc/flash_bwd_dkv.cu`),
 at every attention shape the port launches them at: chip_smoke.py's
-kernel cases (the LM flagship, GQA 8/2, bf16 at D 32, D 128 and
-non-causal), the LM phases' model (`lm`, `lm-bench`, `lm_profile`,
+kernel cases (the LM flagship, GQA 8/2, D 32, D 128 and non-causal, in
+float32 and bf16), the LM phases' model (`lm`, `lm-bench`, `lm_profile`,
 `lm_agree`) in float32 and bf16, and every head dim the kernels are built
-for in both types.
+for in both types. Both types share one geometry: 128 threads, a block
+per (batch, query head, 64-row tile), the GQA group summed from a
+float32 scratch.
 
 At each, the plan must:
 - cover every (batch, query head, 64-row query tile) exactly once by K8;
 - cover every (batch, query head, 64-key tile) exactly once by K9, and
-  under bf16 GQA write every (group slice, batch, key, kv head) of the
-  scratch once and have the group sum cover every (dk or dv, batch, key,
-  kv head, d) once;
+  under GQA write every (group slice, batch, key, kv head) of the scratch
+  once and have the group sum cover every (dk or dv, batch, key, kv
+  head, d) once;
 - stay within the grid limits, the threads a block may have and 227 KB
   of shared memory;
-- hold a scratch only for K9 in bf16 with H > Hkv.
+- hold a scratch only for K9 with H > Hkv.
 
 The block-to-tile maps below are the kernels' own (`blockIdx` decoding in
 the two sources). CPU only: the plan is plain Python; the kernels are held
@@ -29,6 +31,7 @@ import pytest
 import torch
 
 import chip_smoke
+from mpi_cuda_cnn_tpu_torch.ops._kernels import CSRC
 from mpi_cuda_cnn_tpu_torch.ops import flash_attention as fa
 from mpi_cuda_cnn_tpu_torch.train import lm_bench
 from mpi_cuda_cnn_tpu_torch.utils.config import parse_lm_args
@@ -80,7 +83,7 @@ def test_dq_plan_covers_every_query_tile_once(name):
     plan = fa.flash_bwd_plan("dq", b, s, h, hkv, d, DTYPES[dtype])
     _check_limits(plan)
     assert plan.scratch is None and plan.sum_blocks == 0
-    assert plan.threads == (256 if dtype == "float32" else 128)
+    assert plan.threads == 128
     # block (x, y): bh = x -> (x // H, x % H); q tile grid_y - 1 - y
     x, y = np.meshgrid(np.arange(plan.grid_x), np.arange(plan.grid_y),
                        indexing="ij")
@@ -100,17 +103,7 @@ def test_dkv_plan_covers_every_key_tile_once(name):
     x, kt = np.meshgrid(np.arange(plan.grid_x), np.arange(plan.grid_y),
                         indexing="ij")
     cover = np.zeros((b, h, s // TILE), np.int64)
-    if dtype == "float32":
-        # one block per (batch, kv head): it loops over the group's heads
-        assert plan.threads == 256
-        assert plan.scratch is None and plan.sum_blocks == 0
-        bb, kvh = x // hkv, x % hkv
-        assert (bb < b).all()
-        for gi in range(group):
-            np.add.at(cover, (bb, kvh * group + gi, kt), 1)
-        assert (cover == 1).all()
-        return
-    # bf16: one block per (batch, query head), the split GQA group
+    # one block per (batch, query head): the GQA group split across blocks
     assert plan.threads == 128
     bb, hh = x // h, x % h
     assert (bb < b).all() and (kt < s // TILE).all()
@@ -141,18 +134,35 @@ def test_dkv_plan_covers_every_key_tile_once(name):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 def test_plan_shared_memory_is_the_kernels_layout(dtype, d):
-    """The bytes the sources stage: float32 q, dO, k, v tiles of (64, D +
-    1) floats and (64, 80) logit tiles (K8 ds; K9 p^T and ds^T and 64 lse
-    and dvec values); bf16 six (64, D + 8) tiles (K9 also two stages of 64
-    lse and dvec values)."""
+    """The bytes the sources stage: (64, D) tiles of the input type,
+    each row padded by 16 bytes (float32 rows of D + 4 floats, bf16 rows
+    of D + 8): six, but four for K8 in float32 (k and v in one stage); K9
+    also two stages of 64 float32 lse and dvec values. At D 64 three
+    float32 K8 blocks and two K9 blocks fit on an SM."""
+    elem = 4 if dtype == "float32" else 2
     dq = fa.flash_bwd_plan("dq", 1, 128, 2, 1, d, DTYPES[dtype])
     dkv = fa.flash_bwd_plan("dkv", 1, 128, 2, 1, d, DTYPES[dtype])
-    if dtype == "float32":
-        assert dq.smem_bytes == 4 * (4 * 64 * (d + 1) + 64 * 80)
-        assert dkv.smem_bytes == 4 * (4 * 64 * (d + 1) + 2 * 64 * 80 + 128)
-    else:
-        assert dq.smem_bytes == 2 * 6 * 64 * (d + 8)
-        assert dkv.smem_bytes == 2 * 6 * 64 * (d + 8) + 4 * 4 * 64
+    tile = 64 * (d + 16 // elem) * elem
+    assert dq.smem_bytes == (4 if elem == 4 else 6) * tile
+    assert dkv.smem_bytes == 6 * tile + 4 * 4 * 64
+    if d == 64 and elem == 4:
+        assert 3 * dq.smem_bytes <= 228 * 1024  # the SM's shared memory
+        assert 2 * dkv.smem_bytes <= 228 * 1024
+    # the row strides: float32 kLdF32<D> = D + 4 (flash_common.cuh), bf16
+    # D + 8, 16 bytes of padding each
+    stride = ("kLdF32<D>;" if elem == 4 else "D + 8;")
+    assert "constexpr int kLdF32 = D + 4;" in (CSRC / "flash_common.cuh").read_text()
+    for src in ("flash_bwd_dq.cu", "flash_bwd_dkv.cu"):
+        text = (CSRC / src).read_text()
+        kern = text[text.index(f"{src[:-3]}_{'f32' if elem == 4 else 'bf16'}_kernel("):]
+        kern = kern[:kern.index("\n}\n")]
+        assert f"constexpr int kLd = {stride}" in kern
+    dq_src = (CSRC / "flash_bwd_dq.cu").read_text()
+    assert ("(std::is_same<T, float>::value ? 4 : 6) * kTile * "
+            "(sizeof(T) * D + 16)") in dq_src
+    dkv_src = (CSRC / "flash_bwd_dkv.cu").read_text()
+    assert ("6 * kTile * (sizeof(T) * D + 16) + sizeof(float) * 4 * kTile"
+            in dkv_src.replace("\n", " ").replace("      ", " "))
 
 
 def test_plan_refuses_what_the_kernels_lack():

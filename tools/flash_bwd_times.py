@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
-"""Device times of the bf16 flash backward kernels, K8 (dq) and K9 (dk/dv),
-at `chip_smoke.py`'s bf16 flash shapes (the LM flagship, GQA 8/2, D 32,
-D 128, non-causal D 64), for the checkout it is run from: it imports that
-checkout's `chip_smoke.py` and port, so it times another commit's kernels
-when run from an unpacked copy of it. Each time is `chip_smoke.median_ms`
-(median of 30 launches, CUDA events). One line per shape, tagged.
+"""Device times of the flash backward kernels, K8 (dq) and K9 (dk/dv), in
+float32 and bf16, at `chip_smoke.py`'s flash shapes (the LM flagship B 8,
+S 2048, H 8, D 64 and GQA B 2, 8/2 heads, causal; then B 2, S 1024, 4/2
+heads at D 32 and D 128 causal and D 64 non-causal), with SDPA's backward
+alone on the same inputs beside them, for the checkout it is run from: it
+imports that checkout's `chip_smoke.py` and port, so it times another
+commit's kernels when run from an unpacked copy of it. Each time is
+`chip_smoke.median_ms` (median of 30 launches, CUDA events). One line per
+shape and type, tagged; then that checkout's `chip_smoke.phase_lm_profile`
+(the LM flagship's f32 and bf16 flash steps under torch.profiler: step
+ms, device busy ms, the flash kernels' ms), one JSON line each.
 
 To compare two commits on one card, in one call, alternating:
 
@@ -21,6 +26,10 @@ from __future__ import annotations
 
 import os
 import sys
+
+# (B, S, H, Hkv, D, causal) beyond chip_smoke.FLASH_SHAPES, in both types.
+EXTRA_SHAPES = [(2, 1024, 4, 2, 32, True), (2, 1024, 4, 2, 128, True),
+                (2, 1024, 4, 2, 64, False)]
 
 
 def main() -> int:
@@ -39,11 +48,14 @@ def main() -> int:
     print(cs.nvidia_smi(), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
-    shapes = ([(*s, True) for s in cs.FLASH_SHAPES if s[0] == "bfloat16"]
-              + cs.FLASH_EXTRA_SHAPES)
-    for _, b, s, h, hkv, d, causal in shapes:
+    shapes = ([(dtype, *s, True) for dtype, *s in cs.FLASH_SHAPES]
+              + [(dtype, *s) for dtype in ("float32", "bfloat16")
+                 for s in EXTRA_SHAPES])
+    for dtype, b, s, h, hkv, d, causal in shapes:
+        tdt = getattr(torch, dtype)
+
         def randn(*shape):
-            return torch.randn(*shape, generator=gen).to(dev).to(torch.bfloat16)
+            return torch.randn(*shape, generator=gen).to(dev).to(tdt)
 
         q, k, v, g = randn(b, s, h, d), randn(b, s, hkv, d), \
             randn(b, s, hkv, d), randn(b, s, h, d)
@@ -53,8 +65,11 @@ def main() -> int:
                                                          dvec, causal))
         dkv = cs.median_ms(torch, lambda: fa.flash_bwd_dkv(q, k, v, g, lse,
                                                            dvec, causal))
-        print(f"{tag} B{b} S{s} H{h}/{hkv} D{d} causal={int(causal)} "
-              f"dq_ms {dq:.4f} dkv_ms {dkv:.4f}", flush=True)
+        sdpa = cs.sdpa_ms(torch, q, k, v, g, causal)["library_bwd_ms"]
+        print(f"{tag} {dtype} B{b} S{s} H{h}/{hkv} D{d} causal={int(causal)} "
+              f"dq_ms {dq:.4f} dkv_ms {dkv:.4f} sdpa_bwd_ms {sdpa:.4f}",
+              flush=True)
+    cs.phase_lm_profile(torch)
     return 0
 
 
