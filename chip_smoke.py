@@ -15,11 +15,12 @@ exits non-zero without the final line:
             (`HMMA` lines of `cuobjdump -sass`), which must be above 0
             for the mma.sync kernels (gemm, conv_direct, conv_dw,
             conv_gemm, flash_fwd, flash_bwd_dq, flash_bwd_dkv), and
-            in each head-dim instance of the float32 flash backward
-            functions themselves (3xTF32; `build_hmma` line); the
-            flash backward kernels at D 64 in both types and every
-            bf16 instance of gemm, conv_gemm and conv_dw must show no
-            ptxas spill stores.
+            in each head-dim instance of the float32 flash functions
+            themselves (forward and backward, 3xTF32; `build_hmma`
+            line); the flash kernels at D 64 in both types (the
+            float32 forward: reported at every head dim, registers
+            and spill bytes) and every bf16 instance of gemm,
+            conv_gemm and conv_dw must show no ptxas spill stores.
 3. kernels  each kernel against its plain PyTorch version on the card
             at the shapes its path gives it (one `kernel_case` line per
             shape): max error against the stated tolerance (bf16 flash
@@ -28,8 +29,13 @@ exits non-zero without the final line:
             over 30 launches (CUDA events), the plain version's time,
             one PyTorch library call's time where one computes the same
             function (TF32 off), and the least time the card could take.
-            Serving: paged attention (K1), int8 weight matmul (K2,
-            with torch._weight_int8pack_mm as the yardstick).
+            Serving: paged attention (K1) at float32, bf16 and int8
+            pages, decode and the prefill chunk, a ragged decode (one
+            short slot beside long ones), and the serve phase's int8
+            decode and prefill chunk at its own table width (128
+            pages), each run twice and held equal bit for bit; int8
+            weight matmul (K2, with
+            torch._weight_int8pack_mm as the yardstick).
             reference_cnn's batch-32 step, in float32 and bf16: the GEMM
             (K3) at its 9 products and the eval batch's 3 forwards (M
             2,048), run twice at fc1's and fc2's forwards (split over
@@ -49,9 +55,9 @@ exits non-zero without the final line:
             kv heads, B 2), with SDPA's forward, forward + backward
             and backward alone as the yardsticks; in both types also
             at D 32 and D 128 (B 2, S 1024, 4 over 2 heads, causal)
-            and non-causal at D 64. float32 K8 and K9 (3xTF32) run
-            twice at the flagship and GQA shapes and are held equal
-            bit for bit.
+            and non-causal at D 64. float32 K7, K8 and K9 (3xTF32)
+            are held to a relative L2 error too, and run twice at the
+            flagship and GQA shapes and are held equal bit for bit.
 4. serve    the serving bench at the full width of the decode flagship
             (d512 x 8 layers, 8 query / 2 KV heads, vocab 8192; random
             weights from --seed) through K1 and K2, with the launch
@@ -59,6 +65,10 @@ exits non-zero without the final line:
 5. agree    the first requests replayed through the plain versions on
             the card; where a token differs, the top-2 logit gap at that
             step must show a tie (< 1e-3), not a mismatch.
+5b. serve_profile  torch.profiler over a few decode ticks of the serve
+            phase's engine (every slot live, at positions in the
+            bench's range): device ms per forward, K1's and K2's ms
+            per forward, launches per forward, the idle share.
 6. train    `train-bench --use-kernels`: reference_cnn on 60,000
             synthetic MNIST-shaped samples, batch 32, lr 0.1, the
             device-resident epoch; one warm-up epoch, one measured epoch
@@ -150,20 +160,26 @@ ATTN_ATOL = {"float32": 1e-4, "bfloat16": 1e-2, "int8": 1e-4}
 GEMM_RTOL_OF_MAX = 1e-4
 
 HEADS, KV_HEADS, HEAD_DIM, PAGE, TABLE_PAGES = 8, 2, 64, 16, 80
+# serve_profile: decode ticks profiled, after warm-up ones.
+SERVE_PROFILE_TICKS = 20
 # The kernels built on mma.sync: their libraries must hold tensor-core
 # instructions (HMMA in the SASS).
 TENSOR_CORE_KERNELS = ("gemm", "conv_direct", "conv_dw", "conv_gemm",
                        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # Functions that must hold HMMA themselves, every instance of them
-# (library, mangled-name fragment): the float32 flash backward (3xTF32),
-# whose libraries would pass the check above on their bf16 kernels alone.
-TENSOR_CORE_FUNCTIONS = (("flash_bwd_dq", "flash_bwd_dq_f32_kernel"),
+# (library, mangled-name fragment): the float32 flash forward and backward
+# (3xTF32), whose libraries would pass the check above on their bf16
+# kernels alone.
+TENSOR_CORE_FUNCTIONS = (("flash_fwd", "flash_fwd_f32_kernel"),
+                         ("flash_bwd_dq", "flash_bwd_dq_f32_kernel"),
                          ("flash_bwd_dkv", "flash_bwd_dkv_f32_kernel"))
 # Kernel instances whose ptxas report must show no spill stores: the
-# flash backward in both types at the flagship's head dim (64), and every
-# bf16 instance of the GEMM, the implicit-GEMM conv and the weight
-# gradient. (library, mangled-name fragment)
+# flash backward in both types and the float32 flash forward at the
+# flagship's head dim (64), and every bf16 instance of the GEMM, the
+# implicit-GEMM conv and the weight gradient. (library, mangled-name
+# fragment)
 NO_SPILL = (("gemm", "gemm_kernelI13__nv_bfloat16"),
+            ("flash_fwd", "flash_fwd_f32_kernelILi64E"),
             ("flash_bwd_dq", "flash_bwd_dq_bf16_kernelILi64E"),
             ("flash_bwd_dkv", "flash_bwd_dkv_bf16_kernelILi64E"),
             ("flash_bwd_dq", "flash_bwd_dq_f32_kernelILi64E"),
@@ -261,10 +277,10 @@ AGREE_PARAM_ATOL = 5e-3
 # every kernel on bf16 inputs, whatever units the kernel itself uses.
 BF16_FLOPS = 989e12
 PEAK = {"float32": F32_FLOPS, "bfloat16": BF16_FLOPS}
-# The float32 flash backward (K8, K9) runs 3xTF32: three tf32 products
+# The float32 flash kernels (K7, K8, K9) run 3xTF32: three tf32 products
 # for each float32 one, at the H100's dense TF32 rate.
 TF32_FLOPS = 495e12
-TF32X3_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
+TF32X3_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # Flash attention (K7-K9) against their plain versions on the card.
 # float32: both sides sum up to 2,048 float32 products in other orders,
 # and the kernel's online softmax rescales per 64-key tile: 1e-5 of
@@ -282,7 +298,7 @@ TF32X3_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 # out bitwise equal on the card; 1e-3 leaves room for a bf16 ulp flipped
 # by another summation order, and catches a gradient off by 0.1%.
 FLASH_RTOL_OF_MAX = {"float32": 1e-5, "bfloat16": 2e-2}
-# float32 K8 and K9 run their products as 3xTF32 on the tensor cores
+# float32 K7, K8 and K9 run their products as 3xTF32 on the tensor cores
 # (csrc/mma.cuh): each operand split into two tf32 values, three products
 # summed in float32. Their error is that of float32 arithmetic in another
 # order (a numpy emulation of the design gives about 4e-7 relative L2,
@@ -301,8 +317,8 @@ FLASH_SHAPES = [("float32", 8, 2048, 8, 8, 64), ("bfloat16", 8, 2048, 8, 8, 64),
 FLASH_EXTRA_SHAPES = [(dtype, 2, 1024, 4, 2, d, causal)
                       for dtype in ("float32", "bfloat16")
                       for d, causal in ((32, True), (128, True), (64, False))]
-# float32 K8 and K9 run twice at the flagship and GQA shapes, (B, S, H,
-# Hkv, D, causal), and are held equal to themselves bit for bit: each
+# float32 K7, K8 and K9 run twice at the flagship and GQA shapes, (B, S,
+# H, Hkv, D, causal), and are held equal to themselves bit for bit: each
 # output element is summed in one fixed order (the GQA group too).
 FLASH_REPEAT = [(b, s, h, hkv, d, True) for dtype, b, s, h, hkv, d
                 in FLASH_SHAPES if dtype == "float32"]
@@ -384,6 +400,23 @@ def sass_hmma_by_function(kernels, name: str) -> dict[str, int]:
     return counts
 
 
+def registers(log: str) -> dict[str, int]:
+    """Registers per kernel (mangled name) in an `nvcc -Xptxas -v` log:
+    the "Used N registers" line after each "Function properties for
+    NAME"."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name is not None:
+            out[name] = int(m.group(1))
+            name = None
+    return out
+
+
 def spill_stores(log: str) -> dict[str, int]:
     """Bytes of spill stores per kernel (mangled name) in an `nvcc
     -Xptxas -v` log: each "Function properties for NAME" line is followed
@@ -427,10 +460,16 @@ def bound(nbytes: float, flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attention_case(torch, dev, dtype: str, b: int, kk: int, gen) -> dict:
+def attention_case(torch, dev, dtype: str, b: int, kk: int, gen,
+                   ragged: bool = False, pages: int = TABLE_PAGES,
+                   last_range: tuple[int, int] | None = None) -> dict:
     """One paged-attention call at the serving shapes: a pool of b *
-    TABLE_PAGES + 1 pages, distinct random block tables, positions that
-    end mid-page."""
+    pages + 1 pages, distinct random block tables of `pages` pages,
+    positions that end mid-page in [last_range) (by default the table's
+    second half); `ragged`: slot 0's in its first page instead (one short
+    slot beside long ones: most of its splits see no key). The kernel
+    runs twice and its two outputs must be equal bit for bit (the splits
+    are merged in a fixed order)."""
     from mpi_cuda_cnn_tpu_torch.models.generate import _quant_kv
     from mpi_cuda_cnn_tpu_torch.ops.attention import repeat_kv
     from mpi_cuda_cnn_tpu_torch.ops.paged_attention import (
@@ -439,8 +478,9 @@ def attention_case(torch, dev, dtype: str, b: int, kk: int, gen) -> dict:
     )
 
     F = torch.nn.functional
-    pool = b * TABLE_PAGES + 1
-    L = TABLE_PAGES * PAGE
+    pool = b * pages + 1
+    L = pages * PAGE
+    lo, hi = last_range or (L // 2, L - 1)
     shape = (pool, PAGE, KV_HEADS, HEAD_DIM)
 
     def randn(*s):
@@ -453,10 +493,12 @@ def attention_case(torch, dev, dtype: str, b: int, kk: int, gen) -> dict:
     else:
         tdt = getattr(torch, dtype)
         c = {"k": randn(*shape).to(tdt), "v": randn(*shape).to(tdt)}
-    perm = torch.randperm(pool - 1, generator=gen)[: b * TABLE_PAGES] + 1
-    table = perm.reshape(b, TABLE_PAGES).to(torch.int32).to(dev)
-    last = torch.randint(L // 2, L - 1, (b, 1), generator=gen)
+    perm = torch.randperm(pool - 1, generator=gen)[: b * pages] + 1
+    table = perm.reshape(b, pages).to(torch.int32).to(dev)
+    last = torch.randint(lo, hi, (b, 1), generator=gen)
     last = torch.where(last % PAGE == PAGE - 1, last - 1, last)  # mid-page
+    if ragged:
+        last[0] = PAGE // 2 + kk - 1
     positions = (last - kk + 1 + torch.arange(kk)[None, :]).to(torch.int32)
     positions = positions.to(dev)
     q = randn(b, kk, HEADS, HEAD_DIM)
@@ -465,9 +507,13 @@ def attention_case(torch, dev, dtype: str, b: int, kk: int, gen) -> dict:
     want = paged_attend_plain(q, c, positions, table, PAGE)
     err = (got - want).abs().max().item()
     tol = ATTN_ATOL[dtype]
+    what = f"paged_attention {dtype} B={b} kk={kk} L={L} ragged={ragged}"
     if not err <= tol:
-        raise AssertionError(f"paged_attention {dtype} B={b} kk={kk}: "
-                             f"max error {err} > {tol}")
+        raise AssertionError(f"{what}: max error {err} > {tol}")
+    again = paged_attend(q, c, positions, table, PAGE)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two runs differ by "
+                             f"{(got - again).abs().max().item()}")
     ms = median_ms(torch, lambda: paged_attend(q, c, positions, table, PAGE))
     plain_ms = median_ms(
         torch, lambda: paged_attend_plain(q, c, positions, table, PAGE))
@@ -496,7 +542,8 @@ def attention_case(torch, dev, dtype: str, b: int, kk: int, gen) -> dict:
     flops = 4 * HEAD_DIM * HEADS * int((pos + 1).sum())
     bound_ms, bound_by = bound(nbytes, flops)
     return {"kernel": "paged_attention", "dtype": dtype, "B": b, "kk": kk,
-            "L": L, "max_abs_err": err, "tolerance": tol, "ms": ms,
+            "L": L, "ragged": ragged, "bitwise_repeat": True,
+            "max_abs_err": err, "tolerance": tol, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -867,12 +914,13 @@ def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
     """K7, K8 and K9 on one attention shape (q (B, S, H, D), k/v (B, S,
     Hkv, D)), each against its plain version on the same inputs; the
     backward kernels take the plain forward's o and lse and a random
-    cotangent. float32 K8/K9 outputs are also held to FLASH_F32_REL_L2,
-    and at FLASH_REPEAT's shapes run twice and held equal bit for bit.
+    cotangent. float32 K7/K8/K9 outputs are also held to
+    FLASH_F32_REL_L2, and at FLASH_REPEAT's shapes run twice and held
+    equal bit for bit.
     Bound: the pairs (causal: S (S + 1) / 2, else S^2) per (batch, query
     head) times 2 D flops for each of the kernel's products (K7: q k^T and
     p v; K8: also dO v^T and ds k, less p v; K9: q k^T, dO v^T, p^T dO and
-    ds^T q), at the input type's peak (float32 K8/K9: three tf32 products
+    ds^T q), at the input type's peak (float32: three tf32 products
     each at the TF32 peak, `bound_by` "operations (3xTF32)", with the FMA
     figure beside it as `bound_fma_ms`); or each input read once and each
     output written once at the HBM rate, if that is longer."""
@@ -970,12 +1018,31 @@ def phase_flash_kernels(torch, dev, gen) -> list[dict]:
 
 
 def phase_kernels(torch, dev) -> list[dict]:
+    from mpi_cuda_cnn_tpu_torch.serve import bench as serve_bench
+    from mpi_cuda_cnn_tpu_torch.serve.pool import pages_for
+
     gen = torch.Generator().manual_seed(0)
     cases = []
     for dtype in ("float32", "bfloat16", "int8"):
         for b, kk in ((8, 1), (1, 32)):
             cases.append(attention_case(torch, dev, dtype, b, kk, gen))
             emit({"phase": "kernel_case", **cases[-1]})
+    cases.append(attention_case(torch, dev, "int8", 8, 1, gen, ragged=True))
+    emit({"phase": "kernel_case", **cases[-1]})
+    # The serve phase's own geometry: its int8 pages, its table width
+    # (pages_for(max_seq)) and positions in its requests' range; the plan
+    # splits this width otherwise than TABLE_PAGES.
+    args = serve_bench._parser().parse_args(SERVE_ARGS)
+    if (args.page_size, args.heads, args.kv_heads,
+            args.dim // args.heads) != (PAGE, HEADS, KV_HEADS, HEAD_DIM):
+        raise AssertionError("SERVE_ARGS and the paged-attention cases "
+                             "disagree on page or head shapes")
+    width = pages_for(args.max_seq, args.page_size)
+    span = (args.prompt_min, args.prompt_max + args.out_max)
+    for b, kk in ((args.slots, 1), (1, args.prefill_chunk)):
+        cases.append(attention_case(torch, dev, "int8", b, kk, gen,
+                                    pages=width, last_range=span))
+        emit({"phase": "kernel_case", **cases[-1]})
     for n in (8, 32):
         for din, dout in GEMM_SHAPES:
             cases.append(gemm_case(torch, dev, n, din, dout, gen))
@@ -1137,6 +1204,70 @@ def phase_serve(torch, argv: list[str]):
     return out, launches
 
 
+def phase_serve_profile(torch, out) -> dict:
+    """torch.profiler over SERVE_PROFILE_TICKS decode ticks of the serve
+    phase's engine (the decode flagship at full width), through its own
+    `run_decode_tick` with every slot live at positions drawn (seed 0)
+    from the bench's range (prompt_min to prompt_max + out_max), each
+    slot on pages of its own: device ms per forward, K1's and K2's ms per
+    forward, launches per forward (held to the serve phase's 8 and 41),
+    and the device's idle share against the unprofiled tick time (the
+    tick's host work and its one device-to-host copy included)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+
+    eng, args, model = out["engine"], out["args"], out["model"]
+    rng = np.random.default_rng(0)
+    pos = rng.integers(args.prompt_min, args.prompt_max + args.out_max,
+                       eng.slots)
+    need = pos // eng.page_size + 1
+    if need.sum() >= eng.num_pages:
+        raise AssertionError(f"serve_profile: {need.sum()} pages wanted of "
+                             f"{eng.num_pages}")
+    first = 1 + np.concatenate([[0], np.cumsum(need)[:-1]])
+    slots = [SimpleNamespace(idx=i, cached=int(p),
+                             pages=list(range(f, f + n)),
+                             req=SimpleNamespace(out=[int(rng.integers(
+                                 0, args.vocab))]))
+             for i, (p, f, n) in enumerate(zip(pos, first, need))]
+
+    def run():
+        eng.run_decode_tick(slots)
+
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_PROFILE_TICKS):
+        run()
+    torch.cuda.synchronize()
+    tick_ms = 1e3 * (time.perf_counter() - t0) / SERVE_PROFILE_TICKS
+    per_forward = {"paged_attention": model.depth,
+                   "int8_gemm": 5 * model.depth + 1}
+    launches = {k: _kernels.launches[k] / SERVE_PROFILE_TICKS
+                for k in per_forward}
+    if launches != per_forward:
+        raise AssertionError(f"serve_profile: launches per tick {launches}, "
+                             f"want {per_forward}")
+    prof = profile_device(torch, run, SERVE_PROFILE_TICKS, groups={
+        "paged_attention": ("paged_attention_kernel",),
+        "int8_gemm": ("int8_gemm_kernel",)})
+    busy = prof["device_busy_ms_per_step"]
+    group = prof.pop("group_ms_per_step")
+    return {"ticks": SERVE_PROFILE_TICKS, "slots": eng.slots,
+            "positions": [int(p) for p in pos], "tick_ms": tick_ms,
+            "device_ms_per_forward": busy,
+            "k1_ms_per_forward": group["paged_attention"],
+            "k2_ms_per_forward": group["int8_gemm"],
+            "launches_per_forward": launches,
+            "device_idle_share": None if busy is None else 1 - busy / tick_ms,
+            **prof}
+
+
 def phase_train(torch) -> dict:
     """train-bench's path on the kernels with the launch counts zeroed
     just before and read just after; then one measured epoch of the same
@@ -1216,12 +1347,14 @@ def check_cnn_epoch(what: str, epoch_launches: dict, eval_launches: dict,
         raise AssertionError(f"{what}: non-finite metrics {metrics}")
 
 
-def profile_device(torch, run, steps: int, match: tuple = ()) -> dict:
+def profile_device(torch, run, steps: int,
+                   groups: dict | None = None) -> dict:
     """`run()` called `steps` times under torch.profiler: kernel time by
-    name, summed, against the window's wall time, and the time of the
-    kernels whose names hold one of `match`. The profiler slows the host,
-    so an idle share is read against an unprofiled step time by the
-    caller."""
+    name, summed, against the window's wall time, and per name of
+    `groups` the time of the kernels whose names hold one of its name
+    fragments. The profiler slows
+    the host, so an idle share is read against an unprofiled step time by
+    the caller."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1244,10 +1377,11 @@ def profile_device(torch, run, steps: int, match: tuple = ()) -> dict:
            "device_busy_ms_per_step": total / 1e3 / steps if total else None,
            "kernels_per_step": sum(e.count for e in events) / steps,
            "top_device_us_per_step": {k: v / steps for k, v in top}}
-    if match:
-        out["matched_ms_per_step"] = sum(
-            v for k, v in dev_us.items() if any(m in k for m in match)
-        ) / 1e3 / steps
+    if groups:
+        out["group_ms_per_step"] = {
+            name: sum(v for k, v in dev_us.items()
+                      if any(m in k for m in frags)) / 1e3 / steps
+            for name, frags in groups.items()}
     return out
 
 
@@ -1534,13 +1668,15 @@ def phase_lm_profile(torch, steps: int = 3) -> None:
             run()
         torch.cuda.synchronize()
         step_ms = 1e3 * (time.perf_counter() - t0) / steps
-        prof = profile_device(torch, run, steps, match=("flash_",))
+        prof = profile_device(torch, run, steps,
+                              groups={"flash": ("flash_",)})
         busy = prof["device_busy_ms_per_step"]
+        flash_ms = prof.pop("group_ms_per_step")["flash"]
         emit({"phase": "lm_profile",
               "dtype": "bfloat16" if dtype else "float32", "attn": "flash",
               "step_ms": step_ms,
               "device_idle_share": None if busy is None else 1 - busy / step_ms,
-              **prof})
+              "flash_ms_per_step": flash_ms, **prof})
         del state
         torch.cuda.empty_cache()
 
@@ -1639,7 +1775,8 @@ def kernels_line(cases: list[dict], launches: dict) -> dict:
     for name, src, replaces, rep in (
             ("paged_attention", "mpi_cuda_cnn_tpu_torch/csrc/paged_attention.cu",
              "mpi_cuda_cnn_tpu/ops/pallas_paged_attention.py:89",
-             lambda c: c["dtype"] == "int8" and c["kk"] == 1),
+             lambda c: c["dtype"] == "int8" and c["kk"] == 1
+             and c["L"] == TABLE_PAGES * PAGE and not c["ragged"]),
             ("int8_gemm", "mpi_cuda_cnn_tpu_torch/csrc/int8_gemm.cu",
              "mpi_cuda_cnn_tpu/ops/pallas_gemv.py:143",
              lambda c: c["N"] == 8 and c["dout"] == 8192),
@@ -1670,7 +1807,7 @@ def kernels_line(cases: list[dict], launches: dict) -> dict:
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
-            # float32 K8/K9's kernel_case reads "operations (3xTF32)"
+            # float32 K7-K9's kernel_case reads "operations (3xTF32)"
             "bound_by": ("operations" if r["bound_by"].startswith("operations")
                          else r["bound_by"]),
             **({"bound_note": "3xTF32: three tf32 products at 495 TF/s",
@@ -1737,9 +1874,13 @@ def main() -> int:
     spills = {lib: {fn: n for fn, n in spill_stores(built["logs"][lib]).items()
                     if frag in fn}
               for lib, frag in NO_SPILL}
+    fwd_log = built["logs"]["flash_fwd"]
+    fwd_f32 = {fn: {"registers": n, "spill_stores": spill_stores(fwd_log)[fn]}
+               for fn, n in registers(fwd_log).items()
+               if "flash_fwd_f32_kernel" in fn}
     emit({"phase": "build", "seconds": round(built["seconds"], 3),
           "kernels": sorted(_kernels.KERNELS), "hmma": hmma,
-          "spill_stores": spills, "ptxas": report})
+          "spill_stores": spills, "flash_fwd_f32": fwd_f32, "ptxas": report})
     for name in TENSOR_CORE_KERNELS:
         if not hmma[name] > 0:
             raise AssertionError(f"build: no HMMA instruction in {name}'s "
@@ -1764,6 +1905,7 @@ def main() -> int:
 
     out, serve_launches = phase_serve(torch, SERVE_ARGS)
     emit({"phase": "agree", **phase_agree(torch, out)})
+    emit({"phase": "serve_profile", **phase_serve_profile(torch, out)})
     train_launches = phase_train(torch)
     emit({"phase": "train_agree", **phase_train_agree(torch)})
     emit({"phase": "train_bf16", **phase_train_bf16(torch)})

@@ -1,20 +1,11 @@
 // Pieces shared by the three flash-attention kernels (flash_fwd.cu,
 // flash_bwd_dq.cu, flash_bwd_dkv.cu).
 //
-// The float32 forward (`flash_fwd_kernel`) works on 64 x 64 tiles with
-// 256 threads laid out as a 16 x 16 grid: thread (ty, tx) owns tile rows
-// ty + 16 i (i < 4) and, of a 64-wide logit tile, columns tx + 16 j
-// (j < 4); of a (64, D) output tile, columns tx + 16 j (j < D / 16). The
-// 16 threads of one row group are the 16 low lanes or the 16 high lanes of
-// one warp, so a row reduction is four xor-shuffles. Tiles are staged in
-// shared memory as float32 and every product is a float32 FMA.
-//
-// The mma.sync kernels (`flash_fwd_bf16_kernel`, and both types of
-// `flash_bwd_dq_*_kernel` and `flash_bwd_dkv_*_kernel`) keep the 64-row
-// tiles but run 128 threads, 4 warps of 16 rows, on `mma.sync` (mma.cuh):
-// tiles stay in their input type in shared memory (float32 ones split into
-// tf32 pairs as they are read, 3xTF32) and the logits live in the
-// products' accumulator fragments.
+// All of them (`flash_fwd_*_kernel`, `flash_bwd_dq_*_kernel`,
+// `flash_bwd_dkv_*_kernel`, in bf16 and float32) work on 64-row tiles with
+// 128 threads, 4 warps of 16 rows, on `mma.sync` (mma.cuh): tiles stay in
+// their input type in shared memory (float32 ones split into tf32 pairs,
+// 3xTF32) and the logits live in the products' accumulator fragments.
 //
 // Tensors are (B, S, NH, D) and contiguous; lse and dvec are (B * H, S)
 // float32.
@@ -32,44 +23,9 @@
 namespace flash {
 
 constexpr int kTile = 64;      // query rows of a q tile, keys of a k/v tile
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kRows = 4;       // tile rows per thread
-constexpr int kCols = 4;       // logit columns per thread
-constexpr int kMmaThreads = 128;  // the bf16 kernels: 4 warps x 16 rows
-// Row stride of a (64, 64) logit tile in shared memory: the two row groups
-// of a warp (rows r and r + 1) then sit 16 banks apart, so neither the
-// stores of a tile nor the broadcast reads of a row conflict.
-constexpr int kLdp = kTile + 16;
+constexpr int kMmaThreads = 128;  // 4 warps x 16 rows
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// Stage rows [row0, row0 + 64) of head `head` of a (B, S, NH, D) tensor as
-// float32 into dst, with a row stride of `ld` floats. Neighbouring threads
-// read neighbouring elements of a row.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int ld,
-                                          const T* __restrict__ src, int b,
-                                          int row0, int head, int S, int NH) {
-  const T* base = src + ((static_cast<size_t>(b) * S + row0) * NH + head) * D;
-  const size_t row_stride = static_cast<size_t>(NH) * D;
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-    const int r = e / D;
-    const int d = e - r * D;
-    dst[r * ld + d] = to_f32(base[r * row_stride + d]);
-  }
-}
 
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
 template <typename Kernel>
@@ -79,11 +35,12 @@ cudaError_t allow_smem(Kernel kern, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// The float32 flash backward (flash_bwd_dq.cu, flash_bwd_dkv.cu) runs
-// m16n8k8 tf32 as 3xTF32 (mma.cuh). Its tiles are float32 in shared
-// memory, (64, D) with rows of D + 4 floats (16 bytes of padding), read
-// with plain 32- and 64-bit loads (`ldmatrix` moves 16-bit elements and
-// has no tf32 form); every operand is split into (hi, lo) as it is read.
+// The float32 flash kernels (flash_fwd.cu, flash_bwd_dq.cu,
+// flash_bwd_dkv.cu) run m16n8k8 tf32 as 3xTF32 (mma.cuh). Their tiles are
+// float32 in shared memory, (64, D) with rows of D + 4 floats (16 bytes of
+// padding), read with plain 32- and 64-bit loads (`ldmatrix` moves 16-bit
+// elements and has no tf32 form); an operand is split into (hi, lo) as it
+// is read, or once into hi and lo tiles of the same layout.
 //
 // First products (s = q k^T, dp = dO v^T and their transposes) sum over
 // d, whose order inside a k-chunk of 8 is free: A slot t and B row t take
@@ -120,7 +77,7 @@ __device__ __forceinline__ void frag_b_tf32(uint32_t (&hi)[2],
   mma::split_tf32(r.y, hi[1], lo[1]);
 }
 
-// Second products (dq += ds k, dv += p^T dO, dk += ds^T q):
+// Second products (o += p v, dq += ds k, dv += p^T dO, dk += ds^T q):
 // acc[dn] += x y[:, dn * 8 .. +8] over NJ k-chunks of 8, where x (16 x
 // 8 NJ) is held in its accumulator fragments (n-tile j = k-chunk j) and y
 // is a row-major [k][d] tile from `y` = &tile[k0 + 2t][g]. x is split and
@@ -167,9 +124,9 @@ __device__ __forceinline__ void permuted_product_tf32x3(
   }
 }
 
-// The launch geometry the wrapper planned (`flash_bwd_plan` in
-// ops/flash_attention.py); the backward launch functions refuse a plan
-// that is not their kernel's own.
+// The launch geometry the wrapper planned (`flash_fwd_plan` and
+// `flash_bwd_plan` in ops/flash_attention.py); the launch functions refuse
+// a plan that is not their kernel's own.
 struct Plan {
   int grid_x, grid_y, threads, smem;
   bool is(int gx, int gy, int th, size_t bytes) const {

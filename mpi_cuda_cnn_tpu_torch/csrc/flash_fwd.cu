@@ -16,25 +16,44 @@
 // What bounds it: operations. Causal attention at the training shapes
 // (S = 2048, D = 64) does 2 * 2 * S^2 * D / 2 flops per (batch, head)
 // against 4 * S * D elements read and written: hundreds of flops a byte,
-// far above the card's balance point. So the bf16 path is built on the
-// tensor cores and the float32 path on the FMA pipe (TF32 off: 67 TF/s).
+// far above the card's balance point. Both types run on the tensor cores:
+// bf16 at 989 TFLOP/s, float32 as 3xTF32 (mma.cuh), three tf32 products at
+// 495 TFLOP/s (TF32 stays off everywhere else).
 //
-// bf16 (`flash_fwd_bf16_kernel`, FlashAttention-2's forward): 4 warps, each
-// owning 16 query rows, whose q fragments are loaded once with `ldmatrix`;
-// k and v tiles of 64 keys stay bf16 in shared memory (rows padded by 16
-// bytes, so `ldmatrix` is conflict-free), double-buffered with `cp.async`
-// so tile j+1 loads while tile j is multiplied. S = q k^T and o += p v are
-// `mma.sync` m16n8k16 with float32 accumulators (mma.cuh). The online
-// softmax runs in float32 on the accumulator fragments: s * scale, the
-// causal mask on the diagonal tile only, row max and sum over the 4 lanes
-// of a quad, exp(s - m). p is rounded to bf16 in registers and used as the
-// A operand of p v directly (the accumulator and A fragments coincide),
-// v read through `ldmatrix.trans`; l sums the unrounded p.
+// Both paths are FlashAttention-2's forward: 128 threads, 4 warps each
+// owning 16 query rows; s = q k^T and o += p v on `mma.sync`; the online
+// softmax in float32 on the accumulator fragments (s * scale, the causal
+// mask on the diagonal tile only, row max and sum over the 4 lanes of a
+// quad, exp(s - m)); p used as the A operand of p v straight from its
+// accumulators; l sums the unrounded p.
 //
-// float32 (`flash_fwd_kernel`, FMA only): 256 threads, q and each k
-// and v tile staged in shared memory (rows padded by one float so 16
-// threads reading 16 keys at one d hit 16 banks); the 64 x 64 logit tile
-// in registers, 4 x 4 a thread, p through shared memory.
+// bf16 (`flash_fwd_bf16_kernel`): m16n8k16. The q fragments are loaded
+// once with `ldmatrix`; k and v tiles of 64 keys stay bf16 in shared
+// memory (rows padded by 16 bytes, so `ldmatrix` is conflict-free),
+// double-buffered with `cp.async` so tile j+1 loads while tile j is
+// multiplied; p is rounded to bf16 in registers and packed as the A
+// operand (the accumulator and A fragments coincide), v read through
+// `ldmatrix.trans`.
+//
+// float32 (`flash_fwd_f32_kernel`): m16n8k8 tf32 as 3xTF32 on the float32
+// tile pieces of flash_common.cuh (the design of the float32 backward,
+// flash_bwd_dq.cu): tiles of D + 4 floats a row copied by 16-byte
+// `cp.async`, s = q k^T with d permuted inside each k-chunk (float2
+// reads), p split and permuted from its accumulators into the A operand
+// of p v, v's rows read in the same order. The splits, not the products,
+// set the pace of the float32 backward, so q, the A operand of every k
+// tile, is split once: its (hi, lo) fragments stay in registers at D <= 64
+// (64 registers at D 64), and at D 128 the q tile is split in place into
+// hi and lo tiles in shared memory. k and v are split as each warp reads
+// them, double-buffered by `cp.async` (q staged in the second stage),
+// 218 registers at D 64 and two blocks an SM. Splitting each k/v tile
+// once per block into hi and lo tiles instead (one stage, two more
+// barriers a tile, twice the shared-memory reads) measured slower at
+// every head dim on an H100 SXM at 700 W (0.863 against 0.714 ms at the
+// LM flagship), so it is not kept. Each tile's p v is summed from zero
+// and added to the alpha-rescaled o in float32: the tensor core's float32
+// sums behave as truncating, and a bias carried over a row of 32 tiles
+// would exceed 1e-5 (tests/test_torch_flash_tf32x3.py).
 //
 // Both keep from the TPU kernel:
 //   - grid (B * H, S / 64), the heaviest causal q tiles first;
@@ -56,159 +75,218 @@ namespace {
 
 using namespace flash;
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int S, int H, int Hkv,
-                     int causal, float scale) {
-  constexpr int kLd = D + 1;
-  constexpr int kDc = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* q_s = smem;               // (64, D + 1)
-  float* k_s = q_s + kTile * kLd;  // (64, D + 1)
-  float* v_s = k_s + kTile * kLd;  // (64, D)
-  float* p_s = v_s + kTile * D;    // (64, kLdp)
+// A fragment (hi, lo) of k-chunk kc from tiles already split: `ph` =
+// &hi[row0 + g][kc * 8 + 2t], `pl` the same place of lo (frag_a_tf32's
+// order: rows g and g + 8, d 2t and 2t + 1).
+template <int LD>
+__device__ __forceinline__ void frag_a_split(uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4],
+                                             const uint32_t* ph,
+                                             const uint32_t* pl) {
+  const uint2 h0 = *reinterpret_cast<const uint2*>(ph);
+  const uint2 h1 = *reinterpret_cast<const uint2*>(ph + 8 * LD);
+  const uint2 l0 = *reinterpret_cast<const uint2*>(pl);
+  const uint2 l1 = *reinterpret_cast<const uint2*>(pl + 8 * LD);
+  hi[0] = h0.x, hi[1] = h1.x, hi[2] = h0.y, hi[3] = h1.y;
+  lo[0] = l0.x, lo[1] = l1.x, lo[2] = l0.y, lo[3] = l1.y;
+}
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+// Split the staged (64, D) float32 q tile in place: its elements become
+// their tf32 hi bits and `lo` (the same layout) receives tf32(x - hi).
+template <int D, int LD>
+__device__ __forceinline__ void split_tile(float* t, float* lo) {
+  for (int e = threadIdx.x; e < kTile * D / 4; e += kMmaThreads) {
+    const int r = e / (D / 4), c = (e - r * (D / 4)) * 4;
+    float4* px = reinterpret_cast<float4*>(t + r * LD + c);
+    const float4 x = *px;
+    uint4 h, l;
+    mma::split_tf32(x.x, h.x, l.x);
+    mma::split_tf32(x.y, h.y, l.y);
+    mma::split_tf32(x.z, h.z, l.z);
+    mma::split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(px) = h;
+    *reinterpret_cast<uint4*>(lo + r * LD + c) = l;
+  }
+}
+
+// Shared-memory tiles of the float32 kernel, (64, D + 4) floats each:
+// k and v in two stages, and beyond D 64 q's hi and lo tiles. Its plan
+// (`flash_fwd_plan`) counts them.
+template <int D>
+constexpr int kF32Tiles = D <= 64 ? 4 : 6;
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_fwd_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int S, int H, int Hkv,
+                         int causal, float scale) {
+  constexpr int kLd = kLdF32<D>;  // D + 4: row stride in floats
+  constexpr int kTileElems = kTile * kLd;
+  constexpr int kChunks = D / 4;  // 16-byte copies per row
+  constexpr int kKc = D / 8;      // k-chunks of the q k^T product
+  constexpr bool kHoldQ = D <= 64;  // q's (hi, lo) fragments in registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* tiles = reinterpret_cast<float*>(smem_raw);
+  // Tiles 0-3: k, v of stage 0 and of stage 1. Tiles 4, 5 at D > 64: q's
+  // hi and lo. q is staged in tile 2 (stage 1's k, D <= 64) or 4.
+  auto tile = [&](int i) { return tiles + i * kTileElems; };
+  auto bits = [&](int i) {
+    return reinterpret_cast<const uint32_t*>(tiles + i * kTileElems);
+  };
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
   const int kvh = h / (H / Hkv);
   const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
   const int q0 = qt * kTile;
+  const size_t q_rs = static_cast<size_t>(H) * D;
+  const size_t kv_rs = static_cast<size_t>(Hkv) * D;
 
-  load_tile<T, D>(q_s, kLd, q, b, q0, h, S, H);
-
-  float m[kRows], l[kRows], acc[kRows][kDc];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kDc; ++j) acc[i][j] = 0.f;
+  float* q_stage = tile(kHoldQ ? 2 : 4);
+  const float* qb = q + ((static_cast<size_t>(b) * S + q0) * H + h) * D;
+  for (int e = tid; e < kTile * kChunks; e += kMmaThreads) {
+    const int r = e / kChunks, c = (e - r * kChunks) * 4;
+    mma::cp_async16(q_stage + r * kLd + c, qb + r * q_rs + c, true);
   }
+  auto load_kv = [&](int kt, int st) {
+    const size_t off =
+        ((static_cast<size_t>(b) * S + kt * kTile) * Hkv + kvh) * D;
+    float* ks = tile(2 * st);
+    float* vs = tile(2 * st + 1);
+    for (int e = tid; e < kTile * kChunks; e += kMmaThreads) {
+      const int r = e / kChunks, c = (e - r * kChunks) * 4;
+      mma::cp_async16(ks + r * kLd + c, k + off + r * kv_rs + c, true);
+      mma::cp_async16(vs + r * kLd + c, v + off + r * kv_rs + c, true);
+    }
+  };
+  load_kv(0, 0);
+  mma::cp_async_commit();
+
+  // This lane's rows of the warp's 16: g and g + 8 (half 0 and 1).
+  const int g = lane >> 2, t4 = lane & 3;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  uint32_t qh[kHoldQ ? kKc : 1][4], ql[kHoldQ ? kKc : 1][4];
+  const int arow = (16 * warp + g) * kLd + 2 * t4;  // frag_a_tf32's place
 
   const int nk = causal ? qt + 1 : S / kTile;
   for (int kt = 0; kt < nk; ++kt) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(k_s, kLd, k, b, kt * kTile, kvh, S, Hkv);
-    load_tile<T, D>(v_s, D, v, b, kt * kTile, kvh, S, Hkv);
-    __syncthreads();
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile kt landed; stage (kt+1)&1 is free again
+    if (kt == 0) {
+      // q split once: into registers, or in place into tiles 4 (hi) and 5.
+      if constexpr (kHoldQ) {
+#pragma unroll
+        for (int kc = 0; kc < kKc; ++kc)
+          frag_a_tf32<kLd>(qh[kc], ql[kc], q_stage + arow + kc * 8);
+      } else {
+        split_tile<D, kLd>(tile(4), tile(5));
+      }
+      __syncthreads();  // q read (its staging tile is free) or split
+    }
+    if (kt + 1 < nk) {
+      load_kv(kt + 1, (kt + 1) & 1);
+      mma::cp_async_commit();
+    }
+    const float* ks = tile(2 * (kt & 1));
+    const float* vs = ks + kTileElems;
 
-    float s[kRows][kCols];
+    // s = q k^T: k's rows [key][d] are the col-major B (key 8j + g; d 2t
+    // and 2t + 1 of chunk kc, flash_common.cuh).
+    float s[kTile / 8][4];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+    for (int j = 0; j < kTile / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[kRows], c[kCols];
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) a[i] = q_s[(ty + 16 * i) * kLd + d];
+    for (int kc = 0; kc < kKc; ++kc) {
+      uint32_t ah[4], al[4];
+      if constexpr (kHoldQ) {
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) c[j] = k_s[(tx + 16 * j) * kLd + d];
+        for (int e = 0; e < 4; ++e) ah[e] = qh[kc][e], al[e] = ql[kc][e];
+      } else {
+        frag_a_split<kLd>(ah, al, bits(4) + arow + kc * 8,
+                          bits(5) + arow + kc * 8);
+      }
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
+      for (int j = 0; j < kTile / 8; ++j) {
+        const int at = (8 * j + g) * kLd + kc * 8 + 2 * t4;
+        uint32_t bh[2], bl[2];
+        frag_b_tf32(bh, bl, ks + at);
+        mma::mma_tf32x3(s[j], ah, al, bh, bl);
+      }
     }
 
     const bool diag = causal && kt == qt;
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = ty + 16 * i;
-      bool keep[kCols];
+    for (int half = 0; half < 2; ++half) {
+      const int row = 16 * warp + g + 8 * half;  // within the q tile
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        keep[j] = !diag || tx + 16 * j <= r;
-        s[i][j] = keep[j] ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = row_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
+      for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool keep = !diag || j * 8 + 2 * t4 + e <= row;
+          float& x = s[j][2 * half + e];
+          x = keep ? x * scale : kNegInf;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float m_new = fmaxf(m[half], mx);
+      const float alpha = expf(m[half] - m_new);
       float psum = 0.f;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = keep[j] ? expf(s[i][j] - m_new) : 0.f;
-        psum += p;
-        p_s[r * kLdp + tx + 16 * j] = round_to<T>(p);
+      for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool keep = !diag || j * 8 + 2 * t4 + e <= row;
+          float& x = s[j][2 * half + e];
+          x = keep ? expf(x - m_new) : 0.f;
+          psum += x;
+        }
+      psum += __shfl_xor_sync(kFull, psum, 1);
+      psum += __shfl_xor_sync(kFull, psum, 2);
+      l[half] = l[half] * alpha + psum;
+      m[half] = m_new;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[j][2 * half] *= alpha;
+        acc[j][2 * half + 1] *= alpha;
       }
-      l[i] = l[i] * alpha + row_sum(psum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kDc; ++j) acc[i][j] *= alpha;
     }
-    __syncthreads();
 
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float p[kRows], vv[kDc];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) p[i] = p_s[(ty + 16 * i) * kLdp + c];
-#pragma unroll
-      for (int j = 0; j < kDc; ++j) vv[j] = v_s[c * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kDc; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
-    }
+    // o += p v: p's accumulators of key n-tile j, split and permuted, are
+    // the A fragment of key chunk j; v's rows [key][d] are the row-major B
+    // with its rows in the same order (flash_common.cuh). Summed from zero
+    // per tile, then added to the rescaled o.
+    permuted_product_tf32x3<kTile / 8, D / 8, kLd, 8>(acc, s,
+                                                      vs + 2 * t4 * kLd + g);
   }
 
-  const size_t row_stride = static_cast<size_t>(H) * D;
-  T* obase = o + ((static_cast<size_t>(b) * S + q0) * H + h) * D;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = ty + 16 * i;
-    const float lc = fmaxf(l[i], 1e-30f);
+  for (int half = 0; half < 2; ++half) {
+    const int row = q0 + 16 * warp + g + 8 * half;
+    const float lc = fmaxf(l[half], 1e-30f);
+    float* orow = o + ((static_cast<size_t>(b) * S + row) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < kDc; ++j)
-      obase[r * row_stride + tx + 16 * j] = from_f32<T>(acc[i][j] / lc);
-    if (tx == 0) lse[static_cast<size_t>(bh) * S + q0 + r] = m[i] + logf(lc);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(orow + j * 8 + 2 * t4) =
+          make_float2(acc[j][2 * half] / lc, acc[j][2 * half + 1] / lc);
+    if (t4 == 0) lse[static_cast<size_t>(bh) * S + row] = m[half] + logf(lc);
   }
 }
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int B, int S, int H, int Hkv, int causal,
-                   cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (2 * kTile * (D + 1) + kTile * D + kTile * kLdp);
-  auto kern = flash_fwd_kernel<T, D>;
-  cudaError_t err = allow_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, S / kTile);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      S, H, Hkv, causal, softmax_scale(D));
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
-                     void* lse, int B, int S, int H, int Hkv, int D,
-                     int causal, cudaStream_t s) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, B, S, H, Hkv, causal, s);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, S, H, Hkv, causal, s);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, S, H, Hkv, causal, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-
-constexpr int kTcThreads = 128;  // 4 warps x 16 query rows
 
 template <int D>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(kMmaThreads)
     flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
@@ -235,13 +313,13 @@ __global__ void __launch_bounds__(kTcThreads)
   const size_t kv_rs = static_cast<size_t>(Hkv) * D;
 
   const bf16* qb = q + ((static_cast<size_t>(b) * S + q0) * H + h) * D;
-  for (int e = tid; e < kTile * kChunks; e += kTcThreads) {
+  for (int e = tid; e < kTile * kChunks; e += kMmaThreads) {
     const int r = e / kChunks, c = (e - r * kChunks) * 8;
     mma::cp_async16(q_s + r * kLd + c, qb + r * q_rs + c, true);
   }
   auto load_kv = [&](int kt, int st) {
     const size_t off = ((static_cast<size_t>(b) * S + kt * kTile) * Hkv + kvh) * D;
-    for (int e = tid; e < kTile * kChunks; e += kTcThreads) {
+    for (int e = tid; e < kTile * kChunks; e += kMmaThreads) {
       const int r = e / kChunks, c = (e - r * kChunks) * 8;
       mma::cp_async16(k_s + st * kTileElems + r * kLd + c, k + off + r * kv_rs + c,
                       true);
@@ -369,59 +447,73 @@ __global__ void __launch_bounds__(kTcThreads)
   }
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        void* lse, int B, int S, int H, int Hkv, int causal,
-                        cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) * 5 * kTile * (D + 8);
-  auto kern = flash_fwd_bf16_kernel<D>;
+// One launch of `kern` on the wrapper's plan, which must be the kernel's
+// own: grid (B * H, S / 64), 128 threads, its dynamic shared memory.
+template <typename T, typename Kernel>
+cudaError_t launch_kernel(Kernel kern, size_t smem, const void* q,
+                          const void* k, const void* v, void* o, void* lse,
+                          int B, int S, int H, int Hkv, int D, int causal,
+                          const Plan& plan, cudaStream_t stream) {
+  if (!plan.is(B * H, S / kTile, kMmaThreads, smem)) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, S / kTile);
-  kern<<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), S, H, Hkv, causal, softmax_scale(D));
+  kern<<<dim3(plan.grid_x, plan.grid_y), kMmaThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      S, H, Hkv, causal, softmax_scale(D));
   return cudaGetLastError();
 }
 
-cudaError_t launch_bf16_d(const void* q, const void* k, const void* v, void* o,
-                          void* lse, int B, int S, int H, int Hkv, int D,
-                          int causal, cudaStream_t s) {
-  switch (D) {
-    case 32:
-      return launch_bf16<32>(q, k, v, o, lse, B, S, H, Hkv, causal, s);
-    case 64:
-      return launch_bf16<64>(q, k, v, o, lse, B, S, H, Hkv, causal, s);
-    case 128:
-      return launch_bf16<128>(q, k, v, o, lse, B, S, H, Hkv, causal, s);
-    default:
-      return cudaErrorInvalidValue;
+// float32: kF32Tiles<D> tiles of (64, D + 4) floats; bf16: q and two
+// stages of k and v, (64, D + 8) bf16 each.
+template <int D>
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
+                     void* lse, int B, int S, int H, int Hkv, int causal,
+                     int dtype, const Plan& plan, cudaStream_t s) {
+  if (dtype == kDtypeBF16) {
+    constexpr size_t smem = sizeof(__nv_bfloat16) * 5 * kTile * (D + 8);
+    return launch_kernel<__nv_bfloat16>(flash_fwd_bf16_kernel<D>, smem, q, k,
+                                        v, o, lse, B, S, H, Hkv, D, causal,
+                                        plan, s);
   }
+  if (dtype != kDtypeF32) return cudaErrorInvalidValue;
+  constexpr size_t smem = kF32Tiles<D> * kTile * (sizeof(float) * D + 16);
+  return launch_kernel<float>(flash_fwd_f32_kernel<D>, smem, q, k, v, o, lse,
+                              B, S, H, Hkv, D, causal, plan, s);
 }
 
 }  // namespace
 
-// q (B, S, H, D), k/v (B, S, Hkv, D), o (B, S, H, D), all contiguous and of
-// one type: dtype 0 = float32 (`flash_fwd_kernel`), 1 = bfloat16
-// (`flash_fwd_bf16_kernel`). lse (B * H, S) float32.
-// S a multiple of 64, H a multiple of Hkv, D in {32, 64, 128}.
-// Returns cudaGetLastError().
+// q (B, S, H, D), k/v (B, S, Hkv, D), o (B, S, H, D), all contiguous, of
+// one type and 16-byte aligned: dtype 0 = float32 (`flash_fwd_f32_kernel`),
+// 1 = bfloat16 (`flash_fwd_bf16_kernel`). lse (B * H, S) float32. S a multiple
+// of 64, H a multiple of Hkv, D in {32, 64, 128}. The plan (grid_x,
+// grid_y, threads, smem) is the wrapper's `flash_fwd_plan`: grid (B * H,
+// S / 64), 128 threads and the kernel's dynamic shared memory; any other
+// plan is refused. Returns cudaGetLastError().
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int B, int S, int H,
                                 int Hkv, int D, int causal, int dtype,
+                                int grid_x, int grid_y, int threads, int smem,
                                 void* stream) {
   if (B < 1 || S < kTile || S % kTile != 0 || Hkv < 1 || H % Hkv != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Plan plan{grid_x, grid_y, threads, smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch (dtype) {
-    case 0:
-      err = launch_d<float>(q, k, v, o, lse, B, S, H, Hkv, D, causal, s);
+  switch (D) {
+    case 32:
+      err = launch_d<32>(q, k, v, o, lse, B, S, H, Hkv, causal, dtype, plan,
+                         s);
       break;
-    case 1:
-      err = launch_bf16_d(q, k, v, o, lse, B, S, H, Hkv, D, causal, s);
+    case 64:
+      err = launch_d<64>(q, k, v, o, lse, B, S, H, Hkv, causal, dtype, plan,
+                         s);
+      break;
+    case 128:
+      err = launch_d<128>(q, k, v, o, lse, B, S, H, Hkv, causal, dtype, plan,
+                          s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -32,13 +32,13 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS = {
     "paged_attention": ("paged_attention_launch",
-                        [_P] * 8 + [_I] * 9 + [_P]),
+                        [_P] * 10 + [_I] * 16 + [_P]),
     "int8_gemm": ("int8_gemm_launch", [_P] * 4 + [_I] * 3 + [_P]),
     "gemm": ("gemm_launch", [_P] * 6 + [_I] * 11 + [_P]),
     "conv_direct": ("conv_direct_launch", [_P] * 3 + [_I] * 19 + [_P]),
     "conv_dw": ("conv_dw_launch", [_P] * 5 + [_I] * 22 + [_P]),
     "conv_gemm": ("conv_gemm_launch", [_P] * 3 + [_I] * 19 + [_P]),
-    "flash_fwd": ("flash_fwd_launch", [_P] * 5 + [_I] * 7 + [_P]),
+    "flash_fwd": ("flash_fwd_launch", [_P] * 5 + [_I] * 11 + [_P]),
     "flash_bwd_dq": ("flash_bwd_dq_launch", [_P] * 7 + [_I] * 11 + [_P]),
     "flash_bwd_dkv": ("flash_bwd_dkv_launch", [_P] * 9 + [_I] * 12 + [_P]),
 }

@@ -3,8 +3,10 @@ three hand-written CUDA kernels (counterpart of the reference's
 `ops/pallas_attention.py`).
 
 - K7 `flash_forward` (`csrc/flash_fwd.cu`): o and the per-row logsumexp
-  with an online softmax; bf16 on the tensor cores (`mma.sync`), float32
-  on FMA. Replaces `_flash_kernel`/`_flash_forward`.
+  with an online softmax; on `mma.sync` in both types: bf16 operands,
+  float32 ones as 3xTF32 (each split into two tf32 values, three
+  tensor-core products; float32 accuracy). Replaces
+  `_flash_kernel`/`_flash_forward`.
 - K8 `flash_bwd_dq` (`csrc/flash_bwd_dq.cu`); on `mma.sync` in both
   types: bf16 operands, float32 ones as 3xTF32 (each split into two tf32
   values, three tensor-core products; float32 accuracy). Replaces
@@ -14,9 +16,9 @@ three hand-written CUDA kernels (counterpart of the reference's
   group in a fixed order by a second kernel of the same launch. Replaces
   `_bwd_dkv_kernel` and the group sum after it.
 
-`flash_bwd_plan` is K8's and K9's launch geometry (grid, threads, shared
-memory, K9's GQA scratch), computed on the host and handed to the C
-launch functions, which refuse any other.
+`flash_fwd_plan` is K7's launch geometry and `flash_bwd_plan` K8's and
+K9's (grid, threads, shared memory, K9's GQA scratch), computed on the
+host and handed to the C launch functions, which refuse any other.
 
 `flash_backward` is the reference's `_flash_backward`: dvec, then K8
 and K9.
@@ -50,7 +52,7 @@ from .attention import NEG_INF
 
 HEAD_DIMS = (32, 64, 128)   # head dims the kernels are built for
 _TILE = 64                  # rows of a query tile, keys of a key tile
-_MMA_THREADS = 128          # K8 and K9: 4 warps x 16 rows
+_MMA_THREADS = 128          # K7, K8 and K9: 4 warps x 16 rows
 _ROW_PAD = 16               # bytes of padding after each staged tile row
 _SUM_THREADS, _SUM_VEC = 256, 4   # K9's group sum: 4 floats a thread
 
@@ -115,6 +117,35 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype), lse
 
 
+class FlashFwdPlan(NamedTuple):
+    """K7's launch: a (grid_x, grid_y) grid of `threads`-thread blocks with
+    `smem_bytes` of dynamic shared memory; block (x, y) owns query tile
+    grid_y - 1 - y of (batch, query head) x."""
+    grid_x: int
+    grid_y: int
+    threads: int
+    smem_bytes: int
+
+
+def flash_fwd_plan(b: int, s: int, h: int, hkv: int, d: int,
+                   dtype: torch.dtype) -> FlashFwdPlan:
+    """The launch plan of K7 for q (b, s, h, d) and k/v (b, s, hkv, d) in
+    the compute type `dtype` (float32 or bf16), as `csrc/flash_fwd.cu`
+    checks it.
+
+    Shared memory: (64, d) tiles of the input type with each row padded by
+    16 bytes. bf16: q and two stages of k and v, five tiles. float32
+    (3xTF32): k and v in two stages, four tiles (q staged in the second
+    and split into registers), and at d 128 two more for q split in place
+    into hi and lo."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_fwd_plan: {dtype}")
+    elem = torch.finfo(dtype).bits // 8
+    tiles = 5 if dtype == torch.bfloat16 else (4 if d <= 64 else 6)
+    return FlashFwdPlan(b * h, s // _TILE, _MMA_THREADS,
+                        tiles * _TILE * (elem * d + _ROW_PAD))
+
+
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """(o (B, S, H, D) in q's type, lse (B * H, S) float32). CUDA tensors
@@ -126,12 +157,13 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hkv = k.shape[2]
     kdt = _compute_dtype(q.dtype)
     qc, kc, vc = _for_kernel("flash_fwd", kdt, q, k, v)
+    plan = flash_fwd_plan(b, s, h, hkv, d, kdt)
     o = torch.empty((b, s, h, d), dtype=kdt, device=q.device)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
     err = _kernels.lib("flash_fwd")(
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b, s, h, hkv, d, int(causal), _kernels.DTYPE_CODES[kdt],
-        _stream(q))
+        plan.grid_x, plan.grid_y, plan.threads, plan.smem_bytes, _stream(q))
     _kernels.check("flash_fwd", err)
     _kernels.launches["flash_fwd"] += 1
     return o.to(q.dtype), lse
@@ -316,8 +348,8 @@ def _for_kernel(name: str, kdt: torch.dtype, *tensors: torch.Tensor,
                 d: int | None = None, device: torch.device | None = None):
     """The tensors as the kernels take them: on one CUDA device (q's), of
     the compute type, contiguous and 16-byte aligned (the `cp.async`
-    copies of K8 and K9 in either type; an offset view is copied); a head
-    dim the kernels are built for."""
+    copies of K7, K8 and K9 in either type; an offset view is copied); a
+    head dim the kernels are built for."""
     dev = device or tensors[0].device
     if any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: all tensors must be on one CUDA device, "

@@ -1,4 +1,6 @@
-"""The launch plan of the flash backward kernels K8 (dq) and K9 (dk/dv)
+"""The launch plans of the flash kernels: the forward K7
+(`flash_attention.flash_fwd_plan`, which `flash_forward` hands to
+`csrc/flash_fwd.cu`) and the backward K8 (dq) and K9 (dk/dv)
 (`flash_attention.flash_bwd_plan`, which `flash_bwd_dq` and
 `flash_bwd_dkv` hand to `csrc/flash_bwd_dq.cu` and `csrc/flash_bwd_dkv.cu`),
 at every attention shape the port launches them at: chip_smoke.py's
@@ -10,7 +12,8 @@ per (batch, query head, 64-row tile), the GQA group summed from a
 float32 scratch.
 
 At each, the plan must:
-- cover every (batch, query head, 64-row query tile) exactly once by K8;
+- cover every (batch, query head, 64-row query tile) exactly once by K7
+  and by K8;
 - cover every (batch, query head, 64-key tile) exactly once by K9, and
   under GQA write every (group slice, batch, key, kv head) of the scratch
   once and have the group sum cover every (dk or dv, batch, key, kv
@@ -170,3 +173,50 @@ def test_plan_refuses_what_the_kernels_lack():
         fa.flash_bwd_plan("fwd", 1, 128, 2, 1, 64, torch.float32)
     with pytest.raises(ValueError):
         fa.flash_bwd_plan("dq", 1, 128, 2, 1, 64, torch.float16)
+
+
+@pytest.mark.parametrize("name", SHAPES)
+def test_fwd_plan_covers_every_query_tile_once(name):
+    dtype, b, s, h, hkv, d = SHAPES[name]
+    plan = fa.flash_fwd_plan(b, s, h, hkv, d, DTYPES[dtype])
+    assert 1 <= plan.grid_x <= GRID_X_MAX and 1 <= plan.grid_y <= GRID_Y_MAX
+    assert plan.threads == 128
+    assert 0 < plan.smem_bytes <= SMEM_LIMIT
+    # block (x, y): bh = x -> (x // H, x % H); q tile grid_y - 1 - y
+    x, y = np.meshgrid(np.arange(plan.grid_x), np.arange(plan.grid_y),
+                       indexing="ij")
+    bb, hh, qt = x // h, x % h, plan.grid_y - 1 - y
+    assert (bb < b).all() and (qt >= 0).all() and (qt < s // TILE).all()
+    cover = np.zeros((b, h, s // TILE), np.int64)
+    np.add.at(cover, (bb, hh, qt), 1)
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_fwd_plan_shared_memory_is_the_kernels_layout(dtype, d):
+    """The bytes flash_fwd.cu stages: (64, D) tiles with each row padded
+    by 16 bytes; bf16 five (q and two stages of k and v), float32 four
+    (k and v in two stages), six at D 128 (q split into hi and lo tiles).
+    At D 64 two float32 blocks fit on an SM."""
+    elem = 4 if dtype == "float32" else 2
+    plan = fa.flash_fwd_plan(1, 128, 2, 1, d, DTYPES[dtype])
+    tile = 64 * (d + 16 // elem) * elem
+    tiles = 5 if elem == 2 else (4 if d <= 64 else 6)
+    assert plan.smem_bytes == tiles * tile
+    if d == 64 and elem == 4:
+        assert 2 * plan.smem_bytes <= 228 * 1024   # the SM's shared memory
+    src = (CSRC / "flash_fwd.cu").read_text()
+    assert "constexpr int kF32Tiles = D <= 64 ? 4 : 6;" in src
+    assert ("kF32Tiles<D> * kTile * (sizeof(float) * D + 16)" in src)
+    assert "sizeof(__nv_bfloat16) * 5 * kTile * (D + 8)" in src
+    for kern, stride in (("flash_fwd_f32_kernel(", "kLdF32<D>;"),
+                         ("flash_fwd_bf16_kernel(", "D + 8;")):
+        body = src[src.index(kern):]
+        body = body[:body.index("\n}\n")]
+        assert f"constexpr int kLd = {stride}" in body
+
+
+def test_fwd_plan_refuses_what_the_kernel_lacks():
+    with pytest.raises(ValueError):
+        fa.flash_fwd_plan(1, 128, 2, 1, 64, torch.float16)

@@ -1,7 +1,8 @@
-"""numpy emulations of the float32 flash backward kernels' tensor-core
-design (`csrc/flash_bwd_dq.cu` `flash_bwd_dq_f32_kernel`, K8, and
-`csrc/flash_bwd_dkv.cu` `flash_bwd_dkv_f32_kernel`, K9), which run on
-`mma.sync.m16n8k8` in tf32 as "3xTF32" (`csrc/mma.cuh`):
+"""numpy emulations of the float32 flash kernels' tensor-core design
+(`csrc/flash_fwd.cu` `flash_fwd_f32_kernel`, K7, `csrc/flash_bwd_dq.cu`
+`flash_bwd_dq_f32_kernel`, K8, and `csrc/flash_bwd_dkv.cu`
+`flash_bwd_dkv_f32_kernel`, K9), which run on `mma.sync.m16n8k8` in tf32
+as "3xTF32" (`csrc/mma.cuh`):
 
 (a) tf32 rounding (`cvt.rna.tf32.f32`'s: nearest, ties away from zero,
     to 10 explicit mantissa bits; the kernels compute it as two integer
@@ -15,7 +16,9 @@ design (`csrc/flash_bwd_dq.cu` `flash_bwd_dq_f32_kernel`, K8, and
     B's rows read in the same order);
 (c) the kernels' shared-memory addressing (row stride D + 4 floats)
     costs no more passes than the width of each load needs: the 64-bit A
-    and plain B reads two, the 32-bit permuted B reads one;
+    and plain B reads two, the 32-bit permuted B reads one (K7's q, k and
+    v reads too, from the raw tiles or from hi and lo tiles of the same
+    layout);
 (d) dq, dk and dv computed as the kernels compute them (three tf32
     products per k-chunk of 8, small terms first, each product summed
     exactly and rounded once to float32, to nearest or, as a tensor core
@@ -24,7 +27,13 @@ design (`csrc/flash_bwd_dq.cu` `flash_bwd_dq_f32_kernel`, K8, and
     partials summed in order g = 0..G-1) stay within the card's float32
     tolerances of the float64 result: max error 1e-5 of max|.| and
     relative L2 1e-5 (chip_smoke.py's FLASH_RTOL_OF_MAX and
-    FLASH_F32_REL_L2).
+    FLASH_F32_REL_L2);
+(e) o and lse computed as K7 computes them (s = q k^T with all of D in
+    one accumulator, the online softmax per 64-key tile in float32, each
+    tile's p v summed from zero and added to the alpha-rescaled o) stay
+    within the same tolerances of float64 and of `flash_forward_plain`,
+    which is itself held to the JAX package's `_flash_forward` (Pallas in
+    interpret mode).
 
 The kernels themselves run only on the card, where chip_smoke.py holds
 them to their plain versions at these tolerances.
@@ -32,11 +41,14 @@ them to their plain versions at these tolerances.
 
 from __future__ import annotations
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+import mpi_cuda_cnn_tpu.ops.pallas_attention as jfa
 from mpi_cuda_cnn_tpu_torch.ops import flash_attention as fa
 
 NEG_INF = np.float32(-1e30)   # the kernels' masked logit
@@ -213,6 +225,16 @@ def _passes_32(offsets: np.ndarray) -> int:
     return max(len(np.unique(offsets[banks == b])) for b in np.unique(banks))
 
 
+def _passes_128(offsets: np.ndarray) -> int:
+    """The same for a 128-bit load (offsets multiples of 4 floats), which
+    the card serves a quarter warp at a time: per quarter, the most
+    distinct 16-byte words on one group of 4 banks; 512 bytes take at
+    least four."""
+    words = offsets // 4
+    return sum(max(len(np.unique(q[(q % 8) == b])) for b in np.unique(q % 8))
+               for q in words.reshape(4, 8))
+
+
 def _passes_64(offsets: np.ndarray) -> int:
     """The same for a 64-bit load from float offsets `offsets` (even): the
     most distinct 8-byte words on one bank pair; 256 bytes take at least
@@ -224,11 +246,15 @@ def _passes_64(offsets: np.ndarray) -> int:
 
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 def test_shared_memory_reads_take_no_extra_passes(d):
-    """K8's and K9's float32 shared loads under the D + 4 stride: the
-    64-bit A and plain B reads (8-byte word 2g + t of the row pair, two
-    lanes on each bank pair) take the two passes 256 bytes need; the
-    32-bit permuted B reads (bank 8t + g) one. Without the pad (stride D)
-    the permuted read would put 4 lanes on a bank."""
+    """The float32 shared loads of K7, K8 and K9 under the D + 4 stride:
+    the 64-bit A and plain B reads (8-byte word 2g + t of the row pair,
+    two lanes on each bank pair) take the two passes 256 bytes need; the
+    32-bit permuted B reads (bank 8t + g) one. K7 reads q as the A
+    operand (from its staging tile into registers at D <= 64, from q's
+    hi and lo tiles at D 128), k as the plain B and v as the permuted B,
+    from the raw tiles or from hi and lo tiles of the same layout: the
+    same offsets. Without the pad (stride D) the permuted read would put
+    4 lanes on a bank."""
     assert (ld(d) * 4) % 16 == 0        # rows stay 16-byte aligned for cp.async
     for warp in range(4):
         for kc in range(d // 8):
@@ -245,6 +271,31 @@ def test_shared_memory_reads_take_no_extra_passes(d):
                 assert _passes_32(b_perm_offset(d, n0, kc, e)) == 1
     unpadded = (2 * T) * d + G
     assert _passes_32(unpadded) == 4
+    # K7 (flash_fwd.cu), its own expressions: q at arow + kc * 8 (rows g
+    # and g + 8), k at (8j + g) * kLd + kc * 8 + 2t, v at 2t * kLd + g +
+    # 8j * kLd + dn * 8 (+ kLd for the second B row); the split pass reads
+    # and writes whole float4s, row r = e / (D / 4), column 4 (e % (D / 4)).
+    arow = (16 * np.arange(4)[:, None] + G) * ld(d) + 2 * T
+    for warp in range(4):
+        for kc in range(d // 8):
+            for e, rows8 in ((0, 0), (1, 8)):
+                off = arow[warp] + kc * 8 + rows8 * ld(d)
+                assert np.array_equal(off, a_offset(d, warp, kc, e))
+                assert _passes_64(off) == 2
+    for j in range(8):
+        for kc in range(d // 8):
+            off = (8 * j + G) * ld(d) + kc * 8 + 2 * T
+            assert np.array_equal(off, b_plain_offset(d, 8 * j, kc, 0))
+            assert _passes_64(off) == 2
+        for dn in range(d // 8):
+            for e in range(2):
+                off = 2 * T * ld(d) + G + 8 * j * ld(d) + dn * 8 + e * ld(d)
+                assert np.array_equal(off, b_perm_offset(d, 8 * j, dn, e))
+                assert _passes_32(off) == 1
+    for w0 in range(0, 64 * d // 4, 32):
+        e = w0 + LANES
+        off = (e // (d // 4)) * ld(d) + 4 * (e % (d // 4))
+        assert _passes_128(off) == 4
 
 
 # ------------------------------------------------------- (d) the algorithm
@@ -386,3 +437,102 @@ def test_3xtf32_backward_within_the_cards_float32_tolerances(name, rounding):
         pl = pl.numpy()
         assert np.abs(x - pl).max() <= rtol_of_max * np.abs(pl).max(), what
         assert np.linalg.norm(x - pl) / np.linalg.norm(pl) <= chip_smoke.FLASH_F32_REL_L2
+
+
+def emulate_forward(q, k, v, causal, rnd):
+    """o and lse as K7 computes them in float32: per 64-key tile, s = q
+    k^T through the tensor core (all of D in one accumulator), the online
+    softmax in float32 (masked logits NEG_INF, their p exactly 0), p v
+    summed from zero over the tile's 8 key chunks and added to the
+    alpha-rescaled o. A causal tile above the diagonal changes nothing
+    (alpha 1, p 0), so it is not skipped here. q (B, S, H, D); k, v (B,
+    S, Hkv, D); lse (B * H, S)."""
+    b, s, h, d = q.shape
+    group = h // k.shape[2]
+    scale = np.float32(1.0 / d ** 0.5)
+    qh = q.transpose(0, 2, 1, 3)
+    kh = np.repeat(k.transpose(0, 2, 1, 3), group, axis=1)
+    vh = np.repeat(v.transpose(0, 2, 1, 3), group, axis=1)
+    m = np.full((b, h, s, 1), NEG_INF, np.float32)
+    l = np.zeros((b, h, s, 1), np.float32)
+    o = np.zeros((b, h, s, d), np.float32)
+    rows = np.arange(s)[:, None]
+    for k0 in range(0, s, 64):
+        keep = (k0 + np.arange(64)[None, :] <= rows) if causal else True
+        st = gemm3(qh, kh[:, :, k0:k0 + 64].swapaxes(-1, -2), rnd)
+        x = np.where(keep, st * scale, NEG_INF)
+        m_new = np.maximum(m, x.max(-1, keepdims=True))
+        alpha = np.exp(m - m_new)
+        p = np.where(keep, np.exp(x - m_new), np.float32(0))
+        l = l * alpha + p.sum(-1, keepdims=True, dtype=np.float32)
+        o = o * alpha + gemm3(p, vh[:, :, k0:k0 + 64], rnd, tile=8)
+        m = m_new
+    lc = np.maximum(l, np.float32(1e-30))
+    return ((o / lc).transpose(0, 2, 1, 3),
+            (m + np.log(lc)).reshape(b * h, s))
+
+
+def reference64_forward(q, k, v, causal):
+    """o and lse of the same float32 inputs in float64."""
+    b, s, h, d = q.shape
+    group = h // k.shape[2]
+    f = lambda x: x.astype(np.float64)  # noqa: E731
+    qh = f(q).transpose(0, 2, 1, 3)
+    kh = np.repeat(f(k).transpose(0, 2, 1, 3), group, axis=1)
+    vh = np.repeat(f(v).transpose(0, 2, 1, 3), group, axis=1)
+    keep = np.tril(np.ones((s, s), bool)) if causal else np.ones((s, s), bool)
+    logits = np.where(keep, qh @ kh.swapaxes(-1, -2) / np.sqrt(d), -np.inf)
+    mx = logits.max(-1, keepdims=True)
+    p = np.exp(logits - mx)
+    l = p.sum(-1, keepdims=True)
+    return ((p @ vh / l).transpose(0, 2, 1, 3),
+            (mx + np.log(l)).reshape(b * h, s))
+
+
+def _held(what, x, w):
+    rtol_of_max = chip_smoke.FLASH_RTOL_OF_MAX["float32"]
+    assert x.shape == w.shape, what
+    err = np.abs(x - w).max()
+    assert err <= rtol_of_max * np.abs(w).max(), (what, err)
+    rel = np.linalg.norm(x - w) / np.linalg.norm(w)
+    assert rel <= chip_smoke.FLASH_F32_REL_L2, (what, rel)
+
+
+@pytest.mark.parametrize("rounding", ROUNDING)
+@pytest.mark.parametrize("name", EMULATED)
+def test_3xtf32_forward_within_the_cards_float32_tolerances(name, rounding):
+    b, s, h, hkv, d, causal = EMULATED[name]
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+            for _ in range(2))
+    o, lse = emulate_forward(q, k, v, causal, ROUNDING[rounding])
+    assert o.dtype == np.float32 and lse.dtype == np.float32
+    want_o, want_lse = reference64_forward(q, k, v, causal)
+    _held("o vs float64", o, want_o)
+    _held("lse vs float64", lse, want_lse)
+    # and against the plain version the card holds the kernel to
+    po, plse = fa.flash_forward_plain(*(torch.from_numpy(x) for x in (q, k, v)),
+                                      causal)
+    _held("o vs plain", o, po.numpy())
+    _held("lse vs plain", lse, plse.numpy())
+
+
+def test_plain_forward_matches_the_pallas_kernel_at_an_emulated_shape(
+        monkeypatch):
+    """`flash_forward_plain`, which the card holds K7 to, against the JAX
+    package's `_flash_forward` (Pallas in interpret mode, 128-row blocks
+    so several q and k blocks run) at the causal GQA shape above."""
+    for name in ("BLK_Q", "BLK_K"):
+        monkeypatch.setattr(jfa, name, 128)
+    b, s, h, hkv, d, causal = EMULATED["causal GQA 4/2 D64"]
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+            for _ in range(2))
+    jo, jlse = jax.jit(lambda q, k, v: jfa._flash_forward(
+        q, k, v, causal, with_lse=True))(*(jnp.asarray(x) for x in (q, k, v)))
+    po, plse = fa.flash_forward_plain(*(torch.from_numpy(x) for x in (q, k, v)),
+                                      causal)
+    _held("o", po.numpy(), np.asarray(jo))
+    _held("lse", plse.numpy(), np.asarray(jlse).reshape(b * h, s))
