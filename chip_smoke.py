@@ -34,8 +34,10 @@ exits non-zero without the final line:
             short slot beside long ones), and the serve phase's int8
             decode and prefill chunk at its own table width (128
             pages), each run twice and held equal bit for bit; int8
-            weight matmul (K2, with
-            torch._weight_int8pack_mm as the yardstick).
+            weight matmul (K2) at the serve phase's ten products (N 8
+            and 32) and three ragged ones (one slot; ragged N, din and
+            dout), each run twice and held equal bit for bit, with
+            torch._weight_int8pack_mm as the yardstick.
             reference_cnn's batch-32 step, in float32 and bf16: the GEMM
             (K3) at its 9 products and the eval batch's 3 forwards (M
             2,048), run twice at fc1's and fc2's forwards (split over
@@ -187,6 +189,10 @@ NO_SPILL = (("gemm", "gemm_kernelI13__nv_bfloat16"),
             ("conv_gemm", "conv_gemm_kernelI13__nv_bfloat16"),
             ("conv_dw", "conv_dw_kernelI13__nv_bfloat16"))
 GEMM_SHAPES = [(512, 512), (512, 256), (512, 2048), (2048, 512), (512, 8192)]
+# K2 off the serving shapes (N, din, dout): one slot; a ragged N, din and
+# dout (8-byte copies of q); an odd dout and a din that is not a multiple
+# of 4 (byte copies of q, 4-byte copies of x).
+GEMM_RAGGED = [(1, 512, 512), (5, 200, 40), (3, 203, 37)]
 
 # CNN kernels against their plain versions on the card. K3 and K4: both
 # sides sum up to 1,568 (K3) or 288 (K4) float32 products in other
@@ -562,9 +568,13 @@ def gemm_case(torch, dev, n: int, din: int, dout: int, gen) -> dict:
     want = int8_gemv_plain(x, w)
     err = (got - want).abs().max().item()
     tol = GEMM_RTOL_OF_MAX * want.abs().max().item()
+    what = f"int8_gemm N={n} {din}x{dout}"
     if not err <= tol:
-        raise AssertionError(f"int8_gemm N={n} {din}x{dout}: max error "
-                             f"{err} > {tol}")
+        raise AssertionError(f"{what}: max error {err} > {tol}")
+    again = int8_gemv(x, w)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two runs differ by "
+                             f"{(got - again).abs().max().item()}")
     ms = median_ms(torch, lambda: int8_gemv(x, w))
     plain_ms = median_ms(torch, lambda: int8_gemv_plain(x, w))
     # Yardstick only: PyTorch's one call for x @ int8 W^T * scale, with the
@@ -582,6 +592,7 @@ def gemm_case(torch, dev, n: int, din: int, dout: int, gen) -> dict:
     nbytes = n * din * 4 + din * dout + dout * 4 + n * dout * 4
     bound_ms, bound_by = bound(nbytes, 2 * n * din * dout)
     return {"kernel": "int8_gemm", "N": n, "din": din, "dout": dout,
+            "bitwise_repeat": True,
             "max_abs_err": err, "tolerance": tol, "ms": ms,
             "plain_ms": plain_ms, **library,
             "bound_ms": bound_ms, "bound_by": bound_by}
@@ -1043,10 +1054,10 @@ def phase_kernels(torch, dev) -> list[dict]:
         cases.append(attention_case(torch, dev, "int8", b, kk, gen,
                                     pages=width, last_range=span))
         emit({"phase": "kernel_case", **cases[-1]})
-    for n in (8, 32):
-        for din, dout in GEMM_SHAPES:
-            cases.append(gemm_case(torch, dev, n, din, dout, gen))
-            emit({"phase": "kernel_case", **cases[-1]})
+    for n, din, dout in ([(n, *s) for n in (8, 32) for s in GEMM_SHAPES]
+                         + GEMM_RAGGED):
+        cases.append(gemm_case(torch, dev, n, din, dout, gen))
+        emit({"phase": "kernel_case", **cases[-1]})
     cases.extend(phase_cnn_kernels(torch, dev, gen))
     return cases
 

@@ -33,7 +33,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS = {
     "paged_attention": ("paged_attention_launch",
                         [_P] * 10 + [_I] * 16 + [_P]),
-    "int8_gemm": ("int8_gemm_launch", [_P] * 4 + [_I] * 3 + [_P]),
+    "int8_gemm": ("int8_gemm_launch", [_P] * 6 + [_I] * 12 + [_P]),
     "gemm": ("gemm_launch", [_P] * 6 + [_I] * 11 + [_P]),
     "conv_direct": ("conv_direct_launch", [_P] * 3 + [_I] * 19 + [_P]),
     "conv_dw": ("conv_dw_launch", [_P] * 5 + [_I] * 22 + [_P]),

@@ -12,15 +12,22 @@ plain tensor takes `@`, a `QuantW` takes `int8_gemv`.
 for CUDA tensors and uses its plain PyTorch version, `int8_gemv_plain`
 (x @ dequantize_weight(w)), for CPU tensors. There is no fallback from
 the kernel to the plain version on the card.
+
+`int8_gemm_plan` is the kernel's launch geometry (rows of x a block
+holds, the split of din across blocks, the threads' k-lanes, copy widths,
+grid, shared memory, the splits' scratch and counters), computed on the
+host and handed to the C launch function, which refuses any other.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
 from . import _kernels
+from .kernel_ops import _counter_buffer
 
 
 @dataclasses.dataclass
@@ -123,9 +130,92 @@ def int8_gemv_plain(x: torch.Tensor, w: QuantW) -> torch.Tensor:
     return x.to(torch.float32) @ dequantize_weight(w)
 
 
+TILE_N = 32            # K2: output columns of a tile
+_GROUP_ROWS = 8        # K2: rows of x of a thread's register tile
+_MAX_ROWS = 32         # K2: rows of x a block holds
+_SLICE_UNIT = 32       # K2: kslice is a multiple of this
+_MAX_SLICE = 512       # K2: the deepest slice of din
+_MAX_THREADS = 256
+_LANE_CHUNK = 8        # K2: k_lanes is a multiple of it (the k-lane sum's)
+_TARGET_BLOCKS = 132   # K2: blocks the din split aims for (132 SMs)
+_Q_PITCH = TILE_N + 16  # K2: bytes of a q row in shared memory
+
+
+class Int8GemmPlan(NamedTuple):
+    """K2's launch plan. Blocks of `threads` own a tile of TILE_N output
+    columns, `rows` rows of x (row_blocks of them cover N) and one split of
+    din: split z takes rows [z * kslice, (z + 1) * kslice) of it, `splits`
+    splits in all; grid = row_blocks * tiles * splits, the split fastest.
+    Each thread holds an 8-row x 4-column tile and takes every k_lanes-th
+    group of 4 rows of its split. q is copied `q_vec` bytes at a time
+    (16, 8, 4 or 1), x `x_vec` (16 or 4); `smem_bytes` is the kernel's
+    dynamic shared memory. With splits > 1 the partials go to `scratch`
+    float32 and `counters` int32 (one per row block and tile); else both
+    are 0."""
+    rows: int
+    row_blocks: int
+    tiles: int
+    kslice: int
+    splits: int
+    k_lanes: int
+    q_vec: int
+    x_vec: int
+    grid: int
+    threads: int
+    smem_bytes: int
+    scratch: int
+    counters: int
+
+
+def int8_gemm_plan(n: int, din: int, dout: int, *, q_ptr: int,
+                   x_ptr: int) -> Int8GemmPlan:
+    """The launch plan of `csrc/int8_gemm.cu` for x (n, din) float32 @ q
+    (din, dout) int8, as the C launch function checks it.
+
+    A block holds min(32, n rounded up to 8) rows of x. Where the (row
+    block, column tile) pairs are fewer than _TARGET_BLOCKS, din is split
+    into runs of whole 32-row slices so that about _TARGET_BLOCKS blocks
+    share it (never a run shorter than one slice: a product of few tiles
+    over a shallow din stays under it), and never a run deeper than
+    _MAX_SLICE. q is copied 16 bytes at a time where dout % 16 == 0 (8 or
+    4 bytes where only those divide dout, byte by byte where dout is odd),
+    and must then be aligned to that width, else ValueError; x 16 bytes
+    at a time where din % 4 == 0 and x is 16-byte aligned, else 4."""
+    if min(n, din, dout) < 1:
+        raise ValueError(f"int8_gemm_plan: empty product {n}x{din}x{dout}")
+    rows = min(_MAX_ROWS, -(-n // _GROUP_ROWS) * _GROUP_ROWS)
+    row_blocks = -(-n // rows)
+    tiles = -(-dout // TILE_N)
+    slices = -(-din // _SLICE_UNIT)
+    base = row_blocks * tiles
+    want = 1 if base >= _TARGET_BLOCKS else min(slices,
+                                                -(-_TARGET_BLOCKS // base))
+    want = max(want, -(-din // _MAX_SLICE))
+    kslice = -(-slices // want) * _SLICE_UNIT
+    splits = -(-din // kslice)
+    k_lanes = min(_MAX_THREADS // rows // _LANE_CHUNK * _LANE_CHUNK,
+                  kslice // 4)
+    threads = rows * k_lanes
+    q_vec = next(v for v in (16, 8, 4, 1) if dout % v == 0)
+    if q_ptr % q_vec:
+        raise ValueError(f"int8_gemm: q (0x{q_ptr:x}) must be {q_vec}-byte "
+                         "aligned for the copies this dout takes; pass a "
+                         "fresh tensor, not an offset view")
+    x_vec = 16 if din % 4 == 0 and x_ptr % 16 == 0 else 4
+    slabs = kslice * _Q_PITCH + rows * kslice * 4
+    smem = max(slabs, threads * _GROUP_ROWS * 16)
+    grid = base * splits
+    split = splits > 1
+    return Int8GemmPlan(rows, row_blocks, tiles, kslice, splits, k_lanes,
+                        q_vec, x_vec, grid, threads, smem,
+                        grid * rows * TILE_N if split else 0,
+                        base if split else 0)
+
+
 def int8_gemv(x: torch.Tensor, w: QuantW) -> torch.Tensor:
     """y = (x @ w.q) * w.s: (N, din) float32 x QuantW(din, dout) ->
-    (N, dout) float32. CUDA tensors launch `csrc/int8_gemm.cu`; CPU
+    (N, dout) float32. CUDA tensors launch `csrc/int8_gemm.cu` (one
+    launch, din split across blocks as `int8_gemm_plan` picks); CPU
     tensors take `int8_gemv_plain`."""
     if not x.is_cuda:
         return int8_gemv_plain(x, w)
@@ -141,13 +231,21 @@ def int8_gemv(x: torch.Tensor, w: QuantW) -> torch.Tensor:
         raise ValueError("int8_gemv: x, q and s must be on one CUDA device")
     if not (x.is_contiguous() and w.q.is_contiguous() and w.s.is_contiguous()):
         raise ValueError("int8_gemv: x, q and s must be contiguous")
-    if w.q.data_ptr() % 4:
-        raise ValueError("int8_gemv: q must be 4-byte aligned")
     dout = w.q.shape[1]
+    plan = int8_gemm_plan(n, din, dout, q_ptr=w.q.data_ptr(),
+                          x_ptr=x.data_ptr())
     y = torch.empty((n, dout), dtype=torch.float32, device=x.device)
+    work = (torch.empty(plan.scratch, dtype=torch.float32, device=x.device)
+            if plan.scratch else None)
+    counters = (_counter_buffer("int8_gemm", x.device, plan.counters)
+                if plan.counters else None)
     err = _kernels.lib("int8_gemm")(
         x.data_ptr(), w.q.data_ptr(), w.s.data_ptr(), y.data_ptr(),
-        n, din, dout, torch.cuda.current_stream(x.device).cuda_stream)
+        None if work is None else work.data_ptr(),
+        None if counters is None else counters.data_ptr(),
+        n, din, dout, plan.rows, plan.kslice, plan.splits, plan.k_lanes,
+        plan.q_vec, plan.x_vec, plan.grid, plan.threads, plan.smem_bytes,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _kernels.check("int8_gemm", err)
     _kernels.launches["int8_gemm"] += 1
     return y

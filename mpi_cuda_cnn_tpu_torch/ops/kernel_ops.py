@@ -91,11 +91,11 @@ def _check(name: str, *tensors: torch.Tensor) -> int:
     return _kernels.DTYPE_CODES[dtype]
 
 
-# One int32 counter per output tile, per kernel (K1, K3, K5) and device, zero
-# between launches: the last block of a tile resets its own, so launches
-# of one kernel on one device must not overlap (the port launches on
-# PyTorch's current stream only). A buffer only grows, so its address
-# stays fixed once it holds the largest grid.
+# One int32 counter per output tile, per kernel (K1, K2, K3, K5) and
+# device, zero between launches: the last block of a tile resets its own,
+# so launches of one kernel on one device must not overlap (the port
+# launches on PyTorch's current stream only). A buffer only grows, so its
+# address stays fixed once it holds the largest grid.
 _counters: dict[tuple[str, torch.device], torch.Tensor] = {}
 
 
