@@ -4,8 +4,9 @@ one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure raises and the script
-exits non-zero without the final line:
+Phases, each printing one JSON line; any failure, in this process or in
+a rank it spawned, raises and the script exits non-zero without the
+final line:
 
 1. device   the card's name and `nvidia-smi` name and power limit.
 2. build    builds every CUDA kernel of the serving, CNN-training,
@@ -60,6 +61,9 @@ exits non-zero without the final line:
             and non-causal at D 64. float32 K7, K8 and K9 (3xTF32)
             are held to a relative L2 error too, and run twice at the
             flagship and GQA shapes and are held equal bit for bit.
+            One rank's shapes of the dp phases at world 2, float32: K3
+            at M 16, K4/K4' and K5 at reference_cnn's convs at batch 16,
+            K7/K8/K9 at the flagship's B 4.
 4. serve    the serving bench at the full width of the decode flagship
             (d512 x 8 layers, 8 query / 2 KV heads, vocab 8192; random
             weights from --seed) through K1 and K2, with the launch
@@ -83,14 +87,33 @@ exits non-zero without the final line:
 7. train_agree  50 steps from one init on the kernels and on PyTorch's
             own ops (TF32 off); params within a stated tolerance, eval
             predictions equal or tied (top-2 logit gap < 1e-3).
-7b. train_bf16  the `train` command's path (`Trainer`) with bf16
+7a. dp      the train phase's configuration through parallel/dp.py
+            (`Trainer` with a mesh, one process a rank, through the
+            `train` command's rank entry `train/ranks.cnn_rank`): world 1
+            on a one-rank NCCL group, 50 steps (one epoch of 50 batches,
+            as train_agree, device-resident) bit for bit against the
+            one-device Trainer, one all-reduce a step; world 2 as two
+            gloo ranks on cuda:0 (`run_ranks`): the first step's averaged
+            gradients, the 50 steps' params and the test predictions
+            against the one-device run, then a full epoch on the
+            device-resident route and the eval with the train phase's
+            checks on every rank, 1,875 all-reduces and one broadcast;
+            with two cards or more also world min(4, cards) over NCCL.
+            The shared-card times are a correctness run, not a scaling
+            figure.
+7b. lm_dp   the lm phase's flagship at world 2 (two gloo ranks on
+            cuda:0), 5 steps from one init against 5 one-device
+            `LMTrainer` steps: K7/K8/K9 8/8/8 a step on every rank, the
+            losses and the first step's averaged gradients within stated
+            tolerances.
+7c. train_bf16  the `train` command's path (`Trainer`) with bf16
             compute on the kernels: the train phase's data, one epoch,
             the 10,000-sample eval; launches held to 9/3/2 per step and
             3/2/0 per eval batch, the accuracy to the JAX package's bf16
             accuracy on the CPU less the margin, the first step's
             gradients on the kernels and on PyTorch's ops (both bf16)
             to a stated relative L2 per leaf; ms per step.
-7c. conv_bench  `conv-bench` at full size (the reference's five shapes,
+7d. conv_bench  `conv-bench` at full size (the reference's five shapes,
             float32 then bf16, 200 calls against 400): one line per row;
             K4 launched on every row, K6 on every stride-1 row and not
             on the stride-2 row.
@@ -217,6 +240,9 @@ BF16_REL_L2 = 1e-2
 # two convs (h, w, cin, cout) with k3 s2 p1.
 CNN_BATCH = 32
 FC_SHAPES = [(1568, 200), (200, 200), (200, 10)]
+# One rank's batch in the dp phase's world-2 step, at which K3 (M 16), K4,
+# K4' and K5 also run in float32.
+RANK_BATCH = CNN_BATCH // 2
 # K3 also at the eval batch's three forwards (M = 2,048, the trainer's
 # eval batch), and twice at GEMM_REPEAT's step products (role, d_in,
 # d_out): fc1's forward (split 17 ways over K = 1,568) and fc2's (K =
@@ -278,6 +304,30 @@ TRAIN_BF16_GRAD_REL_L2 = 1e-2
 # them by the order of the params themselves (0.1).
 AGREE_STEPS = 50
 AGREE_PARAM_ATOL = 5e-3
+# dp: the train phase's configuration (reference_cnn, 60,000 samples,
+# batch 32, SGD lr 0.1, the kernels) through parallel/dp.py. The
+# AGREE_STEPS steps are one epoch of AGREE_STEPS batches (as train_agree
+# runs them) on the device-resident route; the CPU tests hold the
+# per-batch route to the JAX DP trainer. World 1 on a one-rank NCCL
+# group: AGREE_STEPS steps equal to the one-device Trainer's bit for bit
+# (a one-rank all-reduce is the identity). World 2
+# as two gloo ranks on cuda:0 (NCCL refuses two ranks on one card; gloo
+# stages the all-reduce through the host): the first step's averaged
+# gradients against the one-device step's, per leaf: the two halves'
+# sums and the whole batch's add the same products in another order (a
+# few float32 ulp, about 1e-7 relative), a wrong shard or a missing
+# divide by the world is off by 1e-1 or more, so 1e-5; after AGREE_STEPS
+# steps, params within AGREE_PARAM_ATOL (the ReLU-crossing drift of
+# train_agree) and predictions equal or tied; then one full epoch on the
+# device-resident route and the eval, held as the train phase is. With
+# two cards or more, also world min(4, cards) over NCCL, one rank a card,
+# under the same checks. A rank's failure fails the phase.
+DP_WORLD = 2
+DP_MAX_NCCL_WORLD = 4
+DP_GRAD_REL_L2 = 1e-5
+DP_RANKS_TIMEOUT_S = 600
+DP_NOTE = ("correctness run: the ranks share one card and gloo stages the "
+           "all-reduce through the host; not a scaling figure")
 
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet): the bound of
 # every kernel on bf16 inputs, whatever units the kernel itself uses.
@@ -318,6 +368,8 @@ FLASH_BF16_REL_L2 = {"flash_fwd": ("row", 1e-2), "flash_bwd_dq": ("tensor", 1e-3
 # 8 heads) in both types, and a GQA case (8 query heads over 2 kv heads).
 FLASH_SHAPES = [("float32", 8, 2048, 8, 8, 64), ("bfloat16", 8, 2048, 8, 8, 64),
                 ("float32", 2, 2048, 8, 2, 64), ("bfloat16", 2, 2048, 8, 2, 64)]
+# One rank's share of the flagship in the lm_dp phase (world 2: B 4).
+FLASH_RANK_SHAPES = [("float32", 4, 2048, 8, 8, 64)]
 # Beyond the flagship, in both types, (dtype, B, S, H, Hkv, D, causal):
 # the other head widths the kernels are built for, and a non-causal case.
 FLASH_EXTRA_SHAPES = [(dtype, 2, 1024, 4, 2, d, causal)
@@ -366,6 +418,17 @@ LM_AGREE_ARGS = LM_MODEL_ARGS + ["--steps", "10", "--warmup-steps", "2",
 LM_AGREE_LOSS_ATOL = 1e-4
 LM_AGREE_APART_SHARE = 1e-3
 LM_AGREE_GRAD_REL_L2 = 1e-4
+# lm_dp: the lm phase's flagship with flash attention at world 2 (two
+# gloo ranks on cuda:0, 4 rows each), LM_DP_STEPS steps from one init,
+# against as many one-device LMTrainer steps: every rank launches K7/K8/K9
+# 8/8/8 a step (and K7 8 times in the eval); the losses within
+# LM_AGREE_LOSS_ATOL, the first step's averaged gradients within
+# LM_AGREE_GRAD_REL_L2 per leaf (the halves' token means averaged against
+# the whole batch's mean: float32 sums in another order).
+LM_DP_STEPS = 5
+LM_DP_ARGS = LM_MODEL_ARGS + ["--attn-impl", "flash", "--steps",
+                              str(LM_DP_STEPS), "--warmup-steps", "2",
+                              "--log-every", "1"]
 # lm_agree in bf16 compute: the first step's gradients with flash and
 # with the oracle, per leaf. Both round q, k, v, p and every activation
 # to bf16 (2^-9 relative), but at other places: the oracle rounds p
@@ -635,12 +698,13 @@ def check_case(torch, name: str, got, want, rtol_of_max: float,
 
 
 def cnn_gemm_case(torch, dev, role: str, d_in: int, d_out: int, gen,
-                  dtype: str) -> dict:
-    """One of K3's products in a batch-32 step of an FC layer (d_in,
-    d_out): the forward x @ W + b, the input gradient g @ W^T, or the
-    weight gradient x^T @ g, with the operands as the step has them; or
-    (`eval_forward`) the forward at the eval batch. At GEMM_REPEAT's
-    products run twice, the two results held equal bit for bit."""
+                  dtype: str, batch: int = CNN_BATCH) -> dict:
+    """One of K3's products in a step of an FC layer (d_in, d_out) at
+    `batch` rows: the forward x @ W + b, the input gradient g @ W^T, or
+    the weight gradient x^T @ g, with the operands as the step has them;
+    or (`eval_forward`) the forward at the eval batch. At GEMM_REPEAT's
+    batch-32 products run twice, the two results held equal bit for
+    bit."""
     from mpi_cuda_cnn_tpu_torch.ops.kernel_ops import gemm, gemm_plain
 
     tdt = getattr(torch, dtype)
@@ -648,17 +712,17 @@ def cnn_gemm_case(torch, dev, role: str, d_in: int, d_out: int, gen,
     def randn(*s):
         return torch.randn(*s, generator=gen).to(dev).to(tdt)
 
-    rows = EVAL_BATCH if role == "eval_forward" else CNN_BATCH
+    rows = EVAL_BATCH if role == "eval_forward" else batch
     x, w, b = randn(rows, d_in), randn(d_in, d_out) / d_in ** 0.5, randn(d_out)
     g = randn(rows, d_out)
     if role in ("forward", "eval_forward"):
         args, kw, m, n, k = (x, w), {"bias": b}, rows, d_out, d_in
         library = lambda: torch.addmm(b, x, w)  # noqa: E731
     elif role == "input_grad":
-        args, kw, m, n, k = (g, w), {"trans_b": True}, CNN_BATCH, d_in, d_out
+        args, kw, m, n, k = (g, w), {"trans_b": True}, batch, d_in, d_out
         library = lambda: torch.mm(g, w.t())  # noqa: E731
     else:
-        args, kw, m, n, k = (x, g), {"trans_a": True}, d_in, d_out, CNN_BATCH
+        args, kw, m, n, k = (x, g), {"trans_a": True}, d_in, d_out, batch
         library = lambda: torch.mm(x.t(), g)  # noqa: E731
     got = gemm(*args, **kw)
     want = gemm_plain(*args, **kw)
@@ -667,7 +731,7 @@ def cnn_gemm_case(torch, dev, role: str, d_in: int, d_out: int, gen,
     errs = check_case(torch, f"gemm {dtype} {role} {d_in}x{d_out}", got,
                       want, CNN_GEMM_RTOL_OF_MAX, product)
     repeat = {}
-    if (role, d_in, d_out) in GEMM_REPEAT:
+    if (role, d_in, d_out) in GEMM_REPEAT and batch == CNN_BATCH:
         again = gemm(*args, **kw)
         if not torch.equal(got, again):
             raise AssertionError(f"gemm {dtype} {role} {d_in}x{d_out}: two "
@@ -677,8 +741,8 @@ def cnn_gemm_case(torch, dev, role: str, d_in: int, d_out: int, gen,
     nbytes = got.element_size() * (m * k + k * n + m * n
                                    + (n if "bias" in kw else 0))
     bound_ms, bound_by = bound(nbytes, 2 * m * n * k, PEAK[dtype])
-    return {"kernel": "gemm", "dtype": dtype, "role": role, "M": m, "N": n,
-            "K": k, **errs, **repeat,
+    return {"kernel": "gemm", "dtype": dtype, "role": role, "batch": rows,
+            "M": m, "N": n, "K": k, **errs, **repeat,
             "ms": median_ms(torch, lambda: gemm(*args, **kw)),
             "plain_ms": median_ms(torch, lambda: gemm_plain(*args, **kw)),
             "library_ms": median_ms(torch, library),
@@ -699,10 +763,12 @@ def valid_taps(size_in: int, size_out: int, k: int, stride: int, pad: int,
 
 
 def conv_direct_case(torch, dev, role: str, h: int, w: int, cin: int,
-                     cout: int, gen, dtype: str) -> dict:
-    """K4 in reference_cnn's step: a k3 s2 p1 forward, or (K4') the
-    input gradient of one, a stride-1 conv over the undilated cotangent
-    with lhs dilation 2 and flipped, in/out-swapped weights."""
+                     cout: int, gen, dtype: str,
+                     batch: int = CNN_BATCH) -> dict:
+    """K4 in reference_cnn's step at `batch` images: a k3 s2 p1 forward,
+    or (K4') the input gradient of one, a stride-1 conv over the
+    undilated cotangent with lhs dilation 2 and flipped, in/out-swapped
+    weights."""
     from mpi_cuda_cnn_tpu_torch.ops.kernel_ops import (
         conv_direct,
         conv_direct_plain,
@@ -715,21 +781,21 @@ def conv_direct_case(torch, dev, role: str, h: int, w: int, cin: int,
     wt = (torch.randn(3, 3, cin, cout, generator=gen) / (9 * cin) ** 0.5).to(dev).to(tdt)
     w_oihw = wt.permute(3, 2, 0, 1)
     if role == "forward":
-        x = torch.rand(CNN_BATCH, h, w, cin, generator=gen).to(dev).to(tdt)
+        x = torch.rand(batch, h, w, cin, generator=gen).to(dev).to(tdt)
         kw = dict(stride=2, pads=(1, 1, 1, 1))
         x_nchw = x.permute(0, 3, 1, 2)
         library = lambda: F.conv2d(x_nchw, w_oihw, stride=2, padding=1)  # noqa: E731
-        (n_in, c, o, hin, win, hout, wout) = (CNN_BATCH, cin, cout, h, w, oh, ow)
+        (n_in, c, o, hin, win, hout, wout) = (batch, cin, cout, h, w, oh, ow)
         taps = (valid_taps(h, oh, 3, 2, 1) * valid_taps(w, ow, 3, 2, 1))
     else:
-        x = torch.randn(CNN_BATCH, oh, ow, cout, generator=gen).to(dev).to(tdt)
+        x = torch.randn(batch, oh, ow, cout, generator=gen).to(dev).to(tdt)
         kw = dict(stride=1, pads=conv_input_grad_pads(h, w, 3, 3, 2, 1, oh, ow),
                   dil=2, flip=True)
         x_nchw = x.permute(0, 3, 1, 2)
         library = lambda: F.conv_transpose2d(  # noqa: E731
             x_nchw, w_oihw, stride=2, padding=1,
             output_padding=(h + 1) % 2)
-        (n_in, c, o, hin, win, hout, wout) = (CNN_BATCH, cout, cin, oh, ow, h, w)
+        (n_in, c, o, hin, win, hout, wout) = (batch, cout, cin, oh, ow, h, w)
         pt, _, pl, _ = kw["pads"]
         taps = (valid_taps(oh, h, 3, 1, pt, 2) * valid_taps(ow, w, 3, 1, pl, 2))
     got = conv_direct(x, wt, **kw)
@@ -1021,8 +1087,12 @@ def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
 
 def phase_flash_kernels(torch, dev, gen) -> list[dict]:
     cases = []
-    for *shape, causal in [(*s, True) for s in FLASH_SHAPES] + FLASH_EXTRA_SHAPES:
+    for *shape, causal in ([(*s, True) for s in FLASH_SHAPES]
+                           + FLASH_EXTRA_SHAPES
+                           + [(*s, True) for s in FLASH_RANK_SHAPES]):
         for case in flash_cases(torch, dev, *shape, gen, causal):
+            if tuple(shape) in FLASH_RANK_SHAPES:
+                case["per_rank"] = True
             emit({"phase": "kernel_case", **case})
             cases.append(case)
     return cases
@@ -1086,6 +1156,23 @@ def phase_cnn_kernels(torch, dev, gen):
             case = fn(torch, dev, *args, gen, dtype)
             emit({"phase": "kernel_case", **case})
             yield case
+    # One rank's shapes of the dp phase's world-2 step, in float32: K3 at
+    # M 16 (fc1-fc3 forward, input and weight gradient), K4 and K4' at
+    # both convs' forward and conv2's input gradient, K5 at both convs.
+    runs = [(cnn_gemm_case, (role, d_in, d_out), {"batch": RANK_BATCH})
+            for role in ("forward", "input_grad", "weight_grad")
+            for d_in, d_out in FC_SHAPES]
+    runs += [(conv_direct_case, ("forward", *shape), {"batch": RANK_BATCH})
+             for shape in CONV_SHAPES]
+    runs.append((conv_direct_case, ("input_grad", *CONV_SHAPES[1]),
+                 {"batch": RANK_BATCH}))
+    runs += [(conv_dw_case, (RANK_BATCH, h, w, cin, cout, 2, 1), {})
+             for (h, w, cin, cout) in CONV_SHAPES]
+    for fn, args, kw in runs:
+        case = {**fn(torch, dev, *args, gen, "float32", **kw),
+                "per_rank": True}
+        emit({"phase": "kernel_case", **case})
+        yield case
 
 
 def last_logits(torch, engine, ctx) -> "torch.Tensor":
@@ -1468,6 +1555,217 @@ def phase_train_agree(torch) -> dict:
             "logit_max_abs_diff": (lk - lt).abs().max().item()}
 
 
+def grads_rel_l2(got: list, want: list) -> dict:
+    """Relative L2 gap per leaf (numpy arrays, named by index)."""
+    import numpy as np
+
+    return {i: float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+            for i, (a, b) in enumerate(zip(got, want, strict=True))}
+
+
+def check_ties(what: str, logits, want_logits) -> dict:
+    """Predictions of `logits` against `want_logits` (numpy, one row a
+    test sample): equal, or where they differ the top-2 gap of the
+    reference within TIE_GAP."""
+    import numpy as np
+
+    top2 = np.sort(want_logits, axis=-1)[:, -2:]
+    gap = top2[:, 1] - top2[:, 0]
+    differ = np.flatnonzero(logits.argmax(-1) != want_logits.argmax(-1))
+    gaps = [float(gap[i]) for i in differ]
+    if any(g > TIE_GAP for g in gaps):
+        raise AssertionError(f"{what}: predictions differ at "
+                             f"{differ.tolist()} with top-2 gaps {gaps} "
+                             f"(tie rule {TIE_GAP})")
+    return {"predictions_differ": len(gaps), "differ_top2_gaps": gaps}
+
+
+def dp_world(torch, what: str, devices: list, cfg, agree_data: dict,
+             one: dict) -> dict:
+    """The dp phase at one world of ranks on `devices`: AGREE_STEPS steps
+    from the seeded init, one epoch of `agree_data` on the
+    device-resident route (the first step's averaged gradients, the final
+    params and the test predictions against the one-device run `one`),
+    then a fresh full epoch of the train phase's data and the eval,
+    launches and collectives held on every rank."""
+    import numpy as np
+
+    from mpi_cuda_cnn_tpu_torch.parallel.distributed import (
+        pick_backend,
+        run_ranks,
+    )
+    from mpi_cuda_cnn_tpu_torch.train.ranks import cnn_rank
+
+    world = len(devices)
+    agree = run_ranks(cnn_rank, world, devices=devices,
+                      args=(cfg, agree_data),
+                      kwargs=dict(grads=True, logits=True),
+                      timeout=DP_RANKS_TIMEOUT_S)
+    worst_grad, param_diff, ties = 0.0, 0.0, None
+    for r, res in enumerate(agree):
+        rel = grads_rel_l2(res["grads"], one["grads"])
+        worst_grad = max(worst_grad, max(rel.values()))
+        param_diff = max(param_diff, max(
+            float(np.abs(a - b).max())
+            for a, b in zip(res["params"], one["params"], strict=True)))
+        ties = check_ties(f"{what} rank {r}", res["logits"], one["logits"])
+        coll = res["epoch_counts"]["collectives"]
+        if coll != {"all_reduce": AGREE_STEPS, "broadcast": 0} \
+                or res["init"]["collectives"]["broadcast"] != 1:
+            raise AssertionError(f"{what} rank {r}: collectives {coll}, "
+                                 f"init {res['init']['collectives']}")
+    if not (worst_grad <= DP_GRAD_REL_L2 and param_diff <= AGREE_PARAM_ATOL):
+        raise AssertionError(f"{what}: first-step gradients apart by "
+                             f"{worst_grad} (limit {DP_GRAD_REL_L2}), params "
+                             f"after {AGREE_STEPS} steps by {param_diff} "
+                             f"(limit {AGREE_PARAM_ATOL})")
+    epoch = run_ranks(cnn_rank, world, devices=devices,
+                      args=(cfg, dict(num_train=60_000, num_test=10_000)),
+                      timeout=DP_RANKS_TIMEOUT_S)
+    for r, res in enumerate(epoch):
+        em, (ntests, ncorrect) = res["epoch"], res["eval"]
+        check_cnn_epoch(f"{what} rank {r}", res["epoch_counts"]["launches"],
+                        res["eval_counts"]["launches"], em["steps"], ntests,
+                        ncorrect, {k: em[k] for k in ("loss", "etotal", "acc")},
+                        JAX_CPU_ACCURACY)
+        counts = (res["init"]["collectives"], res["epoch_counts"]["collectives"],
+                  res["eval_counts"]["collectives"])
+        if counts != ({"all_reduce": 0, "broadcast": 1},
+                      {"all_reduce": TRAIN_STEPS, "broadcast": 0},
+                      {"all_reduce": 1, "broadcast": 0}):
+            raise AssertionError(f"{what} rank {r}: collectives (init, epoch, "
+                                 f"eval) {counts}")
+    em, (ntests, ncorrect) = epoch[0]["epoch"], epoch[0]["eval"]
+    return {"world": world, "backend": pick_backend(devices),
+            "devices": [str(d) for d in devices],
+            "agree_steps": AGREE_STEPS,
+            "first_grad_rel_l2_max": worst_grad,
+            "first_grad_rel_l2_tolerance": DP_GRAD_REL_L2,
+            "param_max_abs_diff": param_diff,
+            "param_tolerance": AGREE_PARAM_ATOL, **ties,
+            "epoch_steps": em["steps"], "epoch_s": em["seconds"],
+            "step_ms": 1e3 * em["seconds"] / em["steps"],
+            "loss": em["loss"], "acc": em["acc"], "ntests": ntests,
+            "ncorrect": ncorrect,
+            "launches_per_rank": [res["epoch_counts"]["launches"]
+                                  for res in epoch],
+            "collectives_per_rank": [res["epoch_counts"]["collectives"]
+                                     for res in epoch],
+            "note": DP_NOTE if pick_backend(devices) == "gloo" else
+            "one rank a card over NCCL"}
+
+
+def phase_dp(torch, dev=None) -> None:
+    """The train phase's configuration through parallel/dp.py: world 1 on
+    a one-rank NCCL group, AGREE_STEPS steps (one epoch of AGREE_STEPS
+    batches, as train_agree runs them, on the device-resident route) bit
+    for bit against the one-device Trainer with one all-reduce a step;
+    world DP_WORLD as gloo ranks on cuda:0 (dp_world); with two cards or
+    more, world min(4, cards) over NCCL, one rank a card. One line per
+    world. (`dev` the CPU: the same on gloo, to rehearse the phase.)"""
+    import tempfile
+
+    import numpy as np
+
+    from mpi_cuda_cnn_tpu_torch.parallel.distributed import (
+        pick_backend,
+        process_group,
+    )
+    from mpi_cuda_cnn_tpu_torch.parallel.mesh import make_mesh
+    from mpi_cuda_cnn_tpu_torch.train.ranks import cnn_rank
+    from mpi_cuda_cnn_tpu_torch.utils.config import Config
+
+    dev = dev or torch.device("cuda", 0)
+    cfg = Config(model="reference_cnn", epochs=1, batch_size=CNN_BATCH,
+                 lr=0.1, seed=0, device=str(dev), use_kernels=True,
+                 log_every=0, eval_every=0)
+    data = dict(num_train=AGREE_STEPS * CNN_BATCH, num_test=10_000)
+    one = cnn_rank(None, cfg, data, grads=True, logits=True)
+    backend = pick_backend([dev])
+    with tempfile.TemporaryDirectory() as tmp, \
+            process_group(backend, 0, 1, str(Path(tmp) / "store")):
+        w1 = cnn_rank(make_mesh(devices=[dev]), cfg, data, grads=True)
+    same = all(np.array_equal(a, b) for a, b in
+               zip(w1["params"] + w1["grads"], one["params"] + one["grads"],
+                   strict=True))
+    coll = w1["epoch_counts"]["collectives"]
+    if not same or coll != {"all_reduce": AGREE_STEPS, "broadcast": 0} \
+            or w1["init"]["collectives"]["broadcast"] != 1 \
+            or w1["epoch"]["loss"] != one["epoch"]["loss"]:
+        raise AssertionError(f"dp world 1 ({backend}): bitwise {same}, "
+                             f"losses {w1['epoch']['loss']} vs "
+                             f"{one['epoch']['loss']}, collectives {coll}")
+    emit({"phase": "dp", "world": 1, "backend": backend, "devices": [str(dev)],
+          "steps": AGREE_STEPS, "bitwise_equal_one_device": same,
+          "collectives": coll, "loss": w1["epoch"]["loss"]})
+    worlds = [1]
+    emit({"phase": "dp", **dp_world(torch, "dp world 2 (gloo, one card)",
+                                    [dev] * DP_WORLD, cfg, data, one)})
+    worlds.append(DP_WORLD)
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if cards >= 2:
+        w = min(DP_MAX_NCCL_WORLD, cards)
+        emit({"phase": "dp", **dp_world(
+            torch, f"dp world {w} (nccl)",
+            [torch.device("cuda", i) for i in range(w)], cfg, data, one)})
+        worlds.append(w)
+    emit({"phase": "dp_worlds", "worlds": worlds, "cards": cards})
+
+
+def phase_lm_dp(torch, dev=None) -> dict:
+    """LM_DP_ARGS at world 2 as gloo ranks on cuda:0 against as many
+    one-device LMTrainer steps from the same seeded init: launches per
+    rank, losses, first-step gradients. (`dev` the CPU: the same, to
+    rehearse the phase.)"""
+    from mpi_cuda_cnn_tpu_torch.parallel.distributed import run_ranks
+    from mpi_cuda_cnn_tpu_torch.train.ranks import lm_rank
+    from mpi_cuda_cnn_tpu_torch.utils.config import parse_lm_args
+
+    dev = dev or torch.device("cuda", 0)
+    cfg = parse_lm_args(LM_DP_ARGS + ["--device", str(dev)])
+    one = lm_rank(None, cfg, grads=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ranks = run_ranks(lm_rank, DP_WORLD, devices=[dev] * DP_WORLD,
+                      args=(cfg,), kwargs=dict(grads=True),
+                      timeout=DP_RANKS_TIMEOUT_S)
+    worst_loss = worst_grad = 0.0
+    for r, res in enumerate(ranks):
+        launches = res["counts"]["launches"]
+        want = {name: LM_PER_STEP[name] * LM_DP_STEPS + LM_PER_EVAL[name]
+                for name in FLASH_KERNELS}
+        if {k: launches[k] for k in FLASH_KERNELS} != want \
+                or res["counts"]["collectives"] != {"all_reduce": LM_DP_STEPS,
+                                                    "broadcast": 0}:
+            raise AssertionError(f"lm_dp rank {r}: counts {res['counts']}, "
+                                 f"want launches {want}")
+        if len(res["losses"]) != LM_DP_STEPS:
+            raise AssertionError(f"lm_dp rank {r}: losses {res['losses']}")
+        worst_loss = max(worst_loss, max(
+            abs(a - b) for a, b in zip(res["losses"], one["losses"],
+                                       strict=True)))
+        worst_grad = max(worst_grad, max(
+            grads_rel_l2(res["grads"], one["grads"]).values()))
+    if not (worst_loss <= LM_AGREE_LOSS_ATOL
+            and worst_grad <= LM_AGREE_GRAD_REL_L2):
+        raise AssertionError(f"lm_dp: losses apart by {worst_loss} (limit "
+                             f"{LM_AGREE_LOSS_ATOL}), first-step gradients by "
+                             f"{worst_grad} (limit {LM_AGREE_GRAD_REL_L2})")
+    res = ranks[0]
+    return {"world": DP_WORLD, "backend": "gloo", "steps": LM_DP_STEPS,
+            "losses": {"dp": res["losses"], "one_device": one["losses"]},
+            "loss_max_abs_diff": worst_loss,
+            "loss_tolerance": LM_AGREE_LOSS_ATOL,
+            "first_grad_rel_l2_max": worst_grad,
+            "first_grad_rel_l2_tolerance": LM_AGREE_GRAD_REL_L2,
+            "eval_loss": {"dp": res["eval_loss"],
+                          "one_device": one["eval_loss"]},
+            # LM_DP_STEPS steps and the eval
+            "train_s": {"dp": res["seconds"], "one_device": one["seconds"]},
+            "launches_per_rank": [r["counts"]["launches"] for r in ranks],
+            "note": DP_NOTE}
+
+
 def first_step_grads_rel_l2(torch, trainer) -> dict:
     """Relative L2 gap, per param leaf (named by index), between the
     gradients of the trainer's first batch at its current params on the
@@ -1810,7 +2108,7 @@ def kernels_line(cases: list[dict], launches: dict) -> dict:
             ("flash_bwd_dkv", "mpi_cuda_cnn_tpu_torch/csrc/flash_bwd_dkv.cu",
              "mpi_cuda_cnn_tpu/ops/pallas_attention.py:460", _flagship_f32)):
         mine = [c for c in cases if c["kernel"] == name]
-        r = next(c for c in mine if rep(c))
+        r = next(c for c in mine if rep(c) and not c.get("per_rank"))
         summary.append({
             "name": name, "route": "cuda", "source": src,
             "entry_points": entry_points(src),
@@ -1919,6 +2217,8 @@ def main() -> int:
     emit({"phase": "serve_profile", **phase_serve_profile(torch, out)})
     train_launches = phase_train(torch)
     emit({"phase": "train_agree", **phase_train_agree(torch)})
+    phase_dp(torch)
+    emit({"phase": "lm_dp", **phase_lm_dp(torch)})
     emit({"phase": "train_bf16", **phase_train_bf16(torch)})
     conv_launches = phase_conv_bench(torch)
     lm_launches = phase_lm(torch)

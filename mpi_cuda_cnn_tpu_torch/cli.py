@@ -13,7 +13,14 @@
                   kernel and the implicit-GEMM kernel
                   (bench/conv_shapes.py)
 
-Every command runs on the card unless given --device cpu.
+Every command runs on the card unless given --device cpu. `train` and
+`lm` take `--num-devices N` / `--mesh-shape data:N` (N = 0: every visible
+card, 1 on the CPU): a world of 1 runs in this process; a world of N > 1
+spawns N ranks (`parallel.distributed.run_ranks`), NCCL with rank r on
+cuda:r, or gloo ranks under --device cpu, and fails with exit 2 when N is
+more than the visible cards. Under `torchrun` the environment names the
+world and this process is one rank of it. The command returns non-zero
+when any rank fails.
 """
 
 from __future__ import annotations
@@ -24,15 +31,75 @@ _USAGE = ("usage: python -m mpi_cuda_cnn_tpu_torch "
           "{train,train-bench,serve-bench,lm,lm-bench,conv-bench} [flags]")
 
 
+def rank_devices(device: str, num_devices: int, mesh_shape: str,
+                 batch_size: int, queue: str) -> list:
+    """One device per rank of the data mesh the flags ask for: the CPU for
+    every rank under --device cpu, else the first cards. Under torchrun
+    the environment names the world, and each process knows only its own
+    device: this process's card (cuda:LOCAL_RANK), or the CPU, once per
+    rank. Raises RuntimeError when CUDA is asked for and absent,
+    NotImplementedError for an unported mesh, ValueError for more ranks
+    than cards or a batch the data axis does not divide."""
+    import os
+
+    import torch
+
+    from ._device import resolve_device
+    from .parallel.distributed import launched_by_torchrun
+    from .parallel.mesh import DATA_AXIS, mesh_devices
+    from .utils.config import check_batch_divides, data_axes
+
+    own = resolve_device(device)
+    if launched_by_torchrun():
+        world = int(os.environ["WORLD_SIZE"])
+        check_batch_divides(batch_size, world)
+        return [own] * world
+    cuda = own.type == "cuda"
+    visible = torch.cuda.device_count() if cuda else 1
+    axes = data_axes(num_devices, mesh_shape, visible, queue=queue)
+    check_batch_divides(batch_size, axes[DATA_AXIS])
+    if not cuda:
+        return [own] * axes[DATA_AXIS]
+    return mesh_devices(axes, [torch.device("cuda", i)
+                               for i in range(visible)])
+
+
+def _run_world(entry, devices: list, args: tuple) -> int:
+    """Run entry(mesh, *args) -> {"exit": code, ...} (`train/ranks.py`):
+    in this process as one rank of a torchrun world, in this process
+    alone for one device, else on one spawned rank per device. Returns
+    the largest exit code, 1 when a rank failed."""
+    from .parallel.distributed import (
+        RankError,
+        initialize_distributed,
+        launched_by_torchrun,
+        run_ranks,
+    )
+    from .parallel.mesh import make_mesh
+    from .utils.logging import get_logger
+
+    if launched_by_torchrun():
+        initialize_distributed(devices[0])
+        results = [entry(make_mesh(devices=devices), *args)]
+    elif len(devices) == 1:
+        results = [entry(None, *args)]
+    else:
+        try:
+            results = run_ranks(entry, len(devices), devices=devices,
+                                args=args)
+        except RankError as e:
+            get_logger().error("%s", e)
+            return 1
+    return max(r["exit"] for r in results)
+
+
 def run_train(argv: list[str]) -> int:
     """The `train` command, mirroring the reference's `cli.run`."""
-    from ._device import resolve_device
     from .data.datasets import get_dataset, load_idx_dataset
     from .data.idx import IdxError
     from .models.presets import get_model
-    from .train.trainer import Trainer
     from .utils.config import check_supported, parse_args
-    from .utils.logging import MetricsLogger, get_logger
+    from .utils.logging import get_logger
 
     try:
         cfg = parse_args(argv)
@@ -41,7 +108,8 @@ def run_train(argv: list[str]) -> int:
     log = get_logger()
     try:
         check_supported(cfg)
-        resolve_device(cfg.device)
+        devices = rank_devices(cfg.device, cfg.num_devices, cfg.mesh_shape,
+                               cfg.batch_size, "E")
     except (NotImplementedError, RuntimeError, ValueError) as e:
         log.error("%s", e)
         return 2
@@ -63,26 +131,18 @@ def run_train(argv: list[str]) -> int:
     except KeyError as e:
         log.error("%s", e)
         return 2
-    log.info("model=%s dataset=%s input=%s backend=%s", model.name, ds.name,
-             ds.input_shape, "cuda" if cfg.use_kernels else "torch")
-    try:
-        trainer = Trainer(model, ds, cfg, metrics=MetricsLogger())
-    except ValueError as e:
-        log.error("trainer setup failed: %s", e)
-        return 2
-    result = trainer.train()
-    log.info("done: epochs=%d acc=%.4f mean_step=%.3fms", result.epochs_run,
-             result.test_accuracy, result.mean_step_ms)
-    return 0
+    log.info("model=%s dataset=%s input=%s backend=%s ranks=%d", model.name,
+             ds.name, ds.input_shape, "cuda" if cfg.use_kernels else "torch",
+             len(devices))
+    from .train.ranks import cnn_rank
+
+    return _run_world(cnn_rank, devices, (cfg, ds))
 
 
 def run_lm(argv: list[str]) -> int:
-    """The `lm` command, mirroring the reference's `cli.run_lm` on one
-    device."""
-    from ._device import resolve_device
-    from .train.lm_trainer import LMTrainer
+    """The `lm` command, mirroring the reference's `cli.run_lm`."""
     from .utils.config import check_lm_supported, parse_lm_args
-    from .utils.logging import MetricsLogger, get_logger
+    from .utils.logging import get_logger
 
     try:
         cfg = parse_lm_args(argv)
@@ -91,22 +151,14 @@ def run_lm(argv: list[str]) -> int:
     log = get_logger()
     try:
         check_lm_supported(cfg)
-        resolve_device(cfg.device)
+        devices = rank_devices(cfg.device, cfg.num_devices, cfg.mesh_shape,
+                               cfg.batch_size, "F")
     except (NotImplementedError, RuntimeError, ValueError) as e:
         log.error("%s", e)
         return 2
-    try:
-        trainer = LMTrainer(cfg, metrics=MetricsLogger())
-    except (OSError, ValueError) as e:
-        log.error("lm setup failed: %s", e)
-        return 2
-    log.info("lm model=d%dx%d h%d seq=%d vocab=%d device=%s attn=%s",
-             cfg.dim, cfg.depth, cfg.heads, cfg.seq_len, trainer.model.vocab,
-             trainer.device, trainer.attn_impl)
-    result = trainer.train()
-    log.info("done: steps=%d eval_ppl=%.3f tokens/s=%.0f", result.steps_run,
-             result.eval_ppl, result.tokens_per_s)
-    return 0
+    from .train.ranks import lm_rank
+
+    return _run_world(lm_rank, devices, (cfg,))
 
 
 def main(argv: list[str] | None = None) -> int:

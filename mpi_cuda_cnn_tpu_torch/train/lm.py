@@ -2,8 +2,13 @@
 (counterpart of the reference's `train/lm.py`).
 
 One step is the forward, the causal-LM cross-entropy, the backward
-(`torch.autograd.grad`) and the AdamW update in place, on one device.
-The levers are the reference's:
+(`torch.autograd.grad`) and the AdamW update in place, as one rank of a
+data mesh (on one device, the world-1 mesh of no collective): each rank
+takes its B/w rows of the batch, and its gradients and loss are averaged
+in one all-reduce before the update (`parallel/dp.make_dp_train_step`),
+the port's twin of the reference's GSPMD step with the state replicated
+and the batch sharded (`train/lm_trainer.py`). With equal shards the
+mean of the ranks' token means is the global token mean. The levers are the reference's:
 
 - `attn_impl`: "flash" (the fused attention on the hand-written CUDA
   kernels K7-K9, `ops/flash_attention.py`), "oracle" (the quadratic
@@ -23,6 +28,8 @@ from ..models.layers import tree_leaves
 from ..models.transformer import TransformerLM
 from ..ops.flash_attention import HEAD_DIMS
 from ..ops.gemv import tree_map
+from ..parallel.dp import make_dp_train_step
+from ..parallel.mesh import device_mesh
 
 
 def pick_attn_impl(impl: str, seq_len: int,
@@ -108,26 +115,32 @@ def make_lm_train_step(model: TransformerLM, optimizer, *,
                        device: torch.device | str = "cuda",
                        compute_dtype: torch.dtype | None = None,
                        remat: bool = False, moe_aux_weight: float = 0.01,
-                       ce_chunk: int = 0):
+                       ce_chunk: int = 0, mesh=None):
     """step(state, tokens, targets) -> (state, {"loss": loss}): forward,
     loss, gradients, and the optimizer update in place on the state's
-    params (the state dict itself is returned, updated). The loss stays
-    on the device: reading it is the caller's host sync."""
+    params (the state dict itself is returned, updated), as one rank of
+    `mesh` (None: the world-1 mesh of `device`, no collective): tokens
+    and targets are this rank's rows (`dp_shard_batch`) and the loss is
+    the mean over the ranks. The loss stays on the device: reading it is
+    the caller's host sync. `step.loss_fn(params, tokens, targets) ->
+    (loss, {})` is the step's loss."""
     impl = pick_attn_impl(attn_impl, seq_len or model.max_seq, device,
                           model.head_dim)
     attn_fn = get_attn_fn(impl)
 
-    def step(state, tokens, targets):
-        leaves = tree_leaves(state["params"])
-        loss = lm_loss(model, state["params"], tokens, targets,
-                       attn_fn=attn_fn, compute_dtype=compute_dtype,
-                       remat=remat, moe_aux_weight=moe_aux_weight,
-                       ce_chunk=ce_chunk)
-        grads = torch.autograd.grad(loss, leaves)
-        optimizer.update(leaves, grads, state["opt_state"])
-        state["step"] += 1
-        return state, {"loss": loss.detach()}
+    def loss_fn(params, tokens, targets):
+        return lm_loss(model, params, tokens, targets, attn_fn=attn_fn,
+                       compute_dtype=compute_dtype, remat=remat,
+                       moe_aux_weight=moe_aux_weight, ce_chunk=ce_chunk), {}
 
+    dp_step = make_dp_train_step(loss_fn, optimizer,
+                                 mesh or device_mesh(torch.device(device)))
+
+    def step(state, tokens, targets):
+        state, metrics = dp_step(state, tokens, targets)
+        return state, {"loss": metrics[0]}
+
+    step.loss_fn = loss_fn
     return step
 
 

@@ -1,14 +1,19 @@
 """End-to-end LM trainer: corpus -> trained TransformerLM, on one device
-(counterpart of the single-device branch of the reference's
-`train/lm_trainer.py`).
+or as one rank of a data mesh (counterpart of the single-device and
+data-parallel branches of the reference's `train/lm_trainer.py`).
 
 Char-level corpus, random (seq_len + 1)-windows as batches, a 10%
 held-out tail for eval, AdamW with a warm-up + cosine schedule. The
 windows of step k come from `np.random.default_rng((seed, k))`, bitwise
-the reference's. What the reference's trainer adds around this loop
-(meshes, MoE, gradient accumulation, checkpoints, the NaN guard and fault
-plans, the JSONL sink, sampling after training) is refused by
-`utils.config.check_lm_supported` (ROADMAP queue F).
+the reference's. The trainer is one rank of a data mesh (given none,
+the world-1 mesh of its device, `parallel.mesh.device_mesh`, with no
+collective): every rank draws the same windows and keeps its rows
+(`dp_shard_batch`), the seeded init is broadcast from rank 0, and the
+eval runs replicated (every rank holds the same params and windows;
+rank 0 reports). What the reference's trainer adds around
+this loop (the other meshes, MoE, gradient accumulation, checkpoints,
+the NaN guard and fault plans, the JSONL sink, sampling after training)
+is refused by `utils.config.check_lm_supported` (ROADMAP queue F).
 """
 
 from __future__ import annotations
@@ -23,7 +28,14 @@ import torch
 
 from .._device import resolve_device
 from ..models.transformer import TransformerLM
-from ..utils.config import COMPUTE_DTYPES, check_lm_supported
+from ..parallel.dp import dp_mean_grads, dp_shard_batch, replicate
+from ..parallel.mesh import DATA_AXIS, device_mesh
+from ..utils.config import (
+    COMPUTE_DTYPES,
+    check_batch_divides,
+    check_lm_supported,
+    data_axes,
+)
 from ..utils.logging import MetricsLogger, get_logger
 from .lm import (
     get_attn_fn,
@@ -67,19 +79,30 @@ class LMResult:
 
 
 class LMTrainer:
-    """tokens (an int32 stream) + config -> trained params, on one device.
+    """tokens (an int32 stream) + config -> trained params, as one rank of
+    the data mesh `mesh` (on `mesh.device`), or on cfg.device alone.
 
     `params` (a params tree, e.g. `convert.params_from_jax` of the
     reference's initial params) replaces the seeded init.
     """
 
     def __init__(self, cfg, *, metrics: MetricsLogger | None = None,
-                 params: dict | None = None):
+                 params: dict | None = None, mesh=None):
         check_lm_supported(cfg)
+        if mesh is None and data_axes(cfg.num_devices, cfg.mesh_shape,
+                                      queue="F")[DATA_AXIS] > 1:
+            raise ValueError(
+                f"num_devices={cfg.num_devices}, mesh_shape="
+                f"{cfg.mesh_shape!r}: an LMTrainer is one rank; pass the "
+                "rank's mesh (parallel.make_mesh under parallel.run_ranks "
+                "or torchrun), or run the lm command")
         self.cfg = cfg
         self.log = get_logger()
         self.metrics = metrics or MetricsLogger()
-        self.device = resolve_device(cfg.device)
+        self.device = resolve_device(cfg.device if mesh is None
+                                     else mesh.device)
+        self.mesh = mesh = mesh or device_mesh(self.device)
+        check_batch_divides(cfg.batch_size, mesh.shape.get(DATA_AXIS, 1))
 
         tokens = load_corpus(cfg.corpus)
         vocab = int(tokens.max()) + 1
@@ -120,16 +143,19 @@ class LMTrainer:
             self.model, self.optimizer, attn_impl=self.attn_impl,
             seq_len=cfg.seq_len, device=self.device,
             compute_dtype=self._compute_dtype, remat=cfg.remat,
-            ce_chunk=cfg.ce_chunk)
+            ce_chunk=cfg.ce_chunk, mesh=mesh)
+        self.loss_fn = self.train_step.loss_fn
         self.state = make_lm_state(self.model, self.optimizer, cfg.seed,
                                    params=params, device=self.device)
+        replicate(self.state["params"], mesh)
 
     # ------------------------------------------------------------------
 
     def _sample_batch(self, step: int) -> tuple[np.ndarray, np.ndarray]:
         """(B, S) inputs and targets: random windows of the train stream,
         from an RNG keyed on (seed, step), so step k sees the same windows
-        in any run (the reference's step-exact contract)."""
+        in any run and on every rank (the reference's step-exact
+        contract)."""
         cfg = self.cfg
         n = len(self.train_tokens) - cfg.seq_len
         rng = np.random.default_rng((cfg.seed, step))
@@ -137,6 +163,16 @@ class LMTrainer:
         idx = starts[:, None] + np.arange(cfg.seq_len + 1)[None, :]
         w = self.train_tokens[idx]
         return w[:, :-1], w[:, 1:]
+
+    def first_grads(self) -> list[torch.Tensor]:
+        """The gradients step 0 applies, at the current params: this
+        rank's rows of its windows through the step's loss, averaged over
+        the ranks in one all-reduce."""
+        tokens, targets = dp_shard_batch(self._sample_batch(0), self.mesh)
+        grads, _ = dp_mean_grads(self.loss_fn, self.state["params"],
+                                 self._to_device(tokens),
+                                 self._to_device(targets), self.mesh)
+        return grads
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -151,7 +187,8 @@ class LMTrainer:
         loss = float("nan")
         m = None
         for step in range(cfg.steps):
-            tokens, targets = self._sample_batch(step)
+            tokens, targets = dp_shard_batch(self._sample_batch(step),
+                                             self.mesh)
             self.state, m = self.train_step(self.state,
                                             self._to_device(tokens),
                                             self._to_device(targets))

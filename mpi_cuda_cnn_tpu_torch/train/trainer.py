@@ -1,5 +1,5 @@
-"""CNN train and eval loops on one device (counterpart of the
-reference's `train/trainer.py`).
+"""CNN train and eval loops, on one device or one rank of a data mesh
+(counterpart of the reference's `train/trainer.py`).
 
 The reference's loop (cnn.c:445-474) is per-sample SGD with gradients
 accumulated over 32 samples; eval is a forward argmax sweep printing
@@ -8,11 +8,11 @@ is batched (batch == the reference's accumulator period), the epoch order
 is a numpy permutation keyed on (seed, epoch), and an epoch runs one of
 two ways with identical arithmetic:
 
-- device-resident (default, the twin of `_run_epoch_scanned` and
-  `parallel/dp.make_dp_scan_epoch`): the uint8 images and int32 labels
-  are staged on the device once; each step gathers its batch by index,
-  divides by PIXEL_SCALE and one-hots on the device. Metric sums stay on
-  the device, so the host waits only at `log_every` and at the end;
+- device-resident (default, `parallel/dp.make_dp_scan_epoch`, the twin
+  of `_run_epoch_scanned`): the uint8 images and int32 labels are staged
+  on the device once; each step gathers its batch by index, divides by
+  PIXEL_SCALE and one-hots on the device. Metric sums stay on the
+  device, so the host waits only at `log_every` and at the end;
 - per batch (`scan=False`, or a dataset over `scan_max_bytes`): the host
   normalizes each batch and copies it over.
 
@@ -22,6 +22,19 @@ backend's ops (with `use_kernels`, the hand-written CUDA kernels of
 With `compute_dtype="bfloat16"` the forward and backward run in bf16
 (`Sequential.apply` casts on entry) while the params, their gradients
 and the SGD update stay float32.
+
+As in the JAX trainer, one device and many use the same code path, that
+of a data mesh (`parallel.make_mesh`, one process per rank): the seeded
+init is broadcast from rank 0 (`parallel/dp.replicate`), each step takes
+this rank's contiguous share of the batch (its columns of the
+permutation on the device-resident route, `dp_shard_perm`; its rows of
+the host batch on the other, `dp_shard_batch`), and the step averages
+the gradients and metrics in one all-reduce before the same SGD update
+on every rank (`dp.make_dp_train_step`). The eval splits each eval
+batch across the ranks and sums the correct counts. Given no mesh, the
+trainer runs on the world-1 mesh of its device (`mesh.device_mesh`),
+which has no process group: every share is the whole, and no collective
+is made.
 """
 
 from __future__ import annotations
@@ -34,7 +47,6 @@ import torch
 
 from .._device import resolve_device
 from ..data.pipeline import (
-    PIXEL_SCALE,
     ensure_channel_axis,
     normalize_images,
     one_hot,
@@ -44,7 +56,23 @@ from ..models.layers import tree_leaves
 from ..ops.activations import stable_softmax
 from ..ops.gemv import tree_map
 from ..ops.losses import softmax_cross_entropy, squared_error_total
-from ..utils.config import COMPUTE_DTYPES, check_supported
+from ..parallel.dp import (
+    all_reduce_sum,
+    dp_mean_grads,
+    dp_shard_batch,
+    dp_shard_perm,
+    make_dp_eval_step,
+    make_dp_scan_epoch,
+    make_dp_train_step,
+    replicate,
+)
+from ..parallel.mesh import DATA_AXIS, device_mesh
+from ..utils.config import (
+    COMPUTE_DTYPES,
+    check_batch_divides,
+    check_supported,
+    data_axes,
+)
 from ..utils.logging import MetricsLogger, get_logger
 from .optimizer import make_optimizer
 
@@ -85,21 +113,34 @@ class TrainResult:
 
 
 class Trainer:
-    """model + dataset + config -> trained params, on one device.
+    """model + dataset + config -> trained params, as one rank of the
+    data mesh `mesh` (on `mesh.device`), or on config.device alone.
 
     `params` (a params tree of tensors, e.g. `convert.params_from_jax` of
     the JAX trainer's initial params) replaces the seeded init.
     """
 
     def __init__(self, model, dataset, config, *,
-                 metrics: MetricsLogger | None = None, params=None):
+                 metrics: MetricsLogger | None = None, params=None,
+                 mesh=None):
         check_supported(config)
+        if mesh is None and data_axes(config.num_devices,
+                                      config.mesh_shape)[DATA_AXIS] > 1:
+            raise ValueError(
+                f"num_devices={config.num_devices}, mesh_shape="
+                f"{config.mesh_shape!r}: a Trainer is one rank; pass the "
+                "rank's mesh (parallel.make_mesh under parallel.run_ranks "
+                "or torchrun), or run the train command")
         self.model = model
         self.ds = dataset
         self.cfg = config
         self.log = get_logger()
         self.metrics = metrics or MetricsLogger()
-        self.device = resolve_device(config.device)
+        self.device = resolve_device(config.device if mesh is None
+                                     else mesh.device)
+        self.mesh = mesh = mesh or device_mesh(self.device)
+        n_data = mesh.shape.get(DATA_AXIS, 1)
+        check_batch_divides(config.batch_size, n_data)
         self.backend = "cuda" if config.use_kernels else "torch"
         self.compute_dtype = COMPUTE_DTYPES[config.compute_dtype]
         self.loss_fn = make_loss_fn(model, backend=self.backend,
@@ -124,10 +165,18 @@ class Trainer:
         self.params = tree_map(
             lambda t: t.detach().to(self.device, torch.float32).clone()
             .requires_grad_(True), params)
+        replicate(self.params, mesh)
         self.leaves = tree_leaves(self.params)
         self.opt_state = self.optimizer.init(self.leaves)
         self.step = 0
-        self._eval_batch = self._pick_eval_batch(len(self.test_x), 1)
+        self.state = {"params": self.params, "opt_state": self.opt_state,
+                      "step": 0}
+        self._step = make_dp_train_step(self.loss_fn, self.optimizer, mesh)
+        self._scan_epoch = make_dp_scan_epoch(self._step, dataset.num_classes)
+        self._eval_step = make_dp_eval_step(
+            lambda p, x: self.predict(torch.from_numpy(x).to(self.device), p),
+            mesh)
+        self._eval_batch = self._pick_eval_batch(len(self.test_x), n_data)
         self._dev_images = None
         self._dev_labels = None
         self._classes = torch.arange(dataset.num_classes, device=self.device)
@@ -156,13 +205,22 @@ class Trainer:
         return self.cfg.scan and nbytes <= self.cfg.scan_max_bytes
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """One SGD step on a device batch; returns the step's (loss,
-        etotal, acc) as one device tensor."""
-        loss, aux = self.loss_fn(self.params, x, y)
-        grads = torch.autograd.grad(loss, self.leaves)
-        self.optimizer.update(self.leaves, grads, self.opt_state)
-        self.step += 1
-        return torch.stack([loss.detach(), aux["etotal"], aux["acc"]])
+        """One SGD step on this rank's share of a device batch; returns
+        the step's (loss, etotal, acc), averaged over the ranks, as one
+        device tensor."""
+        self.state, m = self._step(self.state, x, y)
+        self.step = self.state["step"]
+        return m
+
+    def first_grads(self) -> list[torch.Tensor]:
+        """The gradients the first step of epoch 0 applies, at the current
+        params: this rank's share of that batch through the trainer's
+        loss, averaged over the ranks in one all-reduce."""
+        idx = dp_shard_batch(self._epoch_order(0)[:self.cfg.batch_size],
+                             self.mesh)
+        grads, _ = dp_mean_grads(self.loss_fn, self.params,
+                                 *self._host_batch(idx), self.mesh)
+        return grads
 
     def _log_train(self, epoch: int, step: int, sums: torch.Tensor,
                    n: int) -> None:
@@ -186,34 +244,52 @@ class Trainer:
         b = cfg.batch_size
         nsteps = self.steps_per_epoch
         order = self._epoch_order(epoch)[: nsteps * b]
-        device_data = self._use_device_data()
-        if device_data:
-            if self._dev_images is None:
-                self._stage_dataset()
-            perm = torch.from_numpy(order.reshape(nsteps, b)).to(self.device)
-        else:
-            labels = np.asarray(self.ds.train_labels)
-        sums = torch.zeros(len(METRICS), device=self.device)
-        for i in range(nsteps):
-            if device_data:
-                idx = perm[i]
-                x = self._dev_images.index_select(0, idx).float() / PIXEL_SCALE
-                y = (self._dev_labels.index_select(0, idx)[:, None]
-                     == self._classes).float()
-            else:
-                idx = order[i * b:(i + 1) * b]
-                x = torch.from_numpy(
-                    normalize_images(self.ds.train_images[idx])).to(self.device)
-                y = torch.from_numpy(
-                    one_hot(labels[idx], self.ds.num_classes)).to(self.device)
-            sums += self.train_step(x, y)
-            if cfg.log_every > 0 and (i + 1) % cfg.log_every == 0:
-                self._log_train(epoch, i + 1, sums, i + 1)
+        sums = self._run_steps(epoch, order, self._use_device_data())
         self._sync()
         seconds = time.perf_counter() - t0
         means = (sums / nsteps).tolist()
         return {"epoch": epoch, "steps": nsteps,
                 **dict(zip(METRICS, means)), "seconds": seconds}
+
+    def _host_batch(self, idx: np.ndarray) -> tuple[torch.Tensor, ...]:
+        """Normalized images and one-hot labels of train rows `idx`, on
+        the device."""
+        x = normalize_images(self.ds.train_images[idx])
+        y = one_hot(np.asarray(self.ds.train_labels)[idx],
+                    self.ds.num_classes)
+        return (torch.from_numpy(x).to(self.device),
+                torch.from_numpy(y).to(self.device))
+
+    def _run_steps(self, epoch: int, order: np.ndarray,
+                   device_data: bool) -> torch.Tensor:
+        """The epoch's steps in chunks of `log_every` steps: on the
+        device-resident route each chunk is one call of the scan epoch
+        over this rank's columns of the permutation; on the other each
+        step sends this rank's rows of the host batch. Returns the metric
+        sums, on the device."""
+        cfg = self.cfg
+        b, nsteps = cfg.batch_size, self.steps_per_epoch
+        if device_data:
+            if self._dev_images is None:
+                self._stage_dataset()
+            perm = torch.from_numpy(np.ascontiguousarray(dp_shard_perm(
+                order.reshape(nsteps, b), self.mesh))).to(self.device)
+        sums = torch.zeros(len(METRICS), device=self.device)
+        chunk = cfg.log_every if cfg.log_every > 0 else nsteps
+        for start in range(0, nsteps, chunk):
+            end = min(start + chunk, nsteps)
+            if device_data:
+                self.state = self._scan_epoch(
+                    self.state, self._dev_images, self._dev_labels,
+                    perm[start:end], sums)
+                self.step = self.state["step"]
+            else:
+                for i in range(start, end):
+                    idx = dp_shard_batch(order[i * b:(i + 1) * b], self.mesh)
+                    sums += self.train_step(*self._host_batch(idx))
+            if cfg.log_every > 0 and end % cfg.log_every == 0:
+                self._log_train(epoch, end, sums, end)
+        return sums
 
     def train(self) -> TrainResult:
         cfg = self.cfg
@@ -224,7 +300,7 @@ class Trainer:
             em = self.run_epoch(epoch)
             steps += em["steps"]
             epoch_seconds.append(em["seconds"])
-            self.metrics.log("epoch", epoch=epoch, seconds=em["seconds"])
+            self.metrics.log("epoch", **em)
             if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
                 ntests, ncorrect = self.evaluate()
                 result_acc = ncorrect / ntests
@@ -252,7 +328,10 @@ class Trainer:
     def evaluate(self, params=None) -> tuple[int, int]:
         """Forward argmax sweep over the test set (cnn.c:494-518). The
         tail batch is padded to the eval batch; padding rows are not
-        counted. Returns (ntests, ncorrect)."""
+        counted. With a mesh each rank predicts its rows of each eval
+        batch and the counts are summed over the ranks (one all-reduce).
+        Returns (ntests, ncorrect)."""
+        params = self.params if params is None else params
         n = len(self.test_x)
         b = self._eval_batch
         ncorrect = 0
@@ -262,8 +341,11 @@ class Trainer:
             if valid < b:
                 pad = np.zeros((b - valid, *chunk.shape[1:]), chunk.dtype)
                 chunk = np.concatenate([chunk, pad])
-            logits = self.predict(torch.from_numpy(chunk).to(self.device),
-                                  params)
-            pred = logits[:valid].argmax(-1).cpu().numpy()
-            ncorrect += int((pred == self.test_labels[start:start + valid]).sum())
-        return n, ncorrect
+            logits = self._eval_step(params, chunk)
+            rows = dp_shard_batch(np.arange(start, start + b), self.mesh)
+            mine = int((rows < start + valid).sum())
+            pred = logits[:mine].argmax(-1).cpu().numpy()
+            ncorrect += int((pred == self.test_labels[rows[:mine]]).sum())
+        total = torch.tensor([ncorrect], dtype=torch.float64,
+                             device=self.device)
+        return n, int(all_reduce_sum(total, self.mesh).item())

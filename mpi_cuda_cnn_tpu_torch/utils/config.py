@@ -12,7 +12,9 @@ kernels instead of PyTorch's own ops (off by default, as there).
 The flags of features this port does not have yet stay, so that a run
 asking for one stops at once: `check_supported` (CNN, ROADMAP queue E)
 and `check_lm_supported` (LM, queue F) raise NotImplementedError naming
-the ROADMAP queue entry that will bring it.
+the ROADMAP queue entry that will bring it. Of the meshes, the data axis
+is ported (`--num-devices N`, `--mesh-shape data:N`): one rank per
+device, `parallel/dp.py`.
 """
 
 from __future__ import annotations
@@ -52,8 +54,8 @@ class Config:
 
     # Execution.
     device: str = "auto"          # auto (= cuda) | cuda | cpu
-    num_devices: int = 0          # 0 or 1: one device
-    mesh_shape: str = "data"      # "data" or "data:1" only
+    num_devices: int = 0          # 0 = all visible (1 on the CPU); N = DP
+    mesh_shape: str = "data"      # "data" or "data:N" only
     fsdp: bool = False
     use_kernels: bool = False     # hand-written CUDA kernels (ops/kernel_ops)
     remat: bool = False
@@ -98,15 +100,66 @@ _REFUSED = (
 )
 
 
+def parse_mesh_shape(spec: str, total_devices: int) -> dict[str, int]:
+    """Parse "data" / "data:4" / "data:4,model:2" into an axis dict.
+
+    A bare axis name takes all remaining devices. The product must divide
+    total_devices."""
+    axes: dict[str, int] = {}
+    free_axis = None
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if ":" in part:
+            name, n = part.split(":")
+            axes[name.strip()] = int(n)
+        else:
+            if free_axis is not None:
+                raise ValueError(f"mesh spec {spec!r}: only one unsized axis "
+                                 "allowed")
+            free_axis = part
+            axes[part] = -1
+    fixed = 1
+    for n in axes.values():
+        if n > 0:
+            fixed *= n
+    if free_axis is not None:
+        if total_devices % fixed:
+            raise ValueError(f"mesh spec {spec!r} does not divide "
+                             f"{total_devices} devices")
+        axes[free_axis] = total_devices // fixed
+    return axes
+
+
+def data_axes(num_devices: int, mesh_shape: str, visible: int = 1,
+              queue: str = "E") -> dict[str, int]:
+    """The mesh of `--num-devices` (0: the `visible` devices) and
+    `--mesh-shape`: {"data": N}. Raises NotImplementedError naming ROADMAP
+    queue `queue` item 1 for any other axis, ValueError for a bad spec."""
+    if num_devices < 0:
+        raise ValueError(f"--num-devices {num_devices}: want >= 0")
+    axes = parse_mesh_shape(mesh_shape, num_devices or visible)
+    if set(axes) != {"data"} or axes["data"] < 1:
+        raise NotImplementedError(
+            f"mesh_shape={mesh_shape!r}: only the data axis is ported (the "
+            f"other meshes and FSDP are ROADMAP queue {queue} item 1)")
+    return axes
+
+
+def check_batch_divides(batch_size: int, n_data: int) -> None:
+    """The JAX trainer's check: every rank takes batch / n_data rows."""
+    if batch_size % n_data:
+        raise ValueError(f"batch_size {batch_size} not divisible by "
+                         f"data-axis size {n_data}")
+
+
 def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for a feature of the reference's CNN
     trainer that this port does not have yet (ROADMAP queue E), and
-    ValueError for a compute dtype other than float32 or bfloat16."""
-    if cfg.num_devices > 1 or cfg.mesh_shape not in ("data", "data:1"):
-        raise NotImplementedError(
-            f"num_devices={cfg.num_devices}, mesh_shape={cfg.mesh_shape!r}: "
-            "only one device is ported (data parallelism is ROADMAP queue "
-            "E item 1)")
+    ValueError for a compute dtype other than float32 or bfloat16 or a
+    batch that the data axis does not divide."""
+    axes = data_axes(cfg.num_devices, cfg.mesh_shape)
     for name, off, item, what in _REFUSED:
         if getattr(cfg, name) != off:
             flag = "--" + name.replace("_", "-")
@@ -116,6 +169,7 @@ def check_supported(cfg: Config) -> None:
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"--compute-dtype={cfg.compute_dtype!r}: want one "
                          f"of {'|'.join(COMPUTE_DTYPES)}")
+    check_batch_divides(cfg.batch_size, axes["data"])
 
 
 @dataclasses.dataclass
@@ -151,8 +205,8 @@ class LMConfig:
     fsdp: bool = False               # refused (queue F item 1)
     ce_chunk: int = 0                # >0: chunked fused cross-entropy
     device: str = "auto"             # auto (= cuda) | cuda | cpu
-    num_devices: int = 0             # 0 or 1: one device
-    mesh_shape: str = "data"         # "data" or "data:1" only
+    num_devices: int = 0             # 0 = all visible (1 on the CPU)
+    mesh_shape: str = "data"         # "data" or "data:N" only
 
     checkpoint_dir: str | None = None   # refused (queue F item 4)
     checkpoint_every: int = 0
@@ -197,11 +251,7 @@ _LM_REFUSED = (
 def check_lm_supported(cfg: LMConfig) -> None:
     """Raise NotImplementedError for a feature of the reference's LM
     trainer that this port does not have yet (ROADMAP queue F)."""
-    if cfg.num_devices > 1 or cfg.mesh_shape not in ("data", "data:1"):
-        raise NotImplementedError(
-            f"num_devices={cfg.num_devices}, mesh_shape={cfg.mesh_shape!r}: "
-            "only one device is ported (data parallelism and the other "
-            "meshes are ROADMAP queue F item 1)")
+    axes = data_axes(cfg.num_devices, cfg.mesh_shape, queue="F")
     for name, off, item, what in _LM_REFUSED:
         if getattr(cfg, name) != off:
             flag = "--" + name.replace("_", "-")
@@ -213,6 +263,7 @@ def check_lm_supported(cfg: LMConfig) -> None:
             f"--attn-impl={cfg.attn_impl!r}: only {'|'.join(LM_ATTN_IMPLS)} "
             "are ported; ring and Ulysses attention are ROADMAP queue F "
             "item 8")
+    check_batch_divides(cfg.batch_size, axes["data"])
 
 
 def _add_flag(p: argparse.ArgumentParser, name: str, default,
@@ -229,8 +280,9 @@ def _add_flag(p: argparse.ArgumentParser, name: str, default,
 def build_lm_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m mpi_cuda_cnn_tpu_torch lm",
-        description="Train the transformer LM on one CUDA device (the "
-                    "PyTorch port of mpi_cuda_cnn_tpu's lm command).",
+        description="Train the transformer LM on CUDA devices, data "
+                    "parallel with one rank per device (the PyTorch port of "
+                    "mpi_cuda_cnn_tpu's lm command).",
     )
     defaults = LMConfig()
     for f in dataclasses.fields(LMConfig):
@@ -247,8 +299,9 @@ def parse_lm_args(argv: list[str] | None = None) -> LMConfig:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m mpi_cuda_cnn_tpu_torch train",
-        description="CNN trainer on one CUDA device (the PyTorch port of "
-                    "mpi_cuda_cnn_tpu's train command).",
+        description="CNN trainer on CUDA devices, data parallel with one "
+                    "rank per device (the PyTorch port of mpi_cuda_cnn_tpu's "
+                    "train command).",
     )
     # The reference contract: exactly 4 positional IDX paths (cnn.c:408-411).
     p.add_argument("idx_paths", nargs="*", metavar="IDX",

@@ -7,6 +7,11 @@ running squared-error every 1000 steps (cnn.c:470-473) and one final
 trainer's records as the same human-readable `event k=v ...` lines the
 reference's logger prints, or stays silent. The JSONL sink is not ported
 yet (`--metrics-jsonl` is refused, ROADMAP queue E item 6).
+
+In a data-parallel run every rank runs the same loop and only rank 0
+echoes, so a run prints each line once, as the reference's rank-0-only
+eval print does (cnnmpi.c:521). A rank's failure reaches the launcher
+as its traceback (`parallel.distributed.run_ranks`).
 """
 
 from __future__ import annotations
@@ -14,7 +19,15 @@ from __future__ import annotations
 import logging
 import sys
 
+import torch.distributed as dist
+
 _LOGGER_NAME = "mpi_cuda_cnn_tpu_torch"
+
+
+def is_rank_zero() -> bool:
+    """True outside a process group and on its rank 0."""
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
 
 
 def get_logger() -> logging.Logger:
@@ -24,6 +37,7 @@ def get_logger() -> logging.Logger:
         handler.setFormatter(
             logging.Formatter("%(asctime)s %(levelname)s %(message)s",
                               "%H:%M:%S"))
+        handler.addFilter(lambda record: is_rank_zero())
         logger.addHandler(handler)
         logger.setLevel(logging.INFO)
         logger.propagate = False
@@ -32,7 +46,7 @@ def get_logger() -> logging.Logger:
 
 class MetricsLogger:
     """Trainer records as `event k=v ...` lines on the package logger
-    (echo=True), or nowhere (echo=False)."""
+    (echo=True, on rank 0 only), or nowhere (echo=False)."""
 
     def __init__(self, echo: bool = True):
         self._echo = echo

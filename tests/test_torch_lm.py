@@ -419,10 +419,10 @@ def test_lm_refusals_exit_2_naming_queue_f(name, off, item, what, log_lines):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--mesh-shape", "data:2"], 1), (["--num-devices", "2"], 1),
+    (["--mesh-shape", "data:2,model:2"], 1), (["--mesh-shape", "pipe:2"], 1),
     (["--mesh-shape", "data:2,seq:2"], 1), (["--attn-impl", "ring"], 8),
     (["--attn-impl", "ulysses"], 8)],
-    ids=["data2", "devices2", "seq_mesh", "ring", "ulysses"])
+    ids=["model_mesh", "pipe_mesh", "seq_mesh", "ring", "ulysses"])
 def test_lm_mesh_and_attention_refusals(argv, item, log_lines):
     assert main(["lm", *TINY, *argv]) == 2
     assert any(f"queue F item {item}" in m for m in log_lines)

@@ -280,8 +280,8 @@ def test_refused_features_raise(name, off, item, what):
         Trainer(get_model("reference_cnn"), ds, _cfg(**{name: on}))
 
 
-@pytest.mark.parametrize("kw", [dict(num_devices=2),
-                                dict(mesh_shape="data:4"),
+@pytest.mark.parametrize("kw", [dict(mesh_shape="pipe:2"),
+                                dict(mesh_shape="data:4,seq:2"),
                                 dict(mesh_shape="data:2,model:2")])
 def test_multi_device_is_refused(kw):
     with pytest.raises(NotImplementedError, match="queue E item 1"):
