@@ -132,6 +132,31 @@ final line:
             gradients (per leaf), per-step losses and params within
             stated tolerances; then the first step's gradients in bf16
             compute, flash against the oracle, per leaf.
+12. recover  crash-safe training (`train/checkpoint.py`, `faults.py`),
+            in a temporary checkpoint directory. CNN: dp's 50 steps
+            (one device-resident epoch of 1,600 samples) through the
+            `train` command's rank entry, saving every 10 steps on the
+            background writer, then the eval: (a) two uninterrupted
+            runs bit for bit; (b) a crash after step 23 under
+            --max-restarts 1, resumed at step 20, bit for bit (a); (c) a
+            preemption after step 17: exit 75 with ckpt_17, then
+            --resume, bit for bit (a); (d) one byte of the newest
+            checkpoint flipped: --resume falls back to the one before
+            it, bit for bit (a); (e) a NaN batch at step 7 under
+            --nan-policy skip: one skip, the params after that step bit
+            for bit those before it, the step counter advanced, the run
+            finite. In every run the K3/K4/K5 launches are held to
+            9/3/2 a step over every attempt's steps (replayed steps
+            included) and 3/2/0 in the eval. LM: the flagship in
+            float32 with flash attention, 10 steps saving every 4, a
+            crash after step 6: per-step losses and the final
+            checkpoint's every array bit for bit the uninterrupted
+            run's, K7/K8/K9 8/8/8 a step. DP: world 2 (two gloo ranks on
+            cuda:0), a crash after step 23, bit for bit the
+            uninterrupted world-2 run, rank 0 the only writer. Each line
+            carries the card's name and power limit, the runs' wall
+            times and the save (blocking copy, background write) and
+            restore times of the CNN and the LM flagship states.
 
 Then `nvidia-smi`'s name and power limit, the kernels line
 ({"kernels": [...]}, each source's C launch function and `__global__`
@@ -437,6 +462,37 @@ LM_DP_ARGS = LM_MODEL_ARGS + ["--attn-impl", "flash", "--steps",
 # intermediates; over 8 layers such flips add up to a few 1e-3. A wrong
 # dq, dk or dv moves a leaf by far more than 2e-2.
 LM_BF16_GRAD_REL_L2 = 2e-2
+# recover: crash-safe training on the card (`train/checkpoint.py`,
+# `faults.py`). CNN: the train configuration at dp's 50 steps (one
+# device-resident epoch of 1,600 samples, batch 32, lr 0.1) through the
+# `train` command's rank entry, saving every RECOVER_EVERY steps on the
+# background writer, then the eval of RECOVER_TEST samples (one eval
+# batch). Every run is held bit for bit to the uninterrupted run: the
+# kernels sum in a fixed order (K3 and K5 their splits, K9 the GQA
+# group), so a resumed step replays the same arithmetic. The launches of
+# K3/K4/K5 are held to PER_STEP a step over every attempt's steps (a
+# replayed step counts again) and PER_EVAL in the eval. LM: the lm
+# phase's flagship in float32 with flash attention, LM_RECOVER_STEPS
+# steps saving every LM_RECOVER_EVERY steps, crashed after step
+# LM_RECOVER_CRASH and restarted: per-step losses and the final
+# checkpoint's every array (params, AdamW's moments and count, the step)
+# equal the uninterrupted run's, with LM_PER_STEP launches a step. DP:
+# dp's world 2 (two gloo ranks on cuda:0), crashed and restarted, bit
+# for bit the uninterrupted world-2 run, rank 0 the only writer.
+RECOVER_EVERY = 10
+RECOVER_CRASH = 23
+RECOVER_PREEMPT = 17
+RECOVER_NAN = 7
+RECOVER_TEST = 2048
+RECOVER_TIMING_REPS = 5
+LM_RECOVER_STEPS = 10
+LM_RECOVER_EVERY = 4
+LM_RECOVER_CRASH = 6
+LM_RECOVER_TIMING_VOCAB = 8192
+LM_RECOVER_ARGS = LM_MODEL_ARGS + [
+    "--attn-impl", "flash", "--steps", str(LM_RECOVER_STEPS),
+    "--warmup-steps", "2", "--log-every", "1",
+    "--checkpoint-every", str(LM_RECOVER_EVERY)]
 
 
 def emit(obj) -> None:
@@ -1871,16 +1927,6 @@ def phase_conv_bench(torch) -> dict:
     return launches
 
 
-class RecordingMetrics:
-    """A MetricsLogger that keeps the trainer's records and prints none."""
-
-    def __init__(self):
-        self.records = []
-
-    def log(self, event: str, **fields) -> None:
-        self.records.append({"event": event, **fields})
-
-
 def phase_lm(torch) -> dict:
     """`lm` at the flagship width through the flash kernels, with the
     launch counts zeroed just before `train` (the steps and the eval) and
@@ -1891,9 +1937,10 @@ def phase_lm(torch) -> dict:
     from mpi_cuda_cnn_tpu_torch.train.lm import count_params, get_attn_fn, lm_loss
     from mpi_cuda_cnn_tpu_torch.train.lm_trainer import LMTrainer
     from mpi_cuda_cnn_tpu_torch.utils.config import parse_lm_args
+    from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
 
     cfg = parse_lm_args(LM_ARGS)
-    metrics = RecordingMetrics()
+    metrics = MetricsLogger(echo=False, capture=True)
     trainer = LMTrainer(cfg, metrics=metrics)
     if trainer.attn_impl != "flash" or trainer.device.type != "cuda":
         raise AssertionError(f"lm: {trainer.attn_impl} on {trainer.device}")
@@ -1919,7 +1966,7 @@ def phase_lm(torch) -> dict:
                              f"{result.final_loss}, eval {result.eval_loss}")
     tokens_per_step = cfg.batch_size * cfg.seq_len
     emit({"phase": "lm", "steps": result.steps_run, "first_loss": first,
-          "logged_losses": {r["step"]: r["loss"] for r in metrics.records},
+          "logged_losses": {r["step"]: r["loss"] for r in metrics.rows},
           "loss": result.final_loss, "eval_loss": result.eval_loss,
           "eval_ppl": result.eval_ppl, "tokens_per_s": result.tokens_per_s,
           "step_ms": 1e3 * tokens_per_step / result.tokens_per_s,
@@ -2017,23 +2064,24 @@ def phase_lm_agree(torch) -> dict:
     from mpi_cuda_cnn_tpu_torch.train.lm import get_attn_fn, lm_loss
     from mpi_cuda_cnn_tpu_torch.train.lm_trainer import LMTrainer
     from mpi_cuda_cnn_tpu_torch.utils.config import parse_lm_args
+    from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
 
     runs, grad_rel = {}, None
     for impl in ("flash", "oracle"):
         cfg = parse_lm_args(LM_AGREE_ARGS + ["--attn-impl", impl])
-        metrics = RecordingMetrics()
+        metrics = MetricsLogger(echo=False, capture=True)
         trainer = LMTrainer(cfg, metrics=metrics)
         if grad_rel is None:
             grad_rel = first_grads_rel_l2(torch, trainer, get_attn_fn, lm_loss,
                                           tree_leaves)
         result = trainer.train()
-        runs[impl] = ([r["loss"] for r in metrics.records], result,
+        runs[impl] = ([r["loss"] for r in metrics.rows], result,
                       [t.detach() for t in tree_leaves(trainer.state["params"])])
         del trainer
         torch.cuda.empty_cache()
     trainer = LMTrainer(parse_lm_args(LM_AGREE_ARGS + [
         "--attn-impl", "flash", "--compute-dtype", "bfloat16"]),
-        metrics=RecordingMetrics())
+        metrics=MetricsLogger(echo=False, capture=True))
     bf16_rel = first_grads_rel_l2(torch, trainer, get_attn_fn, lm_loss,
                                   tree_leaves)
     del trainer
@@ -2069,6 +2117,389 @@ def phase_lm_agree(torch) -> dict:
             "bf16_first_grad_rel_l2_max": worst_bf16,
             "bf16_first_grad_rel_l2_tolerance": LM_BF16_GRAD_REL_L2,
             "eval_loss": {"flash": rf.eval_loss, "oracle": ro.eval_loss}}
+
+
+def steps_run(records: list) -> int:
+    """The steps a rank entry's records say it ran over all its attempts,
+    replayed steps included: each epoch record's steps, and the steps an
+    attempt ran before an injected crash or a preemption ended it (from
+    0, or from the step it resumed at)."""
+    n = pos = 0
+    for f in records:
+        event = f["event"]
+        if event == "ckpt" and f["reason"] == "resume":
+            pos = f["step"]
+        elif event == "epoch":
+            n += f["steps"]
+            pos += f["steps"]
+        elif event == "fault" and (f["kind"] == "preempt" or (
+                f["kind"] == "injected_crash" and f["site"] == "train.step")):
+            end = f["step"] if f["kind"] == "preempt" else f["at"]
+            n, pos = n + end - pos, end
+    return n
+
+
+def faults_of(records: list) -> list[str]:
+    return [f["kind"] for f in records if f["event"] == "fault"]
+
+
+def check_launches(what: str, launches: dict, steps: int, evals: int,
+                   per_step: dict, per_eval: dict) -> dict:
+    """Every kernel launched per_step times a step and per_eval times an
+    eval batch (the others not at all). Returns the launches."""
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+
+    for name in _kernels.KERNELS:
+        want = (per_step.get(name, 0) * steps + per_eval.get(name, 0) * evals)
+        if launches.get(name, 0) != want:
+            raise AssertionError(f"{what}: {name} launched "
+                                 f"{launches.get(name, 0)} times over "
+                                 f"{steps} steps and {evals} eval batches, "
+                                 f"want {want}")
+    return {k: launches.get(k, 0) for k in _kernels.KERNELS
+            if per_step.get(k) or per_eval.get(k)}
+
+
+def recover_cnn(torch, what: str, cfg, data: dict, *, want_exit: int = 0,
+                want_steps: int) -> dict:
+    """One run of the train command's rank entry with the launch counts
+    zeroed just before and read just after: its exit code, steps (from
+    its records) and launches held; returns the result, wall seconds and
+    launches."""
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+    from mpi_cuda_cnn_tpu_torch.train.ranks import cnn_rank
+
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = cnn_rank(None, cfg, data)
+    if cfg.device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = steps_run(res["records"])
+    if res["exit"] != want_exit or steps != want_steps:
+        raise AssertionError(f"recover {what}: exit {res['exit']} after "
+                             f"{steps} steps, want {want_exit} after "
+                             f"{want_steps}; faults "
+                             f"{faults_of(res['records'])}")
+    launches = check_launches(f"recover {what}", dict(_kernels.launches),
+                              steps, int(want_exit == 0), PER_STEP, PER_EVAL)
+    return {"res": res, "wall_s": wall, "launches": launches, "steps": steps}
+
+
+def same_params(what: str, got: list, want: list) -> None:
+    import numpy as np
+
+    if not all(np.array_equal(a, b) for a, b in zip(got, want, strict=True)):
+        worst = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+        raise AssertionError(f"{what}: params differ from the uninterrupted "
+                             f"run by up to {worst}, want bit for bit")
+
+
+def checkpoint_times(torch, arrays: dict, template_of, install, directory,
+                     reps: int) -> dict:
+    """Median ms of `reps` saves of `arrays` (a trainer's checkpoint
+    arrays) on the background writer: the blocking part (the host copy)
+    and the write; then of `restore_latest` (read and verify) and of
+    installing what it read (`install`, then a sync)."""
+    import numpy as np
+
+    from mpi_cuda_cnn_tpu_torch.train.checkpoint import (
+        AsyncCheckpointer,
+        restore_latest,
+    )
+
+    save, write, restore, put = [], [], [], []
+    ck = AsyncCheckpointer(directory, async_=True)
+    for step in range(1, reps + 1):
+        ck.save(arrays, step)
+        save.append(1e3 * ck.save_s)
+        ck.wait()
+        write.append(1e3 * ck.write_s)
+    ck.close()
+    nbytes = sum(int(np.prod(np.shape(v))) * 4 for v in arrays.values())
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        restored, path = restore_latest(directory, template_of())
+        restore.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        install(restored)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        put.append(1e3 * (time.perf_counter() - t0))
+    return {"state_bytes": nbytes, "file_bytes": path.stat().st_size,
+            "save_blocking_ms": statistics.median(save),
+            "write_ms": statistics.median(write),
+            "restore_latest_ms": statistics.median(restore),
+            "install_ms": statistics.median(put), "reps": reps}
+
+
+def phase_recover_cnn(torch, dev, smi: str, tmp: Path) -> dict:
+    """recover's CNN runs (a)-(e) through the train command's rank
+    entry, and the CNN state's save, write and restore times."""
+    import numpy as np
+
+    from mpi_cuda_cnn_tpu_torch.convert import load_checkpoint_arrays
+    from mpi_cuda_cnn_tpu_torch.data.datasets import synthetic_stripes
+    from mpi_cuda_cnn_tpu_torch.models.presets import get_model
+    from mpi_cuda_cnn_tpu_torch.train.checkpoint import restore_checkpoint
+    from mpi_cuda_cnn_tpu_torch.train.trainer import Trainer
+    from mpi_cuda_cnn_tpu_torch.utils.config import Config
+    from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
+
+    data = dict(num_train=AGREE_STEPS * CNN_BATCH, num_test=RECOVER_TEST)
+
+    def cfg(name: str, **kw):
+        return Config(**{**dict(
+            model="reference_cnn", epochs=1, batch_size=CNN_BATCH, lr=0.1,
+            seed=0, device=str(dev), use_kernels=True, log_every=0,
+            eval_every=0, checkpoint_dir=str(tmp / name),
+            checkpoint_every_steps=RECOVER_EVERY), **kw})
+
+    # (a) two uninterrupted runs, bit for bit
+    a1 = recover_cnn(torch, "(a) first", cfg("a1"), data,
+                     want_steps=AGREE_STEPS)
+    a2 = recover_cnn(torch, "(a) second", cfg("a2"), data,
+                     want_steps=AGREE_STEPS)
+    want = a1["res"]["params"]
+    same_params("recover (a)", a2["res"]["params"], want)
+    # (b) a crash after step RECOVER_CRASH, one restart from the last save
+    b = recover_cnn(torch, "(b)", cfg(
+        "b", fault_plan=f"crash@train.step:{RECOVER_CRASH}", max_restarts=1),
+        data, want_steps=RECOVER_CRASH + AGREE_STEPS
+        - RECOVER_CRASH // RECOVER_EVERY * RECOVER_EVERY)
+    resumed_at = [f["step"] for f in b["res"]["records"]
+                  if f["event"] == "ckpt"]
+    if faults_of(b["res"]["records"]) != ["injected_crash", "restart"] \
+            or resumed_at != [RECOVER_CRASH // RECOVER_EVERY * RECOVER_EVERY]:
+        raise AssertionError(f"recover (b): faults "
+                             f"{faults_of(b['res']['records'])}, resumed at "
+                             f"{resumed_at}")
+    same_params("recover (b)", b["res"]["params"], want)
+    # (c) a preemption: exit 75 with its snapshot, then --resume
+    c1 = recover_cnn(torch, "(c) preempted", cfg(
+        "c", fault_plan=f"preempt@train.step:{RECOVER_PREEMPT}"), data,
+        want_exit=75, want_steps=RECOVER_PREEMPT)
+    if not (tmp / "c" / f"ckpt_{RECOVER_PREEMPT}.npz").exists():
+        raise AssertionError("recover (c): no snapshot at the preemption")
+    c2 = recover_cnn(torch, "(c) resumed", cfg("c", resume=True), data,
+                     want_steps=AGREE_STEPS - RECOVER_PREEMPT)
+    same_params("recover (c)", c2["res"]["params"], want)
+    # (d) one byte of the newest checkpoint flipped: --resume falls back
+    newest = tmp / "a2" / f"ckpt_{AGREE_STEPS}.npz"
+    raw = bytearray(newest.read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    newest.write_bytes(bytes(raw))
+    d = recover_cnn(torch, "(d)", cfg("a2", resume=True), data,
+                    want_steps=RECOVER_EVERY)
+    if faults_of(d["res"]["records"]) != ["ckpt_fallback"]:
+        raise AssertionError(f"recover (d): faults "
+                             f"{faults_of(d['res']['records'])}")
+    same_params("recover (d)", d["res"]["params"], want)
+    # (e) a NaN batch under --nan-policy skip: the update is dropped. A
+    # preemption one step later keeps the checkpoints either side of it.
+    e1 = recover_cnn(torch, "(e) poisoned", cfg(
+        "e", nan_policy="skip", checkpoint_every_steps=1,
+        fault_plan=(f"nan@train.batch:{RECOVER_NAN};"
+                    f"preempt@train.step:{RECOVER_NAN + 1}")), data,
+        want_exit=75, want_steps=RECOVER_NAN + 1)
+    tr = Trainer(get_model("reference_cnn"), synthetic_stripes(**data),
+                 cfg("e"), metrics=MetricsLogger(echo=False))
+    before, after = (restore_checkpoint(tmp / "e" / f"ckpt_{s}.npz",
+                                        tr.recovery.arrays(tr.state))
+                     for s in (RECOVER_NAN, RECOVER_NAN + 1))
+    dropped = all(np.array_equal(before[k], after[k]) for k in before
+                  if k.startswith("params/"))
+    e2 = recover_cnn(torch, "(e) resumed", cfg("e", nan_policy="skip",
+                                               resume=True), data,
+                     want_steps=AGREE_STEPS - RECOVER_NAN - 1)
+    skips = faults_of(e1["res"]["records"]).count("nonfinite_step") + \
+        faults_of(e2["res"]["records"]).count("nonfinite_step")
+    finite = all(np.isfinite(p).all() for p in e2["res"]["params"])
+    if not (dropped and skips == 1 and finite
+            and (int(before["step"]), int(after["step"]))
+            == (RECOVER_NAN, RECOVER_NAN + 1) and e2["res"]["step"]
+            == AGREE_STEPS):
+        raise AssertionError(f"recover (e): update dropped {dropped}, "
+                             f"steps {int(before['step'])} -> "
+                             f"{int(after['step'])}, {skips} skips, final "
+                             f"step {e2['res']['step']}, finite {finite}")
+    times = checkpoint_times(
+        torch, tr.recovery.arrays(tr.state),
+        lambda: tr.recovery.arrays(tr.state),
+        lambda a: load_checkpoint_arrays(tr.state, a, tr.optimizer),
+        tmp / "times_cnn", RECOVER_TIMING_REPS)
+    return {"card": smi, "steps": AGREE_STEPS, "every": RECOVER_EVERY,
+            "bitwise": True, "wall_s": {
+                "a": [a1["wall_s"], a2["wall_s"]], "b_supervised": b["wall_s"],
+                "c": [c1["wall_s"], c2["wall_s"]], "d": d["wall_s"],
+                "e": [e1["wall_s"], e2["wall_s"]]},
+            "steps_run": {"a": a1["steps"], "b": b["steps"],
+                          "c": [c1["steps"], c2["steps"]], "d": d["steps"],
+                          "e": [e1["steps"], e2["steps"]]},
+            "launches": {"a": a1["launches"], "b": b["launches"],
+                         "c": [c1["launches"], c2["launches"]],
+                         "d": d["launches"],
+                         "e": [e1["launches"], e2["launches"]]},
+            "per_step": PER_STEP, "per_eval": PER_EVAL,
+            "b_resumed_at": resumed_at[0], "e_skips": skips,
+            "checkpoint": times}
+
+
+def phase_recover_lm(torch, dev, smi: str, tmp: Path) -> dict:
+    """recover's LM runs: uninterrupted and crashed-and-restarted, per-step
+    losses and final checkpoints bit for bit; and the save, write and
+    restore times of the flagship's state at LM_RECOVER_TIMING_VOCAB."""
+    import shutil
+
+    import numpy as np
+
+    from mpi_cuda_cnn_tpu_torch.convert import (
+        checkpoint_arrays,
+        load_checkpoint_arrays,
+    )
+    from mpi_cuda_cnn_tpu_torch.models.transformer import TransformerLM
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+    from mpi_cuda_cnn_tpu_torch.train.lm import make_lm_state
+    from mpi_cuda_cnn_tpu_torch.train.optimizer import make_optimizer
+    from mpi_cuda_cnn_tpu_torch.train.ranks import lm_rank
+    from mpi_cuda_cnn_tpu_torch.utils.config import parse_lm_args
+
+    runs = {}
+    for name, extra in (("full", []), ("crash", [
+            "--fault-plan", f"crash@train.step:{LM_RECOVER_CRASH}",
+            "--max-restarts", "1"])):
+        cfg = parse_lm_args(LM_RECOVER_ARGS + extra + [
+            "--device", str(dev), "--checkpoint-dir", str(tmp / name)])
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = lm_rank(None, cfg)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        wall = time.perf_counter() - t0
+        losses = [(f["step"], f["loss"]) for f in res["records"]
+                  if f["event"] == "train"]
+        launches = check_launches(f"recover lm {name}", dict(_kernels.launches),
+                                  len(losses), 1, LM_PER_STEP, LM_PER_EVAL)
+        runs[name] = {"res": res, "wall_s": wall, "losses": losses,
+                      "launches": launches}
+    full, crash = runs["full"]["losses"], runs["crash"]["losses"]
+    by_step = dict(full)
+    resumed = LM_RECOVER_CRASH // LM_RECOVER_EVERY * LM_RECOVER_EVERY
+    want_steps = (list(range(1, LM_RECOVER_CRASH + 1))
+                  + list(range(resumed + 1, LM_RECOVER_STEPS + 1)))
+    if [s for s, _ in crash] != want_steps \
+            or any(loss != by_step[s] for s, loss in crash) \
+            or faults_of(runs["crash"]["res"]["records"]) \
+            != ["injected_crash", "restart"]:
+        raise AssertionError(f"recover lm: losses {crash} against {full}, "
+                             f"faults "
+                             f"{faults_of(runs['crash']['res']['records'])}")
+    final = f"ckpt_{LM_RECOVER_STEPS}.npz"
+    with np.load(tmp / "full" / final) as fa, \
+            np.load(tmp / "crash" / final) as fb:
+        if sorted(fa.files) != sorted(fb.files) or not all(
+                np.array_equal(fa[k], fb[k]) for k in fa.files):
+            raise AssertionError("recover lm: the final checkpoints differ")
+        arrays = len(fa.files)
+    for name in runs:
+        shutil.rmtree(tmp / name)
+    # The flagship's state at lm-bench's vocab (8192): params, AdamW's mu
+    # and nu (3 x 34,620,416 floats), the counts and the step.
+    model = TransformerLM(vocab=LM_RECOVER_TIMING_VOCAB, dim=cfg.dim,
+                          heads=cfg.heads, depth=cfg.depth,
+                          max_seq=cfg.seq_len)
+    opt = make_optimizer(cfg.lr, opt="adamw", schedule=cfg.lr_schedule,
+                         total_steps=cfg.steps, warmup_steps=cfg.warmup_steps,
+                         weight_decay=cfg.weight_decay)
+    state = make_lm_state(model, opt, cfg.seed, device=dev)
+    times = {"vocab": LM_RECOVER_TIMING_VOCAB, **checkpoint_times(
+        torch, checkpoint_arrays(state, opt),
+        lambda: checkpoint_arrays(state, opt),
+        lambda a: load_checkpoint_arrays(state, a, opt),
+        tmp / "times_lm", RECOVER_TIMING_REPS)}
+    del state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"card": smi, "steps": LM_RECOVER_STEPS,
+            "every": LM_RECOVER_EVERY, "crash_at": LM_RECOVER_CRASH,
+            "resumed_at": resumed, "losses": crash, "bitwise": True,
+            "final_checkpoint_arrays": arrays,
+            "wall_s": {"full": runs["full"]["wall_s"],
+                       "supervised": runs["crash"]["wall_s"]},
+            "launches": {"full": runs["full"]["launches"],
+                         "supervised": runs["crash"]["launches"]},
+            "per_step": LM_PER_STEP, "checkpoint": times}
+
+
+def phase_recover_dp(torch, dev, smi: str, tmp: Path) -> dict:
+    """recover at world 2 (two gloo ranks on `dev`): the uninterrupted
+    and the crashed-and-restarted run, bit for bit on every rank, rank 0
+    the only writer, launches over every attempt's steps."""
+    from mpi_cuda_cnn_tpu_torch.parallel.distributed import run_ranks
+    from mpi_cuda_cnn_tpu_torch.train.ranks import cnn_rank
+    from mpi_cuda_cnn_tpu_torch.utils.config import Config
+
+    data = dict(num_train=AGREE_STEPS * CNN_BATCH, num_test=RECOVER_TEST)
+    out = {}
+    for name, kw in (("full", {}), ("crash", dict(
+            fault_plan=f"crash@train.step:{RECOVER_CRASH}", max_restarts=1))):
+        cfg = Config(model="reference_cnn", epochs=1, batch_size=CNN_BATCH,
+                     lr=0.1, seed=0, device=str(dev), use_kernels=True,
+                     log_every=0, eval_every=0, checkpoint_dir=str(tmp / name),
+                     checkpoint_every_steps=RECOVER_EVERY, **kw)
+        t0 = time.perf_counter()
+        ranks = run_ranks(cnn_rank, DP_WORLD, devices=[dev] * DP_WORLD,
+                          args=(cfg, data), timeout=DP_RANKS_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        written, launches = [], []
+        for r, res in enumerate(ranks):
+            parts = [res[p] for p in ("init", "epoch_counts", "eval_counts")]
+            written.append(sum(p["checkpoints"]["written"] for p in parts))
+            total = {k: sum(p["launches"].get(k, 0) for p in parts)
+                     for k in parts[0]["launches"]}
+            launches.append(check_launches(
+                f"recover dp {name} rank {r}", total,
+                steps_run(res["records"]), 1, PER_STEP, PER_EVAL))
+        if written[1:] != [0] * (DP_WORLD - 1) or written[0] < 1:
+            raise AssertionError(f"recover dp {name}: checkpoint files "
+                                 f"written per rank {written}")
+        out[name] = {"ranks": ranks, "wall_s": wall, "written": written,
+                     "launches": launches}
+    for r in range(DP_WORLD):
+        res = out["crash"]["ranks"][r]
+        if faults_of(res["records"]) != ["injected_crash", "restart"]:
+            raise AssertionError(f"recover dp rank {r}: faults "
+                                 f"{faults_of(res['records'])}")
+        same_params(f"recover dp rank {r}", res["params"],
+                    out["full"]["ranks"][r]["params"])
+    return {"card": smi, "world": DP_WORLD, "backend": "gloo",
+            "crash_at": RECOVER_CRASH, "bitwise": True,
+            "written_per_rank": {k: v["written"] for k, v in out.items()},
+            "wall_s": {"full": out["full"]["wall_s"],
+                       "supervised": out["crash"]["wall_s"]},
+            "launches_per_rank": {k: v["launches"] for k, v in out.items()},
+            "note": DP_NOTE}
+
+
+def phase_recover(torch, dev=None) -> None:
+    """recover: crashed, preempted, corrupted and poisoned runs of the
+    CNN, the LM and a world of 2, each held bit for bit to its
+    uninterrupted run (RECOVER_* above), in a temporary checkpoint
+    directory. One line each. (`dev` the CPU: the same, to rehearse the
+    phase.)"""
+    import tempfile
+
+    dev = dev or torch.device("cuda", 0)
+    smi = nvidia_smi() if dev.type == "cuda" else "cpu"
+    with tempfile.TemporaryDirectory(prefix="recover-") as tmp:
+        tmp = Path(tmp)
+        emit({"phase": "recover", "part": "cnn",
+              **phase_recover_cnn(torch, dev, smi, tmp / "cnn")})
+        emit({"phase": "recover", "part": "lm",
+              **phase_recover_lm(torch, dev, smi, tmp / "lm")})
+        emit({"phase": "recover", "part": "dp",
+              **phase_recover_dp(torch, dev, smi, tmp / "dp")})
 
 
 def kernels_line(cases: list[dict], launches: dict) -> dict:
@@ -2225,6 +2656,7 @@ def main() -> int:
     phase_lm_bench(torch)
     phase_lm_profile(torch)
     emit({"phase": "lm_agree", **phase_lm_agree(torch)})
+    phase_recover(torch)
     launches = {**{k: serve_launches[k] for k in ("paged_attention",
                                                   "int8_gemm")},
                 **{k: train_launches[k] for k in PER_STEP},

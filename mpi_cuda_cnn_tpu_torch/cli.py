@@ -21,6 +21,16 @@ cuda:r, or gloo ranks under --device cpu, and fails with exit 2 when N is
 more than the visible cards. Under `torchrun` the environment names the
 world and this process is one rank of it. The command returns non-zero
 when any rank fails.
+
+`train` and `lm` checkpoint (`--checkpoint-dir`, `--checkpoint-every`,
+`train`'s `--checkpoint-every-steps`, `--resume`), inject planned faults
+(`--fault-plan`), guard against non-finite steps (`--nan-policy`) and
+restart a crashed run from its latest checkpoint (`--max-restarts N`,
+which needs `--checkpoint-dir`; supervised inside each rank,
+`train/ranks.py`). Exit codes: 0 done; 2 a bad flag or config; 75
+preempted (SIGTERM/SIGINT, or a planned ``preempt``) with a snapshot
+written: relaunch with `--resume`; 1 a failure, a preemption without a
+snapshot, or a world whose ranks disagree.
 """
 
 from __future__ import annotations
@@ -64,11 +74,45 @@ def rank_devices(device: str, num_devices: int, mesh_shape: str,
                                for i in range(visible)])
 
 
+def _check_supervisor(cfg, world: int) -> None:
+    """The reference's check: a restarted attempt resumes from the latest
+    checkpoint, so --max-restarts needs --checkpoint-dir. And in a world
+    of several ranks the supervisor restarts only the faults that fire on
+    every rank (`faults.EVERY_RANK_SITES`); a planned fault at a
+    checkpoint site fires on rank 0 alone, so it cannot be restarted
+    there. ValueError for either."""
+    from .faults import EVERY_RANK_SITES, parse_plan
+
+    if cfg.max_restarts > 0 and not cfg.checkpoint_dir:
+        raise ValueError("--max-restarts needs --checkpoint-dir: a restarted "
+                         "attempt resumes from the latest valid checkpoint")
+    if cfg.max_restarts > 0 and world > 1 and cfg.fault_plan:
+        alone = sorted({f.site for f in parse_plan(cfg.fault_plan)}
+                       - EVERY_RANK_SITES)
+        if alone:
+            raise ValueError(
+                f"--max-restarts with {world} ranks restarts only faults "
+                f"that every rank meets; {', '.join(alone)} fire(s) on "
+                "rank 0 alone (the only writer): drop the fault or run "
+                "one rank")
+
+
+def world_exit(codes: list[int]) -> int:
+    """One exit code for a world's ranks: theirs when they agree, else
+    the largest other than 75 (a world is resumable only when every rank
+    wrote its snapshot), and 1 in place of 0."""
+    from .faults import EXIT_PREEMPTED
+
+    if len(set(codes)) == 1:
+        return codes[0]
+    return max(c for c in codes if c != EXIT_PREEMPTED) or 1
+
+
 def _run_world(entry, devices: list, args: tuple) -> int:
     """Run entry(mesh, *args) -> {"exit": code, ...} (`train/ranks.py`):
     in this process as one rank of a torchrun world, in this process
     alone for one device, else on one spawned rank per device. Returns
-    the largest exit code, 1 when a rank failed."""
+    the ranks' exit code (`world_exit`), 1 when a rank failed."""
     from .parallel.distributed import (
         RankError,
         initialize_distributed,
@@ -90,7 +134,7 @@ def _run_world(entry, devices: list, args: tuple) -> int:
         except RankError as e:
             get_logger().error("%s", e)
             return 1
-    return max(r["exit"] for r in results)
+    return world_exit([r["exit"] for r in results])
 
 
 def run_train(argv: list[str]) -> int:
@@ -110,6 +154,7 @@ def run_train(argv: list[str]) -> int:
         check_supported(cfg)
         devices = rank_devices(cfg.device, cfg.num_devices, cfg.mesh_shape,
                                cfg.batch_size, "E")
+        _check_supervisor(cfg, len(devices))
     except (NotImplementedError, RuntimeError, ValueError) as e:
         log.error("%s", e)
         return 2
@@ -153,6 +198,7 @@ def run_lm(argv: list[str]) -> int:
         check_lm_supported(cfg)
         devices = rank_devices(cfg.device, cfg.num_devices, cfg.mesh_shape,
                                cfg.batch_size, "F")
+        _check_supervisor(cfg, len(devices))
     except (NotImplementedError, RuntimeError, ValueError) as e:
         log.error("%s", e)
         return 2

@@ -140,7 +140,11 @@ def _rank_main(fn, rank: int, backend: str, devices: list[torch.device],
         if devices[rank].type == "cuda":
             torch.cuda.set_device(devices[rank])
         else:
-            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+            # One intra-op thread: with several, MKL and oneDNN split some
+            # products by the threads they get, and on a loaded host a
+            # launch can round another way (1.4e-7 apart after 8 steps),
+            # so two launches of a world would not end bit for bit.
+            torch.set_num_threads(1)
         with process_group(backend, rank, world, store_path):
             mesh = make_mesh({DATA_AXIS: world}, devices=devices)
             result = ("ok", fn(mesh, *args, **kwargs))

@@ -10,10 +10,17 @@ the world-1 mesh of its device, `parallel.mesh.device_mesh`, with no
 collective): every rank draws the same windows and keeps its rows
 (`dp_shard_batch`), the seeded init is broadcast from rank 0, and the
 eval runs replicated (every rank holds the same params and windows;
-rank 0 reports). What the reference's trainer adds around
-this loop (the other meshes, MoE, gradient accumulation, checkpoints,
-the NaN guard and fault plans, the JSONL sink, sampling after training)
-is refused by `utils.config.check_lm_supported` (ROADMAP queue F).
+rank 0 reports). Crash safety is the CNN trainer's
+(`train/recovery.py`): `checkpoint_dir` saves the state (params, AdamW's
+moments and count, the step) every `checkpoint_every` steps and at the
+end; `resume` re-enters at the restored step (the windows are a
+function of the step, so the resume is step-exact); planned
+"train.step" faults fire after every step; the NaN guard checks every
+step (token batches carry no NaN, so it meets organic non-finite
+losses only); a preemption snapshots and raises `faults.Preempted`.
+What the reference's trainer adds beyond that (the other meshes, MoE,
+gradient accumulation, the JSONL sink, sampling after training) is
+refused by `utils.config.check_lm_supported` (ROADMAP queue F).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..faults import PreemptionGuard, RollbackToCheckpoint
 from ..models.transformer import TransformerLM
 from ..parallel.dp import dp_mean_grads, dp_shard_batch, replicate
 from ..parallel.mesh import DATA_AXIS, device_mesh
@@ -45,6 +53,7 @@ from .lm import (
     pick_attn_impl,
 )
 from .optimizer import make_optimizer
+from .recovery import Recovery
 
 
 def load_corpus(spec: str, package_root: Path | None = None) -> np.ndarray:
@@ -83,11 +92,13 @@ class LMTrainer:
     the data mesh `mesh` (on `mesh.device`), or on cfg.device alone.
 
     `params` (a params tree, e.g. `convert.params_from_jax` of the
-    reference's initial params) replaces the seeded init.
+    reference's initial params) replaces the seeded init. `faults` and
+    `preempt` are as the CNN `Trainer`'s.
     """
 
     def __init__(self, cfg, *, metrics: MetricsLogger | None = None,
-                 params: dict | None = None, mesh=None):
+                 params: dict | None = None, mesh=None, faults=None,
+                 preempt: PreemptionGuard | None = None):
         check_lm_supported(cfg)
         if mesh is None and data_axes(cfg.num_devices, cfg.mesh_shape,
                                       queue="F")[DATA_AXIS] > 1:
@@ -148,6 +159,9 @@ class LMTrainer:
         self.state = make_lm_state(self.model, self.optimizer, cfg.seed,
                                    params=params, device=self.device)
         replicate(self.state["params"], mesh)
+        self.recovery = Recovery(cfg, mesh, self.optimizer,
+                                 metrics=self.metrics, logger=self.log,
+                                 faults=faults, preempt=preempt)
 
     # ------------------------------------------------------------------
 
@@ -182,30 +196,52 @@ class LMTrainer:
             torch.cuda.synchronize(self.device)
 
     def train(self) -> LMResult:
+        """cfg.steps steps (from the latest checkpoint with `resume`),
+        then the eval."""
         cfg = self.cfg
+        rec = self.recovery
+        # A checkpoint past --steps leaves nothing to run.
+        start_step = (min(self.state["step"], cfg.steps)
+                      if rec.resume(self.state) else 0)
         t0 = time.perf_counter()
         loss = float("nan")
         m = None
-        for step in range(cfg.steps):
-            tokens, targets = dp_shard_batch(self._sample_batch(step),
-                                             self.mesh)
-            self.state, m = self.train_step(self.state,
-                                            self._to_device(tokens),
-                                            self._to_device(targets))
-            if cfg.log_every and (step + 1) % cfg.log_every == 0:
-                loss = float(m["loss"])          # the only host sync
-                self.metrics.log("train", step=step + 1, loss=loss)
-        self._sync()
-        dt = time.perf_counter() - t0
+        try:
+            step = start_step
+            while step < cfg.steps:
+                tokens, targets = dp_shard_batch(self._sample_batch(step),
+                                                 self.mesh)
+                snap = rec.snapshot(self.state)
+                self.state, m = self.train_step(self.state,
+                                                self._to_device(tokens),
+                                                self._to_device(targets))
+                try:
+                    kept = rec.check_step(self.state, m["loss"], step, snap)
+                except RollbackToCheckpoint:
+                    rec.rollback(self.state)
+                    step = self.state["step"]
+                    continue
+                if kept and cfg.log_every and (step + 1) % cfg.log_every == 0:
+                    loss = float(m["loss"])   # the only host sync
+                    self.metrics.log("train", step=step + 1, loss=loss)
+                rec.save_every(self.state, cfg.checkpoint_every, step + 1)
+                rec.step_boundary(self.state, step + 1)
+                step += 1
+            self._sync()
+            dt = time.perf_counter() - t0
+            rec.finish(self.state)
+        finally:
+            rec.close()
+        steps_run = cfg.steps - start_step
         if m is not None:
             loss = float(m["loss"])
         eval_loss = self.evaluate()
-        tok_s = cfg.steps * cfg.batch_size * cfg.seq_len / max(dt, 1e-9)
+        tok_s = steps_run * cfg.batch_size * cfg.seq_len / max(dt, 1e-9)
         ppl = float(np.exp(eval_loss)) if math.isfinite(eval_loss) else eval_loss
         self.log.info(
             "lm done: steps=%d loss=%.4f eval_loss=%.4f ppl=%.2f tok/s=%.0f",
-            cfg.steps, loss, eval_loss, ppl, tok_s)
-        return LMResult(steps_run=cfg.steps, final_loss=loss,
+            steps_run, loss, eval_loss, ppl, tok_s)
+        return LMResult(steps_run=steps_run, final_loss=loss,
                         eval_loss=eval_loss, eval_ppl=ppl,
                         tokens_per_s=tok_s)
 

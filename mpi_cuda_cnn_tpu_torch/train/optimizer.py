@@ -83,11 +83,16 @@ def _clip(grads: list[torch.Tensor], clip: float) -> list[torch.Tensor]:
 
 class SGD:
     """In-place SGD over a list of parameter tensors. `state` holds the
-    update count (the schedule's step) and the momentum trace."""
+    update count (the schedule's step) and the momentum trace.
+    `scheduled`: whether the reference's optax chain keeps a count for
+    `schedule` (any but a constant one); it names the state's arrays in a
+    checkpoint (`convert.checkpoint_arrays`)."""
 
     def __init__(self, schedule, *, momentum: float = 0.0,
-                 weight_decay: float = 0.0, grad_clip: float = 0.0):
+                 weight_decay: float = 0.0, grad_clip: float = 0.0,
+                 scheduled: bool = False):
         self.schedule = schedule
+        self.scheduled = scheduled
         self.momentum = momentum
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
@@ -117,12 +122,14 @@ class SGD:
 class AdamW:
     """In-place AdamW over a list of parameter tensors, update for update
     `optax.adamw(lr, weight_decay=wd)` (behind an optional global-norm
-    clip). `state` holds the count and the two moments."""
+    clip). `state` holds the count and the two moments. `scheduled` as
+    for SGD."""
 
     def __init__(self, schedule, *, weight_decay: float = 0.0,
                  grad_clip: float = 0.0, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8):
+                 eps: float = 1e-8, scheduled: bool = False):
         self.schedule = schedule
+        self.scheduled = scheduled
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
         self.b1, self.b2, self.eps = b1, b2, eps
@@ -176,13 +183,15 @@ def make_optimizer(lr: float = 0.1, *, opt: str = "sgd",
                  if warmup_steps else cosine_decay_schedule(lr, total_steps))
     else:
         raise ValueError(f"unknown schedule {schedule!r}")
+    scheduled = schedule != "constant"
     if opt == "sgd":
         return SGD(sched, momentum=momentum, weight_decay=weight_decay,
-                   grad_clip=grad_clip)
+                   grad_clip=grad_clip, scheduled=scheduled)
     if opt == "adamw":
         if momentum:
             raise ValueError(
                 "momentum is an SGD knob; adamw's betas are not remapped "
                 "from it: drop --momentum or use opt='sgd'")
-        return AdamW(sched, weight_decay=weight_decay, grad_clip=grad_clip)
+        return AdamW(sched, weight_decay=weight_decay, grad_clip=grad_clip,
+                     scheduled=scheduled)
     raise ValueError(f"unknown optimizer {opt!r}; 'sgd' or 'adamw'")

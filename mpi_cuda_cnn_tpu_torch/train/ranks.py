@@ -5,11 +5,21 @@ They live in the port so that a spawned rank imports the port and
 nothing else.
 
 Each entry takes the rank's mesh first (None: one device, no mesh),
-trains through the trainer's own `train()`, and returns a picklable
-dict: `exit` (0, or 2 when the trainer refuses its setup, as the
-commands exit), the result, the final params as numpy arrays, and the
-per-process counts of kernel launches (`ops._kernels.launches`) and
-collectives (`parallel.dp.collectives`) of each part of the run.
+trains through the trainer's own `train()` under the crash supervisor
+(`faults.supervise`, `--max-restarts`: a crashed attempt is rebuilt with
+`resume` and goes on from the latest checkpoint; the rank keeps its
+process group, its fault injector and its preemption guard across
+attempts, and a planned fault fires on every rank at the same step, so
+the ranks restart together; any other failure of a rank fails the
+world), and returns a picklable dict: `exit` (0; 2
+when the trainer refuses its setup, as the commands exit; 75 when
+preempted with a snapshot written, 1 without), the result, the final
+params as numpy arrays, the trainer's records ({"event", **fields}
+dicts, `MetricsLogger.rows`), and the per-process
+counts of kernel launches (`ops._kernels.launches`), collectives
+(`parallel.dp.collectives`) and checkpoint files written
+(`train.checkpoint.counts`) of each part of the run. A crash of one rank
+alone still fails the world (`parallel.distributed.RankError`).
 """
 
 from __future__ import annotations
@@ -21,17 +31,26 @@ import numpy as np
 import torch
 
 from ..data.datasets import Dataset, synthetic_stripes
+from ..faults import (
+    FaultInjector,
+    Preempted,
+    PreemptionGuard,
+    fires_on_every_rank,
+    supervise,
+)
 from ..models.presets import get_model
 from ..ops import _kernels
 from ..parallel import dp
 from ..utils.logging import MetricsLogger, get_logger
+from . import checkpoint
 from .lm_trainer import LMTrainer
 from .trainer import Trainer
 
 
 def _counts() -> dict:
     return {"launches": dict(_kernels.launches),
-            "collectives": dict(dp.collectives)}
+            "collectives": dict(dp.collectives),
+            "checkpoints": dict(checkpoint.counts)}
 
 
 class _Tally:
@@ -59,25 +78,58 @@ def _numpy(tensors) -> list[np.ndarray]:
 
 
 class _PhaseLogger(MetricsLogger):
-    """The trainer's metrics logger (echoing on rank 0) that also keeps
-    its records and files the counts since the last record under the
-    record's phase: the steps at an "epoch" record, the eval at an
-    "eval" record."""
+    """The trainer's metrics logger (echoing on rank 0, keeping its
+    records in `rows`) that also files the counts since the last record
+    under the record's phase: the steps at an "epoch" record, the eval at
+    an "eval" record."""
 
     def __init__(self, tally: _Tally):
-        super().__init__()
+        super().__init__(capture=True)
         self.tally = tally
-        self.records: list[tuple[str, dict]] = []
         self.counts = {"steps": {}, "eval": {}}
 
     def log(self, event: str, **fields) -> None:
         super().log(event, **fields)
-        self.records.append((event, fields))
         self.file({"epoch": "steps", "eval": "eval"}.get(event))
 
     def file(self, phase: str | None) -> None:
         if phase is not None:
             self.counts[phase] = _add(self.counts[phase], self.tally.take())
+
+
+def _supervised(cfg, first, make_trainer, metrics, world: int):
+    """`first.train()` under `faults.supervise` with cfg.max_restarts
+    restarts, each attempt after the first on a trainer rebuilt by
+    `make_trainer` with `resume` forced. Returns (result, last trainer).
+
+    In a world of several ranks only a fault that fires on every rank at
+    the same step is restarted (`faults.fires_on_every_rank`): the ranks
+    then restart together. Any other failure is one rank's alone, and a
+    rank restarting by itself would meet its peers in another collective,
+    so it is re-raised and fails the world."""
+    trainer = first
+
+    def attempt(n: int):
+        nonlocal trainer
+        if n > 0:
+            trainer = make_trainer(dataclasses.replace(cfg, resume=True))
+        return trainer.train()
+
+    result = supervise(attempt, max_restarts=cfg.max_restarts,
+                       logger=get_logger(), metrics=metrics,
+                       restartable=fires_on_every_rank if world > 1 else None)
+    return result, trainer
+
+
+def _preempted(e: Preempted, metrics: _PhaseLogger) -> dict:
+    log = get_logger()
+    if e.resumable:
+        log.warning("run preempted (%s); exiting %d: relaunch with "
+                    "--resume to continue", e, e.code)
+    else:
+        log.warning("run preempted (%s) with no checkpoint to resume "
+                    "from; exiting %d", e, e.code)
+    return {"exit": int(e.code), "records": metrics.rows}
 
 
 def cnn_rank(mesh, cfg, data, params=None, *, grads: bool = False,
@@ -87,31 +139,47 @@ def cnn_rank(mesh, cfg, data, params=None, *, grads: bool = False,
     `params` (None: the seeded init), then `Trainer.train()` (its epochs,
     its evals and the reference's `ntests=, ncorrect=` line). Returns the
     exit code, the counts of the construction (the init's broadcast), of
-    the steps and of the evals, the last epoch's metrics, the result, the
-    final params, and, if asked, the first step's gradients (before
-    training) and the logits of the whole test set (after it)."""
+    the steps and of the evals, the last epoch's metrics (None when a
+    resumed run had no step left), the result, the final params, the
+    trainer's records, and, if asked, the first step's
+    gradients (before training) and the logits of the whole test set
+    (after it)."""
     ds = data if isinstance(data, Dataset) else synthetic_stripes(**data)
     metrics = _PhaseLogger(tally := _Tally())
-    try:
-        tr = Trainer(get_model(cfg.model, input_shape=ds.input_shape), ds,
-                     cfg, metrics=metrics, params=params, mesh=mesh)
-    except ValueError as e:
-        get_logger().error("trainer setup failed: %s", e)
-        return {"exit": 2}
-    res = {"exit": 0, "init": tally.take()}
-    if grads:
-        res["grads"] = _numpy(tr.first_grads())
-    tally.take()
-    result = tr.train()
+    model = get_model(cfg.model, input_shape=ds.input_shape)
+    faults = FaultInjector(cfg.fault_plan) if cfg.fault_plan else None
+    with PreemptionGuard() as guard:
+        def make_trainer(c):
+            return Trainer(model, ds, c, metrics=metrics, params=params,
+                           mesh=mesh, faults=faults, preempt=guard)
+
+        try:
+            tr = make_trainer(cfg)
+        except ValueError as e:
+            get_logger().error("trainer setup failed: %s", e)
+            return {"exit": 2}
+        res = {"exit": 0, "init": tally.take()}
+        if grads:
+            res["grads"] = _numpy(tr.first_grads())
+        tally.take()
+        try:
+            result, tr = _supervised(cfg, tr, make_trainer, metrics,
+                                     tr.mesh.size)
+        except Preempted as e:
+            metrics.file("steps")
+            return {**res, **_preempted(e, metrics),
+                    "epoch_counts": metrics.counts["steps"]}
     metrics.file("eval")           # the final eval, when no record follows it
     get_logger().info("done: epochs=%d acc=%.4f mean_step=%.3fms",
                       result.epochs_run, result.test_accuracy,
                       result.mean_step_ms)
-    res.update(epoch=[f for e, f in metrics.records if e == "epoch"][-1],
+    epochs = [r for r in metrics.rows if r["event"] == "epoch"]
+    res.update(epoch=epochs[-1] if epochs else None,
                epoch_counts=metrics.counts["steps"],
                eval_counts=metrics.counts["eval"],
                eval=(result.ntests, result.ncorrect), step=result.final_step,
-               result=dataclasses.asdict(result), params=_numpy(tr.leaves))
+               result=dataclasses.asdict(result), params=_numpy(tr.leaves),
+               records=metrics.rows)
     if logits:
         res["logits"] = _numpy([tr.predict(
             torch.from_numpy(tr.test_x).to(tr.device)).float()])[0]
@@ -124,28 +192,41 @@ def lm_rank(mesh, cfg, params=None, *, grads: bool = False) -> dict:
     (`LMTrainer.train()`). Returns the exit code, the losses logged (every
     cfg.log_every steps), the result's final and eval losses, the
     launches and collectives of `train()` (the steps and the eval), its
-    wall seconds, and, if asked, step 0's gradients (before training)."""
+    wall seconds, the trainer's records, and, if asked,
+    step 0's gradients (before training)."""
     metrics = _PhaseLogger(tally := _Tally())
     log = get_logger()
-    try:
-        trainer = LMTrainer(cfg, metrics=metrics, params=params, mesh=mesh)
-    except (OSError, ValueError) as e:
-        log.error("lm setup failed: %s", e)
-        return {"exit": 2}
-    log.info("lm model=d%dx%d h%d seq=%d vocab=%d device=%s attn=%s",
-             cfg.dim, cfg.depth, cfg.heads, cfg.seq_len, trainer.model.vocab,
-             trainer.device, trainer.attn_impl)
-    res = {"exit": 0}
-    if grads:
-        res["grads"] = _numpy(trainer.first_grads())
-    tally.take()
-    t0 = time.perf_counter()
-    result = trainer.train()
+    faults = FaultInjector(cfg.fault_plan) if cfg.fault_plan else None
+    with PreemptionGuard() as guard:
+        def make_trainer(c):
+            return LMTrainer(c, metrics=metrics, params=params, mesh=mesh,
+                             faults=faults, preempt=guard)
+
+        try:
+            trainer = make_trainer(cfg)
+        except (OSError, ValueError) as e:
+            log.error("lm setup failed: %s", e)
+            return {"exit": 2}
+        log.info("lm model=d%dx%d h%d seq=%d vocab=%d device=%s attn=%s",
+                 cfg.dim, cfg.depth, cfg.heads, cfg.seq_len,
+                 trainer.model.vocab, trainer.device, trainer.attn_impl)
+        res = {"exit": 0}
+        if grads:
+            res["grads"] = _numpy(trainer.first_grads())
+        tally.take()
+        t0 = time.perf_counter()
+        try:
+            result, trainer = _supervised(cfg, trainer, make_trainer,
+                                          metrics, trainer.mesh.size)
+        except Preempted as e:
+            return {**res, **_preempted(e, metrics), "counts": tally.take()}
     if trainer.device.type == "cuda":
         torch.cuda.synchronize(trainer.device)
     log.info("done: steps=%d eval_ppl=%.3f tokens/s=%.0f", result.steps_run,
              result.eval_ppl, result.tokens_per_s)
-    res.update(losses=[f["loss"] for e, f in metrics.records if e == "train"],
+    res.update(losses=[r["loss"] for r in metrics.rows
+                       if r["event"] == "train"],
                final_loss=result.final_loss, eval_loss=result.eval_loss,
-               seconds=time.perf_counter() - t0, counts=tally.take())
+               seconds=time.perf_counter() - t0, counts=tally.take(),
+               records=metrics.rows)
     return res

@@ -35,6 +35,18 @@ batch across the ranks and sums the correct counts. Given no mesh, the
 trainer runs on the world-1 mesh of its device (`mesh.device_mesh`),
 which has no process group: every share is the whole, and no collective
 is made.
+
+Crash safety follows the JAX trainer (its hooks in `train/recovery.py`,
+shared with the LM trainer). With `checkpoint_dir` the state is saved
+every `checkpoint_every` epochs, every `checkpoint_every_steps` steps and
+at the end; `resume` restores the newest valid checkpoint and re-enters
+its epoch at step `step % steps_per_epoch`. The fault hooks: "train.step"
+after every step (a planned fault's step ends a device-resident chunk,
+as a checkpoint step does) and "train.batch" on the host batch. A plan
+with a "train.batch" fault, or an active NaN guard (which checks, and
+may undo, every single step), forces the per-batch route. A preemption
+(SIGTERM, or a planned ``preempt``) snapshots at the next boundary and
+raises `faults.Preempted`.
 """
 
 from __future__ import annotations
@@ -51,6 +63,7 @@ from ..data.pipeline import (
     normalize_images,
     one_hot,
 )
+from ..faults import PreemptionGuard, RollbackToCheckpoint, poison_batch
 from ..models.initializers import get_initializer
 from ..models.layers import tree_leaves
 from ..ops.activations import stable_softmax
@@ -75,6 +88,7 @@ from ..utils.config import (
 )
 from ..utils.logging import MetricsLogger, get_logger
 from .optimizer import make_optimizer
+from .recovery import Recovery
 
 METRICS = ("loss", "etotal", "acc")
 
@@ -117,12 +131,17 @@ class Trainer:
     data mesh `mesh` (on `mesh.device`), or on config.device alone.
 
     `params` (a params tree of tensors, e.g. `convert.params_from_jax` of
-    the JAX trainer's initial params) replaces the seeded init.
+    the JAX trainer's initial params) replaces the seeded init. `faults`
+    is a `faults.FaultInjector` (shared across a supervised run's
+    attempts) and `preempt` a `faults.PreemptionGuard` (the caller's, with
+    its signal handlers; by default one that answers planned preempt
+    faults only).
     """
 
     def __init__(self, model, dataset, config, *,
                  metrics: MetricsLogger | None = None, params=None,
-                 mesh=None):
+                 mesh=None, faults=None,
+                 preempt: PreemptionGuard | None = None):
         check_supported(config)
         if mesh is None and data_axes(config.num_devices,
                                       config.mesh_shape)[DATA_AXIS] > 1:
@@ -168,7 +187,6 @@ class Trainer:
         replicate(self.params, mesh)
         self.leaves = tree_leaves(self.params)
         self.opt_state = self.optimizer.init(self.leaves)
-        self.step = 0
         self.state = {"params": self.params, "opt_state": self.opt_state,
                       "step": 0}
         self._step = make_dp_train_step(self.loss_fn, self.optimizer, mesh)
@@ -180,6 +198,15 @@ class Trainer:
         self._dev_images = None
         self._dev_labels = None
         self._classes = torch.arange(dataset.num_classes, device=self.device)
+        self._warned: set[str] = set()
+        self.recovery = Recovery(config, mesh, self.optimizer,
+                                 metrics=self.metrics, logger=self.log,
+                                 faults=faults, preempt=preempt)
+
+    @property
+    def step(self) -> int:
+        """Steps taken (batches consumed, a dropped update included)."""
+        return self.state["step"]
 
     def _epoch_order(self, epoch: int) -> np.ndarray:
         """The epoch's sample permutation — derived, never stored."""
@@ -198,28 +225,49 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _warn_once(self, msg: str) -> None:
+        if msg not in self._warned:
+            self._warned.add(msg)
+            self.log.warning("%s", msg)
+
     def _use_device_data(self) -> bool:
-        """Stage the whole uint8 set on the device unless scan is off or
+        """Stage the whole uint8 set on the device unless scan is off, a
+        fault plan targets train.batch (the device-resident epoch builds
+        its batches on the device, where no batch fault can reach), the
+        NaN guard is on (it checks, and may undo, every single step) or
         the set is over --scan-max-bytes (then stream per batch)."""
+        if not self.cfg.scan:
+            return False
+        faults = self.recovery.faults
+        if faults is not None and any(f.site == "train.batch"
+                                      for f in faults.plan):
+            self._warn_once("fault plan targets train.batch: per-batch "
+                            "stepping (the device-resident epoch cannot "
+                            "inject batch faults)")
+            return False
+        if self.recovery.nan.active:
+            self._warn_once(f"--nan-policy={self.cfg.nan_policy} active: "
+                            "per-batch stepping (the device-resident epoch "
+                            "cannot skip or roll back single steps)")
+            return False
         nbytes = self.ds.train_images.nbytes + 4 * self.num_train
-        return self.cfg.scan and nbytes <= self.cfg.scan_max_bytes
+        return nbytes <= self.cfg.scan_max_bytes
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """One SGD step on this rank's share of a device batch; returns
         the step's (loss, etotal, acc), averaged over the ranks, as one
         device tensor."""
         self.state, m = self._step(self.state, x, y)
-        self.step = self.state["step"]
         return m
 
     def first_grads(self) -> list[torch.Tensor]:
         """The gradients the first step of epoch 0 applies, at the current
         params: this rank's share of that batch through the trainer's
         loss, averaged over the ranks in one all-reduce."""
-        idx = dp_shard_batch(self._epoch_order(0)[:self.cfg.batch_size],
-                             self.mesh)
-        grads, _ = dp_mean_grads(self.loss_fn, self.params,
-                                 *self._host_batch(idx), self.mesh)
+        grads, _ = dp_mean_grads(
+            self.loss_fn, self.params,
+            *self._host_batch(self._epoch_order(0)[:self.cfg.batch_size]),
+            self.mesh)
         return grads
 
     def _log_train(self, epoch: int, step: int, sums: torch.Tensor,
@@ -235,85 +283,157 @@ class Trainer:
         self._dev_labels = torch.from_numpy(
             np.asarray(self.ds.train_labels, np.int32)).to(self.device)
 
-    def run_epoch(self, epoch: int) -> dict:
-        """One epoch over the training set in the (seed, epoch) order.
-        Returns the mean loss/etotal/acc and the wall seconds, which end
-        after the device has finished the epoch."""
+    def run_epoch(self, epoch: int, *, skip_steps: int = 0) -> dict:
+        """One epoch over the training set in the (seed, epoch) order,
+        from its step `skip_steps` on (a mid-epoch resume). Returns the
+        steps run, the mean loss/etotal/acc over the updates kept, and
+        the wall seconds, which end after the device has finished the
+        epoch."""
         cfg = self.cfg
         t0 = time.perf_counter()
         b = cfg.batch_size
         nsteps = self.steps_per_epoch
         order = self._epoch_order(epoch)[: nsteps * b]
-        sums = self._run_steps(epoch, order, self._use_device_data())
+        sums, ngood = self._run_steps(epoch, order, self._use_device_data(),
+                                      skip_steps)
         self._sync()
         seconds = time.perf_counter() - t0
-        means = (sums / nsteps).tolist()
-        return {"epoch": epoch, "steps": nsteps,
+        means = ((sums / ngood).tolist() if ngood
+                 else [float("nan")] * len(METRICS))
+        return {"epoch": epoch, "steps": nsteps - skip_steps,
                 **dict(zip(METRICS, means)), "seconds": seconds}
 
-    def _host_batch(self, idx: np.ndarray) -> tuple[torch.Tensor, ...]:
-        """Normalized images and one-hot labels of train rows `idx`, on
-        the device."""
-        x = normalize_images(self.ds.train_images[idx])
-        y = one_hot(np.asarray(self.ds.train_labels)[idx],
+    def _host_batch(self, rows: np.ndarray, global_step: int | None = None
+                    ) -> tuple[torch.Tensor, ...]:
+        """The batch of train rows `rows`, normalized and one-hot; with
+        `global_step`, the planned train.batch faults of that step
+        applied; then this rank's share of it, on the device."""
+        x = normalize_images(self.ds.train_images[rows])
+        y = one_hot(np.asarray(self.ds.train_labels)[rows],
                     self.ds.num_classes)
-        return (torch.from_numpy(x).to(self.device),
-                torch.from_numpy(y).to(self.device))
+        faults = self.recovery.faults
+        if faults is not None and global_step is not None:
+            for f in faults.fire("train.batch", global_step):
+                if f.kind == "nan":
+                    x = poison_batch(x, f)
+            self.recovery.drain_events()
+        x, y = dp_shard_batch((x, y), self.mesh)
+        return (torch.from_numpy(np.ascontiguousarray(x)).to(self.device),
+                torch.from_numpy(np.ascontiguousarray(y)).to(self.device))
 
-    def _run_steps(self, epoch: int, order: np.ndarray,
-                   device_data: bool) -> torch.Tensor:
-        """The epoch's steps in chunks of `log_every` steps: on the
-        device-resident route each chunk is one call of the scan epoch
-        over this rank's columns of the permutation; on the other each
-        step sends this rank's rows of the host batch. Returns the metric
-        sums, on the device."""
+    def _batch_step(self, global_step: int, rows: np.ndarray,
+                    sums: torch.Tensor) -> bool:
+        """One step of the per-batch route; its metrics added to `sums`.
+        Under the NaN guard a non-finite step is undone (abort and a
+        rollback raise); returns whether the update was kept."""
+        x, y = self._host_batch(rows, global_step)
+        snap = self.recovery.snapshot(self.state)
+        m = self.train_step(x, y)
+        if not self.recovery.check_step(self.state, m, global_step, snap):
+            return False
+        sums += m
+        return True
+
+    def _chunk_end(self, base: int, done: int) -> int:
+        """Where the device-resident chunk from in-epoch step `done` ends:
+        the next multiple of log_every (the epoch's end without logging),
+        checkpoint step or planned train.step fault (`base` is the
+        epoch's first global step)."""
+        cfg, nsteps = self.cfg, self.steps_per_epoch
+        chunk = cfg.log_every if cfg.log_every > 0 else nsteps
+        stops = [done + chunk - done % chunk, nsteps]
+        g = base + done
+        every = cfg.checkpoint_every_steps
+        if self.recovery.ckpt is not None and every:
+            stops.append(g + every - g % every - base)
+        if self.recovery.faults is not None:
+            stops += [f.at - base for f in
+                      self.recovery.faults.pending("train.step") if f.at > g]
+        return min(stops)
+
+    def _run_steps(self, epoch: int, order: np.ndarray, device_data: bool,
+                   skip_steps: int) -> tuple[torch.Tensor, int]:
+        """The epoch's steps from `skip_steps` on: on the device-resident
+        route in chunks (`_chunk_end`), each one call of the scan epoch
+        over this rank's columns of the permutation; on the other one
+        host batch a step. After each chunk or step: the train log at
+        multiples of log_every, the step checkpoint, the fault hooks.
+        Returns the metric sums (on the device) and the updates kept."""
         cfg = self.cfg
         b, nsteps = cfg.batch_size, self.steps_per_epoch
+        base = epoch * nsteps
         if device_data:
             if self._dev_images is None:
                 self._stage_dataset()
             perm = torch.from_numpy(np.ascontiguousarray(dp_shard_perm(
                 order.reshape(nsteps, b), self.mesh))).to(self.device)
         sums = torch.zeros(len(METRICS), device=self.device)
-        chunk = cfg.log_every if cfg.log_every > 0 else nsteps
-        for start in range(0, nsteps, chunk):
-            end = min(start + chunk, nsteps)
+        ngood, done = 0, skip_steps
+        while done < nsteps:
             if device_data:
+                end = self._chunk_end(base, done)
                 self.state = self._scan_epoch(
                     self.state, self._dev_images, self._dev_labels,
-                    perm[start:end], sums)
-                self.step = self.state["step"]
+                    perm[done:end], sums)
+                kept = True
+                ngood += end - done
             else:
-                for i in range(start, end):
-                    idx = dp_shard_batch(order[i * b:(i + 1) * b], self.mesh)
-                    sums += self.train_step(*self._host_batch(idx))
-            if cfg.log_every > 0 and end % cfg.log_every == 0:
-                self._log_train(epoch, end, sums, end)
-        return sums
+                end = done + 1
+                kept = self._batch_step(base + done, order[done * b:end * b],
+                                        sums)
+                ngood += kept
+            if kept and cfg.log_every > 0 and end % cfg.log_every == 0:
+                self._log_train(epoch, end, sums, ngood)
+            self.recovery.save_every(self.state, cfg.checkpoint_every_steps,
+                                     base + end)
+            self.recovery.step_boundary(self.state, base + end)
+            done = end
+        return sums, ngood
 
     def train(self) -> TrainResult:
+        """The configured epochs (from the latest checkpoint with
+        `resume`), evals every `eval_every` epochs or one at the end, and
+        the reference's `ntests=, ncorrect=` line."""
         cfg = self.cfg
+        start_epoch = skip_steps = 0
+        if self.recovery.resume(self.state):
+            start_epoch, skip_steps = divmod(self.step, self.steps_per_epoch)
         epoch_seconds: list[float] = []
         steps = 0
         ntests, ncorrect, result_acc = len(self.test_x), 0, 0.0
-        for epoch in range(cfg.epochs):
-            em = self.run_epoch(epoch)
-            steps += em["steps"]
-            epoch_seconds.append(em["seconds"])
-            self.metrics.log("epoch", **em)
-            if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
-                ntests, ncorrect = self.evaluate()
-                result_acc = ncorrect / ntests
-                self.metrics.log("eval", epoch=epoch, ntests=ntests,
-                                 ncorrect=ncorrect, accuracy=result_acc)
-        if not (cfg.eval_every and cfg.epochs > 0
+        try:
+            epoch = start_epoch
+            while epoch < cfg.epochs:
+                try:
+                    em = self.run_epoch(epoch, skip_steps=skip_steps)
+                except RollbackToCheckpoint:
+                    self.recovery.rollback(self.state)
+                    epoch, skip_steps = divmod(self.step,
+                                               self.steps_per_epoch)
+                    continue
+                skip_steps = 0
+                steps += em["steps"]
+                epoch_seconds.append(em["seconds"])
+                self.metrics.log("epoch", **em)
+                if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
+                    ntests, ncorrect = self.evaluate()
+                    result_acc = ncorrect / ntests
+                    self.metrics.log("eval", epoch=epoch, ntests=ntests,
+                                     ncorrect=ncorrect, accuracy=result_acc)
+                self.recovery.save_every(self.state, cfg.checkpoint_every,
+                                         epoch + 1)
+                epoch += 1
+            self.recovery.finish(self.state)
+        finally:
+            self.recovery.close()
+        if not (cfg.eval_every and cfg.epochs > start_epoch
                 and cfg.epochs % cfg.eval_every == 0):
             ntests, ncorrect = self.evaluate()
             result_acc = ncorrect / ntests
         # The reference's one benchmark line (cnn.c:518).
         self.log.info("ntests=%d, ncorrect=%d", ntests, ncorrect)
         return TrainResult(
-            epochs_run=cfg.epochs, final_step=self.step,
+            epochs_run=cfg.epochs - start_epoch, final_step=self.step,
             test_accuracy=result_acc, ntests=ntests, ncorrect=ncorrect,
             epoch_seconds=epoch_seconds,
             mean_step_ms=1e3 * sum(epoch_seconds) / max(steps, 1))

@@ -14,7 +14,10 @@ asking for one stops at once: `check_supported` (CNN, ROADMAP queue E)
 and `check_lm_supported` (LM, queue F) raise NotImplementedError naming
 the ROADMAP queue entry that will bring it. Of the meshes, the data axis
 is ported (`--num-devices N`, `--mesh-shape data:N`): one rank per
-device, `parallel/dp.py`.
+device, `parallel/dp.py`. Checkpoints, fault plans, the NaN guard and
+the supervisor are ported (`train/checkpoint.py`, `faults.py`); as in
+the reference, `--nan-policy` and `--fault-plan` are checked when the
+flags are parsed (exit 2), the plan against the command's hook sites.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import dataclasses
 import sys
 
 import torch
+
+from ..faults import fault_plan_arg
 
 
 @dataclasses.dataclass
@@ -65,12 +70,21 @@ class Config:
                                   # host normalizes and sends each batch
     scan_max_bytes: int = 2 << 30  # larger datasets stream per batch
 
-    # Aux subsystems (refused unless off).
+    # Checkpoints and robustness (train/checkpoint.py, faults.py).
     checkpoint_dir: str | None = None
+    checkpoint_every: int = 0     # epochs; 0 = only at the end
+    checkpoint_every_steps: int = 0  # steps; > 0 = mid-epoch saves too
+    async_checkpoint: bool = True  # write on a background worker
     resume: bool = False
-    max_restarts: int = 0
-    nan_policy: str = "off"
-    fault_plan: str | None = None
+    max_restarts: int = 0         # > 0: restart a crashed run from the
+                                  # latest checkpoint (needs the dir)
+    nan_policy: str = "off"       # off | abort | skip | restore
+    nan_max_bad: int = 3          # bad steps in a row before restore
+                                  # rolls back
+    fault_plan: str | None = None  # faults.parse_plan, e.g.
+                                  # crash@train.step:6
+
+    # Aux subsystems (refused unless off).
     elastic_width: int = 0
     log_every: int = 100          # steps; <= 0 = no logging inside an epoch
     profile_dir: str | None = None
@@ -85,11 +99,6 @@ COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 # (field, value that means "off", ROADMAP queue E item, what it is)
 _REFUSED = (
     ("fsdp", False, 1, "FSDP"),
-    ("checkpoint_dir", None, 2, "checkpointing"),
-    ("resume", False, 2, "checkpoint resume"),
-    ("nan_policy", "off", 3, "the NaN guard"),
-    ("fault_plan", None, 3, "fault plans"),
-    ("max_restarts", 0, 3, "the crash supervisor"),
     ("grad_accum", 1, 4, "gradient accumulation"),
     ("remat", False, 4, "rematerialization"),
     ("param_dtype", "float32", 4, "bf16 params"),
@@ -208,14 +217,14 @@ class LMConfig:
     num_devices: int = 0             # 0 = all visible (1 on the CPU)
     mesh_shape: str = "data"         # "data" or "data:N" only
 
-    checkpoint_dir: str | None = None   # refused (queue F item 4)
-    checkpoint_every: int = 0
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 0           # steps; 0 = only at the end
     async_checkpoint: bool = True
-    resume: bool = False                # refused (queue F item 4)
-    max_restarts: int = 0               # refused (queue F item 5)
-    nan_policy: str = "off"             # refused unless off (item 5)
+    resume: bool = False
+    max_restarts: int = 0
+    nan_policy: str = "off"             # off | abort | skip | restore
     nan_max_bad: int = 3
-    fault_plan: str | None = None       # refused (queue F item 5)
+    fault_plan: str | None = None       # faults.parse_plan
     elastic_width: int = 0              # refused (queue F item 1)
     log_every: int = 20
     metrics_jsonl: str | None = None    # refused (queue F item 6)
@@ -238,11 +247,6 @@ _LM_REFUSED = (
     ("moe_dispatch_chunk", 0, 2, "chunked MoE dispatch"),
     ("moe_dispatch_dtype", None, 2, "the MoE dispatch dtype"),
     ("grad_accum", 1, 3, "gradient accumulation"),
-    ("checkpoint_dir", None, 4, "checkpointing"),
-    ("resume", False, 4, "checkpoint resume"),
-    ("nan_policy", "off", 5, "the NaN guard"),
-    ("fault_plan", None, 5, "fault plans"),
-    ("max_restarts", 0, 5, "the crash supervisor"),
     ("metrics_jsonl", None, 6, "the JSONL metrics sink"),
     ("sample_tokens", 0, 7, "sampling after training (generate)"),
 )
@@ -266,15 +270,24 @@ def check_lm_supported(cfg: LMConfig) -> None:
     check_batch_divides(cfg.batch_size, axes["data"])
 
 
+NAN_POLICIES = ("off", "abort", "skip", "restore")
+
+
 def _add_flag(p: argparse.ArgumentParser, name: str, default,
-              choices=None) -> None:
+              surface: str) -> None:
+    """One flag of a config field. --nan-policy takes one of
+    NAN_POLICIES and --fault-plan is parsed and held to the hook sites
+    of `surface` ("train" or "train-lm"), so a bad value exits 2."""
     flag = "--" + name.replace("_", "-")
     if isinstance(default, bool):
         p.add_argument(flag, action=argparse.BooleanOptionalAction,
                        default=default)
         return
-    p.add_argument(flag, type=str if default is None else type(default),
-                   default=default, choices=choices)
+    ftype = str if default is None else type(default)
+    if name == "fault_plan":
+        ftype = fault_plan_arg(surface)
+    p.add_argument(flag, type=ftype, default=default,
+                   choices=NAN_POLICIES if name == "nan_policy" else None)
 
 
 def build_lm_parser() -> argparse.ArgumentParser:
@@ -286,9 +299,7 @@ def build_lm_parser() -> argparse.ArgumentParser:
     )
     defaults = LMConfig()
     for f in dataclasses.fields(LMConfig):
-        _add_flag(p, f.name, getattr(defaults, f.name),
-                  choices=(("off", "abort", "skip", "restore")
-                           if f.name == "nan_policy" else None))
+        _add_flag(p, f.name, getattr(defaults, f.name), "train-lm")
     return p
 
 
@@ -312,7 +323,7 @@ def build_parser() -> argparse.ArgumentParser:
         if f.name in ("train_images", "train_labels", "test_images",
                       "test_labels"):
             continue
-        _add_flag(p, f.name, getattr(defaults, f.name))
+        _add_flag(p, f.name, getattr(defaults, f.name), "train")
     return p
 
 

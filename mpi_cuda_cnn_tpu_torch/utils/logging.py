@@ -46,13 +46,18 @@ def get_logger() -> logging.Logger:
 
 class MetricsLogger:
     """Trainer records as `event k=v ...` lines on the package logger
-    (echo=True, on rank 0 only), or nowhere (echo=False)."""
+    (echo=True, on rank 0 only), or nowhere (echo=False). With capture,
+    every record is also kept in `rows` as {"event": event, **fields},
+    as the reference's logger keeps them."""
 
-    def __init__(self, echo: bool = True):
+    def __init__(self, echo: bool = True, capture: bool = False):
         self._echo = echo
         self._log = get_logger()
+        self.rows: list[dict] | None = [] if capture else None
 
     def log(self, event: str, **fields) -> None:
+        if self.rows is not None:
+            self.rows.append({"event": event, **fields})
         if self._echo:
             body = " ".join(f"{k}={_fmt(v)}" for k, v in fields.items())
             self._log.info("%s %s", event, body)
