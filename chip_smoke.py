@@ -157,6 +157,21 @@ final line:
             carries the card's name and power limit, the runs' wall
             times and the save (blocking copy, background write) and
             restore times of the CNN and the LM flagship states.
+13. train_flags  the trainers' remaining flags (FLAGS_* below), at the
+            train phase's configuration and the lm phase's flagship:
+            (a) --grad-accum 4, an epoch at 36/12/8 launches a step,
+            its first gradients against the batch-32 step's; (b) --remat,
+            gradients bit for bit, 12/5/2 a step; (c) bf16 params, an
+            epoch in bf16 compute, and float32 compute on the kernels
+            with the reference's gradient dtypes; (d) --augment shift,
+            the step's batches bit for bit the numpy draws applied on
+            the host; (e) --elastic-width 8 at world 1 (NCCL) and 2
+            (gloo on cuda:0) and a world-2 run resumed on world 1, bit
+            for bit; (f) the LM's --grad-accum 2 and --elastic-width 4;
+            (g) --metrics-jsonl and --profile-dir, the epoch timed
+            without and with the sink; then each path's ms a step
+            against the plain step's. The kernels phase holds K3/K4/K5
+            at the micro-batches' shapes (M 8, M 4; marked `micro`).
 
 Then `nvidia-smi`'s name and power limit, the kernels line
 ({"kernels": [...]}, each source's C launch function and `__global__`
@@ -479,6 +494,53 @@ LM_BF16_GRAD_REL_L2 = 2e-2
 # equal the uninterrupted run's, with LM_PER_STEP launches a step. DP:
 # dp's world 2 (two gloo ranks on cuda:0), crashed and restarted, bit
 # for bit the uninterrupted world-2 run, rank 0 the only writer.
+# train_flags: the CNN trainer's remaining flags on the card, at the
+# train phase's configuration (reference_cnn, batch 32, lr 0.1,
+# synthetic stripes 60,000 / 10,000, the kernels, the device-resident
+# epoch), and the LM's share at the lm phase's flagship (float32, flash,
+# vocab 251). (a) --grad-accum 4: K3/K4/K5 36/12/8 a step (four
+# micro-batches of 8), one epoch at >= FLAGS_MIN_CORRECT / 10,000, the
+# first step's gradients within ACCUM_GRAD_REL_L2 per leaf of the
+# batch-32 step's (the four micro-sums add in another order: about 1e-7
+# relative). (b) --remat: the first step's gradients bit for bit the
+# plain step's (the recomputed forward is the same kernels on the same
+# inputs), 12/5/2 a step (every layer's forward again in the backward).
+# (c) bf16 params and bf16 compute: one epoch at >= FLAGS_MIN_CORRECT
+# with every param bf16 after it; bf16 params in float32 compute on the
+# kernels: the reference's gradient dtypes (MIXED_GRAD_DTYPES) and the
+# values within BF16_PARAMS_GRAD_REL_L2 of PyTorch's ops on the upcast
+# weights (the conv biases' gradients are rounded to bf16, 2^-9). (d)
+# --augment shift: the first FLAGS_AUG_STEPS steps' batches, as the step
+# computed on, bit for bit the numpy copy's draws applied on the host,
+# 9/3/2 a step, finite losses. (e) --elastic-width 8: world 1 (one NCCL
+# rank) and world 2 (two gloo ranks on cuda:0) bit for bit after
+# FLAGS_ELASTIC_STEPS steps, 72/24/16 a step at world 1 and 36/12/8 on
+# each rank at world 2; a world-2 run preempted at step
+# FLAGS_ELASTIC_CUT resumed on world 1 gives the same bits. (f) LM
+# --grad-accum 2: 16/16/16 a step, the first step's gradients within
+# ACCUM_GRAD_REL_L2; --elastic-width 4 at worlds 1 and 2 bit for bit
+# over FLAGS_LM_STEPS steps (losses and eval loss). (g) --metrics-jsonl
+# and --profile-dir over FLAGS_TIME_STEPS steps: every record validates,
+# the memory records carry a peak, a trace is written; the full epoch
+# timed without and with the sink. Each path's step is timed against
+# the plain step over FLAGS_TIME_STEPS steps after a warm-up epoch.
+FLAGS_ACCUM = 4
+FLAGS_ELASTIC = 8
+FLAGS_ELASTIC_STEPS = 20
+FLAGS_ELASTIC_CUT = 10
+FLAGS_AUG_STEPS = 3
+FLAGS_LM_ACCUM = 2
+FLAGS_LM_ELASTIC = 4
+FLAGS_LM_STEPS = 3
+FLAGS_TIME_STEPS = 50
+FLAGS_TRAIN, FLAGS_TESTS = 60_000, 10_000
+FLAGS_MIN_CORRECT = 9_900
+ACCUM_GRAD_REL_L2 = 1e-5
+BF16_PARAMS_GRAD_REL_L2 = 1e-2
+MIXED_GRAD_DTYPES = ["bfloat16", "float32"] * 2 + ["float32"] * 6
+ACCUM_PER_STEP = {k: v * FLAGS_ACCUM for k, v in PER_STEP.items()}
+REMAT_PER_STEP = {"gemm": 12, "conv_direct": 5, "conv_dw": 2}
+ELASTIC_PER_STEP = {k: v * FLAGS_ELASTIC for k, v in PER_STEP.items()}
 RECOVER_EVERY = 10
 RECOVER_CRASH = 23
 RECOVER_PREEMPT = 17
@@ -1229,6 +1291,23 @@ def phase_cnn_kernels(torch, dev, gen):
                 "per_rank": True}
         emit({"phase": "kernel_case", **case})
         yield case
+    # The micro-batches of train_flags, in float32: --grad-accum 4 (M 8)
+    # and --elastic-width 8 (M 4), at the same products and convs.
+    for micro in (CNN_BATCH // FLAGS_ACCUM, CNN_BATCH // FLAGS_ELASTIC):
+        runs = [(cnn_gemm_case, (role, d_in, d_out), {"batch": micro})
+                for role in ("forward", "input_grad", "weight_grad")
+                for d_in, d_out in FC_SHAPES]
+        runs += [(conv_direct_case, ("forward", *shape), {"batch": micro})
+                 for shape in CONV_SHAPES]
+        runs.append((conv_direct_case, ("input_grad", *CONV_SHAPES[1]),
+                     {"batch": micro}))
+        runs += [(conv_dw_case, (micro, h, w, cin, cout, 2, 1), {})
+                 for (h, w, cin, cout) in CONV_SHAPES]
+        for fn, args, kw in runs:
+            case = {**fn(torch, dev, *args, gen, "float32", **kw),
+                    "micro": micro}
+            emit({"phase": "kernel_case", **case})
+            yield case
 
 
 def last_logits(torch, engine, ctx) -> "torch.Tensor":
@@ -2502,6 +2581,391 @@ def phase_recover(torch, dev=None) -> None:
               **phase_recover_dp(torch, dev, smi, tmp / "dp")})
 
 
+def _np(tensors) -> list:
+    return [t.detach().float().cpu().numpy() for t in tensors]
+
+
+def flags_cfg(dev, **kw):
+    """The train phase's configuration on the kernels, with `kw`."""
+    from mpi_cuda_cnn_tpu_torch.utils.config import Config
+
+    return Config(**{**dict(model="reference_cnn", epochs=1,
+                            batch_size=CNN_BATCH, lr=0.1, seed=0,
+                            device=str(dev), use_kernels=True, log_every=0,
+                            eval_every=0), **kw})
+
+
+def flags_trainer(dev, ds, metrics=None, **kw):
+    from mpi_cuda_cnn_tpu_torch.models.presets import get_model
+    from mpi_cuda_cnn_tpu_torch.train.trainer import Trainer
+    from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
+
+    return Trainer(get_model("reference_cnn"), ds, flags_cfg(dev, **kw),
+                   metrics=metrics or MetricsLogger(echo=False))
+
+
+def counted(torch, dev, fn):
+    """fn()'s result and the kernel launches it made (counts zeroed just
+    before it and read just after it)."""
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+
+    _kernels.reset_launches()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out, dict(_kernels.launches)
+
+
+def want_launches(what: str, got: dict, per: dict, times: int) -> None:
+    """Every kernel launched per[name] * times (0 for the others)."""
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+
+    for name in _kernels.KERNELS:
+        if got.get(name, 0) != per.get(name, 0) * times:
+            raise AssertionError(f"{what}: {name} launched {got.get(name, 0)}"
+                                 f" times, want {per.get(name, 0)} x {times}")
+
+
+def flags_epoch(torch, dev, what: str, tr, per_step: dict) -> dict:
+    """One epoch and the eval: the launches (per_step a step; the eval
+    3/2/0 a batch), at least FLAGS_MIN_CORRECT correct, finite metrics."""
+    em, ep = counted(torch, dev, lambda: tr.run_epoch(0))
+    (ntests, ncorrect), ev = counted(torch, dev, tr.evaluate)
+    want_launches(f"{what} epoch", ep, per_step, em["steps"])
+    want_launches(f"{what} eval", ev, PER_EVAL, EVAL_BATCHES)
+    metrics = {k: em[k] for k in ("loss", "etotal", "acc")}
+    if ncorrect < FLAGS_MIN_CORRECT or ntests != FLAGS_TESTS \
+            or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"{what}: {ncorrect}/{ntests} correct (want >= "
+                             f"{FLAGS_MIN_CORRECT}), metrics {metrics}")
+    return {"steps": em["steps"], "epoch_s": em["seconds"],
+            "step_ms": 1e3 * em["seconds"] / em["steps"], **metrics,
+            "ntests": ntests, "ncorrect": ncorrect, "epoch_launches": ep,
+            "eval_launches": ev}
+
+
+def flags_grads_rel(what: str, got: list, want: list, limit: float) -> float:
+    rel = grads_rel_l2(_np(got), _np(want))
+    if not max(rel.values()) <= limit:
+        raise AssertionError(f"{what}: first-step gradients apart by {rel} "
+                             f"(limit {limit})")
+    return max(rel.values())
+
+
+def flags_cnn(torch, dev, ds) -> dict:
+    """(a)-(c): grad-accum, remat and bf16 params."""
+    from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
+    from mpi_cuda_cnn_tpu_torch.train.trainer import make_loss_fn
+
+    out = {}
+    plain = flags_trainer(dev, ds)
+    g_plain = plain.first_grads()
+    order = plain._epoch_order(0)[:CNN_BATCH]
+    # (a)
+    tr = flags_trainer(dev, ds, grad_accum=FLAGS_ACCUM)
+    out["grad_accum"] = {
+        "accum": FLAGS_ACCUM,
+        "first_grad_rel_l2_max": flags_grads_rel(
+            "(a) grad-accum", tr.first_grads(), g_plain, ACCUM_GRAD_REL_L2),
+        "first_grad_rel_l2_tolerance": ACCUM_GRAD_REL_L2,
+        **flags_epoch(torch, dev, "(a) grad-accum", tr, ACCUM_PER_STEP)}
+    del tr
+    # (b)
+    tr = flags_trainer(dev, ds, remat=True)
+    g = tr.first_grads()
+    if not all(torch.equal(a, b) for a, b in zip(g, g_plain, strict=True)):
+        raise AssertionError("(b) remat: first-step gradients differ from "
+                             "the plain step's, want bit for bit")
+    x, y = tr._host_batch(order)
+    _, step = counted(torch, dev, lambda: tr.train_step(x, y))
+    want_launches("(b) remat step", step, REMAT_PER_STEP, 1)
+    out["remat"] = {"first_grads_bitwise": True, "step_launches": step}
+    del tr
+    # (c) bf16 params, bf16 compute: an epoch
+    tr = flags_trainer(dev, ds, param_dtype="bfloat16",
+                       compute_dtype="bfloat16")
+    ep = flags_epoch(torch, dev, "(c) bf16 params", tr, PER_STEP)
+    dtypes = {str(p.dtype) for p in tree_leaves(tr.params)}
+    if dtypes != {"torch.bfloat16"}:
+        raise AssertionError(f"(c) bf16 params: params {dtypes} after the "
+                             "epoch")
+    out["bf16_params"] = ep
+    del tr
+    # (c) bf16 params, float32 compute on the kernels: one step's
+    # gradients against PyTorch's ops on the upcast weights
+    tr = flags_trainer(dev, ds, param_dtype="bfloat16")
+    g = tr.first_grads()
+    names = [str(t.dtype).replace("torch.", "") for t in g]
+    if names != MIXED_GRAD_DTYPES:
+        raise AssertionError(f"(c) bf16 params, float32 compute: gradient "
+                             f"dtypes {names}, want {MIXED_GRAD_DTYPES}")
+    up = [{k: v.detach().float().requires_grad_(True) for k, v in p.items()}
+          for p in tr.params]
+    loss, _ = make_loss_fn(tr.model, backend="torch")(up, *tr._host_batch(
+        order))
+    ref = torch.autograd.grad(loss, tree_leaves(up))
+    out["bf16_params_f32_compute"] = {
+        "grad_dtypes": names,
+        "first_grad_rel_l2_max": flags_grads_rel(
+            "(c) bf16 params, float32 compute", g, ref,
+            BF16_PARAMS_GRAD_REL_L2),
+        "first_grad_rel_l2_tolerance": BF16_PARAMS_GRAD_REL_L2}
+    return out
+
+
+def flags_augment(torch, dev) -> dict:
+    """(d): the batches the step computes on, against the draws applied
+    on the host."""
+    import numpy as np
+
+    from mpi_cuda_cnn_tpu_torch.data.augment import make_augment, step_keys
+    from mpi_cuda_cnn_tpu_torch.data.datasets import synthetic_stripes
+    from mpi_cuda_cnn_tpu_torch.data.pipeline import PIXEL_SCALE
+    from mpi_cuda_cnn_tpu_torch.parallel import dp
+    from mpi_cuda_cnn_tpu_torch.train.trainer import AUG_SEED_OFFSET
+
+    ds = synthetic_stripes(num_train=FLAGS_AUG_STEPS * CNN_BATCH,
+                           num_test=RECOVER_TEST)
+    tr = flags_trainer(dev, ds, augment="shift")
+    seen, grads = [], dp._grads
+
+    def spy(loss_fn, params, x, y, view=None):
+        seen.append(x.cpu().numpy())
+        return grads(loss_fn, params, x, y, view)
+
+    dp._grads = spy
+    try:
+        em, ep = counted(torch, dev, lambda: tr.run_epoch(0))
+    finally:
+        dp._grads = grads
+    want_launches("(d) augment", ep, PER_STEP, FLAGS_AUG_STEPS)
+    # The host's copy of each step's batch as the device normalized it
+    # (a division by a scalar on the card multiplies by its reciprocal,
+    # an ulp from numpy's quotient); then the numpy draws applied to it
+    # by numpy indexing.
+    order, pad = tr._epoch_order(0), make_augment("shift").pad
+    for s in range(FLAGS_AUG_STEPS):
+        idx = torch.from_numpy(order[s * CNN_BATCH:(s + 1) * CNN_BATCH]
+                               ).to(dev)
+        x = (tr._dev_images.index_select(0, idx).float()
+             / PIXEL_SCALE).cpu().numpy()
+        offsets, _ = make_augment("shift").draw(
+            step_keys(AUG_SEED_OFFSET, [s], [0])[0, 0], CNN_BATCH)
+        padded = np.pad(x, ((0, 0), (pad, pad), (pad, pad), (0, 0)))
+        want = np.stack([padded[i, oy:oy + x.shape[1], ox:ox + x.shape[2]]
+                         for i, (oy, ox) in enumerate(offsets)])
+        if not np.array_equal(seen[s], want):
+            raise AssertionError(f"(d) augment: step {s}'s batch is not the "
+                                 "host's draws applied on the host")
+    if not all(math.isfinite(em[k]) for k in ("loss", "etotal", "acc")):
+        raise AssertionError(f"(d) augment: metrics {em}")
+    return {"steps": em["steps"], "batches_bitwise": FLAGS_AUG_STEPS,
+            "loss": em["loss"], "epoch_launches": ep}
+
+
+def flags_elastic(torch, dev, tmp: Path) -> dict:
+    """(e): world 1 (one NCCL rank) and world 2 (two gloo ranks on the
+    card) bit for bit; a world-2 run preempted and resumed on world 1."""
+    from mpi_cuda_cnn_tpu_torch.parallel.distributed import (
+        pick_backend,
+        process_group,
+        run_ranks,
+    )
+    from mpi_cuda_cnn_tpu_torch.parallel.mesh import make_mesh
+    from mpi_cuda_cnn_tpu_torch.train.ranks import cnn_rank
+
+    data = dict(num_train=FLAGS_ELASTIC_STEPS * CNN_BATCH,
+                num_test=RECOVER_TEST)
+    cfg = flags_cfg(dev, elastic_width=FLAGS_ELASTIC)
+    ck = dict(checkpoint_dir=str(tmp / "ck"),
+              checkpoint_every_steps=FLAGS_ELASTIC_CUT)
+
+    def world_1(c, store: str):
+        with process_group(pick_backend([dev]), 0, 1, str(tmp / store)):
+            return cnn_rank(make_mesh(devices=[dev]), c, data)
+
+    t0 = time.perf_counter()
+    w1 = world_1(cfg, "store1")
+    want_launches("(e) elastic world 1", w1["epoch_counts"]["launches"],
+                  ELASTIC_PER_STEP, FLAGS_ELASTIC_STEPS)
+    w2 = run_ranks(cnn_rank, 2, devices=[dev] * 2, args=(cfg, data),
+                   timeout=DP_RANKS_TIMEOUT_S)
+    for r, res in enumerate(w2):
+        want_launches(f"(e) elastic world 2 rank {r}",
+                      res["epoch_counts"]["launches"],
+                      {k: v // 2 for k, v in ELASTIC_PER_STEP.items()},
+                      FLAGS_ELASTIC_STEPS)
+        same_params(f"(e) elastic world 2 rank {r}", res["params"],
+                    w1["params"])
+    cut = run_ranks(cnn_rank, 2, devices=[dev] * 2, args=(flags_cfg(
+        dev, elastic_width=FLAGS_ELASTIC,
+        fault_plan=f"preempt@train.step:{FLAGS_ELASTIC_CUT}", **ck), data),
+        timeout=DP_RANKS_TIMEOUT_S)
+    if [r["exit"] for r in cut] != [75, 75]:
+        raise AssertionError(f"(e) elastic preempt: exits "
+                             f"{[r['exit'] for r in cut]}, want 75 75")
+    res = world_1(flags_cfg(dev, elastic_width=FLAGS_ELASTIC, resume=True,
+                            **ck), "store2")
+    same_params("(e) elastic resume on world 1", res["params"], w1["params"])
+    return {"width": FLAGS_ELASTIC, "steps": FLAGS_ELASTIC_STEPS,
+            "worlds_bitwise": [1, 2], "resume_world_2_to_1_bitwise": True,
+            "cut_at": FLAGS_ELASTIC_CUT, "world_1_launches":
+            w1["epoch_counts"]["launches"],
+            "world_2_launches": [r["epoch_counts"]["launches"] for r in w2],
+            "world_2_collectives": [r["epoch_counts"]["collectives"]
+                                    for r in w2],
+            "seconds": time.perf_counter() - t0}
+
+
+def flags_lm(torch, dev, tmp: Path) -> dict:
+    """(f): the LM's --grad-accum 2 and --elastic-width 4."""
+    from mpi_cuda_cnn_tpu_torch.parallel.distributed import (
+        pick_backend,
+        process_group,
+        run_ranks,
+    )
+    from mpi_cuda_cnn_tpu_torch.parallel.mesh import make_mesh
+    from mpi_cuda_cnn_tpu_torch.train.lm_trainer import LMTrainer
+    from mpi_cuda_cnn_tpu_torch.train.ranks import lm_rank
+    from mpi_cuda_cnn_tpu_torch.utils.config import parse_lm_args
+    from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
+
+    argv = LM_MODEL_ARGS + ["--attn-impl", "flash", "--steps",
+                            str(FLAGS_LM_STEPS), "--warmup-steps", "1",
+                            "--log-every", "1", "--device", str(dev)]
+    out = {}
+    plain = LMTrainer(parse_lm_args(argv), metrics=MetricsLogger(echo=False))
+    g_plain = _np(plain.first_grads())
+    res = plain.train()
+    out["plain_step_ms"] = (1e3 * plain.cfg.batch_size * plain.cfg.seq_len
+                            / res.tokens_per_s)
+    del plain
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    acc = LMTrainer(parse_lm_args(argv + ["--grad-accum",
+                                          str(FLAGS_LM_ACCUM)]),
+                    metrics=MetricsLogger(echo=False))
+    rel = grads_rel_l2(_np(acc.first_grads()), g_plain)
+    if not max(rel.values()) <= ACCUM_GRAD_REL_L2:
+        raise AssertionError(f"(f) lm grad-accum: first-step gradients "
+                             f"apart by {max(rel.values())}")
+    res, counts = counted(torch, dev, acc.train)
+    want_launches("(f) lm grad-accum", {k: counts[k] - LM_PER_EVAL[k]
+                                        for k in FLASH_KERNELS},
+                  {k: v * FLAGS_LM_ACCUM for k, v in LM_PER_STEP.items()},
+                  FLAGS_LM_STEPS)
+    out["grad_accum"] = {
+        "accum": FLAGS_LM_ACCUM, "first_grad_rel_l2_max": max(rel.values()),
+        "first_grad_rel_l2_tolerance": ACCUM_GRAD_REL_L2, "launches": counts,
+        "step_ms": 1e3 * acc.cfg.batch_size * acc.cfg.seq_len
+        / res.tokens_per_s}
+    del acc
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    cfg = parse_lm_args(argv + ["--elastic-width", str(FLAGS_LM_ELASTIC)])
+    with process_group(pick_backend([dev]), 0, 1, str(tmp / "lmstore")):
+        w1 = lm_rank(make_mesh(devices=[dev]), cfg)
+    per = {k: v * FLAGS_LM_ELASTIC for k, v in LM_PER_STEP.items()}
+    want_launches("(f) lm elastic world 1",
+                  {k: w1["counts"]["launches"][k] - LM_PER_EVAL[k]
+                   for k in FLASH_KERNELS}, per, FLAGS_LM_STEPS)
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    w2 = run_ranks(lm_rank, 2, devices=[dev] * 2, args=(cfg,),
+                   timeout=DP_RANKS_TIMEOUT_S)
+    for r, res in enumerate(w2):
+        if (res["losses"], res["eval_loss"]) != (w1["losses"],
+                                                 w1["eval_loss"]):
+            raise AssertionError(f"(f) lm elastic world 2 rank {r}: losses "
+                                 f"{res['losses']} eval {res['eval_loss']}, "
+                                 f"world 1 {w1['losses']} eval "
+                                 f"{w1['eval_loss']}: want bit for bit")
+    out["elastic"] = {"width": FLAGS_LM_ELASTIC, "steps": FLAGS_LM_STEPS,
+                      "losses": w1["losses"], "worlds_bitwise": [1, 2],
+                      "world_1_launches": w1["counts"]["launches"],
+                      "steps_and_eval_s": w1["seconds"]}
+    return out
+
+
+def flags_sink(torch, dev, ds, tmp: Path) -> dict:
+    """(g): the JSONL file and the profiler trace of FLAGS_TIME_STEPS
+    steps, then the full epoch without and with the sink."""
+    from mpi_cuda_cnn_tpu_torch.data.datasets import synthetic_stripes
+    from mpi_cuda_cnn_tpu_torch.obs.schema import load_records
+    from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
+
+    path, prof = tmp / "run.jsonl", tmp / "prof"
+    small = synthetic_stripes(num_train=FLAGS_TIME_STEPS * CNN_BATCH,
+                              num_test=RECOVER_TEST)
+    with MetricsLogger(path, echo=False) as m:
+        flags_trainer(dev, small, metrics=m, log_every=10,
+                      metrics_jsonl=str(path), profile_dir=str(prof)).train()
+    recs = load_records(path, strict=True)
+    peaks = [e["stats"] and e["stats"]["peak_bytes_in_use"]
+             for r in recs if r["event"] == "memory" for e in r["devices"]]
+    trace = prof / "trace.json"
+    if not peaks or not trace.exists() or (
+            dev.type == "cuda" and not all(p and p > 0 for p in peaks)):
+        raise AssertionError(f"(g) sink: memory peaks {peaks}, trace "
+                             f"{trace.exists()}")
+    times = {}
+    for sink in (None, tmp / "epoch.jsonl"):
+        with MetricsLogger(sink, echo=False) as m:
+            tr = flags_trainer(dev, ds, metrics=m, log_every=100,
+                               metrics_jsonl=sink and str(sink))
+            tr.run_epoch(0)
+            times["with_sink" if sink else "without_sink"] = \
+                tr.run_epoch(1)["seconds"]
+    return {"records": len(recs), "events": sorted({r["event"]
+                                                    for r in recs}),
+            "memory_peak_bytes": peaks[-1],
+            "trace_bytes": trace.stat().st_size,
+            "epoch_s": times}
+
+
+def flags_times(torch, dev) -> dict:
+    """ms a step of each path, device-resident, FLAGS_TIME_STEPS steps
+    after a warm-up epoch of as many, all in this call."""
+    from mpi_cuda_cnn_tpu_torch.data.datasets import synthetic_stripes
+
+    ds = synthetic_stripes(num_train=FLAGS_TIME_STEPS * CNN_BATCH,
+                           num_test=RECOVER_TEST)
+    paths = {"plain": {}, "grad_accum_4": dict(grad_accum=FLAGS_ACCUM),
+             "remat": dict(remat=True),
+             "bf16_params_bf16_compute": dict(param_dtype="bfloat16",
+                                              compute_dtype="bfloat16"),
+             "bf16_params_f32_compute": dict(param_dtype="bfloat16"),
+             "augment_shift": dict(augment="shift"),
+             "elastic_8": dict(elastic_width=FLAGS_ELASTIC)}
+    out = {}
+    for name, kw in paths.items():
+        tr = flags_trainer(dev, ds, **kw)
+        tr.run_epoch(0)
+        em = tr.run_epoch(1)
+        out[name] = 1e3 * em["seconds"] / em["steps"]
+    return out
+
+
+def phase_train_flags(torch, dev=None) -> dict:
+    """train_flags (FLAGS_* above): (a)-(g), then the step times. (`dev`
+    the CPU: the same on gloo ranks, to rehearse the phase.)"""
+    import tempfile
+
+    from mpi_cuda_cnn_tpu_torch.data.datasets import synthetic_stripes
+
+    dev = dev or torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    ds = synthetic_stripes(num_train=FLAGS_TRAIN, num_test=FLAGS_TESTS)
+    out = flags_cnn(torch, dev, ds)
+    out["augment"] = flags_augment(torch, dev)
+    with tempfile.TemporaryDirectory(prefix="flags-") as tmp:
+        tmp = Path(tmp)
+        out["elastic"] = flags_elastic(torch, dev, tmp)
+        out["lm"] = flags_lm(torch, dev, tmp)
+        out["sink"] = flags_sink(torch, dev, ds, tmp)
+    out["step_ms"] = flags_times(torch, dev)
+    out["seconds"] = time.perf_counter() - t0
+    out["nvidia_smi"] = nvidia_smi() if dev.type == "cuda" else "cpu"
+    return out
+
+
 def kernels_line(cases: list[dict], launches: dict) -> dict:
     """The per-kernel record: launches from each kernel's own path (serve
     for K1/K2, train for K3/K4/K5, conv_bench for K6, lm for K7/K8/K9),
@@ -2539,7 +3003,8 @@ def kernels_line(cases: list[dict], launches: dict) -> dict:
             ("flash_bwd_dkv", "mpi_cuda_cnn_tpu_torch/csrc/flash_bwd_dkv.cu",
              "mpi_cuda_cnn_tpu/ops/pallas_attention.py:460", _flagship_f32)):
         mine = [c for c in cases if c["kernel"] == name]
-        r = next(c for c in mine if rep(c) and not c.get("per_rank"))
+        r = next(c for c in mine if rep(c) and not c.get("per_rank")
+                 and not c.get("micro"))
         summary.append({
             "name": name, "route": "cuda", "source": src,
             "entry_points": entry_points(src),
@@ -2657,6 +3122,7 @@ def main() -> int:
     phase_lm_profile(torch)
     emit({"phase": "lm_agree", **phase_lm_agree(torch)})
     phase_recover(torch)
+    emit({"phase": "train_flags", **phase_train_flags(torch)})
     launches = {**{k: serve_launches[k] for k in ("paged_attention",
                                                   "int8_gemm")},
                 **{k: train_launches[k] for k in PER_STEP},

@@ -557,7 +557,8 @@ def step_is_finite(metrics: torch.Tensor, tensors: list[torch.Tensor]
 
 
 def supervise(attempt_fn: Callable[[int], object], *, max_restarts: int,
-              logger=None, metrics=None, backoff_base: float = 0.5,
+              logger=None, metrics=None, registry=None,
+              backoff_base: float = 0.5,
               sleep=time.sleep, jitter=random.random,
               restartable: Callable[[BaseException], bool] | None = None
               ) -> object:
@@ -572,8 +573,10 @@ def supervise(attempt_fn: Callable[[int], object], *, max_restarts: int,
     crash, as does a crash that `restartable` (None: every crash is)
     turns down. Restarts are paced by `utils.retry.backoff_delay`
     (backoff_base 0: none), each logged as a ``fault`` record
-    (kind="restart") when `metrics` is given. `sleep` and `jitter` are
-    injection points for tests."""
+    (kind="restart") when `metrics` is given and counted as
+    ``train.restarts`` in `registry` (an `obs.metrics.MetricsRegistry`,
+    which outlives the attempts). `sleep` and `jitter` are injection
+    points for tests."""
     last: BaseException | None = None
     for attempt in range(max_restarts + 1):
         try:
@@ -593,6 +596,8 @@ def supervise(attempt_fn: Callable[[int], object], *, max_restarts: int,
                     "(%d restart(s) left)", attempt, type(e).__name__, e,
                     delay, max_restarts - attempt,
                 )
+            if registry is not None:
+                registry.inc("train.restarts")
             if metrics is not None:
                 metrics.log("fault", kind="restart", attempt=attempt,
                             delay_s=round(delay, 4),

@@ -19,10 +19,12 @@ layers switch between "xla" and "pallas".
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.activations import ACTIVATIONS
 from ..ops.conv import conv2d
@@ -59,7 +61,8 @@ class Conv:
 
     def apply(self, params, x, backend="torch"):
         if backend == "cuda":
-            y = conv2d_kernel(x, params["w"], self.stride, self.padding)
+            y = conv2d_kernel(x, params["w"].to(x.dtype), self.stride,
+                              self.padding)
         else:
             y = conv2d(x, params["w"], stride=self.stride,
                        padding=self.padding)
@@ -85,7 +88,8 @@ class Dense:
     def apply(self, params, x, backend="torch"):
         x = x.reshape(x.shape[0], -1)
         if backend == "cuda":
-            y = dense_kernel(x, params["w"], params["b"])
+            y = dense_kernel(x, params["w"].to(x.dtype),
+                             params["b"].to(x.dtype))
         else:
             y = dense(x, params["w"], params["b"])
         return _apply_activation(self.activation, y)
@@ -224,25 +228,63 @@ class Sequential:
 
     def apply(self, params: list[dict], x: torch.Tensor, *,
               backend: str = "torch",
-              compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+              compute_dtype: torch.dtype | None = None,
+              remat: bool = False) -> torch.Tensor:
         """x: (N, H, W, C) -> float32 logits (N, num_classes).
 
         compute_dtype=torch.bfloat16 casts x and every param to bf16 on
         entry, so every layer computes in bf16 (the kernels accumulate in
         float32 and round once) and autograd returns float32 gradients
         for float32 params through the cast; the logits come back in
-        float32 for the loss (the reference's `Sequential.apply`)."""
+        float32 for the loss (the reference's `Sequential.apply`). On the
+        kernels the operands a kernel takes (conv w, dense w and b) are
+        cast to x's dtype, as the Pallas kernels compute in theirs.
+
+        remat=True wraps each layer in `torch.utils.checkpoint` (the
+        reference's `jax.checkpoint` per layer): the backward recomputes
+        the layer's forward instead of keeping its activations."""
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r}: want one of {BACKENDS}")
         if compute_dtype is not None:
             x = x.to(compute_dtype)
             params = tree_map(lambda t: t.to(compute_dtype), params)
         for layer, p in zip(self.layers, params):
-            x = layer.apply(p, x, backend=backend)
+            if remat:
+                x = checkpoint(functools.partial(layer.apply,
+                                                 backend=backend),
+                               p, x, use_reentrant=False)
+            else:
+                x = layer.apply(p, x, backend=backend)
         return x.float()
+
+    def grad_view(self, params: list[dict], dtype: torch.dtype
+                  ) -> list[dict]:
+        """The params tree that autograd differentiates on the kernels in
+        compute dtype `dtype` when the params are held in another: every
+        kernel operand (conv w; dense w and b) as a fresh `dtype` leaf
+        copy, the others as they are. Its gradients then have the
+        reference's Pallas path's dtypes: with bf16 params and float32
+        compute, float32 for those operands and bf16 for a conv bias,
+        which is added outside the kernel."""
+        return [_kernel_view(layer, p, dtype)
+                for layer, p in zip(self.layers, params)]
 
     def num_params(self, params: list[dict]) -> int:
         return sum(t.numel() for t in tree_leaves(params))
+
+
+def _kernel_view(layer, params: dict, dtype: torch.dtype) -> dict:
+    """`Sequential.grad_view` of one layer."""
+    if isinstance(layer, Residual):
+        out = {"body": [_kernel_view(sub, p, dtype)
+                        for sub, p in zip(layer.body, params["body"])]}
+        if "proj" in params:
+            out["proj"] = _kernel_view(Conv(1), params["proj"], dtype)
+        return out
+    names = {Conv: ("w",), Dense: ("w", "b")}.get(type(layer), ())
+    return {k: (v.detach().to(dtype).requires_grad_(True)
+                if k in names and v.dtype != dtype else v)
+            for k, v in params.items()}
 
 
 def tree_leaves(tree) -> list[torch.Tensor]:

@@ -14,19 +14,25 @@ this module, one process per rank:
 - `dp_shard_batch` / `dp_shard_perm`: each rank's contiguous share of a
   batch, rows r*b/w to (r+1)*b/w, exactly as `P(axis)` and
   `P(None, axis)` split them;
-- `make_dp_train_step`: local gradients on the rank's shard, then ONE
+- `make_dp_train_step`: local gradients on the rank's shard
+  (`local_grads`: with --grad-accum, interleaved micro-batches, one
+  `autograd.grad` each, summed in order and divided), then ONE
   all-reduce per step of one flat float32 buffer holding every gradient
   and the step's metrics, divided by the world size (the mean), then the
   same in-place optimizer update on every rank (fixes 2.6a/b). A
-  global-norm clip sees the mean gradient, as optax's does after `pmean`;
+  global-norm clip sees the mean gradient, as optax's does after `pmean`.
+  The step augments the rank's shard first (`data/augment.py`), and with
+  an elastic width takes the width-invariant reduction instead
+  (`parallel/elastic.py`);
 - `make_dp_scan_epoch`: the device-resident epoch, every rank holding
   the whole uint8 set (JAX replicates it, `P()`) and gathering its own
   columns of the step's batch;
 - `make_dp_eval_step`: each rank predicts its rows of an eval batch; the
   caller sums the correct counts across ranks (`all_reduce_sum`).
 
-Only `all_reduce` and `broadcast` are used: gloo supports both on CUDA
-tensors and has no `all_gather` for them. `collectives` counts, per
+Only `all_reduce` and `broadcast` are used (the elastic step's rounds
+are all-reduces in two-rank groups): gloo supports both on CUDA tensors
+and has no `all_gather` for them. `collectives` counts, per
 process, the collectives this module made (one per call, where it calls
 `torch.distributed`, and nowhere else); `reset_collectives()` zeroes it.
 A mesh without a process group (world 1, no group) makes none: every
@@ -35,6 +41,7 @@ collective there is the identity.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -54,7 +61,7 @@ def _flat(tensors: list[torch.Tensor]) -> torch.Tensor:
     return torch.cat([t.detach().reshape(-1).float() for t in tensors])
 
 
-def _views(buf: torch.Tensor, like: list[torch.Tensor]) -> list[torch.Tensor]:
+def views(buf: torch.Tensor, like: list[torch.Tensor]) -> list[torch.Tensor]:
     """Views of `buf`, one shaped like each tensor of `like`, in order."""
     out, at = [], 0
     for t in like:
@@ -81,7 +88,7 @@ def replicate(params, mesh: Mesh):
         buf = _flat(leaves)
         dist.broadcast(buf, src=0, group=mesh.group)
         collectives["broadcast"] += 1
-        for leaf, v in zip(leaves, _views(buf, leaves)):
+        for leaf, v in zip(leaves, views(buf, leaves)):
             leaf.copy_(v)
     return params
 
@@ -113,46 +120,139 @@ def dp_shard_perm(perm, mesh: Mesh, axis: str = DATA_AXIS):
     return perm[:, lo:hi]
 
 
-def dp_mean_grads(loss_fn, params, x, y, mesh: Mesh,
-                  axis: str = DATA_AXIS):
-    """Gradients of loss_fn(params, x, y) -> (scalar loss, aux dict of
-    scalars) on this rank's shard, averaged over the axis together with
-    the loss and the aux values in ONE all-reduce of one flat float32
-    buffer. Returns (mean gradients, one per leaf of `params`; a 1-d
-    tensor of the mean loss then the aux values in their order), both
-    views of that buffer. On a mesh without a group (`device_mesh`) the
-    mean is the value itself: no buffer and no collective."""
-    leaves = tree_leaves(params)
+def _grads(loss_fn, params, x, y, view=None):
+    """(gradients, 1-d float32 metrics: the loss then the aux values) of
+    loss_fn(params, x, y) -> (scalar loss, aux dict of scalars), by one
+    `torch.autograd.grad`. `view(params)` (None: the params themselves)
+    gives the tree that the loss reads and is differentiated by."""
+    if view is not None:
+        params = view(params)
     loss, aux = loss_fn(params, x, y)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss, tree_leaves(params))
     metrics = torch.stack([loss.detach().float()] + [
         torch.as_tensor(v, device=loss.device).float() for v in aux.values()])
+    return list(grads), metrics
+
+
+def local_grads(loss_fn, params, x, y, grad_accum: int = 1, view=None):
+    """(gradients, metrics) of this rank's shard (`_grads`), accumulated
+    over `grad_accum` micro-batches when it is > 1, as the reference's
+    `_local_grads` does: the interleaved split (micro-batch i takes rows
+    i, a+i, 2a+i, ...), the micro-results summed in order, then loss,
+    metrics and gradients divided by a. Each micro-batch has its own
+    `autograd.grad`, so one micro-batch's activations are live at a
+    time."""
+    a = grad_accum
+    if a <= 1:
+        return _grads(loss_fn, params, x, y, view)
+    grads = metrics = None
+    for i in range(a):
+        g, m = _grads(loss_fn, params, x[i::a], y[i::a], view)
+        if grads is None:
+            grads, metrics = g, m
+        else:
+            torch._foreach_add_(grads, g)
+            metrics += m
+    torch._foreach_div_(grads, float(a))
+    return grads, metrics / a
+
+
+def dp_mean_grads(loss_fn, params, x, y, mesh: Mesh,
+                  axis: str = DATA_AXIS, *, grad_accum: int = 1,
+                  view=None):
+    """Gradients of loss_fn(params, x, y) -> (scalar loss, aux dict of
+    scalars) on this rank's shard (`local_grads`: accumulated over
+    `grad_accum` micro-batches, differentiated through `view`), averaged
+    over the axis together with the loss and the aux values in ONE
+    all-reduce of one flat float32 buffer. Returns (mean gradients, one
+    per leaf, each in its leaf's gradient dtype; a 1-d tensor of the mean
+    loss then the aux values in their order), float32 ones views of that
+    buffer. On a mesh without a group (`device_mesh`) the mean is the
+    value itself: no buffer and no collective."""
+    grads, metrics = local_grads(loss_fn, params, x, y, grad_accum, view)
     if mesh.group is None:
-        return list(grads), metrics
-    buf = torch.cat([g.reshape(-1) for g in grads] + [metrics])
+        return grads, metrics
+    buf = torch.cat([g.reshape(-1).float() for g in grads] + [metrics])
     all_reduce_sum(buf, mesh)
     buf /= mesh.shape.get(axis, 1)
     n = buf.numel() - len(metrics)
-    return _views(buf[:n], leaves), buf[n:]
+    return ([v.to(g.dtype) for v, g in zip(views(buf[:n], grads), grads)],
+            buf[n:])
 
 
 def make_dp_train_step(loss_fn, optimizer, mesh: Mesh, *,
-                       axis: str = DATA_AXIS):
-    """The DP train step: step(state, x, y) -> (state, metrics) on this
-    rank's shard x, y (`dp_shard_batch`), with state = {"params",
-    "opt_state", "step"} the same on every rank. The gradients and
-    metrics are averaged in one all-reduce (`dp_mean_grads`), then
-    `optimizer.update` runs in place on the params. `metrics` is the 1-d
-    tensor (loss, *aux values), averaged over the axis."""
+                       axis: str = DATA_AXIS, view=None, augment=None,
+                       aug_seed: int = 0, grad_accum: int = 1,
+                       elastic_width: int = 0):
+    """The DP train step: step(state, x, y, aug=None) -> (state, metrics)
+    on this rank's shard x, y (`dp_shard_batch`), with state =
+    {"params", "opt_state", "step"} the same on every rank. The gradients
+    and metrics are averaged in one all-reduce (`dp_mean_grads`, with
+    `grad_accum` and `view`), then `optimizer.update` runs in place on
+    the params. `metrics` is the 1-d tensor (loss, *aux values), averaged
+    over the axis.
 
-    def step(state, x, y):
-        grads, metrics = dp_mean_grads(loss_fn, state["params"], x, y, mesh,
-                                       axis)
-        optimizer.update(tree_leaves(state["params"]), grads,
+    `augment` (`data/augment.Augment`) transforms the rank's shard before
+    any accumulation split, keyed as the reference keys it:
+    fold_in(fold_in(key(aug_seed), step), rank). `aug` is the step's
+    draws on the device (`step.draws`, which a device-resident chunk
+    makes for all its steps at once); None draws them here.
+
+    elastic_width > 0 takes the width-invariant reduction instead
+    (`parallel/elastic.py`): W0/n canonical micro-batches per rank, each
+    augmented under its global canonical index. `step.grads(state, x, y,
+    aug=None)` is the step's (gradients, metrics) without the update."""
+    n = mesh.shape.get(axis, 1)
+    if elastic_width:
+        from .elastic import elastic_grads, pair_groups
+
+        pair_groups(mesh, axis)      # every rank, now, in one order
+        k = elastic_width // n
+
+    def draws(steps, rows: int):
+        """The augmentation draws of `steps` for `rows` shard rows, on the
+        device: offsets (S, rows, 2) and flips (S, rows); elastic,
+        (S, k, rows / k, 2) and (S, k, rows / k)."""
+        from ..data.augment import step_keys
+
+        steps = np.asarray(steps)
+        if elastic_width:
+            keys = step_keys(aug_seed, steps, range(mesh.rank * k,
+                                                    (mesh.rank + 1) * k))
+            d = augment.draw(keys, rows // k)
+        else:
+            keys = step_keys(aug_seed, steps, [mesh.rank])[:, 0]
+            d = augment.draw(keys, rows)
+        return augment.to_device(d, mesh.device)
+
+    def grads(state, x, y, aug=None):
+        params = state["params"]
+        if augment is not None and aug is None:
+            aug = tuple(t[0] for t in draws([state["step"]], len(x)))
+        if not elastic_width:
+            if augment is not None:
+                x = augment.apply(x, *aug)
+            return dp_mean_grads(loss_fn, params, x, y, mesh, axis,
+                                 grad_accum=grad_accum, view=view)
+
+        def prepare(px, py, index):
+            i = index - mesh.rank * k
+            return augment.apply(px, aug[0][i], aug[1][i]), py
+
+        return elastic_grads(
+            lambda px, py: _grads(loss_fn, params, px, py, view), x, y,
+            elastic_width=elastic_width, mesh=mesh, axis=axis,
+            prepare=None if augment is None else prepare)
+
+    def step(state, x, y, aug=None):
+        g, metrics = grads(state, x, y, aug)
+        optimizer.update(tree_leaves(state["params"]), g,
                          state["opt_state"])
         state["step"] += 1
         return state, metrics
 
+    step.grads = grads
+    step.draws = draws if augment is not None else None
     return step
 
 
@@ -164,14 +264,20 @@ def make_dp_scan_epoch(step, num_classes: int):
     batch / w) columns of the epoch's permutation (`dp_shard_perm`). Each
     step gathers its rows, divides by PIXEL_SCALE and one-hots on the
     device, then runs `step` and adds its metrics to `sums` in place, on
-    the device."""
+    the device. With augmentation the chunk's draws are made on the host
+    once, for all its steps, and sent in one copy."""
 
     def epoch(state, images, labels, perm, sums):
         classes = torch.arange(num_classes, device=images.device)
-        for idx in perm:
+        aug = None
+        if step.draws is not None:
+            aug = step.draws(state["step"] + np.arange(len(perm)),
+                             perm.shape[1])
+        for i, idx in enumerate(perm):
             x = images.index_select(0, idx).float() / PIXEL_SCALE
             y = (labels.index_select(0, idx)[:, None] == classes).float()
-            state, m = step(state, x, y)
+            state, m = step(state, x, y,
+                            None if aug is None else (aug[0][i], aug[1][i]))
             sums += m
         return state
 

@@ -16,7 +16,10 @@ mean of the ranks' token means is the global token mean. The levers are the refe
 - `compute_dtype`: bf16 weight products and residual stream, float32
   master params;
 - `remat`: `torch.utils.checkpoint` per block;
-- `ce_chunk`: the chunked cross-entropy fused with the head product.
+- `ce_chunk`: the chunked cross-entropy fused with the head product;
+- `grad_accum`: the rank's rows in interleaved micro-batches, one
+  `autograd.grad` each, summed and divided before the one all-reduce;
+- `elastic_width`: the width-invariant reduction of `parallel/elastic.py`.
 """
 
 from __future__ import annotations
@@ -115,7 +118,8 @@ def make_lm_train_step(model: TransformerLM, optimizer, *,
                        device: torch.device | str = "cuda",
                        compute_dtype: torch.dtype | None = None,
                        remat: bool = False, moe_aux_weight: float = 0.01,
-                       ce_chunk: int = 0, mesh=None):
+                       ce_chunk: int = 0, mesh=None, grad_accum: int = 1,
+                       elastic_width: int = 0):
     """step(state, tokens, targets) -> (state, {"loss": loss}): forward,
     loss, gradients, and the optimizer update in place on the state's
     params (the state dict itself is returned, updated), as one rank of
@@ -123,7 +127,13 @@ def make_lm_train_step(model: TransformerLM, optimizer, *,
     and targets are this rank's rows (`dp_shard_batch`) and the loss is
     the mean over the ranks. The loss stays on the device: reading it is
     the caller's host sync. `step.loss_fn(params, tokens, targets) ->
-    (loss, {})` is the step's loss."""
+    (loss, {})` is the step's loss and `step.grads(state, tokens,
+    targets) -> (gradients, metrics)` its gradient half.
+
+    grad_accum > 1 accumulates the rank's rows over that many interleaved
+    micro-batches (`dp.local_grads`, the reference's one accumulation
+    helper for both model families); elastic_width > 0 takes the
+    width-invariant reduction (`make_elastic_lm_train_step`)."""
     impl = pick_attn_impl(attn_impl, seq_len or model.max_seq, device,
                           model.head_dim)
     attn_fn = get_attn_fn(impl)
@@ -134,14 +144,39 @@ def make_lm_train_step(model: TransformerLM, optimizer, *,
                        moe_aux_weight=moe_aux_weight, ce_chunk=ce_chunk), {}
 
     dp_step = make_dp_train_step(loss_fn, optimizer,
-                                 mesh or device_mesh(torch.device(device)))
+                                 mesh or device_mesh(torch.device(device)),
+                                 grad_accum=grad_accum,
+                                 elastic_width=elastic_width)
 
     def step(state, tokens, targets):
         state, metrics = dp_step(state, tokens, targets)
         return state, {"loss": metrics[0]}
 
     step.loss_fn = loss_fn
+    step.grads = dp_step.grads
     return step
+
+
+def make_elastic_lm_train_step(model: TransformerLM, optimizer, mesh, *,
+                               elastic_width: int, attn_impl: str = "auto",
+                               seq_len: int | None = None,
+                               compute_dtype: torch.dtype | None = None,
+                               remat: bool = False,
+                               moe_aux_weight: float = 0.01,
+                               ce_chunk: int = 0):
+    """The LM step with the width-invariant gradient reduction
+    (`parallel/elastic.py`): the gradient is the canonical tree sum over
+    B/W0-row micro-batches, whatever the world, so a run saved at one
+    width resumes bit for bit at another. Returns (step, the resolved
+    attention impl), as the reference's does."""
+    impl = pick_attn_impl(attn_impl, seq_len or model.max_seq, mesh.device,
+                          model.head_dim)
+    step = make_lm_train_step(
+        model, optimizer, attn_impl=impl, seq_len=seq_len,
+        device=mesh.device, compute_dtype=compute_dtype, remat=remat,
+        moe_aux_weight=moe_aux_weight, ce_chunk=ce_chunk, mesh=mesh,
+        elastic_width=elastic_width)
+    return step, impl
 
 
 def lm_flops_per_token(model: TransformerLM, seq_len: int) -> float:

@@ -18,9 +18,14 @@ function of the step, so the resume is step-exact); planned
 "train.step" faults fire after every step; the NaN guard checks every
 step (token batches carry no NaN, so it meets organic non-finite
 losses only); a preemption snapshots and raises `faults.Preempted`.
-What the reference's trainer adds beyond that (the other meshes, MoE,
-gradient accumulation, the JSONL sink, sampling after training) is
-refused by `utils.config.check_lm_supported` (ROADMAP queue F).
+`grad_accum` accumulates each rank's rows over micro-batches and
+`elastic_width` takes the width-invariant reduction (`train/lm.py`,
+`parallel/elastic.py`). With a JSONL sink the trainer writes the
+reference's records: "train" and a "metrics" snapshot at every log
+step, then "step_phases", "memory", a final "metrics" and the eval's
+"span". What the reference's trainer adds beyond that (the other meshes,
+MoE, sampling after training) is refused by
+`utils.config.check_lm_supported` (ROADMAP queue F).
 """
 
 from __future__ import annotations
@@ -36,18 +41,24 @@ import torch
 from .._device import resolve_device
 from ..faults import PreemptionGuard, RollbackToCheckpoint
 from ..models.transformer import TransformerLM
-from ..parallel.dp import dp_mean_grads, dp_shard_batch, replicate
+from ..obs.device import emit_step_telemetry
+from ..obs.metrics import MetricsRegistry
+from ..obs.trace import span
+from ..parallel.dp import dp_shard_batch, replicate
 from ..parallel.mesh import DATA_AXIS, device_mesh
 from ..utils.config import (
     COMPUTE_DTYPES,
     check_batch_divides,
+    check_elastic_and_accum,
     check_lm_supported,
     data_axes,
 )
 from ..utils.logging import MetricsLogger, get_logger
+from ..utils.profiling import StepTimer
 from .lm import (
     get_attn_fn,
     lm_loss,
+    make_elastic_lm_train_step,
     make_lm_state,
     make_lm_train_step,
     pick_attn_impl,
@@ -98,7 +109,8 @@ class LMTrainer:
 
     def __init__(self, cfg, *, metrics: MetricsLogger | None = None,
                  params: dict | None = None, mesh=None, faults=None,
-                 preempt: PreemptionGuard | None = None):
+                 preempt: PreemptionGuard | None = None, registry=None,
+                 clock=None):
         check_lm_supported(cfg)
         if mesh is None and data_axes(cfg.num_devices, cfg.mesh_shape,
                                       queue="F")[DATA_AXIS] > 1:
@@ -110,10 +122,16 @@ class LMTrainer:
         self.cfg = cfg
         self.log = get_logger()
         self.metrics = metrics or MetricsLogger()
+        self.registry = registry if registry is not None \
+            else MetricsRegistry()
+        self._clock = clock if clock is not None else time.perf_counter
         self.device = resolve_device(cfg.device if mesh is None
                                      else mesh.device)
         self.mesh = mesh = mesh or device_mesh(self.device)
-        check_batch_divides(cfg.batch_size, mesh.shape.get(DATA_AXIS, 1))
+        n_data = mesh.shape.get(DATA_AXIS, 1)
+        check_batch_divides(cfg.batch_size, n_data)
+        check_elastic_and_accum(cfg.elastic_width, cfg.grad_accum,
+                                cfg.batch_size, n_data)
 
         tokens = load_corpus(cfg.corpus)
         vocab = int(tokens.max()) + 1
@@ -150,11 +168,18 @@ class LMTrainer:
         self._compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         self.attn_impl = pick_attn_impl(cfg.attn_impl, cfg.seq_len,
                                         self.device, self.model.head_dim)
-        self.train_step = make_lm_train_step(
-            self.model, self.optimizer, attn_impl=self.attn_impl,
-            seq_len=cfg.seq_len, device=self.device,
-            compute_dtype=self._compute_dtype, remat=cfg.remat,
-            ce_chunk=cfg.ce_chunk, mesh=mesh)
+        if cfg.elastic_width:
+            self.train_step, _ = make_elastic_lm_train_step(
+                self.model, self.optimizer, mesh,
+                elastic_width=cfg.elastic_width, attn_impl=self.attn_impl,
+                seq_len=cfg.seq_len, compute_dtype=self._compute_dtype,
+                remat=cfg.remat, ce_chunk=cfg.ce_chunk)
+        else:
+            self.train_step = make_lm_train_step(
+                self.model, self.optimizer, attn_impl=self.attn_impl,
+                seq_len=cfg.seq_len, device=self.device,
+                compute_dtype=self._compute_dtype, remat=cfg.remat,
+                ce_chunk=cfg.ce_chunk, mesh=mesh, grad_accum=cfg.grad_accum)
         self.loss_fn = self.train_step.loss_fn
         self.state = make_lm_state(self.model, self.optimizer, cfg.seed,
                                    params=params, device=self.device)
@@ -180,12 +205,12 @@ class LMTrainer:
 
     def first_grads(self) -> list[torch.Tensor]:
         """The gradients step 0 applies, at the current params: this
-        rank's rows of its windows through the step's loss, averaged over
-        the ranks in one all-reduce."""
+        rank's rows of its windows through the step's gradient path (its
+        accumulation or elastic reduction, and the reduction over the
+        ranks)."""
         tokens, targets = dp_shard_batch(self._sample_batch(0), self.mesh)
-        grads, _ = dp_mean_grads(self.loss_fn, self.state["params"],
-                                 self._to_device(tokens),
-                                 self._to_device(targets), self.mesh)
+        grads, _ = self.train_step.grads(self.state, self._to_device(tokens),
+                                         self._to_device(targets))
         return grads
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
@@ -203,18 +228,25 @@ class LMTrainer:
         # A checkpoint past --steps leaves nothing to run.
         start_step = (min(self.state["step"], cfg.steps)
                       if rec.resume(self.state) else 0)
-        t0 = time.perf_counter()
+        t0 = self._clock()
         loss = float("nan")
         m = None
+        timer = StepTimer(clock=self._clock)
+        timer.start()
+        reg = self.registry
+        last_t, last_step = t0, start_step
         try:
             step = start_step
             while step < cfg.steps:
-                tokens, targets = dp_shard_batch(self._sample_batch(step),
-                                                 self.mesh)
+                with timer.phase("data"):
+                    tokens, targets = dp_shard_batch(
+                        self._sample_batch(step), self.mesh)
+                    tokens = self._to_device(tokens)
+                    targets = self._to_device(targets)
                 snap = rec.snapshot(self.state)
-                self.state, m = self.train_step(self.state,
-                                                self._to_device(tokens),
-                                                self._to_device(targets))
+                with timer.phase("dispatch"):
+                    self.state, m = self.train_step(self.state, tokens,
+                                                    targets)
                 try:
                     kept = rec.check_step(self.state, m["loss"], step, snap)
                 except RollbackToCheckpoint:
@@ -222,21 +254,45 @@ class LMTrainer:
                     step = self.state["step"]
                     continue
                 if kept and cfg.log_every and (step + 1) % cfg.log_every == 0:
-                    loss = float(m["loss"])   # the only host sync
+                    with timer.phase("device"):
+                        loss = float(m["loss"])   # the only host sync
                     self.metrics.log("train", step=step + 1, loss=loss)
-                rec.save_every(self.state, cfg.checkpoint_every, step + 1)
+                    now = self._clock()
+                    n, dt = step + 1 - last_step, now - last_t
+                    if n > 0 and dt > 0:
+                        reg.inc("train.steps", n)
+                        reg.inc("train.heartbeats")
+                        reg.observe("train.step_ms", 1e3 * dt / n)
+                        reg.set("train.tokens_per_s",
+                                n * cfg.batch_size * cfg.seq_len / dt)
+                        reg.set("train.loss", loss)
+                        reg.emit(self.metrics, step=step + 1)
+                    last_t, last_step = now, step + 1
+                with timer.phase("checkpoint"):
+                    rec.save_every(self.state, cfg.checkpoint_every,
+                                   step + 1)
                 rec.step_boundary(self.state, step + 1)
                 step += 1
-            self._sync()
-            dt = time.perf_counter() - t0
+            with timer.phase("device"):
+                self._sync()
+            dt = self._clock() - t0
             rec.finish(self.state)
         finally:
             rec.close()
         steps_run = cfg.steps - start_step
         if m is not None:
             loss = float(m["loss"])
-        eval_loss = self.evaluate()
+        timer.stop(max(steps_run, 1))
+        emit_step_telemetry(self.metrics, timer, steps_run,
+                            devices=[self.device])
         tok_s = steps_run * cfg.batch_size * cfg.seq_len / max(dt, 1e-9)
+        if steps_run > 0:
+            if cfg.steps > last_step:
+                reg.inc("train.steps", cfg.steps - last_step)
+            reg.set("train.tokens_per_s", tok_s)
+            reg.emit(self.metrics, final=True)
+        with span("eval", metrics=self.metrics.sink_or_none()):
+            eval_loss = self.evaluate()
         ppl = float(np.exp(eval_loss)) if math.isfinite(eval_loss) else eval_loss
         self.log.info(
             "lm done: steps=%d loss=%.4f eval_loss=%.4f ppl=%.2f tok/s=%.0f",

@@ -39,6 +39,7 @@ from ..faults import (
     supervise,
 )
 from ..models.presets import get_model
+from ..obs.metrics import MetricsRegistry
 from ..ops import _kernels
 from ..parallel import dp
 from ..utils.logging import MetricsLogger, get_logger
@@ -79,12 +80,13 @@ def _numpy(tensors) -> list[np.ndarray]:
 
 class _PhaseLogger(MetricsLogger):
     """The trainer's metrics logger (echoing on rank 0, keeping its
-    records in `rows`) that also files the counts since the last record
-    under the record's phase: the steps at an "epoch" record, the eval at
-    an "eval" record."""
+    records in `rows`, appending them to the JSONL file at `path` when
+    given) that also files the counts since the last record under the
+    record's phase: the steps at an "epoch" record, the eval at an "eval"
+    record."""
 
-    def __init__(self, tally: _Tally):
-        super().__init__(capture=True)
+    def __init__(self, tally: _Tally, path: str | None = None):
+        super().__init__(path=path, capture=True)
         self.tally = tally
         self.counts = {"steps": {}, "eval": {}}
 
@@ -97,7 +99,13 @@ class _PhaseLogger(MetricsLogger):
             self.counts[phase] = _add(self.counts[phase], self.tally.take())
 
 
-def _supervised(cfg, first, make_trainer, metrics, world: int):
+def _sink(mesh, cfg) -> str | None:
+    """cfg.metrics_jsonl on rank 0, None on the other ranks: one writer
+    of the run's file, as the reference's process 0."""
+    return cfg.metrics_jsonl if mesh is None or mesh.rank == 0 else None
+
+
+def _supervised(cfg, first, make_trainer, metrics, world: int, registry):
     """`first.train()` under `faults.supervise` with cfg.max_restarts
     restarts, each attempt after the first on a trainer rebuilt by
     `make_trainer` with `resume` forced. Returns (result, last trainer).
@@ -117,6 +125,7 @@ def _supervised(cfg, first, make_trainer, metrics, world: int):
 
     result = supervise(attempt, max_restarts=cfg.max_restarts,
                        logger=get_logger(), metrics=metrics,
+                       registry=registry,
                        restartable=fires_on_every_rank if world > 1 else None)
     return result, trainer
 
@@ -145,13 +154,15 @@ def cnn_rank(mesh, cfg, data, params=None, *, grads: bool = False,
     gradients (before training) and the logits of the whole test set
     (after it)."""
     ds = data if isinstance(data, Dataset) else synthetic_stripes(**data)
-    metrics = _PhaseLogger(tally := _Tally())
     model = get_model(cfg.model, input_shape=ds.input_shape)
     faults = FaultInjector(cfg.fault_plan) if cfg.fault_plan else None
-    with PreemptionGuard() as guard:
+    registry = MetricsRegistry()    # one for every supervised attempt
+    with _PhaseLogger(tally := _Tally(), _sink(mesh, cfg)) as metrics, \
+            PreemptionGuard() as guard:
         def make_trainer(c):
             return Trainer(model, ds, c, metrics=metrics, params=params,
-                           mesh=mesh, faults=faults, preempt=guard)
+                           mesh=mesh, faults=faults, preempt=guard,
+                           registry=registry)
 
         try:
             tr = make_trainer(cfg)
@@ -164,7 +175,7 @@ def cnn_rank(mesh, cfg, data, params=None, *, grads: bool = False,
         tally.take()
         try:
             result, tr = _supervised(cfg, tr, make_trainer, metrics,
-                                     tr.mesh.size)
+                                     tr.mesh.size, registry)
         except Preempted as e:
             metrics.file("steps")
             return {**res, **_preempted(e, metrics),
@@ -194,13 +205,14 @@ def lm_rank(mesh, cfg, params=None, *, grads: bool = False) -> dict:
     launches and collectives of `train()` (the steps and the eval), its
     wall seconds, the trainer's records, and, if asked,
     step 0's gradients (before training)."""
-    metrics = _PhaseLogger(tally := _Tally())
     log = get_logger()
     faults = FaultInjector(cfg.fault_plan) if cfg.fault_plan else None
-    with PreemptionGuard() as guard:
+    registry = MetricsRegistry()    # one for every supervised attempt
+    with _PhaseLogger(tally := _Tally(), _sink(mesh, cfg)) as metrics, \
+            PreemptionGuard() as guard:
         def make_trainer(c):
             return LMTrainer(c, metrics=metrics, params=params, mesh=mesh,
-                             faults=faults, preempt=guard)
+                             faults=faults, preempt=guard, registry=registry)
 
         try:
             trainer = make_trainer(cfg)
@@ -217,7 +229,8 @@ def lm_rank(mesh, cfg, params=None, *, grads: bool = False) -> dict:
         t0 = time.perf_counter()
         try:
             result, trainer = _supervised(cfg, trainer, make_trainer,
-                                          metrics, trainer.mesh.size)
+                                          metrics, trainer.mesh.size,
+                                          registry)
         except Preempted as e:
             return {**res, **_preempted(e, metrics), "counts": tally.take()}
     if trainer.device.type == "cuda":

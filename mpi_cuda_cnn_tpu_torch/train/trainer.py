@@ -21,7 +21,15 @@ backend's ops (with `use_kernels`, the hand-written CUDA kernels of
 `ops/kernel_ops.py` in both directions) and the in-place SGD update.
 With `compute_dtype="bfloat16"` the forward and backward run in bf16
 (`Sequential.apply` casts on entry) while the params, their gradients
-and the SGD update stay float32.
+and the SGD update stay float32. With `param_dtype="bfloat16"` the params
+are held and updated in bf16: in bf16 compute every gradient is bf16; in
+float32 compute (the kernels only, as the reference's Pallas path) the
+kernels take float32 copies of their operands and their gradients come
+back float32 (`Sequential.grad_view`). `grad_accum` splits the rank's
+rows into micro-batches, `remat` recomputes each layer's forward in the
+backward, `augment` shifts (and flips) the rank's rows on the device
+from host draws, and `elastic_width` takes the width-invariant step
+(`parallel/dp.py`, `data/augment.py`, `parallel/elastic.py`).
 
 As in the JAX trainer, one device and many use the same code path, that
 of a data mesh (`parallel.make_mesh`, one process per rank): the seeded
@@ -47,6 +55,14 @@ with a "train.batch" fault, or an active NaN guard (which checks, and
 may undo, every single step), forces the per-batch route. A preemption
 (SIGTERM, or a planned ``preempt``) snapshots at the next boundary and
 raises `faults.Preempted`.
+
+Telemetry follows the JAX trainer: each epoch's timer splits its wall
+time into the data, dispatch, device and checkpoint phases; with a
+JSONL sink the trainer writes the "step_phases", "memory", "metrics"
+(the registry, shared across supervised attempts), "epoch", "eval",
+"span" and "train" records; `profile_dir` traces the epochs with
+`torch.profiler`. Without a sink nothing is written and no host sync
+is added.
 """
 
 from __future__ import annotations
@@ -58,6 +74,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..data.augment import make_augment
 from ..data.pipeline import (
     ensure_channel_axis,
     normalize_images,
@@ -69,9 +86,11 @@ from ..models.layers import tree_leaves
 from ..ops.activations import stable_softmax
 from ..ops.gemv import tree_map
 from ..ops.losses import softmax_cross_entropy, squared_error_total
+from ..obs.device import emit_step_telemetry
+from ..obs.metrics import MetricsRegistry
+from ..obs.trace import span
 from ..parallel.dp import (
     all_reduce_sum,
-    dp_mean_grads,
     dp_shard_batch,
     dp_shard_perm,
     make_dp_eval_step,
@@ -82,28 +101,36 @@ from ..parallel.dp import (
 from ..parallel.mesh import DATA_AXIS, device_mesh
 from ..utils.config import (
     COMPUTE_DTYPES,
+    PARAM_DTYPES,
     check_batch_divides,
     check_supported,
+    check_train_flags,
     data_axes,
 )
 from ..utils.logging import MetricsLogger, get_logger
+from ..utils.profiling import StepTimer, profile_trace
 from .optimizer import make_optimizer
 from .recovery import Recovery
 
 METRICS = ("loss", "etotal", "acc")
+# The augmentation stream's seed is the run's seed plus this (the
+# reference's offset: a stream apart from the init's).
+AUG_SEED_OFFSET = 0x5EED
 
 
 def make_loss_fn(model, *, backend: str = "torch",
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None,
+                 remat: bool = False):
     """Softmax-CE loss + the reference's metrics (squared-error total,
     cnn.c:275-282; argmax accuracy, cnn.c:508-513). The metrics are
     computed from detached logits: only the loss is differentiated. With
     a compute_dtype the forward runs in it and the float32 logits feed
-    the loss, as in the reference."""
+    the loss, as in the reference; with remat each layer's forward is
+    recomputed in the backward."""
 
     def loss_fn(params, x, y_onehot):
         logits = model.apply(params, x, backend=backend,
-                             compute_dtype=compute_dtype)
+                             compute_dtype=compute_dtype, remat=remat)
         loss = softmax_cross_entropy(logits, y_onehot)
         with torch.no_grad():
             logits = logits.detach()
@@ -141,7 +168,8 @@ class Trainer:
     def __init__(self, model, dataset, config, *,
                  metrics: MetricsLogger | None = None, params=None,
                  mesh=None, faults=None,
-                 preempt: PreemptionGuard | None = None):
+                 preempt: PreemptionGuard | None = None, registry=None,
+                 clock=None):
         check_supported(config)
         if mesh is None and data_axes(config.num_devices,
                                       config.mesh_shape)[DATA_AXIS] > 1:
@@ -155,15 +183,27 @@ class Trainer:
         self.cfg = config
         self.log = get_logger()
         self.metrics = metrics or MetricsLogger()
+        self.registry = registry if registry is not None \
+            else MetricsRegistry()
+        self._clock = clock if clock is not None else time.perf_counter
         self.device = resolve_device(config.device if mesh is None
                                      else mesh.device)
         self.mesh = mesh = mesh or device_mesh(self.device)
         n_data = mesh.shape.get(DATA_AXIS, 1)
         check_batch_divides(config.batch_size, n_data)
+        check_train_flags(config, n_data)
         self.backend = "cuda" if config.use_kernels else "torch"
         self.compute_dtype = COMPUTE_DTYPES[config.compute_dtype]
+        self.param_dtype = PARAM_DTYPES[config.param_dtype]
         self.loss_fn = make_loss_fn(model, backend=self.backend,
-                                    compute_dtype=self.compute_dtype)
+                                    compute_dtype=self.compute_dtype,
+                                    remat=config.remat)
+        # bf16 params, float32 compute (the kernels only): differentiate
+        # the float32 copies the kernels take, for the reference's
+        # gradient dtypes.
+        self._view = None
+        if self.compute_dtype is None and self.param_dtype != torch.float32:
+            self._view = lambda p: model.grad_view(p, torch.float32)
 
         self.num_train = len(dataset.train_images)
         self.test_x = normalize_images(dataset.test_images)
@@ -182,14 +222,18 @@ class Trainer:
             params = model.init(torch.Generator().manual_seed(config.seed),
                                 get_initializer(config.init))
         self.params = tree_map(
-            lambda t: t.detach().to(self.device, torch.float32).clone()
+            lambda t: t.detach().to(self.device, self.param_dtype).clone()
             .requires_grad_(True), params)
         replicate(self.params, mesh)
         self.leaves = tree_leaves(self.params)
         self.opt_state = self.optimizer.init(self.leaves)
         self.state = {"params": self.params, "opt_state": self.opt_state,
                       "step": 0}
-        self._step = make_dp_train_step(self.loss_fn, self.optimizer, mesh)
+        self._step = make_dp_train_step(
+            self.loss_fn, self.optimizer, mesh, view=self._view,
+            augment=make_augment(config.augment, pad=config.aug_pad),
+            aug_seed=config.seed + AUG_SEED_OFFSET,
+            grad_accum=config.grad_accum, elastic_width=config.elastic_width)
         self._scan_epoch = make_dp_scan_epoch(self._step, dataset.num_classes)
         self._eval_step = make_dp_eval_step(
             lambda p, x: self.predict(torch.from_numpy(x).to(self.device), p),
@@ -262,19 +306,21 @@ class Trainer:
 
     def first_grads(self) -> list[torch.Tensor]:
         """The gradients the first step of epoch 0 applies, at the current
-        params: this rank's share of that batch through the trainer's
-        loss, averaged over the ranks in one all-reduce."""
-        grads, _ = dp_mean_grads(
-            self.loss_fn, self.params,
-            *self._host_batch(self._epoch_order(0)[:self.cfg.batch_size]),
-            self.mesh)
+        params and step: this rank's share of that batch through the
+        step's gradient path (its augmentation, accumulation or elastic
+        reduction, and the reduction over the ranks)."""
+        grads, _ = self._step.grads(
+            self.state,
+            *self._host_batch(self._epoch_order(0)[:self.cfg.batch_size]))
         return grads
 
     def _log_train(self, epoch: int, step: int, sums: torch.Tensor,
                    n: int) -> None:
-        vals = (sums / n).tolist()
+        with self._timer.phase("device"):
+            vals = (sums / n).tolist()
         self.metrics.log("train", epoch=epoch, step=step,
                          **dict(zip(METRICS, vals)))
+        self.registry.set("train.loss", vals[0])
 
     def _stage_dataset(self) -> None:
         images = ensure_channel_axis(self.ds.train_images)
@@ -290,18 +336,43 @@ class Trainer:
         the wall seconds, which end after the device has finished the
         epoch."""
         cfg = self.cfg
-        t0 = time.perf_counter()
+        t0 = self._clock()
+        self._timer = timer = StepTimer(clock=self._clock)
+        timer.start()
         b = cfg.batch_size
         nsteps = self.steps_per_epoch
         order = self._epoch_order(epoch)[: nsteps * b]
         sums, ngood = self._run_steps(epoch, order, self._use_device_data(),
                                       skip_steps)
-        self._sync()
-        seconds = time.perf_counter() - t0
-        means = ((sums / ngood).tolist() if ngood
-                 else [float("nan")] * len(METRICS))
+        with timer.phase("device"):
+            self._sync()
+            means = ((sums / ngood).tolist() if ngood
+                     else [float("nan")] * len(METRICS))
+        seconds = self._clock() - t0
+        timer.stop(max(nsteps - skip_steps, 1))
+        self._emit_epoch_obs(epoch, timer, nsteps - skip_steps)
         return {"epoch": epoch, "steps": nsteps - skip_steps,
                 **dict(zip(METRICS, means)), "seconds": seconds}
+
+    def _emit_epoch_obs(self, epoch: int, timer: StepTimer,
+                        nsteps: int) -> None:
+        """The epoch's "step_phases" and "memory" records (with a JSONL
+        sink) and its registry fold: the step counters, the step-time
+        histogram and the samples/s gauge, then a "metrics" snapshot.
+        Reads the timer's intervals only (no clock, no sync)."""
+        emit_step_telemetry(self.metrics, timer, nsteps,
+                            devices=[self.device], epoch=epoch)
+        if nsteps <= 0:
+            return
+        reg = self.registry
+        reg.inc("train.steps", nsteps)
+        reg.inc("train.heartbeats")
+        step_ms = timer.mean_step_ms
+        reg.observe("train.step_ms", step_ms)
+        if step_ms > 0:
+            reg.set("train.samples_per_s",
+                    1e3 * self.cfg.batch_size / step_ms)
+        reg.emit(self.metrics, epoch=epoch)
 
     def _host_batch(self, rows: np.ndarray, global_step: int | None = None
                     ) -> tuple[torch.Tensor, ...]:
@@ -326,9 +397,11 @@ class Trainer:
         """One step of the per-batch route; its metrics added to `sums`.
         Under the NaN guard a non-finite step is undone (abort and a
         rollback raise); returns whether the update was kept."""
-        x, y = self._host_batch(rows, global_step)
+        with self._timer.phase("data"):
+            x, y = self._host_batch(rows, global_step)
         snap = self.recovery.snapshot(self.state)
-        m = self.train_step(x, y)
+        with self._timer.phase("dispatch"):
+            m = self.train_step(x, y)
         if not self.recovery.check_step(self.state, m, global_step, snap):
             return False
         sums += m
@@ -362,19 +435,22 @@ class Trainer:
         cfg = self.cfg
         b, nsteps = cfg.batch_size, self.steps_per_epoch
         base = epoch * nsteps
+        timer = self._timer
         if device_data:
-            if self._dev_images is None:
-                self._stage_dataset()
-            perm = torch.from_numpy(np.ascontiguousarray(dp_shard_perm(
-                order.reshape(nsteps, b), self.mesh))).to(self.device)
+            with timer.phase("data"):
+                if self._dev_images is None:
+                    self._stage_dataset()
+                perm = torch.from_numpy(np.ascontiguousarray(dp_shard_perm(
+                    order.reshape(nsteps, b), self.mesh))).to(self.device)
         sums = torch.zeros(len(METRICS), device=self.device)
         ngood, done = 0, skip_steps
         while done < nsteps:
             if device_data:
                 end = self._chunk_end(base, done)
-                self.state = self._scan_epoch(
-                    self.state, self._dev_images, self._dev_labels,
-                    perm[done:end], sums)
+                with timer.phase("dispatch"):
+                    self.state = self._scan_epoch(
+                        self.state, self._dev_images, self._dev_labels,
+                        perm[done:end], sums)
                 kept = True
                 ngood += end - done
             else:
@@ -384,8 +460,10 @@ class Trainer:
                 ngood += kept
             if kept and cfg.log_every > 0 and end % cfg.log_every == 0:
                 self._log_train(epoch, end, sums, ngood)
-            self.recovery.save_every(self.state, cfg.checkpoint_every_steps,
-                                     base + end)
+            with timer.phase("checkpoint"):
+                self.recovery.save_every(self.state,
+                                         cfg.checkpoint_every_steps,
+                                         base + end)
             self.recovery.step_boundary(self.state, base + end)
             done = end
         return sums, ngood
@@ -401,29 +479,39 @@ class Trainer:
         epoch_seconds: list[float] = []
         steps = 0
         ntests, ncorrect, result_acc = len(self.test_x), 0, 0.0
+        sink = self.metrics.sink_or_none()
+        ckpt = self.recovery.ckpt
         try:
-            epoch = start_epoch
-            while epoch < cfg.epochs:
-                try:
-                    em = self.run_epoch(epoch, skip_steps=skip_steps)
-                except RollbackToCheckpoint:
-                    self.recovery.rollback(self.state)
-                    epoch, skip_steps = divmod(self.step,
-                                               self.steps_per_epoch)
-                    continue
-                skip_steps = 0
-                steps += em["steps"]
-                epoch_seconds.append(em["seconds"])
-                self.metrics.log("epoch", **em)
-                if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
-                    ntests, ncorrect = self.evaluate()
-                    result_acc = ncorrect / ntests
-                    self.metrics.log("eval", epoch=epoch, ntests=ntests,
-                                     ncorrect=ncorrect, accuracy=result_acc)
-                self.recovery.save_every(self.state, cfg.checkpoint_every,
-                                         epoch + 1)
-                epoch += 1
-            self.recovery.finish(self.state)
+            with profile_trace(cfg.profile_dir):
+                epoch = start_epoch
+                while epoch < cfg.epochs:
+                    try:
+                        em = self.run_epoch(epoch, skip_steps=skip_steps)
+                    except RollbackToCheckpoint:
+                        self.recovery.rollback(self.state)
+                        epoch, skip_steps = divmod(self.step,
+                                                   self.steps_per_epoch)
+                        continue
+                    skip_steps = 0
+                    steps += em["steps"]
+                    epoch_seconds.append(em["seconds"])
+                    self.metrics.log("epoch", **em)
+                    if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
+                        with span("eval", metrics=sink):
+                            ntests, ncorrect = self.evaluate()
+                        result_acc = ncorrect / ntests
+                        self.metrics.log("eval", epoch=epoch, ntests=ntests,
+                                         ncorrect=ncorrect,
+                                         accuracy=result_acc)
+                    if ckpt is not None and cfg.checkpoint_every and \
+                            (epoch + 1) % cfg.checkpoint_every == 0:
+                        with span("checkpoint", metrics=sink):
+                            self.recovery.save_every(
+                                self.state, cfg.checkpoint_every, epoch + 1)
+                    epoch += 1
+                if ckpt is not None:
+                    with span("checkpoint", metrics=sink):
+                        self.recovery.finish(self.state)
         finally:
             self.recovery.close()
         if not (cfg.eval_every and cfg.epochs > start_epoch

@@ -18,6 +18,10 @@ device, `parallel/dp.py`. Checkpoints, fault plans, the NaN guard and
 the supervisor are ported (`train/checkpoint.py`, `faults.py`); as in
 the reference, `--nan-policy` and `--fault-plan` are checked when the
 flags are parsed (exit 2), the plan against the command's hook sites.
+So are gradient accumulation, rematerialization, bf16 params,
+augmentation, the elastic width, the JSONL sink and profiler traces;
+`check_train_flags` and `check_elastic_and_accum` refuse, with
+ValueError (exit 2), the combinations the reference's trainers refuse.
 """
 
 from __future__ import annotations
@@ -51,10 +55,12 @@ class Config:
     grad_clip: float = 0.0        # global-norm clip; 0 disables
     seed: int = 0                 # cnn.c:413 srand(0)
     init: str = "normal"          # normal | irwin_hall | he
-    augment: str = "none"         # refused unless "none"
+    augment: str = "none"         # none | shift | shift-flip
+                                  # (data/augment.py)
+    aug_pad: int = 2              # max +/- pixels of the random shift
 
-    # Numerics: float32 params; compute in float32 or bfloat16.
-    param_dtype: str = "float32"
+    # Numerics: params held in float32 or bfloat16; compute in either.
+    param_dtype: str = "float32"  # float32 | bfloat16
     compute_dtype: str = "float32"  # float32 | bfloat16
 
     # Execution.
@@ -63,8 +69,8 @@ class Config:
     mesh_shape: str = "data"      # "data" or "data:N" only
     fsdp: bool = False
     use_kernels: bool = False     # hand-written CUDA kernels (ops/kernel_ops)
-    remat: bool = False
-    grad_accum: int = 1
+    remat: bool = False           # torch.utils.checkpoint per layer
+    grad_accum: int = 1           # micro-batches accumulated per step
     scan: bool = True             # device-resident epochs: the uint8 set
                                   # staged on the device once; off = the
                                   # host normalizes and sends each batch
@@ -84,11 +90,13 @@ class Config:
     fault_plan: str | None = None  # faults.parse_plan, e.g.
                                   # crash@train.step:6
 
-    # Aux subsystems (refused unless off).
-    elastic_width: int = 0
+    # Elasticity and observability.
+    elastic_width: int = 0        # >0: the width-invariant reduction over
+                                  # W0 canonical micro-batches
+                                  # (parallel/elastic.py)
     log_every: int = 100          # steps; <= 0 = no logging inside an epoch
-    profile_dir: str | None = None
-    metrics_jsonl: str | None = None
+    profile_dir: str | None = None  # a torch.profiler trace of train()
+    metrics_jsonl: str | None = None  # schema-stamped JSONL records
     eval_every: int = 1           # epochs
 
 
@@ -96,16 +104,12 @@ class Config:
 # (None: float32, no cast).
 COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
+# --param-dtype of the CNN trainer -> the dtype its params are held in.
+PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
 # (field, value that means "off", ROADMAP queue E item, what it is)
 _REFUSED = (
     ("fsdp", False, 1, "FSDP"),
-    ("grad_accum", 1, 4, "gradient accumulation"),
-    ("remat", False, 4, "rematerialization"),
-    ("param_dtype", "float32", 4, "bf16 params"),
-    ("augment", "none", 5, "augmentation"),
-    ("metrics_jsonl", None, 6, "the JSONL metrics sink"),
-    ("profile_dir", None, 6, "profiler traces"),
-    ("elastic_width", 0, 7, "elastic width"),
 )
 
 
@@ -163,11 +167,63 @@ def check_batch_divides(batch_size: int, n_data: int) -> None:
                          f"data-axis size {n_data}")
 
 
+def check_elastic_and_accum(elastic_width: int, grad_accum: int,
+                            batch_size: int, n_data: int) -> None:
+    """The reference trainers' checks of --grad-accum and --elastic-width
+    on a data axis of n_data ranks, as ValueErrors: the per-rank batch
+    must divide into the micro-batches, the two flags exclude each other,
+    and the elastic width obeys `parallel.elastic.check_elastic_width`."""
+    if grad_accum > 1 and (batch_size // n_data) % grad_accum:
+        raise ValueError(f"per-device batch {batch_size // n_data} not "
+                         f"divisible by grad_accum {grad_accum}")
+    if elastic_width:
+        from ..parallel.elastic import check_elastic_width
+
+        if grad_accum > 1:
+            raise ValueError(
+                "--elastic-width already scans canonical microbatches; "
+                "--grad-accum is redundant with it — drop one of the two")
+        check_elastic_width(elastic_width, batch_size, n_data)
+
+
+def check_train_flags(cfg: Config, n_data: int) -> None:
+    """The CNN trainer's checks of its flags on a data axis of n_data
+    ranks, as ValueErrors (the reference's `Trainer.__init__` raises the
+    same): the dtypes, the augmentation, --grad-accum and
+    --elastic-width. bf16 params with float32 compute run on the kernels
+    only (the reference's Pallas path computes in float32 against the
+    upcast weights; its XLA path raises a dtype error), and their
+    checkpoints are not written by this port."""
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"--compute-dtype={cfg.compute_dtype!r}: want one "
+                         f"of {'|'.join(COMPUTE_DTYPES)}")
+    if cfg.param_dtype not in PARAM_DTYPES:
+        raise ValueError(f"--param-dtype={cfg.param_dtype!r}: want one "
+                         f"of {'|'.join(PARAM_DTYPES)}")
+    if cfg.param_dtype != "float32":
+        if cfg.compute_dtype == "float32" and not cfg.use_kernels:
+            raise ValueError(
+                f"--param-dtype={cfg.param_dtype} with float32 compute "
+                "runs on the kernels only (--use-kernels): PyTorch's conv, "
+                "as the reference's XLA conv, wants one dtype for input "
+                "and weights; add --use-kernels or --compute-dtype "
+                f"{cfg.param_dtype}")
+        if cfg.checkpoint_dir:
+            raise ValueError(
+                f"--param-dtype={cfg.param_dtype} with --checkpoint-dir: "
+                "this port writes float32 checkpoints only")
+    from ..data.augment import make_augment
+
+    make_augment(cfg.augment, pad=cfg.aug_pad)
+    check_elastic_and_accum(cfg.elastic_width, cfg.grad_accum,
+                            cfg.batch_size, n_data)
+
+
 def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for a feature of the reference's CNN
     trainer that this port does not have yet (ROADMAP queue E), and
-    ValueError for a compute dtype other than float32 or bfloat16 or a
-    batch that the data axis does not divide."""
+    ValueError for a batch that the data axis does not divide or a flag
+    that `check_train_flags` refuses."""
     axes = data_axes(cfg.num_devices, cfg.mesh_shape)
     for name, off, item, what in _REFUSED:
         if getattr(cfg, name) != off:
@@ -175,10 +231,8 @@ def check_supported(cfg: Config) -> None:
             raise NotImplementedError(
                 f"{flag}={getattr(cfg, name)!r}: {what} is not ported yet "
                 f"(ROADMAP queue E item {item})")
-    if cfg.compute_dtype not in COMPUTE_DTYPES:
-        raise ValueError(f"--compute-dtype={cfg.compute_dtype!r}: want one "
-                         f"of {'|'.join(COMPUTE_DTYPES)}")
     check_batch_divides(cfg.batch_size, axes["data"])
+    check_train_flags(cfg, axes["data"])
 
 
 @dataclasses.dataclass
@@ -204,7 +258,7 @@ class LMConfig:
     warmup_steps: int = 20
     weight_decay: float = 0.01
     grad_clip: float = 0.0        # global-norm clip; 0 disables
-    grad_accum: int = 1           # refused unless 1 (queue F item 3)
+    grad_accum: int = 1           # micro-batches accumulated per step
     seed: int = 0
     donate: bool = True           # no-op here: the update is in place
 
@@ -225,9 +279,9 @@ class LMConfig:
     nan_policy: str = "off"             # off | abort | skip | restore
     nan_max_bad: int = 3
     fault_plan: str | None = None       # faults.parse_plan
-    elastic_width: int = 0              # refused (queue F item 1)
+    elastic_width: int = 0              # >0: the width-invariant step
     log_every: int = 20
-    metrics_jsonl: str | None = None    # refused (queue F item 6)
+    metrics_jsonl: str | None = None    # schema-stamped JSONL records
     sample_tokens: int = 0              # refused unless 0 (item 7)
     sample_temperature: float = 0.0
     sample_top_k: int = 0
@@ -242,19 +296,19 @@ LM_ATTN_IMPLS = ("auto", "flash", "oracle")
 # (field, value that means "off", ROADMAP queue F item, what it is)
 _LM_REFUSED = (
     ("fsdp", False, 1, "FSDP"),
-    ("elastic_width", 0, 1, "elastic width"),
     ("moe_experts", 0, 2, "MoE"),
     ("moe_dispatch_chunk", 0, 2, "chunked MoE dispatch"),
     ("moe_dispatch_dtype", None, 2, "the MoE dispatch dtype"),
-    ("grad_accum", 1, 3, "gradient accumulation"),
-    ("metrics_jsonl", None, 6, "the JSONL metrics sink"),
     ("sample_tokens", 0, 7, "sampling after training (generate)"),
 )
 
 
 def check_lm_supported(cfg: LMConfig) -> None:
     """Raise NotImplementedError for a feature of the reference's LM
-    trainer that this port does not have yet (ROADMAP queue F)."""
+    trainer that this port does not have yet (ROADMAP queue F), and
+    ValueError for a batch the data axis does not divide or a
+    --grad-accum / --elastic-width that `check_elastic_and_accum`
+    refuses."""
     axes = data_axes(cfg.num_devices, cfg.mesh_shape, queue="F")
     for name, off, item, what in _LM_REFUSED:
         if getattr(cfg, name) != off:
@@ -268,6 +322,8 @@ def check_lm_supported(cfg: LMConfig) -> None:
             "are ported; ring and Ulysses attention are ROADMAP queue F "
             "item 8")
     check_batch_divides(cfg.batch_size, axes["data"])
+    check_elastic_and_accum(cfg.elastic_width, cfg.grad_accum,
+                            cfg.batch_size, axes["data"])
 
 
 NAN_POLICIES = ("off", "abort", "skip", "restore")

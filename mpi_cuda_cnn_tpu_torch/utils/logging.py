@@ -5,8 +5,9 @@ The reference's entire observability surface is fprintf(stderr, ...): a
 running squared-error every 1000 steps (cnn.c:470-473) and one final
 "ntests=%d, ncorrect=%d" line (cnn.c:518). `MetricsLogger` echoes the
 trainer's records as the same human-readable `event k=v ...` lines the
-reference's logger prints, or stays silent. The JSONL sink is not ported
-yet (`--metrics-jsonl` is refused, ROADMAP queue E item 6).
+reference's logger prints, or stays silent, and with a path appends them
+to a JSONL file as schema-stamped records (`obs/schema.py`), after a
+`# run <UTC stamp>` marker: the file the reference's `report` reads.
 
 In a data-parallel run every rank runs the same loop and only rank 0
 echoes, so a run prints each line once, as the reference's rank-0-only
@@ -16,10 +17,16 @@ as its traceback (`parallel.distributed.run_ranks`).
 
 from __future__ import annotations
 
+import json
 import logging
 import sys
+import time
+from pathlib import Path
 
 import torch.distributed as dist
+
+from ..obs.schema import RUN_MARKER, make_record
+from .clock import utc_stamp
 
 _LOGGER_NAME = "mpi_cuda_cnn_tpu_torch"
 
@@ -46,21 +53,61 @@ def get_logger() -> logging.Logger:
 
 class MetricsLogger:
     """Trainer records as `event k=v ...` lines on the package logger
-    (echo=True, on rank 0 only), or nowhere (echo=False). With capture,
-    every record is also kept in `rows` as {"event": event, **fields},
-    as the reference's logger keeps them."""
+    (echo=True, on rank 0 only), appended to the JSONL file at `path`
+    (None: none), and, with capture, kept in `rows` as {"event": event,
+    **fields}. A file record is `obs.schema.make_record`'s: "t" is
+    seconds since the logger was made on `clock` (time.perf_counter's
+    shape). A context manager: the file
+    is closed on the way out, an exception included, so the records
+    written so far survive it."""
 
-    def __init__(self, echo: bool = True, capture: bool = False):
+    def __init__(self, path: str | Path | None = None, echo: bool = True,
+                 capture: bool = False, clock=None):
+        self._clock = clock if clock is not None else time.perf_counter
+        self._file = None
+        if path is not None:
+            p = Path(path)
+            p.parent.mkdir(parents=True, exist_ok=True)
+            self._file = p.open("a")
+            self._file.write(f"{RUN_MARKER} {utc_stamp()}\n")
+            self._file.flush()
         self._echo = echo
         self._log = get_logger()
+        self._t0 = self._clock()
         self.rows: list[dict] | None = [] if capture else None
+
+    @property
+    def jsonl_enabled(self) -> bool:
+        """Whether a JSONL file is open: the gate of the telemetry that
+        costs something to make (phase records, memory snapshots)."""
+        return self._file is not None
+
+    def sink_or_none(self) -> MetricsLogger | None:
+        """self when the file is open, else None (`obs.trace.span`'s
+        `metrics` argument)."""
+        return self if self.jsonl_enabled else None
 
     def log(self, event: str, **fields) -> None:
         if self.rows is not None:
             self.rows.append({"event": event, **fields})
+        if self._file is not None:
+            record = make_record(event, self._clock() - self._t0, **fields)
+            self._file.write(json.dumps(record) + "\n")
+            self._file.flush()
         if self._echo:
             body = " ".join(f"{k}={_fmt(v)}" for k, v in fields.items())
             self._log.info("%s %s", event, body)
+
+    def close(self) -> None:
+        if self._file is not None:
+            self._file.close()
+            self._file = None
+
+    def __enter__(self) -> MetricsLogger:
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()
 
 
 def _fmt(v):

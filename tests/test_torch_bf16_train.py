@@ -183,11 +183,15 @@ def test_eight_bf16_steps_match_the_jax_trainer(jax_bf16_run, use_kernels,
 
 
 def test_check_supported_keeps_refusing_the_rest_of_item_4():
+    """Item 4 has landed: grad-accum, remat and bf16 params pass; what the
+    reference refuses of it still raises ValueError (bf16 params in
+    float32 compute off the kernels; a compute dtype it lacks)."""
     check_supported(Config(compute_dtype="bfloat16"))
-    for kw in (dict(param_dtype="bfloat16"), dict(grad_accum=2),
-               dict(remat=True)):
-        with pytest.raises(NotImplementedError, match="queue E item 4"):
-            check_supported(Config(**kw))
+    for kw in (dict(param_dtype="bfloat16", use_kernels=True),
+               dict(grad_accum=2), dict(remat=True)):
+        check_supported(Config(**kw))
+    with pytest.raises(ValueError, match="kernels only"):
+        check_supported(Config(param_dtype="bfloat16"))
     with pytest.raises(ValueError, match="compute-dtype"):
         check_supported(Config(compute_dtype="float16"))
 

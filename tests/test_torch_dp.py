@@ -414,7 +414,7 @@ def test_more_ranks_than_cards_exits_2_with_make_mesh_message(one_gpu,
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh_shape="data:2,model:2"), 1), (dict(mesh_shape="pipe:2"), 1),
     (dict(mesh_shape="seq:2"), 1), (dict(fsdp=True, num_devices=2), 1),
-    (dict(elastic_width=4, num_devices=2), 7)])
+    (dict(elastic_width=4, mesh_shape="data:2,model:2"), 1)])
 def test_what_the_data_mesh_still_refuses(kw, item):
     with pytest.raises(NotImplementedError, match=f"queue E item {item}"):
         check_supported(_cfg(**kw))

@@ -76,7 +76,8 @@ def test_lm_dp_matches_the_jax_dp_trainer(runs):
 @pytest.mark.parametrize("kw", [dict(mesh_shape="data:2,model:2"),
                                 dict(mesh_shape="data:2,seq:2"),
                                 dict(fsdp=True, num_devices=2),
-                                dict(elastic_width=4, num_devices=2)],
+                                dict(elastic_width=4,
+                                     mesh_shape="data:2,seq:2")],
                          ids=["model", "seq", "fsdp", "elastic"])
 def test_what_the_lm_data_mesh_still_refuses(kw):
     with pytest.raises(NotImplementedError, match="queue F item 1"):

@@ -29,7 +29,10 @@ To compare two commits on one card, in one call, alternating:
     done
 
 One line per measurement, tagged; the first is the card's name and power
-limit. Needs a CUDA device; it builds that checkout's kernels on first use.
+limit. Each line also carries `params_crc`, a crc32 of the run's final
+params (equal across two checkouts: the same results bit for bit), and
+the CNN lines the kernel launches a step of their measured epochs. Needs
+a CUDA device; it builds that checkout's kernels on first use.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import os
 import statistics
 import sys
 import time
+import zlib
 
 NUM_TRAIN = 60_000
 EPOCHS = 2
@@ -47,7 +51,9 @@ LM_STEPS = 10
 
 def cnn_epochs(torch, ds, scan: bool, nan_policy: str | None):
     """Warm-up epoch 0, then epochs 1..EPOCHS: (wall seconds of each
-    measured epoch, the final params on the host)."""
+    measured epoch, the final params on the host, the kernel launches
+    of the measured epochs)."""
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
     from mpi_cuda_cnn_tpu_torch.models.presets import get_model
     from mpi_cuda_cnn_tpu_torch.train.trainer import Trainer
     from mpi_cuda_cnn_tpu_torch.utils.config import Config
@@ -60,12 +66,22 @@ def cnn_epochs(torch, ds, scan: bool, nan_policy: str | None):
     tr = Trainer(get_model("reference_cnn"), ds, cfg,
                  metrics=MetricsLogger(echo=False))
     tr.run_epoch(0)
+    _kernels.reset_launches()
     times = []
     for epoch in range(1, 1 + EPOCHS):
         t0 = time.perf_counter()
         tr.run_epoch(epoch)            # ends in a device sync
         times.append(time.perf_counter() - t0)
-    return times, [t.detach().cpu() for t in tr.leaves]
+    return (times, [t.detach().cpu() for t in tr.leaves],
+            {k: v for k, v in _kernels.launches.items() if v})
+
+
+def crc(params: list) -> int:
+    """crc32 of the params' bytes, in order."""
+    c = 0
+    for t in params:
+        c = zlib.crc32(t.float().contiguous().numpy().tobytes(), c)
+    return c
 
 
 def lm_run(torch, cs, nan_policy: str | None):
@@ -114,31 +130,37 @@ def main() -> int:
     ds = synthetic_stripes(num_train=NUM_TRAIN, num_test=32)
     steps = NUM_TRAIN // 32
 
-    def cnn_line(route: str, policy: str, times: list) -> None:
+    def cnn_line(route: str, policy: str, times: list, params: list,
+                 launches: dict) -> None:
         epoch_s = statistics.median(times)
+        per_step = {k: v / (steps * EPOCHS) for k, v in launches.items()}
         print(f"{tag} cnn {route} nan_policy={policy} epoch_s {epoch_s:.4f} "
               f"step_ms {1e3 * epoch_s / steps:.4f} epochs_s "
-              f"{[round(t, 4) for t in times]}", flush=True)
+              f"{[round(t, 4) for t in times]} params_crc {crc(params)} "
+              f"launches_per_step {per_step}", flush=True)
 
-    times, _ = cnn_epochs(torch, ds, scan=True, nan_policy=None)
-    cnn_line("device", "off", times)
-    times, plain = cnn_epochs(torch, ds, scan=False, nan_policy=None)
-    cnn_line("per_batch", "off", times)
+    cnn_line("device", "off", *cnn_epochs(torch, ds, scan=True,
+                                         nan_policy=None))
+    times, plain, launches = cnn_epochs(torch, ds, scan=False,
+                                        nan_policy=None)
+    cnn_line("per_batch", "off", times, plain, launches)
     if guarded:
-        times, params = cnn_epochs(torch, ds, scan=False, nan_policy="skip")
-        cnn_line("per_batch", "skip", times)
+        times, params, launches = cnn_epochs(torch, ds, scan=False,
+                                             nan_policy="skip")
+        cnn_line("per_batch", "skip", times, params, launches)
         if not same(params, plain):
             raise AssertionError("cnn: the guarded epochs' params differ")
 
-    def lm_line(policy: str, tok_s: float, tokens: int) -> None:
+    def lm_line(policy: str, tok_s: float, tokens: int, params) -> None:
         print(f"{tag} lm flagship f32 flash nan_policy={policy} tokens_per_s "
-              f"{tok_s:.1f} step_ms {1e3 * tokens / tok_s:.3f}", flush=True)
+              f"{tok_s:.1f} step_ms {1e3 * tokens / tok_s:.3f} params_crc "
+              f"{crc(params)}", flush=True)
 
     tok_s, tokens, plain = lm_run(torch, cs, None)
-    lm_line("off", tok_s, tokens)
+    lm_line("off", tok_s, tokens, plain)
     if guarded:
         tok_s, tokens, params = lm_run(torch, cs, "skip")
-        lm_line("skip", tok_s, tokens)
+        lm_line("skip", tok_s, tokens, params)
         if not same(params, plain):
             raise AssertionError("lm: the guarded run's params differ")
     return 0
