@@ -122,6 +122,32 @@ final line:
             attention: 30 steps and the eval, launches of K7/K8/K9 held
             to 8/8/8 per step and 8/0/0 per eval, the loss held to fall
             well below the first step's.
+8a. lm_moe  the flagship with 8 experts a block, top-2, cf 1.25: (a)
+            `lm` in bf16 with flash attention and 512-token routing
+            chunks, 30 steps and the eval, K7/K8/K9 held to 8/8/8 per
+            step and 8/0/0 per eval, the loss to fall below 0.7 x the
+            first step's; step ms, tokens/s, mfu, peak memory; (b)
+            float32 chunked: the first step's gradients with flash and
+            with the oracle (routed by the flash forward's choices, each
+            choice the oracle would take otherwise a tie) per leaf; (c)
+            float32 unchunked at the largest batch whose reckoned peak
+            fits the card, against a chunked step at that batch (held
+            when neither drops a token, else the drop counts); (d)
+            `lm-bench --moe-experts 8 --moe-top-k 2` rows (bf16 and
+            float32, chunked and not, peak memory) and torch.profiler's
+            split of one MoE layer into router build, dispatch einsum,
+            expert FFN, combine and backward.
+8b. generate  the lm and lm_moe trainers sample 256 tokens greedily
+            after a 1,024-token prompt with int8 decode weights: K2 held
+            to 33 (dense) and 17 (MoE) launches a token; the tokens held
+            to the plain path's (dequantized weights), equal or tied;
+            prompt lookup with k 8 against generate (mean accepted
+            tokens a round); a temperature-0.8 run against its plain
+            twin; then an MoE `PagedEngine` on K1 + K2 (int8 pages and
+            weights; 8 and 17 launches a forward) against its plain
+            twin, equal or tied. The kernels phase holds K2 at
+            generate's products (N 1 and 8) and K1 at the engine's MHA
+            pages (marked `generate`).
 9. lm_bench `lm-bench` at the flagship (vocab 8192): {f32, bf16} x
             {oracle, flash} and bf16 + flash + chunked CE, 10 timed
             steps each; tokens/s and mfu per row, then the summary.
@@ -175,9 +201,9 @@ final line:
 
 Then `nvidia-smi`'s name and power limit, the kernels line
 ({"kernels": [...]}, each source's C launch function and `__global__`
-kernels; launches of K1/K2 from the serve phase, of
+kernels; launches of K1/K2 from the serve and generate phases, of
 K3/K4/K5 from the train phase, of K6 from conv_bench and of K7/K8/K9
-from the lm phase) and,
+from the lm and lm_moe phases) and,
 last, the device line {"ok": true, "device": {...}}. Without a CUDA
 device, or without the package beside it, the script fails before any
 result.
@@ -555,6 +581,95 @@ LM_RECOVER_ARGS = LM_MODEL_ARGS + [
     "--attn-impl", "flash", "--steps", str(LM_RECOVER_STEPS),
     "--warmup-steps", "2", "--log-every", "1",
     "--checkpoint-every", str(LM_RECOVER_EVERY)]
+# lm_moe: the LM flagship with 8 experts a block, top-2, capacity factor
+# 1.25 (`scripts/bench_lm.py:108-128`'s MoE flags; 152,093,696 params at
+# vocab 8192, 143,962,112 at the synthetic corpus's 251). (a) `lm` in
+# bf16 compute with flash attention and chunked routing (512 tokens a
+# chunk), LM_MOE_STEPS steps and the eval: K7/K8/K9 8/8/8 a step and
+# 8/0/0 an eval, the loss below LM_LOSS_DROP x the first step's; step
+# ms, tokens/s, mfu (analytic FLOPs, k experts a token) and the peak
+# memory. (b) float32, chunk 512: the first step's gradients with flash
+# and with the oracle attention within LM_MOE_GRAD_REL_L2 per leaf.
+# (c) float32, unchunked, at the largest batch of LM_MOE_BATCHES whose
+# reckoned peak (below) is at most LM_MOE_MEMORY_SHARE of the card: its
+# first step's gradients against a chunk-512 step's at the same batch
+# within LM_MOE_GRAD_REL_L2 per leaf when neither drops a token;
+# otherwise both drop counts are printed (the chunks' capacity differs by
+# definition). (d) `lm-bench --moe-experts 8 --moe-top-k 2` at vocab
+# 8192, bf16 + flash chunked and unchunked, float32 chunked and
+# unchunked (at (c)'s batch), with peak memory; then torch.profiler's
+# split of one MoE layer (16,384 tokens) into the reference's stages.
+LM_MOE_ARGS = LM_MODEL_ARGS + ["--moe-experts", "8", "--moe-top-k", "2"]
+LM_MOE_CHUNK = 512
+LM_MOE_STEPS = 30
+LM_MOE_TRAIN_ARGS = LM_MOE_ARGS + [
+    "--attn-impl", "flash", "--compute-dtype", "bfloat16",
+    "--moe-dispatch-chunk", str(LM_MOE_CHUNK), "--steps", str(LM_MOE_STEPS),
+    "--warmup-steps", "5", "--log-every", "10"]
+LM_MOE_BATCHES = (8, 4, 2)
+LM_MOE_MEMORY_SHARE = 0.75
+# Unchunked routing's float32 (T, E, C) tensors, in bytes per T^2 at E 8,
+# top-2, cf 1.25 (C = 0.3125 T, so T * E * C * 4 = 10 T^2): autograd keeps
+# the dispatch and combine tensors of each of the 8 layers (160 T^2), and
+# building a layer's dispatch holds three at once (30 T^2).
+LM_MOE_ROUTING_BYTES_PER_T2 = 190
+# (b) and (c) hold per-leaf gradients to LM_MOE_GRAD_REL_L2, not the
+# dense LM's 1e-4: the experts' ReLU has a kink where GELU is smooth, and
+# of the 67M expert pre-activations a layer (16,384 tokens x 2 choices x
+# 2,048 units) about 1e-6 lie within float32 rounding of 0, so two
+# attentions' rounding puts some tens of them on the other side; each
+# switches its unit's whole gradient term: sqrt(50 / 67M) ~ 1e-3 of a
+# leaf's norm upstream of the kinks (measured on the card: 3e-5 to 5.2e-4
+# for w1 and every leaf below it, 1e-6 or less for the last block's w2
+# and gate, the head and ln_f). A wrong dq, dk or dv moves a leaf by far
+# more than 2e-3.
+LM_MOE_GRAD_REL_L2 = 2e-3
+# (b)'s routing: flash and the oracle differ by float32 rounding (about
+# 1e-6 relative), so a token whose two best experts are that close may
+# choose otherwise, and from there its residual stream, the capacity
+# queue behind it and every later layer differ (seen on the card: a
+# choice 0.14 apart in a later layer). The oracle's forward therefore
+# routes by the flash forward's choices, layer by layer (its gates from
+# its own probabilities); where its own probabilities would have chosen
+# otherwise, the two must be a tie, within MOE_ROUTE_TIE.
+MOE_ROUTE_TIE = 1e-5
+LM_MOE_BENCH_ARGS = ["--steps", "10", "--moe-experts", "8",
+                     "--moe-top-k", "2"]
+MOE_SPLIT_STAGES = ("ep.router_build", "ep.dispatch_einsum", "ep.expert_ffn",
+                    "ep.combine_einsum")
+MOE_SPLIT_RUNS = 3
+# generate: the lm phase's dense flagship and the lm_moe model (both
+# trained, vocab 251, max_seq 2048) sample GEN_TOKENS tokens greedily
+# from the eval tail (`LMTrainer.sample`: a 1,024-token prompt) with int8
+# decode weights: K2 on every weight product, GEN_K2_PER_TOKEN a token
+# (dense: wqkv, wo, w1, w2 of 8 layers and the head; MoE: wqkv and wo,
+# the experts stay float32, and the head), counting the prefill as the
+# first token's forward. Each run is held against the same run on the
+# plain path (`int8_gemv_plain`'s dequantized weights): equal, or at the
+# first difference a tie (top-2 gap of the plain path's logits, scaled
+# and noised when sampling, below TIE_GAP). Then lookup with k
+# GEN_LOOKUP_K against generate (equal or tied; mean accepted tokens a
+# round), a temperature-GEN_TEMPERATURE run against its plain twin, and
+# an MoE PagedEngine on K1 + K2 against its plain paths (gather read,
+# dequantized weights): the serve phase's geometry (8 slots, page 16,
+# chunk 32), int8 MHA pages (the serve phase's kind: K1 within 1e-4 of
+# the gather read, so the tie rule holds; bf16 pages differ by up to
+# 1e-2, ATTN_ATOL, and a top-2 gap of 1.5e-3 was seen there), int8
+# weights, GEN_SERVE requests; K1 8 and K2 17 a forward. ms a token are
+# timed on a second, warmed call of each path (the sample's first call
+# quantizes the weights).
+GEN_TOKENS = 256
+GEN_K2_PER_TOKEN = {"dense": 33, "moe": 17}
+GEN_LOOKUP_K = 8
+GEN_TEMPERATURE = 0.8
+GEN_SEED = 0
+GEN_SERVE = dict(n=8, vocab=251, prompt_min=64, prompt_max=512, out_min=16,
+                 out_max=64, rate=0.0, seed=0)
+# K2 at generate's products, (din, dout), at N 1 (generate, B 1) and N 8
+# (the lookup verify block): the dense flagship's wqkv, wo, w1, w2, its
+# head at vocab 8192 and at the synthetic corpus's 251.
+GEMM_GENERATE = [(512, 1536), (512, 512), (512, 2048), (2048, 512),
+                 (512, 8192), (512, 251)]
 
 
 def emit(obj) -> None:
@@ -649,8 +764,10 @@ def bound(nbytes: float, flops: float,
 
 def attention_case(torch, dev, dtype: str, b: int, kk: int, gen,
                    ragged: bool = False, pages: int = TABLE_PAGES,
-                   last_range: tuple[int, int] | None = None) -> dict:
-    """One paged-attention call at the serving shapes: a pool of b *
+                   last_range: tuple[int, int] | None = None,
+                   kv_heads: int = KV_HEADS) -> dict:
+    """One paged-attention call at the serving shapes (HEADS query heads
+    over `kv_heads`): a pool of b *
     pages + 1 pages, distinct random block tables of `pages` pages,
     positions that end mid-page in [last_range) (by default the table's
     second half); `ragged`: slot 0's in its first page instead (one short
@@ -668,7 +785,7 @@ def attention_case(torch, dev, dtype: str, b: int, kk: int, gen,
     pool = b * pages + 1
     L = pages * PAGE
     lo, hi = last_range or (L // 2, L - 1)
-    shape = (pool, PAGE, KV_HEADS, HEAD_DIM)
+    shape = (pool, PAGE, kv_heads, HEAD_DIM)
 
     def randn(*s):
         return torch.randn(*s, generator=gen).to(dev)
@@ -694,7 +811,8 @@ def attention_case(torch, dev, dtype: str, b: int, kk: int, gen,
     want = paged_attend_plain(q, c, positions, table, PAGE)
     err = (got - want).abs().max().item()
     tol = ATTN_ATOL[dtype]
-    what = f"paged_attention {dtype} B={b} kk={kk} L={L} ragged={ragged}"
+    what = (f"paged_attention {dtype} B={b} kk={kk} L={L} Hkv={kv_heads} "
+            f"ragged={ragged}")
     if not err <= tol:
         raise AssertionError(f"{what}: max error {err} > {tol}")
     again = paged_attend(q, c, positions, table, PAGE)
@@ -709,7 +827,7 @@ def attention_case(torch, dev, dtype: str, b: int, kk: int, gen,
         # Yardstick only: SDPA over the already gathered, head-repeated
         # rows with the same mask.
         tbl = table.long()
-        rows = {n: repeat_kv(c[n][tbl].reshape(b, L, KV_HEADS, HEAD_DIM),
+        rows = {n: repeat_kv(c[n][tbl].reshape(b, L, kv_heads, HEAD_DIM),
                              HEADS).transpose(1, 2) for n in ("k", "v")}
         mask = (torch.arange(L, device=dev)[None, None, :]
                 <= positions[:, :, None].long())[:, None]
@@ -722,14 +840,14 @@ def attention_case(torch, dev, dtype: str, b: int, kk: int, gen,
     elem = c["k"].element_size()
     pos = positions.long().clamp(max=L - 1).cpu()
     pages_read = int(((pos.max(dim=1).values // PAGE) + 1).sum())
-    page_bytes = PAGE * KV_HEADS * (2 * HEAD_DIM * elem
+    page_bytes = PAGE * kv_heads * (2 * HEAD_DIM * elem
                                     + (8 if dtype == "int8" else 0))
     nbytes = (q.numel() * 4 + b * kk * HEADS * HEAD_DIM * 4 + table.numel() * 4
               + positions.numel() * 4 + pages_read * page_bytes)
     flops = 4 * HEAD_DIM * HEADS * int((pos + 1).sum())
     bound_ms, bound_by = bound(nbytes, flops)
     return {"kernel": "paged_attention", "dtype": dtype, "B": b, "kk": kk,
-            "L": L, "ragged": ragged, "bitwise_repeat": True,
+            "L": L, "Hkv": kv_heads, "ragged": ragged, "bitwise_repeat": True,
             "max_abs_err": err, "tolerance": tol, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
@@ -1246,6 +1364,21 @@ def phase_kernels(torch, dev) -> list[dict]:
                          + GEMM_RAGGED):
         cases.append(gemm_case(torch, dev, n, din, dout, gen))
         emit({"phase": "kernel_case", **cases[-1]})
+    # generate's products (N 1 and the lookup block's N 8), and the MoE
+    # engine's MHA pages (8 kv heads, int8) of the generate phase.
+    for n, din, dout in [(n, *s) for n in (1, GEN_LOOKUP_K)
+                         for s in GEMM_GENERATE]:
+        cases.append({**gemm_case(torch, dev, n, din, dout, gen),
+                      "generate": True})
+        emit({"phase": "kernel_case", **cases[-1]})
+    for b, kk in ((args.slots, 1), (1, args.prefill_chunk)):
+        cases.append({**attention_case(torch, dev, "int8", b, kk, gen,
+                                       pages=width, last_range=(
+                                           GEN_SERVE["prompt_min"],
+                                           GEN_SERVE["prompt_max"]
+                                           + GEN_SERVE["out_max"]),
+                                       kv_heads=HEADS), "generate": True})
+        emit({"phase": "kernel_case", **cases[-1]})
     cases.extend(phase_cnn_kernels(torch, dev, gen))
     return cases
 
@@ -1343,32 +1476,17 @@ def last_logits(torch, engine, ctx) -> "torch.Tensor":
     return logits[0, n - 1].float()
 
 
-def phase_agree(torch, out) -> dict:
-    """Replays the first requests through the plain versions on the card
-    (gather read, dequantized float32 weights) and compares tokens."""
+def agree_requests(torch, eng, plain, served: list, replay: list) -> dict:
+    """Requests served by `eng` (kernels) against the same requests
+    replayed by `plain` (plain versions): equal tokens, or at the first
+    difference a tie (the plain path's top-2 logit gap there below
+    TIE_GAP)."""
     import numpy as np
 
-    from mpi_cuda_cnn_tpu_torch.ops.gemv import dequantize_decode_params
-    from mpi_cuda_cnn_tpu_torch.serve.bench import make_workload
-    from mpi_cuda_cnn_tpu_torch.serve.engine import PagedEngine
-
-    eng, args = out["engine"], out["args"]
-    plain = PagedEngine(
-        eng.model, dequantize_decode_params(eng.params), slots=eng.slots,
-        num_pages=eng.num_pages, page_size=eng.page_size,
-        prefill_chunk=eng.prefill_chunk, cache_dtype=eng.cache_dtype,
-        max_len=eng.max_len, attn_kernel="gather", weights_dtype="float32",
-        device=eng.device)
-    reqs = make_workload(n=args.requests, vocab=args.vocab,
-                         prompt_min=args.prompt_min,
-                         prompt_max=args.prompt_max, out_min=args.out_min,
-                         out_max=args.out_max, rate=0.0,
-                         seed=args.seed)[:AGREE_REQUESTS]
-    replay = plain.run(reqs, mode="continuous")
-    served = {r.rid: r for r in out["results"]["continuous"].requests}
+    served = {r.rid: r for r in served}
     compared = equal = 0
     diverged = []
-    for r in replay.requests:
+    for r in replay:
         k_out = served[r.rid].out
         if len(k_out) != len(r.out):
             raise AssertionError(f"request {r.rid}: {len(k_out)} tokens "
@@ -1392,9 +1510,41 @@ def phase_agree(torch, out) -> dict:
             raise AssertionError(f"request {r.rid} step {t}: kernel path "
                                  f"chose {k_out[t]}, plain {r.out[t]}, top-2 "
                                  f"gap {gap} > {TIE_GAP}")
-    return {"requests": len(replay.requests), "tokens_compared": compared,
+    return {"requests": len(replay), "tokens_compared": compared,
             "tokens_equal": equal, "diverged": diverged,
             "tie_gap": TIE_GAP}
+
+
+def plain_engine(eng):
+    """`eng`'s twin on the plain versions: the gather read and the
+    dequantized float32 weights."""
+    from mpi_cuda_cnn_tpu_torch.ops.gemv import dequantize_decode_params
+    from mpi_cuda_cnn_tpu_torch.serve.engine import PagedEngine
+
+    return PagedEngine(
+        eng.model, dequantize_decode_params(eng.params), slots=eng.slots,
+        num_pages=eng.num_pages, page_size=eng.page_size,
+        prefill_chunk=eng.prefill_chunk, cache_dtype=eng.cache_dtype,
+        max_len=eng.max_len, attn_kernel="gather", weights_dtype="float32",
+        device=eng.device)
+
+
+def phase_agree(torch, out) -> dict:
+    """Replays the first requests through the plain versions on the card
+    (gather read, dequantized float32 weights) and compares tokens."""
+    from mpi_cuda_cnn_tpu_torch.serve.bench import make_workload
+
+    eng, args = out["engine"], out["args"]
+    reqs = make_workload(n=args.requests, vocab=args.vocab,
+                         prompt_min=args.prompt_min,
+                         prompt_max=args.prompt_max, out_min=args.out_min,
+                         out_max=args.out_max, rate=0.0,
+                         seed=args.seed)[:AGREE_REQUESTS]
+    plain = plain_engine(eng)
+    replay = plain.run(reqs, mode="continuous")
+    return agree_requests(torch, eng, plain,
+                          out["results"]["continuous"].requests,
+                          replay.requests)
 
 
 def phase_serve(torch, argv: list[str]):
@@ -2006,10 +2156,11 @@ def phase_conv_bench(torch) -> dict:
     return launches
 
 
-def phase_lm(torch) -> dict:
+def phase_lm(torch):
     """`lm` at the flagship width through the flash kernels, with the
     launch counts zeroed just before `train` (the steps and the eval) and
-    read just after. Returns the launches per kernel."""
+    read just after. Returns (the launches per kernel, the trained
+    trainer, which the generate phase samples from)."""
     import math
 
     from mpi_cuda_cnn_tpu_torch.ops import _kernels
@@ -2054,7 +2205,562 @@ def phase_lm(torch) -> dict:
           "attn_impl": trainer.attn_impl, "launches": launches,
           "per_step": LM_PER_STEP, "per_eval": LM_PER_EVAL,
           "loss_drop": LM_LOSS_DROP})
-    return launches
+    return launches, trainer
+
+
+
+def moe_route_spy(moe, force: list | None = None):
+    """Wraps `moe.route_probs` and `moe._dispatch` for one forward: per
+    MoE layer, the router's probabilities and its own choices, and the
+    (token, choice) assignments dropped at capacity. With `force` (the
+    choices of an earlier forward's layers, in order) each layer routes
+    by those choices instead, its gates taken from its own probabilities
+    as `route_probs` takes them. Returns (records, undo)."""
+    real_probs, real_dispatch = moe.route_probs, moe._dispatch
+    rec = {"probs": [], "idx": [], "drops": []}
+
+    def probs(x, gate_w, k):
+        p, idx, gates = real_probs(x, gate_w, k)
+        rec["probs"].append(p.detach().reshape(-1, p.shape[-1]))
+        rec["idx"].append(idx.reshape(-1, k))
+        if force is not None:
+            idx = force[len(rec["idx"]) - 1].reshape(idx.shape)
+            vals = p.gather(-1, idx)
+            gates = vals if k == 1 else vals / vals.sum(-1, keepdim=True)
+        return p, idx, gates
+
+    def dispatch(idx, *args, **kw):
+        d, g = real_dispatch(idx, *args, **kw)
+        rec["drops"].append(idx.numel() - int(d.float().sum().item()))
+        return d, g
+
+    moe.route_probs, moe._dispatch = probs, dispatch
+
+    def undo():
+        moe.route_probs, moe._dispatch = real_probs, real_dispatch
+
+    return rec, undo
+
+
+def routing_ties(own: dict, forced: list) -> dict:
+    """Where a forward routed by `forced` choices (`moe_route_spy` with
+    force) would have chosen otherwise by its own probabilities: each
+    such choice must be a tie, the two probabilities within
+    MOE_ROUTE_TIE."""
+    flips, gaps = 0, []
+    for oi, fi, op in zip(own["idx"], forced, own["probs"], strict=True):
+        rows, cols = (oi != fi).nonzero(as_tuple=True)
+        flips += len(rows)
+        for r, c in zip(rows.tolist(), cols.tolist()):
+            gap = (op[r, oi[r, c]] - op[r, fi[r, c]]).abs().item()
+            gaps.append(gap)
+            if gap > MOE_ROUTE_TIE:
+                raise AssertionError(f"lm_moe: a routing choice differs "
+                                     f"with probabilities {gap} apart")
+    return {"choices_differ": flips, "gaps": gaps[:16]}
+
+
+def cuda_sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def reset_peak(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak_bytes(torch, dev):
+    """The device's peak allocated bytes since `reset_peak` (None on the
+    CPU, where the rehearsals run)."""
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+
+
+def moe_grads(torch, trainer, rows: int, chunk: int, attn: str,
+              lm_loss, get_attn_fn, tree_leaves, force=None):
+    """(gradients, the routers' `moe_route_spy` records, peak bytes) of
+    step 0's first `rows` rows at the trainer's params, routed in chunks
+    of `chunk` tokens (0: the whole batch at once), by `force`'s choices
+    where given."""
+    from mpi_cuda_cnn_tpu_torch.parallel import moe
+
+    tokens, targets = (trainer._to_device(a[:rows])
+                       for a in trainer._sample_batch(0))
+    rec, undo = moe_route_spy(moe, force)
+    reset_peak(torch, trainer.device)
+    try:
+        loss = lm_loss(trainer.model, trainer.state["params"], tokens,
+                       targets, attn_fn=get_attn_fn(attn),
+                       compute_dtype=trainer._compute_dtype,
+                       moe_dispatch_chunk=chunk)
+        grads = torch.autograd.grad(loss,
+                                    tree_leaves(trainer.state["params"]))
+    finally:
+        undo()
+    cuda_sync(torch, trainer.device)
+    return grads, rec, peak_bytes(torch, trainer.device)
+
+
+def rel_l2_per_leaf(got, want) -> dict:
+    return {i: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+            for i, (a, b) in enumerate(zip(got, want, strict=True))}
+
+
+def phase_lm_moe(torch, dev=None):
+    """LM_MOE's (a)-(d) (see LM_MOE_ARGS) on `dev` (the card; the CPU to
+    rehearse, with LM_MODEL_ARGS small and LM_PER_STEP / LM_PER_EVAL
+    zeros). Returns (the launches of (a)'s `train`, the trained bf16 MoE
+    trainer)."""
+    import math
+
+    from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+    from mpi_cuda_cnn_tpu_torch.train.lm import (
+        count_params,
+        get_attn_fn,
+        lm_flops_per_token,
+        lm_loss,
+    )
+    from mpi_cuda_cnn_tpu_torch.train.lm_trainer import LMTrainer
+    from mpi_cuda_cnn_tpu_torch.utils.config import parse_lm_args
+    from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
+
+    dev = dev or torch.device("cuda")
+    on_card = dev.type == "cuda"
+    smi = nvidia_smi() if on_card else "cpu"
+    where = ["--device", dev.type]
+    # (a) `lm` in bf16, flash, chunked routing.
+    cfg = parse_lm_args(LM_MOE_TRAIN_ARGS + where)
+    metrics = MetricsLogger(echo=False, capture=True)
+    trainer = LMTrainer(cfg, metrics=metrics)
+    if trainer.attn_impl != "flash" or trainer.device.type != dev.type:
+        raise AssertionError(f"lm_moe: {trainer.attn_impl} on "
+                             f"{trainer.device}")
+    tokens, targets = (trainer._to_device(a) for a in trainer._sample_batch(0))
+    with torch.no_grad():
+        first = float(lm_loss(trainer.model, trainer.state["params"], tokens,
+                              targets, attn_fn=get_attn_fn("flash"),
+                              compute_dtype=trainer._compute_dtype,
+                              moe_dispatch_chunk=LM_MOE_CHUNK))
+    reset_peak(torch, dev)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    result = trainer.train()
+    wall_s = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    peak = peak_bytes(torch, dev)
+    for name in _kernels.KERNELS:
+        want = (LM_PER_STEP[name] * LM_MOE_STEPS + LM_PER_EVAL[name]
+                if name in LM_PER_STEP else 0)
+        if launches[name] != want:
+            raise AssertionError(f"lm_moe: {name} launched {launches[name]} "
+                                 f"times, want {want}")
+    if not (math.isfinite(result.eval_loss)
+            and math.isfinite(result.final_loss)
+            and result.final_loss < LM_LOSS_DROP * first):
+        raise AssertionError(f"lm_moe: first loss {first}, final "
+                             f"{result.final_loss}, eval {result.eval_loss}")
+    model = trainer.model
+    tokens_per_step = cfg.batch_size * cfg.seq_len
+    step_s = tokens_per_step / result.tokens_per_s
+    flops = lm_flops_per_token(model, cfg.seq_len) * tokens_per_step
+    emit({"phase": "lm_moe", "part": "a_train", "nvidia_smi": smi,
+          "dtype": "bfloat16", "moe_dispatch_chunk": LM_MOE_CHUNK,
+          "steps": result.steps_run, "first_loss": first,
+          "logged_losses": {r["step"]: r["loss"] for r in metrics.rows},
+          "loss": result.final_loss, "eval_loss": result.eval_loss,
+          "tokens_per_s": result.tokens_per_s, "step_ms": 1e3 * step_s,
+          "mfu": flops / step_s / BF16_FLOPS, "flops_per_step": flops,
+          "peak_memory_bytes": peak, "wall_s": wall_s,
+          "vocab": model.vocab, "params": count_params(trainer.state["params"]),
+          "launches": launches, "per_step": LM_PER_STEP,
+          "per_eval": LM_PER_EVAL, "loss_drop": LM_LOSS_DROP})
+
+    # (b) float32, chunk 512: flash against the oracle, first gradients.
+    f32 = LMTrainer(parse_lm_args(LM_MOE_ARGS + where + [
+        "--attn-impl", "flash", "--moe-dispatch-chunk", str(LM_MOE_CHUNK)]),
+        metrics=MetricsLogger(echo=False))
+    batch = f32.cfg.batch_size
+    g_flash, r_flash, peak_chunk = moe_grads(
+        torch, f32, batch, LM_MOE_CHUNK, "flash", lm_loss, get_attn_fn,
+        tree_leaves)
+    g_oracle, r_oracle, _ = moe_grads(torch, f32, batch, LM_MOE_CHUNK,
+                                      "oracle", lm_loss, get_attn_fn,
+                                      tree_leaves, force=r_flash["idx"])
+    rel = rel_l2_per_leaf(g_flash, g_oracle)
+    ties = routing_ties(r_oracle, r_flash["idx"])
+    del g_oracle, r_oracle
+    empty_cache(torch, dev)
+    if not max(rel.values()) <= LM_MOE_GRAD_REL_L2:
+        raise AssertionError(f"lm_moe: float32 chunked first gradients of "
+                             f"flash and the oracle apart by {rel}")
+    emit({"phase": "lm_moe", "part": "b_f32_flash_vs_oracle",
+          "first_grad_rel_l2": rel, "max": max(rel.values()),
+          "tolerance": LM_MOE_GRAD_REL_L2, "oracle_routing_ties": ties,
+          "dropped": sum(r_flash["drops"]),
+          "peak_memory_bytes": peak_chunk})
+
+    # (c) float32, unchunked: the largest batch whose reckoned peak fits.
+    # The reckoning: (b)'s measured chunked peak scaled to the batch, plus
+    # unchunked routing's (T, E, C) float32 tensors
+    # (LM_MOE_ROUTING_BYTES_PER_T2 x T^2, T = batch x seq). At batch 8
+    # (T 16,384) those alone are about 51 GB.
+    card = (torch.cuda.get_device_properties(dev).total_memory if on_card
+            else float("inf"))
+    reckoned = {b: (peak_chunk or 0) * b / batch
+                + LM_MOE_ROUTING_BYTES_PER_T2 * (b * f32.cfg.seq_len) ** 2
+                for b in LM_MOE_BATCHES}
+    rows = next(b for b in LM_MOE_BATCHES
+                if reckoned[b] <= LM_MOE_MEMORY_SHARE * card)
+    g_whole, r_whole, peak_whole = moe_grads(
+        torch, f32, rows, 0, "flash", lm_loss, get_attn_fn, tree_leaves)
+    g_chunk, r_rows, _ = moe_grads(
+        torch, f32, rows, LM_MOE_CHUNK, "flash", lm_loss, get_attn_fn,
+        tree_leaves)
+    drops_whole, drops_rows = sum(r_whole["drops"]), sum(r_rows["drops"])
+    rel = rel_l2_per_leaf(g_whole, g_chunk)
+    del g_whole, g_chunk, g_flash, r_flash, r_whole, r_rows
+    empty_cache(torch, dev)
+    if drops_whole == 0 and drops_rows == 0 \
+            and not max(rel.values()) <= LM_MOE_GRAD_REL_L2:
+        raise AssertionError(f"lm_moe: nothing dropped, yet unchunked and "
+                             f"chunked gradients apart by {rel}")
+    emit({"phase": "lm_moe", "part": "c_f32_unchunked", "batch": rows,
+          "card_bytes": card, "reckoned_peak_bytes": reckoned,
+          "measured_peak_bytes": peak_whole,
+          "dropped": {"unchunked": drops_whole, "chunk512": drops_rows},
+          "grad_rel_l2_unchunked_vs_chunk512": rel,
+          "held": drops_whole == 0 and drops_rows == 0,
+          "tolerance": LM_MOE_GRAD_REL_L2})
+    del f32
+    empty_cache(torch, dev)
+
+    # (d) lm-bench rows and the per-layer split.
+    phase_lm_moe_bench(torch, rows, dev)
+    phase_moe_split(torch, dev)
+    return launches, trainer
+
+
+def empty_cache(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_lm_moe_bench(torch, f32_rows: int, dev) -> None:
+    """`lm-bench --moe-experts 8 --moe-top-k 2`: bf16 + flash, chunked
+    (512) and unchunked (`--quick`); float32 + flash chunked at batch 8
+    and unchunked at `f32_rows` (the function its rows run). Each row's
+    peak memory; K7/K8/K9 13 x 8 a row."""
+    import math
+
+    from mpi_cuda_cnn_tpu_torch.models.transformer import TransformerLM
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+    from mpi_cuda_cnn_tpu_torch.train.lm import lm_flops_per_token
+    from mpi_cuda_cnn_tpu_torch.train.lm_bench import bench_config, lm_bench
+
+    want = LM_BENCH_STEPS * LM_PER_STEP["flash_fwd"]
+    for chunk in (LM_MOE_CHUNK, 0):
+        out = lm_bench(LM_MOE_BENCH_ARGS + [
+            "--quick", "--moe-dispatch-chunk", str(chunk),
+            "--device", dev.type])
+        (line,) = out["lines"]
+        if (set(line["kernel_launches"].values()) != {want}
+                or not math.isfinite(line["loss"])):
+            raise AssertionError(f"lm_moe bench: {line}")
+        emit({"phase": "lm_moe", "part": "d_bench", **line,
+              "moe_dispatch_chunk": chunk,
+              "batch": lm_bench_args(LM_MOE_BENCH_ARGS).batch,
+              "model": out["summary"]["model"],
+              "params": out["summary"]["params"]})
+    args = lm_bench_args(LM_MOE_BENCH_ARGS)
+    for chunk, rows in ((LM_MOE_CHUNK, args.batch), (0, f32_rows)):
+        model = TransformerLM(vocab=args.vocab, dim=args.dim,
+                              heads=args.heads, depth=args.depth,
+                              max_seq=args.seq, moe_experts=args.moe_experts,
+                              moe_top_k=args.moe_top_k)
+        reset_peak(torch, dev)
+        _kernels.reset_launches()
+        dt, loss = bench_config(model, batch=rows, seq=args.seq,
+                                compute_dtype=None, attn_impl="flash",
+                                device=dev, steps=args.steps,
+                                moe_dispatch_chunk=chunk)
+        launches = {k: _kernels.launches[k] for k in FLASH_KERNELS}
+        if set(launches.values()) != {want} or not math.isfinite(loss):
+            raise AssertionError(f"lm_moe bench f32: {launches}, {loss}")
+        flops = lm_flops_per_token(model, args.seq) * rows * args.seq
+        emit({"phase": "lm_moe", "part": "d_bench", "bench": "lm_pretrain",
+              "dtype": "float32", "attn": "flash", "moe_dispatch_chunk": chunk,
+              "batch": rows, "step_ms": dt * 1e3,
+              "tokens_per_s": rows * args.seq / dt,
+              "mfu": flops / dt / F32_FLOPS, "loss": loss,
+              "peak_memory_bytes": peak_bytes(torch, dev),
+              "kernel_launches": launches})
+        empty_cache(torch, dev)
+
+
+def lm_bench_args(argv: list[str]):
+    from mpi_cuda_cnn_tpu_torch.train import lm_bench
+
+    return lm_bench._parser().parse_args(argv)
+
+
+def phase_moe_split(torch, dev) -> None:
+    """torch.profiler over one MoE layer (the flagship's: 16,384 tokens,
+    d 512, 8 experts, top-2), in float32 and bf16, chunked (512) and not:
+    a forward alone, whose kernels give each of the reference's stages
+    (router build, dispatch einsum, expert FFN, combine: the kernels
+    launched inside each named range) and the forward's total, then a
+    forward and backward, whose kernels less the forward's are the
+    backward's. The named ranges' own rows are left out of the kernel
+    sums (the profiler lists each range on the device as well)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpi_cuda_cnn_tpu_torch.parallel import moe
+
+    gen = torch.Generator().manual_seed(0)
+    args = lm_bench_args(LM_MOE_BENCH_ARGS)
+    d, e, t = args.dim, args.moe_experts, args.batch * args.seq
+    params0 = moe.init_moe_params(gen, d, 4 * d, e)
+    x0 = torch.randn(t, d, generator=gen)
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+
+    def device_us(ev, total: bool) -> float:
+        name = "device_time_total" if total else "self_device_time_total"
+        return getattr(ev, name, getattr(ev, name.replace("device",
+                                                          "cuda"), 0))
+
+    def profiled(fn):
+        """(kernel us, stage us) of MOE_SPLIT_RUNS calls of fn."""
+        with profile(activities=activities) as prof:
+            for _ in range(MOE_SPLIT_RUNS):
+                fn()
+            cuda_sync(torch, dev)
+        rows = prof.key_averages()
+        kernels = sum(device_us(ev, False) for ev in rows
+                      if ev.key not in MOE_SPLIT_STAGES
+                      and str(getattr(ev, "device_type", "")).endswith("CUDA"))
+        stages = {}
+        for ev in rows:
+            if ev.key in MOE_SPLIT_STAGES:
+                stages[ev.key] = max(stages.get(ev.key, 0.0),
+                                     device_us(ev, True))
+        return kernels, stages
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for chunk in (LM_MOE_CHUNK, 0):
+            params = {k: v.to(dev, dtype).requires_grad_(True)
+                      for k, v in params0.items()}
+            x = x0.to(dev, dtype).requires_grad_(True)
+
+            def forward():
+                return moe.moe_mlp(x, params, n_experts=e, top_k=2,
+                                   dispatch_chunk=chunk)
+
+            def step():
+                y, aux = forward()
+                torch.autograd.grad(y.float().square().mean() + aux,
+                                    [x, *params.values()])
+
+            for _ in range(2):
+                step()
+            reset_peak(torch, dev)
+            t0 = time.perf_counter()
+            for _ in range(MOE_SPLIT_RUNS):
+                step()
+            cuda_sync(torch, dev)
+            step_ms = 1e3 * (time.perf_counter() - t0) / MOE_SPLIT_RUNS
+            fwd_us, stage_us = profiled(forward)
+            all_us, _ = profiled(step)
+            per = 1e3 * MOE_SPLIT_RUNS
+            emit({"phase": "lm_moe", "part": "d_split",
+                  "dtype": str(dtype).split(".")[-1],
+                  "moe_dispatch_chunk": chunk, "tokens": t,
+                  "step_ms": step_ms,
+                  "stage_device_ms": {k: v / per for k, v in stage_us.items()},
+                  "forward_device_ms": fwd_us / per,
+                  "backward_device_ms": (all_us - fwd_us) / per,
+                  "step_device_ms": all_us / per,
+                  "peak_memory_bytes": peak_bytes(torch, dev)})
+            del params, x
+            empty_cache(torch, dev)
+
+
+def tokens_agree(torch, what: str, got, want, logits_at) -> dict:
+    """Two 1-d token runs: equal, or equal up to a first difference t at
+    which logits_at(t) (the plain run's sampling scores there) has its
+    top two within TIE_GAP."""
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    diff = np.flatnonzero(got != want)
+    if not len(diff):
+        return {"tokens": len(want), "equal": len(want)}
+    t = int(diff[0])
+    top2 = torch.topk(logits_at(t), 2).values
+    gap = float(top2[0] - top2[1])
+    if gap > TIE_GAP:
+        raise AssertionError(f"{what}: token {t} is {got[t]} against "
+                             f"{want[t]}, top-2 gap {gap} > {TIE_GAP}")
+    return {"tokens": len(want), "equal": t, "first_difference": t,
+            "top2_gap": gap}
+
+
+def generate_checks(torch, name: str, trainer) -> dict:
+    """GEN_TOKENS greedy tokens through `trainer.sample` with int8 decode
+    weights (K2 launches held per token), against the plain path; lookup
+    with k GEN_LOOKUP_K against generate; a sampled run against its
+    plain twin."""
+    import dataclasses
+
+    import numpy as np
+
+    from mpi_cuda_cnn_tpu_torch.data import prng
+    from mpi_cuda_cnn_tpu_torch.models import generate as gen
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+    from mpi_cuda_cnn_tpu_torch.ops.gemv import (
+        dequantize_decode_params,
+        quantize_decode_params,
+    )
+
+    trainer.cfg = dataclasses.replace(trainer.cfg,
+                                      decode_weights_dtype="int8",
+                                      decode_cache_dtype="float32")
+    model, dev = trainer.model, trainer.device
+    cuda_sync(torch, dev)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    prompt_np, toks = trainer.sample(GEN_TOKENS)
+    cuda_sync(torch, dev)
+    sample_s = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    want = {k: 0 for k in _kernels.KERNELS}
+    want["int8_gemm"] = GEN_K2_PER_TOKEN[name] * GEN_TOKENS
+    if launches != want:
+        raise AssertionError(f"generate {name}: launches {launches}, want "
+                             f"{want}")
+    prompt = torch.from_numpy(prompt_np.astype(np.int64))[None].to(dev)
+    q = quantize_decode_params(trainer.state["params"], "int8")
+    plain = dequantize_decode_params(q)
+
+    def plain_logits(ctx_tokens):
+        ctx = torch.cat([prompt, torch.as_tensor(
+            np.asarray(ctx_tokens, np.int64), device=dev)[None]], 1)
+        with torch.no_grad():
+            return gen.prefill(model, plain, ctx, "float32")[0][0]
+
+    def timed(params):
+        """(tokens, ms a token) of a warmed greedy run."""
+        gen.generate(model, params, prompt, 2)
+        cuda_sync(torch, dev)
+        t0 = time.perf_counter()
+        out = gen.generate(model, params, prompt, GEN_TOKENS)[0].cpu().numpy()
+        return out, 1e3 * (time.perf_counter() - t0) / GEN_TOKENS
+
+    again, greedy_ms = timed(q)
+    ref, plain_ms = timed(plain)
+    if not np.array_equal(again, toks):
+        raise AssertionError(f"generate {name}: two K2 runs differ")
+    greedy = tokens_agree(torch, f"generate {name} K2 vs plain", toks, ref,
+                          lambda t: plain_logits(ref[:t]))
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    look, stats = gen.lookup_speculative_generate(
+        model, q, prompt, GEN_TOKENS, k=GEN_LOOKUP_K, return_stats=True)
+    cuda_sync(torch, dev)
+    lookup_ms = 1e3 * (time.perf_counter() - t0) / GEN_TOKENS
+    look_launches = _kernels.launches["int8_gemm"]
+    look = look[0].cpu().numpy()
+    lookup = tokens_agree(torch, f"lookup {name} vs generate", look, toks,
+                          lambda t: plain_logits(toks[:t]))
+    key = prng.key(GEN_SEED)
+    sampled = gen.generate(model, q, prompt, GEN_TOKENS,
+                           temperature=GEN_TEMPERATURE, key=key)
+    sampled = sampled[0].cpu().numpy()
+    sampled_plain = gen.generate(model, plain, prompt, GEN_TOKENS,
+                                 temperature=GEN_TEMPERATURE, key=key)
+    sampled_plain = sampled_plain[0].cpu().numpy()
+    noise = gen.sample_noise(key, GEN_TOKENS, (1, model.vocab))
+
+    def sampled_scores(t):
+        lg = gen.filter_logits(plain_logits(sampled_plain[:t])
+                               / GEN_TEMPERATURE)
+        return lg + torch.from_numpy(noise[t, 0]).to(dev)
+
+    temp = tokens_agree(torch, f"sampled {name} K2 vs plain", sampled,
+                        sampled_plain, sampled_scores)
+    return {"model": name, "prompt_tokens": int(prompt.shape[1]),
+            "tokens": GEN_TOKENS, "k2_launches": launches["int8_gemm"],
+            "k2_per_token": launches["int8_gemm"] / GEN_TOKENS,
+            "sample_s": sample_s, "greedy_ms_per_token": greedy_ms,
+            "plain_ms_per_token": plain_ms,
+            "greedy_vs_plain": greedy,
+            "lookup": {"k": GEN_LOOKUP_K, **stats,
+                       "ms_per_token": lookup_ms,
+                       "k2_launches": look_launches, "vs_generate": lookup},
+            "sampled": {"temperature": GEN_TEMPERATURE, "seed": GEN_SEED,
+                        "vs_plain": temp},
+            "continuation_head": [int(t) for t in toks[:16]]}
+
+
+def phase_generate(torch, dense, moe_trainer) -> dict:
+    """The generate phase (see GEN_TOKENS). Returns the launches of its
+    K1 and K2 paths (sampling and the MoE engine)."""
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+    from mpi_cuda_cnn_tpu_torch.serve.bench import make_workload
+    from mpi_cuda_cnn_tpu_torch.serve.engine import PagedEngine
+
+    dev = moe_trainer.device
+    smi = nvidia_smi() if dev.type == "cuda" else "cpu"
+    k2 = 0
+    for name, trainer in (("dense", dense), ("moe", moe_trainer)):
+        out = generate_checks(torch, name, trainer)
+        k2 += out["k2_launches"] + out["lookup"]["k2_launches"]
+        emit({"phase": "generate", "nvidia_smi": smi, **out})
+    model = moe_trainer.model
+    args = serve_args()
+    eng = PagedEngine(model, moe_trainer.state["params"], slots=args.slots,
+                      num_pages=args.slots * (args.max_seq // args.page_size)
+                      + 1, page_size=args.page_size,
+                      prefill_chunk=args.prefill_chunk, cache_dtype="int8",
+                      max_len=model.max_seq, attn_kernel="cuda",
+                      weights_dtype="int8", device=dev)
+    cuda_sync(torch, dev)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run(make_workload(**GEN_SERVE), mode="continuous")
+    cuda_sync(torch, dev)
+    wall_s = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    forwards = res.decode_ticks + res.prefill_chunks
+    per_forward = {"paged_attention": model.depth,
+                   "int8_gemm": 2 * model.depth + 1}
+    if dev.type != "cuda":          # the CPU launches no kernel
+        per_forward = {k: 0 for k in per_forward}
+    for name_, k in per_forward.items():
+        if launches[name_] != k * forwards:
+            raise AssertionError(f"generate moe engine: {name_} "
+                                 f"{launches[name_]} launches, want {k} x "
+                                 f"{forwards} forwards")
+    plain = plain_engine(eng)
+    replay = plain.run(make_workload(**GEN_SERVE), mode="continuous")
+    agree = agree_requests(torch, eng, plain, res.requests, replay.requests)
+    emit({"phase": "generate", "part": "moe_engine", "nvidia_smi": smi,
+          "cache_dtype": str(eng.cache_dtype), "weights_dtype": "int8",
+          "requests": len(res.requests), "forwards": forwards,
+          "launches": {k: launches[k] for k in per_forward},
+          "per_forward": per_forward, "wall_s": wall_s,
+          "state_crc": res.state_crc, "agree": agree})
+    return {"paged_attention": launches["paged_attention"],
+            "int8_gemm": k2 + launches["int8_gemm"]}
+
+
+def serve_args():
+    from mpi_cuda_cnn_tpu_torch.serve import bench as serve_bench
+
+    return serve_bench._parser().parse_args(SERVE_ARGS)
 
 
 def phase_lm_bench(torch) -> dict:
@@ -2967,8 +3673,9 @@ def phase_train_flags(torch, dev=None) -> dict:
 
 
 def kernels_line(cases: list[dict], launches: dict) -> dict:
-    """The per-kernel record: launches from each kernel's own path (serve
-    for K1/K2, train for K3/K4/K5, conv_bench for K6, lm for K7/K8/K9),
+    """The per-kernel record: launches from each kernel's own paths (serve
+    and generate for K1/K2, train for K3/K4/K5, conv_bench for K6, lm and
+    lm_moe for K7/K8/K9),
     the largest error over every case, and the times at one shape of the
     main path: the decode tick (int8 pages at B = slots; the head's 512 x
     8192 weight), for the CNN kernels fc1's forward, conv2's forward and
@@ -3004,7 +3711,7 @@ def kernels_line(cases: list[dict], launches: dict) -> dict:
              "mpi_cuda_cnn_tpu/ops/pallas_attention.py:460", _flagship_f32)):
         mine = [c for c in cases if c["kernel"] == name]
         r = next(c for c in mine if rep(c) and not c.get("per_rank")
-                 and not c.get("micro"))
+                 and not c.get("micro") and not c.get("generate"))
         summary.append({
             "name": name, "route": "cuda", "source": src,
             "entry_points": entry_points(src),
@@ -3117,17 +3824,22 @@ def main() -> int:
     emit({"phase": "lm_dp", **phase_lm_dp(torch)})
     emit({"phase": "train_bf16", **phase_train_bf16(torch)})
     conv_launches = phase_conv_bench(torch)
-    lm_launches = phase_lm(torch)
+    lm_launches, lm_trainer = phase_lm(torch)
+    moe_launches, moe_trainer = phase_lm_moe(torch)
+    gen_launches = phase_generate(torch, lm_trainer, moe_trainer)
+    del lm_trainer, moe_trainer
+    torch.cuda.empty_cache()
     phase_lm_bench(torch)
     phase_lm_profile(torch)
     emit({"phase": "lm_agree", **phase_lm_agree(torch)})
     phase_recover(torch)
     emit({"phase": "train_flags", **phase_train_flags(torch)})
-    launches = {**{k: serve_launches[k] for k in ("paged_attention",
-                                                  "int8_gemm")},
+    launches = {**{k: serve_launches[k] + gen_launches[k]
+                   for k in ("paged_attention", "int8_gemm")},
                 **{k: train_launches[k] for k in PER_STEP},
                 "conv_gemm": conv_launches["conv_gemm"],
-                **{k: lm_launches[k] for k in FLASH_KERNELS}}
+                **{k: lm_launches[k] + moe_launches[k]
+                   for k in FLASH_KERNELS}}
     line = kernels_line(cases, launches)
     print(smi, flush=True)
     emit(line)

@@ -17,7 +17,15 @@ n)[i]` and the i-th word of `random_bits(key, 32, (n,))` both hash the
 - `randint(key, n, lo, hi)`: `jax.random.randint`'s two 32-bit draws
   from `split(key, 2)`, combined by its modular reduction;
 - `bernoulli_half(key)`: `jax.random.bernoulli(key)` at p = 0.5, which
-  is true when the top bit of the key's one 32-bit draw is clear.
+  is true when the top bit of the key's one 32-bit draw is clear;
+- `uniform(key, shape, minval, maxval)`: float32 from the top 23 bits of
+  each 32-bit draw (the mantissa of a float in [1, 2), less 1), times
+  (maxval - minval) plus minval rounded once (XLA contracts the two
+  into one fused multiply-add), floored at minval;
+- `gumbel(key, shape)`: `-log(-log(uniform(minval=tiny, maxval=1)))`,
+  `jax.random.gumbel`'s default mode "low", in float32;
+- `categorical(key, logits)`: argmax over the last axis of the logits
+  plus `gumbel` noise of their shape (the sampler generation uses).
 """
 
 from __future__ import annotations
@@ -95,3 +103,30 @@ def randint(k: np.ndarray, n: int, lo: int, hi: int) -> np.ndarray:
 def bernoulli_half(k: np.ndarray) -> np.ndarray:
     """`jax.random.bernoulli(k)` (p = 0.5): shape (...)."""
     return (random_bits32(k, 1)[..., 0] >> np.uint32(31)) == 0
+
+
+def uniform(k: np.ndarray, shape, minval: float = 0.0,
+            maxval: float = 1.0) -> np.ndarray:
+    """`jax.random.uniform(k, shape, float32, minval, maxval)` for one
+    key: the draws of the flattened shape in order."""
+    shape = tuple(shape)
+    bits = random_bits32(k, int(np.prod(shape, dtype=np.int64)))
+    one = np.float32(1.0).view(np.uint32)
+    floats = ((bits >> np.uint32(9)) | one).view(np.float32) - np.float32(1)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    # One rounding of floats * span + lo, as a fused multiply-add: the
+    # float64 product of two float32 values is exact.
+    fma = floats.astype(np.float64) * np.float64(hi - lo) + np.float64(lo)
+    return np.maximum(lo, fma.astype(np.float32)).reshape(shape)
+
+
+def gumbel(k: np.ndarray, shape) -> np.ndarray:
+    """`jax.random.gumbel(k, shape)` (float32, mode "low")."""
+    u = uniform(k, shape, np.finfo(np.float32).tiny, 1.0)
+    return -np.log(-np.log(u))
+
+
+def categorical(k: np.ndarray, logits: np.ndarray) -> np.ndarray:
+    """`jax.random.categorical(k, logits, axis=-1)` for float32 logits."""
+    logits = np.asarray(logits, np.float32)
+    return np.argmax(gumbel(k, logits.shape) + logits, axis=-1)

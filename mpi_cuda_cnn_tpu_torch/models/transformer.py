@@ -10,7 +10,9 @@ Numerics as the reference's: master params are float32;
 `compute_dtype=torch.bfloat16` runs every weight product and the
 residual stream in bf16, with layernorm statistics and the head's
 logits in float32. Pre-LN blocks, 4x MLP with the tanh-approximated
-gelu (`jax.nn.gelu`'s default). MoE blocks are not ported.
+gelu (`jax.nn.gelu`'s default), or, with `moe_experts`, an MoE MLP
+(`parallel/moe.py`): capacity routing in training, every expert with no
+drop under `moe_inference` (prefill and decode).
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention, rope
-from ..ops.gemv import QuantW, qmatmul, tree_to
+from ..ops.gemv import QuantW, qmatmul, tree_map, tree_to
+from ..parallel.moe import init_moe_params, moe_mlp, moe_mlp_inference
 
 
 def _weight_cast(cd: torch.dtype | None):
@@ -58,8 +61,8 @@ class TransformerLM:
     max_seq: int = 256
     kv_heads: int = 0      # 0 = heads (MHA); < heads = GQA (1 = MQA)
     pos: str = "learned"   # learned | rope
-    moe_experts: int = 0   # > 0 is not served by this package yet
-    moe_top_k: int = 1
+    moe_experts: int = 0   # 0 = dense MLP; > 0 = MoE MLP per block
+    moe_top_k: int = 1     # experts per token: 1 = Switch, 2 = GShard
     name: str = "transformer_lm"
 
     @property
@@ -85,9 +88,6 @@ class TransformerLM:
         reference's init (its values differ: the two frameworks' random
         streams are different; tests share weights through
         `convert.params_from_jax`)."""
-        if self.moe_experts:
-            raise NotImplementedError(
-                "MoE blocks are not ported yet (dense MLP only)")
         d, v, hd = self.dim, self.vocab, self.head_dim
         scale = 1.0 / math.sqrt(d)
 
@@ -119,8 +119,12 @@ class TransformerLM:
                 blk["wq"] = dense(d, d)
                 blk["wkv"] = dense(d, 2 * self.n_kv * hd)
             blk["wo"] = dense(d, d)
-            blk["w1"] = dense(d, 4 * d)
-            blk["w2"] = dense(4 * d, d)
+            if self.moe_experts:
+                blk["moe"] = init_moe_params(generator, d, 4 * d,
+                                             self.moe_experts)
+            else:
+                blk["w1"] = dense(d, 4 * d)
+                blk["w2"] = dense(4 * d, d)
             params["blocks"].append(blk)
         return tree_to(params, device)
 
@@ -148,14 +152,41 @@ class TransformerLM:
             k = rope(k, positions)
         return q, k, v
 
+    def mlp(self, blk: dict, y: torch.Tensor, *,
+            compute_dtype: torch.dtype | None = None,
+            moe_inference: bool = False, moe_dispatch_chunk: int = 0,
+            moe_dispatch_dtype: torch.dtype | None = None, moe_group=None):
+        """The block's MLP on the normed y (B, S, dim): the tanh-gelu 4x
+        MLP, or the MoE MLP, whose expert weights and gate take the
+        compute-dtype cast (the router's softmax stays float32). Returns
+        (out, aux) with aux the MoE balance loss (0 dense or under
+        `moe_inference`)."""
+        w = _weight_cast(compute_dtype)
+        zero = torch.zeros((), device=y.device)
+        if not self.moe_experts:
+            hidden = F.gelu(qmatmul(y, w(blk["w1"])), approximate="tanh")
+            return qmatmul(hidden, w(blk["w2"])), zero
+        b, s, d = y.shape
+        moe_p = tree_map(w, blk["moe"])
+        if moe_inference:
+            m = moe_mlp_inference(y.reshape(b * s, d), moe_p,
+                                  n_experts=self.moe_experts,
+                                  top_k=self.moe_top_k)
+            aux = zero
+        else:
+            m, aux = moe_mlp(y.reshape(b * s, d), moe_p,
+                             n_experts=self.moe_experts, top_k=self.moe_top_k,
+                             dispatch_chunk=moe_dispatch_chunk,
+                             dispatch_dtype=moe_dispatch_dtype,
+                             group=moe_group)
+        return m.reshape(b, s, d), aux
+
     def apply_block(self, blk: dict, x: torch.Tensor, *,
                     pos: torch.Tensor, attn: Callable,
-                    compute_dtype: torch.dtype | None = None):
-        """One pre-LN block: attention + MLP with residuals. Returns
-        (x, aux) with aux the MoE balance loss, 0 for a dense block."""
-        if self.moe_experts:
-            raise NotImplementedError(
-                "MoE blocks are not ported yet (ROADMAP queue F item 2)")
+                    compute_dtype: torch.dtype | None = None, **moe):
+        """One pre-LN block: attention + MLP (or MoE) with residuals.
+        `moe` are `mlp`'s MoE keywords. Returns (x, aux) with aux the MoE
+        balance loss, 0 for a dense block."""
         b, s, _ = x.shape
         w = _weight_cast(compute_dtype)
         y = _layernorm(x, blk["ln1"]["g"], blk["ln1"]["b"])
@@ -164,24 +195,30 @@ class TransformerLM:
         o = attn(q, k, v).reshape(b, s, self.heads * self.head_dim)
         x = x + qmatmul(o.to(x.dtype), w(blk["wo"]))
         y = _layernorm(x, blk["ln2"]["g"], blk["ln2"]["b"])
-        hidden = F.gelu(qmatmul(y, w(blk["w1"])), approximate="tanh")
-        return (x + qmatmul(hidden, w(blk["w2"])),
-                torch.zeros((), device=x.device))
+        m, aux = self.mlp(blk, y, compute_dtype=compute_dtype, **moe)
+        return x + m.to(x.dtype), aux
 
     def apply(self, params: dict, tokens: torch.Tensor, *,
               attn_fn: Callable | None = None,
               pos_offset: int | torch.Tensor = 0, causal: bool = True,
               remat: bool = False, return_aux: bool = False,
               compute_dtype: torch.dtype | None = None,
-              return_features: bool = False):
+              return_features: bool = False, moe_inference: bool = False,
+              moe_dispatch_chunk: int = 0,
+              moe_dispatch_dtype: torch.dtype | None = None, moe_group=None):
         """The training forward: tokens (B, S) -> float32 logits
         (B, S, vocab), or the final-LN features (B, S, dim) with
         `return_features` (for losses that fuse the head); with
-        `return_aux` also the MoE balance loss (0 here).
+        `return_aux` also the summed MoE balance loss (0 for a dense
+        model).
 
         attn_fn (q, k, v) -> o replaces the causal oracle; pos_offset
         shifts the absolute positions; remat recomputes each block in
-        the backward (`torch.utils.checkpoint`)."""
+        the backward (`torch.utils.checkpoint`). MoE: `moe_inference`
+        runs every expert with no drop (`moe_mlp_inference`);
+        `moe_dispatch_chunk` and `moe_dispatch_dtype` are `moe_mlp`'s
+        `dispatch_chunk` and `dispatch_dtype`; `moe_group`, a data mesh,
+        routes its ranks' tokens as one global batch."""
         b, s = tokens.shape
         if s > self.max_seq:
             raise ValueError(f"sequence length {s} exceeds max_seq {self.max_seq}")
@@ -195,8 +232,11 @@ class TransformerLM:
         x = w(x)
 
         def block(blk, x):
-            return self.apply_block(blk, x, pos=pos, attn=attn,
-                                    compute_dtype=cd)
+            return self.apply_block(
+                blk, x, pos=pos, attn=attn, compute_dtype=cd,
+                moe_inference=moe_inference,
+                moe_dispatch_chunk=moe_dispatch_chunk,
+                moe_dispatch_dtype=moe_dispatch_dtype, moe_group=moe_group)
 
         aux_total = torch.zeros((), device=x.device)
         for blk in params["blocks"]:

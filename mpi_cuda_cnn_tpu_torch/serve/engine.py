@@ -11,7 +11,9 @@ Two device steps serve every request mix:
   (B = 1, k = chunk, padded). The LAST chunk of a prompt also yields the
   request's first generated token.
 
-Sampling is greedy. The host loop (`run`) is the reference's, one
+Sampling is greedy. MoE models serve through `token_forward`'s MoE
+branch (every expert, no drop; the expert weights stay float32 under
+int8 decode weights). The host loop (`run`) is the reference's, one
 scheduler iteration per pass: sweep deadlines/cancellations -> enforce
 the queue bound -> admit -> at most one prefill chunk -> one decode tick
 over every decoding slot; the per-iteration state digest is chained into
@@ -34,7 +36,11 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..models.generate import pick_cache_dtype, pick_weights_dtype
+from ..models.generate import (
+    CACHE_DTYPES,
+    pick_cache_dtype,
+    pick_weights_dtype,
+)
 from ..models.transformer import TransformerLM
 from ..ops.gemv import quantize_decode_params, tree_to
 from .paged_cache import PagedKVCache, init_paged_cache, paged_forward
@@ -47,10 +53,6 @@ from .scheduler import (
     scheduler_digest,
     tenant_block,
 )
-
-_CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-                 "int8": torch.int8}
-
 
 def request_record(r: Request, mode: str) -> dict:
     """One request as an obs `request` field dict (the reference's
@@ -186,8 +188,7 @@ class PagedEngine:
                  weights_dtype: str = "float32", spec: str = "off",
                  draft_model: TransformerLM | None = None,
                  device: str | torch.device | None = None):
-        _refuse(spec=spec != "off", draft_model=draft_model is not None,
-                moe=bool(model.moe_experts))
+        _refuse(spec=spec != "off", draft_model=draft_model is not None)
         self.device = resolve_device(device)
         self.model = model
         self.slots = slots
@@ -201,7 +202,7 @@ class PagedEngine:
                                              self.weights_dtype)
         self.attn_kernel = attn_kernel
         if isinstance(cache_dtype, str):
-            cache_dtype = _CACHE_DTYPES[pick_cache_dtype(
+            cache_dtype = CACHE_DTYPES[pick_cache_dtype(
                 cache_dtype, heads=model.heads, kv_heads=model.n_kv)]
         self.cache_dtype = cache_dtype
         self.max_len = min(max_len or model.max_seq, model.max_seq)

@@ -76,22 +76,30 @@ def get_attn_fn(impl: str):
 def lm_loss(model: TransformerLM, params: dict, tokens: torch.Tensor,
             targets: torch.Tensor, *, attn_fn=None,
             compute_dtype: torch.dtype | None = None, remat: bool = False,
-            moe_aux_weight: float = 0.01, ce_chunk: int = 0) -> torch.Tensor:
-    """Mean next-token NLL (plus the MoE balance loss, 0 for a dense
-    model); the softmax in float32. ce_chunk > 0 fuses the head product
-    into the chunked cross-entropy (`ops.losses.chunked_ce_mean`), which
-    never forms the (B, S, V) float32 logits; it must divide S."""
+            moe_aux_weight: float = 0.01, ce_chunk: int = 0,
+            moe_dispatch_chunk: int = 0,
+            moe_dispatch_dtype: torch.dtype | None = None,
+            moe_group=None) -> torch.Tensor:
+    """Mean next-token NLL plus moe_aux_weight x the MoE balance loss (0
+    for a dense model); the softmax in float32. ce_chunk > 0 fuses the
+    head product into the chunked cross-entropy
+    (`ops.losses.chunked_ce_mean`), which never forms the (B, S, V)
+    float32 logits; it must divide S. `moe_dispatch_chunk`,
+    `moe_dispatch_dtype` and `moe_group` go to `model.apply`."""
+    moe = dict(moe_dispatch_chunk=moe_dispatch_chunk,
+               moe_dispatch_dtype=moe_dispatch_dtype, moe_group=moe_group)
     if ce_chunk:
         from ..ops.losses import chunked_ce_mean
 
         feats, aux = model.apply(params, tokens, attn_fn=attn_fn, remat=remat,
                                  compute_dtype=compute_dtype, return_aux=True,
-                                 return_features=True)
+                                 return_features=True, **moe)
         nll = chunked_ce_mean(feats, params["head"], targets, ce_chunk,
                               compute_dtype)
         return nll + moe_aux_weight * aux
     logits, aux = model.apply(params, tokens, attn_fn=attn_fn, remat=remat,
-                              compute_dtype=compute_dtype, return_aux=True)
+                              compute_dtype=compute_dtype, return_aux=True,
+                              **moe)
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])
     return nll.mean() + moe_aux_weight * aux
@@ -119,7 +127,8 @@ def make_lm_train_step(model: TransformerLM, optimizer, *,
                        compute_dtype: torch.dtype | None = None,
                        remat: bool = False, moe_aux_weight: float = 0.01,
                        ce_chunk: int = 0, mesh=None, grad_accum: int = 1,
-                       elastic_width: int = 0):
+                       elastic_width: int = 0, moe_dispatch_chunk: int = 0,
+                       moe_dispatch_dtype: torch.dtype | None = None):
     """step(state, tokens, targets) -> (state, {"loss": loss}): forward,
     loss, gradients, and the optimizer update in place on the state's
     params (the state dict itself is returned, updated), as one rank of
@@ -133,18 +142,28 @@ def make_lm_train_step(model: TransformerLM, optimizer, *,
     grad_accum > 1 accumulates the rank's rows over that many interleaved
     micro-batches (`dp.local_grads`, the reference's one accumulation
     helper for both model families); elastic_width > 0 takes the
-    width-invariant reduction (`make_elastic_lm_train_step`)."""
+    width-invariant reduction (`make_elastic_lm_train_step`).
+
+    An MoE model routes each micro-batch of the mesh's ranks as one
+    global batch (`parallel/moe.py`), as the reference's GSPMD step
+    routes its global batch; under the elastic reduction each canonical
+    micro-batch routes by itself, as the reference's elastic step does.
+    `moe_dispatch_chunk` and `moe_dispatch_dtype` are `moe_mlp`'s."""
     impl = pick_attn_impl(attn_impl, seq_len or model.max_seq, device,
                           model.head_dim)
     attn_fn = get_attn_fn(impl)
+    mesh = mesh or device_mesh(torch.device(device))
+    group = None if elastic_width or mesh.group is None else mesh
 
     def loss_fn(params, tokens, targets):
         return lm_loss(model, params, tokens, targets, attn_fn=attn_fn,
                        compute_dtype=compute_dtype, remat=remat,
-                       moe_aux_weight=moe_aux_weight, ce_chunk=ce_chunk), {}
+                       moe_aux_weight=moe_aux_weight, ce_chunk=ce_chunk,
+                       moe_dispatch_chunk=moe_dispatch_chunk,
+                       moe_dispatch_dtype=moe_dispatch_dtype,
+                       moe_group=group), {}
 
-    dp_step = make_dp_train_step(loss_fn, optimizer,
-                                 mesh or device_mesh(torch.device(device)),
+    dp_step = make_dp_train_step(loss_fn, optimizer, mesh,
                                  grad_accum=grad_accum,
                                  elastic_width=elastic_width)
 

@@ -7,7 +7,10 @@ layers, 8 heads, seq 2048, vocab 8192, batch 8) trained with AdamW on the
 real train step (`train/lm.py`). By default the matrix {float32, bf16} x
 {oracle, flash} plus bf16 + flash + the chunked cross-entropy at 512
 (`--quick`: bf16 + flash only); one `lm_pretrain` JSON line per config,
-then the `lm_tokens_per_s` summary line.
+then the `lm_tokens_per_s` summary line. `--moe-experts E` (with
+`--moe-top-k`, `--moe-dispatch-chunk`) benches the MoE model; its rows
+carry the dispatch chunk and its summary names `moe{E}k{k}`. On the card
+each row also carries the step's peak memory (`peak_memory_bytes`).
 
 Timing: after 3 warm-up steps, wall time over `--steps` steps that ends
 in `torch.cuda.synchronize` (the loss is read once, at the end). Tokens
@@ -65,7 +68,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--remat", action="store_true",
                     help="torch.utils.checkpoint per block")
     ap.add_argument("--moe-experts", type=int, default=0,
-                    help="refused unless 0 (ROADMAP queue F item 2)")
+                    help="0 = dense MLP; > 0 = MoE blocks")
+    ap.add_argument("--moe-top-k", type=int, default=1,
+                    help="experts per token (1 = Switch, 2 = GShard); the "
+                         "MFU numerator counts k expert MLPs a token")
+    ap.add_argument("--moe-dispatch-chunk", type=int, default=0,
+                    help="route MoE tokens in chunks of this size; 0 = "
+                         "the whole batch")
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="refused unless 1 (ROADMAP queue F item 3)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -75,7 +84,8 @@ def _parser() -> argparse.ArgumentParser:
 def bench_config(model, *, batch: int, seq: int, compute_dtype, attn_impl: str,
                  device: torch.device, steps: int = 20, warmup: int = WARMUP,
                  seed: int = SEED, ce_chunk: int = 0,
-                 remat: bool = False) -> tuple[float, float]:
+                 remat: bool = False,
+                 moe_dispatch_chunk: int = 0) -> tuple[float, float]:
     """(seconds per step, final loss) of `steps` train steps after
     `warmup`, on one fixed random batch."""
     from .lm import make_lm_state, make_lm_train_step
@@ -84,7 +94,8 @@ def bench_config(model, *, batch: int, seq: int, compute_dtype, attn_impl: str,
     opt = make_optimizer(3e-4, opt="adamw", schedule="constant")
     step_fn = make_lm_train_step(model, opt, attn_impl=attn_impl, seq_len=seq,
                                  device=device, compute_dtype=compute_dtype,
-                                 remat=remat, ce_chunk=ce_chunk)
+                                 remat=remat, ce_chunk=ce_chunk,
+                                 moe_dispatch_chunk=moe_dispatch_chunk)
     state = make_lm_state(model, opt, seed, device=device)
     rng = np.random.default_rng(seed)
     toks = torch.from_numpy(
@@ -117,9 +128,6 @@ def lm_bench(argv: list[str] | None = None) -> dict:
     from .lm import count_params, lm_flops_per_token
 
     args = _parser().parse_args(argv)
-    if args.moe_experts:
-        raise NotImplementedError("--moe-experts: MoE is not ported yet "
-                                  "(ROADMAP queue F item 2)")
     if args.grad_accum != 1:
         raise NotImplementedError("--grad-accum: gradient accumulation is "
                                   "not ported yet (ROADMAP queue F item 3)")
@@ -129,7 +137,9 @@ def lm_bench(argv: list[str] | None = None) -> dict:
     cuda = device.type == "cuda"
     model = TransformerLM(vocab=args.vocab, dim=args.dim, heads=args.heads,
                           depth=args.depth, max_seq=args.seq,
-                          kv_heads=args.kv_heads, pos=args.pos)
+                          kv_heads=args.kv_heads, pos=args.pos,
+                          moe_experts=args.moe_experts,
+                          moe_top_k=args.moe_top_k)
     bf16_peak = args.peak_tflops or H100_BF16_TFLOPS
     peaks = {"bfloat16": bf16_peak,
              "float32": bf16_peak * H100_F32_TFLOPS / H100_BF16_TFLOPS}
@@ -150,11 +160,13 @@ def lm_bench(argv: list[str] | None = None) -> dict:
     lines, results = [], {}
     for dtype_name, impl, ce in configs:
         before = dict(_kernels.launches)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
         dt, loss = bench_config(
             model, batch=args.batch, seq=args.seq,
             compute_dtype=torch.bfloat16 if dtype_name == "bfloat16" else None,
             attn_impl=impl, device=device, steps=args.steps, ce_chunk=ce,
-            remat=args.remat)
+            remat=args.remat, moe_dispatch_chunk=args.moe_dispatch_chunk)
         launches = {k: _kernels.launches[k] - before[k]
                     for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
         key = f"{dtype_name}+{impl}" + (f"+ce{ce}" if ce else "")
@@ -164,10 +176,14 @@ def lm_bench(argv: list[str] | None = None) -> dict:
             "mfu": (flops_per_step / dt / (peaks[dtype_name] * 1e12)
                     if cuda else None),
             "loss": loss,
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
+                                  if cuda else None),
         }
         line = {"bench": "lm_pretrain", "dtype": dtype_name, "attn": impl,
                 "ce_chunk": ce, **results[key],
                 "kernel_launches": launches}
+        if args.moe_dispatch_chunk:
+            line["moe_dispatch_chunk"] = args.moe_dispatch_chunk
         if args.remat:
             line["remat"] = True
         lines.append(line)
@@ -179,7 +195,9 @@ def lm_bench(argv: list[str] | None = None) -> dict:
         "unit": "tokens/s", "config": best[0], "mfu": best[1]["mfu"],
         "params": nparams,
         "model": f"d{args.dim}x{args.depth} h{args.heads} s{args.seq} "
-                 f"v{args.vocab} b{args.batch}",
+                 f"v{args.vocab} b{args.batch}"
+                 + (f" moe{args.moe_experts}k{args.moe_top_k}"
+                    if args.moe_experts else ""),
         "flops_per_step": flops_per_step,
         "peak_tflops": peaks[best[0].split("+")[0]] if cuda else None,
         "device": torch.cuda.get_device_name(device) if cuda else "cpu",

@@ -20,11 +20,15 @@ step (token batches carry no NaN, so it meets organic non-finite
 losses only); a preemption snapshots and raises `faults.Preempted`.
 `grad_accum` accumulates each rank's rows over micro-batches and
 `elastic_width` takes the width-invariant reduction (`train/lm.py`,
-`parallel/elastic.py`). With a JSONL sink the trainer writes the
-reference's records: "train" and a "metrics" snapshot at every log
-step, then "step_phases", "memory", a final "metrics" and the eval's
-"span". What the reference's trainer adds beyond that (the other meshes,
-MoE, sampling after training) is refused by
+`parallel/elastic.py`). `moe_experts` trains MoE blocks, the ranks'
+tokens routed as one global batch (`parallel/moe.py`), with
+`moe_dispatch_chunk` and `moe_dispatch_dtype`; `sample` generates after
+training (`models/generate.py`), and the sampling flags are checked at
+construction, so that a typo fails before the run. With a JSONL sink
+the trainer writes the reference's records: "train" and a "metrics"
+snapshot at every log step, then "step_phases", "memory", a final
+"metrics" and the eval's "span". What the reference's trainer adds
+beyond that (the other meshes, FSDP) is refused by
 `utils.config.check_lm_supported` (ROADMAP queue F).
 """
 
@@ -45,6 +49,7 @@ from ..obs.device import emit_step_telemetry
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import span
 from ..parallel.dp import dp_shard_batch, replicate
+from ..parallel.moe import check_dispatch_chunk
 from ..parallel.mesh import DATA_AXIS, device_mesh
 from ..utils.config import (
     COMPUTE_DTYPES,
@@ -65,6 +70,71 @@ from .lm import (
 )
 from .optimizer import make_optimizer
 from .recovery import Recovery
+
+
+def check_sample_flags(cfg) -> None:
+    """The reference trainer's checks of the sampling flags, made at
+    construction (a failure after an hours-long run would lose the run's
+    purpose), with its words: --sample-tokens in [0, seq_len), the
+    decode dtypes, --sample-top-k / --sample-top-p and their need of a
+    temperature, --sample-speculative-k >= 2 and its slack."""
+    if cfg.sample_tokens < 0 or cfg.sample_tokens >= cfg.seq_len:
+        raise ValueError(
+            f"--sample-tokens {cfg.sample_tokens} must be in "
+            f"[0, seq_len {cfg.seq_len}) — the prompt needs >= 1 "
+            f"position of the decode budget")
+    if cfg.decode_cache_dtype not in ("float32", "bfloat16", "int8", "auto"):
+        raise ValueError(
+            f"--decode-cache-dtype {cfg.decode_cache_dtype!r} must "
+            "be 'float32', 'bfloat16', 'int8', or 'auto'")
+    if cfg.decode_weights_dtype not in ("float32", "bfloat16", "int8",
+                                        "auto"):
+        raise ValueError(
+            f"--decode-weights-dtype {cfg.decode_weights_dtype!r} "
+            "must be 'float32', 'bfloat16', 'int8', or 'auto'")
+    if cfg.sample_top_k < 0 or not 0.0 <= cfg.sample_top_p <= 1.0:
+        raise ValueError(
+            f"--sample-top-k {cfg.sample_top_k} must be >= 0 and "
+            f"--sample-top-p {cfg.sample_top_p} in [0, 1]")
+    if (cfg.sample_top_k or cfg.sample_top_p) and cfg.sample_temperature <= 0:
+        raise ValueError(
+            "--sample-top-k/--sample-top-p restrict SAMPLING — set "
+            "--sample-temperature > 0 (greedy already takes the "
+            "single most likely token)")
+    if cfg.sample_speculative_k:
+        if cfg.sample_speculative_k < 2:
+            raise ValueError(
+                f"--sample-speculative-k {cfg.sample_speculative_k} "
+                "must be >= 2 (the verify block needs proposals)")
+        if cfg.sample_tokens and cfg.sample_tokens + \
+                cfg.sample_speculative_k + 2 > cfg.seq_len:
+            raise ValueError(
+                f"--sample-tokens {cfg.sample_tokens} + speculative "
+                f"slack k={cfg.sample_speculative_k} + a >= 2-token "
+                f"prompt exceeds seq_len {cfg.seq_len}")
+
+
+def check_moe_flags(cfg) -> None:
+    """The reference trainer's checks of the MoE flags on a data mesh,
+    with its words: a dispatch chunk or dtype needs --moe-experts, the
+    dtype is bfloat16 or float32, and neither rides --elastic-width."""
+    if cfg.moe_dispatch_chunk and not cfg.moe_experts:
+        raise ValueError(
+            "--moe-dispatch-chunk needs an MoE model (--moe-experts)")
+    if cfg.moe_dispatch_dtype:
+        if not cfg.moe_experts:
+            raise ValueError(
+                "--moe-dispatch-dtype needs an MoE model (--moe-experts)")
+        if cfg.moe_dispatch_dtype not in ("bfloat16", "float32"):
+            raise ValueError(
+                f"--moe-dispatch-dtype {cfg.moe_dispatch_dtype!r} "
+                "must be 'bfloat16' or 'float32'")
+    if cfg.elastic_width and (cfg.moe_dispatch_chunk
+                              or cfg.moe_dispatch_dtype):
+        raise ValueError(
+            "--moe-dispatch-chunk/--moe-dispatch-dtype ride the "
+            "plain jitted step; the elastic shard_map step does "
+            "not thread them — drop one of the two")
 
 
 def load_corpus(spec: str, package_root: Path | None = None) -> np.ndarray:
@@ -147,6 +217,8 @@ class LMTrainer:
         if cfg.ce_chunk and cfg.seq_len % cfg.ce_chunk:
             raise ValueError(f"--ce-chunk {cfg.ce_chunk} must divide the "
                              f"sequence {cfg.seq_len}")
+        check_sample_flags(cfg)
+        check_moe_flags(cfg)
 
         self.model = TransformerLM(
             vocab=vocab, dim=cfg.dim, heads=cfg.heads, depth=cfg.depth,
@@ -168,6 +240,14 @@ class LMTrainer:
         self._compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         self.attn_impl = pick_attn_impl(cfg.attn_impl, cfg.seq_len,
                                         self.device, self.model.head_dim)
+        if cfg.moe_dispatch_chunk and n_data > 1 and not cfg.elastic_width:
+            # The ranks route each micro-batch as one global batch; a chunk
+            # must divide a rank's tokens or be a whole number of them.
+            per_rank = cfg.batch_size // n_data // cfg.grad_accum
+            check_dispatch_chunk(per_rank * cfg.seq_len,
+                                 cfg.moe_dispatch_chunk, n_data)
+        dispatch_dtype = (getattr(torch, cfg.moe_dispatch_dtype)
+                          if cfg.moe_dispatch_dtype else None)
         if cfg.elastic_width:
             self.train_step, _ = make_elastic_lm_train_step(
                 self.model, self.optimizer, mesh,
@@ -179,7 +259,9 @@ class LMTrainer:
                 self.model, self.optimizer, attn_impl=self.attn_impl,
                 seq_len=cfg.seq_len, device=self.device,
                 compute_dtype=self._compute_dtype, remat=cfg.remat,
-                ce_chunk=cfg.ce_chunk, mesh=mesh, grad_accum=cfg.grad_accum)
+                ce_chunk=cfg.ce_chunk, mesh=mesh, grad_accum=cfg.grad_accum,
+                moe_dispatch_chunk=cfg.moe_dispatch_chunk,
+                moe_dispatch_dtype=dispatch_dtype)
         self.loss_fn = self.train_step.loss_fn
         self.state = make_lm_state(self.model, self.optimizer, cfg.seed,
                                    params=params, device=self.device)
@@ -328,3 +410,60 @@ class LMTrainer:
                        compute_dtype=self._compute_dtype, moe_aux_weight=0.0,
                        ce_chunk=self.cfg.ce_chunk)
         return float(loss)
+
+    @torch.no_grad()
+    def sample(self, num_tokens: int, *, prompt_len: int | None = None,
+               temperature: float = 0.0, seed: int = 0):
+        """A continuation of the held-out stream through the KV-cache
+        decode path (`models/generate.py`): the prompt from the eval tail,
+        greedy by default, with the decode dtypes resolved for this
+        model's heads (int8 weights take K2 on the card); with
+        --sample-speculative-k, prompt-lookup speculation. Returns
+        (prompt, continuation) as int32 numpy arrays."""
+        from ..data import prng
+        from ..models.generate import (
+            generate,
+            lookup_speculative_generate,
+            pick_cache_dtype,
+            pick_weights_dtype,
+        )
+        from ..ops.gemv import quantize_decode_params
+
+        cfg = self.cfg
+        # The verify block needs k positions of cache slack beyond prompt
+        # + num_tokens: shrink the prompt, not k.
+        spec_k = cfg.sample_speculative_k
+        max_prompt = cfg.seq_len - num_tokens - spec_k
+        if max_prompt < (2 if spec_k else 1):
+            raise ValueError(
+                f"--sample-tokens {num_tokens}"
+                + (f" + speculative slack k={spec_k}" if spec_k else "")
+                + f" leaves no room for a prompt within seq_len "
+                f"{cfg.seq_len}")
+        p = min(prompt_len or max(cfg.seq_len // 2, 1), max_prompt)
+        stream = (self.eval_tokens if len(self.eval_tokens) >= p
+                  else self.train_tokens)
+        prompt = self._to_device(np.asarray(stream[:p], np.int64)[None, :])
+        model = self.model
+        heads = dict(heads=model.heads, kv_heads=model.n_kv)
+        params = quantize_decode_params(
+            self.state["params"],
+            pick_weights_dtype(cfg.decode_weights_dtype, **heads))
+        cache_dtype = pick_cache_dtype(cfg.decode_cache_dtype, **heads)
+        key = prng.key(seed) if temperature > 0 else None
+        sampling = dict(temperature=temperature, key=key,
+                        cache_dtype=cache_dtype, top_k=cfg.sample_top_k,
+                        top_p=cfg.sample_top_p)
+        if spec_k:
+            if p < 2:
+                raise ValueError(
+                    f"--sample-speculative-k needs a prompt of >= 2 "
+                    f"tokens (resolved prompt length {p}; raise "
+                    f"prompt_len or seq_len)")
+            toks = lookup_speculative_generate(model, params, prompt,
+                                               num_tokens, k=spec_k,
+                                               **sampling)
+        else:
+            toks = generate(model, params, prompt, num_tokens, **sampling)
+        return (np.asarray(stream[:p], np.int32),
+                toks[0].cpu().numpy().astype(np.int32))

@@ -200,10 +200,12 @@ def cnn_rank(mesh, cfg, data, params=None, *, grads: bool = False,
 def lm_rank(mesh, cfg, params=None, *, grads: bool = False) -> dict:
     """The `lm` command on one rank: an LMTrainer of `cfg` from `params`
     (None: the seeded init), trained for cfg.steps and evaluated
-    (`LMTrainer.train()`). Returns the exit code, the losses logged (every
-    cfg.log_every steps), the result's final and eval losses, the
-    launches and collectives of `train()` (the steps and the eval), its
-    wall seconds, the trainer's records, and, if asked,
+    (`LMTrainer.train()`), then, with cfg.sample_tokens, a sample on rank
+    0 logged as the reference's command logs it. Returns the exit code,
+    the losses logged (every cfg.log_every steps), the result's final and
+    eval losses, the launches and collectives of `train()` (the steps and
+    the eval), its wall seconds, the trainer's records, the sample's
+    tokens (rank 0 with cfg.sample_tokens, else None), and, if asked,
     step 0's gradients (before training)."""
     log = get_logger()
     faults = FaultInjector(cfg.fault_plan) if cfg.fault_plan else None
@@ -219,9 +221,10 @@ def lm_rank(mesh, cfg, params=None, *, grads: bool = False) -> dict:
         except (OSError, ValueError) as e:
             log.error("lm setup failed: %s", e)
             return {"exit": 2}
-        log.info("lm model=d%dx%d h%d seq=%d vocab=%d device=%s attn=%s",
-                 cfg.dim, cfg.depth, cfg.heads, cfg.seq_len,
-                 trainer.model.vocab, trainer.device, trainer.attn_impl)
+        log.info("lm model=d%dx%d h%d seq=%d vocab=%d moe=%d device=%s "
+                 "attn=%s", cfg.dim, cfg.depth, cfg.heads, cfg.seq_len,
+                 trainer.model.vocab, cfg.moe_experts, trainer.device,
+                 trainer.attn_impl)
         res = {"exit": 0}
         if grads:
             res["grads"] = _numpy(trainer.first_grads())
@@ -241,5 +244,13 @@ def lm_rank(mesh, cfg, params=None, *, grads: bool = False) -> dict:
                        if r["event"] == "train"],
                final_loss=result.final_loss, eval_loss=result.eval_loss,
                seconds=time.perf_counter() - t0, counts=tally.take(),
-               records=metrics.rows)
+               records=metrics.rows, sample=None)
+    if cfg.sample_tokens and (mesh is None or mesh.rank == 0):
+        _, cont = trainer.sample(cfg.sample_tokens,
+                                 temperature=cfg.sample_temperature,
+                                 seed=cfg.seed)
+        # Char-level corpora decode as bytes; the rest prints as escapes.
+        text = bytes(int(t) & 0xFF for t in cont)
+        log.info("sample (%d tokens): %r", cfg.sample_tokens, text)
+        res["sample"] = cont.tolist()
     return res

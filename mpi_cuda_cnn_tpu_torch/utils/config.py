@@ -247,10 +247,10 @@ class LMConfig:
     kv_heads: int = 0             # 0 = heads (MHA); < heads = GQA
     pos: str = "learned"          # learned | rope
     seq_len: int = 256
-    moe_experts: int = 0          # refused unless 0 (queue F item 2)
-    moe_top_k: int = 1
-    moe_dispatch_chunk: int = 0   # refused unless 0 (queue F item 2)
-    moe_dispatch_dtype: str | None = None  # refused unless unset
+    moe_experts: int = 0          # 0 = dense MLP; > 0 = MoE blocks
+    moe_top_k: int = 1            # experts per token (1 Switch, 2 GShard)
+    moe_dispatch_chunk: int = 0   # > 0: route tokens in chunks of this many
+    moe_dispatch_dtype: str | None = None  # bfloat16 | float32 dispatch
     steps: int = 200
     batch_size: int = 8
     lr: float = 3e-4
@@ -282,7 +282,7 @@ class LMConfig:
     elastic_width: int = 0              # >0: the width-invariant step
     log_every: int = 20
     metrics_jsonl: str | None = None    # schema-stamped JSONL records
-    sample_tokens: int = 0              # refused unless 0 (item 7)
+    sample_tokens: int = 0              # > 0: generate after training
     sample_temperature: float = 0.0
     sample_top_k: int = 0
     sample_top_p: float = 0.0
@@ -296,10 +296,6 @@ LM_ATTN_IMPLS = ("auto", "flash", "oracle")
 # (field, value that means "off", ROADMAP queue F item, what it is)
 _LM_REFUSED = (
     ("fsdp", False, 1, "FSDP"),
-    ("moe_experts", 0, 2, "MoE"),
-    ("moe_dispatch_chunk", 0, 2, "chunked MoE dispatch"),
-    ("moe_dispatch_dtype", None, 2, "the MoE dispatch dtype"),
-    ("sample_tokens", 0, 7, "sampling after training (generate)"),
 )
 
 

@@ -8,7 +8,6 @@ runs in Pallas interpret mode on the CPU; the port runs its kernels'
 plain versions (CPU tensors).
 """
 
-import dataclasses
 import json
 import logging
 import re
@@ -138,14 +137,11 @@ def test_apply_refuses_what_the_port_lacks():
     tp = tm.init(torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="exceeds max_seq"):
         tm.apply(tp, torch.zeros((1, 256), dtype=torch.int32))
-    moe = dataclasses.replace(tm, moe_experts=2)
-    with pytest.raises(NotImplementedError, match="queue F item 2"):
-        moe.apply(tp, torch.zeros((1, 8), dtype=torch.int32))
 
 
 def test_flops_and_param_count_match_jax():
-    for kv in (0, 2):
-        jm, tm = _pair(kv_heads=kv)
+    for kv, moe, k in ((0, 0, 1), (2, 0, 1), (0, 4, 1), (2, 4, 2)):
+        jm, tm = _pair(kv_heads=kv, moe_experts=moe, moe_top_k=k)
         assert lm_flops_per_token(tm, 2048) == jax_flops(jm, 2048)
         assert count_params(tm.init(torch.Generator().manual_seed(0))) == \
             jax_count_params(jm.init(jax.random.key(0)))
@@ -429,7 +425,6 @@ def test_lm_mesh_and_attention_refusals(argv, item, log_lines):
 
 
 def test_lm_bench_refusals(capsys):
-    assert lm_bench_main([*BENCH_TINY, "--moe-experts", "2"]) == 2
     assert lm_bench_main([*BENCH_TINY, "--grad-accum", "2"]) == 2
     assert "queue F item 3" in capsys.readouterr().err
 

@@ -101,3 +101,136 @@ def test_cli_lm_on_two_cpu_ranks(capfd):
     err = capfd.readouterr().err       # the ranks' stderr: rank 0 echoes
     assert err.count("lm done: steps=2") == 1, err
     assert main(argv + ["--ce-chunk", "48"]) == 2    # a rank's setup error
+
+
+# ---------------------------------------------------------------------------
+# MoE under data parallelism: the ranks route one global batch
+# ---------------------------------------------------------------------------
+
+MOE_BASE = dict(corpus="synthetic", dim=32, depth=2, heads=2, seq_len=32,
+                batch_size=8, steps=3, warmup_steps=2, lr=3e-3,
+                attn_impl="oracle", log_every=1, moe_experts=4)
+MOE_LOSS_RTOL = 1e-6
+MOE_CASES = {  # world, flags
+    "w2_top1_accum2": (2, dict(moe_top_k=1, grad_accum=2)),
+    "w4_top2": (4, dict(moe_top_k=2)),
+    "w4_top2_chunk_over_2_ranks": (4, dict(moe_top_k=2,
+                                           moe_dispatch_chunk=128)),
+    "w2_top2_remat": (2, dict(moe_top_k=2, remat=True)),
+}
+
+
+def _biased(params, c=2.0):
+    """The JAX init with every token embedding and every router's expert-0
+    column moved along one zero-mean direction: most tokens choose expert
+    0 first, so the global capacity drops tokens."""
+    w = np.random.default_rng(0).standard_normal(
+        params["tok_emb"].shape[1]).astype(np.float32)
+    w = (w - w.mean()) / np.linalg.norm(w - w.mean())
+    params = jax.tree.map(np.array, params)
+    params["tok_emb"] += c * w
+    for blk in params["blocks"]:
+        blk["moe"]["gate"][:, 0] += c * w
+    return params
+
+
+def _global_drops(kw, init, monkeypatch):
+    """Tokens the first step's forward drops when the whole batch is
+    routed at once (as the JAX step and the port's ranks route it)."""
+    import torch
+
+    from mpi_cuda_cnn_tpu_torch.parallel import moe
+
+    drops = []
+    real = moe._dispatch
+
+    def spy(idx, *args, **kw_):
+        d, g = real(idx, *args, **kw_)
+        drops.append(idx.numel() - float(d.sum()))
+        return d, g
+
+    monkeypatch.setattr(moe, "_dispatch", spy)
+    tr = LMTrainer(LMConfig(device="cpu", **kw), params=init)
+    tokens, _ = tr._sample_batch(0)
+    with torch.no_grad():
+        tr.model.apply(tr.state["params"], torch.from_numpy(tokens),
+                       moe_dispatch_chunk=kw.get("moe_dispatch_chunk", 0))
+    return sum(drops)
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_moe_dp_routes_the_global_batch_as_jax(case, monkeypatch):
+    """The JAX DP trainer's one GSPMD step routes the global batch (its
+    capacity, rank-major slot positions, global balance-loss means); the
+    port's ranks route theirs together through one all-reduce a MoE
+    layer. Per-step losses and the eval loss within 1e-6, with tokens
+    dropped at the global capacity."""
+    from mpi_cuda_cnn_tpu.utils.logging import MetricsLogger as JaxMetrics
+
+    world, flags = MOE_CASES[case]
+    kw = dict(MOE_BASE, **flags)
+    jm = JaxMetrics(echo=False, capture=True)
+    jtr = JaxLMTrainer(JaxLMConfig(num_devices=world, **kw), metrics=jm)
+    init = _biased(jax.device_get(jtr.state["params"]))
+    jtr.state["params"] = jax.device_put(
+        init, jax.tree.map(lambda a: a.sharding, jtr.state["params"]))
+    jres = jtr.train()
+    want = [r["loss"] for r in jm.rows if r["event"] == "train"]
+    assert _global_drops(kw, params_from_jax(init), monkeypatch) > 0
+    ranks = run_ranks(lm_rank, world, args=(
+        LMConfig(device="cpu", num_devices=world, **kw),
+        params_from_jax(init)), timeout=RANKS_TIMEOUT_S)
+    micro = kw.get("grad_accum", 1)
+    for res in ranks:
+        assert res["losses"] == ranks[0]["losses"]
+        np.testing.assert_allclose(res["losses"], want, rtol=MOE_LOSS_RTOL)
+        np.testing.assert_allclose(res["eval_loss"], jres.eval_loss,
+                                   rtol=MOE_LOSS_RTOL)
+        # the step's all-reduce, and one a MoE layer a micro-batch (two
+        # under remat: the backward runs each block's forward again)
+        forwards = 2 if kw.get("remat") else 1
+        assert res["counts"]["collectives"]["all_reduce"] == \
+            kw["steps"] * (1 + forwards * micro * kw["depth"])
+
+
+def test_moe_elastic_is_width_invariant_and_matches_jax():
+    """--elastic-width 4: each canonical micro-batch routes by itself, as
+    in the JAX elastic step; worlds 1 and 2 bit for bit, within 1e-6 of
+    the JAX elastic trainer."""
+    from mpi_cuda_cnn_tpu.utils.logging import MetricsLogger as JaxMetrics
+
+    kw = dict(MOE_BASE, moe_top_k=2, elastic_width=4)
+    jm = JaxMetrics(echo=False, capture=True)
+    jtr = JaxLMTrainer(JaxLMConfig(num_devices=1, **kw), metrics=jm)
+    init = _biased(jax.device_get(jtr.state["params"]))
+    jtr.state["params"] = jax.device_put(
+        init, jax.tree.map(lambda a: a.sharding, jtr.state["params"]))
+    jres = jtr.train()
+    want = [r["loss"] for r in jm.rows if r["event"] == "train"]
+    runs = {w: run_ranks(lm_rank, w, args=(
+        LMConfig(device="cpu", num_devices=w, **kw), params_from_jax(init)),
+        timeout=RANKS_TIMEOUT_S) for w in (1, 2)}
+    ref = runs[1][0]
+    np.testing.assert_allclose(ref["losses"], want, rtol=MOE_LOSS_RTOL)
+    np.testing.assert_allclose(ref["eval_loss"], jres.eval_loss,
+                               rtol=MOE_LOSS_RTOL)
+    for res in runs[2]:
+        assert res["losses"] == ref["losses"]
+        assert res["final_loss"] == ref["final_loss"]
+        assert res["eval_loss"] == ref["eval_loss"]
+
+
+def test_moe_chunk_that_splits_a_rank_unevenly_is_refused():
+    """The ranks route a chunk spanning ranks only as whole ranks: 96
+    tokens a rank and chunks of 64 (which the JAX package's global
+    routing accepts, 384 tokens in all) fail at construction, not at the
+    first step."""
+    import torch
+
+    kw = dict(MOE_BASE, batch_size=12, moe_dispatch_chunk=64)
+    mesh = Mesh(shape={"data": 4}, rank=0, world=4,
+                device=torch.device("cpu"), group=None)
+    with pytest.raises(ValueError, match="neither divides nor is a multiple"):
+        LMTrainer(LMConfig(device="cpu", num_devices=4, **kw), mesh=mesh)
+    LMTrainer(LMConfig(device="cpu", num_devices=4,
+                       **dict(kw, moe_dispatch_chunk=32)), mesh=mesh)
