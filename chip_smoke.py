@@ -261,6 +261,7 @@ TENSOR_CORE_KERNELS = ("gemm", "conv_direct", "conv_dw", "conv_gemm",
 # (library, mangled-name fragment): the float32 flash forward and backward
 # (3xTF32), whose libraries would pass the check above on their bf16
 # kernels alone.
+FLASH_HEAD_DIMS = (16, 32, 64, 128)   # the flash kernels' instances
 TENSOR_CORE_FUNCTIONS = (("flash_fwd", "flash_fwd_f32_kernel"),
                          ("flash_bwd_dq", "flash_bwd_dq_f32_kernel"),
                          ("flash_bwd_dkv", "flash_bwd_dkv_f32_kernel"))
@@ -446,6 +447,26 @@ FLASH_EXTRA_SHAPES = [(dtype, 2, 1024, 4, 2, d, causal)
 # output element is summed in one fixed order (the GQA group too).
 FLASH_REPEAT = [(b, s, h, hkv, d, True) for dtype, b, s, h, hkv, d
                 in FLASH_SHAPES if dtype == "float32"]
+# Head dim 16, in both types, causal and not, MHA and GQA: (dtype, B, S,
+# H, Hkv, D, causal).
+FLASH_D16_SHAPES = [(dtype, 2, 1024, 4, hkv, 16, causal)
+                    for dtype in ("float32", "bfloat16") for hkv in (4, 2)
+                    for causal in (True, False)]
+# The float32-output mode on bf16 inputs (K7 `out_f32`, K8/K9
+# `grads_f32`) at the lm_sp phase's per-rank blocks (B 8, 1,024 of the
+# flagship's 2,048 positions; rank 1 folds a full block and the diagonal),
+# and GQA at D 16; held to the bf16 bands of FLASH_RTOL_OF_MAX and
+# FLASH_BF16_REL_L2 against the plain versions before their rounding.
+# Those bands cannot tell an output rounded to bf16 (about 1e-3 more error)
+# from one left unrounded, so each float32 output must also differ from
+# its own bf16 rounding on at least F32_OUT_UNROUNDED_MIN of its elements
+# (a float32 sum of bf16 products is bf16-representable about once in
+# 2^16; a causal o's first row, a single v row, always is).
+# Each shape also runs with bf16 outputs, the mode's time beside.
+FLASH_F32_OUT_SHAPES = [("bfloat16", 8, 1024, 8, 8, 64, True),
+                        ("bfloat16", 8, 1024, 8, 8, 64, False),
+                        ("bfloat16", 2, 1024, 4, 2, 16, True)]
+F32_OUT_UNROUNDED_MIN = 0.9
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # The lm phase: the LM flagship's width (scripts/bench_lm.py:101-116:
 # d512, 8 layers, 8 heads, seq 2048, batch 8) through `lm` on the
@@ -503,6 +524,32 @@ LM_DP_ARGS = LM_MODEL_ARGS + ["--attn-impl", "flash", "--steps",
 # intermediates; over 8 layers such flips add up to a few 1e-3. A wrong
 # dq, dk or dv moves a leaf by far more than 2e-2.
 LM_BF16_GRAD_REL_L2 = 2e-2
+# lm_sp: the lm phase's flagship at --mesh-shape seq:2 as two gloo ranks
+# on cuda:0 (sequence parallelism, parallel/sp.py), each holding 1,024 of
+# the 2,048 positions of all 8 rows. ring_flash (what flash resolves to
+# on the card): LM_SP_STEPS float32 steps and the first step's gradients
+# in float32 and bf16; ring and ulysses in float32: the first step's
+# gradients and LM_SP_OTHER_STEPS steps each. Held against the
+# one-device flash LMTrainer from the same seeded init: float32 first
+# gradients per leaf within LM_AGREE_GRAD_REL_L2 (the halves' folds and
+# sums add the same float32 products in other orders), bf16 within
+# LM_BF16_GRAD_REL_L2, the float32 losses within LM_AGREE_LOSS_ATOL. A
+# causal step of ring_flash launches K7/K8/K9 8 (depth) x (r + 1) times
+# on seq rank r: rank 0 folds only its diagonal block, rank 1 a full
+# block and its diagonal; the eval runs the whole sequence on K7 (8 a
+# rank). Step times are correctness runs (two ranks share the card and
+# gloo stages each ring hop through the host), not scaling figures.
+LM_SP_WORLD = 2
+LM_SP_STEPS = 5
+LM_SP_OTHER_STEPS = 2
+LM_SP_ARGS = LM_MODEL_ARGS + ["--mesh-shape", "seq:2", "--warmup-steps",
+                              "2", "--log-every", "1"]
+LM_SP_PER_STEP = [{k: 8 * (r + 1) for k in ("flash_fwd", "flash_bwd_dq",
+                                             "flash_bwd_dkv")}
+                  for r in range(LM_SP_WORLD)]
+LM_SP_NOTE = ("correctness run: the two seq ranks share one card and gloo "
+              "stages each ring hop and the all-reduce through the host; "
+              "not a scaling figure")
 # recover: crash-safe training on the card (`train/checkpoint.py`,
 # `faults.py`). CNN: the train configuration at dp's 50 steps (one
 # device-resident epoch of 1,600 samples, batch 32, lr 0.1) through the
@@ -633,6 +680,13 @@ LM_MOE_GRAD_REL_L2 = 2e-3
 # its own probabilities); where its own probabilities would have chosen
 # otherwise, the two must be a tie, within MOE_ROUTE_TIE.
 MOE_ROUTE_TIE = 1e-5
+# An MoE engine's int8 page writes against its plain twin's (`moe_tie`):
+# codes one step apart only at values within MOE_CODE_EDGE_TOL code steps
+# of the edge between them (float rounding: the two paths' scales were
+# seen 1.2e-6 apart, about 1.5e-4 of a step at code 127), and on at most
+# MOE_CODE_EDGE_MAX_SHARE of the codes a forward writes.
+MOE_CODE_EDGE_TOL = 1e-2
+MOE_CODE_EDGE_MAX_SHARE = 1e-4
 LM_MOE_BENCH_ARGS = ["--steps", "10", "--moe-experts", "8",
                      "--moe-top-k", "2"]
 MOE_SPLIT_STAGES = ("ep.router_build", "ep.dispatch_einsum", "ep.expert_ffn",
@@ -655,7 +709,14 @@ MOE_SPLIT_RUNS = 3
 # chunk 32), int8 MHA pages (the serve phase's kind: K1 within 1e-4 of
 # the gather read, so the tie rule holds; bf16 pages differ by up to
 # 1e-2, ATTN_ATOL, and a top-2 gap of 1.5e-3 was seen there), int8
-# weights, GEN_SERVE requests; K1 8 and K2 17 a forward. ms a token are
+# weights, GEN_SERVE requests; K1 8 and K2 17 a forward. Where its tokens
+# part, the two forwards are held with their discontinuities fixed
+# (`moe_tie`): a k/v value on an int8 code's rounding edge is written one
+# step apart by the two paths and moves the router by more than float
+# rounding (seen on the card from the seed-0 init: 29 writes with such a
+# code before a choice 1.9e-3 apart; with the kernel path's codes and
+# routes the plain path chose the kernel's token by 5.2e-3), so few such
+# codes, each near its edge (MOE_CODE_EDGE_*). ms a token are
 # timed on a second, warmed call of each path (the sample's first call
 # quantizes the weights).
 GEN_TOKENS = 256
@@ -1223,13 +1284,18 @@ def sdpa_ms(torch, q, k, v, g, causal: bool = True) -> dict:
 
 
 def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
-                d: int, gen, causal: bool = True) -> list[dict]:
+                d: int, gen, causal: bool = True,
+                f32_out: bool = False) -> list[dict]:
     """K7, K8 and K9 on one attention shape (q (B, S, H, D), k/v (B, S,
     Hkv, D)), each against its plain version on the same inputs; the
     backward kernels take the plain forward's o and lse and a random
     cotangent. float32 K7/K8/K9 outputs are also held to
     FLASH_F32_REL_L2, and at FLASH_REPEAT's shapes run twice and held
-    equal bit for bit.
+    equal bit for bit. `f32_out` (bf16 inputs): K7 with `out_f32` and
+    K8/K9 with `grads_f32`, float32 outputs held to the bf16 bands
+    against the plain versions' unrounded ones, and unrounded themselves
+    (F32_OUT_UNROUNDED_MIN; the rounded copy's relative L2 to the plain
+    output is kept beside the kernel's).
     Bound: the pairs (causal: S (S + 1) / 2, else S^2) per (batch, query
     head) times 2 D flops for each of the kernel's products (K7: q k^T and
     p v; K8: also dO v^T and ds k, less p v; K9: q k^T, dO v^T, p^T dO and
@@ -1250,18 +1316,25 @@ def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
     dvec = fa.row_dvec(o, g)
     el = q.element_size()
     rows_q, rows_kv, rows = b * s * h * d, b * s * hkv * d, 4 * b * h * s
+    f32 = dict(out_f32=f32_out)
+    g32 = dict(grads_f32=f32_out)
+    oel = 4 if f32_out else el      # the outputs' element size
     runs = {
-        "flash_fwd": (lambda: fa.flash_forward(q, k, v, causal),
-                      lambda: fa.flash_forward_plain(q, k, v, causal), 2,
-                      el * (2 * rows_q + 2 * rows_kv) + rows),
-        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, g, lse, dvec, causal),
+        "flash_fwd": (lambda: fa.flash_forward(q, k, v, causal, **f32),
+                      lambda: fa.flash_forward_plain(q, k, v, causal, **f32),
+                      2, el * (rows_q + 2 * rows_kv) + oel * rows_q + rows),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, g, lse, dvec, causal,
+                                                 **g32),
                          lambda: fa.flash_bwd_dq_plain(q, k, v, g, lse, dvec,
-                                                       causal), 3,
-                         el * (3 * rows_q + 2 * rows_kv) + 2 * rows),
-        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, g, lse, dvec, causal),
+                                                       causal, **g32), 3,
+                         el * (2 * rows_q + 2 * rows_kv) + oel * rows_q
+                         + 2 * rows),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, g, lse, dvec,
+                                                   causal, **g32),
                           lambda: fa.flash_bwd_dkv_plain(q, k, v, g, lse,
-                                                         dvec, causal), 4,
-                          el * (2 * rows_q + 4 * rows_kv) + 2 * rows)}
+                                                         dvec, causal, **g32),
+                          4, el * (2 * rows_q + 2 * rows_kv)
+                          + oel * 2 * rows_kv + 2 * rows)}
     lib = sdpa_ms(torch, q, k, v, g, causal)
     pairs = s * (s + 1) // 2 if causal else s * s
     out = []
@@ -1272,14 +1345,37 @@ def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
         want = want if isinstance(want, tuple) else (want,)
         err = tol = 0.0
         rel = None
+        unrounded = {}
         what = f"{name} {dtype} B={b} S={s} H={h} Hkv={hkv} D={d} causal={causal}"
         for i, (a, w) in enumerate(zip(got, want)):
-            # lse is float32 arithmetic on either input type
-            rtol = FLASH_RTOL_OF_MAX["float32" if a.dtype == torch.float32
-                                     else dtype]
+            lse_out = name == "flash_fwd" and i == 1
+            if a.dtype != w.dtype or (f32_out and a.dtype != torch.float32):
+                raise AssertionError(f"{what} output {i}: {a.dtype}, plain "
+                                     f"{w.dtype}")
+            # lse is float32 arithmetic on either input type; f32_out's
+            # float32 outputs come from bf16 operands
+            band = (dtype if f32_out and not lse_out else
+                    "float32" if a.dtype == torch.float32 else dtype)
+            rtol = FLASH_RTOL_OF_MAX[band]
             e, t = _check_err(f"{what} output {i}", a.float(), w.float(), rtol)
             err, tol = max(err, e), max(tol, t)
-            if a.dtype == torch.bfloat16:
+            if f32_out and not lse_out:
+                rounded = a.to(torch.bfloat16).float()
+                share = (a != rounded).float().mean().item()
+                if not share >= F32_OUT_UNROUNDED_MIN:
+                    raise AssertionError(
+                        f"{what} output {i}: only {share} of the float32 "
+                        f"output differs from its bf16 rounding (want >= "
+                        f"{F32_OUT_UNROUNDED_MIN})")
+                unrounded = {
+                    "unrounded_share_min": min(
+                        share, unrounded.get("unrounded_share_min", 1.0)),
+                    "unrounded_share_limit": F32_OUT_UNROUNDED_MIN,
+                    "rounded_rel_l2_err": max(
+                        rel_l2(rounded, w.float(),
+                               per_row=FLASH_BF16_REL_L2[name][0] == "row"),
+                        unrounded.get("rounded_rel_l2_err", 0.0))}
+            if band == "bfloat16":
                 over, rtol_l2 = FLASH_BF16_REL_L2[name]
             elif tf32x3:
                 over, rtol_l2 = "tensor", FLASH_F32_REL_L2
@@ -1310,8 +1406,9 @@ def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
         fma = {"bound_fma_ms": max(t_bytes, flops / F32_FLOPS * 1e3)} if tf32x3 else {}
         out.append({"kernel": name, "dtype": dtype, "B": b, "S": s, "H": h,
                     "Hkv": hkv, "D": d, "causal": causal,
+                    **({"f32_out": True} if f32_out else {}),
                     "max_abs_err": err, "tolerance": tol, **(rel or {}),
-                    **repeat,
+                    **unrounded, **repeat,
                     "ms": median_ms(torch, run),
                     "plain_ms": median_ms(torch, plain),
                     "library_ms": (lib["library_fwd_ms"]
@@ -1323,11 +1420,15 @@ def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
 
 def phase_flash_kernels(torch, dev, gen) -> list[dict]:
     cases = []
-    for *shape, causal in ([(*s, True) for s in FLASH_SHAPES]
-                           + FLASH_EXTRA_SHAPES
-                           + [(*s, True) for s in FLASH_RANK_SHAPES]):
-        for case in flash_cases(torch, dev, *shape, gen, causal):
-            if tuple(shape) in FLASH_RANK_SHAPES:
+    for *shape, causal, f32_out in (
+            [(*s, True, False) for s in FLASH_SHAPES]
+            + [(*s, False) for s in FLASH_EXTRA_SHAPES + FLASH_D16_SHAPES]
+            + [(*s, True, False) for s in FLASH_RANK_SHAPES]
+            + [(*s, f32_out) for s in FLASH_F32_OUT_SHAPES
+               for f32_out in (False, True)]):
+        for case in flash_cases(torch, dev, *shape, gen, causal, f32_out):
+            if (tuple(shape) in FLASH_RANK_SHAPES
+                    or (*shape, causal) in FLASH_F32_OUT_SHAPES):
                 case["per_rank"] = True
             emit({"phase": "kernel_case", **case})
             cases.append(case)
@@ -1443,10 +1544,11 @@ def phase_cnn_kernels(torch, dev, gen):
             yield case
 
 
-def last_logits(torch, engine, ctx) -> "torch.Tensor":
+def last_logits(torch, engine, ctx, quant=None) -> "torch.Tensor":
     """Logits after `ctx` (a 1-d token array) through `engine`'s model,
     weights, cache dtype and attention read, prefilled chunk by chunk
-    into a fresh single-slot paged cache."""
+    into a fresh single-slot paged cache (its int8 pages written through
+    `quant`, if given)."""
     import numpy as np
 
     from mpi_cuda_cnn_tpu_torch.serve.paged_cache import (
@@ -1462,6 +1564,8 @@ def last_logits(torch, engine, ctx) -> "torch.Tensor":
                              max_len=engine.max_len,
                              kernel=engine.attn_kernel, device=dev)
     cache.block_table[0, :npg] = torch.arange(1, npg + 1, dtype=torch.int32)
+    if quant is not None:
+        cache.quant = quant
     with torch.no_grad():
         for c0 in range(0, len(ctx), chunk):
             n = min(chunk, len(ctx) - c0)
@@ -1479,8 +1583,8 @@ def last_logits(torch, engine, ctx) -> "torch.Tensor":
 def agree_requests(torch, eng, plain, served: list, replay: list) -> dict:
     """Requests served by `eng` (kernels) against the same requests
     replayed by `plain` (plain versions): equal tokens, or at the first
-    difference a tie (the plain path's top-2 logit gap there below
-    TIE_GAP)."""
+    difference a tie: the plain path's top-2 logit gap there below
+    TIE_GAP, or, for an MoE model, a routing tie (`moe_tie`)."""
     import numpy as np
 
     served = {r.rid: r for r in served}
@@ -1506,13 +1610,112 @@ def agree_requests(torch, eng, plain, served: list, replay: list) -> dict:
                          "plain": r.out[t], "plain_top2_gap": gap,
                          "logit_max_abs_diff":
                              float((lp - lk).abs().max())})
-        if gap > TIE_GAP:
+        if gap > TIE_GAP and eng.model.moe_experts:
+            diverged[-1]["moe_tie"] = moe_tie(torch, eng, plain, ctx,
+                                              k_out[t])
+        elif gap > TIE_GAP:
             raise AssertionError(f"request {r.rid} step {t}: kernel path "
                                  f"chose {k_out[t]}, plain {r.out[t]}, top-2 "
                                  f"gap {gap} > {TIE_GAP}")
     return {"requests": len(replay), "tokens_compared": compared,
             "tokens_equal": equal, "diverged": diverged,
             "tie_gap": TIE_GAP}
+
+
+def kv_code_spy(force: list | None = None):
+    """A quantizer for the int8 page write (`PagedKVCache.quant`) of one
+    forward, with its record. Without `force`: `_quant_kv`, each call's
+    codes and scales kept. With `force` (another forward's record): each
+    call writes the forced codes and scales instead of its own and keeps
+    how far they are apart: the codes that differ (by one step at most,
+    else AssertionError), the codes written, the largest distance, in
+    code steps, of a differing code's unrounded value from the edge
+    between the two codes, and the scales' largest relative gap."""
+    from mpi_cuda_cnn_tpu_torch.models.generate import _quant_kv
+
+    rec = []
+
+    def quant(x):
+        q, sc = _quant_kv(x)
+        if force is None:
+            rec.append((q, sc))
+            return q, sc
+        fq, fsc = force[len(rec)]
+        gap = q.int() - fq.int()
+        step = int(gap.abs().max())
+        if step > 1:
+            raise AssertionError(f"MoE engine: int8 codes {step} steps "
+                                 "apart between the two paths")
+        differ = gap != 0
+        # the value _quant_kv rounds, against the edge between the codes
+        edge = (x.float() / sc - (q.float() + fq.float()) / 2).abs()
+        rec.append({"differ": int(differ.sum()), "codes": q.numel(),
+                    "edge_max": float(edge[differ].max()) if differ.any()
+                    else 0.0,
+                    "scale_rel_gap": float(((sc - fsc).abs() / fsc).max())})
+        return fq, fsc
+
+    return quant, rec
+
+
+def moe_tie(torch, eng, plain, ctx, token: int) -> dict:
+    """An MoE engine's choice of `token` after `ctx` where its plain twin
+    chose another, explained as lm_moe (b) explains flash against the
+    oracle. Two steps of the engines' forward are not continuous: the
+    router's top-k, and the int8 page write's rounding. A router choice
+    on a tie (two probabilities within MOE_ROUTE_TIE) turns the residual
+    stream and every later choice; a value within float rounding of a
+    code's edge is written one code step apart, which moves the router's
+    probabilities by more than float rounding. So the plain forward of
+    `ctx` writes the kernel path's codes (`kv_code_spy`) and is routed by
+    the kernel path's choices (`moe_route_spy`), which must differ from
+    its own only at ties (`routing_ties`); its own codes may differ from
+    the kernel path's only by one step, at values within
+    MOE_CODE_EDGE_TOL steps of the edge between the two codes, on at
+    most MOE_CODE_EDGE_MAX_SHARE of the codes written, under scales
+    within MOE_CODE_EDGE_TOL / 127 of each other; its logits must then
+    pick `token` or tie within TIE_GAP. Raises AssertionError
+    otherwise."""
+    from mpi_cuda_cnn_tpu_torch.parallel import moe
+
+    rec, undo = moe_route_spy(moe)
+    kv_quant, kv = kv_code_spy()
+    try:
+        last_logits(torch, eng, ctx, quant=kv_quant)
+    finally:
+        undo()
+    own, undo = moe_route_spy(moe, force=rec["idx"])
+    forced_quant, codes = kv_code_spy(force=kv)
+    try:
+        lf = last_logits(torch, plain, ctx, quant=forced_quant)
+    finally:
+        undo()
+    differ = sum(c["differ"] for c in codes)
+    share = differ / max(1, sum(c["codes"] for c in codes))
+    edge = max((c["edge_max"] for c in codes), default=0.0)
+    scale_gap = max((c["scale_rel_gap"] for c in codes), default=0.0)
+    if not (share <= MOE_CODE_EDGE_MAX_SHARE and edge <= MOE_CODE_EDGE_TOL
+            and scale_gap <= MOE_CODE_EDGE_TOL / 127):
+        raise AssertionError(
+            f"MoE engine: {differ} int8 codes ({share} of those written, "
+            f"limit {MOE_CODE_EDGE_MAX_SHARE}) differ between the two "
+            f"paths, the farthest {edge} code steps from its edge (limit "
+            f"{MOE_CODE_EDGE_TOL}), scales {scale_gap} apart (limit "
+            f"{MOE_CODE_EDGE_TOL / 127})")
+    ties = routing_ties(own, rec["idx"])
+    top2 = torch.topk(lf, 2)
+    gap = float(top2.values[0] - top2.values[1])
+    if int(top2.indices[0]) != token and gap > TIE_GAP:
+        raise AssertionError(f"MoE engine: routed and written as the kernel "
+                             f"path, the plain path chose "
+                             f"{int(top2.indices[0])}, the kernel path "
+                             f"{token}, top-2 gap {gap} > {TIE_GAP}")
+    return {**ties, "routed_top2_gap": gap,
+            "routed_choice": int(top2.indices[0]),
+            "codes_one_step_apart_calls": sum(c["differ"] > 0
+                                              for c in codes),
+            "codes_one_step_apart": differ, "codes_one_step_apart_share": share,
+            "code_edge_distance_max": edge, "scale_rel_gap_max": scale_gap}
 
 
 def plain_engine(eng):
@@ -1794,6 +1997,7 @@ def profile_steps(torch, trainer, step_ms: float, steps: int = 50) -> dict:
 def phase_train_agree(torch) -> dict:
     """AGREE_STEPS steps of reference_cnn from one init on the kernels
     and on PyTorch's own ops, on the card with TF32 off."""
+    from mpi_cuda_cnn_tpu_torch.data import prng
     from mpi_cuda_cnn_tpu_torch.data.datasets import synthetic_stripes
     from mpi_cuda_cnn_tpu_torch.models.initializers import get_initializer
     from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
@@ -1804,7 +2008,7 @@ def phase_train_agree(torch) -> dict:
 
     model = get_model("reference_cnn")
     ds = synthetic_stripes(num_train=AGREE_STEPS * CNN_BATCH, num_test=2048)
-    params = model.init(torch.Generator().manual_seed(0),
+    params = model.init(prng.key(0),
                         get_initializer("normal"))
     runs = {}
     for use_kernels in (True, False):
@@ -2049,6 +2253,117 @@ def phase_lm_dp(torch, dev=None) -> dict:
             "train_s": {"dp": res["seconds"], "one_device": one["seconds"]},
             "launches_per_rank": [r["counts"]["launches"] for r in ranks],
             "note": DP_NOTE}
+
+
+def phase_lm_sp(torch, dev=None) -> dict:
+    """LM_SP_ARGS at seq:2 as two gloo ranks on `dev` (cuda:0), ring_flash
+    in float32 and bf16, ring and ulysses in float32, against the
+    one-device flash LMTrainer from the same seeded init: first-step
+    gradients per leaf, the float32 losses, ring_flash's launches a step
+    per rank, each run's step ms; and the seconds of one seeded init of
+    the model (drawn on the host, moved to `dev`). (`dev` the CPU: the
+    same, to rehearse it.)
+    Returns the phase's record and the ring_flash launches of both ranks'
+    float32 run (its steps and its eval)."""
+    import numpy as np
+
+    from mpi_cuda_cnn_tpu_torch.data import prng
+    from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
+    from mpi_cuda_cnn_tpu_torch.models.transformer import TransformerLM
+    from mpi_cuda_cnn_tpu_torch.parallel.distributed import run_ranks
+    from mpi_cuda_cnn_tpu_torch.train.ranks import lm_rank, lm_rank_each
+    from mpi_cuda_cnn_tpu_torch.utils.config import parse_lm_args
+
+    dev = dev or torch.device("cuda", 0)
+    flag = dict(zip(LM_MODEL_ARGS[::2], LM_MODEL_ARGS[1::2]))
+    model = TransformerLM(vocab=256, dim=int(flag["--dim"]),
+                          heads=int(flag["--heads"]),
+                          depth=int(flag["--depth"]),
+                          max_seq=int(flag["--seq-len"]))
+    t0 = time.perf_counter()
+    params = model.init(prng.key(0), dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    del params
+
+    def cfg(impl, dtype, steps, mesh="seq:2"):
+        return parse_lm_args(LM_SP_ARGS + [
+            "--device", str(dev), "--attn-impl", impl, "--compute-dtype",
+            dtype, "--steps", str(steps), "--mesh-shape", mesh])
+
+    runs = {"ring_flash": cfg("flash", "float32", LM_SP_STEPS),
+            "ring_flash_bf16": cfg("flash", "bfloat16", LM_SP_OTHER_STEPS),
+            "ring": cfg("ring", "float32", LM_SP_OTHER_STEPS),
+            "ulysses": cfg("ulysses", "float32", LM_SP_OTHER_STEPS)}
+    one = {dtype: lm_rank(None, cfg("flash", dtype, LM_SP_STEPS, "data"),
+                          grads=True)
+           for dtype in ("float32", "bfloat16")}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ranks = run_ranks(lm_rank_each, LM_SP_WORLD, devices=[dev] * LM_SP_WORLD,
+                      args=(list(runs.values()),), kwargs=dict(grads=True),
+                      axes={"seq": LM_SP_WORLD}, timeout=DP_RANKS_TIMEOUT_S)
+    grad_rel, step_ms, launches = {}, {}, []
+    for r, res_r in enumerate(ranks):
+        got = dict(zip(runs, res_r))
+        for name, res in got.items():
+            dtype = "bfloat16" if name.endswith("bf16") else "float32"
+            worst = max(grads_rel_l2(res["grads"], one[dtype]["grads"])
+                        .values())
+            limit = (LM_BF16_GRAD_REL_L2 if dtype == "bfloat16"
+                     else LM_AGREE_GRAD_REL_L2)
+            if not worst <= limit:
+                raise AssertionError(f"lm_sp rank {r} {name}: first-step "
+                                     f"gradients apart by {worst} (limit "
+                                     f"{limit})")
+            grad_rel[name] = max(grad_rel.get(name, 0.0), worst)
+            steps = runs[name].steps
+            if len(res["losses"]) != steps or not np.isfinite(
+                    res["losses"]).all():
+                raise AssertionError(f"lm_sp rank {r} {name}: losses "
+                                     f"{res['losses']}")
+            if res["counts"]["collectives"]["all_reduce"] != steps:
+                raise AssertionError(f"lm_sp rank {r} {name}: "
+                                     f"{res['counts']['collectives']}")
+            # steps and the eval in res["seconds"]; the eval is one forward
+            step_ms.setdefault(name, []).append(1e3 * res["seconds"] / steps)
+        flash = got["ring_flash"]
+        want = {k: n * LM_SP_STEPS + LM_PER_EVAL[k]
+                for k, n in LM_SP_PER_STEP[r].items()}
+        have = {k: flash["counts"]["launches"][k] for k in want}
+        if have != want:
+            raise AssertionError(f"lm_sp rank {r}: ring_flash launches "
+                                 f"{have}, want {want}")
+        launches.append(have)
+        loss_gap = max(abs(a - b) for a, b in zip(
+            flash["losses"], one["float32"]["losses"], strict=True))
+        if not loss_gap <= LM_AGREE_LOSS_ATOL:
+            raise AssertionError(f"lm_sp rank {r}: ring_flash losses "
+                                 f"{flash['losses']} against one device "
+                                 f"{one['float32']['losses']}")
+    return {"record": {
+        "world": LM_SP_WORLD, "mesh": "seq:2", "backend": "gloo",
+        "steps": {k: c.steps for k, c in runs.items()},
+        "losses": {"ring_flash": ranks[0][0]["losses"],
+                   "one_device": one["float32"]["losses"]},
+        "first_grad_rel_l2_max": grad_rel,
+        "first_grad_rel_l2_tolerance": {"float32": LM_AGREE_GRAD_REL_L2,
+                                        "bfloat16": LM_BF16_GRAD_REL_L2},
+        "loss_tolerance": LM_AGREE_LOSS_ATOL,
+        "ring_flash_launches_per_rank": launches,
+        "step_ms_per_rank": step_ms,
+        "one_device_step_ms": {d: 1e3 * one[d]["seconds"] / LM_SP_STEPS
+                               for d in one},
+        "step_ms_note": "train() wall seconds (steps and the eval) over "
+                        "the steps",
+        "init_s": init_s, "init_params": n_params,
+        "init_note": "TransformerLM.init of the model at vocab 256: "
+                     "prng.normal on the host, then a copy to the device",
+        "note": LM_SP_NOTE},
+        "launches": {k: sum(la[k] for la in launches)
+                     for k in FLASH_KERNELS}}
 
 
 def first_step_grads_rel_l2(torch, trainer) -> dict:
@@ -2517,12 +2832,13 @@ def phase_moe_split(torch, dev) -> None:
     sums (the profiler lists each range on the device as well)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from mpi_cuda_cnn_tpu_torch.data import prng
     from mpi_cuda_cnn_tpu_torch.parallel import moe
 
     gen = torch.Generator().manual_seed(0)
     args = lm_bench_args(LM_MOE_BENCH_ARGS)
     d, e, t = args.dim, args.moe_experts, args.batch * args.seq
-    params0 = moe.init_moe_params(gen, d, 4 * d, e)
+    params0 = moe.init_moe_params(prng.key(0), d, 4 * d, e)
     x0 = torch.randn(t, d, generator=gen)
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
@@ -3801,10 +4117,12 @@ def main() -> int:
     for lib, frag in TENSOR_CORE_FUNCTIONS:
         fns = {fn: n for fn, n in hmma_by_fn[lib].items() if frag in fn}
         hmma_fns.update(fns)
-        if len(fns) != 3 or not all(n > 0 for n in fns.values()):
+        if len(fns) != len(FLASH_HEAD_DIMS) or not all(
+                n > 0 for n in fns.values()):
             raise AssertionError(f"build: {frag} in {lib}: HMMA per instance "
-                                 f"{fns or 'no such function'}; want all "
-                                 f"three head dims on the tensor cores")
+                                 f"{fns or 'no such function'}; want every "
+                                 f"head dim {FLASH_HEAD_DIMS} on the tensor "
+                                 "cores")
     emit({"phase": "build_hmma", "functions": hmma_fns})
     for lib, frag in NO_SPILL:
         if not spills[lib] or any(spills[lib].values()):
@@ -3822,6 +4140,9 @@ def main() -> int:
     emit({"phase": "train_agree", **phase_train_agree(torch)})
     phase_dp(torch)
     emit({"phase": "lm_dp", **phase_lm_dp(torch)})
+    lm_sp = phase_lm_sp(torch)
+    emit({"phase": "lm_sp", "device": kind, "nvidia_smi": smi,
+          **lm_sp["record"]})
     emit({"phase": "train_bf16", **phase_train_bf16(torch)})
     conv_launches = phase_conv_bench(torch)
     lm_launches, lm_trainer = phase_lm(torch)
@@ -3839,7 +4160,7 @@ def main() -> int:
                 **{k: train_launches[k] for k in PER_STEP},
                 "conv_gemm": conv_launches["conv_gemm"],
                 **{k: lm_launches[k] + moe_launches[k]
-                   for k in FLASH_KERNELS}}
+                   + lm_sp["launches"][k] for k in FLASH_KERNELS}}
     line = kernels_line(cases, launches)
     print(smi, flush=True)
     emit(line)

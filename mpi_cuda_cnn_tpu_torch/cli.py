@@ -15,10 +15,12 @@
 
 Every command runs on the card unless given --device cpu. `train` and
 `lm` take `--num-devices N` / `--mesh-shape data:N` (N = 0: every visible
-card, 1 on the CPU): a world of 1 runs in this process; a world of N > 1
-spawns N ranks (`parallel.distributed.run_ranks`), NCCL with rank r on
-cuda:r, or gloo ranks under --device cpu, and fails with exit 2 when N is
-more than the visible cards. Under `torchrun` the environment names the
+card, 1 on the CPU), and `lm` also a seq axis, `--mesh-shape seq:P` or
+`data:N,seq:P` (sequence parallelism, `parallel/sp.py`): a world of 1
+runs in this process; a world of N > 1 spawns N ranks
+(`parallel.distributed.run_ranks`), NCCL with rank r on cuda:r, or gloo
+ranks under --device cpu, and fails with exit 2 when N is more than the
+visible cards. Under `torchrun` the environment names the
 world and this process is one rank of it. The command returns non-zero
 when any rank fails.
 
@@ -42,14 +44,17 @@ _USAGE = ("usage: python -m mpi_cuda_cnn_tpu_torch "
 
 
 def rank_devices(device: str, num_devices: int, mesh_shape: str,
-                 batch_size: int, queue: str) -> list:
-    """One device per rank of the data mesh the flags ask for: the CPU for
-    every rank under --device cpu, else the first cards. Under torchrun
-    the environment names the world, and each process knows only its own
-    device: this process's card (cuda:LOCAL_RANK), or the CPU, once per
-    rank. Raises RuntimeError when CUDA is asked for and absent,
-    NotImplementedError for an unported mesh, ValueError for more ranks
-    than cards or a batch the data axis does not divide."""
+                 batch_size: int, queue: str,
+                 ported: tuple[str, ...] = ("data",)) -> list:
+    """One device per rank of the mesh the flags ask for (of the `ported`
+    axes): the CPU for every rank under --device cpu, else the first
+    cards. Under torchrun the environment names the world, and each
+    process knows only its own device: this process's card
+    (cuda:LOCAL_RANK), or the CPU, once per rank. Raises RuntimeError when
+    CUDA is asked for and absent, NotImplementedError for an unported
+    mesh, ValueError for more ranks than cards, a mesh that is not the
+    torchrun world, or a batch the data axis does not divide."""
+    import math
     import os
 
     import torch
@@ -60,16 +65,20 @@ def rank_devices(device: str, num_devices: int, mesh_shape: str,
     from .utils.config import check_batch_divides, data_axes
 
     own = resolve_device(device)
-    if launched_by_torchrun():
-        world = int(os.environ["WORLD_SIZE"])
-        check_batch_divides(batch_size, world)
-        return [own] * world
     cuda = own.type == "cuda"
+    if launched_by_torchrun():
+        world = int(os.environ["WORLD_SIZE"])   # --num-devices is moot
+        axes = data_axes(0, mesh_shape, world, queue=queue, ported=ported)
+        if math.prod(axes.values()) != world:
+            raise ValueError(f"mesh {axes} for a torchrun world of {world}")
+        check_batch_divides(batch_size, axes[DATA_AXIS])
+        return [own] * world
     visible = torch.cuda.device_count() if cuda else 1
-    axes = data_axes(num_devices, mesh_shape, visible, queue=queue)
+    axes = data_axes(num_devices, mesh_shape, visible, queue=queue,
+                     ported=ported)
     check_batch_divides(batch_size, axes[DATA_AXIS])
     if not cuda:
-        return [own] * axes[DATA_AXIS]
+        return [own] * math.prod(axes.values())
     return mesh_devices(axes, [torch.device("cuda", i)
                                for i in range(visible)])
 
@@ -108,11 +117,13 @@ def world_exit(codes: list[int]) -> int:
     return max(c for c in codes if c != EXIT_PREEMPTED) or 1
 
 
-def _run_world(entry, devices: list, args: tuple) -> int:
-    """Run entry(mesh, *args) -> {"exit": code, ...} (`train/ranks.py`):
-    in this process as one rank of a torchrun world, in this process
-    alone for one device, else on one spawned rank per device. Returns
-    the ranks' exit code (`world_exit`), 1 when a rank failed."""
+def _run_world(entry, devices: list, args: tuple,
+               axes: dict | None = None) -> int:
+    """Run entry(mesh, *args) -> {"exit": code, ...} (`train/ranks.py`)
+    on the mesh of `axes` (None: the data axis of every device): in this
+    process as one rank of a torchrun world, in this process alone for
+    one device, else on one spawned rank per device. Returns the ranks'
+    exit code (`world_exit`), 1 when a rank failed."""
     from .parallel.distributed import (
         RankError,
         initialize_distributed,
@@ -124,13 +135,13 @@ def _run_world(entry, devices: list, args: tuple) -> int:
 
     if launched_by_torchrun():
         initialize_distributed(devices[0])
-        results = [entry(make_mesh(devices=devices), *args)]
+        results = [entry(make_mesh(axes, devices=devices), *args)]
     elif len(devices) == 1:
         results = [entry(None, *args)]
     else:
         try:
             results = run_ranks(entry, len(devices), devices=devices,
-                                args=args)
+                                args=args, axes=axes)
         except RankError as e:
             get_logger().error("%s", e)
             return 1
@@ -186,7 +197,12 @@ def run_train(argv: list[str]) -> int:
 
 def run_lm(argv: list[str]) -> int:
     """The `lm` command, mirroring the reference's `cli.run_lm`."""
-    from .utils.config import check_lm_supported, parse_lm_args
+    from .utils.config import (
+        LM_MESH_AXES,
+        check_lm_supported,
+        data_axes,
+        parse_lm_args,
+    )
     from .utils.logging import get_logger
 
     try:
@@ -197,14 +213,16 @@ def run_lm(argv: list[str]) -> int:
     try:
         check_lm_supported(cfg)
         devices = rank_devices(cfg.device, cfg.num_devices, cfg.mesh_shape,
-                               cfg.batch_size, "F")
+                               cfg.batch_size, "F", LM_MESH_AXES)
+        # the mesh of those ranks (a bare axis takes all of them)
+        axes = data_axes(0, cfg.mesh_shape, len(devices), "F", LM_MESH_AXES)
         _check_supervisor(cfg, len(devices))
     except (NotImplementedError, RuntimeError, ValueError) as e:
         log.error("%s", e)
         return 2
     from .train.ranks import lm_rank
 
-    return _run_world(lm_rank, devices, (cfg,))
+    return _run_world(lm_rank, devices, (cfg,), axes)
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -49,6 +49,12 @@
 // D 64; a trial with 8 and 32-query halves spilled), and added to dv and
 // dk in float32.
 // At D 128 a q tile is taken as two halves of 32 queries, as in bf16.
+//
+// With `out_f32` the bf16 path stores dk and dv in float32, unrounded (the
+// TPU wrapper's grads_f32, which the ring-flash backward of parallel/sp.py
+// accumulates its hops in): a branch of the MHA epilogue, and the group
+// sum's float instance under GQA. Head dims 16, 32, 64 and 128
+// (flash_fwd.cu's notes on D 16 hold here).
 
 #include <type_traits>
 
@@ -69,7 +75,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                              const float* __restrict__ dvec,
                              float* __restrict__ dk, float* __restrict__ dv,
                              float* __restrict__ part, int S, int H, int Hkv,
-                             int causal, float scale) {
+                             int causal, float scale, int /*out_f32*/) {
   constexpr int kLd = kLdF32<D>;  // D + 4: row stride in floats
   constexpr int kTileElems = kTile * kLd;
   constexpr int kChunks = D / 4;  // 16-byte copies per row
@@ -242,10 +248,9 @@ __global__ void __launch_bounds__(kMmaThreads)
                               const __nv_bfloat16* __restrict__ dout,
                               const float* __restrict__ lse,
                               const float* __restrict__ dvec,
-                              __nv_bfloat16* __restrict__ dk,
-                              __nv_bfloat16* __restrict__ dv,
+                              void* __restrict__ dk, void* __restrict__ dv,
                               float* __restrict__ part, int S, int H, int Hkv,
-                              int causal, float scale) {
+                              int causal, float scale, int out_f32) {
   using bf16 = __nv_bfloat16;
   constexpr int kLd = D + 8;  // row stride, 16 bytes of padding
   constexpr int kTileElems = kTile * kLd;
@@ -442,10 +447,15 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const size_t e = off + j * 8 + 2 * t4;
-      if (part == nullptr) {
-        *reinterpret_cast<uint32_t*>(dk + e) =
+      if (part == nullptr && out_f32) {
+        *reinterpret_cast<float2*>(static_cast<float*>(dk) + e) =
+            make_float2(dk_acc[j][2 * half], dk_acc[j][2 * half + 1]);
+        *reinterpret_cast<float2*>(static_cast<float*>(dv) + e) =
+            make_float2(dv_acc[j][2 * half], dv_acc[j][2 * half + 1]);
+      } else if (part == nullptr) {
+        *reinterpret_cast<uint32_t*>(static_cast<bf16*>(dk) + e) =
             mma::pack_bf16x2(dk_acc[j][2 * half], dk_acc[j][2 * half + 1]);
-        *reinterpret_cast<uint32_t*>(dv + e) =
+        *reinterpret_cast<uint32_t*>(static_cast<bf16*>(dv) + e) =
             mma::pack_bf16x2(dv_acc[j][2 * half], dv_acc[j][2 * half + 1]);
       } else {
         *reinterpret_cast<float2*>(part + gi * n + e) =
@@ -494,17 +504,27 @@ __global__ void __launch_bounds__(kSumThreads)
   store4((which ? dv : dk) + kSumVec * e, acc);
 }
 
+// The group sum into outputs of type TO.
+template <typename TO>
+cudaError_t group_sum(const void* part, void* dk, void* dv, long long n4,
+                      int group, int sum_blocks, cudaStream_t stream) {
+  flash_bwd_dkv_group_sum_kernel<TO><<<sum_blocks, kSumThreads, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<TO*>(dk),
+      static_cast<TO*>(dv), n4, group);
+  return cudaGetLastError();
+}
+
 // One launch of the main kernel `kern` (float32 or bf16) on the wrapper's
 // plan, which must be its own (grid (B * H, S / 64), 128 threads, its
 // dynamic shared memory), then under GQA the group sum over `sum_blocks`
-// blocks.
+// blocks, into T or, with out_f32, float32.
 template <typename T, typename Kernel>
 cudaError_t launch_kernel(Kernel kern, size_t smem, const void* q,
                           const void* k, const void* v, const void* dout,
                           const void* lse, const void* dvec, void* dk,
                           void* dv, void* part, int B, int S, int H, int Hkv,
-                          int D, int causal, const Plan& plan, int sum_blocks,
-                          cudaStream_t stream) {
+                          int D, int causal, int out_f32, const Plan& plan,
+                          int sum_blocks, cudaStream_t stream) {
   if (!plan.is(B * H, S / kTile, kMmaThreads, smem)) return cudaErrorInvalidValue;
   const long long n4 = static_cast<long long>(B) * S * Hkv * D / kSumVec;
   const bool sum = H > Hkv;
@@ -518,13 +538,12 @@ cudaError_t launch_kernel(Kernel kern, size_t smem, const void* q,
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
       static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(part), S,
-      H, Hkv, causal, softmax_scale(D));
+      H, Hkv, causal, softmax_scale(D), out_f32);
   err = cudaGetLastError();
   if (err != cudaSuccess || !sum) return err;
-  flash_bwd_dkv_group_sum_kernel<T><<<sum_blocks, kSumThreads, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<T*>(dk),
-      static_cast<T*>(dv), n4, H / Hkv);
-  return cudaGetLastError();
+  return out_f32 ? group_sum<float>(part, dk, dv, n4, H / Hkv, sum_blocks,
+                                    stream)
+                 : group_sum<T>(part, dk, dv, n4, H / Hkv, sum_blocks, stream);
 }
 
 // Both types stage the k and v tiles and two stages of q and dO, rows
@@ -533,18 +552,18 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* dvec,
                    void* dk, void* dv, void* part, int B, int S, int H,
-                   int Hkv, int causal, const Plan& plan, int sum_blocks,
-                   cudaStream_t stream) {
+                   int Hkv, int causal, int out_f32, const Plan& plan,
+                   int sum_blocks, cudaStream_t stream) {
   constexpr size_t smem =
       6 * kTile * (sizeof(T) * D + 16) + sizeof(float) * 4 * kTile;
   if constexpr (std::is_same<T, float>::value) {
     return launch_kernel<float>(flash_bwd_dkv_f32_kernel<D>, smem, q, k, v,
                                 dout, lse, dvec, dk, dv, part, B, S, H, Hkv,
-                                D, causal, plan, sum_blocks, stream);
+                                D, causal, out_f32, plan, sum_blocks, stream);
   } else {
     return launch_kernel<__nv_bfloat16>(
         flash_bwd_dkv_bf16_kernel<D>, smem, q, k, v, dout, lse, dvec, dk, dv,
-        part, B, S, H, Hkv, D, causal, plan, sum_blocks, stream);
+        part, B, S, H, Hkv, D, causal, out_f32, plan, sum_blocks, stream);
   }
 }
 
@@ -552,18 +571,21 @@ template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* dvec,
                      void* dk, void* dv, void* part, int B, int S, int H,
-                     int Hkv, int D, int causal, const Plan& plan,
-                     int sum_blocks, cudaStream_t s) {
+                     int Hkv, int D, int causal, int out_f32,
+                     const Plan& plan, int sum_blocks, cudaStream_t s) {
   switch (D) {
+    case 16:
+      return launch<T, 16>(q, k, v, dout, lse, dvec, dk, dv, part, B, S, H,
+                           Hkv, causal, out_f32, plan, sum_blocks, s);
     case 32:
       return launch<T, 32>(q, k, v, dout, lse, dvec, dk, dv, part, B, S, H,
-                           Hkv, causal, plan, sum_blocks, s);
+                           Hkv, causal, out_f32, plan, sum_blocks, s);
     case 64:
       return launch<T, 64>(q, k, v, dout, lse, dvec, dk, dv, part, B, S, H,
-                           Hkv, causal, plan, sum_blocks, s);
+                           Hkv, causal, out_f32, plan, sum_blocks, s);
     case 128:
       return launch<T, 128>(q, k, v, dout, lse, dvec, dk, dv, part, B, S, H,
-                            Hkv, causal, plan, sum_blocks, s);
+                            Hkv, causal, out_f32, plan, sum_blocks, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -573,8 +595,10 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
 
 // q, dout (B, S, H, D); k, v, dk, dv (B, S, Hkv, D); one type for all of
 // them: dtype 0 = float32 (`flash_bwd_dkv_f32_kernel`), 1 = bfloat16
-// (`flash_bwd_dkv_bf16_kernel`). lse, dvec (B * H, S) float32. S a
-// multiple of 64, H a multiple of Hkv, D in {32, 64, 128}; every pointer
+// (`flash_bwd_dkv_bf16_kernel`); grads_f32 1 makes dk and dv float32 (for
+// bf16 inputs; float32 ones have float32 gradients either way). lse, dvec
+// (B * H, S) float32. S a multiple of 64, H a multiple of Hkv, D in {16,
+// 32, 64, 128}; every pointer
 // 16-byte aligned. The plan is the wrapper's `flash_bwd_plan`: grid
 // (grid_x, grid_y) = (B * H, S / 64), 128 threads, the kernel's dynamic
 // shared memory, and with H > Hkv a float32 scratch `part` of
@@ -587,10 +611,11 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     const void* lse, const void* dvec,
                                     void* dk, void* dv, void* part, int B,
                                     int S, int H, int Hkv, int D, int causal,
-                                    int dtype, int grid_x, int grid_y,
-                                    int threads, int smem, int sum_blocks,
-                                    void* stream) {
-  if (B < 1 || S < kTile || S % kTile != 0 || Hkv < 1 || H % Hkv != 0) {
+                                    int dtype, int grads_f32, int grid_x,
+                                    int grid_y, int threads, int smem,
+                                    int sum_blocks, void* stream) {
+  if (B < 1 || S < kTile || S % kTile != 0 || Hkv < 1 || H % Hkv != 0 ||
+      (grads_f32 != 0 && grads_f32 != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Plan plan{grid_x, grid_y, threads, smem};
@@ -599,11 +624,12 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
   switch (dtype) {
     case kDtypeF32:
       err = launch_d<float>(q, k, v, dout, lse, dvec, dk, dv, part, B, S, H,
-                            Hkv, D, causal, plan, sum_blocks, s);
+                            Hkv, D, causal, grads_f32, plan, sum_blocks, s);
       break;
     case kDtypeBF16:
       err = launch_d<__nv_bfloat16>(q, k, v, dout, lse, dvec, dk, dv, part, B,
-                                    S, H, Hkv, D, causal, plan, sum_blocks, s);
+                                    S, H, Hkv, D, causal, grads_f32, plan,
+                                    sum_blocks, s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -55,6 +55,11 @@
 // ds k product is summed from zero, 8 d-columns at once, and added to dq
 // in float32, so no truncation bias of the tensor core's sums builds up
 // over the row.
+//
+// With `out_f32` the bf16 kernel stores dq in float32, unrounded (the TPU
+// wrapper's grads_f32, which the ring-flash backward of parallel/sp.py
+// accumulates its hops in), a branch of the epilogue. Head dims 16, 32,
+// 64 and 128 (flash_fwd.cu's notes on D 16 hold here).
 
 #include <type_traits>
 
@@ -74,7 +79,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                             const float* __restrict__ lse,
                             const float* __restrict__ dvec,
                             float* __restrict__ dq, int S, int H, int Hkv,
-                            int causal, float scale) {
+                            int causal, float scale, int /*out_f32*/) {
   constexpr int kLd = kLdF32<D>;  // D + 4: row stride in floats
   constexpr int kTileElems = kTile * kLd;
   constexpr int kChunks = D / 4;  // 16-byte copies per row
@@ -208,8 +213,8 @@ __global__ void __launch_bounds__(kMmaThreads)
                              const __nv_bfloat16* __restrict__ dout,
                              const float* __restrict__ lse,
                              const float* __restrict__ dvec,
-                             __nv_bfloat16* __restrict__ dq, int S, int H,
-                             int Hkv, int causal, float scale) {
+                             void* __restrict__ dq, int S, int H, int Hkv,
+                             int causal, float scale, int out_f32) {
   using bf16 = __nv_bfloat16;
   constexpr int kLd = D + 8;  // row stride, 16 bytes of padding
   constexpr int kTileElems = kTile * kLd;
@@ -365,11 +370,20 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = q0 + 16 * warp + g + 8 * half;
-    bf16* out = dq + ((static_cast<size_t>(b) * S + row) * H + h) * D;
+    const size_t at = ((static_cast<size_t>(b) * S + row) * H + h) * D;
+    if (out_f32) {
+      float* out = static_cast<float*>(dq) + at;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(out + j * 8 + 2 * t4) =
-          mma::pack_bf16x2(acc[j][2 * half], acc[j][2 * half + 1]);
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(out + j * 8 + 2 * t4) =
+            make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
+    } else {
+      bf16* out = static_cast<bf16*>(dq) + at;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(out + j * 8 + 2 * t4) =
+            mma::pack_bf16x2(acc[j][2 * half], acc[j][2 * half + 1]);
+    }
   }
 }
 
@@ -381,7 +395,7 @@ cudaError_t launch_kernel(Kernel kern, size_t smem, const void* q,
                           const void* k, const void* v, const void* dout,
                           const void* lse, const void* dvec, void* dq, int B,
                           int S, int H, int Hkv, int D, int causal,
-                          const Plan& plan, cudaStream_t stream) {
+                          int out_f32, const Plan& plan, cudaStream_t stream) {
   if (!plan.is(B * H, S / kTile, kMmaThreads, smem)) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
@@ -389,7 +403,7 @@ cudaError_t launch_kernel(Kernel kern, size_t smem, const void* q,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
-      static_cast<T*>(dq), S, H, Hkv, causal, softmax_scale(D));
+      static_cast<T*>(dq), S, H, Hkv, causal, softmax_scale(D), out_f32);
   return cudaGetLastError();
 }
 
@@ -399,17 +413,17 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* dvec,
                    void* dq, int B, int S, int H, int Hkv, int causal,
-                   const Plan& plan, cudaStream_t stream) {
+                   int out_f32, const Plan& plan, cudaStream_t stream) {
   constexpr size_t smem =
       (std::is_same<T, float>::value ? 4 : 6) * kTile * (sizeof(T) * D + 16);
   if constexpr (std::is_same<T, float>::value) {
     return launch_kernel<float>(flash_bwd_dq_f32_kernel<D>, smem, q, k, v,
                                 dout, lse, dvec, dq, B, S, H, Hkv, D, causal,
-                                plan, stream);
+                                out_f32, plan, stream);
   } else {
     return launch_kernel<__nv_bfloat16>(flash_bwd_dq_bf16_kernel<D>, smem, q,
                                         k, v, dout, lse, dvec, dq, B, S, H,
-                                        Hkv, D, causal, plan, stream);
+                                        Hkv, D, causal, out_f32, plan, stream);
   }
 }
 
@@ -417,17 +431,21 @@ template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* dvec,
                      void* dq, int B, int S, int H, int Hkv, int D,
-                     int causal, const Plan& plan, cudaStream_t s) {
+                     int causal, int out_f32, const Plan& plan,
+                     cudaStream_t s) {
   switch (D) {
+    case 16:
+      return launch<T, 16>(q, k, v, dout, lse, dvec, dq, B, S, H, Hkv, causal,
+                           out_f32, plan, s);
     case 32:
       return launch<T, 32>(q, k, v, dout, lse, dvec, dq, B, S, H, Hkv, causal,
-                           plan, s);
+                           out_f32, plan, s);
     case 64:
       return launch<T, 64>(q, k, v, dout, lse, dvec, dq, B, S, H, Hkv, causal,
-                           plan, s);
+                           out_f32, plan, s);
     case 128:
       return launch<T, 128>(q, k, v, dout, lse, dvec, dq, B, S, H, Hkv,
-                            causal, plan, s);
+                            causal, out_f32, plan, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -437,8 +455,10 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
 
 // q, dout, dq (B, S, H, D); k, v (B, S, Hkv, D); one type for all of them:
 // dtype 0 = float32 (`flash_bwd_dq_f32_kernel`), 1 = bfloat16
-// (`flash_bwd_dq_bf16_kernel`). lse, dvec (B * H, S) float32. S a
-// multiple of 64, H a multiple of Hkv, D in {32, 64, 128}; every pointer
+// (`flash_bwd_dq_bf16_kernel`); grads_f32 1 makes dq float32 (for bf16
+// inputs; float32 ones have a float32 dq either way). lse, dvec (B * H, S)
+// float32. S a multiple of 64, H a multiple of Hkv, D in {16, 32, 64,
+// 128}; every pointer
 // 16-byte aligned. The plan (grid_x, grid_y, threads, smem) is the
 // wrapper's `flash_bwd_plan`: grid (B * H, S / 64), 128 threads, and the
 // kernel's dynamic shared memory; any other plan is refused. Returns
@@ -447,10 +467,11 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* dvec,
                                    void* dq, int B, int S, int H, int Hkv,
-                                   int D, int causal, int dtype, int grid_x,
-                                   int grid_y, int threads, int smem,
-                                   void* stream) {
-  if (B < 1 || S < kTile || S % kTile != 0 || Hkv < 1 || H % Hkv != 0) {
+                                   int D, int causal, int dtype,
+                                   int grads_f32, int grid_x, int grid_y,
+                                   int threads, int smem, void* stream) {
+  if (B < 1 || S < kTile || S % kTile != 0 || Hkv < 1 || H % Hkv != 0 ||
+      (grads_f32 != 0 && grads_f32 != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Plan plan{grid_x, grid_y, threads, smem};
@@ -459,11 +480,11 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
   switch (dtype) {
     case kDtypeF32:
       err = launch_d<float>(q, k, v, dout, lse, dvec, dq, B, S, H, Hkv, D,
-                            causal, plan, s);
+                            causal, grads_f32, plan, s);
       break;
     case kDtypeBF16:
       err = launch_d<__nv_bfloat16>(q, k, v, dout, lse, dvec, dq, B, S, H, Hkv,
-                                    D, causal, plan, s);
+                                    D, causal, grads_f32, plan, s);
       break;
     default:
       err = cudaErrorInvalidValue;

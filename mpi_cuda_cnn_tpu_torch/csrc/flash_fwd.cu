@@ -66,7 +66,14 @@
 //   - GQA: query head h reads kv head h / (H / Hkv) in place, no repeat;
 //   - outputs: o in the input type, lse = m + log(max(l, 1e-30)) as a
 //     plain (B * H, S) float32 array (the TPU's 8-wide replica is a Mosaic
-//     layout detail).
+//     layout detail); with `out_f32` the bf16 kernel stores o in float32,
+//     unrounded (the TPU wrapper's out_f32, which the ring-flash fold of
+//     parallel/sp.py merges its partials in), a branch of the epilogue.
+//
+// Head dims 16, 32, 64 and 128. At D 16 a bf16 q k^T is one m16n8k16
+// k-step and p v two n8 tiles; a float32 one two m16n8k8 k-steps. Rows
+// of 32 or 64 bytes plus the 16-byte pad keep every `cp.async` and
+// `ldmatrix` row address 16-byte aligned.
 
 #include "flash_common.cuh"
 #include "mma.cuh"
@@ -121,7 +128,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
                          float* __restrict__ lse, int S, int H, int Hkv,
-                         int causal, float scale) {
+                         int causal, float scale, int /*out_f32*/) {
   constexpr int kLd = kLdF32<D>;  // D + 4: row stride in floats
   constexpr int kTileElems = kTile * kLd;
   constexpr int kChunks = D / 4;  // 16-byte copies per row
@@ -290,9 +297,9 @@ __global__ void __launch_bounds__(kMmaThreads)
     flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ o,
-                          float* __restrict__ lse, int S, int H, int Hkv,
-                          int causal, float scale) {
+                          void* __restrict__ o, float* __restrict__ lse,
+                          int S, int H, int Hkv, int causal, float scale,
+                          int out_f32) {
   using bf16 = __nv_bfloat16;
   constexpr int kLd = D + 8;        // row stride, 16 bytes of padding
   constexpr int kTileElems = kTile * kLd;
@@ -436,12 +443,21 @@ __global__ void __launch_bounds__(kMmaThreads)
   for (int half = 0; half < 2; ++half) {
     const int row = q0 + 16 * warp + g + 8 * half;
     const float lc = fmaxf(l[half], 1e-30f);
-    bf16* orow = o + ((static_cast<size_t>(b) * S + row) * H + h) * D;
+    const size_t at = ((static_cast<size_t>(b) * S + row) * H + h) * D;
+    if (out_f32) {
+      float* orow = static_cast<float*>(o) + at;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const uint32_t pair =
-          mma::pack_bf16x2(acc[j][2 * half] / lc, acc[j][2 * half + 1] / lc);
-      *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * t4) = pair;
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(orow + j * 8 + 2 * t4) =
+            make_float2(acc[j][2 * half] / lc, acc[j][2 * half + 1] / lc);
+    } else {
+      bf16* orow = static_cast<bf16*>(o) + at;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const uint32_t pair = mma::pack_bf16x2(acc[j][2 * half] / lc,
+                                               acc[j][2 * half + 1] / lc);
+        *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * t4) = pair;
+      }
     }
     if (t4 == 0) lse[static_cast<size_t>(bh) * S + row] = m[half] + logf(lc);
   }
@@ -453,14 +469,14 @@ template <typename T, typename Kernel>
 cudaError_t launch_kernel(Kernel kern, size_t smem, const void* q,
                           const void* k, const void* v, void* o, void* lse,
                           int B, int S, int H, int Hkv, int D, int causal,
-                          const Plan& plan, cudaStream_t stream) {
+                          int out_f32, const Plan& plan, cudaStream_t stream) {
   if (!plan.is(B * H, S / kTile, kMmaThreads, smem)) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   kern<<<dim3(plan.grid_x, plan.grid_y), kMmaThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      S, H, Hkv, causal, softmax_scale(D));
+      S, H, Hkv, causal, softmax_scale(D), out_f32);
   return cudaGetLastError();
 }
 
@@ -469,51 +485,59 @@ cudaError_t launch_kernel(Kernel kern, size_t smem, const void* q,
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      void* lse, int B, int S, int H, int Hkv, int causal,
-                     int dtype, const Plan& plan, cudaStream_t s) {
+                     int dtype, int out_f32, const Plan& plan,
+                     cudaStream_t s) {
   if (dtype == kDtypeBF16) {
     constexpr size_t smem = sizeof(__nv_bfloat16) * 5 * kTile * (D + 8);
     return launch_kernel<__nv_bfloat16>(flash_fwd_bf16_kernel<D>, smem, q, k,
                                         v, o, lse, B, S, H, Hkv, D, causal,
-                                        plan, s);
+                                        out_f32, plan, s);
   }
   if (dtype != kDtypeF32) return cudaErrorInvalidValue;
   constexpr size_t smem = kF32Tiles<D> * kTile * (sizeof(float) * D + 16);
   return launch_kernel<float>(flash_fwd_f32_kernel<D>, smem, q, k, v, o, lse,
-                              B, S, H, Hkv, D, causal, plan, s);
+                              B, S, H, Hkv, D, causal, out_f32, plan, s);
 }
 
 }  // namespace
 
 // q (B, S, H, D), k/v (B, S, Hkv, D), o (B, S, H, D), all contiguous, of
 // one type and 16-byte aligned: dtype 0 = float32 (`flash_fwd_f32_kernel`),
-// 1 = bfloat16 (`flash_fwd_bf16_kernel`). lse (B * H, S) float32. S a multiple
-// of 64, H a multiple of Hkv, D in {32, 64, 128}. The plan (grid_x,
+// 1 = bfloat16 (`flash_fwd_bf16_kernel`); out_f32 1 makes o float32 (for
+// bf16 inputs; float32 ones have a float32 o either way). lse (B * H, S)
+// float32. S a multiple of 64, H a multiple of Hkv, D in {16, 32, 64,
+// 128}. The plan (grid_x,
 // grid_y, threads, smem) is the wrapper's `flash_fwd_plan`: grid (B * H,
 // S / 64), 128 threads and the kernel's dynamic shared memory; any other
 // plan is refused. Returns cudaGetLastError().
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int B, int S, int H,
                                 int Hkv, int D, int causal, int dtype,
-                                int grid_x, int grid_y, int threads, int smem,
-                                void* stream) {
-  if (B < 1 || S < kTile || S % kTile != 0 || Hkv < 1 || H % Hkv != 0) {
+                                int out_f32, int grid_x, int grid_y,
+                                int threads, int smem, void* stream) {
+  if (B < 1 || S < kTile || S % kTile != 0 || Hkv < 1 || H % Hkv != 0 ||
+      (out_f32 != 0 && out_f32 != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Plan plan{grid_x, grid_y, threads, smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
+    case 16:
+      err = launch_d<16>(q, k, v, o, lse, B, S, H, Hkv, causal, dtype,
+                         out_f32, plan, s);
+      break;
     case 32:
-      err = launch_d<32>(q, k, v, o, lse, B, S, H, Hkv, causal, dtype, plan,
-                         s);
+      err = launch_d<32>(q, k, v, o, lse, B, S, H, Hkv, causal, dtype,
+                         out_f32, plan, s);
       break;
     case 64:
-      err = launch_d<64>(q, k, v, o, lse, B, S, H, Hkv, causal, dtype, plan,
-                         s);
+      err = launch_d<64>(q, k, v, o, lse, B, S, H, Hkv, causal, dtype,
+                         out_f32, plan, s);
       break;
     case 128:
-      err = launch_d<128>(q, k, v, o, lse, B, S, H, Hkv, causal, dtype, plan,
-                          s);
+      err = launch_d<128>(q, k, v, o, lse, B, S, H, Hkv, causal, dtype,
+                          out_f32, plan, s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -8,7 +8,7 @@ leaf for leaf. Activations are NHWC and conv weights HWIO throughout, as
 there: fc1 of reference_cnn reads its 1,568 inputs in H·W·C order.
 
 Each layer implements
-    init(gen, in_shape, initializer) -> (params, out_shape)
+    init(key, in_shape, initializer) -> (params, out_shape)
     apply(params, x, backend) -> y
 with per-sample shapes (H, W, C) or (features,). `backend` selects
 "torch" (PyTorch's own ops, `ops/conv.py`, `ops/dense.py`) or "cuda"
@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..data import prng
 from ..ops.activations import ACTIVATIONS
 from ..ops.conv import conv2d
 from ..ops.dense import dense
@@ -49,10 +50,10 @@ class Conv:
     padding: int = 0
     activation: str | None = "relu"
 
-    def init(self, gen, in_shape, initializer):
+    def init(self, key, in_shape, initializer):
         h, w, c = in_shape
         params = {
-            "w": initializer(gen, (self.kernel, self.kernel, c, self.features)),
+            "w": initializer(key, (self.kernel, self.kernel, c, self.features)),
             "b": torch.zeros((self.features,), dtype=torch.float32),
         }
         oh = (h + 2 * self.padding - self.kernel) // self.stride + 1
@@ -77,10 +78,10 @@ class Dense:
     features: int
     activation: str | None = "tanh"
 
-    def init(self, gen, in_shape, initializer):
+    def init(self, key, in_shape, initializer):
         d_in = math.prod(in_shape)
         params = {
-            "w": initializer(gen, (d_in, self.features)),
+            "w": initializer(key, (d_in, self.features)),
             "b": torch.zeros((self.features,), dtype=torch.float32),
         }
         return params, (self.features,)
@@ -115,7 +116,7 @@ class MaxPool:
     window: int = 2
     stride: int | None = None
 
-    def init(self, gen, in_shape, initializer):
+    def init(self, key, in_shape, initializer):
         s = self.stride or self.window
         h, w, c = in_shape
         return {}, ((h - self.window) // s + 1, (w - self.window) // s + 1, c)
@@ -131,7 +132,7 @@ class AvgPool:
     window: int = 2
     stride: int | None = None
 
-    def init(self, gen, in_shape, initializer):
+    def init(self, key, in_shape, initializer):
         s = self.stride or self.window
         h, w, c = in_shape
         return {}, ((h - self.window) // s + 1, (w - self.window) // s + 1, c)
@@ -142,7 +143,7 @@ class AvgPool:
 
 @dataclasses.dataclass(frozen=True)
 class Flatten:
-    def init(self, gen, in_shape, initializer):
+    def init(self, key, in_shape, initializer):
         return {}, (math.prod(in_shape),)
 
     def apply(self, params, x, backend="torch"):
@@ -157,18 +158,19 @@ class Residual:
     body: tuple
     activation: str | None = "relu"
 
-    def init(self, gen, in_shape, initializer):
+    def init(self, key, in_shape, initializer):
+        keys = prng.split(key, len(self.body) + 1)
         body_params = []
         shape = in_shape
-        for layer in self.body:
-            p, shape = layer.init(gen, shape, initializer)
+        for layer, k in zip(self.body, keys[:-1]):
+            p, shape = layer.init(k, shape, initializer)
             body_params.append(p)
         params = {"body": body_params}
         if shape != in_shape:
             proj = Conv(shape[-1], kernel=1,
                         stride=self._proj_stride(in_shape, shape), padding=0,
                         activation=None)
-            params["proj"], _ = proj.init(gen, in_shape, initializer)
+            params["proj"], _ = proj.init(keys[-1], in_shape, initializer)
         return params, shape
 
     @staticmethod
@@ -199,7 +201,7 @@ class Residual:
 class GlobalAvgPool:
     """Spatial global average -> (N, C)."""
 
-    def init(self, gen, in_shape, initializer):
+    def init(self, key, in_shape, initializer):
         return {}, (in_shape[-1],)
 
     def apply(self, params, x, backend="torch"):
@@ -215,14 +217,15 @@ class Sequential:
     input_shape: tuple[int, ...]
     name: str = "model"
 
-    def init(self, gen: torch.Generator, initializer,
+    def init(self, key, initializer,
              device: torch.device | str = "cpu") -> list[dict]:
-        """Params drawn in layer order from `gen` (on the CPU), then
-        moved to `device`."""
+        """Params drawn from the threefry `key` (`data/prng.py`) as the
+        reference's `Sequential.init` draws them, one split key per layer,
+        on the CPU, then moved to `device`."""
         params = []
         shape = self.input_shape
-        for layer in self.layers:
-            p, shape = layer.init(gen, shape, initializer)
+        for layer, k in zip(self.layers, prng.split(key, len(self.layers))):
+            p, shape = layer.init(k, shape, initializer)
             params.append(p)
         return tree_map(lambda t: t.to(device), params)
 

@@ -21,12 +21,14 @@ import dataclasses
 import math
 from collections.abc import Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..data import prng
 from ..ops.attention import attention, rope
-from ..ops.gemv import QuantW, qmatmul, tree_map, tree_to
+from ..ops.gemv import QuantW, qmatmul, tree_map
 from ..parallel.moe import init_moe_params, moe_mlp, moe_mlp_inference
 
 
@@ -81,52 +83,56 @@ class TransformerLM:
             )
         return hkv
 
-    def init(self, generator: torch.Generator,
-             device: torch.device | str = "cpu") -> dict:
-        """Random float32 parameters from an explicit CPU generator,
-        moved to `device`. Same names, shapes and scales as the
-        reference's init (its values differ: the two frameworks' random
-        streams are different; tests share weights through
-        `convert.params_from_jax`)."""
+    def init(self, key, device: torch.device | str = "cpu") -> dict:
+        """Random float32 parameters drawn from the threefry `key`
+        (`data/prng.py`) on `device`, as the reference's init draws them:
+        `split(key, 3 + 4 * depth)` taken in order (token embedding, the
+        position key, drawn even for rope, the head, then four a block:
+        qkv, wo and the two MLP keys, or the MoE key and one unused),
+        GQA's q and kv from a split of the block's qkv key."""
         d, v, hd = self.dim, self.vocab, self.head_dim
         scale = 1.0 / math.sqrt(d)
+        keys = iter(prng.split(key, 3 + 4 * self.depth))
 
-        def normal(*shape):
-            return torch.randn(*shape, generator=generator,
-                               dtype=torch.float32)
+        def normal(k, *shape):
+            return prng.normal(k, shape, device)
 
-        def dense(din, dout):
-            return normal(din, dout) / math.sqrt(din)
+        def dense(k, din, dout):
+            # float32 division by the float32 root, rounded once
+            return (normal(k, din, dout).double()
+                    / float(np.float32(math.sqrt(din)))).float()
 
-        params = {
-            "tok_emb": normal(v, d) * scale,
-            "ln_f": {"g": torch.ones(d), "b": torch.zeros(d)},
-            "blocks": [],
-        }
+        def ones_zeros():
+            return {"g": torch.ones(d, device=device),
+                    "b": torch.zeros(d, device=device)}
+
+        params = {"tok_emb": normal(next(keys), v, d) * scale,
+                  "ln_f": ones_zeros(), "blocks": []}
+        pos_key = next(keys)
         if self.pos == "learned":
-            params["pos_emb"] = normal(self.max_seq, d) * scale
+            params["pos_emb"] = normal(pos_key, self.max_seq, d) * scale
         elif self.pos != "rope":
             raise ValueError(f"unknown pos {self.pos!r}; 'learned' or 'rope'")
-        params["head"] = dense(d, v)
+        params["head"] = dense(next(keys), d, v)
         for _ in range(self.depth):
-            blk = {
-                "ln1": {"g": torch.ones(d), "b": torch.zeros(d)},
-                "ln2": {"g": torch.ones(d), "b": torch.zeros(d)},
-            }
+            blk = {"ln1": ones_zeros(), "ln2": ones_zeros()}
+            qkv_key = next(keys)
             if self.n_kv == self.heads:
-                blk["wqkv"] = dense(d, 3 * d)
+                blk["wqkv"] = dense(qkv_key, d, 3 * d)
             else:
-                blk["wq"] = dense(d, d)
-                blk["wkv"] = dense(d, 2 * self.n_kv * hd)
-            blk["wo"] = dense(d, d)
+                kq, kkv = prng.split(qkv_key, 2)
+                blk["wq"] = dense(kq, d, d)
+                blk["wkv"] = dense(kkv, d, 2 * self.n_kv * hd)
+            blk["wo"] = dense(next(keys), d, d)
             if self.moe_experts:
-                blk["moe"] = init_moe_params(generator, d, 4 * d,
-                                             self.moe_experts)
+                blk["moe"] = init_moe_params(next(keys), d, 4 * d,
+                                             self.moe_experts, device)
+                next(keys)      # the block's key budget stays four
             else:
-                blk["w1"] = dense(d, 4 * d)
-                blk["w2"] = dense(4 * d, d)
+                blk["w1"] = dense(next(keys), d, 4 * d)
+                blk["w2"] = dense(next(keys), 4 * d, d)
             params["blocks"].append(blk)
-        return tree_to(params, device)
+        return params
 
     def project_qkv(self, blk: dict, y: torch.Tensor, *,
                     positions: torch.Tensor,

@@ -38,9 +38,9 @@ KERNELS = {
     "conv_direct": ("conv_direct_launch", [_P] * 3 + [_I] * 19 + [_P]),
     "conv_dw": ("conv_dw_launch", [_P] * 5 + [_I] * 22 + [_P]),
     "conv_gemm": ("conv_gemm_launch", [_P] * 3 + [_I] * 19 + [_P]),
-    "flash_fwd": ("flash_fwd_launch", [_P] * 5 + [_I] * 11 + [_P]),
-    "flash_bwd_dq": ("flash_bwd_dq_launch", [_P] * 7 + [_I] * 11 + [_P]),
-    "flash_bwd_dkv": ("flash_bwd_dkv_launch", [_P] * 9 + [_I] * 12 + [_P]),
+    "flash_fwd": ("flash_fwd_launch", [_P] * 5 + [_I] * 12 + [_P]),
+    "flash_bwd_dq": ("flash_bwd_dq_launch", [_P] * 7 + [_I] * 12 + [_P]),
+    "flash_bwd_dkv": ("flash_bwd_dkv_launch", [_P] * 9 + [_I] * 13 + [_P]),
 }
 
 # The element types the float kernels take, and their dtype code in the C

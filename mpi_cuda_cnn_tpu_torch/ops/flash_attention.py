@@ -34,7 +34,10 @@ outside the kernels. Dtype policy: float32 inputs compute in float32;
 bf16 inputs stay bf16 operands with float32 logits, softmax and
 accumulators, p rounded to bf16 before the PV product and ds / p^T before
 the backward products; any other type computes as float32. The output
-comes back in q's type and each gradient in its input's type.
+comes back in q's type and each gradient in its input's type, or, with
+the reference's `out_f32` / `grads_f32`, in float32 unrounded (the
+ring-flash fold and backward of `parallel/sp.py` merge and accumulate
+their hops in float32). Head dims: `HEAD_DIMS`.
 
 Every function takes its plain PyTorch version (full-matrix float32
 math, `*_plain`) for CPU tensors, and only for them. A CUDA tensor
@@ -50,7 +53,7 @@ import torch
 from . import _kernels
 from .attention import NEG_INF
 
-HEAD_DIMS = (32, 64, 128)   # head dims the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128)   # head dims the kernels are built for
 _TILE = 64                  # rows of a query tile, keys of a key tile
 _MMA_THREADS = 128          # K7, K8 and K9: 4 warps x 16 rows
 _ROW_PAD = 16               # bytes of padding after each staged tile row
@@ -98,10 +101,12 @@ def _logits(qf: torch.Tensor, kf: torch.Tensor, causal: bool):
 
 
 def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+                        causal: bool, out_f32: bool = False
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the forward kernel: full-matrix float32
     math, p = exp(s - rowmax) rounded to the compute type before the PV
-    product, l summed unrounded; lse = rowmax + log(l), (B * H, S)."""
+    product, l summed unrounded; lse = rowmax + log(l), (B * H, S). o in
+    q's type, or float32 with `out_f32`."""
     b, s, h, d = q.shape
     kdt = _compute_dtype(q.dtype)
     qf, kf, vf = (t.to(kdt).float() for t in (q, k, v))
@@ -114,7 +119,7 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.einsum("bhgqk,bkhd->bhgqd", p.to(kdt).float(), vf) / l
     o = o.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
     lse = (m + torch.log(l)).reshape(b * h, s)
-    return o.to(q.dtype), lse
+    return (o if out_f32 else o.to(q.dtype)), lse
 
 
 class FlashFwdPlan(NamedTuple):
@@ -147,26 +152,30 @@ def flash_fwd_plan(b: int, s: int, h: int, hkv: int, d: int,
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """(o (B, S, H, D) in q's type, lse (B * H, S) float32). CUDA tensors
-    launch `csrc/flash_fwd.cu`; CPU tensors take `flash_forward_plain`."""
+                  causal: bool, out_f32: bool = False
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(o (B, S, H, D) in q's type, or float32 unrounded with `out_f32`;
+    lse (B * H, S) float32). CUDA tensors launch `csrc/flash_fwd.cu`; CPU
+    tensors take `flash_forward_plain`."""
     _check_shapes(q, k, v)
     if not q.is_cuda:
-        return flash_forward_plain(q, k, v, causal)
+        return flash_forward_plain(q, k, v, causal, out_f32)
     b, s, h, d = q.shape
     hkv = k.shape[2]
     kdt = _compute_dtype(q.dtype)
     qc, kc, vc = _for_kernel("flash_fwd", kdt, q, k, v)
     plan = flash_fwd_plan(b, s, h, hkv, d, kdt)
-    o = torch.empty((b, s, h, d), dtype=kdt, device=q.device)
+    o = torch.empty((b, s, h, d), dtype=torch.float32 if out_f32 else kdt,
+                    device=q.device)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
     err = _kernels.lib("flash_fwd")(
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b, s, h, hkv, d, int(causal), _kernels.DTYPE_CODES[kdt],
-        plan.grid_x, plan.grid_y, plan.threads, plan.smem_bytes, _stream(q))
+        int(out_f32), plan.grid_x, plan.grid_y, plan.threads,
+        plan.smem_bytes, _stream(q))
     _kernels.check("flash_fwd", err)
     _kernels.launches["flash_fwd"] += 1
-    return o.to(q.dtype), lse
+    return (o if out_f32 else o.to(q.dtype)), lse
 
 
 # ---------------------------------------------------------------------------
@@ -203,19 +212,25 @@ def _bwd_plain_parts(q, k, v, g, lse, dvec, causal: bool):
             qf.reshape(b, s, hkv, h // hkv, d), kf, gg)
 
 
-def flash_bwd_dq_plain(q, k, v, g, lse, dvec, causal: bool) -> torch.Tensor:
-    """Plain PyTorch version of the dq kernel: dq = ds k, in q's type."""
+def flash_bwd_dq_plain(q, k, v, g, lse, dvec, causal: bool,
+                       grads_f32: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the dq kernel: dq = ds k, in q's type (in
+    float32 with `grads_f32`)."""
     ds, _, _, kf, _ = _bwd_plain_parts(q, k, v, g, lse, dvec, causal)
-    return torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(q.shape).to(q.dtype)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(q.shape)
+    return dq if grads_f32 else dq.to(q.dtype)
 
 
-def flash_bwd_dkv_plain(q, k, v, g, lse, dvec, causal: bool):
+def flash_bwd_dkv_plain(q, k, v, g, lse, dvec, causal: bool,
+                        grads_f32: bool = False):
     """Plain PyTorch version of the dk/dv kernel: dk = ds^T q and
     dv = p^T dO, summed over each kv head's query group, in k's and v's
-    types."""
+    types (in float32 with `grads_f32`)."""
     ds, p, qg, _, gg = _bwd_plain_parts(q, k, v, g, lse, dvec, causal)
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, gg)
+    if grads_f32:
+        return dk, dv
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -270,14 +285,16 @@ def _check_bwd(name: str, q, g, lse, dvec) -> None:
         raise TypeError(f"{name} wants float32 lse and dvec")
 
 
-def flash_bwd_dq(q, k, v, g, lse, dvec, causal: bool) -> torch.Tensor:
+def flash_bwd_dq(q, k, v, g, lse, dvec, causal: bool,
+                 grads_f32: bool = False) -> torch.Tensor:
     """dq from q, k, v, the output cotangent g, the forward's lse and
-    dvec = `row_dvec(o, g)`. CUDA tensors launch `csrc/flash_bwd_dq.cu`;
-    CPU tensors take `flash_bwd_dq_plain`."""
+    dvec = `row_dvec(o, g)`, in q's type (float32 unrounded with
+    `grads_f32`). CUDA tensors launch `csrc/flash_bwd_dq.cu`; CPU tensors
+    take `flash_bwd_dq_plain`."""
     _check_shapes(q, k, v)
     _check_bwd("flash_bwd_dq", q, g, lse, dvec)
     if not q.is_cuda:
-        return flash_bwd_dq_plain(q, k, v, g, lse, dvec, causal)
+        return flash_bwd_dq_plain(q, k, v, g, lse, dvec, causal, grads_f32)
     b, s, h, d = q.shape
     kdt = _compute_dtype(q.dtype)
     qc, kc, vc, gc = _for_kernel("flash_bwd_dq", kdt, q, k, v, g)
@@ -285,26 +302,28 @@ def flash_bwd_dq(q, k, v, g, lse, dvec, causal: bool) -> torch.Tensor:
                             device=q.device)
     hkv = k.shape[2]
     plan = flash_bwd_plan("dq", b, s, h, hkv, d, kdt)
-    dq = torch.empty((b, s, h, d), dtype=kdt, device=q.device)
+    dq = torch.empty((b, s, h, d), dtype=torch.float32 if grads_f32 else kdt,
+                     device=q.device)
     err = _kernels.lib("flash_bwd_dq")(
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), gc.data_ptr(),
         lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), b, s, h, hkv, d,
-        int(causal), _kernels.DTYPE_CODES[kdt], plan.grid_x, plan.grid_y,
-        plan.threads, plan.smem_bytes, _stream(q))
+        int(causal), _kernels.DTYPE_CODES[kdt], int(grads_f32), plan.grid_x,
+        plan.grid_y, plan.threads, plan.smem_bytes, _stream(q))
     _kernels.check("flash_bwd_dq", err)
     _kernels.launches["flash_bwd_dq"] += 1
-    return dq.to(q.dtype)
+    return dq if grads_f32 else dq.to(q.dtype)
 
 
-def flash_bwd_dkv(q, k, v, g, lse, dvec, causal: bool):
-    """(dk, dv), each kv head's query group summed. CUDA tensors launch
+def flash_bwd_dkv(q, k, v, g, lse, dvec, causal: bool,
+                  grads_f32: bool = False):
+    """(dk, dv), each kv head's query group summed, in k's and v's types
+    (float32 unrounded with `grads_f32`). CUDA tensors launch
     `csrc/flash_bwd_dkv.cu` (under GQA: the main kernel and the group sum,
-    one call and one count); CPU tensors take
-    `flash_bwd_dkv_plain`."""
+    one call and one count); CPU tensors take `flash_bwd_dkv_plain`."""
     _check_shapes(q, k, v)
     _check_bwd("flash_bwd_dkv", q, g, lse, dvec)
     if not q.is_cuda:
-        return flash_bwd_dkv_plain(q, k, v, g, lse, dvec, causal)
+        return flash_bwd_dkv_plain(q, k, v, g, lse, dvec, causal, grads_f32)
     b, s, h, d = q.shape
     kdt = _compute_dtype(q.dtype)
     qc, kc, vc, gc = _for_kernel("flash_bwd_dkv", kdt, q, k, v, g)
@@ -312,7 +331,8 @@ def flash_bwd_dkv(q, k, v, g, lse, dvec, causal: bool):
                             device=q.device)
     hkv = k.shape[2]
     plan = flash_bwd_plan("dkv", b, s, h, hkv, d, kdt)
-    dk = torch.empty(kc.shape, dtype=kdt, device=q.device)
+    dk = torch.empty(kc.shape, dtype=torch.float32 if grads_f32 else kdt,
+                     device=q.device)
     dv = torch.empty_like(dk)
     part = (None if plan.scratch is None else
             torch.empty(plan.scratch, dtype=torch.float32, device=q.device))
@@ -320,23 +340,27 @@ def flash_bwd_dkv(q, k, v, g, lse, dvec, causal: bool):
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), gc.data_ptr(),
         lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         None if part is None else part.data_ptr(), b, s, h, hkv, d,
-        int(causal), _kernels.DTYPE_CODES[kdt], plan.grid_x, plan.grid_y,
-        plan.threads, plan.smem_bytes, plan.sum_blocks, _stream(q))
+        int(causal), _kernels.DTYPE_CODES[kdt], int(grads_f32), plan.grid_x,
+        plan.grid_y, plan.threads, plan.smem_bytes, plan.sum_blocks,
+        _stream(q))
     _kernels.check("flash_bwd_dkv", err)
     _kernels.launches["flash_bwd_dkv"] += 1
+    if grads_f32:
+        return dk, dv
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_backward(q, k, v, o, lse, g, causal: bool):
+def flash_backward(q, k, v, o, lse, g, causal: bool, grads_f32: bool = False):
     """(dq, dk, dv) of flash attention from the forward's o and lse and
     the output cotangent g: dvec in float32, then the dq kernel (K8) and
-    the dk/dv kernel (K9), or their plain versions for CPU tensors."""
+    the dk/dv kernel (K9), or their plain versions for CPU tensors; in
+    the inputs' types, or float32 unrounded with `grads_f32`."""
     if o.shape != q.shape:
         raise ValueError(f"flash_backward: o {tuple(o.shape)} for q "
                          f"{tuple(q.shape)}")
     dvec = row_dvec(o, g)
-    dq = flash_bwd_dq(q, k, v, g, lse, dvec, causal)
-    dk, dv = flash_bwd_dkv(q, k, v, g, lse, dvec, causal)
+    dq = flash_bwd_dq(q, k, v, g, lse, dvec, causal, grads_f32)
+    dk, dv = flash_bwd_dkv(q, k, v, g, lse, dvec, causal, grads_f32)
     return dq, dk, dv
 
 

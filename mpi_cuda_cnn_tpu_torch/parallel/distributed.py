@@ -12,7 +12,9 @@ one device, over `torch.distributed`:
 - `run_ranks(fn, world, ...)` starts `world` processes itself, with the
   spawn start method (CUDA does not survive a fork), joins them through a
   `FileStore` in a fresh temporary directory (no TCP port to collide
-  over), calls `fn(mesh, ...)` on each and returns each rank's
+  over), builds each rank's mesh of the given axes (the data axis of
+  every rank by default), calls `fn(mesh, ...)` on each and returns each
+  rank's
   picklable result. `fn` must be importable from the port: a spawned
   child imports the module that defines it, and nothing of the JAX
   package may come with it.
@@ -123,6 +125,10 @@ def process_group(backend: str, rank: int, world: int, store_path: str):
         backend, store=store, rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
     try:
+        # Every rank is connected before any runs: a rank that fails at
+        # once and leaves would otherwise cut a slower peer's connection
+        # mid-join, and the peer would report that instead of its own run.
+        dist.barrier()
         yield
     finally:
         dist.destroy_process_group()
@@ -130,10 +136,10 @@ def process_group(backend: str, rank: int, world: int, store_path: str):
 
 def _rank_main(fn, rank: int, backend: str, devices: list[torch.device],
                store_path: str, args: tuple, kwargs: dict,
-               out_dir: str) -> None:
+               out_dir: str, axes: dict[str, int]) -> None:
     """A spawned rank: pin its device, join the group, run fn(mesh, *args,
-    **kwargs) and pickle its result (or its traceback) to
-    out_dir/<rank>.pkl."""
+    **kwargs) on its mesh of `axes` and pickle its result (or its
+    traceback) to out_dir/<rank>.pkl."""
     out = Path(out_dir) / f"{rank}.pkl"
     world = len(devices)
     try:
@@ -146,7 +152,7 @@ def _rank_main(fn, rank: int, backend: str, devices: list[torch.device],
             # so two launches of a world would not end bit for bit.
             torch.set_num_threads(1)
         with process_group(backend, rank, world, store_path):
-            mesh = make_mesh({DATA_AXIS: world}, devices=devices)
+            mesh = make_mesh(axes, devices=devices)
             result = ("ok", fn(mesh, *args, **kwargs))
     except BaseException:
         out.write_bytes(pickle.dumps(("error", traceback.format_exc())))
@@ -160,15 +166,17 @@ class RankError(RuntimeError):
 
 def run_ranks(fn, world: int, *, devices: list | None = None,
               args: tuple = (), kwargs: dict | None = None,
-              timeout: float | None = None) -> list:
+              timeout: float | None = None,
+              axes: dict[str, int] | None = None) -> list:
     """Run fn(mesh, *args, **kwargs) on `world` spawned ranks, rank r on
     devices[r] (None: the CPU for every rank), over
-    `pick_backend(devices)`, and return their results in rank order. Raises
-    RankError when a rank fails (after stopping the others) and
-    TimeoutError when the ranks outlive `timeout` seconds (None: no
-    limit)."""
+    `pick_backend(devices)`, each with its mesh of `axes` (None: {"data":
+    world}), and return their results in rank order. Raises RankError
+    when a rank fails (after stopping the others) and TimeoutError when
+    the ranks outlive `timeout` seconds (None: no limit)."""
     if world < 1:
         raise ValueError(f"world {world}: want >= 1")
+    axes = dict(axes or {DATA_AXIS: world})
     devices = [torch.device(d) for d in
                (devices or [torch.device("cpu")] * world)]
     if len(devices) != world:
@@ -181,7 +189,7 @@ def run_ranks(fn, world: int, *, devices: list | None = None,
         store = os.path.join(tmp, "store")
         procs = [ctx.Process(target=_rank_main,
                              args=(fn, r, backend, devices, store, args,
-                                   kwargs or {}, tmp), daemon=True)
+                                   kwargs or {}, tmp, axes), daemon=True)
                  for r in range(world)]
         for p in procs:
             p.start()

@@ -16,7 +16,8 @@ this module, one process per rank:
   `P(None, axis)` split them;
 - `make_dp_train_step`: local gradients on the rank's shard
   (`local_grads`: with --grad-accum, interleaved micro-batches, one
-  `autograd.grad` each, summed in order and divided), then ONE
+  `autograd.grad` each, summed in order, in `accum_dtype` when one is
+  given, and divided), then ONE
   all-reduce per step of one flat float32 buffer holding every gradient
   and the step's metrics, divided by the world size (the mean), then the
   same in-place optimizer update on every rank (fixes 2.6a/b). A
@@ -40,6 +41,8 @@ collective there is the identity.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -99,13 +102,14 @@ def _shard_bounds(n: int, mesh: Mesh, axis: str) -> tuple[int, int]:
         raise ValueError(f"batch of {n} not divisible by {axis}-axis size "
                          f"{w}")
     per = n // w
-    return mesh.rank * per, (mesh.rank + 1) * per
+    i = mesh.index(axis)
+    return i * per, (i + 1) * per
 
 
 def dp_shard_batch(batch, mesh: Mesh, axis: str = DATA_AXIS):
     """This rank's contiguous rows of a batch (an array or tensor, or a
-    tuple of them with one leading size): rows r*b/w to (r+1)*b/w, the
-    share `P(axis)` gives device r."""
+    tuple of them with one leading size): rows i*b/w to (i+1)*b/w for the
+    rank's coordinate i along `axis`, the share `P(axis)` gives it."""
     if isinstance(batch, tuple):
         return tuple(dp_shard_batch(b, mesh, axis) for b in batch)
     lo, hi = _shard_bounds(len(batch), mesh, axis)
@@ -134,61 +138,82 @@ def _grads(loss_fn, params, x, y, view=None):
     return list(grads), metrics
 
 
-def local_grads(loss_fn, params, x, y, grad_accum: int = 1, view=None):
+def local_grads(loss_fn, params, x, y, grad_accum: int = 1, view=None,
+                accum_dtype: torch.dtype | None = None):
     """(gradients, metrics) of this rank's shard (`_grads`), accumulated
     over `grad_accum` micro-batches when it is > 1, as the reference's
     `_local_grads` does: the interleaved split (micro-batch i takes rows
     i, a+i, 2a+i, ...), the micro-results summed in order, then loss,
     metrics and gradients divided by a. Each micro-batch has its own
     `autograd.grad`, so one micro-batch's activations are live at a
-    time."""
+    time. `accum_dtype` (e.g. bf16) holds the gradient sum in that type:
+    each micro-gradient is cast to it, the sum divided in it, and the
+    mean cast back to each gradient's own type; loss and metrics stay
+    float32. At a = 1 there is no sum and it does nothing."""
     a = grad_accum
     if a <= 1:
         return _grads(loss_fn, params, x, y, view)
     grads = metrics = None
     for i in range(a):
         g, m = _grads(loss_fn, params, x[i::a], y[i::a], view)
+        if accum_dtype is not None:
+            dtypes = [t.dtype for t in g]
+            g = [t.to(accum_dtype) for t in g]
         if grads is None:
             grads, metrics = g, m
         else:
             torch._foreach_add_(grads, g)
             metrics += m
     torch._foreach_div_(grads, float(a))
+    if accum_dtype is not None:
+        grads = [t.to(dt) for t, dt in zip(grads, dtypes)]
     return grads, metrics / a
 
 
+def axis_size(mesh: Mesh, axis: str | tuple[str, ...]) -> int:
+    """The ranks along `axis`, or along every axis of a tuple of them."""
+    axes = (axis,) if isinstance(axis, str) else axis
+    return math.prod(mesh.shape.get(a, 1) for a in axes)
+
+
 def dp_mean_grads(loss_fn, params, x, y, mesh: Mesh,
-                  axis: str = DATA_AXIS, *, grad_accum: int = 1,
-                  view=None):
+                  axis: str | tuple[str, ...] = DATA_AXIS, *,
+                  grad_accum: int = 1, view=None,
+                  accum_dtype: torch.dtype | None = None):
     """Gradients of loss_fn(params, x, y) -> (scalar loss, aux dict of
     scalars) on this rank's shard (`local_grads`: accumulated over
-    `grad_accum` micro-batches, differentiated through `view`), averaged
-    over the axis together with the loss and the aux values in ONE
-    all-reduce of one flat float32 buffer. Returns (mean gradients, one
-    per leaf, each in its leaf's gradient dtype; a 1-d tensor of the mean
-    loss then the aux values in their order), float32 ones views of that
-    buffer. On a mesh without a group (`device_mesh`) the mean is the
-    value itself: no buffer and no collective."""
-    grads, metrics = local_grads(loss_fn, params, x, y, grad_accum, view)
+    `grad_accum` micro-batches in `accum_dtype`, differentiated through
+    `view`), averaged over the axis (or a tuple of axes: data and seq
+    under sequence parallelism; the axes the mesh's group spans) together
+    with the loss and the aux values in ONE all-reduce of one flat float32
+    buffer. Returns (mean gradients, one per leaf, each in its leaf's
+    gradient dtype; a 1-d tensor of the mean loss then the aux values in
+    their order), float32 ones views of that buffer. On a mesh without a
+    group (`device_mesh`) the mean is the value itself: no buffer and no
+    collective."""
+    grads, metrics = local_grads(loss_fn, params, x, y, grad_accum, view,
+                                 accum_dtype)
     if mesh.group is None:
         return grads, metrics
     buf = torch.cat([g.reshape(-1).float() for g in grads] + [metrics])
     all_reduce_sum(buf, mesh)
-    buf /= mesh.shape.get(axis, 1)
+    buf /= axis_size(mesh, axis)
     n = buf.numel() - len(metrics)
     return ([v.to(g.dtype) for v, g in zip(views(buf[:n], grads), grads)],
             buf[n:])
 
 
 def make_dp_train_step(loss_fn, optimizer, mesh: Mesh, *,
-                       axis: str = DATA_AXIS, view=None, augment=None,
-                       aug_seed: int = 0, grad_accum: int = 1,
-                       elastic_width: int = 0):
+                       axis: str | tuple[str, ...] = DATA_AXIS, view=None,
+                       augment=None, aug_seed: int = 0, grad_accum: int = 1,
+                       elastic_width: int = 0,
+                       accum_dtype: torch.dtype | None = None):
     """The DP train step: step(state, x, y, aug=None) -> (state, metrics)
     on this rank's shard x, y (`dp_shard_batch`), with state =
     {"params", "opt_state", "step"} the same on every rank. The gradients
-    and metrics are averaged in one all-reduce (`dp_mean_grads`, with
-    `grad_accum` and `view`), then `optimizer.update` runs in place on
+    and metrics are averaged in one all-reduce over `axis` (`dp_mean_grads`,
+    with `grad_accum`, `accum_dtype` and `view`), then `optimizer.update`
+    runs in place on
     the params. `metrics` is the 1-d tensor (loss, *aux values), averaged
     over the axis.
 
@@ -202,7 +227,7 @@ def make_dp_train_step(loss_fn, optimizer, mesh: Mesh, *,
     (`parallel/elastic.py`): W0/n canonical micro-batches per rank, each
     augmented under its global canonical index. `step.grads(state, x, y,
     aug=None)` is the step's (gradients, metrics) without the update."""
-    n = mesh.shape.get(axis, 1)
+    n = axis_size(mesh, axis)
     if elastic_width:
         from .elastic import elastic_grads, pair_groups
 
@@ -233,7 +258,8 @@ def make_dp_train_step(loss_fn, optimizer, mesh: Mesh, *,
             if augment is not None:
                 x = augment.apply(x, *aug)
             return dp_mean_grads(loss_fn, params, x, y, mesh, axis,
-                                 grad_accum=grad_accum, view=view)
+                                 grad_accum=grad_accum, view=view,
+                                 accum_dtype=accum_dtype)
 
         def prepare(px, py, index):
             i = index - mesh.rank * k

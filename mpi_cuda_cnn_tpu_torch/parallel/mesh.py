@@ -5,9 +5,13 @@ The C reference's "mesh" is MPI_COMM_WORLD with contiguous rank sharding
 (cnnmpi.c:456-458); the JAX package's is a `jax.sharding.Mesh` with named
 axes. Here one process drives one device, so a `Mesh` is this rank's view
 of the named axes: their sizes, its rank and the world size, its
-`torch.device`, and the `torch.distributed` group the axes span. Only the
-'data' axis is ported (`utils.config.check_supported`); the names of the
-others stay so that a later axis slots in without an API change.
+`torch.device`, the `torch.distributed` group the axes span, and its
+coordinates. Rank r sits at the coordinates of r in the axes' shape with
+the last axis varying fastest, as `jax.make_mesh` lays its devices out
+(`data:2,seq:2`: rank d * 2 + s). The 'data' axis and, for the LM, the
+'seq' axis of sequence parallelism (`parallel/sp.py`) are ported
+(`utils.config`); the names of the others stay so that a later axis
+slots in without an API change.
 """
 
 from __future__ import annotations
@@ -15,12 +19,14 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 PIPE_AXIS = "pipe"
+SEQ_AXIS = "seq"
 
 
 def local_device_count() -> int:
@@ -32,17 +38,53 @@ def local_device_count() -> int:
 class Mesh:
     """This rank's view of the mesh. `group` is the process group of the
     axes (None: the world-1 mesh of a process with no group, where every
-    collective is the identity and none is made)."""
+    collective is the identity and none is made). `axis_groups` holds,
+    for an axis that spans part of the world, the group of this rank's
+    line along it (`axis_lines`); an axis that spans the world uses
+    `group`."""
 
     shape: dict[str, int]
     rank: int
     world: int
     device: torch.device
     group: object | None
+    axis_groups: dict[str, object] = dataclasses.field(default_factory=dict)
 
     @property
     def size(self) -> int:
         return math.prod(self.shape.values())
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate along `axis` (0 for an axis the mesh
+        does not have)."""
+        if axis not in self.shape:
+            return 0
+        coords = np.unravel_index(self.rank, tuple(self.shape.values()))
+        return int(coords[list(self.shape).index(axis)])
+
+    def line(self, axis: str) -> list[int]:
+        """The global ranks of this rank's line along `axis`, in the
+        axis' order."""
+        if axis not in self.shape:
+            return [self.rank]
+        return next(ln for ln in axis_lines(self.shape, axis)
+                    if self.rank in ln)
+
+    def axis_group(self, axis: str):
+        """The process group of this rank's line along `axis`."""
+        if self.shape.get(axis, 1) == self.world:
+            return self.group
+        return self.axis_groups[axis]
+
+
+def axis_lines(shape: dict[str, int], axis: str) -> list[list[int]]:
+    """The ranks of every line along `axis` (ranks that differ in that
+    coordinate only), each in the axis' order, the lines in rank order of
+    their first rank."""
+    ranks = np.arange(math.prod(shape.values())).reshape(
+        tuple(shape.values()))
+    lines = np.moveaxis(ranks, list(shape).index(axis), -1)
+    return lines.reshape(-1, shape[axis]).tolist()
 
 
 def describe_mesh(mesh: Mesh) -> dict:
@@ -98,6 +140,16 @@ def make_mesh(axes: dict[str, int] | None = None, *,
         raise ValueError(f"mesh {axes} has {len(devices)} ranks, the process "
                          f"group {world}: start one process per rank "
                          "(parallel.distributed.run_ranks or torchrun)")
+    # One group per line of every axis that spans part of the world: every
+    # rank creates every group, in one order, or the creation hangs.
+    axis_groups = {}
+    for axis, n in axes.items():
+        if grouped and 1 < n < world:
+            for ranks in axis_lines(axes, axis):
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    axis_groups[axis] = g
     return Mesh(shape=dict(axes), rank=rank, world=world,
                 device=torch.device(devices[rank]),
-                group=dist.group.WORLD if grouped else None)
+                group=dist.group.WORLD if grouped else None,
+                axis_groups=axis_groups)

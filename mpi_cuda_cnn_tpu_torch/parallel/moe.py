@@ -54,26 +54,27 @@ ranks equals the global gradient.
 
 from __future__ import annotations
 
-import math
-
+import numpy as np
 import torch
 
+from ..data import prng
 from ..obs.trace import annotate
 from . import dp
 
 
-def init_moe_params(generator: torch.Generator, dim: int, hidden: int,
-                    n_experts: int) -> dict:
+def init_moe_params(key, dim: int, hidden: int, n_experts: int,
+                    device: torch.device | str = "cpu") -> dict:
     """Gate (D, E) and expert-stacked MLP weights w1 (E, D, H), w2 (E, H,
-    D), float32 normals at the reference's scales (its values differ: the
-    two frameworks' random streams are different)."""
-    def normal(*shape):
-        return torch.randn(*shape, generator=generator, dtype=torch.float32)
-
-    scale_in, scale_hid = 1.0 / math.sqrt(dim), 1.0 / math.sqrt(hidden)
-    return {"gate": normal(dim, n_experts) * scale_in,
-            "w1": normal(n_experts, dim, hidden) * scale_in,
-            "w2": normal(n_experts, hidden, dim) * scale_hid}
+    D): float32 normals from `split(key, 3)` (`data/prng.py`) on
+    `device`, times the reference's float32 scales 1 / sqrt(D) and
+    1 / sqrt(H)."""
+    k1, k2, k3 = prng.split(key, 3)
+    scale_in = float(np.float32(1) / np.sqrt(np.float32(dim)))
+    scale_hid = float(np.float32(1) / np.sqrt(np.float32(hidden)))
+    return {"gate": prng.normal(k1, (dim, n_experts), device) * scale_in,
+            "w1": prng.normal(k2, (n_experts, dim, hidden), device) * scale_in,
+            "w2": prng.normal(k3, (n_experts, hidden, dim), device)
+            * scale_hid}
 
 
 def capacity(tokens: int, top_k: int, capacity_factor: float,

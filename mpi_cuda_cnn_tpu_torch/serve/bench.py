@@ -109,6 +109,7 @@ def serve_bench(argv: list[str] | None = None) -> dict:
     "results": {mode: ServeResult}, "engine", "model", "args"}.
     Raises ValueError on an inconsistent configuration."""
     from .._device import resolve_device
+    from ..data import prng
     from ..models.transformer import TransformerLM
     from ..ops import _kernels
     from .engine import PagedEngine
@@ -122,7 +123,7 @@ def serve_bench(argv: list[str] | None = None) -> dict:
     model = TransformerLM(vocab=args.vocab, dim=args.dim, heads=args.heads,
                           depth=args.depth, max_seq=args.max_seq,
                           kv_heads=args.kv_heads)
-    params = model.init(torch.Generator().manual_seed(args.seed), device)
+    params = model.init(prng.key(args.seed), device)
     max_len = args.prompt_max + args.out_max
     pages = args.pages or args.slots * pages_for(max_len, args.page_size) + 1
     engine = PagedEngine(

@@ -20,6 +20,7 @@ for tensors on the card).
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Callable
 
 import torch
 
@@ -34,12 +35,15 @@ KERNELS = ("gather", "cuda")
 @dataclasses.dataclass
 class PagedKVCache:
     """Device-side paged cache state: per-layer page pools + the block
-    table, and the attention read to use ("gather" or "cuda")."""
+    table, the attention read to use ("gather" or "cuda"), and the int8
+    page write's quantizer (x -> (int8 codes, float32 scales); a check
+    may put a recording one in its place)."""
 
     pages: list[dict]
     block_table: torch.Tensor      # (slots, pages_per_slot) int32
     page_size: int
     kernel: str = "gather"
+    quant: Callable = _quant_kv
 
     @property
     def num_pages(self) -> int:
@@ -85,14 +89,15 @@ def init_paged_cache(model: TransformerLM, *, slots: int, num_pages: int,
 
 
 def paged_update_attend(c: dict, q, k, v, positions, valid, block_table,
-                        page_size: int, kernel: str = "gather"):
+                        page_size: int, kernel: str = "gather",
+                        quant: Callable = _quant_kv):
     """One layer's paged write + attention read.
 
     q: (B, kk, H, hd); k/v: (B, kk, Hkv, hd); positions: (B, kk) int32
     absolute positions; valid: (B, kk) bool — invalid tokens (padding,
     dead slots) write to scratch page 0 at offset 0. Writes land first
-    (in-chunk causality), in place in `c`; then the read runs per
-    `kernel`. Returns (o: (B, kk, H*hd) float32, c)."""
+    (in-chunk causality), in place in `c`, int8 pages through `quant`;
+    then the read runs per `kernel`. Returns (o: (B, kk, H*hd) float32, c)."""
     b, kk = positions.shape
     hkv, hd = k.shape[2], k.shape[3]
     npages = block_table.shape[1]
@@ -106,8 +111,8 @@ def paged_update_attend(c: dict, q, k, v, positions, valid, block_table,
     pi = torch.where(valid, page_idx, zero).reshape(-1)
     of = torch.where(valid, pos % page_size, zero).reshape(-1)
     if c["k"].dtype == torch.int8:
-        qk8, sk8 = _quant_kv(k)
-        qv8, sv8 = _quant_kv(v)
+        qk8, sk8 = quant(k)
+        qv8, sv8 = quant(v)
         c["k"][pi, of] = qk8.reshape(b * kk, hkv, hd)
         c["ks"][pi, of] = sk8.reshape(b * kk, hkv, 1)
         c["v"][pi, of] = qv8.reshape(b * kk, hkv, hd)
@@ -133,7 +138,7 @@ def paged_forward(model: TransformerLM, params: dict, toks, positions, valid,
     def attend(i, q, k, v):
         o, _ = paged_update_attend(
             cache.pages[i], q, k, v, positions, valid, cache.block_table,
-            cache.page_size, kernel=cache.kernel,
+            cache.page_size, kernel=cache.kernel, quant=cache.quant,
         )
         return o
 

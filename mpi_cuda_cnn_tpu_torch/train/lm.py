@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..data import prng
 from ..models.layers import tree_leaves
 from ..models.transformer import TransformerLM
 from ..ops.flash_attention import HEAD_DIMS
@@ -79,15 +80,17 @@ def lm_loss(model: TransformerLM, params: dict, tokens: torch.Tensor,
             moe_aux_weight: float = 0.01, ce_chunk: int = 0,
             moe_dispatch_chunk: int = 0,
             moe_dispatch_dtype: torch.dtype | None = None,
-            moe_group=None) -> torch.Tensor:
+            moe_group=None, pos_offset: int = 0) -> torch.Tensor:
     """Mean next-token NLL plus moe_aux_weight x the MoE balance loss (0
     for a dense model); the softmax in float32. ce_chunk > 0 fuses the
     head product into the chunked cross-entropy
     (`ops.losses.chunked_ce_mean`), which never forms the (B, S, V)
     float32 logits; it must divide S. `moe_dispatch_chunk`,
-    `moe_dispatch_dtype` and `moe_group` go to `model.apply`."""
+    `moe_dispatch_dtype`, `moe_group` and `pos_offset` (the first
+    position of a sequence shard) go to `model.apply`."""
     moe = dict(moe_dispatch_chunk=moe_dispatch_chunk,
-               moe_dispatch_dtype=moe_dispatch_dtype, moe_group=moe_group)
+               moe_dispatch_dtype=moe_dispatch_dtype, moe_group=moe_group,
+               pos_offset=pos_offset)
     if ce_chunk:
         from ..ops.losses import chunked_ce_mean
 
@@ -109,12 +112,12 @@ def make_lm_state(model: TransformerLM, optimizer, seed: int = 0, *,
                   params: dict | None = None,
                   device: torch.device | str = "cpu") -> dict:
     """Fresh {"params", "opt_state", "step"} for the LM train step: a
-    seeded `model.init` (a torch generator: other values than the
-    reference's for the same seed), or `params` (e.g.
-    `convert.params_from_jax` of the reference's), on `device`. Each
-    leaf is a fresh float32 tensor that requires grad."""
+    seeded `model.init`, drawn on `device` as the reference draws it from
+    `jax.random.key(seed)`, or `params` (e.g. `convert.params_from_jax`
+    of the reference's), on `device`. Each leaf is a fresh float32 tensor
+    that requires grad."""
     if params is None:
-        params = model.init(torch.Generator().manual_seed(seed))
+        params = model.init(prng.key(seed), device)
     params = tree_map(lambda t: t.detach().to(device, torch.float32).clone()
                       .requires_grad_(True), params)
     return {"params": params,
@@ -128,7 +131,8 @@ def make_lm_train_step(model: TransformerLM, optimizer, *,
                        remat: bool = False, moe_aux_weight: float = 0.01,
                        ce_chunk: int = 0, mesh=None, grad_accum: int = 1,
                        elastic_width: int = 0, moe_dispatch_chunk: int = 0,
-                       moe_dispatch_dtype: torch.dtype | None = None):
+                       moe_dispatch_dtype: torch.dtype | None = None,
+                       accum_dtype: torch.dtype | None = None):
     """step(state, tokens, targets) -> (state, {"loss": loss}): forward,
     loss, gradients, and the optimizer update in place on the state's
     params (the state dict itself is returned, updated), as one rank of
@@ -141,7 +145,8 @@ def make_lm_train_step(model: TransformerLM, optimizer, *,
 
     grad_accum > 1 accumulates the rank's rows over that many interleaved
     micro-batches (`dp.local_grads`, the reference's one accumulation
-    helper for both model families); elastic_width > 0 takes the
+    helper for both model families), the sum in `accum_dtype` when one is
+    given (None: the params' float32); elastic_width > 0 takes the
     width-invariant reduction (`make_elastic_lm_train_step`).
 
     An MoE model routes each micro-batch of the mesh's ranks as one
@@ -165,7 +170,8 @@ def make_lm_train_step(model: TransformerLM, optimizer, *,
 
     dp_step = make_dp_train_step(loss_fn, optimizer, mesh,
                                  grad_accum=grad_accum,
-                                 elastic_width=elastic_width)
+                                 elastic_width=elastic_width,
+                                 accum_dtype=accum_dtype)
 
     def step(state, tokens, targets):
         state, metrics = dp_step(state, tokens, targets)

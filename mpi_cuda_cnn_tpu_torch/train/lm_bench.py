@@ -9,8 +9,12 @@ real train step (`train/lm.py`). By default the matrix {float32, bf16} x
 (`--quick`: bf16 + flash only); one `lm_pretrain` JSON line per config,
 then the `lm_tokens_per_s` summary line. `--moe-experts E` (with
 `--moe-top-k`, `--moe-dispatch-chunk`) benches the MoE model; its rows
-carry the dispatch chunk and its summary names `moe{E}k{k}`. On the card
-each row also carries the step's peak memory (`peak_memory_bytes`).
+carry the dispatch chunk and its summary names `moe{E}k{k}`.
+`--grad-accum N` accumulates each step over N interleaved micro-batches
+(`parallel/dp.local_grads`), the sum held in `--accum-dtype` (bfloat16;
+float32, the default, is the exact sum of the params' type); the rows
+carry both, as the reference's do. On the card each row also carries the
+step's peak memory (`peak_memory_bytes`).
 
 Timing: after 3 warm-up steps, wall time over `--steps` steps that ends
 in `torch.cuda.synchronize` (the loss is read once, at the end). Tokens
@@ -76,7 +80,12 @@ def _parser() -> argparse.ArgumentParser:
                     help="route MoE tokens in chunks of this size; 0 = "
                          "the whole batch")
     ap.add_argument("--grad-accum", type=int, default=1,
-                    help="refused unless 1 (ROADMAP queue F item 3)")
+                    help="micro-batches accumulated a step (must divide "
+                         "--batch)")
+    ap.add_argument("--accum-dtype", default=None,
+                    choices=["bfloat16", "float32"],
+                    help="the gradient sum's type under --grad-accum "
+                         "(default: the params' float32, exact)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
 
@@ -84,8 +93,10 @@ def _parser() -> argparse.ArgumentParser:
 def bench_config(model, *, batch: int, seq: int, compute_dtype, attn_impl: str,
                  device: torch.device, steps: int = 20, warmup: int = WARMUP,
                  seed: int = SEED, ce_chunk: int = 0,
-                 remat: bool = False,
-                 moe_dispatch_chunk: int = 0) -> tuple[float, float]:
+                 remat: bool = False, moe_dispatch_chunk: int = 0,
+                 grad_accum: int = 1,
+                 accum_dtype: torch.dtype | None = None
+                 ) -> tuple[float, float]:
     """(seconds per step, final loss) of `steps` train steps after
     `warmup`, on one fixed random batch."""
     from .lm import make_lm_state, make_lm_train_step
@@ -95,7 +106,9 @@ def bench_config(model, *, batch: int, seq: int, compute_dtype, attn_impl: str,
     step_fn = make_lm_train_step(model, opt, attn_impl=attn_impl, seq_len=seq,
                                  device=device, compute_dtype=compute_dtype,
                                  remat=remat, ce_chunk=ce_chunk,
-                                 moe_dispatch_chunk=moe_dispatch_chunk)
+                                 moe_dispatch_chunk=moe_dispatch_chunk,
+                                 grad_accum=grad_accum,
+                                 accum_dtype=accum_dtype)
     state = make_lm_state(model, opt, seed, device=device)
     rng = np.random.default_rng(seed)
     toks = torch.from_numpy(
@@ -123,14 +136,17 @@ def lm_bench(argv: list[str] | None = None) -> dict:
     the summary dict}. Raises RuntimeError without a card when the card
     is asked for, NotImplementedError for a refused flag."""
     from .._device import resolve_device
+    from ..data import prng
     from ..models.transformer import TransformerLM
     from ..ops import _kernels
     from .lm import count_params, lm_flops_per_token
 
     args = _parser().parse_args(argv)
-    if args.grad_accum != 1:
-        raise NotImplementedError("--grad-accum: gradient accumulation is "
-                                  "not ported yet (ROADMAP queue F item 3)")
+    if args.accum_dtype == "float32":   # the exact sum: no cast round trip
+        args.accum_dtype = None
+    if args.grad_accum < 1 or args.batch % args.grad_accum:
+        raise ValueError(f"batch {args.batch} not divisible by grad_accum "
+                         f"{args.grad_accum}")
     if args.steps < 1:
         raise ValueError("--steps must be >= 1")
     device = resolve_device(args.device)
@@ -156,7 +172,7 @@ def lm_bench(argv: list[str] | None = None) -> dict:
 
     tokens_per_step = args.batch * args.seq
     flops_per_step = lm_flops_per_token(model, args.seq) * tokens_per_step
-    nparams = count_params(model.init(torch.Generator().manual_seed(0)))
+    nparams = count_params(model.init(prng.key(0), "meta"))  # shapes only
     lines, results = [], {}
     for dtype_name, impl, ce in configs:
         before = dict(_kernels.launches)
@@ -166,7 +182,10 @@ def lm_bench(argv: list[str] | None = None) -> dict:
             model, batch=args.batch, seq=args.seq,
             compute_dtype=torch.bfloat16 if dtype_name == "bfloat16" else None,
             attn_impl=impl, device=device, steps=args.steps, ce_chunk=ce,
-            remat=args.remat, moe_dispatch_chunk=args.moe_dispatch_chunk)
+            remat=args.remat, moe_dispatch_chunk=args.moe_dispatch_chunk,
+            grad_accum=args.grad_accum,
+            accum_dtype=(getattr(torch, args.accum_dtype)
+                         if args.accum_dtype else None))
         launches = {k: _kernels.launches[k] - before[k]
                     for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
         key = f"{dtype_name}+{impl}" + (f"+ce{ce}" if ce else "")
@@ -184,6 +203,10 @@ def lm_bench(argv: list[str] | None = None) -> dict:
                 "kernel_launches": launches}
         if args.moe_dispatch_chunk:
             line["moe_dispatch_chunk"] = args.moe_dispatch_chunk
+        if args.grad_accum > 1:
+            line["grad_accum"] = args.grad_accum
+        if args.accum_dtype:
+            line["accum_dtype"] = args.accum_dtype
         if args.remat:
             line["remat"] = True
         lines.append(line)

@@ -27,8 +27,13 @@ training (`models/generate.py`), and the sampling flags are checked at
 construction, so that a typo fails before the run. With a JSONL sink
 the trainer writes the reference's records: "train" and a "metrics"
 snapshot at every log step, then "step_phases", "memory", a final
-"metrics" and the eval's "span". What the reference's trainer adds
-beyond that (the other meshes, FSDP) is refused by
+"metrics" and the eval's "span". With a seq axis (`--mesh-shape seq:P`
+or `data:N,seq:P`) the step is the sequence-parallel one of
+`parallel/sp.py`: each rank takes its (B/N, S/P) block of the windows,
+attention is ring, ring-flash or Ulysses (`pick_ring_impl`), and the
+eval runs the full sequence on every rank with flash (for ring-flash) or
+the oracle, as the reference's does. What the reference's trainer adds
+beyond that (the other meshes, FSDP, MoE under a seq axis) is refused by
 `utils.config.check_lm_supported` (ROADMAP queue F).
 """
 
@@ -48,15 +53,17 @@ from ..models.transformer import TransformerLM
 from ..obs.device import emit_step_telemetry
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import span
+from ..ops.flash_attention import HEAD_DIMS
 from ..parallel.dp import dp_shard_batch, replicate
 from ..parallel.moe import check_dispatch_chunk
-from ..parallel.mesh import DATA_AXIS, device_mesh
+from ..parallel.mesh import DATA_AXIS, SEQ_AXIS, device_mesh
+from ..parallel.sp import make_sp_lm_train_step, sp_shard_batch
 from ..utils.config import (
     COMPUTE_DTYPES,
     check_batch_divides,
     check_elastic_and_accum,
     check_lm_supported,
-    data_axes,
+    lm_axes,
 )
 from ..utils.logging import MetricsLogger, get_logger
 from ..utils.profiling import StepTimer
@@ -70,6 +77,24 @@ from .lm import (
 )
 from .optimizer import make_optimizer
 from .recovery import Recovery
+
+
+def pick_ring_impl(impl: str, seq_len: int, n_seq: int,
+                   device: torch.device | str, head_dim: int) -> str:
+    """The sequence-parallel attention of `--attn-impl` on a seq axis of
+    n_seq ranks, the reference's rule: "auto" and "flash" take ring-flash
+    on a CUDA device when the per-shard sequence is a multiple of 128,
+    else the plain ring; "auto" also needs the kernels built for the head
+    dim (an explicit "flash" keeps ring-flash, whose kernels then refuse
+    the head dim, as `pick_attn_impl` leaves it off the seq axis);
+    "oracle" is the plain ring (exact, as the oracle); the others are
+    taken as asked."""
+    if impl in ("auto", "flash"):
+        flash = (torch.device(device).type == "cuda"
+                 and (seq_len // n_seq) % 128 == 0
+                 and (impl == "flash" or head_dim in HEAD_DIMS))
+        return "ring_flash" if flash else "ring"
+    return "ring" if impl == "oracle" else impl
 
 
 def check_sample_flags(cfg) -> None:
@@ -182,8 +207,7 @@ class LMTrainer:
                  preempt: PreemptionGuard | None = None, registry=None,
                  clock=None):
         check_lm_supported(cfg)
-        if mesh is None and data_axes(cfg.num_devices, cfg.mesh_shape,
-                                      queue="F")[DATA_AXIS] > 1:
+        if mesh is None and math.prod(lm_axes(cfg).values()) > 1:
             raise ValueError(
                 f"num_devices={cfg.num_devices}, mesh_shape="
                 f"{cfg.mesh_shape!r}: an LMTrainer is one rank; pass the "
@@ -199,6 +223,7 @@ class LMTrainer:
                                      else mesh.device)
         self.mesh = mesh = mesh or device_mesh(self.device)
         n_data = mesh.shape.get(DATA_AXIS, 1)
+        self.n_seq = n_seq = mesh.shape.get(SEQ_AXIS, 1)
         check_batch_divides(cfg.batch_size, n_data)
         check_elastic_and_accum(cfg.elastic_width, cfg.grad_accum,
                                 cfg.batch_size, n_data)
@@ -214,9 +239,13 @@ class LMTrainer:
         if cfg.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"--compute-dtype {cfg.compute_dtype!r}: "
                              f"{' or '.join(COMPUTE_DTYPES)}")
-        if cfg.ce_chunk and cfg.seq_len % cfg.ce_chunk:
-            raise ValueError(f"--ce-chunk {cfg.ce_chunk} must divide the "
-                             f"sequence {cfg.seq_len}")
+        if cfg.ce_chunk and (cfg.seq_len // n_seq) % cfg.ce_chunk:
+            raise ValueError(
+                f"--ce-chunk {cfg.ce_chunk} must divide the per-shard "
+                f"sequence {cfg.seq_len // n_seq} (seq_len {cfg.seq_len} "
+                f"over seq:{n_seq})" if n_seq > 1 else
+                f"--ce-chunk {cfg.ce_chunk} must divide the sequence "
+                f"{cfg.seq_len}")
         check_sample_flags(cfg)
         check_moe_flags(cfg)
 
@@ -248,7 +277,16 @@ class LMTrainer:
                                  cfg.moe_dispatch_chunk, n_data)
         dispatch_dtype = (getattr(torch, cfg.moe_dispatch_dtype)
                           if cfg.moe_dispatch_dtype else None)
-        if cfg.elastic_width:
+        if n_seq > 1:
+            self.attn_impl = pick_ring_impl(cfg.attn_impl, cfg.seq_len,
+                                            n_seq, self.device,
+                                            self.model.head_dim)
+            self.train_step = make_sp_lm_train_step(
+                self.model, self.optimizer, mesh, impl=self.attn_impl,
+                data_axis=DATA_AXIS if n_data > 1 else None, remat=cfg.remat,
+                compute_dtype=self._compute_dtype, ce_chunk=cfg.ce_chunk,
+                grad_accum=cfg.grad_accum)
+        elif cfg.elastic_width:
             self.train_step, _ = make_elastic_lm_train_step(
                 self.model, self.optimizer, mesh,
                 elastic_width=cfg.elastic_width, attn_impl=self.attn_impl,
@@ -290,10 +328,17 @@ class LMTrainer:
         rank's rows of its windows through the step's gradient path (its
         accumulation or elastic reduction, and the reduction over the
         ranks)."""
-        tokens, targets = dp_shard_batch(self._sample_batch(0), self.mesh)
+        tokens, targets = self._shard(self._sample_batch(0))
         grads, _ = self.train_step.grads(self.state, self._to_device(tokens),
                                          self._to_device(targets))
         return grads
+
+    def _shard(self, batch):
+        """This rank's block of a (B, S) batch: its data-axis rows, and
+        under a seq axis its shard's columns."""
+        if self.n_seq > 1:
+            return sp_shard_batch(batch, self.mesh)
+        return dp_shard_batch(batch, self.mesh)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -321,8 +366,7 @@ class LMTrainer:
             step = start_step
             while step < cfg.steps:
                 with timer.phase("data"):
-                    tokens, targets = dp_shard_batch(
-                        self._sample_batch(step), self.mesh)
+                    tokens, targets = self._shard(self._sample_batch(step))
                     tokens = self._to_device(tokens)
                     targets = self._to_device(targets)
                 snap = rec.snapshot(self.state)
@@ -398,11 +442,13 @@ class LMTrainer:
     def evaluate(self) -> float:
         """Mean next-token NLL over the held-out windows in one batched
         forward (equal windows: the batch mean is the mean of the window
-        means), with flash attention when training used it."""
+        means), with flash attention when training used it (flash or
+        ring-flash), else the oracle; the full sequence on every rank."""
         wins = self.eval_windows()
         if not len(wins):
             return float("nan")
-        attn_fn = get_attn_fn("flash" if self.attn_impl == "flash"
+        attn_fn = get_attn_fn("flash" if self.attn_impl in ("flash",
+                                                            "ring_flash")
                               else "oracle")
         loss = lm_loss(self.model, self.state["params"],
                        self._to_device(wins[:, :-1]),

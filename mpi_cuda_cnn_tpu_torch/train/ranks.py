@@ -38,6 +38,7 @@ from ..faults import (
     fires_on_every_rank,
     supervise,
 )
+from ..models.layers import tree_leaves
 from ..models.presets import get_model
 from ..obs.metrics import MetricsRegistry
 from ..ops import _kernels
@@ -197,16 +198,19 @@ def cnn_rank(mesh, cfg, data, params=None, *, grads: bool = False,
     return res
 
 
-def lm_rank(mesh, cfg, params=None, *, grads: bool = False) -> dict:
+def lm_rank(mesh, cfg, params=None, *, grads: bool = False,
+            final_params: bool = False) -> dict:
     """The `lm` command on one rank: an LMTrainer of `cfg` from `params`
     (None: the seeded init), trained for cfg.steps and evaluated
     (`LMTrainer.train()`), then, with cfg.sample_tokens, a sample on rank
-    0 logged as the reference's command logs it. Returns the exit code,
-    the losses logged (every cfg.log_every steps), the result's final and
-    eval losses, the launches and collectives of `train()` (the steps and
-    the eval), its wall seconds, the trainer's records, the sample's
-    tokens (rank 0 with cfg.sample_tokens, else None), and, if asked,
-    step 0's gradients (before training)."""
+    0 logged as the reference's command logs it. The rank's mesh may have
+    a seq axis (its block of every batch, `parallel/sp.py`). Returns the
+    exit code, the losses logged (every cfg.log_every steps), the
+    result's final and eval losses, the launches and collectives of
+    `train()` (the steps and the eval), its wall seconds, the trainer's
+    records, the sample's tokens (rank 0 with cfg.sample_tokens, else
+    None), and, if asked, step 0's gradients (before training) and the
+    final params (numpy, in `tree_leaves` order)."""
     log = get_logger()
     faults = FaultInjector(cfg.fault_plan) if cfg.fault_plan else None
     registry = MetricsRegistry()    # one for every supervised attempt
@@ -245,6 +249,8 @@ def lm_rank(mesh, cfg, params=None, *, grads: bool = False) -> dict:
                final_loss=result.final_loss, eval_loss=result.eval_loss,
                seconds=time.perf_counter() - t0, counts=tally.take(),
                records=metrics.rows, sample=None)
+    if final_params:
+        res["params"] = _numpy(tree_leaves(trainer.state["params"]))
     if cfg.sample_tokens and (mesh is None or mesh.rank == 0):
         _, cont = trainer.sample(cfg.sample_tokens,
                                  temperature=cfg.sample_temperature,
@@ -254,3 +260,9 @@ def lm_rank(mesh, cfg, params=None, *, grads: bool = False) -> dict:
         log.info("sample (%d tokens): %r", cfg.sample_tokens, text)
         res["sample"] = cont.tolist()
     return res
+
+
+def lm_rank_each(mesh, cfgs, **kw) -> list[dict]:
+    """`lm_rank` of each config in turn on this rank's mesh, with the
+    same keyword arguments: several runs in one spawn of the ranks."""
+    return [lm_rank(mesh, cfg, **kw) for cfg in cfgs]

@@ -74,6 +74,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..data import prng
 from ..data.augment import make_augment
 from ..data.pipeline import (
     ensure_channel_axis,
@@ -219,7 +220,7 @@ class Trainer:
             grad_clip=config.grad_clip)
 
         if params is None:
-            params = model.init(torch.Generator().manual_seed(config.seed),
+            params = model.init(prng.key(config.seed),
                                 get_initializer(config.init))
         self.params = tree_map(
             lambda t: t.detach().to(self.device, self.param_dtype).clone()

@@ -14,7 +14,10 @@ asking for one stops at once: `check_supported` (CNN, ROADMAP queue E)
 and `check_lm_supported` (LM, queue F) raise NotImplementedError naming
 the ROADMAP queue entry that will bring it. Of the meshes, the data axis
 is ported (`--num-devices N`, `--mesh-shape data:N`): one rank per
-device, `parallel/dp.py`. Checkpoints, fault plans, the NaN guard and
+device, `parallel/dp.py`; for the LM also the seq axis of sequence
+parallelism (`--mesh-shape seq:P` or `data:N,seq:P`, with
+`--attn-impl auto|flash|oracle|ring|ring_flash|ulysses`,
+`parallel/sp.py`). Checkpoints, fault plans, the NaN guard and
 the supervisor are ported (`train/checkpoint.py`, `faults.py`); as in
 the reference, `--nan-policy` and `--fault-plan` are checked when the
 flags are parsed (exit 2), the plan against the command's hook sites.
@@ -146,18 +149,22 @@ def parse_mesh_shape(spec: str, total_devices: int) -> dict[str, int]:
 
 
 def data_axes(num_devices: int, mesh_shape: str, visible: int = 1,
-              queue: str = "E") -> dict[str, int]:
+              queue: str = "E",
+              ported: tuple[str, ...] = ("data",)) -> dict[str, int]:
     """The mesh of `--num-devices` (0: the `visible` devices) and
-    `--mesh-shape`: {"data": N}. Raises NotImplementedError naming ROADMAP
-    queue `queue` item 1 for any other axis, ValueError for a bad spec."""
+    `--mesh-shape`: {"data": N} and the other `ported` axes it names, in
+    its order ("data" first, of size 1, when it names none). Raises
+    NotImplementedError naming ROADMAP queue `queue` item 1 for any other
+    axis, ValueError for a bad spec."""
     if num_devices < 0:
         raise ValueError(f"--num-devices {num_devices}: want >= 0")
     axes = parse_mesh_shape(mesh_shape, num_devices or visible)
-    if set(axes) != {"data"} or axes["data"] < 1:
+    if not set(axes) <= set(ported) or min(axes.values(), default=0) < 1:
         raise NotImplementedError(
-            f"mesh_shape={mesh_shape!r}: only the data axis is ported (the "
-            f"other meshes and FSDP are ROADMAP queue {queue} item 1)")
-    return axes
+            f"mesh_shape={mesh_shape!r}: only the {' and '.join(ported)} "
+            f"ax{'es are' if len(ported) > 1 else 'is'} ported (the other "
+            f"meshes and FSDP are ROADMAP queue {queue} item 1)")
+    return axes if "data" in axes else {"data": 1, **axes}
 
 
 def check_batch_divides(batch_size: int, n_data: int) -> None:
@@ -263,13 +270,15 @@ class LMConfig:
     donate: bool = True           # no-op here: the update is in place
 
     compute_dtype: str = "float32"   # float32 | bfloat16
-    attn_impl: str = "auto"          # auto | flash | oracle
+    attn_impl: str = "auto"          # auto | flash | oracle; with a seq
+                                     # axis also ring | ring_flash | ulysses
     remat: bool = False
     fsdp: bool = False               # refused (queue F item 1)
     ce_chunk: int = 0                # >0: chunked fused cross-entropy
     device: str = "auto"             # auto (= cuda) | cuda | cpu
     num_devices: int = 0             # 0 = all visible (1 on the CPU)
-    mesh_shape: str = "data"         # "data" or "data:N" only
+    mesh_shape: str = "data"         # "data", "data:N", "seq:P" or
+                                     # "data:N,seq:P"
 
     checkpoint_dir: str | None = None
     checkpoint_every: int = 0           # steps; 0 = only at the end
@@ -291,7 +300,7 @@ class LMConfig:
     decode_weights_dtype: str = "float32"
 
 
-LM_ATTN_IMPLS = ("auto", "flash", "oracle")
+LM_MESH_AXES = ("data", "seq")
 
 # (field, value that means "off", ROADMAP queue F item, what it is)
 _LM_REFUSED = (
@@ -299,24 +308,44 @@ _LM_REFUSED = (
 )
 
 
+def lm_axes(cfg: LMConfig) -> dict[str, int]:
+    """The LM's mesh axes (`data_axes` with the data and seq axes)."""
+    return data_axes(cfg.num_devices, cfg.mesh_shape, queue="F",
+                     ported=LM_MESH_AXES)
+
+
 def check_lm_supported(cfg: LMConfig) -> None:
     """Raise NotImplementedError for a feature of the reference's LM
-    trainer that this port does not have yet (ROADMAP queue F), and
-    ValueError for a batch the data axis does not divide or a
-    --grad-accum / --elastic-width that `check_elastic_and_accum`
-    refuses."""
-    axes = data_axes(cfg.num_devices, cfg.mesh_shape, queue="F")
+    trainer that this port does not have yet (ROADMAP queue F: other
+    axes, FSDP, MoE under a seq axis), and ValueError for what the
+    reference's trainer refuses: a batch the data axis does not divide, a
+    sequence the seq axis does not divide, --elastic-width under a seq
+    axis, a --grad-accum / --elastic-width that `check_elastic_and_accum`
+    refuses. An unknown --attn-impl, or a sequence-parallel one without a
+    seq axis, is the trainer's ValueError, as there."""
+    axes = lm_axes(cfg)
     for name, off, item, what in _LM_REFUSED:
         if getattr(cfg, name) != off:
             flag = "--" + name.replace("_", "-")
             raise NotImplementedError(
                 f"{flag}={getattr(cfg, name)!r}: {what} is not ported yet "
                 f"(ROADMAP queue F item {item})")
-    if cfg.attn_impl not in LM_ATTN_IMPLS:
-        raise NotImplementedError(
-            f"--attn-impl={cfg.attn_impl!r}: only {'|'.join(LM_ATTN_IMPLS)} "
-            "are ported; ring and Ulysses attention are ROADMAP queue F "
-            "item 8")
+    n_seq = axes.get("seq", 1)
+    if n_seq > 1:
+        if cfg.moe_experts:
+            raise NotImplementedError(
+                f"--moe-experts={cfg.moe_experts} under a 'seq' axis: MoE "
+                "rides EP x SP there, which is not ported yet (ROADMAP "
+                "queue F item 1)")
+        if cfg.elastic_width:
+            raise ValueError(
+                "--elastic-width needs a pure data-parallel mesh "
+                f"(mesh_shape={cfg.mesh_shape!r}/--fsdp shard the state; "
+                "cross-width bitwise resume is only defined for replicated "
+                "params)")
+        if cfg.seq_len % n_seq:
+            raise ValueError(f"seq_len {cfg.seq_len} not divisible by "
+                             f"seq-axis size {n_seq}")
     check_batch_divides(cfg.batch_size, axes["data"])
     check_elastic_and_accum(cfg.elastic_width, cfg.grad_accum,
                             cfg.batch_size, axes["data"])

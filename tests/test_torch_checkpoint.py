@@ -40,6 +40,7 @@ from mpi_cuda_cnn_tpu_torch.convert import (
     load_checkpoint_arrays,
     params_from_jax,
 )
+from mpi_cuda_cnn_tpu_torch.data import prng
 from mpi_cuda_cnn_tpu_torch.data.datasets import synthetic_stripes
 from mpi_cuda_cnn_tpu_torch.faults import FaultInjector, InjectedCrash
 from mpi_cuda_cnn_tpu_torch.models.initializers import get_initializer
@@ -69,7 +70,7 @@ LOSS_RTOL = 1e-5
 def _state(seed=0, momentum=0.9):
     """A reference_cnn train state of the port, as checkpoint arrays."""
     model = get_model("reference_cnn")
-    params = model.init(torch.Generator().manual_seed(seed),
+    params = model.init(prng.key(seed),
                         get_initializer("normal"))
     opt = make_optimizer(0.1, momentum=momentum)
     state = {"params": params, "opt_state": opt.init(tree_leaves(params)),
@@ -338,9 +339,8 @@ def test_names_equal_the_jax_packages(model, kw):
                                "step": jnp.asarray(3, jnp.int32)})
     params = params_from_jax(jax.tree.map(np.asarray, jparams))
     assert len(tree_leaves(params)) == len(tree_leaves(
-        tmodel.init(torch.Generator().manual_seed(0))
-        if model == "transformer" else tmodel.init(
-            torch.Generator().manual_seed(0), get_initializer("normal"))))
+        tmodel.init(prng.key(0)) if model == "transformer"
+        else tmodel.init(prng.key(0), get_initializer("normal"))))
     opt = make_optimizer(0.1, **kw)
     state = {"params": params, "opt_state": opt.init(tree_leaves(params)),
              "step": 3}

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from mpi_cuda_cnn_tpu_torch.bench.conv_shapes import SHAPES
+from mpi_cuda_cnn_tpu_torch.data import prng
 from mpi_cuda_cnn_tpu_torch.models.initializers import get_initializer
 from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
 from mpi_cuda_cnn_tpu_torch.models.presets import MODEL_PRESETS, get_model
@@ -121,7 +122,7 @@ def _preset_launches(preset: str) -> list[dict]:
         return plain(x, w, stride=stride, pads=pads, dil=dil, flip=flip)
 
     model = get_model(preset)
-    params = model.init(torch.Generator().manual_seed(0),
+    params = model.init(prng.key(0),
                         get_initializer("normal"))
     leaves = tree_leaves(params)
     for t in leaves:

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from mpi_cuda_cnn_tpu_torch.bench.conv_shapes import SHAPES
+from mpi_cuda_cnn_tpu_torch.data import prng
 from mpi_cuda_cnn_tpu_torch.models.initializers import get_initializer
 from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
 from mpi_cuda_cnn_tpu_torch.models.presets import MODEL_PRESETS, get_model
@@ -190,7 +191,7 @@ def _preset_weight_grads(preset: str) -> list[dict]:
         return plain(x, g, stride=stride, padding=padding, kh=kh, kw=kw)
 
     model = get_model(preset)
-    params = model.init(torch.Generator().manual_seed(0),
+    params = model.init(prng.key(0),
                         get_initializer("normal"))
     leaves = tree_leaves(params)
     for t in leaves:

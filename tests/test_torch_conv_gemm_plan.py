@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from mpi_cuda_cnn_tpu_torch.bench.conv_shapes import SHAPES
+from mpi_cuda_cnn_tpu_torch.data import prng
 from mpi_cuda_cnn_tpu_torch.models.initializers import get_initializer
 from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
 from mpi_cuda_cnn_tpu_torch.models.presets import MODEL_PRESETS, get_model
@@ -168,7 +169,7 @@ def _preset_forwards(preset: str) -> list[dict]:
         return plain(x, w, stride=stride, pads=pads, dil=dil, flip=flip)
 
     model = get_model(preset)
-    params = model.init(torch.Generator().manual_seed(0),
+    params = model.init(prng.key(0),
                         get_initializer("normal"))
     x = torch.rand(2, *model.input_shape)
     kernel_ops.conv_direct_plain = record

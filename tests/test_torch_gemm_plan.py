@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from mpi_cuda_cnn_tpu_torch.data import prng
 from mpi_cuda_cnn_tpu_torch.models.initializers import get_initializer
 from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
 from mpi_cuda_cnn_tpu_torch.models.presets import MODEL_PRESETS, get_model
@@ -174,7 +175,7 @@ def _preset_products(preset: str) -> list[tuple]:
         return plain(a, b, trans_a=trans_a, trans_b=trans_b, bias=bias)
 
     model = get_model(preset)
-    params = model.init(torch.Generator().manual_seed(0),
+    params = model.init(prng.key(0),
                         get_initializer("normal"))
     leaves = tree_leaves(params)
     for t in leaves:

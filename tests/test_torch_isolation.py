@@ -11,6 +11,7 @@ import torch
 
 from mpi_cuda_cnn_tpu_torch._device import resolve_device
 from mpi_cuda_cnn_tpu_torch.convert import params_from_jax
+from mpi_cuda_cnn_tpu_torch.data import prng
 from mpi_cuda_cnn_tpu_torch.models.transformer import TransformerLM
 from mpi_cuda_cnn_tpu_torch.serve.bench import serve_bench, serve_bench_main
 from mpi_cuda_cnn_tpu_torch.serve.engine import PagedEngine
@@ -55,7 +56,7 @@ def test_cuda_requested_without_a_gpu_raises(no_gpu, device):
 
 def test_engine_and_bench_refuse_to_fall_back_to_cpu(no_gpu, capsys):
     model = TransformerLM(vocab=16, dim=16, heads=2, depth=1, max_seq=32)
-    params = model.init(torch.Generator().manual_seed(0))
+    params = model.init(prng.key(0))
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         PagedEngine(model, params, num_pages=8, page_size=4)
     with pytest.raises(RuntimeError, match="CUDA device requested"):

@@ -30,9 +30,11 @@ from mpi_cuda_cnn_tpu.train.optimizer import make_optimizer as jax_make_opt
 from mpi_cuda_cnn_tpu.utils.config import LMConfig as JaxLMConfig
 from mpi_cuda_cnn_tpu_torch.cli import main
 from mpi_cuda_cnn_tpu_torch.convert import params_from_jax
+from mpi_cuda_cnn_tpu_torch.data import prng
 from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
 from mpi_cuda_cnn_tpu_torch.models.transformer import TransformerLM
 from mpi_cuda_cnn_tpu_torch.ops import _kernels
+from mpi_cuda_cnn_tpu_torch.ops.flash_attention import HEAD_DIMS
 from mpi_cuda_cnn_tpu_torch.train.lm import (
     count_params,
     lm_flops_per_token,
@@ -134,7 +136,7 @@ def test_the_gelu_is_the_tanh_form(monkeypatch):
 
 def test_apply_refuses_what_the_port_lacks():
     _, tm = _pair()
-    tp = tm.init(torch.Generator().manual_seed(0))
+    tp = tm.init(prng.key(0))
     with pytest.raises(ValueError, match="exceeds max_seq"):
         tm.apply(tp, torch.zeros((1, 256), dtype=torch.int32))
 
@@ -143,11 +145,11 @@ def test_flops_and_param_count_match_jax():
     for kv, moe, k in ((0, 0, 1), (2, 0, 1), (0, 4, 1), (2, 4, 2)):
         jm, tm = _pair(kv_heads=kv, moe_experts=moe, moe_top_k=k)
         assert lm_flops_per_token(tm, 2048) == jax_flops(jm, 2048)
-        assert count_params(tm.init(torch.Generator().manual_seed(0))) == \
+        assert count_params(tm.init(prng.key(0))) == \
             jax_count_params(jm.init(jax.random.key(0)))
     flagship = TransformerLM(vocab=8192, dim=512, heads=8, depth=8,
                              max_seq=2048)
-    assert count_params(flagship.init(torch.Generator().manual_seed(0))) \
+    assert count_params(flagship.init(prng.key(0), "meta")) \
         == 34_620_416
 
 
@@ -164,9 +166,10 @@ def test_pick_attn_impl():
 @pytest.mark.parametrize("head_dim", [16, 32, 64, 96, 128, 256])
 def test_pick_attn_impl_auto_follows_the_kernels_head_dims(head_dim, device):
     """"auto" takes the flash kernels only for a head dim they are built
-    for (32, 64, 128), on a CUDA device; an explicit "flash" stays flash
-    (the kernels then refuse the head dim themselves)."""
-    built = head_dim in (32, 64, 128)
+    for (16, 32, 64, 128), on a CUDA device; an explicit "flash" stays
+    flash (the kernels then refuse the head dim themselves)."""
+    built = head_dim in HEAD_DIMS
+    assert HEAD_DIMS == (16, 32, 64, 128)
     want = "flash" if device == "cuda" and built else "oracle"
     assert pick_attn_impl("auto", 2048, device, head_dim) == want
     assert pick_attn_impl("auto", 2048, device, head_dim=head_dim) == want
@@ -175,9 +178,9 @@ def test_pick_attn_impl_auto_follows_the_kernels_head_dims(head_dim, device):
 
 
 def test_lm_callers_pass_the_model_head_dim(monkeypatch):
-    """Both callers of pick_attn_impl hand it the model's head dim:
-    `lm --dim 256 --heads 16` (head dim 16) must not resolve "auto" to
-    kernels that are not built for it."""
+    """Both callers of pick_attn_impl hand it the model's head dim, so
+    that "auto" never resolves to kernels that are not built for it:
+    `lm --dim 32 --heads 2` and `--dim 256 --heads 16` (head dim 16)."""
     import mpi_cuda_cnn_tpu_torch.train.lm as lm_mod
     import mpi_cuda_cnn_tpu_torch.train.lm_trainer as trainer_mod
 
@@ -414,19 +417,75 @@ def test_lm_refusals_exit_2_naming_queue_f(name, off, item, what, log_lines):
         LMTrainer(parse_lm_args([*TINY, *argv]))
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--mesh-shape", "data:2,model:2"], 1), (["--mesh-shape", "pipe:2"], 1),
-    (["--mesh-shape", "data:2,seq:2"], 1), (["--attn-impl", "ring"], 8),
-    (["--attn-impl", "ulysses"], 8)],
+@pytest.mark.parametrize("argv,says", [
+    (["--mesh-shape", "data:2,model:2"], "queue F item 1"),
+    (["--mesh-shape", "pipe:2"], "queue F item 1"),
+    (["--mesh-shape", "seq:2", "--moe-experts", "2"], "queue F item 1"),
+    (["--attn-impl", "ring"], "unknown attention impl 'ring'"),
+    (["--attn-impl", "ulysses"], "unknown attention impl 'ulysses'")],
     ids=["model_mesh", "pipe_mesh", "seq_mesh", "ring", "ulysses"])
-def test_lm_mesh_and_attention_refusals(argv, item, log_lines):
+def test_lm_mesh_and_attention_refusals(argv, says, log_lines):
+    """The model and pipe axes, and MoE under the seq axis, are not
+    ported (queue F item 1); a sequence-parallel attention without a seq
+    axis is the reference trainer's ValueError. Exit 2 either way."""
     assert main(["lm", *TINY, *argv]) == 2
-    assert any(f"queue F item {item}" in m for m in log_lines)
+    assert any(says in m for m in log_lines)
 
 
 def test_lm_bench_refusals(capsys):
-    assert lm_bench_main([*BENCH_TINY, "--grad-accum", "2"]) == 2
-    assert "queue F item 3" in capsys.readouterr().err
+    """--grad-accum N and --accum-dtype run on both dtypes, the rows
+    carrying the reference's fields (float32 normalizes to the default
+    exact sum, as there); a --grad-accum that does not divide the batch
+    exits 2."""
+    assert lm_bench_main([*BENCH_TINY, "--grad-accum", "3"]) == 2
+    assert "not divisible by grad_accum 3" in capsys.readouterr().err
+    for dtype, field, rows_of in (("bfloat16", "bfloat16",
+                                   {"float32", "bfloat16"}),
+                                  ("float32", None, {"bfloat16"})):
+        quick = [] if dtype == "bfloat16" else ["--quick"]
+        assert lm_bench_main([*BENCH_TINY, *quick, "--grad-accum", "2",
+                              "--accum-dtype", dtype]) == 0
+        lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+        rows = lines[:-1]
+        assert {r["dtype"] for r in rows} == rows_of
+        for r in rows:
+            assert r["grad_accum"] == 2 and r.get("accum_dtype") == field
+            assert np.isfinite(r["loss"])
+
+
+@pytest.mark.parametrize("compute,accum,tol", [
+    ("bfloat16", "bfloat16", 2e-2), ("float32", None, 1e-5)],
+    ids=["bf16_accum_bf16", "f32_accum_f32"])
+def test_grad_accum_grads_match_the_reference(compute, accum, tol):
+    """First-step gradients at --grad-accum 2 against the reference's
+    accumulation (`dp.local_grads_no_aux`, the helper its
+    make_lm_train_step runs), from one init, per leaf in relative L2."""
+    from mpi_cuda_cnn_tpu.parallel.dp import local_grads_no_aux
+    from mpi_cuda_cnn_tpu.train.lm import lm_loss as jax_lm_loss
+
+    jm, tm = _pair()
+    jparams = jm.init(jax.random.key(0))
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, tm.vocab, (4, 65)).astype(np.int32)
+    jcd = None if compute == "float32" else jnp.bfloat16
+    _, jg = jax.jit(lambda p, x, y: local_grads_no_aux(
+        lambda p_, a, b: jax_lm_loss(jm, p_, a, b, compute_dtype=jcd),
+        p, x, y, 2, None if accum is None else jnp.bfloat16))(
+        jparams, toks[:, :-1], toks[:, 1:])
+    opt = make_optimizer(1e-3, opt="adamw", schedule="constant")
+    step = make_lm_train_step(
+        tm, opt, attn_impl="oracle", seq_len=64, device="cpu",
+        compute_dtype=None if compute == "float32" else torch.bfloat16,
+        grad_accum=2, accum_dtype=None if accum is None else torch.bfloat16)
+    state = make_lm_state(tm, opt, params=params_from_jax(
+        jax.tree.map(np.asarray, jparams)))
+    tg, _ = step.grads(state, torch.from_numpy(toks[:, :-1]),
+                       torch.from_numpy(toks[:, 1:]))
+    for got, want in zip(tg, jax.tree.leaves(jg), strict=True):
+        want = np.asarray(want, np.float32)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        rel = np.linalg.norm(got.numpy() - want) / np.linalg.norm(want)
+        assert rel <= tol, rel
 
 
 @pytest.fixture

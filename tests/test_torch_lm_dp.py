@@ -74,10 +74,11 @@ def test_lm_dp_matches_the_jax_dp_trainer(runs):
 
 
 @pytest.mark.parametrize("kw", [dict(mesh_shape="data:2,model:2"),
-                                dict(mesh_shape="data:2,seq:2"),
+                                dict(mesh_shape="data:2,seq:2",
+                                     moe_experts=4),
                                 dict(fsdp=True, num_devices=2),
                                 dict(elastic_width=4,
-                                     mesh_shape="data:2,seq:2")],
+                                     mesh_shape="data:2,model:2")],
                          ids=["model", "seq", "fsdp", "elastic"])
 def test_what_the_lm_data_mesh_still_refuses(kw):
     with pytest.raises(NotImplementedError, match="queue F item 1"):

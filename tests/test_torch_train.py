@@ -34,6 +34,7 @@ from mpi_cuda_cnn_tpu.utils.config import Config as JaxConfig
 from mpi_cuda_cnn_tpu.utils.logging import MetricsLogger as JaxMetrics
 from mpi_cuda_cnn_tpu_torch.cli import main
 from mpi_cuda_cnn_tpu_torch.convert import params_from_jax
+from mpi_cuda_cnn_tpu_torch.data import prng
 from mpi_cuda_cnn_tpu_torch.data.datasets import (
     synthetic_stripes,
     write_synthetic_idx,
@@ -185,7 +186,7 @@ def test_preset_counts_and_forward_match_jax(name):
     if name in PARAM_COUNTS:
         assert tm.num_params(tp) == PARAM_COUNTS[name]
     # The port's own init builds the same tree shapes.
-    own = tm.init(torch.Generator().manual_seed(0),
+    own = tm.init(prng.key(0),
                   initializers.get_initializer("he"))
     assert [t.shape for t in tree_leaves(own)] == \
         [tuple(a.shape) for a in jax.tree.leaves(jp)]
@@ -202,11 +203,11 @@ def test_preset_counts_and_forward_match_jax(name):
 
 @pytest.mark.parametrize("name", ["normal", "irwin_hall", "he"])
 def test_initializers_draw_the_reference_distributions(name):
-    """Seeded, and with the reference's mean and spread (numbers differ
-    from jax.random's: parity goes through imported params)."""
+    """Seeded, and with the reference's mean and spread (the draws
+    themselves are held to jax.random's in tests/test_torch_init.py)."""
     init = initializers.get_initializer(name)
-    a = init(torch.Generator().manual_seed(0), (64, 256))
-    b = init(torch.Generator().manual_seed(0), (64, 256))
+    a = init(prng.key(0), (64, 256))
+    b = init(prng.key(0), (64, 256))
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     want = np.asarray(jax_init(name)(jax.random.key(0), (64, 256)))
     assert abs(a.mean().item() - want.mean()) < 0.01
