@@ -75,6 +75,20 @@ final line:
             phase's engine (every slot live, at positions in the
             bench's range): device ms per forward, K1's and K2's ms
             per forward, launches per forward, the idle share.
+5c. serve_features  the single engine's features through serve-bench
+            at the serve flagship on 12 requests of template traffic:
+            sharing off (the baseline), prefix sharing, lookup k 8, a
+            paged and a window draft model, a tight pool spilling to a
+            host tier with one corrupted spill, the SLO scheduler over
+            two tenants with a squeeze fault, its JSONL records and live
+            alerts. Every request finishes with the baseline's tokens
+            (or a tie); K1/K2 launches held to the target's and the
+            draft's forwards; prefix hits and COW copies, lookup
+            acceptance in fewer rounds, spills, readmits and the one
+            refusal held; 120 s at most. The kernels phase holds K1 at
+            the verify block, over aliased tables and on the draft's
+            pools, and K2 at N 64 and the draft's products (marked
+            `features`).
 6. train    `train-bench --use-kernels`: reference_cnn on 60,000
             synthetic MNIST-shaped samples, batch 32, lr 0.1, the
             device-resident epoch; one warm-up epoch, one measured epoch
@@ -133,8 +147,9 @@ final line:
             float32 unchunked at the largest batch whose reckoned peak
             fits the card, against a chunked step at that batch (held
             when neither drops a token, else the drop counts); (d)
-            `lm-bench --moe-experts 8 --moe-top-k 2` rows (bf16 and
-            float32, chunked and not, peak memory) and torch.profiler's
+            `lm-bench --moe-experts 8 --moe-top-k 2` rows at 4 of the
+            8 layers (bf16 and float32, chunked and not, peak memory)
+            and torch.profiler's
             split of one MoE layer into router build, dispatch einsum,
             expert FFN, combine and backward.
 8b. generate  the lm and lm_moe trainers sample 256 tokens greedily
@@ -219,6 +234,7 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -228,6 +244,11 @@ HERE = Path(__file__).resolve().parent
 # computes in (and the bound of float32 work).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# median_ms's spin before each timed call: 5e6 cycles, about 2.5 ms at
+# the H100's 1.98 GHz, above any timed call's host enqueue (the plain
+# versions' few PyTorch ops take well under 1 ms); each timed call pays
+# it in the script's wall time.
+SPIN_CYCLES = 5_000_000
 
 SERVE_ARGS = [
     "--dim", "512", "--depth", "8", "--heads", "8", "--kv-heads", "2",
@@ -253,6 +274,66 @@ GEMM_RTOL_OF_MAX = 1e-4
 HEADS, KV_HEADS, HEAD_DIM, PAGE, TABLE_PAGES = 8, 2, 64, 16, 80
 # serve_profile: decode ticks profiled, after warm-up ones.
 SERVE_PROFILE_TICKS = 20
+# serve_features: the serve phase's flagship and requests' ranges, fewer
+# requests (for the phase's 120 s), template traffic (--prefix-mix 0.9
+# --templates 4), one seed for every run (1: its 12 requests share
+# prefixes in the sharing run, three of them copy-on-write); the lookup
+# run's verify block, FEATURES_SPEC_K rows a slot; the draft model
+# serve-bench makes by default (--draft-dim 0 -> dim / 2, --draft-depth
+# 0 -> 1) and its products (wq, wkv, w1, w2, the head; wo is wq's shape).
+FEATURES_REQUESTS = 12
+FEATURES_SEED = 1
+FEATURES_SPEC_K = 8
+# The draft runs verify 4 rows a slot: their draft (a second random
+# model) accepts next to nothing, and its proposal steps set their time.
+FEATURES_DRAFT_K = 4
+DRAFT_DIM, DRAFT_DEPTH = 256, 1
+GEMM_DRAFT = [(256, 256), (256, 128), (256, 1024), (1024, 256), (256, 8192)]
+FEATURES_ARGS = (
+    [{"--requests": str(FEATURES_REQUESTS),
+      "--seed": str(FEATURES_SEED)}.get(SERVE_ARGS[i - 1], a)
+     for i, a in enumerate(SERVE_ARGS)]
+    + ["--prefix-mix", "0.9", "--templates", "4"])
+# (name, flags): the spec-off and sharing-off baseline first; every run
+# is held to its tokens. "{tmp}" is the phase's temporary directory.
+# The spill run's pool (140 pages) cannot keep the four templates
+# beside the live requests, so reclaimed template pages spill to its
+# host tier (256 pages, all of them); later requests look up spills 38
+# to 33, and 33, the last, is the one corrupted (the schedule does not
+# depend on the weights: rehearsed on the CPU at a small width). The
+# slo run's page quota (96) lets a t0 request of the longest prompt in.
+FEATURES_TIGHT_PAGES = 140
+FEATURES_HOST_PAGES = 256
+FEATURES_CORRUPT_SPILL = 33
+FEATURES_RUNS = (
+    ("base", []),
+    ("prefix", ["--prefix-cache"]),
+    ("lookup", ["--prefix-cache", "--spec", "lookup",
+                "--spec-k", str(FEATURES_SPEC_K)]),
+    ("draft_paged", ["--spec", "draft", "--draft-cache", "paged",
+                     "--spec-k", str(FEATURES_DRAFT_K)]),
+    ("draft_window", ["--spec", "draft", "--draft-cache", "window",
+                      "--spec-k", str(FEATURES_DRAFT_K)]),
+    ("spill", ["--prefix-cache", "--spill",
+               "--pages", str(FEATURES_TIGHT_PAGES),
+               "--host-pages", str(FEATURES_HOST_PAGES),
+               "--fault-plan",
+               f"kv_corrupt@tier.spill:{FEATURES_CORRUPT_SPILL}"]),
+    ("slo", ["--scheduler", "slo", "--tenants", "2",
+             "--tenant-priority", "t1=2",
+             "--tenant-quota", "t0=slots:2/pages:96",
+             "--fault-plan", "squeeze@serve.tick:5?pages=64&ticks=20",
+             "--slo", "{tmp}/slo.json",
+             "--metrics-jsonl", "{tmp}/features.jsonl"]),
+)
+FEATURES_SLO = {
+    "tenants": {"*": {"availability": 0.99,
+                      "ttft_ms": {"target": 0.9, "threshold_ms": 2000.0}}},
+    "burn": {"windows_s": [[10.0, 1.0]], "max_rate": 10.0},
+    "rules": [{"name": "tick-stale", "kind": "absence", "event": "tick",
+               "max_gap_s": 1.0}],
+}
+FEATURES_BUDGET_S = 120.0
 # The kernels built on mma.sync: their libraries must hold tensor-core
 # instructions (HMMA in the SASS).
 TENSOR_CORE_KERNELS = ("gemm", "conv_direct", "conv_dw", "conv_gemm",
@@ -524,9 +605,10 @@ LM_DP_ARGS = LM_MODEL_ARGS + ["--attn-impl", "flash", "--steps",
 # intermediates; over 8 layers such flips add up to a few 1e-3. A wrong
 # dq, dk or dv moves a leaf by far more than 2e-2.
 LM_BF16_GRAD_REL_L2 = 2e-2
-# lm_sp: the lm phase's flagship at --mesh-shape seq:2 as two gloo ranks
-# on cuda:0 (sequence parallelism, parallel/sp.py), each holding 1,024 of
-# the 2,048 positions of all 8 rows. ring_flash (what flash resolves to
+# lm_sp: the lm phase's flagship, cut to LM_SP_DEPTH layers, at
+# --mesh-shape seq:2 as two gloo ranks on cuda:0 (sequence parallelism,
+# parallel/sp.py), each holding 1,024 of the 2,048 positions of all 8
+# rows. ring_flash (what flash resolves to
 # on the card): LM_SP_STEPS float32 steps and the first step's gradients
 # in float32 and bf16; ring and ulysses in float32: the first step's
 # gradients and LM_SP_OTHER_STEPS steps each. Held against the
@@ -534,19 +616,27 @@ LM_BF16_GRAD_REL_L2 = 2e-2
 # gradients per leaf within LM_AGREE_GRAD_REL_L2 (the halves' folds and
 # sums add the same float32 products in other orders), bf16 within
 # LM_BF16_GRAD_REL_L2, the float32 losses within LM_AGREE_LOSS_ATOL. A
-# causal step of ring_flash launches K7/K8/K9 8 (depth) x (r + 1) times
+# causal step of ring_flash launches K7/K8/K9 depth x (r + 1) times
 # on seq rank r: rank 0 folds only its diagonal block, rank 1 a full
-# block and its diagonal; the eval runs the whole sequence on K7 (8 a
-# rank). Step times are correctness runs (two ranks share the card and
+# block and its diagonal; the eval runs the whole sequence on K7 (depth
+# a rank). Step times are correctness runs (two ranks share the card and
 # gloo stages each ring hop through the host), not scaling figures.
 LM_SP_WORLD = 2
 LM_SP_STEPS = 5
 LM_SP_OTHER_STEPS = 2
-LM_SP_ARGS = LM_MODEL_ARGS + ["--mesh-shape", "seq:2", "--warmup-steps",
-                              "2", "--log-every", "1"]
-LM_SP_PER_STEP = [{k: 8 * (r + 1) for k in ("flash_fwd", "flash_bwd_dq",
-                                             "flash_bwd_dkv")}
+# The flagship cut to LM_SP_DEPTH layers (for chip_smoke.py's time
+# limit; every check as at depth 8): per step each rank launches each
+# kernel once a layer a ring hop it folds, per eval K7 once a layer.
+LM_SP_DEPTH = 4
+LM_SP_ARGS = ([a if LM_MODEL_ARGS[i - 1] != "--depth" else str(LM_SP_DEPTH)
+               for i, a in enumerate(LM_MODEL_ARGS)]
+              + ["--mesh-shape", "seq:2", "--warmup-steps", "2",
+                 "--log-every", "1"])
+LM_SP_PER_STEP = [{k: LM_SP_DEPTH * (r + 1)
+                   for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
                   for r in range(LM_SP_WORLD)]
+LM_SP_PER_EVAL = {"flash_fwd": LM_SP_DEPTH, "flash_bwd_dq": 0,
+                  "flash_bwd_dkv": 0}
 LM_SP_NOTE = ("correctness run: the two seq ranks share one card and gloo "
               "stages each ring hop and the all-reduce through the host; "
               "not a scaling figure")
@@ -687,8 +777,10 @@ MOE_ROUTE_TIE = 1e-5
 # MOE_CODE_EDGE_MAX_SHARE of the codes a forward writes.
 MOE_CODE_EDGE_TOL = 1e-2
 MOE_CODE_EDGE_MAX_SHARE = 1e-4
+# (d)'s lm-bench rows at 4 of the flagship's 8 layers (for
+# chip_smoke.py's time limit; each row draws its own seeded init).
 LM_MOE_BENCH_ARGS = ["--steps", "10", "--moe-experts", "8",
-                     "--moe-top-k", "2"]
+                     "--moe-top-k", "2", "--depth", "4"]
 MOE_SPLIT_STAGES = ("ep.router_build", "ep.dispatch_einsum", "ep.expert_ffn",
                     "ep.combine_einsum")
 MOE_SPLIT_RUNS = 3
@@ -733,7 +825,14 @@ GEMM_GENERATE = [(512, 1536), (512, 512), (512, 2048), (2048, 512),
                  (512, 8192), (512, 251)]
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets the seconds since the
+    script started (`t_s`)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -799,16 +898,17 @@ def spill_stores(log: str) -> dict[str, int]:
 
 def median_ms(torch, fn, reps: int = 30) -> float:
     """Median device time of one call of `fn`, from a CUDA event pair
-    around each call. A spin kernel of about 5 ms is queued before each
-    pair, so the card is still busy while the host enqueues the call and
-    host time (up to that long) never shows up as device time."""
+    around each call. A spin kernel of about 2.5 ms (SPIN_CYCLES) is
+    queued before each pair, so the card is still busy while the host
+    enqueues the call and host time (up to that long) never shows up as
+    device time."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     for start, end in events:
-        torch.cuda._sleep(10_000_000)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -826,15 +926,17 @@ def bound(nbytes: float, flops: float,
 def attention_case(torch, dev, dtype: str, b: int, kk: int, gen,
                    ragged: bool = False, pages: int = TABLE_PAGES,
                    last_range: tuple[int, int] | None = None,
-                   kv_heads: int = KV_HEADS) -> dict:
+                   kv_heads: int = KV_HEADS, head_dim: int = HEAD_DIM,
+                   alias: int = 0) -> dict:
     """One paged-attention call at the serving shapes (HEADS query heads
-    over `kv_heads`): a pool of b *
+    over `kv_heads`, `head_dim` wide): a pool of b *
     pages + 1 pages, distinct random block tables of `pages` pages,
     positions that end mid-page in [last_range) (by default the table's
     second half); `ragged`: slot 0's in its first page instead (one short
-    slot beside long ones: most of its splits see no key). The kernel
-    runs twice and its two outputs must be equal bit for bit (the splits
-    are merged in a fixed order)."""
+    slot beside long ones: most of its splits see no key); `alias`: slot
+    1's first `alias` table entries name slot 0's pages (prefix sharing).
+    The kernel runs twice and its two outputs must be equal bit for bit
+    (the splits are merged in a fixed order)."""
     from mpi_cuda_cnn_tpu_torch.models.generate import _quant_kv
     from mpi_cuda_cnn_tpu_torch.ops.attention import repeat_kv
     from mpi_cuda_cnn_tpu_torch.ops.paged_attention import (
@@ -846,7 +948,7 @@ def attention_case(torch, dev, dtype: str, b: int, kk: int, gen,
     pool = b * pages + 1
     L = pages * PAGE
     lo, hi = last_range or (L // 2, L - 1)
-    shape = (pool, PAGE, kv_heads, HEAD_DIM)
+    shape = (pool, PAGE, kv_heads, head_dim)
 
     def randn(*s):
         return torch.randn(*s, generator=gen).to(dev)
@@ -859,21 +961,24 @@ def attention_case(torch, dev, dtype: str, b: int, kk: int, gen,
         tdt = getattr(torch, dtype)
         c = {"k": randn(*shape).to(tdt), "v": randn(*shape).to(tdt)}
     perm = torch.randperm(pool - 1, generator=gen)[: b * pages] + 1
-    table = perm.reshape(b, pages).to(torch.int32).to(dev)
+    table = perm.reshape(b, pages).to(torch.int32)
+    if alias:
+        table[1, :alias] = table[0, :alias]
+    table = table.to(dev)
     last = torch.randint(lo, hi, (b, 1), generator=gen)
     last = torch.where(last % PAGE == PAGE - 1, last - 1, last)  # mid-page
     if ragged:
         last[0] = PAGE // 2 + kk - 1
     positions = (last - kk + 1 + torch.arange(kk)[None, :]).to(torch.int32)
     positions = positions.to(dev)
-    q = randn(b, kk, HEADS, HEAD_DIM)
+    q = randn(b, kk, HEADS, head_dim)
 
     got = paged_attend(q, c, positions, table, PAGE)
     want = paged_attend_plain(q, c, positions, table, PAGE)
     err = (got - want).abs().max().item()
     tol = ATTN_ATOL[dtype]
     what = (f"paged_attention {dtype} B={b} kk={kk} L={L} Hkv={kv_heads} "
-            f"ragged={ragged}")
+            f"hd={head_dim} ragged={ragged} alias={alias}")
     if not err <= tol:
         raise AssertionError(f"{what}: max error {err} > {tol}")
     again = paged_attend(q, c, positions, table, PAGE)
@@ -888,7 +993,7 @@ def attention_case(torch, dev, dtype: str, b: int, kk: int, gen,
         # Yardstick only: SDPA over the already gathered, head-repeated
         # rows with the same mask.
         tbl = table.long()
-        rows = {n: repeat_kv(c[n][tbl].reshape(b, L, kv_heads, HEAD_DIM),
+        rows = {n: repeat_kv(c[n][tbl].reshape(b, L, kv_heads, head_dim),
                              HEADS).transpose(1, 2) for n in ("k", "v")}
         mask = (torch.arange(L, device=dev)[None, None, :]
                 <= positions[:, :, None].long())[:, None]
@@ -896,19 +1001,23 @@ def attention_case(torch, dev, dtype: str, b: int, kk: int, gen,
         library_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, rows["k"], rows["v"], attn_mask=mask))
     # Bound: q, table, positions and the output once each, plus the
-    # pages each slot's rows can see (keys, values, int8 scales); the
-    # operations are 4*hd per (query head, visible key).
+    # distinct pages the slots' rows can see (keys, values, int8 scales;
+    # a page two slots share is read once); the operations are 4*hd per
+    # (query head, visible key).
     elem = c["k"].element_size()
     pos = positions.long().clamp(max=L - 1).cpu()
-    pages_read = int(((pos.max(dim=1).values // PAGE) + 1).sum())
-    page_bytes = PAGE * kv_heads * (2 * HEAD_DIM * elem
+    tbl_host = table.cpu()
+    pages_read = len({int(p) for i in range(b)
+                      for p in tbl_host[i, : int(pos[i].max()) // PAGE + 1]})
+    page_bytes = PAGE * kv_heads * (2 * head_dim * elem
                                     + (8 if dtype == "int8" else 0))
-    nbytes = (q.numel() * 4 + b * kk * HEADS * HEAD_DIM * 4 + table.numel() * 4
+    nbytes = (q.numel() * 4 + b * kk * HEADS * head_dim * 4 + table.numel() * 4
               + positions.numel() * 4 + pages_read * page_bytes)
-    flops = 4 * HEAD_DIM * HEADS * int((pos + 1).sum())
+    flops = 4 * head_dim * HEADS * int((pos + 1).sum())
     bound_ms, bound_by = bound(nbytes, flops)
     return {"kernel": "paged_attention", "dtype": dtype, "B": b, "kk": kk,
-            "L": L, "Hkv": kv_heads, "ragged": ragged, "bitwise_repeat": True,
+            "L": L, "Hkv": kv_heads, "D": head_dim, "ragged": ragged,
+            "alias": alias, "bitwise_repeat": True,
             "max_abs_err": err, "tolerance": tol, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
@@ -1480,7 +1589,50 @@ def phase_kernels(torch, dev) -> list[dict]:
                                            + GEN_SERVE["out_max"]),
                                        kv_heads=HEADS), "generate": True})
         emit({"phase": "kernel_case", **cases[-1]})
+    cases.extend(features_kernel_cases(torch, dev, gen, args))
     cases.extend(phase_cnn_kernels(torch, dev, gen))
+    return cases
+
+
+def features_kernel_cases(torch, dev, gen, args) -> list[dict]:
+    """K1 and K2 at the serve_features phase's shapes (marked `features`):
+    K1 int8 at the verify block (slots x FEATURES_SPEC_K rows) and at a
+    decode tick whose slots 0 and 1 share their first pages, on the
+    engine's table width (pages_for(prompt_max + out_max)) at the
+    bench's positions; K2 at the verify block's N (slots x
+    FEATURES_SPEC_K) on the five serving products; the draft model's K1
+    (its catch-up chunk and proposal step, head dim DRAFT_DIM / HEADS)
+    and K2 (its products at a step's N and at the catch-up chunk's and
+    window forward's N)."""
+    from mpi_cuda_cnn_tpu_torch.serve.pool import pages_for
+
+    width = pages_for(args.prompt_max + args.out_max, args.page_size)
+    span = (args.prompt_min, args.prompt_max + args.out_max)
+    draft_hd = DRAFT_DIM // args.heads
+    chunk_rows = args.slots * args.prefill_chunk
+    specs = [
+        ("verify", lambda: attention_case(
+            torch, dev, "int8", args.slots, FEATURES_SPEC_K, gen,
+            pages=width, last_range=span)),
+        ("alias", lambda: attention_case(
+            torch, dev, "int8", args.slots, 1, gen, pages=width,
+            last_range=span, alias=width // 2)),
+        ("draft", lambda: attention_case(
+            torch, dev, "int8", args.slots, args.prefill_chunk, gen,
+            pages=width, last_range=span, head_dim=draft_hd)),
+        ("draft", lambda: attention_case(
+            torch, dev, "int8", args.slots, 1, gen, pages=width,
+            last_range=span, head_dim=draft_hd)),
+    ]
+    specs += [("verify", lambda s=s: gemm_case(
+        torch, dev, args.slots * FEATURES_SPEC_K, *s, gen))
+        for s in GEMM_SHAPES]
+    specs += [("draft", lambda n=n, s=s: gemm_case(torch, dev, n, *s, gen))
+              for n in (args.slots, chunk_rows) for s in GEMM_DRAFT]
+    cases = []
+    for what, case in specs:
+        cases.append({**case(), "features": what})
+        emit({"phase": "kernel_case", **cases[-1]})
     return cases
 
 
@@ -1852,6 +2004,128 @@ def phase_serve_profile(torch, out) -> dict:
             "launches_per_forward": launches,
             "device_idle_share": None if busy is None else 1 - busy / tick_ms,
             **prof}
+
+
+def phase_serve_features(torch) -> dict:
+    """The single engine's serving features through serve-bench at the
+    serve phase's flagship (FEATURES_ARGS: template traffic, one seed,
+    one draw of the weights for every run): FEATURES_RUNS, each with the
+    launch counts zeroed just before and read just after. Every request
+    finishes; its tokens equal the baseline run's or tie at the first
+    difference (`agree_requests`, the baseline engine's top-2 gap); the
+    measured run's K1 launches are depth x target forwards + the draft's
+    depth x its paged forwards, K2's (5 depth + 1) x target forwards +
+    (5 draft depth + 1) x draft forwards (target forwards: decode ticks,
+    verify rounds and prefill chunks); prefix hits and COW copies, lookup
+    acceptance in fewer rounds than the spec-off run's ticks, spills,
+    readmits and one refusal for the one corrupted spill, and the SLO
+    run's JSONL valid with its alerts line. Returns the phase's record and
+    the launches per kernel over every run (warm-ups included)."""
+    import tempfile
+
+    from mpi_cuda_cnn_tpu_torch.obs.schema import load_records, validate_record
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+    from mpi_cuda_cnn_tpu_torch.serve.bench import SERVE_KERNELS, serve_bench
+
+    t_phase = time.perf_counter()
+    params = draft_params = base = None
+    runs = {}
+    total = {k: 0 for k in SERVE_KERNELS}
+    with tempfile.TemporaryDirectory(prefix="features-") as tmp:
+        Path(tmp, "slo.json").write_text(json.dumps(FEATURES_SLO))
+        for name, flags in FEATURES_RUNS:
+            argv = FEATURES_ARGS + [a.replace("{tmp}", tmp) for a in flags]
+            _kernels.reset_launches()
+            t0 = time.perf_counter()
+            out = serve_bench(argv, params=params, draft_params=draft_params)
+            eng = out["engine"]
+            if eng.device.type == "cuda":
+                torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            for k in SERVE_KERNELS:
+                total[k] += _kernels.launches[k]
+            params = out["params"]
+            draft_params = out["draft_params"] or draft_params
+            line, res = out["lines"][0], out["results"]["continuous"]
+            args, model = out["args"], out["model"]
+            if line["statuses"] != {"finished": args.requests}:
+                raise AssertionError(f"serve_features {name}: statuses "
+                                     f"{line['statuses']}")
+            forwards = line["decode_ticks"] + line["prefill_chunks"]
+            dfw = line["draft_forwards"]
+            paged_draft = args.spec == "draft" and args.draft_cache == "paged"
+            want = {"paged_attention": model.depth * forwards
+                    + (DRAFT_DEPTH * dfw if paged_draft else 0),
+                    "int8_gemm": (5 * model.depth + 1) * forwards
+                    + (5 * DRAFT_DEPTH + 1) * dfw}
+            if eng.device.type != "cuda":
+                want = {k: 0 for k in want}
+            if line["kernel_launches"] != want:
+                raise AssertionError(
+                    f"serve_features {name}: launches "
+                    f"{line['kernel_launches']}, want {want} ({forwards} "
+                    f"target forwards, {dfw} draft forwards)")
+            rec = {"wall_s": wall_s, "duration_s": line["duration_s"],
+                   "tokens_per_s": line["tokens_per_s"],
+                   "decode_ticks": line["decode_ticks"],
+                   "prefill_chunks": line["prefill_chunks"],
+                   "draft_forwards": dfw,
+                   "ms_per_forward": 1e3 * line["duration_s"] / forwards,
+                   "tokens_per_round": ((line["output_tokens"]
+                                         - args.requests)
+                                        / max(line["decode_ticks"], 1)),
+                   "ttft_p50_ms": line["ttft_p50_ms"],
+                   "tpot_p50_ms": line["tpot_p50_ms"],
+                   "preemptions": line["preemptions"],
+                   "kernel_launches": line["kernel_launches"],
+                   **{k: line[k] for k in line
+                      if k.startswith(("prefix_", "tier_", "spec_"))}}
+            if line["spec_rounds"]:
+                rec["mean_accepted"] = (line["spec_accepted"]
+                                        / line["spec_rounds"])
+            if base is None:
+                base = (eng, res)
+            else:
+                rec["agree"] = agree_requests(torch, eng, base[0],
+                                              res.requests, base[1].requests)
+            runs[name] = rec
+            emit({"phase": "serve_features_run", "run": name, **rec})
+            if name == "slo":
+                records = load_records(Path(tmp, "features.jsonl"),
+                                       strict=True)
+                for r in records:
+                    validate_record(r)
+                events = {r["event"] for r in records}
+                if not {"tick", "request", "metrics", "serve",
+                        "fault"} <= events:
+                    raise AssertionError(f"serve_features slo: JSONL events "
+                                         f"{sorted(events)}")
+                if out["alerts"] is None or not any(
+                        e["kind"] == "injected_squeeze" for e in res.events):
+                    raise AssertionError("serve_features slo: no alerts line "
+                                         "or no squeeze fired")
+                rec["jsonl_records"] = len(records)
+                rec["alerts"] = out["alerts"]
+            del out, eng, res
+    p, lk, sp = runs["prefix"], runs["lookup"], runs["spill"]
+    checks = {
+        "prefix_hits": p["prefix_hits"] > 0 and p["prefix_cow"] > 0,
+        "lookup_accepts": lk["spec_accepted"] > 0,
+        "lookup_fewer_rounds": lk["decode_ticks"] < p["decode_ticks"],
+        "draft_forwards": all(runs[n]["draft_forwards"] > 0
+                              for n in ("draft_paged", "draft_window")),
+        "tier": (sp["tier_spills"] > 0 and sp["tier_readmits"] > 0
+                 and sp["tier_refusals"] == 1),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"serve_features: checks {checks}; runs {runs}")
+    phase_s = time.perf_counter() - t_phase
+    if phase_s > FEATURES_BUDGET_S:
+        raise AssertionError(f"serve_features took {phase_s:.1f} s, over its "
+                             f"{FEATURES_BUDGET_S} s budget")
+    return {"record": {"requests": FEATURES_REQUESTS, "phase_s": phase_s,
+                       "checks": checks, "runs": runs},
+            "launches": total}
 
 
 def phase_train(torch) -> dict:
@@ -2275,7 +2549,7 @@ def phase_lm_sp(torch, dev=None) -> dict:
     from mpi_cuda_cnn_tpu_torch.utils.config import parse_lm_args
 
     dev = dev or torch.device("cuda", 0)
-    flag = dict(zip(LM_MODEL_ARGS[::2], LM_MODEL_ARGS[1::2]))
+    flag = dict(zip(LM_SP_ARGS[::2], LM_SP_ARGS[1::2]))
     model = TransformerLM(vocab=256, dim=int(flag["--dim"]),
                           heads=int(flag["--heads"]),
                           depth=int(flag["--depth"]),
@@ -2330,7 +2604,7 @@ def phase_lm_sp(torch, dev=None) -> dict:
             # steps and the eval in res["seconds"]; the eval is one forward
             step_ms.setdefault(name, []).append(1e3 * res["seconds"] / steps)
         flash = got["ring_flash"]
-        want = {k: n * LM_SP_STEPS + LM_PER_EVAL[k]
+        want = {k: n * LM_SP_STEPS + LM_SP_PER_EVAL[k]
                 for k, n in LM_SP_PER_STEP[r].items()}
         have = {k: flash["counts"]["launches"][k] for k in want}
         if have != want:
@@ -2775,7 +3049,7 @@ def phase_lm_moe_bench(torch, f32_rows: int, dev) -> None:
     from mpi_cuda_cnn_tpu_torch.train.lm import lm_flops_per_token
     from mpi_cuda_cnn_tpu_torch.train.lm_bench import bench_config, lm_bench
 
-    want = LM_BENCH_STEPS * LM_PER_STEP["flash_fwd"]
+    want = LM_BENCH_STEPS * lm_bench_args(LM_MOE_BENCH_ARGS).depth
     for chunk in (LM_MOE_CHUNK, 0):
         out = lm_bench(LM_MOE_BENCH_ARGS + [
             "--quick", "--moe-dispatch-chunk", str(chunk),
@@ -4027,7 +4301,8 @@ def kernels_line(cases: list[dict], launches: dict) -> dict:
              "mpi_cuda_cnn_tpu/ops/pallas_attention.py:460", _flagship_f32)):
         mine = [c for c in cases if c["kernel"] == name]
         r = next(c for c in mine if rep(c) and not c.get("per_rank")
-                 and not c.get("micro") and not c.get("generate"))
+                 and not c.get("micro") and not c.get("generate")
+                 and not c.get("features"))
         summary.append({
             "name": name, "route": "cuda", "source": src,
             "entry_points": entry_points(src),
@@ -4096,8 +4371,11 @@ def main() -> int:
     report = {name: [ln.strip() for ln in log.splitlines()
                      if "registers" in ln or "spill" in ln]
               for name, log in built["logs"].items()}
-    hmma_by_fn = {name: sass_hmma_by_function(_kernels, name)
-                  for name in sorted(_kernels.KERNELS)}
+    # cuobjdump once per library, all at once (each is a process).
+    with ThreadPoolExecutor() as pool:
+        names = sorted(_kernels.KERNELS)
+        hmma_by_fn = dict(zip(names, pool.map(
+            lambda name: sass_hmma_by_function(_kernels, name), names)))
     hmma = {name: sum(fns.values()) for name, fns in hmma_by_fn.items()}
     spills = {lib: {fn: n for fn, n in spill_stores(built["logs"][lib]).items()
                     if frag in fn}
@@ -4136,6 +4414,10 @@ def main() -> int:
     out, serve_launches = phase_serve(torch, SERVE_ARGS)
     emit({"phase": "agree", **phase_agree(torch, out)})
     emit({"phase": "serve_profile", **phase_serve_profile(torch, out)})
+    del out
+    features = phase_serve_features(torch)
+    emit({"phase": "serve_features", "device": kind, "nvidia_smi": smi,
+          **features["record"]})
     train_launches = phase_train(torch)
     emit({"phase": "train_agree", **phase_train_agree(torch)})
     phase_dp(torch)
@@ -4156,6 +4438,7 @@ def main() -> int:
     phase_recover(torch)
     emit({"phase": "train_flags", **phase_train_flags(torch)})
     launches = {**{k: serve_launches[k] + gen_launches[k]
+                   + features["launches"][k]
                    for k in ("paged_attention", "int8_gemm")},
                 **{k: train_launches[k] for k in PER_STEP},
                 "conv_gemm": conv_launches["conv_gemm"],

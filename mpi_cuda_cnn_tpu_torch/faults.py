@@ -22,10 +22,15 @@ monkeypatching. Kinds:
               PreemptionGuard flags it, the run finishes the in-flight
               step, snapshots through the atomic checkpoint path and
               exits Preempted (code 75)
-- the serving and fleet kinds (``squeeze``, ``slow``, ``replica_crash``,
-  ...) stay in the tables as data: the port's engine refuses fault plans
-  (`serve/engine.py` `_refuse`, ROADMAP queue D item 7), so only the
-  "train" and "train-lm" surfaces reach a hook.
+- ``squeeze`` steal pages of the serving engine's pool for a window of
+              ticks, ``slow`` stall one tick (`serve/engine.py` `run`,
+              fired at "serve.tick" with the iteration index, where
+              crash and io raise too)
+- ``kv_corrupt`` flip the CRC stamp of one host-tier spill ("tier.spill",
+              polled with the spill sequence): the readmission refuses
+              it and the request re-prefills
+- the fleet kinds (``replica_crash``, ``handoff_drop``, ...) stay in the
+  tables as data until the fleet is ported.
 
 Recovery: `supervise()` is the `--max-restarts N` loop: it runs one
 training attempt and, on a crash, runs another that resumes from the
@@ -114,8 +119,8 @@ KINDS = ("crash", "io", "nan", "squeeze", "slow", "preempt",
 # fire and do nothing; `validate_plan_sites` makes both parse-time
 # errors. crash/io are legal at every fired site (`FaultInjector.fire`
 # raises them). Only the CNN trainer fires train.batch, so
-# nan@train.batch is an error on `lm`. The serving and fleet surfaces
-# are the reference's, kept as data (see the module docstring).
+# nan@train.batch is an error on `lm`. The fleet surface is the
+# reference's, kept as data (see the module docstring).
 SITES: dict[str, dict[str, frozenset[str]]] = {
     "train": {
         "train.batch": frozenset({"crash", "io", "nan"}),

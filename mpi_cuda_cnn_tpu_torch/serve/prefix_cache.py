@@ -1,19 +1,20 @@
 """Prefix-sharing KV cache: a hash-keyed prefix tree over pages with
 copy-on-write and LRU retention.
 
-A copy of the JAX package's `serve/prefix_cache.py` without the host
-spill tier and the fleet routing keys. The scheduler imports it and its
-stat tuple enters the per-tick state digest; the engine of this package
-runs with prefix sharing off, so in practice only `empty_prefix_fields`
-and the `prefix=None` digest framing are exercised.
+A copy of the JAX package's `serve/prefix_cache.py` without the fleet's
+routing keys. The continuous schedulers hold one when the engine runs
+with `prefix=True`, and its stat tuple (with the host tier's, when one
+is attached) enters the per-tick state digest.
 
 The tree: one node per FULL page of prompt tokens, keyed by
 (parent, tokens-bytes). Matching walks full chunks of the prompt; at the
 first non-exact chunk the best longest-common-prefix child is shared
 copy-on-write. Tree pages are owned by the cache (`PREFIX_OWNER`),
 frozen read-only at adoption, reference-counted per reader, and evicted
-in LRU order once no reader holds them. Everything here is host-side and
-deterministic.
+in LRU order once no reader holds them. With a host tier
+(`serve/host_tier.py`) an evicted page spills to host memory instead of
+being discarded, and a later walk that misses in the tree readmits it.
+Everything here is host-side and deterministic.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import dataclasses
 
 import numpy as np
 
+from .host_tier import empty_tier_fields
 from .pool import PagePool
 
 PREFIX_OWNER = "__prefix__"
@@ -30,13 +32,15 @@ PREFIX_OWNER = "__prefix__"
 class PrefixNode:
     """One shared page of prompt KV: `tokens` are the page_size prompt
     tokens it covers, `page` the physical page index, `children` the
-    continuations keyed by their tokens-bytes."""
+    continuations keyed by their tokens-bytes. `path` is the CUMULATIVE
+    prefix bytes root..this node inclusive: the host tier's spill key,
+    which a later request computes from its own prompt alone."""
 
     __slots__ = ("node_id", "tokens", "page", "children", "parent_map",
-                 "key", "last_used")
+                 "key", "last_used", "path")
 
     def __init__(self, node_id: int, tokens: np.ndarray, page: int,
-                 parent_map: dict, key: bytes):
+                 parent_map: dict, key: bytes, path: bytes = b""):
         self.node_id = node_id
         self.tokens = tokens
         self.page = page
@@ -44,6 +48,7 @@ class PrefixNode:
         self.parent_map = parent_map
         self.key = key
         self.last_used = 0
+        self.path = path
 
 
 @dataclasses.dataclass
@@ -75,15 +80,42 @@ class PrefixCache:
     and LRU reclaim. One instance per scheduler/pool pair — per
     replica in the fleet (each replica owns its pool)."""
 
-    def __init__(self, pool: PagePool, page_size: int):
+    def __init__(self, pool: PagePool, page_size: int, tier=None):
         self.pool = pool
         self.page_size = page_size
+        # Optional host spill tier; None discards on reclaim.
+        self.tier = tier
         self.root_children: dict[bytes, PrefixNode] = {}
         self.nodes: dict[int, PrefixNode] = {}     # node_id -> node
         self._next_id = 0
         self._clock = 0
         self.stats = {"hits": 0, "misses": 0, "hit_tokens": 0,
                       "cow_copies": 0, "inserts": 0, "evictions": 0}
+        # Per-tick telemetry, drained by the engine each iteration.
+        self._tick_hits: list[list[int]] = []
+        self._tick_readmits: list[list[int]] = []
+        self._tick_deltas = {"cow": 0, "evictions": 0, "inserts": 0}
+
+    @property
+    def shared_pages(self) -> int:
+        return len(self.nodes)
+
+    def retained_pages(self) -> int:
+        """Refcount-0 resident tree pages (the LRU-reclaimable set)."""
+        return sum(1 for n in self.nodes.values()
+                   if self.pool.refs(n.page) == 0)
+
+    def drain_tick(self) -> dict:
+        """This tick's prefix moments: hits [[rid, matched_tokens]],
+        cow/eviction/insert deltas since the last drain and, with a host
+        tier, the readmissions [[rid, prefix_tokens]]."""
+        out = {"hits": self._tick_hits, **self._tick_deltas}
+        if self.tier is not None:
+            out["readmits"] = self._tick_readmits
+            self._tick_readmits = []
+        self._tick_hits = []
+        self._tick_deltas = {"cow": 0, "evictions": 0, "inserts": 0}
+        return out
 
     # -- bookkeeping helpers --------------------------------------------
 
@@ -111,6 +143,9 @@ class PrefixCache:
             chunk = toks[i * ps:(i + 1) * ps]
             if chunk.size == ps:
                 node = children.get(chunk.tobytes())
+                if node is None and self.tier is not None \
+                        and (i + 1) * ps <= max_tokens:
+                    node = self._readmit(toks, i, chunk, children, rid)
                 if node is not None:
                     nodes.append(node)
                     children = node.children
@@ -149,6 +184,33 @@ class PrefixCache:
         return Acquisition(nodes=nodes, cow=cow, cow_valid=j,
                            matched=matched)
 
+    def _readmit(self, toks: np.ndarray, i: int, chunk: np.ndarray,
+                 children: dict, rid) -> PrefixNode | None:
+        """The tier consult on a tree miss at chunk i: look the
+        cumulative prefix up in the host tier, CRC-verify it against the
+        requesting prompt's chunk, allocate a fresh read-only device
+        page, restore the KV rows and re-insert the node. None on a host
+        miss, a CRC refusal (counted by the tier) or a dry device pool
+        (readmission never preempts live work)."""
+        ps = self.page_size
+        key = toks[:(i + 1) * ps].tobytes()
+        entry = self.tier.lookup(key, chunk)
+        if entry is None:
+            return None
+        pages = self.pool.try_alloc(1, PREFIX_OWNER)
+        if pages is None:
+            return None
+        page = pages[0]
+        self.pool.freeze(page, PREFIX_OWNER)
+        self.tier.take(entry, page)
+        self._next_id += 1
+        node = PrefixNode(self._next_id, chunk.copy(), page,
+                          children, chunk.tobytes(), key)
+        children[node.key] = node
+        self.nodes[node.node_id] = node
+        self._tick_readmits.append([rid, (i + 1) * ps])
+        return node
+
     def note_admitted(self, acq: Acquisition, rid) -> None:
         """Count one ADMITTED acquisition (the scheduler calls this at
         bind time, not at acquire time): hits + misses equals
@@ -157,6 +219,7 @@ class PrefixCache:
         if acq.matched > 0:
             self.stats["hits"] += 1
             self.stats["hit_tokens"] += acq.matched
+            self._tick_hits.append([rid, acq.matched])
         else:
             self.stats["misses"] += 1
 
@@ -174,6 +237,7 @@ class PrefixCache:
         self.pool.unshare(node.page, ("cow", rid))
         self._touch(node)
         self.stats["cow_copies"] += 1
+        self._tick_deltas["cow"] += 1
 
     def cow_abandon(self, node: PrefixNode, rid) -> None:
         """The slot released before its first write (preempt/abort):
@@ -210,12 +274,14 @@ class PrefixCache:
                 self.pool.share(page, rid)
                 self._next_id += 1
                 node = PrefixNode(self._next_id, chunk.copy(), page,
-                                  children, key)
+                                  children, key,
+                                  toks[:(c + 1) * ps].tobytes())
                 children[key] = node
                 self.nodes[node.node_id] = node
                 slot.refs.append(page)
                 slot.prefix_nodes.append(node)
                 self.stats["inserts"] += 1
+                self._tick_deltas["inserts"] += 1
             self._touch(node)
             children = node.children
 
@@ -238,15 +304,21 @@ class PrefixCache:
             freed += 1
         return freed
 
-    def _evict(self, node: PrefixNode) -> None:
+    def _evict(self, node: PrefixNode, *, spill: bool = True) -> None:
+        if spill and self.tier is not None:
+            # Spill BEFORE the device page is freed, while its content
+            # is still addressable.
+            self.tier.spill(node.path, node.tokens, node.page)
         self.pool.free([node.page], PREFIX_OWNER)
         del node.parent_map[node.key]
         del self.nodes[node.node_id]
         self.stats["evictions"] += 1
+        self._tick_deltas["evictions"] += 1
 
     def clear(self) -> int:
         """Evict every reclaimable node (end-of-run: hand all retained
-        pages back so the pool's all-free exit invariant holds).
+        pages back so the pool's all-free exit invariant holds). Not
+        allocation pressure: nothing spills.
         Returns pages freed; raises if any node is still referenced."""
         freed = 0
         while self.nodes:
@@ -256,7 +328,7 @@ class PrefixCache:
             if not cands:
                 break
             victim = min(cands, key=lambda nd: (nd.last_used, nd.node_id))
-            self._evict(victim)
+            self._evict(victim, spill=False)
             freed += 1
         if self.nodes:
             raise RuntimeError(
@@ -267,19 +339,28 @@ class PrefixCache:
 
     def digest_tuple(self) -> tuple:
         """The prefix cache's contribution to the per-tick state digest
-        (scheduler.scheduler_digest): seven ints, in the reference's
-        order."""
-        return (len(self.nodes), self.stats["hits"], self.stats["misses"],
-                self.stats["hit_tokens"], self.stats["cow_copies"],
-                self.stats["inserts"], self.stats["evictions"])
+        (scheduler.scheduler_digest): seven ints in the reference's
+        order, plus the host tier's five when one is attached."""
+        t = (len(self.nodes), self.stats["hits"], self.stats["misses"],
+             self.stats["hit_tokens"], self.stats["cow_copies"],
+             self.stats["inserts"], self.stats["evictions"])
+        if self.tier is not None:
+            t += self.tier.digest_tuple()
+        return t
 
-
-def empty_tier_fields() -> dict:
-    """The zero-valued host-tier summary block (a local copy of the
-    reference's `serve/host_tier.empty_tier_fields`), so the summary
-    carries the same keys as the reference's."""
-    return {"tier_spills": 0, "tier_readmits": 0, "tier_refusals": 0,
-            "tier_host_evictions": 0}
+    def summary_fields(self) -> dict:
+        """Cumulative stats as the flat serve-summary keys, plus the
+        host-tier counters (zeros with no tier)."""
+        return {
+            "prefix_hits": self.stats["hits"],
+            "prefix_misses": self.stats["misses"],
+            "prefix_hit_tokens": self.stats["hit_tokens"],
+            "prefix_cow": self.stats["cow_copies"],
+            "prefix_inserts": self.stats["inserts"],
+            "prefix_evictions": self.stats["evictions"],
+            **(self.tier.summary_fields() if self.tier is not None
+               else empty_tier_fields()),
+        }
 
 
 def empty_prefix_fields() -> dict:

@@ -10,8 +10,11 @@ fails a request whose context can never fit. Static batching admits a
 batch only when every slot is free, reserves each request's worst-case
 extent up front, and drains the batch as one.
 
-Left out here: the SLO-aware scheduler, speculative-round page
-accounting and the cross-pool handoff.
+Also here: the acceptance-aware page growth of a speculative round and
+the rollback of pages that hold only rejected draft rows (`spec_width`,
+`commit_spec`), and the SLO-aware scheduler (`SLOScheduler`: priority
+classes, per-tenant quotas, burn-driven admission and preemption). Left
+out: the fleet's cross-pool handoff.
 """
 
 from __future__ import annotations
@@ -716,7 +719,33 @@ class ContinuousScheduler(_SchedulerBase):
         driven choice."""
         return max(victims, key=lambda s: s.admit_seq)
 
-    def grow_for_decode(self, now: float = 0.0) -> list[Slot]:
+    def spec_width(self, slot: Slot, k: int) -> int:
+        """How many candidate tokens this slot's speculative round may
+        verify this tick: capped by k, by the tokens the request still
+        owes, and by the rows the slot's pages cover (a dry pool narrows
+        the round instead of preempting; width 1 is the spec-off tick).
+        Always >= 1: the spec-off growth guaranteed the next row's
+        page."""
+        avail = len(slot.pages) * self.page_size - slot.cached
+        remaining = slot.req.max_new_tokens - len(slot.req.out)
+        return max(1, min(k, remaining, avail))
+
+    def commit_spec(self, slot: Slot, j: int) -> None:
+        """Commit a speculative round's j accepted tokens: advance the
+        written extent, then roll back the pages that now hold only
+        rejected draft rows (freed through the ownership check, so a
+        rejected token's KV is never readable through any block table).
+        Stale rejected rows inside the kept tail page are overwritten by
+        the next round's writes before any row reads them."""
+        slot.cached += j
+        keep = pages_for(slot.cached, self.page_size)
+        if len(slot.pages) > keep:
+            surplus = slot.pages[keep:]
+            del slot.pages[keep:]
+            self.pool.free(surplus, slot.req.rid)
+
+    def grow_for_decode(self, now: float = 0.0,
+                        spec_k: int = 1) -> list[Slot]:
         """Give every decoding slot the page its next cache row needs,
         reclaiming LRU-retained prefix pages first, then preempting victim sequences
         while the pool is dry. Returns the decoding slots that
@@ -725,6 +754,13 @@ class ContinuousScheduler(_SchedulerBase):
         request is failed terminally (the livelock guard's decode
         half) instead of raising: the engine keeps serving everything
         else.
+
+        spec_k > 1: after the guaranteed next-row growth, each survivor
+        is extended OPPORTUNISTICALLY toward the pages its verify block
+        wants (k rows, capped at the request's remaining budget) by
+        try_alloc and prefix reclaim only, never preemption; whatever the
+        pool covers is what spec_width reports. So the preemption policy
+        and the survivor set are those of a spec-off run.
         """
         survivors = []
         for slot in sorted(self.decode_slots(), key=lambda s: s.admit_seq):
@@ -764,6 +800,19 @@ class ContinuousScheduler(_SchedulerBase):
                 self.preempt(victim, for_rid=slot.req.rid)
             if not stalled and not slot.free and slot.decoding:
                 survivors.append(slot)
+        if spec_k > 1:
+            for slot in survivors:
+                remaining = slot.req.max_new_tokens - len(slot.req.out)
+                want = pages_for(slot.cached + min(spec_k, remaining),
+                                 self.page_size)
+                while len(slot.pages) < want:
+                    got = self.pool.try_alloc(1, slot.req.rid)
+                    if (got is None and self.prefix is not None
+                            and self.prefix.reclaim(1)):
+                        got = self.pool.try_alloc(1, slot.req.rid)
+                    if got is None:
+                        break  # speculate narrower, never preempt
+                    slot.pages.extend(got)
         return survivors
 
 
@@ -817,8 +866,11 @@ class StaticScheduler(_SchedulerBase):
             bound.append(slot)
         return bound
 
-    def grow_for_decode(self, now: float = 0.0) -> list[Slot]:
-        """No growth, no preemption — pages were reserved at admission.
+    def grow_for_decode(self, now: float = 0.0,
+                        spec_k: int = 1) -> list[Slot]:
+        """No growth, no preemption — pages were reserved at admission
+        (spec_k is signature compatibility: the engine refuses spec +
+        static).
         Decoding slots whose request is already done (or aborted) still
         HOLD their slot and pages (the batch drains as one); the engine
         keeps them out of the tick's valid mask."""
@@ -841,3 +893,250 @@ class StaticScheduler(_SchedulerBase):
                 self._release(slot)
             else:
                 self.finish(slot, now)
+
+
+# -- SLO-aware scheduling --------------------------------------------
+
+
+def parse_tenant_priorities(spec: str) -> dict[str, int]:
+    """The --tenant-priority grammar: 't0=2,t1=0' -> {'t0': 2,
+    't1': 0}. Higher is more protected."""
+    out: dict[str, int] = {}
+    for part in filter(None, (p.strip() for p in spec.split(","))):
+        try:
+            tenant, prio = part.split("=")
+            out[tenant.strip()] = int(prio)
+        except ValueError as e:
+            raise ValueError(
+                f"--tenant-priority entry {part!r}: want tenant=int "
+                "(e.g. 't0=2,t1=0')"
+            ) from e
+    return out
+
+
+def parse_tenant_quotas(spec: str) -> tuple[dict[str, int], dict[str, int]]:
+    """The --tenant-quota grammar: 't0=pages:8/slots:2,t1=slots:1' ->
+    (slot_quota, page_quota) dicts. A dimension left out of a tenant's
+    entry is unbounded for that tenant."""
+    slot_q: dict[str, int] = {}
+    page_q: dict[str, int] = {}
+    for part in filter(None, (p.strip() for p in spec.split(","))):
+        try:
+            tenant, dims = part.split("=")
+        except ValueError as e:
+            raise ValueError(
+                f"--tenant-quota entry {part!r}: want "
+                "tenant=dim:int[/dim:int] (e.g. 't0=pages:8/slots:2')"
+            ) from e
+        for dim in filter(None, (d.strip() for d in dims.split("/"))):
+            try:
+                kind, bound = dim.split(":")
+                bound = int(bound)
+            except ValueError as e:
+                raise ValueError(
+                    f"--tenant-quota {part!r}: bad dimension {dim!r}"
+                ) from e
+            if kind == "slots":
+                slot_q[tenant.strip()] = bound
+            elif kind == "pages":
+                page_q[tenant.strip()] = bound
+            else:
+                raise ValueError(
+                    f"--tenant-quota {part!r}: dimension {kind!r} must "
+                    "be 'slots' or 'pages'"
+                )
+    return slot_q, page_q
+
+
+@dataclasses.dataclass(frozen=True)
+class SLOPolicy:
+    """Configuration for SLOScheduler: per-tenant priority classes
+    (higher = more protected; a request's own nonzero `priority`
+    overrides its tenant's class), per-tenant admission quotas (slots
+    = concurrent engine slots; pages = PRIVATE pages reserved at
+    admission — shared prefix pages are free capacity and don't
+    count), and the SLO spec whose objectives drive the live burn
+    accounting (obs.slo grammar; None = the default availability-only
+    spec)."""
+
+    priorities: dict = dataclasses.field(default_factory=dict)
+    slot_quota: dict = dataclasses.field(default_factory=dict)
+    page_quota: dict = dataclasses.field(default_factory=dict)
+    slo_spec: object = None
+
+
+class SLOScheduler(ContinuousScheduler):
+    """SLO-aware admission and preemption over the continuous-batching
+    machinery.
+
+    FCFS treats every request identically; at production scale tenants
+    carry different objectives and an over-subscribed tenant can starve
+    everyone else's SLOs. This scheduler folds every terminal request
+    into a live obs.slo.Accountant and
+    lets the numbers drive policy, all host-side and deterministic:
+
+    - ADMISSION reorders arrived requests by (priority class desc,
+      tenant burn-rate pressure desc, arrival, rid): protected classes
+      first, and within a class the tenant currently burning its error
+      budget fastest gets capacity first. Per-tenant quotas bound what
+      one tenant can hold (slots and admission-time private pages); a
+      quota-blocked tenant is SKIPPED — no head-of-line blocking — but
+      a page-blocked top candidate waits (lower-ranked work never
+      jumps the page queue).
+    - PREEMPTION victims are picked by (priority class asc, tenant
+      pressure asc, latest-admitted): the worst-burning tenant's work
+      is protected, and FCFS's replace-latest rule only breaks ties.
+
+    Burn pressure is a pure fold over event times the scheduler itself
+    stamped, so two identical-seed runs make bitwise-identical
+    decisions."""
+
+    def __init__(self, *, policy: SLOPolicy | None = None, **kw):
+        super().__init__(**kw)
+        # Lazy obs import: this module stays light (obs.slo is
+        # stdlib-only).
+        from ..obs.slo import Accountant, default_spec
+
+        self.policy = policy or SLOPolicy()
+        self.acct = Accountant(self.policy.slo_spec or default_spec())
+        # Previous admit() moment: the inter-attempt gap is what a
+        # quota-blocked candidate's quota_wait_s accrues per skipped
+        # attempt (the skip-over share of queue wait).
+        self._prev_admit_now: float | None = None
+
+    def _on_terminal(self, req: Request, now: float) -> None:
+        for _ in self.acct.observe(terminal_fields(req), now):
+            pass
+
+    def _prio(self, req: Request) -> int:
+        if req.priority:
+            return req.priority
+        return self.policy.priorities.get(req.tenant or "default", 0)
+
+    def pressure(self, tenant: str) -> float:
+        """The tenant's worst CURRENT burn-rate multiple across its
+        objectives and windows — the live 'how close to paging' number
+        admission and victim choice read."""
+        worst = 0.0
+        for (t, metric), we in self.acct.events.items():
+            if t != tenant:
+                continue
+            obj = next(o for o in self.acct.spec.objectives(t)
+                       if o.metric == metric)
+            for w in we.windows_s:
+                worst = max(worst, we.burn_rate(w, obj.target))
+        return worst
+
+    def _choose_victim(self, victims: list[Slot]) -> Slot:
+        """Victims by (priority class asc, tenant burn pressure asc,
+        latest-admitted): the worst-burning tenant's work is protected;
+        FCFS's replace-latest rule only breaks ties."""
+        return min(victims, key=lambda s: (
+            self._prio(s.req),
+            self.pressure(s.req.tenant or "default"),
+            -s.admit_seq,
+        ))
+
+    def _usage(self, tenant: str) -> tuple[int, int]:
+        """(slots held, private pages held) by `tenant` right now.
+        Shared prefix pages don't count — they are deduplicated
+        capacity, not the tenant's reservation."""
+        slots_held = pages_held = 0
+        for s in self.slots:
+            if s.free or (s.req.tenant or "default") != tenant:
+                continue
+            slots_held += 1
+            pages_held += len(s.pages) - len(s.refs)
+        return slots_held, pages_held
+
+    def admit(self, now: float) -> list[Slot]:
+        bound: list[Slot] = []
+        prev, self._prev_admit_now = self._prev_admit_now, now
+        delta = max(now - prev, 0.0) if prev is not None else 0.0
+        free_slots = deque(s for s in self.slots if s.free)
+        if not self.queue:
+            return bound
+        arrived = [r for r in self.queue if r.arrival <= now]
+        if not arrived:
+            return bound
+        if not free_slots:
+            # Slot-blocked: every arrived candidate waits on a slot
+            # release. One representative blocked entry (the highest-
+            # priority earliest arrival — pressure left out: computing
+            # it on every saturated tick is the cost the early return
+            # exists to skip) keeps the record volume bounded.
+            head = min(arrived, key=lambda r: (-self._prio(r),
+                                               r.arrival, r.rid))
+            self._note_blocked(head, "slots", self._occupants())
+            return bound
+        # One sort per tick: pressures are a pure fold over already-
+        # observed terminals, so neither the ordering key nor the
+        # priority changes mid-admit — only quota USAGE does, and that
+        # is updated incrementally below (O(n log n) per tick instead
+        # of a re-scan per admitted slot: the storm-scale requirement).
+        pressures = {t: self.pressure(t) for t in
+                     {r.tenant or "default" for r in arrived}}
+        order = sorted(arrived, key=lambda r: (
+            -self._prio(r), -pressures[r.tenant or "default"],
+            r.arrival, r.rid))
+        usage = {t: self._usage(t) for t in pressures}
+        taken: set[int] = set()
+        for req in order:
+            if not free_slots:
+                # Ran out of slots mid-order: the next-ranked candidate
+                # is slot-blocked behind everything now running.
+                self._note_blocked(req, "slots", self._occupants())
+                break
+            tenant = req.tenant or "default"
+            need = pages_for(req.context_len + 1, self.page_size)
+            if need > self.pool.usable:
+                # The livelock guard, verbatim from the FCFS form.
+                taken.add(id(req))
+                self._drop(req, "failed", now,
+                           f"context of {req.context_len} tokens needs "
+                           f"{need} pages; pool owns {self.pool.usable}")
+                continue
+            sq = self.policy.slot_quota.get(tenant)
+            pq = self.policy.page_quota.get(tenant)
+            held_slots, held_pages = usage[tenant]
+            if sq is not None and held_slots >= sq:
+                # Quota skip-over: its own causal edge kind —
+                # the candidate waits on ITS OWN tenant's occupancy, not
+                # on fleet capacity — and its own queue-wait split (the
+                # inter-attempt gap accrues as quota_wait_s, clamped to
+                # the request's own presence so a late arrival never
+                # inherits the whole gap and the quota share stays a
+                # subset of its queue wait).
+                req.quota_wait_s += min(delta, max(now - req.arrival, 0.0))
+                self._note_blocked(req, "quota", self._occupants(tenant))
+                continue  # quota-blocked: skip, don't block others
+            # The page quota counts PRIVATE pages only (the SLOPolicy
+            # contract: shared prefix pages are deduplicated capacity)
+            # — so acquire first to learn the match depth, and release
+            # if the quota still blocks.
+            acq = (self.prefix.acquire(req.prompt, req.rid,
+                                       max_tokens=req.context_len - 1)
+                   if self.prefix is not None else None)
+            alloc_n = (pages_for(req.context_len, self.page_size)
+                       - (len(acq.nodes) if acq is not None else 0))
+            if pq is not None and held_pages + alloc_n > pq:
+                if acq is not None:
+                    self._release_acq(acq, req.rid)
+                req.quota_wait_s += min(delta, max(now - req.arrival, 0.0))
+                self._note_blocked(req, "quota", self._occupants(tenant))
+                continue
+            slot = free_slots[0]
+            if not self._admit_one(slot, req, now, acq=acq):
+                # Page-blocked: the top-ranked admissible request
+                # waits; nothing below it jumps the page queue.
+                self._note_blocked(req, "pages", self._occupants())
+                break
+            free_slots.popleft()
+            taken.add(id(req))
+            bound.append(slot)
+            usage[tenant] = (held_slots + 1,
+                             held_pages + len(slot.pages) - len(slot.refs))
+        if taken:
+            self._q_rebuild(deque(r for r in self.queue
+                                  if id(r) not in taken))
+        return bound

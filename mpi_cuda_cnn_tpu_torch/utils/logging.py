@@ -75,6 +75,11 @@ class MetricsLogger:
         self._log = get_logger()
         self._t0 = self._clock()
         self.rows: list[dict] | None = [] if capture else None
+        # Streaming observer: called with every record (the file's
+        # shape) as it is logged; `obs.alerts.AlertEngine.attach` hangs
+        # here, so the live alert fold sees exactly what the file gets.
+        # It may log() again (alerts go back through the same sink).
+        self.observer = None
 
     @property
     def jsonl_enabled(self) -> bool:
@@ -90,13 +95,17 @@ class MetricsLogger:
     def log(self, event: str, **fields) -> None:
         if self.rows is not None:
             self.rows.append({"event": event, **fields})
-        if self._file is not None:
+        record = None
+        if self._file is not None or self.observer is not None:
             record = make_record(event, self._clock() - self._t0, **fields)
+        if self._file is not None:
             self._file.write(json.dumps(record) + "\n")
             self._file.flush()
         if self._echo:
             body = " ".join(f"{k}={_fmt(v)}" for k, v in fields.items())
             self._log.info("%s %s", event, body)
+        if self.observer is not None:
+            self.observer(record)
 
     def close(self) -> None:
         if self._file is not None:
