@@ -89,6 +89,21 @@ final line:
             the verify block, over aliased tables and on the draft's
             pools, and K2 at N 64 and the draft's products (marked
             `features`).
+5d. fleet    `fleet-bench --compute engine` at the serve flagship's
+            width (every replica one PagedEngine on this card, K1 and
+            K2 in each), 12 requests of the serve phase's ranges at
+            once, four runs: 2 replicas with no fault (the baseline);
+            the same with replica 1 crashed mid-storm as a zombie for
+            2 ticks (resume re-dispatch, a restarted incarnation);
+            a prefill:1,decode:1 pool pair whose handoffs move KV pages
+            between engines (adopt_pages, int8 scales included); the
+            baseline over the lossy transport with duplicated and
+            delayed commits. Every request finishes with the baseline's
+            tokens (or a tie); the crash run re-dispatches and
+            generates no token twice, the pooled run hands off, the
+            transport run's trace_crc is the baseline's; K1/K2 launches
+            held to the forwards every incarnation ran (zombies and
+            crashed ones included); 90 s at most.
 6. train    `train-bench --use-kernels`: reference_cnn on 60,000
             synthetic MNIST-shaped samples, batch 32, lr 0.1, the
             device-resident epoch; one warm-up epoch, one measured epoch
@@ -334,6 +349,36 @@ FEATURES_SLO = {
                "max_gap_s": 1.0}],
 }
 FEATURES_BUDGET_S = 120.0
+# fleet: fleet-bench --compute engine at the serve flagship's width (the
+# model, cache, kernel, slot, page and chunk flags and the request ranges
+# of SERVE_ARGS; fleet-bench has no --max-seq, its sequences reach
+# prompt-max + out-max), FLEET_REQUESTS requests arriving at once, one
+# seed. FLEET_RUNS: (name, flags), the baseline first; the crash run
+# stops replica 1 at fleet tick FLEET_CRASH_TICK (mid-prefill) as a
+# zombie for 2 ticks; the transport run duplicates and delays commit
+# messages only (a delayed heartbeat could fail a live replica over and
+# change the schedule the run is held to).
+FLEET_REQUESTS = 12
+FLEET_SEED = 1
+FLEET_CRASH_TICK = 40
+FLEET_ARGS = ["--compute", "engine", "--requests", str(FLEET_REQUESTS),
+              "--seed", str(FLEET_SEED), "--rate", "0", "--log", "summary"]
+for _i in range(0, len(SERVE_ARGS), 2):
+    if SERVE_ARGS[_i] not in ("--max-seq", "--mode", "--requests", "--seed",
+                              "--rate"):
+        FLEET_ARGS += SERVE_ARGS[_i:_i + 2]
+FLEET_RUNS = (
+    ("base", ["--replicas", "2"]),
+    ("crash", ["--replicas", "2", "--fault-plan",
+               f"replica_crash@fleet.tick:{FLEET_CRASH_TICK}"
+               "?replica=1&zombie_ticks=2"]),
+    ("disagg", ["--pools", "prefill:1,decode:1", "--handoff-ticks", "2"]),
+    ("transport", ["--replicas", "2", "--transport", "--fault-plan",
+                   "msg_dup@fleet.transport:5?kind=commit&count=3;"
+                   "msg_delay@fleet.transport:30?kind=commit&ticks=3"
+                   "&count=2"]),
+)
+FLEET_BUDGET_S = 90.0
 # The kernels built on mma.sync: their libraries must hold tensor-core
 # instructions (HMMA in the SASS).
 TENSOR_CORE_KERNELS = ("gemm", "conv_direct", "conv_dw", "conv_gemm",
@@ -2124,6 +2169,96 @@ def phase_serve_features(torch) -> dict:
         raise AssertionError(f"serve_features took {phase_s:.1f} s, over its "
                              f"{FEATURES_BUDGET_S} s budget")
     return {"record": {"requests": FEATURES_REQUESTS, "phase_s": phase_s,
+                       "checks": checks, "runs": runs},
+            "launches": total}
+
+
+def phase_fleet(torch) -> dict:
+    """The serving fleet through fleet-bench --compute engine at the serve
+    flagship (FLEET_ARGS, one draw of the weights for every run):
+    FLEET_RUNS, each with the launch counts zeroed just before and read
+    just after. Every request finishes; its tokens equal the baseline
+    run's or tie at the first difference (`agree_requests`); every
+    request holds exactly its budget of tokens (none generated twice);
+    the crash run re-dispatches, the pooled run hands off, the transport
+    run's trace_crc is the baseline's; K1 launches are depth x the
+    forwards every incarnation's engine ran (decode ticks and prefill
+    chunks, zombies and crashed incarnations included), K2's (5 depth +
+    1) x the same. Returns the phase's record and the launches per kernel
+    over every run."""
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+    from mpi_cuda_cnn_tpu_torch.serve.bench import SERVE_KERNELS, fleet_bench
+
+    t_phase = time.perf_counter()
+    params = base = None
+    runs = {}
+    total = {k: 0 for k in SERVE_KERNELS}
+    for name, flags in FLEET_RUNS:
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fleet_bench(FLEET_ARGS + flags, params=params)
+        wall_s = time.perf_counter() - t0
+        launches = {k: _kernels.launches[k] for k in SERVE_KERNELS}
+        for k in SERVE_KERNELS:
+            total[k] += launches[k]
+        params = out["params"]
+        line, metric, res = out["lines"][0], out["lines"][1], out["result"]
+        args, model = out["args"], out["model"]
+        engines = [c.engine for c in out["computes"]]
+        if line["statuses"] != {"finished": args.requests}:
+            raise AssertionError(f"fleet {name}: statuses {line['statuses']}")
+        for r in res.requests:
+            if len(r.out) != r.max_new_tokens or not all(
+                    0 <= t < args.vocab for t in r.out):
+                raise AssertionError(f"fleet {name}: request {r.rid} holds "
+                                     f"{len(r.out)} tokens, budget "
+                                     f"{r.max_new_tokens}")
+        fw = line["forwards"]
+        forwards = fw["decode_ticks"] + fw["prefill_chunks"]
+        want = {"paged_attention": model.depth * forwards,
+                "int8_gemm": (5 * model.depth + 1) * forwards}
+        if engines[0].device.type != "cuda":
+            want = {k: 0 for k in want}
+        if launches != want or line["kernel_launches"] != want:
+            raise AssertionError(
+                f"fleet {name}: launches {launches} (line "
+                f"{line['kernel_launches']}), want {want} ({forwards} "
+                f"forwards over {fw['replicas']} incarnations)")
+        rec = {"wall_s": wall_s, "fleet_ticks": line["fleet_ticks"],
+               "ms_per_tick": 1e3 * wall_s / line["fleet_ticks"],
+               "forwards": fw, "ms_per_forward": 1e3 * wall_s / forwards,
+               "kernel_launches": launches,
+               "trace_crc": metric["trace_crc"],
+               **{k: line[k] for k in (
+                   "decode_ticks", "prefill_chunks", "dispatches",
+                   "redispatches", "fenced_discards", "crashes",
+                   "restarts", "handoffs", "handoff_pages",
+                   "handoffs_aborted", "msgs_sent", "msgs_duped",
+                   "msgs_delayed", "msgs_deduped", "retransmits",
+                   "output_tokens", "state_crc")}}
+        if base is None:
+            base = (engines[0], res, metric["trace_crc"])
+        else:
+            rec["agree"] = agree_requests(torch, engines[0], base[0],
+                                          res.requests, base[1].requests)
+        runs[name] = rec
+        emit({"phase": "fleet_run", "run": name, **rec})
+        del out, res, engines
+    checks = {
+        "crash_redispatched": (runs["crash"]["crashes"] == 1
+                               and runs["crash"]["redispatches"] > 0),
+        "handoffs": runs["disagg"]["handoffs"] > 0,
+        "transport_trace": runs["transport"]["trace_crc"] == base[2],
+        "transport_faults": (runs["transport"]["msgs_duped"] > 0
+                             and runs["transport"]["msgs_delayed"] > 0),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"fleet: checks {checks}; runs {runs}")
+    phase_s = time.perf_counter() - t_phase
+    if phase_s > FLEET_BUDGET_S:
+        raise AssertionError(f"fleet took {phase_s:.1f} s, over its "
+                             f"{FLEET_BUDGET_S} s budget")
+    return {"record": {"requests": FLEET_REQUESTS, "phase_s": phase_s,
                        "checks": checks, "runs": runs},
             "launches": total}
 
@@ -4418,6 +4553,9 @@ def main() -> int:
     features = phase_serve_features(torch)
     emit({"phase": "serve_features", "device": kind, "nvidia_smi": smi,
           **features["record"]})
+    fleet = phase_fleet(torch)
+    emit({"phase": "fleet", "device": kind, "nvidia_smi": smi,
+          **fleet["record"]})
     train_launches = phase_train(torch)
     emit({"phase": "train_agree", **phase_train_agree(torch)})
     phase_dp(torch)
@@ -4438,7 +4576,7 @@ def main() -> int:
     phase_recover(torch)
     emit({"phase": "train_flags", **phase_train_flags(torch)})
     launches = {**{k: serve_launches[k] + gen_launches[k]
-                   + features["launches"][k]
+                   + features["launches"][k] + fleet["launches"][k]
                    for k in ("paged_attention", "int8_gemm")},
                 **{k: train_launches[k] for k in PER_STEP},
                 "conv_gemm": conv_launches["conv_gemm"],

@@ -6,6 +6,10 @@
     train-bench   the MNIST-shaped epoch wall-clock bench (train/bench.py)
     serve-bench   the paged continuous-batching serving bench
                   (serve/bench.py)
+    fleet-bench   N serving replicas behind the failure-aware router
+                  under a seeded storm (serve/fleet.py; --compute sim
+                  needs no device, --compute engine runs one PagedEngine
+                  per replica)
     lm            the transformer-LM trainer (train/lm_trainer.py; exit 2
                   on a bad or unported flag)
     lm-bench      the LM pretraining throughput matrix (train/lm_bench.py)
@@ -40,7 +44,8 @@ from __future__ import annotations
 import sys
 
 _USAGE = ("usage: python -m mpi_cuda_cnn_tpu_torch "
-          "{train,train-bench,serve-bench,lm,lm-bench,conv-bench} [flags]")
+          "{train,train-bench,serve-bench,fleet-bench,lm,lm-bench,"
+          "conv-bench} [flags]")
 
 
 def rank_devices(device: str, num_devices: int, mesh_shape: str,
@@ -237,6 +242,10 @@ def main(argv: list[str] | None = None) -> int:
         from .serve.bench import serve_bench_main
 
         return serve_bench_main(argv[1:])
+    if argv and argv[0] == "fleet-bench":
+        from .serve.bench import fleet_bench_main
+
+        return fleet_bench_main(argv[1:])
     if argv and argv[0] == "lm":
         return run_lm(argv[1:])
     if argv and argv[0] == "lm-bench":

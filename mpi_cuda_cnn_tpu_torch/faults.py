@@ -27,10 +27,23 @@ monkeypatching. Kinds:
               fired at "serve.tick" with the iteration index, where
               crash and io raise too)
 - ``kv_corrupt`` flip the CRC stamp of one host-tier spill ("tier.spill",
-              polled with the spill sequence): the readmission refuses
-              it and the request re-prefills
-- the fleet kinds (``replica_crash``, ``handoff_drop``, ...) stay in the
-  tables as data until the fleet is ported.
+              polled with the spill sequence), of one page of the Nth
+              prefill-to-decode handoff ("fleet.handoff", ``page=K``) or
+              of the Nth resume re-dispatch's committed context
+              ("fleet.resume"): the check refuses it and the request
+              re-prefills
+- the fleet's kinds, polled by `serve/fleet.py` at "fleet.tick" with the
+  fleet tick: ``replica_crash`` stops replica ``replica=K``
+  (``zombie_ticks=N`` keeps it stepping as a partitioned zombie whose
+  commits the router's fences refuse), ``replica_join`` adds
+  ``replicas=N`` replicas, ``replica_leave`` drains replica K,
+  ``pool_crash`` stops every live replica of ``pool=prefill|decode``;
+  ``handoff_drop`` at "fleet.handoff" (the handoff sequence number)
+  drops one KV transfer in flight; ``msg_drop`` / ``msg_dup`` /
+  ``msg_delay`` at "fleet.transport" (the tick) arm a one-shot effect on
+  the next matching message of the fleet's bus (``kind=``, ``replica=``,
+  ``count=`` filters; ``ticks=`` for a delay), and ``partition`` cuts
+  replica K off the bus for ``ticks`` ticks.
 
 Recovery: `supervise()` is the `--max-restarts N` loop: it runs one
 training attempt and, on a crash, runs another that resumes from the
@@ -119,8 +132,7 @@ KINDS = ("crash", "io", "nan", "squeeze", "slow", "preempt",
 # fire and do nothing; `validate_plan_sites` makes both parse-time
 # errors. crash/io are legal at every fired site (`FaultInjector.fire`
 # raises them). Only the CNN trainer fires train.batch, so
-# nan@train.batch is an error on `lm`. The fleet surface is the
-# reference's, kept as data (see the module docstring).
+# nan@train.batch is an error on `lm`.
 SITES: dict[str, dict[str, frozenset[str]]] = {
     "train": {
         "train.batch": frozenset({"crash", "io", "nan"}),

@@ -256,6 +256,43 @@ def add_session_turns(reqs, *, turns_dist: str, turn_gap_s: float,
     return out
 
 
+def diurnal_warp(reqs, *, amp: float, period_s: float):
+    """Deterministic diurnal time-warp: remap each Poisson arrival t -> s
+    so the instantaneous rate follows rate*(1 + amp*sin(2*pi*s/period)),
+    a day cycle with peak rate*(1+amp) and trough rate*(1-amp), without
+    drawing anything. s solves Lambda(s) = t with
+    Lambda(s) = s + amp*P/(2pi)*(1 - cos(2pi*s/P)), by a fixed number of
+    bisection steps (the map is monotone for amp <= 1, so arrival order
+    is kept and two runs bisect alike). amp=0 is the identity. Deadlines
+    keep their offset from the arrival; the warp mutates in place and
+    returns `reqs`."""
+    if amp <= 0:
+        return reqs
+    if amp > 1.0:
+        raise ValueError(f"diurnal amp must be <= 1 (got {amp}): past "
+                         "it the intensity goes negative at the trough")
+    if period_s <= 0:
+        raise ValueError(f"diurnal period must be > 0 (got {period_s})")
+    two_pi = 2.0 * np.pi
+    span = amp * period_s / np.pi  # max warp displacement: Lambda bound
+    for r in reqs:
+        t = r.arrival
+        lo, hi = max(0.0, t - span), t
+        for _ in range(52):  # fixed count: runs equal bit for bit
+            mid = 0.5 * (lo + hi)
+            lam = mid + amp * period_s / two_pi * (
+                1.0 - np.cos(two_pi * mid / period_s))
+            if lam < t:
+                lo = mid
+            else:
+                hi = mid
+        s = 0.5 * (lo + hi)
+        if r.deadline is not None:
+            r.deadline = s + (r.deadline - r.arrival)
+        r.arrival = s
+    return reqs
+
+
 def build_sched_policy(args, slo_spec):
     """The --scheduler/--tenant-priority/--tenant-quota surface: the
     SLOPolicy under `--scheduler slo`, else None. Raises UsageError."""
@@ -696,4 +733,524 @@ def serve_bench_main(argv: list[str] | None = None) -> int:
     for extra in (out["alerts"], out["comparison"]):
         if extra is not None:
             print(json.dumps(extra))
+    return 0
+
+
+def _fleet_parser() -> argparse.ArgumentParser:
+    from ..faults import fault_plan_arg
+
+    ap = argparse.ArgumentParser(
+        prog="python -m mpi_cuda_cnn_tpu_torch fleet-bench",
+        description="Failure-aware fleet bench: N single-engine "
+                    "replicas behind the router under a seeded Poisson "
+                    "storm, with optional injected replica crashes / "
+                    "joins / leaves (exactly-once re-dispatch).",
+    )
+    ap.add_argument("--replicas", type=int, default=4)
+    ap.add_argument("--pools", default=None,
+                    help="disaggregated prefill/decode serving: "
+                         "'prefill:N,decode:M' splits the fleet by phase; "
+                         "arrivals dispatch to the prefill pool, completed "
+                         "prefills hand their KV page sets to decode "
+                         "replicas (per-page CRCs, per-handoff fences); "
+                         "overrides --replicas. An emptied pool degrades "
+                         "affected requests to unified serving")
+    ap.add_argument("--handoff-ticks", type=int, default=1,
+                    help="fleet ticks one KV handoff's copy is in "
+                         "flight (the mid-handoff crash window; "
+                         "needs --pools)")
+    ap.add_argument("--policy", default="least_loaded",
+                    choices=["least_loaded", "session", "cache_aware"],
+                    help="dispatch policy: least_loaded, session "
+                         "(rendezvous-hash affinity), or cache_aware "
+                         "(expected prefix-token overlap against each "
+                         "replica's device tree + host tier; least-loaded "
+                         "tie-break, hash-affinity fallback at zero "
+                         "overlap. Needs --prefix-cache)")
+    ap.add_argument("--redispatch", default="resume",
+                    choices=["resume", "discard"],
+                    help="failover semantics for in-flight requests: "
+                         "resume re-prefills prompt + committed tokens "
+                         "on the new replica; discard restarts from "
+                         "the prompt")
+    ap.add_argument("--heartbeat-miss", type=int, default=3,
+                    help="consecutive missed heartbeat ticks before a "
+                         "replica is declared dead")
+    ap.add_argument("--transport", action="store_true",
+                    help="route the control plane over the simulated "
+                         "lossy message bus: sequenced messages with "
+                         "retransmission and receiver dedup, leased "
+                         "fences; zero-fault runs equal the direct-call "
+                         "fleet bit for bit; unlocks the fleet.transport "
+                         "fault site")
+    ap.add_argument("--lease-ticks", type=int, default=0,
+                    help="commit-lease lifetime in fleet ticks "
+                         "(--transport; 0 = heartbeat_miss + 2; must "
+                         "exceed --heartbeat-miss)")
+    ap.add_argument("--rto-base", type=float, default=2.0,
+                    help="retransmission-timeout base in fleet ticks "
+                         "(--transport; backoff_delay-paced, no jitter)")
+    ap.add_argument("--max-flaps", type=int, default=3,
+                    help="crashes before a flapping replica's circuit "
+                         "opens (it never rejoins)")
+    ap.add_argument("--backoff-base", type=float, default=0.05,
+                    help="restart backoff base, fleet-clock seconds "
+                         "(utils/retry.backoff_delay; 0 = immediate)")
+    ap.add_argument("--tick-ms", type=float, default=1.0,
+                    help="fleet-clock advance per tick")
+    ap.add_argument("--check-every", type=int, default=16,
+                    help="page-pool invariant check cadence per replica "
+                         "(1 = every step; always checked at exit)")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--pages", type=int, default=0,
+                    help="pages per replica incl. scratch (0 = size for "
+                         "slots full-length sequences)")
+    ap.add_argument("--prefill-chunk", type=int, default=32)
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="per-replica bound on waiting arrivals "
+                         "(0 = unbounded)")
+    ap.add_argument("--requests", type=int, default=256)
+    ap.add_argument("--vocab", type=int, default=512)
+    ap.add_argument("--prompt-min", type=int, default=8)
+    ap.add_argument("--prompt-max", type=int, default=96)
+    ap.add_argument("--out-min", type=int, default=8)
+    ap.add_argument("--out-max", type=int, default=96)
+    ap.add_argument("--rate", type=float, default=200.0,
+                    help="Poisson arrival rate in fleet-clock req/s "
+                         "(0 = everything at t=0)")
+    ap.add_argument("--sessions", type=int, default=0,
+                    help="session keys for the affinity policy: request "
+                         "i belongs to session i %% N (0 = sessionless)")
+    ap.add_argument("--turns-dist", default=None,
+                    help="multi-turn session conversations: "
+                         "'uniform:LO-HI' or 'geometric:P' turns per "
+                         "session (needs --sessions)")
+    ap.add_argument("--turn-gap-ms", type=float, default=0.0,
+                    help="mean think-time between a session's turns in "
+                         "fleet-clock ms, exponential (needs "
+                         "--turns-dist)")
+    ap.add_argument("--diurnal-amp", type=float, default=0.0,
+                    help="diurnal arrival modulation depth: the rate "
+                         "follows rate*(1 + amp*sin) over "
+                         "--diurnal-period; 0 = identity, max 1. Needs "
+                         "--rate > 0")
+    ap.add_argument("--diurnal-period", type=float, default=10.0,
+                    help="diurnal cycle length, fleet-clock seconds "
+                         "(--diurnal-amp)")
+    ap.add_argument("--autoscale", default=None,
+                    help="online goodput autoscaler: queue pressure, SLO "
+                         "burn rates (--slo) and the frontier target "
+                         "(--autoscale-frontier) drive replica join/leave "
+                         "each tick. Grammar: comma-separated key=value "
+                         "over min/max/high/low/up/down/cooldown/burn, or "
+                         "bare 'on' (serve/autoscale.parse_autoscale)")
+    ap.add_argument("--autoscale-frontier", default=None,
+                    help="goodput JSONL whose frontier record's "
+                         "best_per_chip_rps converts the observed "
+                         "dispatch rate into a target replica count "
+                         "(needs --autoscale)")
+    ap.add_argument("--tenants", type=int, default=0,
+                    help="tag requests with a seeded tenant mix over "
+                         "t0..t{N-1} (0 = untagged single-tenant)")
+    ap.add_argument("--slo", default=None,
+                    help="SLO spec JSON (obs/slo.py grammar): run the "
+                         "streaming alert engine live; the summary gains "
+                         "alerts_fired/alerts_crc either way")
+    ap.add_argument("--prefix-mix", type=float, default=0.0,
+                    help="fraction of requests sharing seeded template "
+                         "prompt prefixes (0 = all-unique)")
+    ap.add_argument("--len-dist", default="uniform",
+                    choices=["uniform", "lognormal"],
+                    help="prompt/output length mix: uniform or heavy-tail "
+                         "lognormal")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="per-replica prefix-sharing KV cache "
+                         "(restarted incarnations come back cold)")
+    ap.add_argument("--templates", type=int, default=0,
+                    help="prefix template working-set size (needs "
+                         "--prefix-mix > 0)")
+    ap.add_argument("--spill", action="store_true",
+                    help="per-replica host-tier KV spill of reclaimed "
+                         "prefix pages, readmitted on the next hit "
+                         "(CRC-sealed; sim compute is accounting-only). "
+                         "Needs --prefix-cache")
+    ap.add_argument("--host-pages", type=int, default=0,
+                    help="host-tier capacity per replica in pages "
+                         "(--spill; 0 = match the device pool)")
+    ap.add_argument("--spec", default="off", choices=["off", "lookup"],
+                    help="per-replica batched speculative decoding: "
+                         "lookup = draft-free prompt lookup")
+    ap.add_argument("--spec-k", type=int, default=8,
+                    help="speculative round width per slot per tick")
+    ap.add_argument("--spec-ngram", type=int, default=2,
+                    help="prompt-lookup match length (--spec lookup)")
+    ap.add_argument("--scheduler", default="fcfs", choices=["fcfs", "slo"],
+                    help="per-replica batching policy: fcfs or the "
+                         "SLO-aware scheduler")
+    ap.add_argument("--tenant-priority", default=None,
+                    help="per-tenant priority classes, e.g. 't0=2,t1=0' "
+                         "(--scheduler slo)")
+    ap.add_argument("--tenant-quota", default=None,
+                    help="per-tenant admission quotas, e.g. "
+                         "'t0=pages:8/slots:2' (--scheduler slo)")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-request fleet-clock deadline (0 = none)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default=None,
+                    help="feed a finished run's metrics JSONL request "
+                         "trail back through the fleet; overrides "
+                         "--requests, --rate and the length ranges")
+    ap.add_argument("--fault-plan", default=None,
+                    type=fault_plan_arg("fleet-bench"),
+                    help="deterministic replica faults, e.g. "
+                         "'replica_crash@fleet.tick:40?replica=1&"
+                         "zombie_ticks=3;replica_join@fleet.tick:90' "
+                         "(sites checked at parse time)")
+    ap.add_argument("--compute", default="sim", choices=["sim", "engine"],
+                    help="sim: device-free pure-token replicas; engine: "
+                         "one PagedEngine per replica, shared weights "
+                         "from --seed")
+    ap.add_argument("--dim", type=int, default=64)
+    ap.add_argument("--depth", type=int, default=2)
+    ap.add_argument("--heads", type=int, default=4)
+    ap.add_argument("--kv-heads", type=int, default=0)
+    ap.add_argument("--cache-dtype", default="float32",
+                    choices=["float32", "bfloat16", "int8", "auto"],
+                    help="auto: int8 for GQA/MQA, bfloat16 for MHA")
+    ap.add_argument("--attn-kernel", default="gather",
+                    choices=["gather", "cuda"],
+                    help="paged-attention read per engine replica: "
+                         "gather = plain PyTorch, cuda = the hand-written "
+                         "kernel (csrc/paged_attention.cu)")
+    ap.add_argument("--decode-weights-dtype", default="float32",
+                    choices=["float32", "bfloat16", "int8", "auto"],
+                    help="decode weights per engine replica; int8 runs "
+                         "csrc/int8_gemm.cu on the card; auto = int8 for "
+                         "GQA/MQA, float32 for MHA")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="the engine replicas' device (--compute engine)")
+    ap.add_argument("--metrics-jsonl", default=None,
+                    help="append obs records here (fleet/replica/"
+                         "request/fault events + registry snapshots)")
+    ap.add_argument("--log", default="full", choices=["full", "summary"],
+                    help="full: per-tick fleet + per-replica tick + "
+                         "per-request records; summary: lifecycle + "
+                         "totals only")
+    return ap
+
+
+def _check_fleet_flags(args) -> dict | None:
+    """fleet-bench's flag-combination errors, in the reference's order and
+    words (UsageError, exit 2). Returns the parsed --pools or None."""
+    from .handoff import parse_pools
+
+    pools = None
+    if args.pools:
+        try:
+            pools = parse_pools(args.pools)
+        except ValueError as e:
+            raise UsageError(str(e)) from e
+    elif args.handoff_ticks != 1:
+        raise UsageError("--handoff-ticks needs --pools (a unified fleet "
+                         "performs no KV handoffs)")
+    if args.lease_ticks and not args.transport:
+        raise UsageError("--lease-ticks needs --transport (leases pace the "
+                         "bus's commit fences; the direct-call fleet has "
+                         "no wire to lease against)")
+    if args.rto_base != 2.0 and not args.transport:
+        raise UsageError("--rto-base needs --transport (there are no "
+                         "retransmissions without the bus)")
+    if args.spill and not args.prefix_cache:
+        raise UsageError("--spill needs --prefix-cache (the host tier "
+                         "spills prefix-cache pages; there is nothing to "
+                         "spill)")
+    if args.host_pages and not args.spill:
+        raise UsageError("--host-pages needs --spill (without the tier the "
+                         "capacity knob would be silently ignored)")
+    if args.templates and not args.prefix_mix > 0:
+        raise UsageError("--templates needs --prefix-mix > 0 (no request "
+                         "draws a template prefix at mix 0)")
+    if args.policy == "cache_aware" and not args.prefix_cache:
+        raise UsageError("--policy cache_aware needs --prefix-cache (the "
+                         "score is expected prefix-cache overlap; without "
+                         "the cache every score is zero and the policy "
+                         "silently degrades to its fallback)")
+    if args.turns_dist and args.sessions <= 0:
+        raise UsageError("--turns-dist needs --sessions > 0 (turns are "
+                         "per-session conversations; a sessionless "
+                         "workload has no chains to grow)")
+    if args.turn_gap_ms and not args.turns_dist:
+        raise UsageError("--turn-gap-ms needs --turns-dist (without turns "
+                         "there are no gaps to draw)")
+    if args.diurnal_amp > 0 and args.rate <= 0:
+        raise UsageError("--diurnal-amp needs --rate > 0 (rate 0 puts "
+                         "every arrival at t=0; there is no arrival "
+                         "process to modulate)")
+    if args.diurnal_amp > 1.0:
+        raise UsageError(f"diurnal amp must be <= 1 (got "
+                         f"{args.diurnal_amp}): past it the intensity goes "
+                         "negative at the trough")
+    if args.autoscale_frontier and not args.autoscale:
+        raise UsageError("--autoscale-frontier needs --autoscale (the "
+                         "frontier is the autoscaler's lookup table; "
+                         "without the policy it would be silently ignored)")
+    if args.turns_dist:
+        try:
+            parse_turns_dist(args.turns_dist)
+        except ValueError as e:
+            raise UsageError(str(e)) from e
+    return pools
+
+
+def fleet_bench(argv: list[str] | None = None, *, params=None) -> dict:
+    """Run the fleet bench; return {"lines": [the summary line, the metric
+    line], "result": FleetResult, "fleet", "args", and under --compute
+    engine "model", "params" and "computes" (every replica incarnation's
+    EngineCompute, in build order; None, None, [] under sim)}. `params`, the weights an earlier call
+    returned for the same model flags and --seed, skip drawing them
+    again. Under --compute engine the summary line also carries the
+    device, the serving kernels' launches in the run and `forwards`: the
+    decode ticks (or verify rounds) and prefill chunks every replica
+    incarnation ran, zombies and crashed incarnations included. Raises
+    UsageError on a refused flag combination (exit 2), ValueError or
+    RuntimeError on a failed run (exit 1)."""
+    import time
+
+    from ..faults import FakeClock, FaultInjector
+    from ..obs.metrics import MetricsRegistry
+    from ..ops import _kernels
+    from ..utils.logging import MetricsLogger
+    from .fleet import EngineCompute, Fleet, SimCompute, make_fleet_workload
+    from .pool import pages_for
+
+    args = _fleet_parser().parse_args(argv)
+    pools = _check_fleet_flags(args)
+    trace_rows = None
+    if args.trace:
+        if (args.turns_dist or args.prefix_mix > 0 or args.templates
+                or args.diurnal_amp > 0):
+            raise UsageError("--trace replaces the generated workload; "
+                             "drop --turns-dist/--prefix-mix/--templates/"
+                             "--diurnal-amp")
+        try:
+            trace_rows = load_trace(args.trace)
+        except (OSError, ValueError) as e:
+            raise UsageError(str(e)) from e
+        apply_trace_geometry(args, trace_rows)
+    max_len = args.prompt_max + args.out_max
+    pages = args.pages or args.slots * pages_for(max_len, args.page_size) + 1
+    host_pages = (args.host_pages or pages) if args.spill else 0
+    model = device = None
+    computes = []  # every EngineCompute the fleet built, in build order
+    if args.compute == "engine":
+        from .._device import resolve_device
+        from ..data import prng
+        from ..models.transformer import TransformerLM
+        from .engine import PagedEngine
+
+        device = resolve_device(args.device)
+        model = TransformerLM(
+            vocab=args.vocab, dim=args.dim, heads=args.heads,
+            depth=args.depth, max_seq=max_len, kv_heads=args.kv_heads,
+        )
+        if params is None:
+            params = model.init(prng.key(args.seed), device)
+
+        def compute_factory(name):
+            # One engine (own page pools) per replica incarnation: a
+            # restarted replica comes back with an empty cache. The
+            # weights are shared, which is what makes cross-replica
+            # re-dispatch output-exact.
+            computes.append(EngineCompute(PagedEngine(
+                model, params, slots=args.slots, num_pages=pages,
+                page_size=args.page_size, prefill_chunk=args.prefill_chunk,
+                cache_dtype=args.cache_dtype, max_len=max_len,
+                attn_kernel=args.attn_kernel,
+                weights_dtype=args.decode_weights_dtype,
+                spec=args.spec, spec_k=args.spec_k,
+                spec_ngram=args.spec_ngram, device=device,
+            )))
+            return computes[-1]
+    else:
+        params = None
+
+        def compute_factory(name):
+            return SimCompute(vocab=args.vocab, chunk=args.prefill_chunk,
+                              salt=args.seed)
+
+    if trace_rows is not None:
+        reqs = requests_from_trace(
+            trace_rows, vocab=args.vocab, seed=args.seed,
+            deadline_s=args.deadline_ms / 1e3)
+        if args.sessions > 0:
+            for r in reqs:
+                r.session = r.rid % args.sessions
+    else:
+        reqs = make_fleet_workload(
+            n=args.requests, vocab=args.vocab, prompt_min=args.prompt_min,
+            prompt_max=args.prompt_max, out_min=args.out_min,
+            out_max=args.out_max, rate=args.rate, seed=args.seed,
+            sessions=args.sessions, deadline_s=args.deadline_ms / 1e3,
+            tenants=args.tenants, prefix_mix=args.prefix_mix,
+            len_dist=args.len_dist, templates=args.templates,
+            turns_dist=args.turns_dist, turn_gap_s=args.turn_gap_ms / 1e3,
+            diurnal_amp=args.diurnal_amp,
+            diurnal_period_s=args.diurnal_period,
+        )
+    alert_engine = slo_spec = None
+    if args.slo:
+        from ..obs.alerts import AlertEngine
+        from ..obs.slo import SLOSpec
+
+        try:
+            slo_spec = SLOSpec.load(args.slo)
+            alert_engine = AlertEngine(slo=slo_spec)
+        except (OSError, ValueError) as e:
+            raise UsageError(str(e)) from e
+    sched_policy = build_sched_policy(args, slo_spec)
+    autoscaler = None
+    if args.autoscale:
+        from .autoscale import Autoscaler, load_frontier, parse_autoscale
+
+        try:
+            pol = parse_autoscale(args.autoscale)
+            per_chip = (load_frontier(args.autoscale_frontier)
+                        if args.autoscale_frontier else 0.0)
+        except (OSError, ValueError) as e:
+            raise UsageError(str(e)) from e
+        # slo_spec switches the burn-rate feed on: the autoscaler runs
+        # the alert engine's windowed Accountant fold over the
+        # fence-accepted terminal stream.
+        autoscaler = Autoscaler(pol, slo_spec=slo_spec,
+                                per_chip_rps=per_chip)
+    clock = FakeClock()
+    registry = MetricsRegistry(clock=clock)
+    faults = FaultInjector(args.fault_plan) if args.fault_plan else None
+    with MetricsLogger(path=args.metrics_jsonl, echo=False) as metrics:
+        if alert_engine is not None:
+            alert_engine.attach(metrics)
+        fleet_sink = replica_tick_sink = None
+        if metrics.jsonl_enabled and args.log == "full":
+            def fleet_sink(rec):
+                metrics.log("fleet", **rec)
+
+            def replica_tick_sink(rec):
+                metrics.log("tick", **rec)
+        elif alert_engine is not None:
+            # Summary mode keeps per-tick records out of the JSONL, but
+            # the live rule engine still sees them.
+            def fleet_sink(rec):
+                for a in alert_engine.ingest(rec, event="fleet"):
+                    metrics.log("alert", **a)
+
+            def replica_tick_sink(rec):
+                for a in alert_engine.ingest(rec, event="tick"):
+                    metrics.log("alert", **a)
+        fleet = Fleet(
+            compute_factory, replicas=args.replicas, slots=args.slots,
+            num_pages=pages, page_size=args.page_size, max_len=max_len,
+            max_queue=args.max_queue or None, policy=args.policy,
+            heartbeat_miss=args.heartbeat_miss,
+            backoff_base=args.backoff_base, max_flaps=args.max_flaps,
+            redispatch=args.redispatch, tick_s=args.tick_ms / 1e3,
+            check_every=args.check_every, faults=faults, clock=clock,
+            registry=registry, fleet_sink=fleet_sink,
+            replica_tick_sink=replica_tick_sink,
+            prefix=args.prefix_cache, sched_policy=sched_policy,
+            host_pages=host_pages, spec=args.spec, spec_k=args.spec_k,
+            spec_ngram=args.spec_ngram, pools=pools,
+            handoff_ticks=args.handoff_ticks, autoscale=autoscaler,
+            transport=args.transport, lease_ticks=args.lease_ticks,
+            rto_base=args.rto_base, log_handoffs=(args.log == "full"),
+        )
+        before = dict(_kernels.launches)
+        t_wall = time.perf_counter()
+        result = fleet.run(reqs)
+        if device is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall_s = time.perf_counter() - t_wall
+        s = result.summary()
+        s["wall_s"] = round(wall_s, 3)
+        s["wall_tokens_per_s"] = round(
+            result.output_tokens / max(wall_s, 1e-9), 1)
+        registry.set("serve.tokens_per_s", s["tokens_per_s"])
+        registry.emit(metrics, mode="fleet", final=True)
+        for rec in result.replica_log:
+            metrics.log("replica", **rec)
+        for rec in result.transport_log:
+            metrics.log("transport", **rec)
+        for ev in result.events:
+            metrics.log("fault", **{"mode": "fleet", **ev})
+        if metrics.jsonl_enabled and args.log == "full":
+            for rec in result.handoff_log:
+                metrics.log("handoff", **rec)
+            for rec in result.request_records():
+                metrics.log("request", **rec)
+        # Alert totals are always stamped (zero and the empty CRC without
+        # --slo), over every alert fired before the summary record.
+        from ..obs.alerts import alerts_crc
+
+        s["alerts_fired"] = (len(alert_engine.alerts)
+                             if alert_engine is not None else 0)
+        s["alerts_crc"] = (alert_engine.crc if alert_engine is not None
+                           else alerts_crc([]))
+        metrics.log("serve", **{
+            "bench": "fleet", "policy": args.policy,
+            "autoscale": bool(args.autoscale),
+            "redispatch": args.redispatch,
+            "spec": args.spec, "spec_k": args.spec_k,
+            "replicas_initial": (sum(pools.values()) if pools
+                                 else args.replicas),
+            "rate": args.rate,
+            "slots": args.slots, "page_size": args.page_size,
+            "pages": pages, "compute": args.compute,
+            "prefix_cache": bool(args.prefix_cache),
+            "host_pages": host_pages,
+            "transport": bool(args.transport),
+            "lease_ticks": fleet.lease_ticks, **s,
+        })
+    line = {"bench": "fleet", "compute": args.compute,
+            "policy": args.policy, **s}
+    if args.compute == "engine":
+        line["device"] = (torch.cuda.get_device_name(device)
+                          if device.type == "cuda" else "cpu")
+        line["kernel_launches"] = {k: _kernels.launches[k] - before[k]
+                                   for k in SERVE_KERNELS}
+        line["forwards"] = {
+            "replicas": len(computes),
+            "decode_ticks": sum(c.decode_ticks for c in computes),
+            "prefill_chunks": sum(c.prefill_chunks for c in computes)}
+    metric = {
+        "metric": "fleet_tokens_per_s", "value": s["tokens_per_s"],
+        "unit": "tokens/s (fleet-clock)",
+        "wall_s": s["wall_s"],
+        "wall_tokens_per_s": s["wall_tokens_per_s"],
+        "requests": len(result.requests),
+        "replicas": result.replicas_final,
+        "redispatches": result.redispatches,
+        "trace_crc": result.trace_crc,
+    }
+    return {"lines": [line, metric], "result": result, "fleet": fleet,
+            "args": args, "model": model, "params": params,
+            "computes": computes}
+
+
+def fleet_bench_main(argv: list[str] | None = None) -> int:
+    """`python -m mpi_cuda_cnn_tpu_torch fleet-bench`: the multi-replica
+    storm harness. Every host-side decision runs on a FakeClock advanced
+    --tick-ms per fleet tick, so the schedule is a pure function of the
+    workload seed, the fault plan and the fleet's shape; latency and
+    throughput are in fleet-clock units unless marked wall_*. Exit codes:
+    0 done, 2 a refused flag, 1 a failed run."""
+    try:
+        out = fleet_bench(argv)
+    except UsageError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    except (ValueError, RuntimeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    for line in out["lines"]:
+        print(json.dumps(line))
     return 0

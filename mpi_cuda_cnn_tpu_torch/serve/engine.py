@@ -30,8 +30,8 @@ per-iteration state digest is chained into `state_crc` exactly as the
 reference does, so the two engines can be held to equal schedules.
 Prefix sharing, the host spill tier (`serve/host_tier.py`), the SLO
 scheduler, injected faults, the metrics registry and the per-tick record
-sink are all `run` options. Left out: cross-engine page adoption, which
-only the fleet's prefill-to-decode handoff uses.
+sink are all `run` options. `adopt_pages` copies pages across engines,
+for the fleet's prefill-to-decode handoff (`serve/fleet.py`).
 """
 
 from __future__ import annotations
@@ -550,6 +550,42 @@ class PagedEngine:
         for c, h in zip(self._cache.pages, payload):
             for name, t in c.items():
                 t[page].copy_(h[name])
+
+    @torch.no_grad()
+    def adopt_pages(self, src_engine: PagedEngine, src_pages,
+                    dst_pages) -> None:
+        """Adopt KV page content from another engine's pools (the fleet's
+        prefill-to-decode handoff): the sender's rows at `src_pages` land
+        at this engine's `dst_pages`, every layer's keys and values (and
+        int8 scales) together, as one indexed copy per pool tensor on the
+        device. Both engines must share the cache geometry; the fleet
+        builds every replica from one model and configuration, which is
+        also what makes the handed-off decode equal the unified one."""
+        if (src_engine.page_size != self.page_size
+                or src_engine.cache_dtype != self.cache_dtype
+                or len(src_engine._cache.pages) != len(self._cache.pages)):
+            src_dtype = str(src_engine.cache_dtype).removeprefix("torch.")
+            dtype = str(self.cache_dtype).removeprefix("torch.")
+            raise ValueError(
+                "adopt_pages across mismatched cache geometries "
+                f"(page_size {src_engine.page_size} vs {self.page_size}, "
+                f"dtype {src_dtype} vs {dtype})"
+            )
+        if len(src_pages) != len(dst_pages):
+            raise ValueError(
+                f"adopt_pages: {len(src_pages)} source pages vs "
+                f"{len(dst_pages)} destinations"
+            )
+        if not src_pages:
+            return
+        src = torch.tensor(list(src_pages), dtype=torch.long,
+                           device=src_engine.device)
+        dst = torch.tensor(list(dst_pages), dtype=torch.long,
+                           device=self.device)
+        for c, sc in zip(self._cache.pages, src_engine._cache.pages):
+            for name, t in c.items():
+                t.index_copy_(0, dst, sc[name].index_select(0, src).to(
+                    t.device))
 
     @torch.no_grad()
     def run_prefill_chunk(self, slot):

@@ -1,5 +1,5 @@
 """Host-memory spill tier for refcount-0 prefix pages (a copy of the JAX
-package's `serve/host_tier.py` without the fleet's routing keys).
+package's `serve/host_tier.py`).
 
 - SPILL: when LRU pressure evicts a refcount-0 leaf of the prefix tree,
   the page's token chunk, an integrity stamp and (under an engine) the
@@ -73,13 +73,19 @@ class HostTier:
     stamp."""
 
     def __init__(self, host_pages: int, *, spill_fn=None, readmit_fn=None,
-                 fault_poll=None):
+                 fault_poll=None, route_keys: set | None = None):
         if host_pages < 1:
             raise ValueError(f"host_pages must be >= 1 (got {host_pages})")
         self.host_pages = host_pages
         self.spill_fn = spill_fn
         self.readmit_fn = readmit_fn
         self.fault_poll = fault_poll
+        # Optional fleet routing digest, the set the replica's
+        # PrefixCache keeps for its tree paths: the tier adds the keys
+        # it holds (spill) and drops the keys that are gone (host-LRU
+        # eviction, CRC refusal). take() keeps the key: it moves back to
+        # the tree, whose insert hook holds it. Never digested.
+        self.route_keys = route_keys
         self._entries: dict[bytes, _Entry] = {}
         self._seq = 0          # spill sequence number (the fault trigger)
         self._clock = 0        # host-LRU clock
@@ -112,10 +118,14 @@ class HostTier:
             victim = min(self._entries.values(), key=lambda e: e.seq)
             del self._entries[victim.key]
             self.stats["host_evictions"] += 1
+            if self.route_keys is not None:
+                self.route_keys.discard(victim.key)
         self._clock += 1
         self._entries[path_key] = _Entry(path_key, tokens.copy(), crc,
                                          payload, self._clock)
         self.stats["spills"] += 1
+        if self.route_keys is not None:
+            self.route_keys.add(path_key)
 
     def lookup(self, path_key: bytes, expected: np.ndarray):
         """The entry under `path_key`, CRC-verified against the
@@ -128,6 +138,8 @@ class HostTier:
         if entry.crc != chunk_crc(expected):
             del self._entries[entry.key]
             self.stats["refusals"] += 1
+            if self.route_keys is not None:
+                self.route_keys.discard(entry.key)
             return None
         return entry
 

@@ -1,10 +1,11 @@
 """Prefix-sharing KV cache: a hash-keyed prefix tree over pages with
 copy-on-write and LRU retention.
 
-A copy of the JAX package's `serve/prefix_cache.py` without the fleet's
-routing keys. The continuous schedulers hold one when the engine runs
-with `prefix=True`, and its stat tuple (with the host tier's, when one
-is attached) enters the per-tick state digest.
+A copy of the JAX package's `serve/prefix_cache.py`. The continuous
+schedulers hold one when the engine runs with `prefix=True`, and its
+stat tuple (with the host tier's, when one is attached) enters the
+per-tick state digest. A fleet replica also hands it `route_keys`, the
+set its cache-aware router scores against.
 
 The tree: one node per FULL page of prompt tokens, keyed by
 (parent, tokens-bytes). Matching walks full chunks of the prompt; at the
@@ -80,11 +81,18 @@ class PrefixCache:
     and LRU reclaim. One instance per scheduler/pool pair — per
     replica in the fleet (each replica owns its pool)."""
 
-    def __init__(self, pool: PagePool, page_size: int, tier=None):
+    def __init__(self, pool: PagePool, page_size: int, tier=None,
+                 route_keys: set | None = None):
         self.pool = pool
         self.page_size = page_size
         # Optional host spill tier; None discards on reclaim.
         self.tier = tier
+        # Optional fleet routing digest: the cumulative prefix keys this
+        # replica can serve a hit from, tree paths here and host-tier
+        # keys through the tier's own hooks (a key lives in one of the
+        # two at a time). Kept at insert, readmit and evict; read by
+        # Router.pick's cache_aware scoring; never part of the digest.
+        self.route_keys = route_keys
         self.root_children: dict[bytes, PrefixNode] = {}
         self.nodes: dict[int, PrefixNode] = {}     # node_id -> node
         self._next_id = 0
@@ -208,6 +216,9 @@ class PrefixCache:
                           children, chunk.tobytes(), key)
         children[node.key] = node
         self.nodes[node.node_id] = node
+        if self.route_keys is not None:
+            # The key moved tier -> tree; still servable, still routed.
+            self.route_keys.add(key)
         self._tick_readmits.append([rid, (i + 1) * ps])
         return node
 
@@ -278,6 +289,8 @@ class PrefixCache:
                                   toks[:(c + 1) * ps].tobytes())
                 children[key] = node
                 self.nodes[node.node_id] = node
+                if self.route_keys is not None:
+                    self.route_keys.add(node.path)
                 slot.refs.append(page)
                 slot.prefix_nodes.append(node)
                 self.stats["inserts"] += 1
@@ -308,7 +321,11 @@ class PrefixCache:
         if spill and self.tier is not None:
             # Spill BEFORE the device page is freed, while its content
             # is still addressable.
+            # The tier's spill hook keeps the routing key (it moved
+            # tree -> tier, still servable).
             self.tier.spill(node.path, node.tokens, node.page)
+        elif self.route_keys is not None:
+            self.route_keys.discard(node.path)
         self.pool.free([node.page], PREFIX_OWNER)
         del node.parent_map[node.key]
         del self.nodes[node.node_id]

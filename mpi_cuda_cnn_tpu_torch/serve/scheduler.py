@@ -13,8 +13,9 @@ extent up front, and drains the batch as one.
 Also here: the acceptance-aware page growth of a speculative round and
 the rollback of pages that hold only rejected draft rows (`spec_width`,
 `commit_spec`), and the SLO-aware scheduler (`SLOScheduler`: priority
-classes, per-tenant quotas, burn-driven admission and preemption). Left
-out: the fleet's cross-pool handoff.
+classes, per-tenant quotas, burn-driven admission and preemption), and
+the fleet's cross-pool handoff (`detach_for_handoff`, `release_handoff`,
+`bind_transfer`).
 """
 
 from __future__ import annotations
@@ -502,6 +503,73 @@ class _SchedulerBase:
         requests hit. No-op without a prefix cache."""
         if self.prefix is not None and slot.req is not None:
             self.prefix.insert(slot.req.prompt, slot)
+
+    def detach_for_handoff(self, slot: Slot, owner) -> tuple:
+        """Seal a completed prefill's page set for a cross-pool KV
+        handoff: the slot's private pages pass to the handoff token, its
+        prefix reader references move to the same token (so LRU reclaim
+        cannot evict a shared page mid-transfer), and the slot is
+        cleared without freeing anything: the pages stay resident until
+        the transfer completes or aborts. Returns (ordered block-table
+        pages, private pages, prefix nodes)."""
+        req = slot.req
+        assert slot.cow is None and slot.cow_node is None, (
+            "detach with a pending COW — prefill cannot have completed"
+        )
+        assert slot.cached >= slot.target, "detach of a prefilling slot"
+        pages = list(slot.pages)
+        refset = set(slot.refs)
+        private = [p for p in pages if p not in refset]
+        for p in private:
+            self.pool.adopt(p, req.rid, owner)
+        nodes = list(slot.prefix_nodes)
+        for node in nodes:
+            self.pool.unshare(node.page, req.rid)
+            self.pool.share(node.page, owner)
+        slot.req = None
+        slot.pages = []
+        slot.refs = []
+        slot.prefix_nodes = []
+        slot.cached = 0
+        slot.target = 0
+        slot.admit_seq = -1
+        return pages, private, nodes
+
+    def release_handoff(self, private: list[int], nodes: list,
+                        owner) -> None:
+        """Return a handoff's sealed sender-side resources (transfer done
+        or aborted, sender incarnation still live): private pages freed
+        through the ownership check, prefix reader references returned so
+        the tree pages become reclaimable."""
+        if nodes:
+            self.prefix.release(nodes, owner)
+        if private:
+            self.pool.free(private, owner)
+
+    def transfer_quota_ok(self, req: Request) -> bool:
+        """Whether this scheduler's admission policy takes a handed-off
+        request now. The FCFS schedulers always do; the SLOScheduler
+        holds it to the tenant's slot quota."""
+        return True
+
+    def bind_transfer(self, req: Request, pages: list[int], cached: int,
+                      owner, now: float) -> Slot | None:
+        """Bind a completed cross-pool handoff into a free slot: the
+        pages (allocated under the handoff token at transfer start,
+        content already adopted) become the request's private block
+        table, and the slot starts decode-ready (cached = target = the
+        sealed extent; the next decode tick writes the in-flight token at
+        row `cached`). Returns None, changing nothing, when no slot is
+        free or the quota refuses: the handoff waits."""
+        slot = next((s for s in self.slots if s.free), None)
+        if slot is None or not self.transfer_quota_ok(req):
+            return None
+        for p in pages:
+            self.pool.adopt(p, owner, req.rid)
+        self._bind(slot, req, list(pages), now)
+        slot.cached = cached
+        slot.target = cached
+        return slot
 
     def check(self) -> None:
         """Pool invariant + the slot-level sharing invariants: every
@@ -1036,6 +1104,17 @@ class SLOScheduler(ContinuousScheduler):
             self.pressure(s.req.tenant or "default"),
             -s.admit_seq,
         ))
+
+    def transfer_quota_ok(self, req: Request) -> bool:
+        """Decode-pool admission for a handed-off request: the tenant's
+        slot quota binds here as at prefill-pool admission (each pool's
+        SLOScheduler owns its own budget), so a quota-saturated tenant's
+        transfers wait without blocking other tenants' handoffs."""
+        sq = self.policy.slot_quota.get(req.tenant or "default")
+        if sq is None:
+            return True
+        held_slots, _ = self._usage(req.tenant or "default")
+        return held_slots < sq
 
     def _usage(self, tenant: str) -> tuple[int, int]:
         """(slots held, private pages held) by `tenant` right now.
