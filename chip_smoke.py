@@ -522,6 +522,66 @@ DP_RANKS_TIMEOUT_S = 600
 DP_NOTE = ("correctness run: the ranks share one card and gloo stages the "
            "all-reduce through the host; not a scaling figure")
 
+# cnn_mesh (after dp): the train phase's configuration (reference_cnn,
+# batch 32, SGD lr 0.1, the kernels) on the sharded meshes of
+# parallel/tp.py (TP, FSDP) and parallel/pp.py (PP, TP x PP, FSDP x PP),
+# as gloo ranks on cuda:0 (NCCL refuses two ranks on one card), each
+# mesh AGREE_STEPS steps (one device-resident epoch of AGREE_STEPS
+# batches, evaluated on CNN_MESH_AGREE_TEST test samples) against the
+# one-device Trainer from the same init: the first
+# step's gradients within DP_GRAD_REL_L2 per leaf (the microbatch and
+# model-shard sums add the same products in another order), the params
+# after the steps within AGREE_PARAM_ATOL and the test predictions equal
+# or tied (train_agree's drift); lenet5_relu on pipe:2,model:2 against
+# its own one-device run. Every rank's K3/K4/K5 launches and
+# collectives a step and an eval batch must be those the mesh's plan
+# gives (`mesh_plan_counts`). Then pipe:2 and data:2,model:2 train one
+# epoch of CNN_MESH_EPOCH_TRAIN samples (in their world's spawn) and
+# evaluate the 10,000 test samples, held to the JAX CPU accuracy. With
+# cards for them, each
+# world also runs over NCCL, one rank a card. The phase must end within
+# CNN_MESH_BUDGET_S; over it, the epochs' samples are cut first.
+CNN_MESH_BUDGET_S = 90.0
+CNN_MESH_CLIP = {"momentum": 0.9, "grad_clip": 0.05}
+CNN_MESH_RUNS = (
+    ("reference_cnn", "data:2,model:2", {}),
+    ("reference_cnn", "model:4", {}),
+    ("reference_cnn", "data:2,model:2", {"fsdp": True}),
+    ("reference_cnn", "pipe:2,data:2", {}),
+    ("reference_cnn", "pipe:2,model:2", {}),
+    ("reference_cnn", "pipe:2,model:2", CNN_MESH_CLIP),
+    ("reference_cnn", "pipe:2,data:2", {"fsdp": True}),
+    ("reference_cnn", "pipe:2,data:2", {"fsdp": True, **CNN_MESH_CLIP}),
+    ("lenet5_relu", "pipe:2,model:2", {}),
+    ("reference_cnn", "data:2", {"fsdp": True}),
+    ("reference_cnn", "pipe:2", {}),
+    ("reference_cnn", "pipe:2", {"num_microbatches": 4}),
+    ("reference_cnn", "pipe:2", CNN_MESH_CLIP),
+)
+CNN_MESH_EPOCHS = (("reference_cnn", "pipe:2", {}),
+                   ("reference_cnn", "data:2,model:2", {}))
+# The agree runs' test set (one eval batch) and the epochs' train set:
+# cut from the 10,000 and the 60,000 to fit the budget, and the two
+# worlds' spawns run at once. Every rank's one-card gloo step takes
+# 9-80 ms, so a whole epoch of 1,875 steps took 32-71 s a mesh, and the
+# phase 220.6 s whole, 99.1 s at 2,048 / 6,400 inside the whole script
+# (on an NVIDIA H100 80GB HBM3 at 700.00 W); 100 steps reach 10,000 of
+# the 10,000 test samples as the whole epoch does.
+CNN_MESH_AGREE_TEST = 512
+CNN_MESH_EPOCH_TRAIN = 3_200
+CNN_MESH_NOTE = ("correctness run: the ranks share one card and gloo stages "
+                 "every collective and send through the host; not a "
+                 "scaling figure")
+# K3, K4, K4' and K5 at the shapes the cnn_mesh runs and epochs launch
+# them (`mesh_kernel_calls`; the kernels phase, float32): each rank's
+# layers at its rows of a step (the batch over n_data and the
+# microbatches) and of an eval batch, with the features sliced over
+# 'model'. Those of reference_cnn's whole layers that the kernels phase
+# makes already (a step at 32, 16, 8 and 4 rows; an eval batch of
+# EVAL_BATCH) are not made twice. Each time is a median of
+# MESH_CASE_REPS calls (30 elsewhere): 87 cases at 30 took 22.0 s.
+MESH_CASE_REPS = 10
+
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet): the bound of
 # every kernel on bf16 inputs, whatever units the kernel itself uses.
 BF16_FLOPS = 989e12
@@ -704,8 +764,10 @@ LM_SP_NOTE = ("correctness run: the two seq ranks share one card and gloo "
 # for bit the uninterrupted world-2 run, rank 0 the only writer.
 # train_flags: the CNN trainer's remaining flags on the card, at the
 # train phase's configuration (reference_cnn, batch 32, lr 0.1,
-# synthetic stripes 60,000 / 10,000, the kernels, the device-resident
-# epoch), and the LM's share at the lm phase's flagship (float32, flash,
+# synthetic stripes 12,800 / 10,000, the kernels, the device-resident
+# epoch; the 60,000 of PRs 14-18 cut in PR 19 to keep the whole script
+# inside its limit: 400 steps reach the test accuracy a whole epoch
+# does, and the step times are taken apart), and the LM's share at the lm phase's flagship (float32, flash,
 # vocab 251). (a) --grad-accum 4: K3/K4/K5 36/12/8 a step (four
 # micro-batches of 8), one epoch at >= FLAGS_MIN_CORRECT / 10,000, the
 # first step's gradients within ACCUM_GRAD_REL_L2 per leaf of the
@@ -741,7 +803,7 @@ FLAGS_LM_ACCUM = 2
 FLAGS_LM_ELASTIC = 4
 FLAGS_LM_STEPS = 3
 FLAGS_TIME_STEPS = 50
-FLAGS_TRAIN, FLAGS_TESTS = 60_000, 10_000
+FLAGS_TRAIN, FLAGS_TESTS = 12_800, 10_000
 FLAGS_MIN_CORRECT = 9_900
 ACCUM_GRAD_REL_L2 = 1e-5
 BF16_PARAMS_GRAD_REL_L2 = 1e-2
@@ -1149,7 +1211,7 @@ def check_case(torch, name: str, got, want, rtol_of_max: float,
 
 
 def cnn_gemm_case(torch, dev, role: str, d_in: int, d_out: int, gen,
-                  dtype: str, batch: int = CNN_BATCH) -> dict:
+                  dtype: str, batch: int = CNN_BATCH, reps: int = 30) -> dict:
     """One of K3's products in a step of an FC layer (d_in, d_out) at
     `batch` rows: the forward x @ W + b, the input gradient g @ W^T, or
     the weight gradient x^T @ g, with the operands as the step has them;
@@ -1194,9 +1256,10 @@ def cnn_gemm_case(torch, dev, role: str, d_in: int, d_out: int, gen,
     bound_ms, bound_by = bound(nbytes, 2 * m * n * k, PEAK[dtype])
     return {"kernel": "gemm", "dtype": dtype, "role": role, "batch": rows,
             "M": m, "N": n, "K": k, **errs, **repeat,
-            "ms": median_ms(torch, lambda: gemm(*args, **kw)),
-            "plain_ms": median_ms(torch, lambda: gemm_plain(*args, **kw)),
-            "library_ms": median_ms(torch, library),
+            "ms": median_ms(torch, lambda: gemm(*args, **kw), reps),
+            "plain_ms": median_ms(torch, lambda: gemm_plain(*args, **kw),
+                                  reps),
+            "library_ms": median_ms(torch, library, reps),
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -1271,12 +1334,14 @@ def conv_direct_case(torch, dev, role: str, h: int, w: int, cin: int,
 
 def conv_direct_extra_case(torch, dev, role: str, n: int, h: int, w: int,
                            c: int, o: int, k: int, stride: int, pads: tuple,
-                           dil: int, flip: bool, gen, dtype: str) -> dict:
-    """K4 at one of CONV_EXTRA's geometries against its plain version,
-    with the other K4 rows' tolerances and bound. Yardstick: for K4' the
-    forward's transposed conv (F.conv_transpose2d, channels-last); none
-    for a forward with one-sided pads, which no single PyTorch call
-    computes."""
+                           dil: int, flip: bool, gen, dtype: str,
+                           reps: int = 30) -> dict:
+    """K4 at a geometry of its own (CONV_EXTRA's, the cnn_mesh phase's)
+    against its plain version, with the other K4 rows' tolerances and
+    bound. Yardstick: for K4' the forward's transposed conv
+    (F.conv_transpose2d at stride dil, channels-last); for a forward with
+    even pads F.conv2d; none for one with one-sided pads, which no
+    single PyTorch call computes."""
     from mpi_cuda_cnn_tpu_torch.ops.kernel_ops import (
         conv_direct,
         conv_direct_plain,
@@ -1295,17 +1360,26 @@ def conv_direct_extra_case(torch, dev, role: str, n: int, h: int, w: int,
                       f"->{o} s{stride} pads {pads}", got, want,
                       CONV_RTOL_OF_MAX)
     library_ms = None
+    x_nchw = x.permute(0, 3, 1, 2)
+    w_oihw = wt.permute(3, 2, 0, 1)
     if flip:
-        # the forward conv: k, stride 1, symmetric padding k - 1 - pads
-        x_nchw = x.permute(0, 3, 1, 2)
-        w_oihw = wt.permute(3, 2, 0, 1)
+        # the forward conv: k, stride dil, padding k - 1 - pads[0]; the
+        # far-side rows it never read come back as output padding
+        fwd_pad = k - 1 - pads[0]
+        extra = oh - ((h - 1) * dil - 2 * fwd_pad + k)
 
         def library():
-            return F.conv_transpose2d(x_nchw, w_oihw, padding=k - 1 - pads[0])
-
+            return F.conv_transpose2d(x_nchw, w_oihw, stride=dil,
+                                      padding=fwd_pad, output_padding=extra)
+    elif len(set(pads)) == 1 and dil == 1:
+        def library():
+            return F.conv2d(x_nchw, w_oihw, stride=stride, padding=pads[0])
+    else:
+        library = None
+    if library is not None:
         if tuple(library().shape) != (n, o, oh, ow):
-            raise AssertionError(f"conv_transpose2d shape {tuple(library().shape)}")
-        library_ms = median_ms(torch, library)
+            raise AssertionError(f"library shape {tuple(library().shape)}")
+        library_ms = median_ms(torch, library, reps)
     taps = (valid_taps(h, oh, k, stride, pads[0], dil)
             * valid_taps(w, ow, k, stride, pads[2], dil))
     nbytes = got.element_size() * (x.numel() + wt.numel() + got.numel())
@@ -1314,30 +1388,32 @@ def conv_direct_extra_case(torch, dev, role: str, n: int, h: int, w: int,
             "H": h, "W": w, "C": c, "O": o, "OH": oh, "OW": ow, "k": k,
             "stride": stride, "pads": list(pads), "dil": dil, "flip": flip,
             **errs,
-            "ms": median_ms(torch, lambda: conv_direct(x, wt, **kw)),
-            "plain_ms": median_ms(torch, lambda: conv_direct_plain(x, wt, **kw)),
+            "ms": median_ms(torch, lambda: conv_direct(x, wt, **kw), reps),
+            "plain_ms": median_ms(torch,
+                                  lambda: conv_direct_plain(x, wt, **kw), reps),
             "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def conv_dw_case(torch, dev, n: int, h: int, w: int, cin: int, cout: int,
-                 stride: int, pad: int, gen, dtype: str) -> dict:
-    """K5, the weight gradient of a k3 conv x (n, h, w, cin) -> g (n, oh,
-    ow, cout) at the given stride and padding; at DW_REPEAT's shapes run
-    twice, the two results held equal bit for bit."""
+                 stride: int, pad: int, gen, dtype: str, k: int = 3,
+                 reps: int = 30) -> dict:
+    """K5, the weight gradient of a k x k conv x (n, h, w, cin) -> g (n,
+    oh, ow, cout) at the given stride and padding; at DW_REPEAT's shapes
+    run twice, the two results held equal bit for bit."""
     from mpi_cuda_cnn_tpu_torch.ops.kernel_ops import conv_dw, conv_dw_plain
 
     tdt = getattr(torch, dtype)
-    oh, ow = (h + 2 * pad - 3) // stride + 1, (w + 2 * pad - 3) // stride + 1
+    oh, ow = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
     x = torch.rand(n, h, w, cin, generator=gen).to(dev).to(tdt)
     g = torch.randn(n, oh, ow, cout, generator=gen).to(dev).to(tdt)
-    kw = dict(stride=stride, padding=pad, kh=3, kw=3)
+    kw = dict(stride=stride, padding=pad, kh=k, kw=k)
     got = conv_dw(x, g, **kw)
     want = conv_dw_plain(x, g, **kw)
     errs = check_case(torch, f"conv_dw {dtype} {n}x{h}x{w}x{cin}->{cout} "
                       f"s{stride}", got, want, CONV_DW_RTOL_OF_MAX)
     repeat = {}
-    if (n, h, w, cin, cout, stride, pad) in DW_REPEAT:
+    if (n, h, w, cin, cout, stride, pad) in DW_REPEAT and k == 3:
         again = conv_dw(x, g, **kw)
         if not torch.equal(got, again):
             raise AssertionError(f"conv_dw {dtype} {n}x{h}x{w}x{cin}->{cout}: "
@@ -1345,17 +1421,18 @@ def conv_dw_case(torch, dev, n: int, h: int, w: int, cin: int, cout: int,
                                  f"{(got.float() - again.float()).abs().max().item()}")
         repeat = {"bitwise_repeat": True}
     x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-    taps = (valid_taps(h, oh, 3, stride, pad) * valid_taps(w, ow, 3, stride, pad))
+    taps = (valid_taps(h, oh, k, stride, pad) * valid_taps(w, ow, k, stride, pad))
     nbytes = got.element_size() * (x.numel() + g.numel() + got.numel())
     bound_ms, bound_by = bound(nbytes, 2 * n * taps * cin * cout, PEAK[dtype])
     return {"kernel": "conv_dw", "dtype": dtype, "role": "weight_grad",
             "N": n, "H": h, "W": w, "C": cin, "O": cout, "OH": oh, "OW": ow,
-            "stride": stride, **errs, **repeat,
-            "ms": median_ms(torch, lambda: conv_dw(x, g, **kw)),
-            "plain_ms": median_ms(torch, lambda: conv_dw_plain(x, g, **kw)),
+            "k": k, "stride": stride, **errs, **repeat,
+            "ms": median_ms(torch, lambda: conv_dw(x, g, **kw), reps),
+            "plain_ms": median_ms(torch, lambda: conv_dw_plain(x, g, **kw),
+                                  reps),
             "library_ms": median_ms(torch, lambda: torch.nn.grad.conv2d_weight(
-                x_nchw, (cout, cin, 3, 3), g_nchw, stride=stride,
-                padding=pad)),
+                x_nchw, (cout, cin, k, k), g_nchw, stride=stride,
+                padding=pad), reps),
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -1681,6 +1758,92 @@ def features_kernel_cases(torch, dev, gen, args) -> list[dict]:
     return cases
 
 
+def mesh_kernel_calls() -> list[tuple]:
+    """The distinct K3/K4/K4'/K5 calls of CNN_MESH_RUNS and
+    CNN_MESH_EPOCHS, as (case function, its arguments, the model,
+    n_model, then K3's rows or K5's kernel size): for each run the
+    step's rows CNN_BATCH / (n_data M), the eval batch's rows over
+    n_data M, and the whole agree test set's over M (its logits).
+    A conv launches K4 forward, K4' for its input gradient unless it is
+    the first layer, and K5; a dense layer K3's forward, input and
+    weight gradients; an eval only the forwards."""
+    from mpi_cuda_cnn_tpu_torch.models.layers import Conv, Dense
+    from mpi_cuda_cnn_tpu_torch.models.presets import get_model
+    from mpi_cuda_cnn_tpu_torch.ops.kernel_ops import conv_input_grad_pads
+    from mpi_cuda_cnn_tpu_torch.parallel.pp import make_pipeline_plan
+
+    done = {("reference_cnn", 1, r, True)
+            for r in (CNN_BATCH, RANK_BATCH, CNN_BATCH // FLAGS_ACCUM,
+                      CNN_BATCH // FLAGS_ELASTIC)}
+    done.add(("reference_cnn", 1, EVAL_BATCH, False))
+    wanted = []
+    for runs, test in ((CNN_MESH_RUNS, CNN_MESH_AGREE_TEST),
+                       (CNN_MESH_EPOCHS, 10_000)):
+        for name, mesh, flags in runs:
+            axes = {a: int(n) for a, n in
+                    (p.split(":") for p in mesh.split(","))}
+            n_data, n_model = axes.get("data", 1), axes.get("model", 1)
+            n_pipe = axes.get("pipe", 1)
+            m = (flags.get("num_microbatches") or n_pipe) if n_pipe > 1 else 1
+            share = n_data * m
+            batch = min(EVAL_BATCH, test)
+            batch -= batch % share
+            rows = [(CNN_BATCH // share, True), (batch // share, False)]
+            if test == CNN_MESH_AGREE_TEST:
+                rows.append((test // m, False))
+            wanted += [(name, n_model, r, step) for r, step in rows]
+    calls = []
+    for key in dict.fromkeys(wanted):
+        if key in done:
+            continue
+        done.add(key)
+        name, n_model, rows, step = key
+        model = get_model(name)
+        plan = make_pipeline_plan(model, 1, n_model=n_model)
+        shapes = plan.layer_in_shapes + ((plan.num_classes,),)
+        for i, layer in enumerate(model.layers):
+            (shape, out), sliced = shapes[i:i + 2], plan.layer_sliced[i]
+            if isinstance(layer, Conv):
+                (h, w, cin), (oh, ow, f) = shape, out
+                f //= n_model if sliced else 1
+                k, st, pad = layer.kernel, layer.stride, layer.padding
+                calls.append((conv_direct_extra_case, (
+                    "forward", rows, h, w, cin, f, k, st, (pad,) * 4, 1,
+                    False), name, n_model))
+                if step and i > 0:
+                    calls.append((conv_direct_extra_case, (
+                        "input_grad", rows, oh, ow, f, cin, k, 1,
+                        conv_input_grad_pads(h, w, k, k, st, pad, oh, ow),
+                        st, True), name, n_model))
+                if step:
+                    calls.append((conv_dw_case, (rows, h, w, cin, f, st,
+                                                 pad), name, n_model, k))
+            elif isinstance(layer, Dense):
+                d_in, f = math.prod(shape), out[-1]
+                f //= n_model if sliced else 1
+                roles = ["forward"] + (["input_grad"] if i > 0 else [])
+                for role in roles + ["weight_grad"] if step else ["forward"]:
+                    calls.append((cnn_gemm_case, (role, d_in, f), name,
+                                  n_model, rows))
+    return calls
+
+
+def mesh_kernel_cases(torch, dev, gen):
+    """K3, K4, K4' and K5 at the cnn_mesh phase's shapes
+    (`mesh_kernel_calls`), in float32: yields (and prints) one
+    kernel_case each, marked `mesh` with the model and n_model."""
+    for fn, args, name, n_model, *extra in mesh_kernel_calls():
+        kw = {"reps": MESH_CASE_REPS}
+        if fn is cnn_gemm_case:
+            kw["batch"] = extra[0]
+        elif fn is conv_dw_case:
+            kw["k"] = extra[0]
+        case = fn(torch, dev, *args, gen, "float32", **kw)
+        case = {**case, "mesh": {"model": name, "n_model": n_model}}
+        emit({"phase": "kernel_case", **case})
+        yield case
+
+
 def phase_cnn_kernels(torch, dev, gen):
     """K3-K5 at reference_cnn's batch-32 step shapes, and K4 and K6 at
     conv-bench's stride-1 shapes, in float32 and bf16: yields (and
@@ -1722,6 +1885,7 @@ def phase_cnn_kernels(torch, dev, gen):
                 "per_rank": True}
         emit({"phase": "kernel_case", **case})
         yield case
+    yield from mesh_kernel_cases(torch, dev, gen)
     # The micro-batches of train_flags, in float32: --grad-accum 4 (M 8)
     # and --elastic-width 8 (M 4), at the same products and convs.
     for micro in (CNN_BATCH // FLAGS_ACCUM, CNN_BATCH // FLAGS_ELASTIC):
@@ -2608,6 +2772,260 @@ def phase_dp(torch, dev=None) -> None:
             [torch.device("cuda", i) for i in range(w)], cfg, data, one)})
         worlds.append(w)
     emit({"phase": "dp_worlds", "worlds": worlds, "cards": cards})
+
+
+def mesh_plan_counts(model_name: str, axes: dict, flags: dict, rank: int
+                     ) -> tuple[dict, dict, dict]:
+    """What the plan of `model_name` on the mesh `axes` with `flags` gives
+    rank `rank`, per step: (K3/K4/K5 launches, the collectives) and per
+    eval batch the launches. A rank runs every layer, or on a pipe axis
+    its stage's, `num_microbatches` times a step and an eval batch. Each
+    conv launches its forward (K4) and weight gradient (K5), and K4' for
+    its input gradient unless it is the model's first layer; each dense
+    layer its forward, weight gradient and (the same rule) input gradient
+    (K3). A sliced layer makes a gather a pass, and an all-reduce of its
+    input gradient unless first; the data mean is an all-reduce (a
+    gather and a reduce-scatter under FSDP), the pipeline sums its
+    metrics in one more all-reduce and sends and receives a boundary a
+    microbatch; the clip sums its norm in one all-reduce."""
+    import numpy as np
+
+    from mpi_cuda_cnn_tpu_torch.models.layers import Conv, Dense
+    from mpi_cuda_cnn_tpu_torch.models.presets import get_model
+    from mpi_cuda_cnn_tpu_torch.parallel.pp import make_pipeline_plan
+    from mpi_cuda_cnn_tpu_torch.parallel.tp import tp_sliced
+
+    model = get_model(model_name)
+    coord = dict(zip(axes, np.unravel_index(rank, tuple(axes.values()))))
+    n_pipe, n_model = axes.get("pipe", 1), axes.get("model", 1)
+    n_data = axes.get("data", 1)
+    fsdp = bool(flags.get("fsdp")) and n_data > 1
+    sliced = tp_sliced(model, n_model)
+    layers = range(len(model.layers))
+    m = 1
+    coll = {"all_reduce": 0, "broadcast": 0}
+    if n_pipe > 1:
+        s = int(coord["pipe"])
+        layers = make_pipeline_plan(model, n_pipe).stage_layers[s]
+        m = flags.get("num_microbatches") or n_pipe
+        hops = m * ((s < n_pipe - 1) + (s > 0))
+        coll.update(send=hops, recv=hops)
+        coll["all_reduce"] += 1
+    step = {"gemm": 0, "conv_direct": 0, "conv_dw": 0}
+    evals = dict(step)
+    for i in layers:
+        layer = model.layers[i]
+        if isinstance(layer, Conv):
+            step["conv_direct"] += m * (1 + (i > 0))
+            step["conv_dw"] += m
+            evals["conv_direct"] += m
+        elif isinstance(layer, Dense):
+            step["gemm"] += m * (2 + (i > 0))
+            evals["gemm"] += m
+    tp = [i for i in layers if sliced[i]]
+    if tp:
+        coll["all_gather"] = m * len(tp)
+        coll["all_reduce"] += m * sum(i > 0 for i in tp)
+    if fsdp:
+        coll["all_gather"] = coll.get("all_gather", 0) + 1
+        coll["reduce_scatter"] = 1
+    elif n_data > 1:
+        coll["all_reduce"] += 1
+    if flags.get("grad_clip"):
+        coll["all_reduce"] += 1
+    return step, coll, evals
+
+
+def mesh_counts_held(label: str, res: dict, name: str, axes: dict,
+                     flags: dict, rank: int, steps: int,
+                     eval_batches: int) -> None:
+    """One rank's K3/K4/K5 launches over `steps` steps and `eval_batches`
+    eval batches, and its collectives over the steps' one chunk, against
+    the plan (`mesh_plan_counts`)."""
+    step, coll, evals = mesh_plan_counts(name, axes, flags, rank)
+    want_l = ({k: v * steps for k, v in step.items()},
+              {k: v * eval_batches for k, v in evals.items()})
+    got_l = tuple({k: res[c]["launches"][k] for k in step}
+                  for c in ("epoch_counts", "eval_counts"))
+    got_c = {k: v for k, v in res["epoch_counts"]["collectives"].items() if v}
+    want_c = {k: v * steps for k, v in coll.items() if v}
+    # and the preemption flags' one all-reduce at the epoch's one chunk
+    # boundary (log_every 0; `train/recovery.py`)
+    want_c["all_reduce"] = want_c.get("all_reduce", 0) + 1
+    if got_l != want_l or got_c != want_c:
+        raise AssertionError(f"{label}: launches (steps, eval) {got_l}, want "
+                             f"{want_l}; collectives {got_c}, want {want_c}")
+
+
+def mesh_world(torch, what: str, devices: list, runs: list, ones: dict,
+               epochs: list) -> tuple[list[dict], list[dict], dict]:
+    """The CNN_MESH_RUNS `runs` of one world on `devices`, then its
+    CNN_MESH_EPOCHS `epochs`, in one spawn of the ranks
+    (`cnn_rank_each`). Each run is held to its one-device run in `ones`
+    (the first gradients, the params after AGREE_STEPS steps, the
+    predictions on the CNN_MESH_AGREE_TEST test samples) and each epoch
+    of CNN_MESH_EPOCH_TRAIN samples to the JAX CPU accuracy on the
+    10,000; both to their plan's counts on every rank
+    (`mesh_counts_held`). Returns (a record a run, a record an epoch,
+    the K3/K4/K5 launches of every rank's steps and evals)."""
+    import numpy as np
+
+    from mpi_cuda_cnn_tpu_torch.parallel.distributed import (
+        pick_backend,
+        run_ranks,
+    )
+    from mpi_cuda_cnn_tpu_torch.train.ranks import cnn_rank_each
+    from mpi_cuda_cnn_tpu_torch.utils.config import cnn_axes
+
+    agree = dict(num_train=AGREE_STEPS * CNN_BATCH,
+                 num_test=CNN_MESH_AGREE_TEST)
+    full = dict(num_train=CNN_MESH_EPOCH_TRAIN, num_test=10_000)
+    backend = pick_backend(devices)
+    cfgs = ([(mesh_cfg(devices[0], *r), agree, None,
+              dict(grads=True, logits=True)) for r in runs]
+            + [(mesh_cfg(devices[0], *r), full, None, {}) for r in epochs])
+    t0 = time.perf_counter()
+    ranks = run_ranks(cnn_rank_each, len(devices), devices=devices,
+                      args=(cfgs,), timeout=DP_RANKS_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    launches = {"gemm": 0, "conv_direct": 0, "conv_dw": 0}
+    for rk in ranks:
+        for res in rk:
+            for c in ("epoch_counts", "eval_counts"):
+                for k in launches:
+                    launches[k] += res[c]["launches"][k]
+    records, epoch_records = [], []
+    for i, (name, mesh, flags) in enumerate(runs + epochs):
+        label = f"{what} {name} {mesh} {flags}"
+        axes = cnn_axes(cfgs[i][0], len(devices))
+        data = cfgs[i][1]
+        steps = data["num_train"] // CNN_BATCH
+        evals = math.ceil(data["num_test"] / EVAL_BATCH)
+        for r, rk in enumerate(ranks):
+            mesh_counts_held(f"{label} rank {r}", rk[i], name, axes, flags,
+                             r, steps, evals)
+        res0 = ranks[0][i]
+        em, (ntests, ncorrect) = res0["epoch"], res0["eval"]
+        rec = {"model": name, "mesh": mesh, "flags": flags,
+               "world": len(devices), "backend": backend, "steps": steps,
+               "step_ms": 1e3 * em["seconds"] / em["steps"],
+               "launches_per_step_rank": [mesh_plan_counts(
+                   name, axes, flags, r)[0] for r in range(len(devices))],
+               "collectives_per_step_rank": [mesh_plan_counts(
+                   name, axes, flags, r)[1] for r in range(len(devices))],
+               "run_wall_s": res0["wall_s"], "spawn_wall_s": wall_s}
+        if i >= len(runs):
+            for r, rk in enumerate(ranks):
+                e, (nt, nc) = rk[i]["epoch"], rk[i]["eval"]
+                if e["steps"] != steps or nt != 10_000 \
+                        or nc / nt < JAX_CPU_ACCURACY - ACCURACY_MARGIN \
+                        or not all(math.isfinite(e[k])
+                                   for k in ("loss", "etotal", "acc")):
+                    raise AssertionError(
+                        f"{label} epoch rank {r}: {e['steps']} steps, "
+                        f"accuracy {nc}/{nt}, metrics {e}")
+            epoch_records.append({**rec, "epoch_s": em["seconds"],
+                                  "loss": em["loss"], "acc": em["acc"],
+                                  "ntests": ntests, "ncorrect": ncorrect,
+                                  "reference_accuracy": JAX_CPU_ACCURACY})
+            continue
+        one = ones[name, bool(flags.get("grad_clip"))]
+        worst_grad = param_diff = 0.0
+        for r, rk in enumerate(ranks):
+            res = rk[i]
+            rel = grads_rel_l2(res["grads"], one["grads"])
+            worst_grad = max(worst_grad, max(rel.values()))
+            param_diff = max(param_diff, max(
+                float(np.abs(a - b).max())
+                for a, b in zip(res["params"], one["params"], strict=True)))
+            ties = check_ties(f"{label} rank {r}", res["logits"],
+                              one["logits"])
+        if not (worst_grad <= DP_GRAD_REL_L2
+                and param_diff <= AGREE_PARAM_ATOL):
+            raise AssertionError(
+                f"{label}: first-step gradients apart by {worst_grad} "
+                f"(limit {DP_GRAD_REL_L2}), params after {AGREE_STEPS} "
+                f"steps by {param_diff} (limit {AGREE_PARAM_ATOL})")
+        records.append({**rec, "first_grad_rel_l2_max": worst_grad,
+                        "param_max_abs_diff": param_diff, **ties})
+    return records, epoch_records, launches
+
+
+def mesh_cfg(dev, name: str, mesh: str, flags: dict):
+    """The train phase's configuration of `name` on `mesh` with `flags`."""
+    from mpi_cuda_cnn_tpu_torch.utils.config import Config
+
+    return Config(model=name, epochs=1, batch_size=CNN_BATCH, lr=0.1, seed=0,
+                  device=str(dev), use_kernels=True, log_every=0,
+                  eval_every=0, mesh_shape=mesh, **flags)
+
+
+def mesh_world_size(mesh: str) -> int:
+    return math.prod(int(p.split(":")[1]) for p in mesh.split(","))
+
+
+def phase_cnn_mesh(torch, dev=None) -> dict:
+    """The cnn_mesh phase (see CNN_MESH_RUNS): the one-device runs, then
+    each world's CNN_MESH_RUNS and CNN_MESH_EPOCHS as gloo ranks on one
+    card in one spawn (and over NCCL, a card a rank, when there are
+    cards for it; `mesh_world`). One line per mesh and per epoch;
+    returns the phase's record and the K3/K4/K5 launches of every
+    rank's steps and evals. (`dev` the CPU: the same on gloo, to
+    rehearse the phase.)"""
+    from mpi_cuda_cnn_tpu_torch.train.ranks import cnn_rank
+
+    t_phase = time.perf_counter()
+    dev = dev or torch.device("cuda", 0)
+    data = dict(num_train=AGREE_STEPS * CNN_BATCH,
+                num_test=CNN_MESH_AGREE_TEST)
+    ones = {}
+    for name, clip in sorted({(n, bool(f.get("grad_clip")))
+                              for n, _, f in CNN_MESH_RUNS}):
+        flags = CNN_MESH_CLIP if clip else {}
+        ones[name, clip] = cnn_rank(None, mesh_cfg(dev, name, "data", flags),
+                                    data, grads=True, logits=True)
+    launches = {"gemm": 0, "conv_direct": 0, "conv_dw": 0}
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    calls = []
+    for world in (4, 2):
+        runs = [r for r in CNN_MESH_RUNS if mesh_world_size(r[1]) == world]
+        ep = [r for r in CNN_MESH_EPOCHS if mesh_world_size(r[1]) == world]
+        calls.append((f"cnn_mesh world {world} (gloo, one card)",
+                       [dev] * world, runs, ep))
+        if cards >= world:
+            calls.append((f"cnn_mesh world {world} (nccl)",
+                          [torch.device("cuda", i) for i in range(world)],
+                          runs, ep))
+    # The gloo worlds share the card, each rank waiting on the host most
+    # of a step: their spawns run at once (the NCCL ones after them).
+    gloo = [c for c in calls if "gloo" in c[0]]
+    with ThreadPoolExecutor(len(gloo)) as pool:
+        done = list(pool.map(lambda c: mesh_world(torch, c[0], c[1], c[2],
+                                                  ones, c[3]), gloo))
+    done += [mesh_world(torch, what, devices, runs, ones, ep)
+             for what, devices, runs, ep in calls if "nccl" in what]
+    records, epochs = [], []
+    for recs, eps, counts in done:
+        for rec in recs:
+            emit({"phase": "cnn_mesh", **rec, "note": CNN_MESH_NOTE
+                  if rec["backend"] == "gloo"
+                  else "one rank a card over NCCL"})
+        for rec in eps:
+            emit({"phase": "cnn_mesh_epoch", **rec, "note": CNN_MESH_NOTE
+                  if rec["backend"] == "gloo"
+                  else "one rank a card over NCCL"})
+        records += recs
+        epochs += eps
+        for k in launches:
+            launches[k] += counts[k]
+    phase_s = time.perf_counter() - t_phase
+    if phase_s > CNN_MESH_BUDGET_S:
+        raise AssertionError(f"cnn_mesh took {phase_s:.1f} s, over its "
+                             f"{CNN_MESH_BUDGET_S} s budget")
+    return {"record": {"phase_s": phase_s, "budget_s": CNN_MESH_BUDGET_S,
+                       "meshes": len(records), "epochs": epochs,
+                       "cards": cards},
+            "launches": launches}
 
 
 def phase_lm_dp(torch, dev=None) -> dict:
@@ -4559,6 +4977,9 @@ def main() -> int:
     train_launches = phase_train(torch)
     emit({"phase": "train_agree", **phase_train_agree(torch)})
     phase_dp(torch)
+    cnn_mesh = phase_cnn_mesh(torch)
+    emit({"phase": "cnn_mesh_summary", "device": kind, "nvidia_smi": smi,
+          **cnn_mesh["record"]})
     emit({"phase": "lm_dp", **phase_lm_dp(torch)})
     lm_sp = phase_lm_sp(torch)
     emit({"phase": "lm_sp", "device": kind, "nvidia_smi": smi,
@@ -4578,7 +4999,8 @@ def main() -> int:
     launches = {**{k: serve_launches[k] + gen_launches[k]
                    + features["launches"][k] + fleet["launches"][k]
                    for k in ("paged_attention", "int8_gemm")},
-                **{k: train_launches[k] for k in PER_STEP},
+                **{k: train_launches[k] + cnn_mesh["launches"][k]
+                   for k in PER_STEP},
                 "conv_gemm": conv_launches["conv_gemm"],
                 **{k: lm_launches[k] + moe_launches[k]
                    + lm_sp["launches"][k] for k in FLASH_KERNELS}}

@@ -19,8 +19,11 @@
 
 Every command runs on the card unless given --device cpu. `train` and
 `lm` take `--num-devices N` / `--mesh-shape data:N` (N = 0: every visible
-card, 1 on the CPU), and `lm` also a seq axis, `--mesh-shape seq:P` or
-`data:N,seq:P` (sequence parallelism, `parallel/sp.py`): a world of 1
+card, 1 on the CPU); `train` also the model and pipe axes and FSDP
+(`--mesh-shape data:2,model:2`, `pipe:2,data:2 --num-microbatches 4`,
+`--fsdp`; `parallel/tp.py`, `parallel/pp.py`), and `lm` a seq axis,
+`--mesh-shape seq:P` or `data:N,seq:P` (sequence parallelism,
+`parallel/sp.py`): a world of 1
 runs in this process; a world of N > 1 spawns N ranks
 (`parallel.distributed.run_ranks`), NCCL with rank r on cuda:r, or gloo
 ranks under --device cpu, and fails with exit 2 when N is more than the
@@ -50,9 +53,10 @@ _USAGE = ("usage: python -m mpi_cuda_cnn_tpu_torch "
 
 def rank_devices(device: str, num_devices: int, mesh_shape: str,
                  batch_size: int, queue: str,
-                 ported: tuple[str, ...] = ("data",)) -> list:
+                 ported: tuple[str, ...] | None = ("data",)) -> list:
     """One device per rank of the mesh the flags ask for (of the `ported`
-    axes): the CPU for every rank under --device cpu, else the first
+    axes, `utils.config.data_axes`): the CPU for every rank under
+    --device cpu, else the first
     cards. Under torchrun the environment names the world, and each
     process knows only its own device: this process's card
     (cuda:LOCAL_RANK), or the CPU, once per rank. Raises RuntimeError when
@@ -76,14 +80,15 @@ def rank_devices(device: str, num_devices: int, mesh_shape: str,
         axes = data_axes(0, mesh_shape, world, queue=queue, ported=ported)
         if math.prod(axes.values()) != world:
             raise ValueError(f"mesh {axes} for a torchrun world of {world}")
-        check_batch_divides(batch_size, axes[DATA_AXIS])
+        check_batch_divides(batch_size, axes.get(DATA_AXIS, 1))
         return [own] * world
     visible = torch.cuda.device_count() if cuda else 1
     axes = data_axes(num_devices, mesh_shape, visible, queue=queue,
                      ported=ported)
-    check_batch_divides(batch_size, axes[DATA_AXIS])
+    check_batch_divides(batch_size, axes.get(DATA_AXIS, 1))
     if not cuda:
-        return [own] * math.prod(axes.values())
+        return mesh_devices(axes, [own] * (num_devices
+                                           or math.prod(axes.values())))
     return mesh_devices(axes, [torch.device("cuda", i)
                                for i in range(visible)])
 
@@ -158,7 +163,12 @@ def run_train(argv: list[str]) -> int:
     from .data.datasets import get_dataset, load_idx_dataset
     from .data.idx import IdxError
     from .models.presets import get_model
-    from .utils.config import check_supported, parse_args
+    from .utils.config import (
+        check_supported,
+        check_train_flags,
+        data_axes,
+        parse_args,
+    )
     from .utils.logging import get_logger
 
     try:
@@ -169,7 +179,10 @@ def run_train(argv: list[str]) -> int:
     try:
         check_supported(cfg)
         devices = rank_devices(cfg.device, cfg.num_devices, cfg.mesh_shape,
-                               cfg.batch_size, "E")
+                               cfg.batch_size, "E", None)
+        # the mesh of those ranks (a bare axis takes all of them)
+        axes = data_axes(0, cfg.mesh_shape, len(devices), ported=None)
+        check_train_flags(cfg, axes)
         _check_supervisor(cfg, len(devices))
     except (NotImplementedError, RuntimeError, ValueError) as e:
         log.error("%s", e)
@@ -197,7 +210,7 @@ def run_train(argv: list[str]) -> int:
              len(devices))
     from .train.ranks import cnn_rank
 
-    return _run_world(cnn_rank, devices, (cfg, ds))
+    return _run_world(cnn_rank, devices, (cfg, ds), axes)
 
 
 def run_lm(argv: list[str]) -> int:

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .train.checkpoint import named_leaves
+from .train.checkpoint import named_leaves, to_tensor
 from .train.optimizer import AdamW
 
 
@@ -102,7 +102,7 @@ def load_checkpoint_arrays(state: dict, arrays: dict, optimizer) -> None:
                          f"{set(arrays) - set(live)}")
     for name, t in live.items():
         if isinstance(t, torch.Tensor):
-            t.copy_(torch.from_numpy(np.asarray(arrays[name])))
+            t.copy_(to_tensor(arrays[name]))
     state["step"] = int(arrays["step"])
     key = names.get("count", names.get("schedule"))
     state["opt_state"]["count"] = (state["step"] if key is None

@@ -28,16 +28,21 @@ this module, one process per rank:
 - `make_dp_scan_epoch`: the device-resident epoch, every rank holding
   the whole uint8 set (JAX replicates it, `P()`) and gathering its own
   columns of the step's batch;
-- `make_dp_eval_step`: each rank predicts its rows of an eval batch; the
-  caller sums the correct counts across ranks (`all_reduce_sum`).
+- the eval (`train/trainer.py`): each rank predicts its rows of an eval
+  batch and the correct counts are summed over the data line
+  (`all_reduce_sum`).
 
 Only `all_reduce` and `broadcast` are used (the elastic step's rounds
-are all-reduces in two-rank groups): gloo supports both on CUDA tensors
-and has no `all_gather` for them. `collectives` counts, per
-process, the collectives this module made (one per call, where it calls
-`torch.distributed`, and nowhere else); `reset_collectives()` zeroes it.
-A mesh without a process group (world 1, no group) makes none: every
-collective there is the identity.
+are all-reduces in two-rank groups); gloo runs both on CUDA tensors.
+`mean_over` is the mean of given gradients and metrics, which the
+sharded meshes' data mean shares (`parallel/collectives.py`). On a mesh with another axis beside the
+data axis (an axis of replicas, as the reference's trainer runs one),
+the sums run over this rank's data line. `collectives` counts, per
+process, the collectives this module and `parallel/collectives.py` made
+(one per call, where they call `torch.distributed`, and nowhere else;
+the sharded meshes' kinds appear once made); `reset_collectives()`
+zeroes it. A mesh without a process group (world 1, no group) makes
+none: every collective there is the identity.
 """
 
 from __future__ import annotations
@@ -73,10 +78,14 @@ def views(buf: torch.Tensor, like: list[torch.Tensor]) -> list[torch.Tensor]:
     return out
 
 
-def all_reduce_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Sum `t` in place over the mesh's ranks (one all-reduce)."""
-    if mesh.group is not None:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
+def all_reduce_sum(t: torch.Tensor, mesh: Mesh,
+                   axis: str | tuple[str, ...] | None = None) -> torch.Tensor:
+    """Sum `t` in place over the mesh's ranks, or over this rank's ranks
+    along `axis` (a name or a tuple of them): one all-reduce, none when
+    they are this rank alone."""
+    group = mesh.group if axis is None else mesh.group_of(axis)
+    if group is not None:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
         collectives["all_reduce"] += 1
     return t
 
@@ -191,12 +200,20 @@ def dp_mean_grads(loss_fn, params, x, y, mesh: Mesh,
     their order), float32 ones views of that buffer. On a mesh without a
     group (`device_mesh`) the mean is the value itself: no buffer and no
     collective."""
-    grads, metrics = local_grads(loss_fn, params, x, y, grad_accum, view,
-                                 accum_dtype)
-    if mesh.group is None:
+    return mean_over(*local_grads(loss_fn, params, x, y, grad_accum, view,
+                                  accum_dtype), mesh, axis)
+
+
+def mean_over(grads: list[torch.Tensor], metrics: torch.Tensor, mesh: Mesh,
+              axis: str | tuple[str, ...] = DATA_AXIS):
+    """`grads` and the 1-d `metrics` averaged over the axis (or a tuple of
+    axes) in ONE all-reduce of one flat float32 buffer: (each gradient in
+    its own dtype, the metrics), float32 ones views of that buffer. On a
+    mesh without a group for the axis, the values themselves."""
+    if mesh.group_of(axis) is None:
         return grads, metrics
     buf = torch.cat([g.reshape(-1).float() for g in grads] + [metrics])
-    all_reduce_sum(buf, mesh)
+    all_reduce_sum(buf, mesh, axis)
     buf /= axis_size(mesh, axis)
     n = buf.numel() - len(metrics)
     return ([v.to(g.dtype) for v, g in zip(views(buf[:n], grads), grads)],
@@ -219,7 +236,8 @@ def make_dp_train_step(loss_fn, optimizer, mesh: Mesh, *,
 
     `augment` (`data/augment.Augment`) transforms the rank's shard before
     any accumulation split, keyed as the reference keys it:
-    fold_in(fold_in(key(aug_seed), step), rank). `aug` is the step's
+    fold_in(fold_in(key(aug_seed), step), the rank's coordinate on the
+    data axis). `aug` is the step's
     draws on the device (`step.draws`, which a device-resident chunk
     makes for all its steps at once); None draws them here.
 
@@ -246,7 +264,8 @@ def make_dp_train_step(loss_fn, optimizer, mesh: Mesh, *,
                                                     (mesh.rank + 1) * k))
             d = augment.draw(keys, rows // k)
         else:
-            keys = step_keys(aug_seed, steps, [mesh.rank])[:, 0]
+            shard = mesh.index(axis) if isinstance(axis, str) else mesh.rank
+            keys = step_keys(aug_seed, steps, [shard])[:, 0]
             d = augment.draw(keys, rows)
         return augment.to_device(d, mesh.device)
 
@@ -308,15 +327,3 @@ def make_dp_scan_epoch(step, num_classes: int):
         return state
 
     return epoch
-
-
-def make_dp_eval_step(predict_fn, mesh: Mesh, *, axis: str = DATA_AXIS):
-    """eval_step(params, x) -> predict_fn(params, this rank's rows of the
-    eval batch x); the batch must divide by the axis size. The C
-    reference evaluates on rank 0 only (cnnmpi.c:521); here every rank
-    works on its share."""
-
-    def step(params, x):
-        return predict_fn(params, dp_shard_batch(x, mesh, axis))
-
-    return step

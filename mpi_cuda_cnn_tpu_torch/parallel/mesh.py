@@ -8,10 +8,10 @@ of the named axes: their sizes, its rank and the world size, its
 `torch.device`, the `torch.distributed` group the axes span, and its
 coordinates. Rank r sits at the coordinates of r in the axes' shape with
 the last axis varying fastest, as `jax.make_mesh` lays its devices out
-(`data:2,seq:2`: rank d * 2 + s). The 'data' axis and, for the LM, the
-'seq' axis of sequence parallelism (`parallel/sp.py`) are ported
-(`utils.config`); the names of the others stay so that a later axis
-slots in without an API change.
+(`data:2,seq:2`: rank d * 2 + s; `pipe:2,data:2`: rank p * 2 + d). The
+'data' axis, the CNN's 'model' and 'pipe' axes (`parallel/tp.py`,
+`parallel/pp.py`) and, for the LM, the 'seq' axis of sequence
+parallelism (`parallel/sp.py`) are ported (`utils.config`).
 """
 
 from __future__ import annotations
@@ -75,6 +75,27 @@ class Mesh:
         if self.shape.get(axis, 1) == self.world:
             return self.group
         return self.axis_groups[axis]
+
+    def group_of(self, axes: str | tuple[str, ...]):
+        """The process group of this rank's ranks along `axes` (one axis
+        or a tuple of them): the mesh's group when they are the world
+        (a one-rank group's too), None when they are this rank alone of
+        a larger world or there is no group (no collective is needed),
+        else the group of this rank's line along the one axis of size >
+        1 among them."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        wide = [a for a in axes if self.shape.get(a, 1) > 1]
+        n = math.prod(self.shape[a] for a in wide)
+        if self.group is None:
+            return None
+        if n >= self.world:
+            return self.group
+        if n == 1:
+            return None
+        if len(wide) == 1:
+            return self.axis_groups[wide[0]]
+        raise NotImplementedError(f"no process group for the axes {axes} "
+                                  f"of the mesh {self.shape}")
 
 
 def axis_lines(shape: dict[str, int], axis: str) -> list[list[int]]:

@@ -42,8 +42,8 @@ run over every rank's tokens in rank-major order (the order of
 means. A rank that routed only its own rows would drop other tokens and
 train on another objective. So each MoE layer makes one all-reduce of
 O(world * k * E) floats: every rank's per-choice expert counts (each
-rank fills its own row, an all-gather by all-reduce: gloo has no
-all_gather for CUDA tensors) and the per-expert probability sums. A rank
+rank fills its own row, an all-gather by all-reduce, so that one
+collective carries both) and the per-expert probability sums. A rank
 offsets its positions by the earlier ranks' counts of the same choice
 and the global `used` of the earlier choices; the aux loss takes the
 global sums. The all-reduce's backward gives each rank's probabilities

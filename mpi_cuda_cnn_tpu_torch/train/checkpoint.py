@@ -12,6 +12,13 @@ name their state as the JAX package names its optax state
 (`convert.checkpoint_arrays`); this module flattens any tree of dicts
 and lists whose leaves are tensors or arrays.
 
+bfloat16 leaves are written as the JAX package writes them: numpy has no
+bfloat16, so `np.savez` stores the 2-byte values as void (`|V2`), and
+the manifest's checksum names them "bfloat16" (`_checksum`), as the
+JAX package's checksum of the live array does. A restore reads a `|V2`
+array whose template leaf is bfloat16 as those bits (`to_tensor`), so
+the port resumes its own bf16 files and the JAX package's bit for bit.
+
 Crash safety: the npz and the manifest each land by a tmp write and an
 atomic rename, pruning runs only after the new file's rename (and never
 deletes the `protect`ed file a run resumed from), `restore_checkpoint`
@@ -62,11 +69,29 @@ def named_leaves(tree, prefix: str = ""):
         yield prefix[:-1], tree
 
 
+# How numpy (and so np.savez) holds a bfloat16 array: its 2-byte values
+# as void.
+_BF16_NP = np.dtype("V2")
+
+
 def _host(leaf) -> np.ndarray:
-    """A host copy of a leaf that later in-place updates cannot reach."""
+    """A host copy of a leaf that later in-place updates cannot reach (a
+    bfloat16 tensor's bits as `|V2`)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        host = leaf.detach().to("cpu", copy=True)
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy().view(_BF16_NP)
+        return host.numpy()
     return np.array(leaf, copy=True)
+
+
+def to_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A restored array as a CPU tensor (`|V2` bits as bfloat16)."""
+    arr = np.asarray(arr)
+    if arr.dtype == _BF16_NP:
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _flatten(state) -> dict[str, np.ndarray]:
@@ -75,15 +100,20 @@ def _flatten(state) -> dict[str, np.ndarray]:
 
 def _np_dtype(leaf) -> np.dtype:
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            return _BF16_NP
         return torch.empty(0, dtype=leaf.dtype).numpy().dtype
     return np.asarray(leaf).dtype
 
 
 def _checksum(arr: np.ndarray) -> str:
     """crc32 over the array's bytes, then its dtype and shape (so that a
-    reinterpretation cannot collide): integrity, not cryptography."""
+    reinterpretation cannot collide): integrity, not cryptography. A
+    `|V2` array is bfloat16 and named so, as the JAX package names its
+    live bfloat16 array."""
     crc = zlib.crc32(np.ascontiguousarray(arr).tobytes())
-    crc = zlib.crc32(f"{arr.dtype}:{arr.shape}".encode(), crc)
+    name = "bfloat16" if arr.dtype == _BF16_NP else arr.dtype
+    crc = zlib.crc32(f"{name}:{arr.shape}".encode(), crc)
     return f"{crc:08x}"
 
 

@@ -5,7 +5,8 @@ u_param` after 32 accumulated samples (cnn.c:303-314, 467-469), which
 with a mean loss over a batch of 32 is `sgd(lr=0.1)`; the LM trains with
 AdamW. `make_optimizer` builds the same update as the JAX package's
 `optax` chain, step for step:
-- `clip_by_global_norm` when grad_clip > 0;
+- `clip_by_global_norm` when grad_clip > 0 (a sharded step sums the
+  squared norm over its ranks and clips with `clip_grads_by_global_sq`);
 - SGD: `add_decayed_weights` (g + wd * p) when weight_decay > 0, then
   `optax.sgd`'s momentum trace `t = g + momentum * t` when momentum > 0;
 - AdamW (`optax.adamw(lr, weight_decay=wd)`: b1 0.9, b2 0.999, eps 1e-8,
@@ -81,6 +82,24 @@ def _clip(grads: list[torch.Tensor], clip: float) -> list[torch.Tensor]:
     return [torch.where(keep, g, (g / norm) * clip) for g in grads]
 
 
+@torch.no_grad()
+def grad_sq(grads: list[torch.Tensor]) -> torch.Tensor:
+    """The sum of squared gradients, in float32."""
+    return sum(torch.sum(torch.square(g.float())) for g in grads)
+
+
+@torch.no_grad()
+def clip_grads_by_global_sq(grads: list[torch.Tensor], sq_norm,
+                            clip: float) -> list[torch.Tensor]:
+    """optax.clip_by_global_norm from a squared norm the caller summed
+    over the ranks: g * clip / max(norm, clip), on the device. The
+    sharded steps (`parallel/tp.py`, `parallel/pp.py`) clip this way,
+    since each rank holds only blocks of the gradients."""
+    norm = torch.sqrt(torch.as_tensor(sq_norm, dtype=torch.float32))
+    scale = clip / torch.clamp(norm, min=clip)
+    return [(g * scale).to(g.dtype) for g in grads]
+
+
 class SGD:
     """In-place SGD over a list of parameter tensors. `state` holds the
     update count (the schedule's step) and the momentum trace.
@@ -104,8 +123,10 @@ class SGD:
 
     @torch.no_grad()
     def update(self, params: list[torch.Tensor], grads: list[torch.Tensor],
-               state: dict) -> None:
-        grads = _clip(grads, self.grad_clip)
+               state: dict, *, clip: bool = True) -> None:
+        """The update, in place. `clip` False: the grads come clipped
+        already (a sharded step's global norm)."""
+        grads = _clip(grads, self.grad_clip if clip else 0.0)
         if self.weight_decay:
             grads = torch._foreach_add(
                 grads, torch._foreach_mul(params, self.weight_decay))
@@ -140,9 +161,9 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, params: list[torch.Tensor], grads: list[torch.Tensor],
-               state: dict) -> None:
+               state: dict, *, clip: bool = True) -> None:
         b1, b2 = self.b1, self.b2
-        grads = _clip(grads, self.grad_clip)
+        grads = _clip(grads, self.grad_clip if clip else 0.0)
         mu, nu = state["mu"], state["nu"]
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))

@@ -190,12 +190,33 @@ def cnn_rank(mesh, cfg, data, params=None, *, grads: bool = False,
                epoch_counts=metrics.counts["steps"],
                eval_counts=metrics.counts["eval"],
                eval=(result.ntests, result.ncorrect), step=result.final_step,
-               result=dataclasses.asdict(result), params=_numpy(tr.leaves),
+               result=dataclasses.asdict(result),
+               params=_numpy(tr.full_leaves()),
                records=metrics.rows)
     if logits:
         res["logits"] = _numpy([tr.predict(
             torch.from_numpy(tr.test_x).to(tr.device)).float()])[0]
     return res
+
+
+def cnn_rank_each(mesh, runs: list[tuple]) -> list[dict]:
+    """`cnn_rank(m, cfg, data, params, **kw)` for each (cfg, data, params,
+    kw) of `runs` in turn, on this rank's mesh of cfg's axes
+    (`utils.config.cnn_axes`, built here over the ranks' group, so that
+    one spawn of the ranks runs meshes of several shapes), each result
+    with the run's wall seconds (`wall_s`)."""
+    from ..parallel.mesh import make_mesh
+    from ..utils.config import cnn_axes
+
+    out = []
+    for cfg, data, params, kw in runs:
+        t0 = time.perf_counter()
+        axes = cnn_axes(cfg, mesh.world)
+        m = mesh if axes == mesh.shape else make_mesh(
+            axes, devices=[mesh.device] * mesh.world)
+        out.append({**cnn_rank(m, cfg, data, params, **kw),
+                    "wall_s": time.perf_counter() - t0})
+    return out
 
 
 def lm_rank(mesh, cfg, params=None, *, grads: bool = False,

@@ -10,10 +10,16 @@ mesh and its optimizer. It saves and restores the trainer's state
 (`convert.checkpoint_arrays`), only rank 0 writing and every rank
 meeting it at a barrier (`parallel.distributed`); the resume and the
 rollback read the newest file that verifies, after a barrier, on every
-rank. The NaN guard checks a step on the device and undoes a bad update
-from a device copy of the state taken before it (the update runs in
-place), leaving the step counter advanced: it counts batches consumed,
-so a later resume lands on the data position.
+rank; a trainer whose ranks hold blocks of the state gives its own
+`codec` (the arrays of the whole state made on every rank, and each
+rank's share of restored arrays installed). Making those arrays is a
+collective, so on such a trainer the ranks agree on a preemption at
+every step boundary (one all-reduce of the flags): a signal that reaches
+one rank drains them all at the same step. The NaN guard checks a step
+on the device and undoes a bad update from a device copy of the state
+taken before it (the update runs in place), leaving the step counter
+advanced: it counts batches consumed, so a later resume lands on the
+data position.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from ..faults import (
 )
 from ..models.layers import tree_leaves
 from ..parallel.distributed import barrier, process_info
+from ..parallel.dp import all_reduce_sum
 from ..parallel.mesh import describe_mesh
 from .checkpoint import AsyncCheckpointer, restore_latest, validate_resume_meta
 
@@ -52,8 +59,10 @@ class Recovery:
     one that answers planned preempt faults only)."""
 
     def __init__(self, cfg, mesh, optimizer, *, metrics, logger,
-                 faults=None, preempt: PreemptionGuard | None = None):
+                 faults=None, preempt: PreemptionGuard | None = None,
+                 codec=None):
         self.cfg = cfg
+        self.codec = codec
         self.mesh = mesh
         self.optimizer = optimizer
         self.metrics = metrics
@@ -74,6 +83,8 @@ class Recovery:
 
     def arrays(self, state: dict) -> dict:
         """The live state as the reference's checkpoint arrays."""
+        if self.codec is not None:
+            return self.codec[0](state)
         return checkpoint_arrays(state, self.optimizer)
 
     def save_every(self, state: dict, every: int, count: int) -> None:
@@ -95,7 +106,10 @@ class Recovery:
         validate_resume_meta(path, mesh=self.mesh,
                              elastic_width=self.cfg.elastic_width,
                              metrics=self.metrics, logger=self.log)
-        load_checkpoint_arrays(state, restored, self.optimizer)
+        if self.codec is not None:
+            self.codec[1](state, restored)
+        else:
+            load_checkpoint_arrays(state, restored, self.optimizer)
         return path
 
     def resume(self, state: dict) -> bool:
@@ -129,10 +143,23 @@ class Recovery:
                 if f.kind == "preempt":
                     self.preempt.request()
             self.drain_events()
+        if self.codec is not None:
+            self._agree_preemption()
         if self.preempt.requested:
-            drain_preemption(self.preempt, state=self.arrays(state),
-                             global_step=step, ckpt=self.ckpt,
-                             metrics=self.metrics, logger=self.log)
+            drain_preemption(
+                self.preempt, global_step=step, ckpt=self.ckpt,
+                state=self.arrays(state) if self.ckpt is not None else None,
+                metrics=self.metrics, logger=self.log)
+
+    def _agree_preemption(self) -> None:
+        """Flag this rank's guard when any rank's is (one all-reduce of
+        the flags over the world), so that every rank drains at this
+        boundary or none does."""
+        flag = torch.tensor([float(self.preempt.requested)],
+                            device=self.mesh.device)
+        if all_reduce_sum(flag, self.mesh).item() and \
+                not self.preempt.requested:
+            self.preempt.request()
 
     @torch.no_grad()
     def snapshot(self, state: dict):

@@ -31,6 +31,16 @@ backward, `augment` shifts (and flips) the rank's rows on the device
 from host draws, and `elastic_width` takes the width-invariant step
 (`parallel/dp.py`, `data/augment.py`, `parallel/elastic.py`).
 
+On a mesh with a 'model' axis, or with `fsdp`, each rank holds blocks of
+the params and steps through `parallel/tp.py` (`ShardedCNN`: tensor
+parallelism, FSDP and both); on a 'pipe' axis it holds its stage and
+steps through `parallel/pp.py` (`Pipeline`, with TP x PP and FSDP x PP),
+`num_microbatches` microbatches a step. Both take the same batches as
+the data mesh (the pipeline's per-batch rows in the reference's
+microbatch order, `pp.microbatch_rows`), evaluate through their own
+forward, and checkpoint the reference's arrays: whole leaves gathered
+from the blocks, or the pipeline's packed stage rows.
+
 As in the JAX trainer, one device and many use the same code path, that
 of a data mesh (`parallel.make_mesh`, one process per rank): the seeded
 init is broadcast from rank 0 (`parallel/dp.replicate`), each step takes
@@ -68,6 +78,7 @@ is added.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 
 import numpy as np
@@ -94,19 +105,18 @@ from ..parallel.dp import (
     all_reduce_sum,
     dp_shard_batch,
     dp_shard_perm,
-    make_dp_eval_step,
     make_dp_scan_epoch,
     make_dp_train_step,
     replicate,
 )
-from ..parallel.mesh import DATA_AXIS, device_mesh
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS, device_mesh
 from ..utils.config import (
     COMPUTE_DTYPES,
     PARAM_DTYPES,
     check_batch_divides,
     check_supported,
     check_train_flags,
-    data_axes,
+    cnn_axes,
 )
 from ..utils.logging import MetricsLogger, get_logger
 from ..utils.profiling import StepTimer, profile_trace
@@ -121,17 +131,21 @@ AUG_SEED_OFFSET = 0x5EED
 
 def make_loss_fn(model, *, backend: str = "torch",
                  compute_dtype: torch.dtype | None = None,
-                 remat: bool = False):
+                 remat: bool = False, apply=None):
     """Softmax-CE loss + the reference's metrics (squared-error total,
     cnn.c:275-282; argmax accuracy, cnn.c:508-513). The metrics are
     computed from detached logits: only the loss is differentiated. With
     a compute_dtype the forward runs in it and the float32 logits feed
     the loss, as in the reference; with remat each layer's forward is
-    recomputed in the backward."""
+    recomputed in the backward. `apply(params, x)` (a sharded rank's
+    forward) replaces the model's own."""
 
     def loss_fn(params, x, y_onehot):
-        logits = model.apply(params, x, backend=backend,
-                             compute_dtype=compute_dtype, remat=remat)
+        if apply is not None:
+            logits = apply(params, x)
+        else:
+            logits = model.apply(params, x, backend=backend,
+                                 compute_dtype=compute_dtype, remat=remat)
         loss = softmax_cross_entropy(logits, y_onehot)
         with torch.no_grad():
             logits = logits.detach()
@@ -172,8 +186,7 @@ class Trainer:
                  preempt: PreemptionGuard | None = None, registry=None,
                  clock=None):
         check_supported(config)
-        if mesh is None and data_axes(config.num_devices,
-                                      config.mesh_shape)[DATA_AXIS] > 1:
+        if mesh is None and math.prod(cnn_axes(config).values()) > 1:
             raise ValueError(
                 f"num_devices={config.num_devices}, mesh_shape="
                 f"{config.mesh_shape!r}: a Trainer is one rank; pass the "
@@ -192,13 +205,18 @@ class Trainer:
         self.mesh = mesh = mesh or device_mesh(self.device)
         n_data = mesh.shape.get(DATA_AXIS, 1)
         check_batch_divides(config.batch_size, n_data)
-        check_train_flags(config, n_data)
+        check_train_flags(config, dict(mesh.shape))
         self.backend = "cuda" if config.use_kernels else "torch"
         self.compute_dtype = COMPUTE_DTYPES[config.compute_dtype]
         self.param_dtype = PARAM_DTYPES[config.param_dtype]
-        self.loss_fn = make_loss_fn(model, backend=self.backend,
-                                    compute_dtype=self.compute_dtype,
-                                    remat=config.remat)
+        self.n_pipe = mesh.shape.get(PIPE_AXIS, 1)
+        self.pp_m = (config.num_microbatches or self.n_pipe
+                     if self.n_pipe > 1 else 1)
+        self.par = self._sharding(model, mesh)
+        self.loss_fn = make_loss_fn(
+            model, backend=self.backend, compute_dtype=self.compute_dtype,
+            remat=config.remat,
+            apply=getattr(self.par, "apply", None))
         # bf16 params, float32 compute (the kernels only): differentiate
         # the float32 copies the kernels take, for the reference's
         # gradient dtypes.
@@ -214,39 +232,106 @@ class Trainer:
             raise ValueError(
                 f"batch_size {config.batch_size} exceeds train set size "
                 f"{self.num_train}: no full batches")
+        # The pipeline clips in its step, with the norm over its ranks,
+        # as the reference's does (its chain then holds no clip).
         self.optimizer = make_optimizer(
             config.lr, momentum=config.momentum, schedule=config.lr_schedule,
             total_steps=self.steps_per_epoch * config.epochs or None,
-            grad_clip=config.grad_clip)
+            grad_clip=0.0 if self.n_pipe > 1 else config.grad_clip)
 
         if params is None:
             params = model.init(prng.key(config.seed),
                                 get_initializer(config.init))
-        self.params = tree_map(
+        params = tree_map(
             lambda t: t.detach().to(self.device, self.param_dtype).clone()
             .requires_grad_(True), params)
-        replicate(self.params, mesh)
+        replicate(params, mesh)
+        augment = make_augment(config.augment, pad=config.aug_pad)
+        aug_seed = config.seed + AUG_SEED_OFFSET
+        if self.par is None:
+            self.state = {"params": params,
+                          "opt_state": self.optimizer.init(
+                              tree_leaves(params)), "step": 0}
+            self._step = make_dp_train_step(
+                self.loss_fn, self.optimizer, mesh, view=self._view,
+                augment=augment, aug_seed=aug_seed,
+                grad_accum=config.grad_accum,
+                elastic_width=config.elastic_width)
+        else:
+            self._template = params
+            self.state = self.par.place(params, self.optimizer)
+            if self.n_pipe > 1:
+                self._step = self.par.make_train_step(
+                    self.optimizer, augment=augment, aug_seed=aug_seed,
+                    grad_clip=config.grad_clip)
+            else:
+                self._step = self.par.make_train_step(
+                    self.loss_fn, self.optimizer, view=self._view,
+                    augment=augment, aug_seed=aug_seed,
+                    grad_accum=config.grad_accum,
+                    grad_clip=config.grad_clip)
+        self.params = self.state["params"]
         self.leaves = tree_leaves(self.params)
-        self.opt_state = self.optimizer.init(self.leaves)
-        self.state = {"params": self.params, "opt_state": self.opt_state,
-                      "step": 0}
-        self._step = make_dp_train_step(
-            self.loss_fn, self.optimizer, mesh, view=self._view,
-            augment=make_augment(config.augment, pad=config.aug_pad),
-            aug_seed=config.seed + AUG_SEED_OFFSET,
-            grad_accum=config.grad_accum, elastic_width=config.elastic_width)
+        self.opt_state = self.state["opt_state"]
         self._scan_epoch = make_dp_scan_epoch(self._step, dataset.num_classes)
-        self._eval_step = make_dp_eval_step(
-            lambda p, x: self.predict(torch.from_numpy(x).to(self.device), p),
-            mesh)
-        self._eval_batch = self._pick_eval_batch(len(self.test_x), n_data)
+        self._eval_batch = self._pick_eval_batch(len(self.test_x),
+                                                 n_data * self.pp_m)
         self._dev_images = None
         self._dev_labels = None
         self._classes = torch.arange(dataset.num_classes, device=self.device)
         self._warned: set[str] = set()
         self.recovery = Recovery(config, mesh, self.optimizer,
                                  metrics=self.metrics, logger=self.log,
-                                 faults=faults, preempt=preempt)
+                                 faults=faults, preempt=preempt,
+                                 codec=self._codec())
+
+    def _sharding(self, model, mesh):
+        """The rank's sharded path (`pp.Pipeline` on a pipe axis,
+        `tp.ShardedCNN` on a model axis or under FSDP over a data axis),
+        or None: the data-parallel path."""
+        cfg = self.cfg
+        n_data = mesh.shape.get(DATA_AXIS, 1)
+        n_model = mesh.shape.get(MODEL_AXIS, 1)
+        if self.n_pipe > 1:
+            from ..parallel.pp import Pipeline, make_pipeline_plan
+
+            self.pp_plan = make_pipeline_plan(
+                model, self.n_pipe, backend=self.backend,
+                compute_dtype=self.compute_dtype, n_model=n_model,
+                remat=cfg.remat, fsdp_degree=n_data if cfg.fsdp else 1)
+            return Pipeline(self.pp_plan, mesh, self.pp_m,
+                            has_data=DATA_AXIS in mesh.shape)
+        if n_model > 1 or (cfg.fsdp and n_data > 1):
+            from ..parallel.tp import ShardedCNN
+
+            return ShardedCNN(model, mesh, fsdp=cfg.fsdp,
+                              backend=self.backend,
+                              compute_dtype=self.compute_dtype,
+                              remat=cfg.remat)
+        return None
+
+    def _codec(self):
+        """(state -> checkpoint arrays, (state, arrays) -> None) of a
+        sharded path: the reference's arrays of the whole state (the
+        pipeline's packed rows), made on every rank from its blocks, and
+        each rank's blocks of a restored file; None on the data path."""
+        if self.par is None:
+            return None
+        opt = self.optimizer
+        if self.n_pipe > 1:
+            return (lambda st: self.par.checkpoint_arrays(st, opt,
+                                                          self._template),
+                    lambda st, arrays: self.par.load_arrays(
+                        st, arrays, opt, self._template))
+        from ..convert import checkpoint_arrays, load_checkpoint_arrays
+
+        def load(st, arrays):
+            full = self.par.full_state(st)    # the whole shapes, refilled
+            load_checkpoint_arrays(full, arrays, opt)
+            self.par.load_full(st, full)
+
+        return (lambda st: checkpoint_arrays(self.par.full_state(st), opt),
+                load)
 
     @property
     def step(self) -> int:
@@ -313,7 +398,28 @@ class Trainer:
         grads, _ = self._step.grads(
             self.state,
             *self._host_batch(self._epoch_order(0)[:self.cfg.batch_size]))
+        if self.par is not None:
+            grads = [t.clone() for t in self.par.full_leaves(grads)]
         return grads
+
+    def full_leaves(self) -> list[torch.Tensor]:
+        """The whole params' leaves, on every rank (on a sharded path one
+        all-gather of the blocks)."""
+        if self.par is None:
+            return self.leaves
+        return self.par.full_leaves(self.leaves)
+
+    def _shard_rows(self, n: int) -> np.ndarray:
+        """The indices of this rank's rows of a batch of n, in the order
+        its step takes them: its data block, or on the pipe axis each
+        microbatch's data block in turn (`pp.microbatch_rows`)."""
+        if self.n_pipe > 1:
+            from ..parallel.pp import microbatch_rows
+
+            return microbatch_rows(n, self.pp_m,
+                                   self.mesh.shape.get(DATA_AXIS, 1),
+                                   self.mesh.index(DATA_AXIS))
+        return dp_shard_batch(np.arange(n), self.mesh)
 
     def _log_train(self, epoch: int, step: int, sums: torch.Tensor,
                    n: int) -> None:
@@ -389,7 +495,8 @@ class Trainer:
                 if f.kind == "nan":
                     x = poison_batch(x, f)
             self.recovery.drain_events()
-        x, y = dp_shard_batch((x, y), self.mesh)
+        mine = self._shard_rows(len(x))
+        x, y = x[mine], y[mine]
         return (torch.from_numpy(np.ascontiguousarray(x)).to(self.device),
                 torch.from_numpy(np.ascontiguousarray(y)).to(self.device))
 
@@ -528,33 +635,43 @@ class Trainer:
             mean_step_ms=1e3 * sum(epoch_seconds) / max(steps, 1))
 
     @torch.no_grad()
-    def predict(self, x: torch.Tensor, params=None) -> torch.Tensor:
-        """Logits of a device batch."""
-        return self.model.apply(self.params if params is None else params, x,
-                                backend=self.backend,
+    def predict(self, x: torch.Tensor, params=None,
+                microbatches: int = 1) -> torch.Tensor:
+        """Logits of a device batch (on a sharded path this rank's
+        forward, the same on every rank; the pipeline's in
+        `microbatches`)."""
+        params = self.params if params is None else params
+        if self.n_pipe > 1:
+            return self.par.forward(params, x, microbatches)
+        if self.par is not None:
+            return self.par.forward(params, x)
+        return self.model.apply(params, x, backend=self.backend,
                                 compute_dtype=self.compute_dtype)
 
     def evaluate(self, params=None) -> tuple[int, int]:
         """Forward argmax sweep over the test set (cnn.c:494-518). The
         tail batch is padded to the eval batch; padding rows are not
         counted. With a mesh each rank predicts its rows of each eval
-        batch and the counts are summed over the ranks (one all-reduce).
+        batch (`_shard_rows`; on the pipe axis in the step's microbatches)
+        and the counts are summed over the data line (one all-reduce).
         Returns (ntests, ncorrect)."""
         params = self.params if params is None else params
         n = len(self.test_x)
         b = self._eval_batch
         ncorrect = 0
+        mine = self._shard_rows(b)
         for start in range(0, n, b):
             chunk = self.test_x[start:start + b]
             valid = len(chunk)
             if valid < b:
                 pad = np.zeros((b - valid, *chunk.shape[1:]), chunk.dtype)
                 chunk = np.concatenate([chunk, pad])
-            logits = self._eval_step(params, chunk)
-            rows = dp_shard_batch(np.arange(start, start + b), self.mesh)
-            mine = int((rows < start + valid).sum())
-            pred = logits[:mine].argmax(-1).cpu().numpy()
-            ncorrect += int((pred == self.test_labels[rows[:mine]]).sum())
+            x = torch.from_numpy(np.ascontiguousarray(chunk[mine]))
+            logits = self.predict(x.to(self.device), params, self.pp_m)
+            keep = mine < valid
+            pred = logits.argmax(-1).cpu().numpy()[keep]
+            ncorrect += int((pred == self.test_labels[start + mine[keep]])
+                            .sum())
         total = torch.tensor([ncorrect], dtype=torch.float64,
                              device=self.device)
-        return n, int(all_reduce_sum(total, self.mesh).item())
+        return n, int(all_reduce_sum(total, self.mesh, DATA_AXIS).item())

@@ -10,12 +10,16 @@ those as flags, with the JAX package's names and defaults.
 kernels instead of PyTorch's own ops (off by default, as there).
 
 The flags of features this port does not have yet stay, so that a run
-asking for one stops at once: `check_supported` (CNN, ROADMAP queue E)
-and `check_lm_supported` (LM, queue F) raise NotImplementedError naming
-the ROADMAP queue entry that will bring it. Of the meshes, the data axis
-is ported (`--num-devices N`, `--mesh-shape data:N`): one rank per
-device, `parallel/dp.py`; for the LM also the seq axis of sequence
-parallelism (`--mesh-shape seq:P` or `data:N,seq:P`, with
+asking for one stops at once: `check_lm_supported` (LM, ROADMAP queue F)
+raises NotImplementedError naming the queue entry that will bring it.
+The CNN's meshes are all ported, one rank per device: the data axis
+(`--num-devices N`, `--mesh-shape data:N`, `parallel/dp.py`), the model
+axis of tensor parallelism and `--fsdp` (`parallel/tp.py`,
+`parallel/fsdp.py`), and the pipe axis of pipeline parallelism with
+`--num-microbatches` (`parallel/pp.py`); an axis of another name holds
+replicas of the data-parallel step, as in the reference's trainer. For
+the LM the data axis and the seq axis of sequence parallelism
+(`--mesh-shape seq:P` or `data:N,seq:P`, with
 `--attn-impl auto|flash|oracle|ring|ring_flash|ulysses`,
 `parallel/sp.py`). Checkpoints, fault plans, the NaN guard and
 the supervisor are ported (`train/checkpoint.py`, `faults.py`); as in
@@ -69,8 +73,12 @@ class Config:
     # Execution.
     device: str = "auto"          # auto (= cuda) | cuda | cpu
     num_devices: int = 0          # 0 = all visible (1 on the CPU); N = DP
-    mesh_shape: str = "data"      # "data" or "data:N" only
-    fsdp: bool = False
+    mesh_shape: str = "data"      # named axes: "data:4", "data:2,model:2",
+                                  # "pipe:2", "pipe:2,data:2", ...
+    num_microbatches: int = 0     # pipeline microbatches per step; 0 =
+                                  # the pipe-axis size (PP only)
+    fsdp: bool = False            # shard params and optimizer state over
+                                  # the data axis (parallel/fsdp.py)
     use_kernels: bool = False     # hand-written CUDA kernels (ops/kernel_ops)
     remat: bool = False           # torch.utils.checkpoint per layer
     grad_accum: int = 1           # micro-batches accumulated per step
@@ -110,12 +118,6 @@ COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 # --param-dtype of the CNN trainer -> the dtype its params are held in.
 PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# (field, value that means "off", ROADMAP queue E item, what it is)
-_REFUSED = (
-    ("fsdp", False, 1, "FSDP"),
-)
-
-
 def parse_mesh_shape(spec: str, total_devices: int) -> dict[str, int]:
     """Parse "data" / "data:4" / "data:4,model:2" into an axis dict.
 
@@ -150,21 +152,34 @@ def parse_mesh_shape(spec: str, total_devices: int) -> dict[str, int]:
 
 def data_axes(num_devices: int, mesh_shape: str, visible: int = 1,
               queue: str = "E",
-              ported: tuple[str, ...] = ("data",)) -> dict[str, int]:
+              ported: tuple[str, ...] | None = ("data",)) -> dict[str, int]:
     """The mesh of `--num-devices` (0: the `visible` devices) and
     `--mesh-shape`: {"data": N} and the other `ported` axes it names, in
-    its order ("data" first, of size 1, when it names none). Raises
-    NotImplementedError naming ROADMAP queue `queue` item 1 for any other
-    axis, ValueError for a bad spec."""
+    its order ("data" first, of size 1, when it names none). `ported`
+    None takes any axis and adds no data axis: the mesh is the spec's,
+    as the reference's trainer builds it. Raises NotImplementedError
+    naming ROADMAP queue `queue` item 1 for an axis not `ported`,
+    ValueError for a bad spec."""
     if num_devices < 0:
         raise ValueError(f"--num-devices {num_devices}: want >= 0")
     axes = parse_mesh_shape(mesh_shape, num_devices or visible)
+    if ported is None:
+        if min(axes.values(), default=0) < 1:
+            raise ValueError(f"mesh_shape={mesh_shape!r}: every axis needs "
+                             "a size >= 1")
+        return axes
     if not set(axes) <= set(ported) or min(axes.values(), default=0) < 1:
         raise NotImplementedError(
             f"mesh_shape={mesh_shape!r}: only the {' and '.join(ported)} "
             f"ax{'es are' if len(ported) > 1 else 'is'} ported (the other "
             f"meshes and FSDP are ROADMAP queue {queue} item 1)")
     return axes if "data" in axes else {"data": 1, **axes}
+
+
+def cnn_axes(cfg: Config, visible: int = 1) -> dict[str, int]:
+    """The CNN trainer's mesh: the axes of `--mesh-shape` as named, over
+    `--num-devices` (0: the `visible` devices)."""
+    return data_axes(cfg.num_devices, cfg.mesh_shape, visible, ported=None)
 
 
 def check_batch_divides(batch_size: int, n_data: int) -> None:
@@ -193,20 +208,59 @@ def check_elastic_and_accum(elastic_width: int, grad_accum: int,
         check_elastic_width(elastic_width, batch_size, n_data)
 
 
-def check_train_flags(cfg: Config, n_data: int) -> None:
-    """The CNN trainer's checks of its flags on a data axis of n_data
-    ranks, as ValueErrors (the reference's `Trainer.__init__` raises the
-    same): the dtypes, the augmentation, --grad-accum and
-    --elastic-width. bf16 params with float32 compute run on the kernels
-    only (the reference's Pallas path computes in float32 against the
-    upcast weights; its XLA path raises a dtype error), and their
-    checkpoints are not written by this port."""
+def check_train_flags(cfg: Config, axes: dict[str, int]) -> None:
+    """The CNN trainer's checks of its flags on a mesh of `axes`, as
+    ValueErrors (the reference's `Trainer.__init__` raises the same,
+    word for word): the dtypes, the augmentation, --grad-accum and
+    --elastic-width, and what the sharded meshes refuse (the elastic
+    width on any of them; on the pipe axis --num-microbatches without
+    it, --grad-accum, bf16 params, FSDP without a data axis and a batch
+    that the microbatches times the data axis do not divide). bf16
+    params with float32 compute run on the kernels only (the reference's
+    Pallas path computes in float32 against the upcast weights; its XLA
+    path raises a dtype error)."""
+    n_data = axes.get("data", 1)
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"--compute-dtype={cfg.compute_dtype!r}: want one "
                          f"of {'|'.join(COMPUTE_DTYPES)}")
     if cfg.param_dtype not in PARAM_DTYPES:
         raise ValueError(f"--param-dtype={cfg.param_dtype!r}: want one "
                          f"of {'|'.join(PARAM_DTYPES)}")
+    from ..data.augment import make_augment
+
+    make_augment(cfg.augment, pad=cfg.aug_pad)
+    n_pipe = axes.get("pipe", 1)
+    if cfg.elastic_width and (axes.get("model", 1) > 1 or n_pipe > 1
+                              or cfg.fsdp):
+        raise ValueError(
+            "--elastic-width needs a pure data-parallel mesh "
+            f"(mesh_shape={cfg.mesh_shape!r}/--fsdp shard params; "
+            "cross-width bitwise resume is only defined for replicated "
+            "state)")
+    check_elastic_and_accum(cfg.elastic_width, cfg.grad_accum,
+                            cfg.batch_size, n_data)
+    if n_pipe == 1 and cfg.num_microbatches:
+        raise ValueError("--num-microbatches requires a 'pipe' mesh axis "
+                         f"(mesh_shape={cfg.mesh_shape!r} has none)")
+    if n_pipe > 1:
+        if cfg.grad_accum > 1:
+            raise ValueError(
+                "--grad-accum is redundant on the pipeline path: "
+                "--num-microbatches already accumulates over micro-batches")
+        if cfg.param_dtype != "float32":
+            raise ValueError(
+                "pipeline parallelism keeps master params in the packed "
+                "f32 stage buffers; use --compute-dtype for low-precision "
+                f"compute (got param_dtype={cfg.param_dtype})")
+        if cfg.fsdp and n_data <= 1:
+            raise ValueError(
+                "FSDP x PP shards the packed stage rows over 'data'; add a "
+                f"data axis of size > 1 (mesh_shape={cfg.mesh_shape!r})")
+        m = cfg.num_microbatches or n_pipe
+        if cfg.batch_size % (m * n_data):
+            raise ValueError(
+                f"batch_size {cfg.batch_size} not divisible by "
+                f"num_microbatches x data-axis ({m} x {n_data})")
     if cfg.param_dtype != "float32":
         if cfg.compute_dtype == "float32" and not cfg.use_kernels:
             raise ValueError(
@@ -215,31 +269,17 @@ def check_train_flags(cfg: Config, n_data: int) -> None:
                 "as the reference's XLA conv, wants one dtype for input "
                 "and weights; add --use-kernels or --compute-dtype "
                 f"{cfg.param_dtype}")
-        if cfg.checkpoint_dir:
-            raise ValueError(
-                f"--param-dtype={cfg.param_dtype} with --checkpoint-dir: "
-                "this port writes float32 checkpoints only")
-    from ..data.augment import make_augment
-
-    make_augment(cfg.augment, pad=cfg.aug_pad)
-    check_elastic_and_accum(cfg.elastic_width, cfg.grad_accum,
-                            cfg.batch_size, n_data)
 
 
-def check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for a feature of the reference's CNN
-    trainer that this port does not have yet (ROADMAP queue E), and
-    ValueError for a batch that the data axis does not divide or a flag
-    that `check_train_flags` refuses."""
-    axes = data_axes(cfg.num_devices, cfg.mesh_shape)
-    for name, off, item, what in _REFUSED:
-        if getattr(cfg, name) != off:
-            flag = "--" + name.replace("_", "-")
-            raise NotImplementedError(
-                f"{flag}={getattr(cfg, name)!r}: {what} is not ported yet "
-                f"(ROADMAP queue E item {item})")
-    check_batch_divides(cfg.batch_size, axes["data"])
-    check_train_flags(cfg, axes["data"])
+def check_supported(cfg: Config) -> dict[str, int]:
+    """The CNN trainer's checks before it builds (every feature of the
+    reference's CNN trainer is ported): ValueError for a bad mesh, a
+    batch that the data axis does not divide or a flag that
+    `check_train_flags` refuses. Returns the mesh's axes (`cnn_axes`)."""
+    axes = cnn_axes(cfg)
+    check_batch_divides(cfg.batch_size, axes.get("data", 1))
+    check_train_flags(cfg, axes)
+    return axes
 
 
 @dataclasses.dataclass

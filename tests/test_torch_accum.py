@@ -38,6 +38,7 @@ from mpi_cuda_cnn_tpu_torch.train.ranks import cnn_rank
 from mpi_cuda_cnn_tpu_torch.train.trainer import Trainer
 from mpi_cuda_cnn_tpu_torch.utils.config import Config, LMConfig
 from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 # As tests/test_torch_train.py: 8 float32 SGD steps from equal params,
 # sums in other orders (here also the micro-batch sums'), about 30 ulp of

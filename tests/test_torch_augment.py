@@ -31,7 +31,10 @@ from mpi_cuda_cnn_tpu_torch.cli import main
 from mpi_cuda_cnn_tpu_torch.convert import params_from_jax
 from mpi_cuda_cnn_tpu_torch.data import prng
 from mpi_cuda_cnn_tpu_torch.data.augment import make_augment, step_keys
-from mpi_cuda_cnn_tpu_torch.data.datasets import synthetic_stripes
+from mpi_cuda_cnn_tpu_torch.data.datasets import (
+    synthetic_stripes,
+    write_synthetic_idx,
+)
 from mpi_cuda_cnn_tpu_torch.data.pipeline import normalize_images
 from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
 from mpi_cuda_cnn_tpu_torch.models.presets import get_model
@@ -40,6 +43,7 @@ from mpi_cuda_cnn_tpu_torch.train.ranks import cnn_rank
 from mpi_cuda_cnn_tpu_torch.train.trainer import AUG_SEED_OFFSET, Trainer
 from mpi_cuda_cnn_tpu_torch.utils.config import Config
 from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 PARAM_ATOL = 1e-6      # tests/test_torch_train.py's 8-step bound
 LOSS_RTOL = 1e-5
@@ -216,9 +220,12 @@ def test_step_batches_are_the_host_draws_applied_on_the_host():
         np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_cli_augment_runs_and_refuses_a_bad_spec():
-    assert main(["train", "--device", "cpu", "--epochs", "1", "--augment",
-                 "shift", "--aug-pad", "1"]) == 0
+def test_cli_augment_runs_and_refuses_a_bad_spec(tmp_path):
+    """On the reference's four IDX paths of a 128-image set."""
+    paths = write_synthetic_idx(tmp_path, synthetic_stripes(128, 64))
+    assert main(["train", *map(str, paths.values()), "--device", "cpu",
+                 "--epochs", "1", "--augment", "shift", "--aug-pad",
+                 "1"]) == 0
     assert main(["train", "--device", "cpu", "--epochs", "1", "--augment",
                  "rotate"]) == 2
     assert main(["train", "--device", "cpu", "--epochs", "1", "--augment",

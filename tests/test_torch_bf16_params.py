@@ -30,12 +30,16 @@ from mpi_cuda_cnn_tpu.utils.config import Config as JaxConfig
 from mpi_cuda_cnn_tpu.utils.logging import MetricsLogger as JaxMetrics
 from mpi_cuda_cnn_tpu_torch.cli import main
 from mpi_cuda_cnn_tpu_torch.convert import params_from_jax
-from mpi_cuda_cnn_tpu_torch.data.datasets import synthetic_stripes
+from mpi_cuda_cnn_tpu_torch.data.datasets import (
+    synthetic_stripes,
+    write_synthetic_idx,
+)
 from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
 from mpi_cuda_cnn_tpu_torch.models.presets import get_model
 from mpi_cuda_cnn_tpu_torch.train.trainer import Trainer
 from mpi_cuda_cnn_tpu_torch.utils.config import Config
 from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 # Float32 compute: 0 measured for every gradient, up to 3.2e-3 for a
 # param after the step (the update's rounding to bf16). bf16 compute: the
@@ -79,7 +83,8 @@ def jax_steps():
         init = jax.device_get(tr.state["params"])
         x = jnp.asarray(tr.train_x[tr._epoch_order(0)])
         y = jnp.asarray(tr.train_y[tr._epoch_order(0)])
-        g = jax.grad(lambda p: tr.loss_fn(p, x, y)[0])(tr.state["params"])
+        g = jax.jit(jax.grad(lambda p: tr.loss_fn(p, x, y)[0]))(
+            tr.state["params"])
         tr.run_epoch(0)
         out[name] = {
             "init": jax.tree.map(lambda a: np.asarray(a, np.float32), init),
@@ -168,17 +173,43 @@ def test_float32_compute_on_torch_ops_is_refused_as_jax_raises(jax_steps):
 @pytest.mark.parametrize("argv", [
     ["--param-dtype", "bfloat16"],
     ["--param-dtype", "float16"],
-    ["--param-dtype", "bfloat16", "--use-kernels", "--checkpoint-dir", "ck"]],
+    ["--param-dtype", "bfloat16", "--use-kernels", "--checkpoint-dir", "ck",
+     "--mesh-shape", "pipe:2"]],
     ids=["torch_f32", "float16", "checkpoint"])
 def test_refused_param_dtypes_exit_2(argv, tmp_path, monkeypatch):
+    """bf16 params in float32 compute off the kernels, a dtype the
+    reference lacks, and bf16 params on the pipe axis (whose packed stage
+    rows are float32 in the reference): exit 2, no checkpoint written.
+    bf16 params with --checkpoint-dir on the other meshes are written
+    and resumed (test_bf16_params_checkpoint_and_resume_through_the_command)."""
     monkeypatch.chdir(tmp_path)
     assert main(["train", "--device", "cpu", "--epochs", "1", *argv]) == 2
     assert not (tmp_path / "ck").exists()
 
 
+def _idx_args(tmp_path) -> list[str]:
+    """The reference's four IDX paths of a 128-image set (an epoch of 4
+    steps)."""
+    paths = write_synthetic_idx(tmp_path, synthetic_stripes(128, 64))
+    return [str(p) for p in paths.values()]
+
+
 @pytest.mark.parametrize("argv", [
     ["--compute-dtype", "bfloat16"], ["--use-kernels"],
     ["--use-kernels", "--compute-dtype", "bfloat16"]])
-def test_bf16_params_train_through_the_command(argv):
-    assert main(["train", "--device", "cpu", "--epochs", "1",
-                 "--param-dtype", "bfloat16", *argv]) == 0
+def test_bf16_params_train_through_the_command(argv, tmp_path):
+    assert main(["train", *_idx_args(tmp_path), "--device", "cpu",
+                 "--epochs", "1", "--param-dtype", "bfloat16", *argv]) == 0
+
+
+def test_bf16_params_checkpoint_and_resume_through_the_command(tmp_path):
+    """bf16 params with --checkpoint-dir: the command writes the bf16
+    leaves as `|V2` and resumes its own file for a second epoch."""
+    argv = ["train", *_idx_args(tmp_path), "--device", "cpu",
+            "--param-dtype", "bfloat16", "--compute-dtype", "bfloat16",
+            "--checkpoint-dir", str(tmp_path / "ck"), "--log-every", "0"]
+    assert main([*argv, "--epochs", "1"]) == 0
+    with np.load(tmp_path / "ck" / "ckpt_4.npz") as f:
+        assert f["params/0/w"].dtype == np.dtype("V2")
+    assert main([*argv, "--epochs", "2", "--resume"]) == 0
+    assert (tmp_path / "ck" / "ckpt_8.npz").exists()

@@ -26,13 +26,17 @@ from mpi_cuda_cnn_tpu.utils.config import Config as JaxConfig
 from mpi_cuda_cnn_tpu.utils.logging import MetricsLogger as JaxMetrics
 from mpi_cuda_cnn_tpu_torch.cli import main
 from mpi_cuda_cnn_tpu_torch.convert import params_from_jax
-from mpi_cuda_cnn_tpu_torch.data.datasets import synthetic_stripes
+from mpi_cuda_cnn_tpu_torch.data.datasets import (
+    synthetic_stripes,
+    write_synthetic_idx,
+)
 from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
 from mpi_cuda_cnn_tpu_torch.models.presets import get_model
 from mpi_cuda_cnn_tpu_torch.ops import _kernels, kernel_ops
 from mpi_cuda_cnn_tpu_torch.train.trainer import Trainer
 from mpi_cuda_cnn_tpu_torch.utils.config import Config, check_supported
 from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 # One op in bf16, output and gradients: relative L2 against the JAX
 # package's Pallas op. 3.7e-3 measured at the stride-2 convs (the phase
@@ -198,8 +202,11 @@ def test_check_supported_keeps_refusing_the_rest_of_item_4():
 
 @pytest.mark.parametrize("extra", [[], ["--use-kernels"]],
                          ids=["torch", "cuda"])
-def test_cli_trains_in_bf16_on_the_cpu(extra, no_launch):
-    base = ["train", "--device", "cpu", "--dataset", "synthetic", "--epochs",
-            "1", "--log-every", "0"]
+def test_cli_trains_in_bf16_on_the_cpu(extra, no_launch, tmp_path):
+    """The command in bf16 compute, on the reference's four IDX paths of
+    a 128-image set (an epoch of 4 steps and an eval)."""
+    paths = write_synthetic_idx(tmp_path, synthetic_stripes(128, 64))
+    base = ["train", *map(str, paths.values()), "--device", "cpu",
+            "--epochs", "1", "--log-every", "0"]
     assert main(base + ["--compute-dtype", "bfloat16"] + extra) == 0
     assert main(base + ["--compute-dtype", "float16"]) == 2

@@ -60,6 +60,7 @@ from mpi_cuda_cnn_tpu_torch.train.optimizer import make_optimizer
 from mpi_cuda_cnn_tpu_torch.train.trainer import Trainer
 from mpi_cuda_cnn_tpu_torch.utils.config import Config, LMConfig
 from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 # Across packages (tests/test_torch_dp.py): float32 steps from equal
 # params, sums in other orders.
@@ -509,3 +510,80 @@ def test_a_port_lm_checkpoint_resumes_in_jax(tmp_path, jax_lm_full):
                                rtol=LOSS_RTOL)
     np.testing.assert_allclose(res.eval_loss, jres.eval_loss, rtol=LOSS_RTOL)
     _close_lm_state(jax.tree.leaves(jax.device_get(jt.state)), want)
+
+
+# ---------------------------------------------------------------------------
+# bf16 params (ROADMAP queue A item 2)
+# ---------------------------------------------------------------------------
+
+
+def _bf16_trainers(ck):
+    """The JAX and the port's reference_cnn trainers with bf16 params and
+    momentum (bf16 compute), checkpointing into `ck`, from one init."""
+    cfg = dict(epochs=1, batch_size=32, momentum=0.9, log_every=0,
+               eval_every=0, param_dtype="bfloat16", compute_dtype="bfloat16",
+               checkpoint_dir=str(ck))
+    jt = JaxTrainer(jax_get_model("reference_cnn"), jax_stripes(64, 16),
+                    JaxConfig(num_devices=1, scan=False, **cfg),
+                    metrics=JaxMetrics(echo=False))
+    init = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                        jax.device_get(jt.state["params"]))
+    pt = Trainer(get_model("reference_cnn"), synthetic_stripes(64, 16),
+                 Config(device="cpu", resume=True, **cfg),
+                 metrics=MetricsLogger(echo=False),
+                 params=params_from_jax(init))
+    return jt, pt
+
+
+def _bits(t) -> np.ndarray:
+    return t.detach().view(torch.int16).numpy()
+
+
+def test_bf16_leaves_are_the_jax_packages_bytes_and_resume_bitwise(
+        tmp_path):
+    """The port writes a bf16 leaf as `|V2`, the manifest's checksum the
+    JAX package's `_checksum` of the live bf16 array, and a trainer
+    resumes its own file bit for bit."""
+    jt, pt = _bf16_trainers(tmp_path / "ck")
+    pt.run_epoch(0)
+    pt.recovery.finish(pt.state)
+    pt.recovery.close()
+    with np.load(tmp_path / "ck" / "ckpt_2.npz") as f:
+        assert f["params/0/w"].dtype == np.dtype("V2")
+        assert f["opt_state/0/.trace/2/w"].dtype == np.dtype("V2")
+    sums = json.loads((tmp_path / "ck" / "manifest.json").read_text())[
+        "checksums"]["ckpt_2.npz"]
+    w = jnp.asarray(pt.params[2]["w"].detach().float().numpy(), jnp.bfloat16)
+    assert sums["params/2/w"] == jax_ckpt._checksum(np.asarray(w))
+    _, again = _bf16_trainers(tmp_path / "ck")
+    assert again.recovery.resume(again.state) and again.step == 2
+    for a, b in zip(again.leaves + again.opt_state["trace"],
+                    pt.leaves + pt.opt_state["trace"], strict=True):
+        assert a.dtype == torch.bfloat16
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+
+
+def test_a_jax_bf16_checkpoint_resumes_in_the_port_bitwise(tmp_path):
+    """The JAX trainer's bf16 state after a step, written by the JAX
+    package: the port restores every leaf's bits."""
+    jt, _ = _bf16_trainers(tmp_path / "ck")
+    jt.run_epoch(0)
+    jax_ckpt.save_checkpoint(tmp_path / "ck", jt.state, 2)
+    _, pt = _bf16_trainers(tmp_path / "ck")
+    assert pt.recovery.resume(pt.state) and pt.step == 2
+    want = jax.tree.leaves(jax.device_get(jt.state["params"]))
+    want += jax.tree.leaves(jax.device_get(jt.state["opt_state"]))
+    got = pt.leaves + pt.opt_state["trace"]
+    for a, b in zip(got, [w for w in want if np.ndim(w)], strict=True):
+        np.testing.assert_array_equal(_bits(a), np.asarray(b).view(np.int16))
+
+
+def test_the_jax_package_cannot_restore_its_own_bf16_checkpoint(tmp_path):
+    """A reference caveat (ROADMAP C), pinned: the JAX package's checksum
+    is taken over "bfloat16:(shape)" at save and over "|V2:(shape)" at
+    restore, so its restore of its own bf16 file raises."""
+    state = {"w": jnp.arange(3, dtype=jnp.bfloat16)}
+    jax_ckpt.save_checkpoint(tmp_path, state, 1)
+    with pytest.raises(jax_ckpt.CheckpointCorruptError, match="corrupt"):
+        jax_ckpt.restore_checkpoint(tmp_path / "ckpt_1.npz", state)
+    assert jax_ckpt.restore_latest(tmp_path, state) == (None, None)

@@ -36,6 +36,7 @@ from mpi_cuda_cnn_tpu_torch.ops import _kernels, activations, conv, losses
 from mpi_cuda_cnn_tpu_torch.ops import dense as tdense
 from mpi_cuda_cnn_tpu_torch.ops import kernel_ops
 from mpi_cuda_cnn_tpu_torch.train.trainer import Trainer
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 # Forward sums of up to 1,568 float32 products, and their gradients:
 # a few ulp of the largest term, relative to the output's magnitude.

@@ -39,6 +39,7 @@ from mpi_cuda_cnn_tpu_torch.models.initializers import get_initializer
 from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
 from mpi_cuda_cnn_tpu_torch.models.presets import MODEL_PRESETS, get_model
 from mpi_cuda_cnn_tpu_torch.ops import kernel_ops
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 SMEM_LIMIT = 227 * 1024
 GRID_X_MAX, GRID_Y_MAX = 2 ** 31 - 1, 65535

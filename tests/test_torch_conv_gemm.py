@@ -29,6 +29,7 @@ from mpi_cuda_cnn_tpu_torch.bench import conv_shapes
 from mpi_cuda_cnn_tpu_torch.cli import main
 from mpi_cuda_cnn_tpu_torch.ops import _kernels, conv, kernel_ops
 from mpi_cuda_cnn_tpu_torch.utils.sync import two_point_ms
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 TOL = 1e-5
 BF16_REL_L2 = 1e-2

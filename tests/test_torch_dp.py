@@ -16,6 +16,7 @@ One world-2 and one world-4 run per module are shared by a fixture.
 
 import dataclasses
 import logging
+import math
 import re
 
 import jax
@@ -56,6 +57,7 @@ from mpi_cuda_cnn_tpu_torch.utils.config import (
     parse_mesh_shape,
 )
 from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger, get_logger
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 # As tests/test_torch_train.py: 8 float32 SGD steps from equal params,
 # sums in other orders (here also the all-reduce's), about 30 ulp of the
@@ -416,8 +418,25 @@ def test_more_ranks_than_cards_exits_2_with_make_mesh_message(one_gpu,
     (dict(mesh_shape="seq:2"), 1), (dict(fsdp=True, num_devices=2), 1),
     (dict(elastic_width=4, mesh_shape="data:2,model:2"), 1)])
 def test_what_the_data_mesh_still_refuses(kw, item):
-    with pytest.raises(NotImplementedError, match=f"queue E item {item}"):
-        check_supported(_cfg(**kw))
+    """What the data mesh refused until queue E item `item` landed: the
+    meshes and FSDP now pass the checks wherever the JAX trainer builds,
+    and --elastic-width on a sharded mesh raises its ValueError in its
+    words."""
+    axes = parse_mesh_shape(kw.get("mesh_shape", "data"),
+                            kw.get("num_devices", 1))
+    jax_kw = {"batch_size": BATCH, "num_devices": math.prod(axes.values()),
+              **kw}
+    if "elastic_width" in kw:
+        with pytest.raises(ValueError) as want:
+            JaxTrainer(JAX_PRESETS["reference_cnn"](), jax_stripes(64, 8),
+                       JaxConfig(**jax_kw), metrics=JaxMetrics(echo=False))
+        with pytest.raises(ValueError) as got:
+            check_supported(_cfg(**kw))
+        assert str(got.value) == str(want.value)
+        return
+    JaxTrainer(JAX_PRESETS["reference_cnn"](), jax_stripes(64, 8),
+               JaxConfig(**jax_kw), metrics=JaxMetrics(echo=False))
+    assert check_supported(_cfg(**kw)) == axes
 
 
 def test_replicate_is_one_broadcast_from_rank_zero(tmp_path):

@@ -42,10 +42,11 @@ from mpi_cuda_cnn_tpu_torch.parallel.elastic import (
     tree_allreduce,
 )
 from mpi_cuda_cnn_tpu_torch.train.lm_trainer import LMTrainer
-from mpi_cuda_cnn_tpu_torch.train.ranks import cnn_rank, lm_rank
+from mpi_cuda_cnn_tpu_torch.train.ranks import cnn_rank, cnn_rank_each, lm_rank
 from mpi_cuda_cnn_tpu_torch.train.trainer import Trainer
 from mpi_cuda_cnn_tpu_torch.utils.config import Config, LMConfig
 from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 PARAM_ATOL = 1e-6      # tests/test_torch_train.py's 8-step bound
 # With --augment, zero-filled borders put conv pre-activations within
@@ -165,15 +166,20 @@ def jax_elastic():
 def port_worlds(jax_elastic):
     """The port's elastic run at worlds 1, 2 and 4 on spawned ranks, on
     the device-resident route (and the per-batch one at world 2), plain
-    and augmented, from the JAX init."""
-    out = {}
+    and augmented, from the JAX init: one spawn of the ranks a world."""
+    runs = {1: [], 2: [], 4: []}
     for name in ("plain", "augment"):
         init = params_from_jax(jax_elastic[name]["init"])
         aug = "shift" if name == "augment" else "none"
         for w, scan in ((1, True), (2, True), (4, True), (2, False)):
-            out[name, w, scan] = run_ranks(
-                cnn_rank, w, args=(_cfg(augment=aug, scan=scan), DATA, init),
-                timeout=RANKS_TIMEOUT_S)
+            runs[w].append(((name, w, scan), (
+                _cfg(augment=aug, scan=scan), DATA, init, {})))
+    out = {}
+    for w, keyed in runs.items():
+        ranks = run_ranks(cnn_rank_each, w, args=([r for _, r in keyed],),
+                          timeout=RANKS_TIMEOUT_S)
+        for i, (key, _) in enumerate(keyed):
+            out[key] = [r[i] for r in ranks]
     return out
 
 

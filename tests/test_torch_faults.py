@@ -13,6 +13,7 @@ against the JAX package's on the same plan holds params within
 PARAM_ATOL, as tests/test_torch_train.py does for 8 plain steps.
 """
 
+import dataclasses
 import logging
 
 import jax
@@ -48,12 +49,14 @@ from mpi_cuda_cnn_tpu_torch.faults import (
 )
 from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
 from mpi_cuda_cnn_tpu_torch.models.presets import get_model
+from mpi_cuda_cnn_tpu_torch.parallel.distributed import run_ranks
 from mpi_cuda_cnn_tpu_torch.train.checkpoint import latest_checkpoint
 from mpi_cuda_cnn_tpu_torch.train.lm_trainer import LMTrainer
 from mpi_cuda_cnn_tpu_torch.train.ranks import cnn_rank, lm_rank
 from mpi_cuda_cnn_tpu_torch.train.trainer import Trainer
 from mpi_cuda_cnn_tpu_torch.utils.config import Config, LMConfig
 from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger, get_logger
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 # The port against the JAX trainer: 8 float32 SGD steps from equal
 # params, sums in other orders (tests/test_torch_train.py).
@@ -392,6 +395,38 @@ def test_preemption_without_a_checkpoint_dir_exits_1(tmp_path):
     assert main(["train", "--dataset", "synthetic", "--device", "cpu",
                  "--epochs", "1", "--fault-plan", "preempt@train.step:2",
                  "--checkpoint-dir", str(tmp_path / "ck")]) == EXIT_PREEMPTED
+
+
+def _preempt_rank_one(mesh, cfg, data, ck):
+    """On this rank of a sharded mesh: the run with a preempt planned on
+    rank 1 alone (what a signal that reaches one rank does to its
+    guard), its resume, and the run without a cut."""
+    cut = dataclasses.replace(cfg, checkpoint_dir=ck, fault_plan=(
+        "preempt@train.step:5" if mesh.rank == 1 else None))
+    return (cnn_rank(mesh, cut, data),
+            cnn_rank(mesh, dataclasses.replace(cfg, checkpoint_dir=ck,
+                                               resume=True), data),
+            cnn_rank(mesh, cfg, data))
+
+
+def test_a_preemption_on_one_rank_drains_every_rank_of_a_sharded_mesh(
+        tmp_path):
+    """pipe:2, whose checkpoint is gathered over the world: rank 1's
+    guard alone is flagged at step 5, the ranks agree at that boundary,
+    both exit 75 with ckpt_5 written, and the resume ends bit for bit
+    where the uninterrupted run ends, on both ranks."""
+    data = dict(num_train=64, num_test=32)
+    ranks = run_ranks(_preempt_rank_one, 2, axes={"pipe": 2}, args=(
+        _cfg(mesh_shape="pipe:2", scan=False), data, str(tmp_path / "ck")),
+        timeout=300)
+    assert (tmp_path / "ck" / "ckpt_5.npz").exists()
+    for cut, resumed, full in ranks:
+        assert cut["exit"] == EXIT_PREEMPTED
+        assert {"event": "ckpt", "step": 5, "reason": "preempt"} \
+            in cut["records"]
+        assert resumed["exit"] == 0 and resumed["step"] == full["step"] == 8
+        for a, b in zip(resumed["params"], full["params"], strict=True):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_preemption_guard_answers_sigterm():

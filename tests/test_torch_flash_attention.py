@@ -20,6 +20,7 @@ from mpi_cuda_cnn_tpu_torch.ops import _kernels
 from mpi_cuda_cnn_tpu_torch.ops import flash_attention as fa
 from mpi_cuda_cnn_tpu_torch.ops.attention import attention, blockwise_attention
 from mpi_cuda_cnn_tpu_torch.ops.losses import chunked_ce_mean
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 # float32: both sides are float32 math over at most 256 keys in other
 # orders (the JAX kernel's online softmax, the port's full-matrix plain

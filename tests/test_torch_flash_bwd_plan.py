@@ -38,6 +38,7 @@ from mpi_cuda_cnn_tpu_torch.ops._kernels import CSRC
 from mpi_cuda_cnn_tpu_torch.ops import flash_attention as fa
 from mpi_cuda_cnn_tpu_torch.train import lm_bench
 from mpi_cuda_cnn_tpu_torch.utils.config import parse_lm_args
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 SMEM_LIMIT = 227 * 1024            # a block's shared memory on the H100
 GRID_X_MAX, GRID_Y_MAX = 2 ** 31 - 1, 65535

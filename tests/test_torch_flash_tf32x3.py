@@ -50,6 +50,7 @@ import torch
 import chip_smoke
 import mpi_cuda_cnn_tpu.ops.pallas_attention as jfa
 from mpi_cuda_cnn_tpu_torch.ops import flash_attention as fa
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 NEG_INF = np.float32(-1e30)   # the kernels' masked logit
 LANES = np.arange(32)

@@ -31,6 +31,7 @@ from mpi_cuda_cnn_tpu_torch.models.transformer import TransformerLM
 from mpi_cuda_cnn_tpu_torch.serve import fleet
 from mpi_cuda_cnn_tpu_torch.serve.bench import fleet_bench_main
 from mpi_cuda_cnn_tpu_torch.serve.engine import PagedEngine
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 CFG = dict(vocab=13, dim=32, heads=4, depth=2, max_seq=48)
 GQA = dict(CFG, kv_heads=2)

@@ -29,6 +29,7 @@ from mpi_cuda_cnn_tpu_torch.faults import FaultInjector
 from mpi_cuda_cnn_tpu_torch.serve import autoscale, fleet
 from mpi_cuda_cnn_tpu_torch.serve.bench import fleet_bench_main
 from mpi_cuda_cnn_tpu_torch.serve.scheduler import SLOPolicy
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 REPO = Path(__file__).resolve().parents[1]
 VOCAB = 97

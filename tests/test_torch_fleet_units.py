@@ -31,6 +31,7 @@ from mpi_cuda_cnn_tpu_torch.serve import autoscale, handoff, router, transport
 from mpi_cuda_cnn_tpu_torch.serve.bench import diurnal_warp, make_workload
 from mpi_cuda_cnn_tpu_torch.serve.fleet import make_fleet_workload
 from mpi_cuda_cnn_tpu_torch.serve.scheduler import Request
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 
 def _outcome(fn, *args, **kw):

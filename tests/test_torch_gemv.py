@@ -34,6 +34,7 @@ from mpi_cuda_cnn_tpu_torch.ops.gemv import (
     quantize_decode_params,
     quantize_weight,
 )
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 RTOL_OF_MAX = 1e-5
 SHAPES = [(32, 32), (32, 16), (32, 128), (128, 32), (32, 64), (24, 40)]

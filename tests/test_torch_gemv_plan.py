@@ -41,6 +41,7 @@ from mpi_cuda_cnn_tpu.ops.pallas_gemv import (
 )
 from mpi_cuda_cnn_tpu_torch.ops import gemv
 from mpi_cuda_cnn_tpu_torch.ops.gemv import int8_gemv_plain, quantize_weight
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 RTOL_OF_MAX = 1e-5
 ALIGNED = 0x7F0000000100

@@ -35,6 +35,7 @@ from mpi_cuda_cnn_tpu_torch.serve.bench import make_workload
 from mpi_cuda_cnn_tpu_torch.serve.engine import PagedEngine
 from mpi_cuda_cnn_tpu_torch.train.lm_trainer import LMTrainer
 from mpi_cuda_cnn_tpu_torch.utils.config import LMConfig
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 TIE_GAP = 1e-5
 KW = dict(vocab=64, dim=32, heads=4, depth=2, max_seq=64)

@@ -34,6 +34,7 @@ from mpi_cuda_cnn_tpu_torch.train.lm_trainer import LMTrainer
 from mpi_cuda_cnn_tpu_torch.train.trainer import Trainer
 from mpi_cuda_cnn_tpu_torch.utils.config import Config, LMConfig
 from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 ULP_MAX = 4          # float32 ulp per element, every init
 BITWISE_MIN = 0.99   # share of prng.normal's draws equal bit for bit

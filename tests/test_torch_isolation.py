@@ -15,6 +15,7 @@ from mpi_cuda_cnn_tpu_torch.data import prng
 from mpi_cuda_cnn_tpu_torch.models.transformer import TransformerLM
 from mpi_cuda_cnn_tpu_torch.serve.bench import serve_bench, serve_bench_main
 from mpi_cuda_cnn_tpu_torch.serve.engine import PagedEngine
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -47,6 +47,7 @@ from mpi_cuda_cnn_tpu_torch.train.lm_trainer import LMTrainer, load_corpus
 from mpi_cuda_cnn_tpu_torch.train.optimizer import make_optimizer
 from mpi_cuda_cnn_tpu_torch.utils.config import _LM_REFUSED, LMConfig, parse_lm_args
 from mpi_cuda_cnn_tpu_torch.utils.logging import get_logger
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 # One forward from equal params. float32: sums in other orders, about
 # 1e-6 of the logits (measured 1.9e-6 of 3.4); the erf form of gelu is

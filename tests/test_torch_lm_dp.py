@@ -23,6 +23,7 @@ from mpi_cuda_cnn_tpu_torch.parallel.mesh import Mesh
 from mpi_cuda_cnn_tpu_torch.train.lm_trainer import LMTrainer
 from mpi_cuda_cnn_tpu_torch.train.ranks import lm_rank
 from mpi_cuda_cnn_tpu_torch.utils.config import LMConfig, check_lm_supported
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 LOSS_RTOL = 1e-5       # tests/test_torch_lm.py's trainer parity
 W = 2

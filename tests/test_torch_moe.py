@@ -36,6 +36,7 @@ from mpi_cuda_cnn_tpu_torch.train.lm_bench import lm_bench
 from mpi_cuda_cnn_tpu_torch.train.lm_trainer import LMTrainer
 from mpi_cuda_cnn_tpu_torch.utils.config import LMConfig
 from mpi_cuda_cnn_tpu_torch.utils.logging import get_logger
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 # float32 values from the same inputs: sums in other orders (measured
 # up to 5e-7 on outputs of order 1).

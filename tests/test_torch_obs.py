@@ -51,6 +51,7 @@ from mpi_cuda_cnn_tpu_torch.train.trainer import Trainer
 from mpi_cuda_cnn_tpu_torch.utils.config import Config, LMConfig
 from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
 from mpi_cuda_cnn_tpu_torch.utils.profiling import StepTimer, profile_trace
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 LOSS_RTOL = 1e-5
 N_TRAIN, N_TEST, BATCH = 256, 64, 32

@@ -29,6 +29,7 @@ from mpi_cuda_cnn_tpu.serve.paged_cache import (
 from mpi_cuda_cnn_tpu_torch.ops import _kernels
 from mpi_cuda_cnn_tpu_torch.ops.paged_attention import paged_attend
 from mpi_cuda_cnn_tpu_torch.serve.paged_cache import paged_update_attend
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 ATOL = {"float32": 1e-5, "int8": 1e-5, "bfloat16": 1e-2}
 HEADS = 4

@@ -43,6 +43,7 @@ from mpi_cuda_cnn_tpu.ops.pallas_paged_attention import (
 from mpi_cuda_cnn_tpu_torch.ops.paged_attention import paged_attention_plan
 from mpi_cuda_cnn_tpu_torch.serve import bench as serve_bench
 from mpi_cuda_cnn_tpu_torch.serve.pool import pages_for
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 SMEM_LIMIT = 227 * 1024
 GRID_MAX = 2 ** 31 - 1

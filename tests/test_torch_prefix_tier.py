@@ -26,6 +26,7 @@ from mpi_cuda_cnn_tpu_torch.models.transformer import TransformerLM
 from mpi_cuda_cnn_tpu_torch.serve import host_tier
 from mpi_cuda_cnn_tpu_torch.serve.bench import make_workload
 from mpi_cuda_cnn_tpu_torch.serve.engine import PagedEngine
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 CFG = dict(vocab=64, dim=32, heads=4, depth=2, max_seq=64, kv_heads=2)
 WORKLOAD = dict(n=12, vocab=64, prompt_min=10, prompt_max=32, out_min=2,

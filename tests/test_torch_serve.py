@@ -35,6 +35,7 @@ from mpi_cuda_cnn_tpu_torch.serve.paged_cache import (
     init_paged_cache,
     paged_forward,
 )
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 LOGIT_ATOL = 1e-4
 CFG = dict(vocab=64, dim=32, heads=4, depth=2, max_seq=64)

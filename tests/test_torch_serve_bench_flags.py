@@ -16,6 +16,7 @@ import pytest
 from mpi_cuda_cnn_tpu.serve import bench as jax_bench
 from mpi_cuda_cnn_tpu_torch.obs.schema import load_records, validate_record
 from mpi_cuda_cnn_tpu_torch.serve import bench
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 BASE = dict(n=16, vocab=64, prompt_min=4, prompt_max=40, out_min=2,
             out_max=20, rate=30.0)

@@ -33,6 +33,7 @@ from mpi_cuda_cnn_tpu_torch.obs.schema import load_records, validate_record
 from mpi_cuda_cnn_tpu_torch.serve.bench import make_workload
 from mpi_cuda_cnn_tpu_torch.serve.engine import PagedEngine
 from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 CFG = dict(vocab=64, dim=32, heads=4, depth=2, max_seq=64, kv_heads=2)
 KW = dict(slots=3, num_pages=14, page_size=4, prefill_chunk=8, max_len=40)

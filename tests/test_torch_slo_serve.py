@@ -34,6 +34,7 @@ from mpi_cuda_cnn_tpu_torch.serve import scheduler as torch_sched
 from mpi_cuda_cnn_tpu_torch.serve.bench import make_workload
 from mpi_cuda_cnn_tpu_torch.serve.engine import PagedEngine
 from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 CFG = dict(vocab=64, dim=32, heads=4, depth=2, max_seq=64, kv_heads=2)
 SPEC = {

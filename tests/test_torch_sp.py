@@ -29,6 +29,7 @@ from mpi_cuda_cnn_tpu_torch.parallel import sp
 from mpi_cuda_cnn_tpu_torch.parallel.distributed import run_ranks
 from mpi_cuda_cnn_tpu_torch.parallel.mesh import Mesh
 from mpi_cuda_cnn_tpu_torch.train.lm import pick_attn_impl
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4

@@ -26,6 +26,7 @@ from mpi_cuda_cnn_tpu_torch.train.lm_trainer import LMTrainer, pick_ring_impl
 from mpi_cuda_cnn_tpu_torch.train.ranks import lm_rank
 from mpi_cuda_cnn_tpu_torch.utils.config import LMConfig, check_lm_supported
 from mpi_cuda_cnn_tpu_torch.utils.logging import get_logger
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 LOSS_TOL = 1e-5
 PARAM_REL_L2 = 1e-5

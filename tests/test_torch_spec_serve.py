@@ -31,6 +31,7 @@ from mpi_cuda_cnn_tpu_torch.serve import spec
 from mpi_cuda_cnn_tpu_torch.serve.bench import make_workload
 from mpi_cuda_cnn_tpu_torch.serve.engine import PagedEngine
 from mpi_cuda_cnn_tpu_torch.serve.pool import pages_for
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 CFG = dict(vocab=64, dim=32, heads=4, depth=2, max_seq=64, kv_heads=2)
 DRAFT_CFG = dict(CFG, dim=16, depth=1)

@@ -28,6 +28,7 @@ from mpi_cuda_cnn_tpu_torch.train.ranks import cnn_rank
 from mpi_cuda_cnn_tpu_torch.train.trainer import Trainer
 from mpi_cuda_cnn_tpu_torch.utils.config import Config
 from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 # Spawning 2 CPU ranks takes a few seconds; 8 steps a run well under one.
 RANKS_TIMEOUT_S = 240

@@ -16,6 +16,7 @@ while those two and the port agree within 1e-7.
 """
 
 import logging
+import math
 import re
 
 import jax
@@ -46,8 +47,9 @@ from mpi_cuda_cnn_tpu_torch.ops import _kernels
 from mpi_cuda_cnn_tpu_torch.train.bench import train_bench, train_bench_main
 from mpi_cuda_cnn_tpu_torch.train.optimizer import make_optimizer
 from mpi_cuda_cnn_tpu_torch.train.trainer import Trainer
-from mpi_cuda_cnn_tpu_torch.utils.config import _REFUSED, Config, parse_args
+from mpi_cuda_cnn_tpu_torch.utils.config import Config, check_supported, parse_args
 from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
+import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
 # 8 float32 SGD steps from equal params, sums in other orders: about 30
 # ulp of the largest params (|w| <= 0.5); 8e-8 was measured.
@@ -243,7 +245,10 @@ def test_cli_train_exit_codes_and_ntests_line(tmp_path, log_lines):
     assert main(base + paths[:3]) == 100
     assert main(base + paths[:3] + [str(tmp_path / "missing")]) == 111
     assert main(base + ["--model", "nope"] + paths) == 2
-    assert main(base + ["--fsdp"] + paths) == 2
+    # --fsdp on one device runs, as the reference's; FSDP x PP needs a
+    # data axis (the reference's ValueError, exit 2)
+    assert main(base + ["--fsdp"] + paths) == 0
+    assert main(base + ["--fsdp", "--mesh-shape", "pipe:2"] + paths) == 2
     assert main(base + ["--no-such-flag"]) == 2
     assert main(["--help-me"]) == 2
 
@@ -270,22 +275,45 @@ def test_train_bench_on_the_cpu(capsys):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name,off,item,what", _REFUSED,
-                         ids=[r[0] for r in _REFUSED])
-def test_refused_features_raise(name, off, item, what):
-    on = {bool: True, int: 2, str: "x"}.get(type(off), "x")
-    if name.endswith("dtype"):
-        on = "bfloat16"
+# What this slice refused before the sharded meshes were ported (ROADMAP
+# queue E item 1): (field, value).
+FORMERLY_REFUSED = (("fsdp", True),)
+
+
+@pytest.mark.parametrize("name,on", FORMERLY_REFUSED,
+                         ids=[r[0] for r in FORMERLY_REFUSED])
+def test_refused_features_raise(name, on):
+    """--fsdp, once refused, builds as the JAX trainer's does: on one
+    device (where there is nothing to shard) a Trainer, on a data axis
+    of 2 the checks pass and a Trainer given no mesh asks for the
+    rank's (the sharded runs are tests/test_torch_fsdp.py)."""
     ds = synthetic_stripes(64, 8)
-    with pytest.raises(NotImplementedError, match=f"queue E item {item}"):
-        Trainer(get_model("reference_cnn"), ds, _cfg(**{name: on}))
+    JaxTrainer(JAX_PRESETS["reference_cnn"](), jax_stripes(64, 8),
+               JaxConfig(batch_size=BATCH, num_devices=1, **{name: on}),
+               metrics=JaxMetrics(echo=False))
+    Trainer(get_model("reference_cnn"), ds, _cfg(**{name: on}))
+    assert check_supported(_cfg(num_devices=2, **{name: on})) == {"data": 2}
+    with pytest.raises(ValueError, match="a Trainer is one rank"):
+        Trainer(get_model("reference_cnn"), ds,
+                _cfg(num_devices=2, **{name: on}))
 
 
 @pytest.mark.parametrize("kw", [dict(mesh_shape="pipe:2"),
                                 dict(mesh_shape="data:4,seq:2"),
                                 dict(mesh_shape="data:2,model:2")])
 def test_multi_device_is_refused(kw):
-    with pytest.raises(NotImplementedError, match="queue E item 1"):
+    """The meshes the JAX trainer builds (a pipe axis, a seq axis of
+    replicas of the data-parallel step, a model axis) pass the port's
+    checks with the reference's axes; a Trainer is one rank, so one given
+    no mesh refuses them (the ranks' runs are tests/test_torch_pp.py,
+    test_torch_dp.py and test_torch_tp.py)."""
+    axes = check_supported(_cfg(**kw))
+    assert axes == {k: int(v) for k, v in (
+        part.split(":") for part in kw["mesh_shape"].split(","))}
+    JaxTrainer(JAX_PRESETS["reference_cnn"](), jax_stripes(64, 8),
+               JaxConfig(batch_size=BATCH, num_devices=math.prod(
+                   axes.values()), **kw), metrics=JaxMetrics(echo=False))
+    with pytest.raises(ValueError, match="a Trainer is one rank"):
         Trainer(get_model("reference_cnn"), synthetic_stripes(64, 8),
                 _cfg(**kw))
 
