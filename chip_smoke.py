@@ -511,11 +511,15 @@ AGREE_PARAM_ATOL = 5e-3
 # few float32 ulp, about 1e-7 relative), a wrong shard or a missing
 # divide by the world is off by 1e-1 or more, so 1e-5; after AGREE_STEPS
 # steps, params within AGREE_PARAM_ATOL (the ReLU-crossing drift of
-# train_agree) and predictions equal or tied; then one full epoch on the
-# device-resident route and the eval, held as the train phase is. With
+# train_agree) and predictions equal or tied; then one epoch of
+# DP_EPOCH_TRAIN samples on the device-resident route and the eval of
+# the 10,000, held as the train phase is (cut from 60,000 samples in PR
+# 20 for the script's time limit: every check kept; train_flags' epochs
+# reach 10,000/10,000 at 400 steps too). With
 # two cards or more, also world min(4, cards) over NCCL, one rank a card,
 # under the same checks. A rank's failure fails the phase.
 DP_WORLD = 2
+DP_EPOCH_TRAIN = 12_800
 DP_MAX_NCCL_WORLD = 4
 DP_GRAD_REL_L2 = 1e-5
 DP_RANKS_TIMEOUT_S = 600
@@ -727,8 +731,8 @@ LM_BF16_GRAD_REL_L2 = 2e-2
 # a rank). Step times are correctness runs (two ranks share the card and
 # gloo stages each ring hop through the host), not scaling figures.
 LM_SP_WORLD = 2
-LM_SP_STEPS = 5
-LM_SP_OTHER_STEPS = 2
+LM_SP_STEPS = 3
+LM_SP_OTHER_STEPS = 1
 # The flagship cut to LM_SP_DEPTH layers (for chip_smoke.py's time
 # limit; every check as at depth 8): per step each rank launches each
 # kernel once a layer a ring hop it folds, per eval K7 once a layer.
@@ -745,6 +749,44 @@ LM_SP_PER_EVAL = {"flash_fwd": LM_SP_DEPTH, "flash_bwd_dq": 0,
 LM_SP_NOTE = ("correctness run: the two seq ranks share one card and gloo "
               "stages each ring hop and the all-reduce through the host; "
               "not a scaling figure")
+# lm_mesh: the LM trainer's sharded meshes (parallel/lm_shard.py,
+# parallel/ep.py, parallel/sp.py) at the flagship's width cut to
+# LM_SP_DEPTH layers, as gloo ranks on cuda:0, LM_MESH_STEPS float32
+# steps each with flash attention (ring_flash under 'seq'), one spawn a
+# world. Each run's first-step gradients are held per leaf within
+# LM_AGREE_GRAD_REL_L2 to the one-device flash LMTrainer from the same
+# seeded init (every dense mesh computes its function), except where
+# the mesh's MoE routing has no one-device twin: expert:2 routes each
+# rank's 4 rows by themselves, so its reference is the mean of the
+# one-device trainer's gradients of each rank's rows; seq:2 routes each
+# rank's half of every sequence, so its reference is the same mesh with
+# the plain ring (no kernel). The MoE runs are held to LM_MOE_GRAD_REL_L2,
+# as lm_moe's (b) is: the experts' ReLU kinks turn float32 rounding into
+# a few 1e-4 upstream of them (5.6e-4 for seq:2 on the card, PR 20).
+# The gloo worlds spawn at once, beside the one-device references. Every
+# rank's K7/K8/K9 launches a step and
+# an eval are held to the plan (`lm_mesh_plan`), and the kernels phase
+# holds K7-K9 at every shape the phase launches them (`lm_mesh_shapes`,
+# marked `lm_mesh`). The phase stays within LM_MESH_BUDGET_S.
+LM_MESH_STEPS = 2
+LM_MESH_MOE = ["--moe-experts", "8", "--moe-top-k", "2"]
+LM_MESH_RUNS = (("data:2,model:2", []), ("model:2", ["--kv-heads", "2"]),
+                ("data:2", ["--fsdp"]), ("pipe:2,data:2", []),
+                ("model:2,seq:2", []), ("pipe:2,model:2,seq:2", []),
+                ("expert:2", LM_MESH_MOE), ("seq:2", LM_MESH_MOE),
+                ("data:2,seq:2", ["--fsdp"]))
+# The seq:2 MoE run's reference: the same mesh with the plain ring, its
+# first gradients only (one step).
+LM_MESH_RING_REF = ("seq:2", LM_MESH_MOE + ["--attn-impl", "ring",
+                                            "--steps", "1"])
+# The spawns, all at once (indices into LM_MESH_RUNS, the reference as
+# "ring"): each world's runs, the MoE ones of world 2 apart, so that no
+# spawn runs much longer than the others.
+LM_MESH_SPAWNS = ((1, 2, 6), (7, "ring"), (0, 3, 4, 8), (5,))
+LM_MESH_BUDGET_S = 150.0
+LM_MESH_NOTE = ("correctness run: the ranks share one card and gloo stages "
+                "every collective and pipeline hop through the host; not a "
+                "scaling figure")
 # recover: crash-safe training on the card (`train/checkpoint.py`,
 # `faults.py`). CNN: the train configuration at dp's 50 steps (one
 # device-resident epoch of 1,600 samples, batch 32, lr 0.1) through the
@@ -1486,7 +1528,7 @@ def rel_l2(got, want, *, per_row: bool) -> float:
     return ((got - want).norm() / want.norm()).item()
 
 
-def sdpa_ms(torch, q, k, v, g, causal: bool = True) -> dict:
+def sdpa_ms(torch, q, k, v, g, causal: bool = True, reps: int = 30) -> dict:
     """The yardstick: F.scaled_dot_product_attention (GQA through
     enable_gqa) on the same inputs in its (B, H, S, D) layout, forward
     alone, forward + backward (dq, dk, dv), and the backward alone (one
@@ -1509,14 +1551,15 @@ def sdpa_ms(torch, q, k, v, g, causal: bool = True) -> dict:
         torch.autograd.grad(out, leaves, gt, retain_graph=True)
 
     with torch.no_grad():
-        fwd_ms = median_ms(torch, fwd)
-    return {"library_fwd_ms": fwd_ms, "library_fwd_bwd_ms": median_ms(torch, fwd_bwd),
-            "library_bwd_ms": median_ms(torch, bwd)}
+        fwd_ms = median_ms(torch, fwd, reps)
+    return {"library_fwd_ms": fwd_ms,
+            "library_fwd_bwd_ms": median_ms(torch, fwd_bwd, reps),
+            "library_bwd_ms": median_ms(torch, bwd, reps)}
 
 
 def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
                 d: int, gen, causal: bool = True,
-                f32_out: bool = False) -> list[dict]:
+                f32_out: bool = False, reps: int = 30) -> list[dict]:
     """K7, K8 and K9 on one attention shape (q (B, S, H, D), k/v (B, S,
     Hkv, D)), each against its plain version on the same inputs; the
     backward kernels take the plain forward's o and lse and a random
@@ -1566,7 +1609,7 @@ def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
                                                          dvec, causal, **g32),
                           4, el * (2 * rows_q + 2 * rows_kv)
                           + oel * 2 * rows_kv + 2 * rows)}
-    lib = sdpa_ms(torch, q, k, v, g, causal)
+    lib = sdpa_ms(torch, q, k, v, g, causal, reps)
     pairs = s * (s + 1) // 2 if causal else s * s
     out = []
     for name, (run, plain, products, nbytes) in runs.items():
@@ -1640,8 +1683,8 @@ def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
                     **({"f32_out": True} if f32_out else {}),
                     "max_abs_err": err, "tolerance": tol, **(rel or {}),
                     **unrounded, **repeat,
-                    "ms": median_ms(torch, run),
-                    "plain_ms": median_ms(torch, plain),
+                    "ms": median_ms(torch, run, reps),
+                    "plain_ms": median_ms(torch, plain, reps),
                     "library_ms": (lib["library_fwd_ms"]
                                    if name == "flash_fwd" else None),
                     **lib, "flops": flops, "bound_ms": bound_ms,
@@ -1651,15 +1694,25 @@ def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
 
 def phase_flash_kernels(torch, dev, gen) -> list[dict]:
     cases = []
+    mesh = [s for s in lm_mesh_shapes()
+            if s[:-1] not in FLASH_RANK_SHAPES or not s[-1]]
     for *shape, causal, f32_out in (
             [(*s, True, False) for s in FLASH_SHAPES]
             + [(*s, False) for s in FLASH_EXTRA_SHAPES + FLASH_D16_SHAPES]
             + [(*s, True, False) for s in FLASH_RANK_SHAPES]
             + [(*s, f32_out) for s in FLASH_F32_OUT_SHAPES
-               for f32_out in (False, True)]):
-        for case in flash_cases(torch, dev, *shape, gen, causal, f32_out):
+               for f32_out in (False, True)]
+            + [(*s, False) for s in mesh]):
+        # the flagship's and the GQA shape's times at 30 calls, the
+        # others' (held to the same tolerances) at MESH_CASE_REPS
+        reps = 30 if tuple(shape) in FLASH_SHAPES else MESH_CASE_REPS
+        for case in flash_cases(torch, dev, *shape, gen, causal, f32_out,
+                                reps):
+            if (*shape, causal) in mesh:
+                case["lm_mesh"] = True
             if (tuple(shape) in FLASH_RANK_SHAPES
-                    or (*shape, causal) in FLASH_F32_OUT_SHAPES):
+                    or (*shape, causal) in FLASH_F32_OUT_SHAPES
+                    or case.get("lm_mesh")):
                 case["per_rank"] = True
             emit({"phase": "kernel_case", **case})
             cases.append(case)
@@ -2479,16 +2532,16 @@ def phase_train(torch) -> dict:
 
 def check_cnn_epoch(what: str, epoch_launches: dict, eval_launches: dict,
                     steps: int, ntests: int, ncorrect: int, metrics: dict,
-                    reference: float) -> None:
-    """The checks the train and train_bf16 phases share: a full epoch of
-    TRAIN_STEPS steps with every kernel launched PER_STEP times a step,
+                    reference: float, want_steps: int = TRAIN_STEPS) -> None:
+    """The checks the train, train_bf16 and dp phases share: an epoch of
+    `want_steps` steps with every kernel launched PER_STEP times a step,
     PER_EVAL times an eval batch in the eval, and no other kernel; test
     accuracy on the 10,000 samples at least `reference` less
     ACCURACY_MARGIN; finite epoch metrics."""
     from mpi_cuda_cnn_tpu_torch.ops import _kernels
 
-    if steps != TRAIN_STEPS:
-        raise AssertionError(f"{what}: {steps} steps, want {TRAIN_STEPS}")
+    if steps != want_steps:
+        raise AssertionError(f"{what}: {steps} steps, want {want_steps}")
     for name in _kernels.KERNELS:
         want = (PER_STEP.get(name, 0) * steps,
                 PER_EVAL.get(name, 0) * EVAL_BATCHES)
@@ -2672,7 +2725,9 @@ def dp_world(torch, what: str, devices: list, cfg, agree_data: dict,
             for a, b in zip(res["params"], one["params"], strict=True)))
         ties = check_ties(f"{what} rank {r}", res["logits"], one["logits"])
         coll = res["epoch_counts"]["collectives"]
-        if coll != {"all_reduce": AGREE_STEPS, "broadcast": 0} \
+        # a step's all-reduce, and the preemption flags' at the epoch's
+        # one chunk boundary
+        if coll != {"all_reduce": AGREE_STEPS + 1, "broadcast": 0} \
                 or res["init"]["collectives"]["broadcast"] != 1:
             raise AssertionError(f"{what} rank {r}: collectives {coll}, "
                                  f"init {res['init']['collectives']}")
@@ -2682,18 +2737,20 @@ def dp_world(torch, what: str, devices: list, cfg, agree_data: dict,
                              f"after {AGREE_STEPS} steps by {param_diff} "
                              f"(limit {AGREE_PARAM_ATOL})")
     epoch = run_ranks(cnn_rank, world, devices=devices,
-                      args=(cfg, dict(num_train=60_000, num_test=10_000)),
+                      args=(cfg, dict(num_train=DP_EPOCH_TRAIN,
+                                      num_test=10_000)),
                       timeout=DP_RANKS_TIMEOUT_S)
     for r, res in enumerate(epoch):
         em, (ntests, ncorrect) = res["epoch"], res["eval"]
         check_cnn_epoch(f"{what} rank {r}", res["epoch_counts"]["launches"],
                         res["eval_counts"]["launches"], em["steps"], ntests,
                         ncorrect, {k: em[k] for k in ("loss", "etotal", "acc")},
-                        JAX_CPU_ACCURACY)
+                        JAX_CPU_ACCURACY, DP_EPOCH_TRAIN // CNN_BATCH)
         counts = (res["init"]["collectives"], res["epoch_counts"]["collectives"],
                   res["eval_counts"]["collectives"])
         if counts != ({"all_reduce": 0, "broadcast": 1},
-                      {"all_reduce": TRAIN_STEPS, "broadcast": 0},
+                      {"all_reduce": DP_EPOCH_TRAIN // CNN_BATCH + 1,
+                       "broadcast": 0},
                       {"all_reduce": 1, "broadcast": 0}):
             raise AssertionError(f"{what} rank {r}: collectives (init, epoch, "
                                  f"eval) {counts}")
@@ -3051,8 +3108,8 @@ def phase_lm_dp(torch, dev=None) -> dict:
         want = {name: LM_PER_STEP[name] * LM_DP_STEPS + LM_PER_EVAL[name]
                 for name in FLASH_KERNELS}
         if {k: launches[k] for k in FLASH_KERNELS} != want \
-                or res["counts"]["collectives"] != {"all_reduce": LM_DP_STEPS,
-                                                    "broadcast": 0}:
+                or res["counts"]["collectives"] != {
+                    "all_reduce": 2 * LM_DP_STEPS, "broadcast": 0}:
             raise AssertionError(f"lm_dp rank {r}: counts {res['counts']}, "
                                  f"want launches {want}")
         if len(res["losses"]) != LM_DP_STEPS:
@@ -3098,7 +3155,7 @@ def phase_lm_sp(torch, dev=None) -> dict:
     from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
     from mpi_cuda_cnn_tpu_torch.models.transformer import TransformerLM
     from mpi_cuda_cnn_tpu_torch.parallel.distributed import run_ranks
-    from mpi_cuda_cnn_tpu_torch.train.ranks import lm_rank, lm_rank_each
+    from mpi_cuda_cnn_tpu_torch.train.ranks import lm_rank, lm_rank_runs
     from mpi_cuda_cnn_tpu_torch.utils.config import parse_lm_args
 
     dev = dev or torch.device("cuda", 0)
@@ -3129,9 +3186,11 @@ def phase_lm_sp(torch, dev=None) -> dict:
            for dtype in ("float32", "bfloat16")}
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    ranks = run_ranks(lm_rank_each, LM_SP_WORLD, devices=[dev] * LM_SP_WORLD,
-                      args=(list(runs.values()),), kwargs=dict(grads=True),
-                      axes={"seq": LM_SP_WORLD}, timeout=DP_RANKS_TIMEOUT_S)
+    ranks = run_ranks(lm_rank_runs, LM_SP_WORLD, devices=[dev] * LM_SP_WORLD,
+                      args=([(c, None, {"grads": True})
+                             for c in runs.values()],),
+                      axes={"data": 1, "seq": LM_SP_WORLD},
+                      timeout=DP_RANKS_TIMEOUT_S)
     grad_rel, step_ms, launches = {}, {}, []
     for r, res_r in enumerate(ranks):
         got = dict(zip(runs, res_r))
@@ -3151,7 +3210,8 @@ def phase_lm_sp(torch, dev=None) -> dict:
                     res["losses"]).all():
                 raise AssertionError(f"lm_sp rank {r} {name}: losses "
                                      f"{res['losses']}")
-            if res["counts"]["collectives"]["all_reduce"] != steps:
+            # a step's all-reduce and the preemption flags' at its end
+            if res["counts"]["collectives"]["all_reduce"] != 2 * steps:
                 raise AssertionError(f"lm_sp rank {r} {name}: "
                                      f"{res['counts']['collectives']}")
             # steps and the eval in res["seconds"]; the eval is one forward
@@ -3191,6 +3251,198 @@ def phase_lm_sp(torch, dev=None) -> dict:
         "note": LM_SP_NOTE},
         "launches": {k: sum(la[k] for la in launches)
                      for k in FLASH_KERNELS}}
+
+
+def lm_mesh_axes(mesh: str) -> dict:
+    axes = {a: int(n) for a, n in (p.split(":") for p in mesh.split(","))}
+    return axes if "data" in axes else {"data": 1, **axes}
+
+
+def lm_mesh_plan(mesh: str, rank: int) -> tuple[dict, dict]:
+    """(K7/K8/K9 launches a step, an eval) of `rank` on `mesh` with flash
+    attention: a stage's LM_SP_DEPTH / n_pipe layers over M = n_pipe
+    microbatches, each folding seq rank s + 1 blocks of the ring
+    (causal), one launch a layer a fold; the eval one K7 a layer on the
+    whole sequence."""
+    from mpi_cuda_cnn_tpu_torch.parallel.mesh import Mesh
+
+    axes = lm_mesh_axes(mesh)
+    m = Mesh(shape=axes, rank=rank, world=math.prod(axes.values()),
+             device=None, group=None)
+    folds = m.index("seq") + 1
+    step = {k: LM_SP_DEPTH * folds for k in FLASH_KERNELS}
+    return step, dict(LM_SP_PER_EVAL)
+
+
+def lm_mesh_shapes() -> list[tuple]:
+    """The distinct float32 K7/K8/K9 shapes of LM_MESH_RUNS, (dtype, B, S,
+    H, Hkv, D, causal), the flagship's (the eval's) left out: a rank's
+    rows B / (n_data M) (over data x expert on an expert axis), its S /
+    n_seq positions, its H / n_model heads and Hkv / n_model kv heads;
+    a ring fold's full blocks non-causal too."""
+    flag = dict(zip(LM_MODEL_ARGS[::2], LM_MODEL_ARGS[1::2]))
+    b0, s0, h0 = (int(flag[k]) for k in ("--batch-size", "--seq-len",
+                                         "--heads"))
+    d = int(flag["--dim"]) // h0
+    out = []
+    for mesh, extra in LM_MESH_RUNS:
+        axes = lm_mesh_axes(mesh)
+        opt = dict(zip(extra[::2], extra[1::2]))
+        kv = int(opt.get("--kv-heads", h0))
+        n_m, n_s = axes.get("model", 1), axes.get("seq", 1)
+        b = b0 // (axes["data"] * axes.get("expert", 1) * axes.get("pipe", 1))
+        shape = (b, s0 // n_s, h0 // n_m, kv // n_m, d)
+        for causal in ((True, False) if n_s > 1 else (True,)):
+            out.append(("float32", *shape, causal))
+    flagship = ("float32", b0, s0, h0, h0, d, True)
+    return [s for s in dict.fromkeys(out) if s != flagship]
+
+
+def phase_lm_mesh(torch, dev=None, nccl: bool = False) -> dict:
+    """LM_MESH_RUNS as gloo ranks on `dev` (cuda:0), one spawn a world
+    (with `nccl` and cards for it, also over NCCL, a card a rank): the
+    first-step gradients against their one-device reference, the float32
+    losses finite, every rank's K7/K8/K9 launches held to `lm_mesh_plan`,
+    each run's step ms. One line a run; returns the phase's record and
+    the launches of every rank's steps and evals. (`dev` the CPU: the
+    same, to rehearse it.)"""
+    import numpy as np
+
+    from mpi_cuda_cnn_tpu_torch.parallel.distributed import run_ranks
+    from mpi_cuda_cnn_tpu_torch.train.lm_trainer import LMTrainer
+    from mpi_cuda_cnn_tpu_torch.train.ranks import lm_rank, lm_rank_runs
+    from mpi_cuda_cnn_tpu_torch.utils.config import parse_lm_args
+
+    t_phase = time.perf_counter()
+    dev = dev or torch.device("cuda", 0)
+    base = [a if LM_MODEL_ARGS[i - 1] != "--depth" else str(LM_SP_DEPTH)
+            for i, a in enumerate(LM_MODEL_ARGS)] + [
+        "--device", str(dev), "--attn-impl", "flash", "--steps",
+        str(LM_MESH_STEPS), "--warmup-steps", "1", "--log-every", "1"]
+
+    def cfg(mesh, extra):
+        return parse_lm_args(base + ["--mesh-shape", mesh, *extra])
+
+    def run(i):
+        mesh, extra = LM_MESH_RING_REF if i == "ring" else LM_MESH_RUNS[i]
+        return mesh, extra, cfg(mesh, extra)
+
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    calls = []
+    for spawn_runs in LM_MESH_SPAWNS:
+        mine = [run(i) for i in spawn_runs]
+        world = math.prod(lm_mesh_axes(mine[0][0]).values())
+        calls.append(("gloo", [dev] * world, mine))
+        if nccl and 1 < world <= cards:
+            calls.append(("nccl", [torch.device("cuda", i)
+                                   for i in range(world)], mine))
+
+    def spawn(call):
+        backend, devices, mine = call
+        t0 = time.perf_counter()
+        ranks = run_ranks(lm_rank_runs, len(devices), devices=devices,
+                          args=([(c, None, {"grads": True})
+                                 for _, _, c in mine],),
+                          timeout=DP_RANKS_TIMEOUT_S)
+        return ranks, time.perf_counter() - t0
+
+    # The gloo worlds share the card, each rank waiting on the host most
+    # of a step: their spawns run at once, beside the one-device
+    # references in this process (the NCCL ones after them).
+    gloo = [c for c in calls if c[0] == "gloo"]
+    with ThreadPoolExecutor(len(gloo)) as pool:
+        pending = [pool.submit(spawn, c) for c in gloo]
+        # the dense MHA and GQA models' first gradients on one device, and
+        # expert:2's mean of the one-device gradients of each rank's rows
+        ones = {}
+        for extra in ([], ["--kv-heads", "2"]):
+            ones[tuple(extra)] = lm_rank(None, cfg("data", extra),
+                                         grads=True)["grads"]
+        tr = LMTrainer(cfg("data", LM_MESH_MOE))
+        tokens, targets = tr._sample_batch(0)
+        half = len(tokens) // 2
+        ep = [tr.train_step.grads(tr.state,
+                                  tr._to_device(tokens[i:i + half]),
+                                  tr._to_device(targets[i:i + half]))[0]
+              for i in (0, half)]
+        ones["expert"] = [((a + b) / 2).float().cpu().numpy()
+                          for a, b in zip(*ep)]
+        del tr, ep
+        done = [p.result() for p in pending]
+    done += [spawn(c) for c in calls if c[0] == "nccl"]
+    calls = gloo + [c for c in calls if c[0] == "nccl"]
+    records, launches = [], {k: 0 for k in FLASH_KERNELS}
+    for (backend, devices, mine), (ranks, wall) in zip(calls, done):
+        world = len(devices)
+        by_run = list(zip(*ranks))
+        ring_ref = by_run[-1] if mine[-1][2].attn_impl == "ring" else None
+        for (mesh, extra, c), res_r in zip(mine, by_run):
+            if c.attn_impl == "ring":
+                continue
+            if mesh == "expert:2":
+                want = [ones["expert"]] * world
+            elif c.moe_experts:
+                want = [r["grads"] for r in ring_ref]
+            else:
+                want = [ones[tuple(x for x in extra if x != "--fsdp")]] * world
+            worst, have = 0.0, []
+            limit = (LM_MOE_GRAD_REL_L2 if c.moe_experts
+                     else LM_AGREE_GRAD_REL_L2)
+            for r, res in enumerate(res_r):
+                gap = max(grads_rel_l2(res["grads"], want[r]).values())
+                worst = max(worst, gap)
+                if not gap <= limit:
+                    raise AssertionError(
+                        f"lm_mesh {mesh} {extra} rank {r} ({backend}): "
+                        f"first-step gradients apart by {gap} (limit "
+                        f"{limit})")
+                if len(res["losses"]) != LM_MESH_STEPS or not np.isfinite(
+                        res["losses"]).all():
+                    raise AssertionError(f"lm_mesh {mesh} rank {r}: losses "
+                                         f"{res['losses']}")
+                step, ev = lm_mesh_plan(mesh, r)
+                plan = {k: step[k] * LM_MESH_STEPS + ev[k]
+                        for k in FLASH_KERNELS}
+                got = {k: res["counts"]["launches"].get(k, 0)
+                       for k in FLASH_KERNELS}
+                if dev.type == "cuda" and got != plan:
+                    raise AssertionError(f"lm_mesh {mesh} rank {r}: "
+                                         f"launches {got}, plan {plan}")
+                have.append(got)
+                if backend == "gloo":
+                    for k in FLASH_KERNELS:
+                        launches[k] += got[k]
+            rec = {"mesh": mesh, "flags": extra, "world": world,
+                   "backend": backend, "steps": LM_MESH_STEPS,
+                   "attn": "ring_flash" if "seq" in mesh else "flash",
+                   "losses": res_r[0]["losses"],
+                   "first_grad_rel_l2_max": worst,
+                   "first_grad_rel_l2_tolerance": limit,
+                   "first_grad_reference": (
+                       "one-device rows of each rank" if mesh == "expert:2"
+                       else "the same mesh with the plain ring"
+                       if c.moe_experts else "one device"),
+                   "launches_per_rank": have,
+                   "step_ms_per_rank": [1e3 * r["seconds"] / LM_MESH_STEPS
+                                        for r in res_r],
+                   "step_ms_note": "train() wall seconds (steps and the "
+                                   "eval) over the steps",
+                   "note": LM_MESH_NOTE if backend == "gloo"
+                   else "one rank a card over NCCL"}
+            emit({"phase": "lm_mesh", **rec})
+            records.append(rec)
+        emit({"phase": "lm_mesh_world", "world": world, "backend": backend,
+              "wall_s": wall})
+    phase_s = time.perf_counter() - t_phase
+    if dev.type == "cuda" and not nccl and phase_s > LM_MESH_BUDGET_S:
+        raise AssertionError(f"lm_mesh took {phase_s:.1f} s, over its "
+                             f"{LM_MESH_BUDGET_S} s budget")
+    return {"record": {"phase_s": phase_s, "budget_s": LM_MESH_BUDGET_S,
+                       "runs": len(records), "cards": cards,
+                       "grad_rel_l2_tolerance": {
+                       "dense": LM_AGREE_GRAD_REL_L2,
+                       "moe": LM_MOE_GRAD_REL_L2}},
+            "launches": launches}
 
 
 def first_step_grads_rel_l2(torch, trainer) -> dict:
@@ -4984,6 +5236,9 @@ def main() -> int:
     lm_sp = phase_lm_sp(torch)
     emit({"phase": "lm_sp", "device": kind, "nvidia_smi": smi,
           **lm_sp["record"]})
+    lm_mesh = phase_lm_mesh(torch)
+    emit({"phase": "lm_mesh_summary", "device": kind, "nvidia_smi": smi,
+          **lm_mesh["record"]})
     emit({"phase": "train_bf16", **phase_train_bf16(torch)})
     conv_launches = phase_conv_bench(torch)
     lm_launches, lm_trainer = phase_lm(torch)
@@ -5003,7 +5258,8 @@ def main() -> int:
                    for k in PER_STEP},
                 "conv_gemm": conv_launches["conv_gemm"],
                 **{k: lm_launches[k] + moe_launches[k]
-                   + lm_sp["launches"][k] for k in FLASH_KERNELS}}
+                   + lm_sp["launches"][k] + lm_mesh["launches"][k]
+                   for k in FLASH_KERNELS}}
     line = kernels_line(cases, launches)
     print(smi, flush=True)
     emit(line)

@@ -215,12 +215,7 @@ def run_train(argv: list[str]) -> int:
 
 def run_lm(argv: list[str]) -> int:
     """The `lm` command, mirroring the reference's `cli.run_lm`."""
-    from .utils.config import (
-        LM_MESH_AXES,
-        check_lm_supported,
-        data_axes,
-        parse_lm_args,
-    )
+    from .utils.config import check_lm_supported, data_axes, parse_lm_args
     from .utils.logging import get_logger
 
     try:
@@ -231,9 +226,11 @@ def run_lm(argv: list[str]) -> int:
     try:
         check_lm_supported(cfg)
         devices = rank_devices(cfg.device, cfg.num_devices, cfg.mesh_shape,
-                               cfg.batch_size, "F", LM_MESH_AXES)
-        # the mesh of those ranks (a bare axis takes all of them)
-        axes = data_axes(0, cfg.mesh_shape, len(devices), "F", LM_MESH_AXES)
+                               cfg.batch_size, "F", None)
+        # the mesh of those ranks (a bare axis takes all of them), "data"
+        # first when it names none, as `utils.config.lm_axes`
+        axes = data_axes(0, cfg.mesh_shape, len(devices), ported=None)
+        axes = axes if "data" in axes else {"data": 1, **axes}
         _check_supervisor(cfg, len(devices))
     except (NotImplementedError, RuntimeError, ValueError) as e:
         log.error("%s", e)

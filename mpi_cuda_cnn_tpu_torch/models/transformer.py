@@ -161,12 +161,14 @@ class TransformerLM:
     def mlp(self, blk: dict, y: torch.Tensor, *,
             compute_dtype: torch.dtype | None = None,
             moe_inference: bool = False, moe_dispatch_chunk: int = 0,
-            moe_dispatch_dtype: torch.dtype | None = None, moe_group=None):
+            moe_dispatch_dtype: torch.dtype | None = None, moe_group=None,
+            moe_axis: str | None = None):
         """The block's MLP on the normed y (B, S, dim): the tanh-gelu 4x
         MLP, or the MoE MLP, whose expert weights and gate take the
         compute-dtype cast (the router's softmax stays float32). Returns
         (out, aux) with aux the MoE balance loss (0 dense or under
-        `moe_inference`)."""
+        `moe_inference`). `moe_group` and `moe_axis` are `moe_mlp`'s
+        `group` and `axis`."""
         w = _weight_cast(compute_dtype)
         zero = torch.zeros((), device=y.device)
         if not self.moe_experts:
@@ -184,7 +186,7 @@ class TransformerLM:
                              n_experts=self.moe_experts, top_k=self.moe_top_k,
                              dispatch_chunk=moe_dispatch_chunk,
                              dispatch_dtype=moe_dispatch_dtype,
-                             group=moe_group)
+                             group=moe_group, axis=moe_axis)
         return m.reshape(b, s, d), aux
 
     def apply_block(self, blk: dict, x: torch.Tensor, *,
@@ -211,7 +213,8 @@ class TransformerLM:
               compute_dtype: torch.dtype | None = None,
               return_features: bool = False, moe_inference: bool = False,
               moe_dispatch_chunk: int = 0,
-              moe_dispatch_dtype: torch.dtype | None = None, moe_group=None):
+              moe_dispatch_dtype: torch.dtype | None = None, moe_group=None,
+              moe_axis: str | None = None):
         """The training forward: tokens (B, S) -> float32 logits
         (B, S, vocab), or the final-LN features (B, S, dim) with
         `return_features` (for losses that fuse the head); with
@@ -242,7 +245,8 @@ class TransformerLM:
                 blk, x, pos=pos, attn=attn, compute_dtype=cd,
                 moe_inference=moe_inference,
                 moe_dispatch_chunk=moe_dispatch_chunk,
-                moe_dispatch_dtype=moe_dispatch_dtype, moe_group=moe_group)
+                moe_dispatch_dtype=moe_dispatch_dtype, moe_group=moe_group,
+                moe_axis=moe_axis)
 
         aux_total = torch.zeros((), device=x.device)
         for blk in params["blocks"]:

@@ -21,8 +21,11 @@ and to `lax.ppermute` (`parallel/pp.py`); here they are written out on a
   output features are sliced over 'model' (Megatron's f and g): the
   input passes as it is and its gradient, a partial sum over the
   rank's features, is summed over the model line; the output block is
-  gathered to the full features and its gradient sliced back to the
-  rank's block.
+  gathered to the full features (or a leaf to its whole, along any dim)
+  and its gradient sliced back to the rank's block;
+- `ReduceFromModel`: the end of a row-parallel region (the reference's
+  `tp_reduce`): the ranks' partial sums summed over the model line, the
+  gradient passed to every rank as it is.
 
 Gloo runs the all-gather, the reduce-scatter and the all-reduce on CUDA
 tensors itself (through the host); a send or a receive of one goes
@@ -155,18 +158,35 @@ class CopyToModel(torch.autograd.Function):
 
 
 class GatherFromModel(torch.autograd.Function):
-    """The rank's block of the last dim gathered over the model line;
-    backward, the rank's block of the gradient (every rank of the line
-    holds the same full gradient: what follows is replicated)."""
+    """The rank's block of dim `dim` (default the last) gathered over the
+    model line; backward, the rank's block of the gradient (every rank
+    of the line holds the same full gradient: what follows is
+    replicated)."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return gather_leaves([x.contiguous()], [{MODEL_AXIS: x.dim() - 1}],
+    def forward(ctx, x, mesh, dim=-1):
+        ctx.mesh, ctx.dim = mesh, dim % x.dim()
+        return gather_leaves([x.contiguous()], [{MODEL_AXIS: ctx.dim}],
                              mesh, MODEL_AXIS)[0]
 
     @staticmethod
     def backward(ctx, g):
         mesh = ctx.mesh
         return block(g, mesh.shape[MODEL_AXIS], mesh.index(MODEL_AXIS),
-                     g.dim() - 1), None
+                     ctx.dim), None, None
+
+
+class ReduceFromModel(torch.autograd.Function):
+    """The ranks' partial sums summed over the model line in float32 (one
+    all-reduce), in x's dtype; backward, the gradient as it is (what
+    follows is replicated over the line)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        total = x.detach().float().contiguous().clone()
+        dp.all_reduce_sum(total, mesh, MODEL_AXIS)
+        return total.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None

@@ -9,14 +9,18 @@ of the named axes: their sizes, its rank and the world size, its
 coordinates. Rank r sits at the coordinates of r in the axes' shape with
 the last axis varying fastest, as `jax.make_mesh` lays its devices out
 (`data:2,seq:2`: rank d * 2 + s; `pipe:2,data:2`: rank p * 2 + d). The
-'data' axis, the CNN's 'model' and 'pipe' axes (`parallel/tp.py`,
-`parallel/pp.py`) and, for the LM, the 'seq' axis of sequence
-parallelism (`parallel/sp.py`) are ported (`utils.config`).
+axes are 'data', 'model' (`parallel/tp.py`, `parallel/tp_sp.py`), 'pipe'
+(`parallel/pp.py`, `parallel/pp_lm.py`), 'seq' (`parallel/sp.py`) and
+'expert' (`parallel/ep.py`). A rank has a process group for its line
+along every axis, and along every set of axes, that spans part of the
+world (`Mesh.group_of`), so that a reduction over 'data' and 'seq' of a
+four-axis mesh is one collective.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 
 import numpy as np
@@ -27,6 +31,7 @@ DATA_AXIS = "data"
 MODEL_AXIS = "model"
 PIPE_AXIS = "pipe"
 SEQ_AXIS = "seq"
+EXPERT_AXIS = "expert"
 
 
 def local_device_count() -> int:
@@ -39,9 +44,9 @@ class Mesh:
     """This rank's view of the mesh. `group` is the process group of the
     axes (None: the world-1 mesh of a process with no group, where every
     collective is the identity and none is made). `axis_groups` holds,
-    for an axis that spans part of the world, the group of this rank's
-    line along it (`axis_lines`); an axis that spans the world uses
-    `group`."""
+    for an axis, or a tuple of axes in the mesh's order, of size > 1
+    that spans part of the world, the group of this rank's line along
+    it (`axis_lines`); axes that span the world use `group`."""
 
     shape: dict[str, int]
     rank: int
@@ -62,13 +67,27 @@ class Mesh:
         coords = np.unravel_index(self.rank, tuple(self.shape.values()))
         return int(coords[list(self.shape).index(axis)])
 
-    def line(self, axis: str) -> list[int]:
-        """The global ranks of this rank's line along `axis`, in the
-        axis' order."""
-        if axis not in self.shape:
+    def line(self, axis: str | tuple[str, ...]) -> list[int]:
+        """The global ranks of this rank's line along `axis` (or a tuple
+        of axes), in the axes' order, the last fastest."""
+        axes = [a for a in ((axis,) if isinstance(axis, str) else axis)
+                if a in self.shape]
+        if not axes:
             return [self.rank]
-        return next(ln for ln in axis_lines(self.shape, axis)
+        return next(ln for ln in axis_lines(self.shape, axes)
                     if self.rank in ln)
+
+    def sub(self, axis: str | tuple[str, ...]) -> "Mesh":
+        """This rank's line along `axis` (or a tuple of axes) as a mesh
+        of its own: its shape those axes', its rank the index in the
+        line, its group the line's (None when the line is this rank
+        alone). A collective on it spans the line."""
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        line = self.line(axes)
+        return Mesh(shape={a: self.shape.get(a, 1) for a in axes},
+                    rank=line.index(self.rank), world=len(line),
+                    device=self.device,
+                    group=self.group_of(axes) if len(line) > 1 else None)
 
     def axis_group(self, axis: str):
         """The process group of this rank's line along `axis`."""
@@ -92,20 +111,25 @@ class Mesh:
             return self.group
         if n == 1:
             return None
-        if len(wide) == 1:
-            return self.axis_groups[wide[0]]
-        raise NotImplementedError(f"no process group for the axes {axes} "
-                                  f"of the mesh {self.shape}")
+        key = wide[0] if len(wide) == 1 else tuple(
+            a for a in self.shape if a in wide)
+        return self.axis_groups[key]
 
 
-def axis_lines(shape: dict[str, int], axis: str) -> list[list[int]]:
-    """The ranks of every line along `axis` (ranks that differ in that
-    coordinate only), each in the axis' order, the lines in rank order of
+def axis_lines(shape: dict[str, int],
+               axis: str | list[str] | tuple[str, ...]) -> list[list[int]]:
+    """The ranks of every line along `axis`, or along a set of axes
+    (ranks that differ in those coordinates only), each in the axes'
+    order (the mesh's, the last fastest), the lines in rank order of
     their first rank."""
+    names = list(shape)
+    axes = sorted({axis} if isinstance(axis, str) else set(axis),
+                  key=names.index)
     ranks = np.arange(math.prod(shape.values())).reshape(
         tuple(shape.values()))
-    lines = np.moveaxis(ranks, list(shape).index(axis), -1)
-    return lines.reshape(-1, shape[axis]).tolist()
+    lines = np.moveaxis(ranks, [names.index(a) for a in axes],
+                        range(-len(axes), 0))
+    return lines.reshape(-1, math.prod(shape[a] for a in axes)).tolist()
 
 
 def describe_mesh(mesh: Mesh) -> dict:
@@ -161,15 +185,20 @@ def make_mesh(axes: dict[str, int] | None = None, *,
         raise ValueError(f"mesh {axes} has {len(devices)} ranks, the process "
                          f"group {world}: start one process per rank "
                          "(parallel.distributed.run_ranks or torchrun)")
-    # One group per line of every axis that spans part of the world: every
-    # rank creates every group, in one order, or the creation hangs.
+    # One group per line of every axis, and of every set of axes, of size
+    # > 1 that spans part of the world: every rank creates every group, in
+    # one order, or the creation hangs.
     axis_groups = {}
-    for axis, n in axes.items():
-        if grouped and 1 < n < world:
-            for ranks in axis_lines(axes, axis):
+    wide = [a for a, n in axes.items() if n > 1]
+    for k in range(1, len(wide) + 1):
+        for subset in itertools.combinations(wide, k):
+            n = math.prod(axes[a] for a in subset)
+            if not grouped or n >= world:
+                continue
+            for ranks in axis_lines(axes, subset):
                 g = dist.new_group(ranks)
                 if rank in ranks:
-                    axis_groups[axis] = g
+                    axis_groups[subset[0] if k == 1 else subset] = g
     return Mesh(shape=dict(axes), rank=rank, world=world,
                 device=torch.device(devices[rank]),
                 group=dist.group.WORLD if grouped else None,

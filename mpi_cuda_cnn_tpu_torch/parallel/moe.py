@@ -1,6 +1,6 @@
-"""Mixture-of-experts MLP blocks on one device or one data mesh
-(counterpart of the single-device half of the reference's
-`parallel/ep.py`).
+"""Mixture-of-experts MLP blocks on one device, one data mesh or an
+expert-parallel axis (counterpart of the reference's `parallel/ep.py`
+`moe_mlp`; its EP train step is `parallel/ep.py`).
 
 Mirrors, with the reference's arithmetic: `init_moe_params` (gate (D, E),
 expert stacks w1 (E, D, H) and w2 (E, H, D), the same scales),
@@ -9,8 +9,16 @@ expert stacks w1 (E, D, H) and w2 (E, H, D), the same scales),
 `topk_dispatch` (the dense (dispatch, combine) view), `_expert_ffn`,
 `moe_mlp` with `axis=None` (capacity routing, `dispatch_chunk`,
 `dispatch_dtype`) and `moe_mlp_inference` (every token through every
-expert, no drops: the decode and prefill semantic). The `expert` mesh
-axis (the all_to_all half and `make_ep_lm_train_step`) is not here.
+expert, no drops: the decode and prefill semantic), and `moe_mlp` with
+`axis` set: expert parallelism over a mesh axis ('expert' under EP x DP,
+'seq' under EP x SP). There each rank routes its own tokens (the
+capacity from its local count, the balance loss over them), a tiled
+all-to-all over the axis turns the (E, C, D) dispatch buffer into
+(E/P, P * C, D), every rank's slots for its E/P experts, the local
+experts run (the full replicated stacks sliced at the axis index, or
+stacks already E/P long), and the inverse all-to-all returns the
+outputs to the tokens' owners (`parallel/sp.py` `_AllToAll`, whose
+backward is the inverse).
 
 Routing, as the reference routes:
 - probabilities: softmax in float32 of x @ gate; choice j is the argmax
@@ -234,7 +242,8 @@ def check_dispatch_chunk(tokens: int, dispatch_chunk: int,
 
 def moe_mlp(x: torch.Tensor, params: dict, *, n_experts: int,
             capacity_factor: float = 1.25, top_k: int = 1,
-            dispatch_chunk: int = 0, dispatch_dtype=None, group=None):
+            dispatch_chunk: int = 0, dispatch_dtype=None, group=None,
+            axis: str | None = None):
     """MoE MLP with capacity routing for x (T, D): (y (T, D), aux).
 
     `dispatch_chunk` > 0 routes chunks of that many tokens, each with its
@@ -243,8 +252,19 @@ def moe_mlp(x: torch.Tensor, params: dict, *, n_experts: int,
     x.dtype; its entries are exact 0/1 in any float type, and a product
     with a float32 operand promotes as `jnp.einsum` does). `group` (a data
     mesh with a process group) routes the ranks' tokens as one global
-    batch, rank-major (module docstring)."""
+    batch, rank-major (module docstring). With `axis`, `group` is the
+    rank's mesh and the experts are parallel over that axis: each rank
+    routes its own tokens and the slots cross the axis by all-to-all
+    (module docstring); `dispatch_chunk` is refused there."""
     t, d = x.shape
+    if axis is not None:
+        if dispatch_chunk and dispatch_chunk < t:
+            raise ValueError(
+                "dispatch_chunk is the SINGLE-DEVICE quadratic-dispatch "
+                f"lever; under EP (axis={axis!r}) the mesh already shards "
+                "the routed tokens — drop one of the two")
+        return _moe_mlp_routed(x, params, n_experts, capacity_factor, top_k,
+                               dispatch_dtype, (group, axis))
     world = 1 if group is None or group.group is None else group.world
     rank = 0 if world == 1 else group.rank
     chunked = bool(dispatch_chunk) and dispatch_chunk < t * world
@@ -292,6 +312,59 @@ def moe_mlp(x: torch.Tensor, params: dict, *, n_experts: int,
             combine = dispatch * gate_te.to(dispatch.dtype)[..., None]
             y = _einsum("gtec,gecd->gtd", combine, expert_out)
     return y.reshape(t, d).to(x.dtype), aux
+
+
+def _expert_slice(w: torch.Tensor, n_experts: int, p: int, i: int,
+                  axis: str) -> torch.Tensor:
+    """Rank i's E/p experts of a stack: the rows i*E/p.. of the full
+    replicated stack, or the stack itself when it is E/p long already."""
+    e_local = n_experts // p
+    if w.shape[0] == e_local:
+        return w
+    if w.shape[0] != n_experts:
+        raise ValueError(f"w1 holds {w.shape[0]} experts; expected "
+                         f"{e_local} (sharded over {axis!r}) or {n_experts} "
+                         "(replicated)")
+    return w[i * e_local:(i + 1) * e_local]
+
+
+def _moe_mlp_routed(x, params, n_experts, capacity_factor, top_k,
+                    dispatch_dtype, ep):
+    """`moe_mlp` with the experts parallel over `ep` = (mesh, axis): the
+    rank's tokens routed at their own capacity, the dispatch buffer
+    all-to-all'd to the experts' ranks and back."""
+    from .sp import _AllToAll
+
+    mesh, axis = ep
+    t, d = x.shape
+    p = mesh.shape[axis]
+    if n_experts % p:
+        raise ValueError(f"experts {n_experts} not divisible by axis size "
+                         f"{p}")
+    cap = capacity(t, top_k, capacity_factor, n_experts)
+    with annotate("ep.router_build"):
+        dispatch, gate_te, aux = router_dispatch(
+            x, params["gate"], n_experts, cap, k=top_k,
+            dtype=dispatch_dtype or x.dtype)
+    with annotate("ep.dispatch_einsum"):
+        expert_in = _einsum("tec,td->ecd", dispatch, x)         # (E, C, D)
+    me = mesh.index(axis)
+    w1 = _expert_slice(params["w1"], n_experts, p, me, axis)
+    w2 = _expert_slice(params["w2"], n_experts, p, me, axis)
+    with annotate("ep.all_to_all_dispatch"):
+        expert_in = _AllToAll.apply(expert_in, mesh, 0, 1, axis)
+    with annotate("ep.expert_ffn"):
+        expert_out = _expert_ffn(expert_in, w1, w2)
+    with annotate("ep.all_to_all_combine"):
+        expert_out = _AllToAll.apply(expert_out, mesh, 1, 0, axis)
+    with annotate("ep.combine_einsum"):
+        if top_k == 1:
+            y = _einsum("tec,ecd->td", dispatch, expert_out)
+            y = y * gate_te.sum(-1).to(y.dtype)[:, None]
+        else:
+            combine = dispatch * gate_te.to(dispatch.dtype)[..., None]
+            y = _einsum("tec,ecd->td", combine, expert_out)
+    return y.to(x.dtype), aux
 
 
 def moe_mlp_inference(x: torch.Tensor, params: dict, *, n_experts: int,

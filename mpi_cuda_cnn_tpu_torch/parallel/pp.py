@@ -279,6 +279,60 @@ def microbatch_rows(n: int, m: int, n_data: int, d: int) -> np.ndarray:
             .reshape(-1))
 
 
+def gpipe_grads(M: int, leaves: list[torch.Tensor], *, prev: int | None,
+                next: int | None, device: torch.device, in_shape,
+                in_dtype: torch.dtype, first_input, stage, drain
+                ) -> list[torch.Tensor]:
+    """The GPipe schedule of one stage of a pipeline, for M microbatches:
+    the gradients of `leaves` summed over them. The one schedule of the
+    CNN's and the LM's pipelines (`parallel/pp_lm.py`).
+
+    Forward, microbatch 0 to M - 1: the first stage takes
+    `first_input(m)`, a later one receives an `in_shape` tensor of
+    `in_dtype` from global rank `prev`; `stage(inp, m)` -> (out, extra)
+    runs the stage, `extra` a scalar of this stage's own to differentiate
+    beside its output (None: none); the output goes on to rank `next`,
+    or on the last stage `drain(out, m)` gives the microbatch's scalar
+    loss. Backward, microbatch M - 1 down to 0: the last stage
+    differentiates its loss (and extra), a stage before it receives its
+    output's gradient; each stage sends its input's gradient back. A leaf
+    that a stage does not use gets a zero gradient."""
+    saved = []
+    for m in range(M):
+        inp = (first_input(m) if prev is None else
+               recv(in_shape, in_dtype, device, prev).requires_grad_(True))
+        out, extra = stage(inp, m)
+        if next is not None:
+            send(out, next)
+            saved.append((inp, out, extra))
+            continue
+        loss = drain(out, m)
+        saved.append((inp, loss if extra is None else loss + extra, None))
+    total = None
+    for m in reversed(range(M)):
+        inp, out, extra = saved[m]
+        if next is not None:
+            # the vector-Jacobian product as the gradient of a scalar,
+            # <out, g>: the same gradients bit for bit (ones times g),
+            # and autograd's grad_outputs path, which imports sympy on
+            # its first call (seconds in a fresh rank), is not taken
+            g_out = recv(out.shape, out.dtype, device, next)
+            out = (out * g_out).sum()
+            if extra is not None:
+                out = out + extra
+        wrt = leaves + ([inp] if prev is not None else [])
+        gs = [torch.zeros_like(t) if g is None else g for g, t in zip(
+            torch.autograd.grad(out, wrt, allow_unused=True), wrt)] \
+            if wrt else []
+        if prev is not None:
+            send(gs.pop(), prev)
+        if total is None:
+            total = gs
+        else:
+            torch._foreach_add_(total, gs)
+    return total or []
+
+
 class Pipeline:
     """One rank's pipeline stage (TP-sliced over 'model' and blocked
     over 'data' under FSDP as the plan says): its state, its forward and
@@ -493,47 +547,27 @@ class Pipeline:
         work = self.working(params)
         leaves = tree_leaves([work[i] for i in self.layers])
         mb = len(x) // M
-        saved = []
         metrics = torch.zeros(3, device=mesh.device)
-        for m in range(M):
-            inp = (x[m * mb:(m + 1) * mb] if self.prev is None
-                   else recv(self._in_shape(mb), torch.float32, mesh.device,
-                             self.prev).requires_grad_(True))
-            out = self.stage_apply(work, inp)
-            if self.next is not None:
-                send(out, self.next)
-                saved.append((inp, out))
-                continue
+
+        def drain(out, m):
             ym = y[m * mb:(m + 1) * mb]
             loss = softmax_cross_entropy(out, ym) / M
             with torch.no_grad():
                 logits = out.detach()
                 acc = (logits.argmax(-1) == ym.argmax(-1)).float().mean()
-                metrics += torch.stack([
+                metrics.add_(torch.stack([
                     loss.detach(),
                     squared_error_total(stable_softmax(logits), ym) / M,
-                    acc / M])
-            saved.append((inp, loss))
-        total = None
-        for m in reversed(range(M)):
-            inp, out = saved[m]
-            if self.next is not None:
-                # the vector-Jacobian product as the gradient of a scalar,
-                # <out, g>: the same gradients bit for bit (ones times g),
-                # and autograd's grad_outputs path, which imports sympy on
-                # its first call (seconds in a fresh rank), is not taken
-                g_out = recv(out.shape, torch.float32, mesh.device, self.next)
-                out = (out * g_out).sum()
-            wrt = leaves + ([inp] if self.prev is not None else [])
-            gs = list(torch.autograd.grad(out, wrt)) if wrt else []
-            if self.prev is not None:
-                send(gs.pop(), self.prev)
-            if total is None:
-                total = gs
-            else:
-                torch._foreach_add_(total, gs)
-        grads = self._reduce(total or [], metrics)
-        return grads
+                    acc / M]))
+            return loss
+
+        total = gpipe_grads(
+            M, leaves, prev=self.prev, next=self.next, device=mesh.device,
+            in_shape=self._in_shape(mb), in_dtype=torch.float32,
+            first_input=lambda m: x[m * mb:(m + 1) * mb],
+            stage=lambda inp, m: (self.stage_apply(work, inp), None),
+            drain=drain)
+        return self._reduce(total, metrics)
 
     def _reduce(self, grads: list[torch.Tensor], metrics: torch.Tensor):
         """The stage's gradients meaned over the data line (under FSDP x

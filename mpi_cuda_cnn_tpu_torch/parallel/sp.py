@@ -34,7 +34,11 @@ see the whole sequence from the shards:
 `make_sp_lm_train_step` is the LM's step on a (data, seq) mesh: each
 rank's (B/n_data, S/n_seq) tokens at position offset seq_index * S/n_seq,
 gradients and loss meaned over data x seq in one flat all-reduce
-(`parallel/dp.py`), with --grad-accum through `dp.local_grads`.
+(`parallel/dp.py`), with --grad-accum through `dp.local_grads`. MoE
+blocks run expert-parallel over the same 'seq' axis (EP x SP: each rank
+routes its own tokens and computes E/P experts, `parallel/moe.py`
+`moe_mlp` with `axis`). Under --fsdp (FSDP x SP) the params are sharded
+and the step is `parallel/lm_shard.py`'s with the same attention.
 
 The shifts are `dist.batch_isend_irecv` within the seq line's group and
 the all-to-alls `dist.all_to_all_single` of the P equal chunks stacked
@@ -104,12 +108,13 @@ class _RingShift(torch.autograd.Function):
 
 
 def all_to_all(t: torch.Tensor, mesh: Mesh, split_dim: int,
-               concat_dim: int) -> torch.Tensor:
-    """The tiled all-to-all of the seq axis: `t` split into P chunks along
-    `split_dim`, chunk j sent to seq rank j, and the chunks received from
-    ranks 0..P-1 concatenated along `concat_dim`."""
-    group = mesh.axis_group(SEQ_AXIS)
-    p = mesh.shape[SEQ_AXIS]
+               concat_dim: int, axis: str = SEQ_AXIS) -> torch.Tensor:
+    """The tiled all-to-all of an axis (the seq axis, or the expert
+    axis of `parallel/ep.py`): `t` split into P chunks along `split_dim`,
+    chunk j sent to rank j of the axis' line, and the chunks received
+    from ranks 0..P-1 concatenated along `concat_dim`."""
+    group = mesh.axis_group(axis)
+    p = mesh.shape[axis]
     # (P, chunk), dense whatever the strides of t's chunks
     send = torch.stack(t.detach().chunk(p, dim=split_dim)).contiguous()
     host = _via_host(send, group)
@@ -125,13 +130,13 @@ class _AllToAll(torch.autograd.Function):
     """`all_to_all`; its backward is the inverse all-to-all."""
 
     @staticmethod
-    def forward(ctx, t, mesh, split_dim, concat_dim):
-        ctx.args = (mesh, concat_dim, split_dim)
-        return all_to_all(t, mesh, split_dim, concat_dim)
+    def forward(ctx, t, mesh, split_dim, concat_dim, axis=SEQ_AXIS):
+        ctx.args = (mesh, concat_dim, split_dim, axis)
+        return all_to_all(t, mesh, split_dim, concat_dim, axis)
 
     @staticmethod
     def backward(ctx, g):
-        return all_to_all(g, *ctx.args), None, None, None
+        return all_to_all(g, *ctx.args), None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -359,6 +364,7 @@ def make_sp_lm_train_step(model, optimizer, mesh: Mesh, *,
         return lm_loss(model, params, tokens, targets, attn_fn=attn,
                        compute_dtype=compute_dtype, remat=remat,
                        moe_aux_weight=moe_aux_weight, ce_chunk=ce_chunk,
+                       moe_group=mesh, moe_axis=SEQ_AXIS,
                        pos_offset=me * tokens.shape[1]), {}
 
     axes = tuple(a for a in (data_axis, SEQ_AXIS) if a)

@@ -140,7 +140,8 @@ def make_tp_state(model, params, optimizer, mesh: Mesh
 
 
 def assemble(blocks: list, shapes: list, specs: list[dict],
-             mesh: Mesh) -> list[torch.Tensor]:
+             mesh: Mesh, on_every_stage: list[bool] | None = None
+             ) -> list[torch.Tensor]:
     """Whole leaves from this rank's blocks, on every rank, for a
     checkpoint or a whole-params read (the step gathers with
     `gather_leaves`): a flat float32 zero buffer into which each rank
@@ -148,8 +149,10 @@ def assemble(blocks: list, shapes: list, specs: list[dict],
     `blocks[i]` is None where this rank holds nothing of leaf i (another
     pipeline stage's); `shapes[i]` is leaf i's whole shape. A leaf whole
     along an axis but 'pipe' is written by the rank at coordinate 0 there
-    alone. The leaves come back as 16-byte-aligned views of the buffer,
-    in their blocks' dtype (float32 where this rank held none)."""
+    alone; so is a leaf that every stage holds (`on_every_stage[i]`, the
+    LM pipeline's embedding and head), along 'pipe' too. The leaves come
+    back as 16-byte-aligned views of the buffer, in their blocks' dtype
+    (float32 where this rank held none)."""
     if mesh.group is None:
         return list(blocks)
     sizes = [math.prod(s) for s in shapes]
@@ -158,9 +161,12 @@ def assemble(blocks: list, shapes: list, specs: list[dict],
     buf = torch.zeros(int(offs[-1]), dtype=torch.float32, device=mesh.device)
     views = [buf[int(o):int(o) + n].view(s)
              for o, n, s in zip(offs, sizes, shapes)]
-    for b, view, spec in zip(blocks, views, specs, strict=True):
+    every = on_every_stage or [False] * len(blocks)
+    for b, view, spec, all_stages in zip(blocks, views, specs, every,
+                                         strict=True):
         if b is None or any(mesh.index(a) for a in mesh.shape
-                            if a not in spec and a != PIPE_AXIS):
+                            if a not in spec
+                            and (a != PIPE_AXIS or all_stages)):
             continue
         region = view
         for axis, dim in spec.items():
@@ -173,19 +179,22 @@ def assemble(blocks: list, shapes: list, specs: list[dict],
 
 
 def global_sq(grads: list[torch.Tensor], specs: list[dict],
-              mesh: Mesh) -> torch.Tensor:
+              mesh: Mesh, on_every_stage: list[bool] | None = None
+              ) -> torch.Tensor:
     """The squared global norm of gradients held as blocks, on every
     rank: each rank's float32 sum of squares, each leaf's divided by the
     ranks that hold the same block of it (every axis but 'pipe' that its
-    spec does not name), summed over the world in one all-reduce. The
+    spec does not name, and 'pipe' too for a leaf every stage holds,
+    `on_every_stage`), summed over the world in one all-reduce. The
     mesh sizes are powers of two in practice, so the division is
     exact."""
     from ..train.optimizer import grad_sq
 
     by_rep: dict[int, list[torch.Tensor]] = {}
-    for g, spec in zip(grads, specs, strict=True):
+    every = on_every_stage or [False] * len(grads)
+    for g, spec, all_stages in zip(grads, specs, every, strict=True):
         rep = math.prod(n for a, n in mesh.shape.items()
-                        if a not in spec and a != PIPE_AXIS)
+                        if a not in spec and (a != PIPE_AXIS or all_stages))
         by_rep.setdefault(rep, []).append(g)
     total = torch.zeros(1, dtype=torch.float32, device=mesh.device)
     for rep, gs in by_rep.items():

@@ -80,17 +80,18 @@ def lm_loss(model: TransformerLM, params: dict, tokens: torch.Tensor,
             moe_aux_weight: float = 0.01, ce_chunk: int = 0,
             moe_dispatch_chunk: int = 0,
             moe_dispatch_dtype: torch.dtype | None = None,
-            moe_group=None, pos_offset: int = 0) -> torch.Tensor:
+            moe_group=None, moe_axis: str | None = None,
+            pos_offset: int = 0) -> torch.Tensor:
     """Mean next-token NLL plus moe_aux_weight x the MoE balance loss (0
     for a dense model); the softmax in float32. ce_chunk > 0 fuses the
     head product into the chunked cross-entropy
     (`ops.losses.chunked_ce_mean`), which never forms the (B, S, V)
     float32 logits; it must divide S. `moe_dispatch_chunk`,
-    `moe_dispatch_dtype`, `moe_group` and `pos_offset` (the first
-    position of a sequence shard) go to `model.apply`."""
+    `moe_dispatch_dtype`, `moe_group`, `moe_axis` and `pos_offset` (the
+    first position of a sequence shard) go to `model.apply`."""
     moe = dict(moe_dispatch_chunk=moe_dispatch_chunk,
                moe_dispatch_dtype=moe_dispatch_dtype, moe_group=moe_group,
-               pos_offset=pos_offset)
+               moe_axis=moe_axis, pos_offset=pos_offset)
     if ce_chunk:
         from ..ops.losses import chunked_ce_mean
 
@@ -103,9 +104,31 @@ def lm_loss(model: TransformerLM, params: dict, tokens: torch.Tensor,
     logits, aux = model.apply(params, tokens, attn_fn=attn_fn, remat=remat,
                               compute_dtype=compute_dtype, return_aux=True,
                               **moe)
+    return _nll(logits, targets) + moe_aux_weight * aux
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     logp = F.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, targets.long()[..., None])
-    return nll.mean() + moe_aux_weight * aux
+    return (-torch.gather(logp, -1, targets.long()[..., None])).mean()
+
+
+def head_nll(x: torch.Tensor, ln_f: dict, head: torch.Tensor,
+             targets: torch.Tensor, *,
+             compute_dtype: torch.dtype | None = None,
+             ce_chunk: int = 0) -> torch.Tensor:
+    """The mean next-token NLL of the last block's output x (B, S, D):
+    the final layernorm, the head product in the compute dtype and the
+    float32 softmax, as `model.apply` and `lm_loss` take them (the
+    sharded meshes' loss, `parallel/lm_shard.py`)."""
+    from ..models.transformer import _layernorm
+
+    feats = _layernorm(x, ln_f["g"], ln_f["b"])
+    if ce_chunk:
+        from ..ops.losses import chunked_ce_mean
+
+        return chunked_ce_mean(feats, head, targets, ce_chunk, compute_dtype)
+    w = head if compute_dtype is None else head.to(compute_dtype)
+    return _nll((feats @ w).to(torch.float32), targets)
 
 
 def make_lm_state(model: TransformerLM, optimizer, seed: int = 0, *,

@@ -32,9 +32,18 @@ or `data:N,seq:P`) the step is the sequence-parallel one of
 `parallel/sp.py`: each rank takes its (B/N, S/P) block of the windows,
 attention is ring, ring-flash or Ulysses (`pick_ring_impl`), and the
 eval runs the full sequence on every rank with flash (for ring-flash) or
-the oracle, as the reference's does. What the reference's trainer adds
-beyond that (the other meshes, FSDP, MoE under a seq axis) is refused by
-`utils.config.check_lm_supported` (ROADMAP queue F).
+the oracle, as the reference's does; MoE blocks there run
+expert-parallel over 'seq'. With an 'expert' axis the step is EP x DP
+(`parallel/ep.py`: the rows over data x expert, the MoE slots
+all-to-all'd over 'expert'). On a 'model' or 'pipe' axis, and under
+--fsdp, the params are sharded and the step is `parallel/lm_shard.py`'s
+(`ShardedLM`: tensor parallelism with the Megatron block, FSDP, FSDP x
+TP, FSDP x SP, TP x SP, GPipe with data, seq and model up to the 4D
+mesh), the clip in the step with the norm over the world, checkpoints
+in the reference's tree of the mesh (`Recovery`'s codec), and the eval
+and the sample from the whole standard tree, gathered on every rank.
+The reference's checks of the mesh and its flags are
+`utils.config.check_lm_supported`.
 """
 
 from __future__ import annotations
@@ -54,17 +63,19 @@ from ..obs.device import emit_step_telemetry
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import span
 from ..ops.flash_attention import HEAD_DIMS
+from ..models.layers import tree_leaves
 from ..parallel.dp import dp_shard_batch, replicate
 from ..parallel.moe import check_dispatch_chunk
-from ..parallel.mesh import DATA_AXIS, SEQ_AXIS, device_mesh
-from ..parallel.sp import make_sp_lm_train_step, sp_shard_batch
-from ..utils.config import (
-    COMPUTE_DTYPES,
-    check_batch_divides,
-    check_elastic_and_accum,
-    check_lm_supported,
-    lm_axes,
+from ..parallel.mesh import (
+    DATA_AXIS,
+    EXPERT_AXIS,
+    MODEL_AXIS,
+    PIPE_AXIS,
+    SEQ_AXIS,
+    device_mesh,
 )
+from ..parallel.sp import make_sp_lm_train_step, sp_shard_batch
+from ..utils.config import COMPUTE_DTYPES, check_lm_supported
 from ..utils.logging import MetricsLogger, get_logger
 from ..utils.profiling import StepTimer
 from .lm import (
@@ -139,29 +150,6 @@ def check_sample_flags(cfg) -> None:
                 f"prompt exceeds seq_len {cfg.seq_len}")
 
 
-def check_moe_flags(cfg) -> None:
-    """The reference trainer's checks of the MoE flags on a data mesh,
-    with its words: a dispatch chunk or dtype needs --moe-experts, the
-    dtype is bfloat16 or float32, and neither rides --elastic-width."""
-    if cfg.moe_dispatch_chunk and not cfg.moe_experts:
-        raise ValueError(
-            "--moe-dispatch-chunk needs an MoE model (--moe-experts)")
-    if cfg.moe_dispatch_dtype:
-        if not cfg.moe_experts:
-            raise ValueError(
-                "--moe-dispatch-dtype needs an MoE model (--moe-experts)")
-        if cfg.moe_dispatch_dtype not in ("bfloat16", "float32"):
-            raise ValueError(
-                f"--moe-dispatch-dtype {cfg.moe_dispatch_dtype!r} "
-                "must be 'bfloat16' or 'float32'")
-    if cfg.elastic_width and (cfg.moe_dispatch_chunk
-                              or cfg.moe_dispatch_dtype):
-        raise ValueError(
-            "--moe-dispatch-chunk/--moe-dispatch-dtype ride the "
-            "plain jitted step; the elastic shard_map step does "
-            "not thread them — drop one of the two")
-
-
 def load_corpus(spec: str, package_root: Path | None = None) -> np.ndarray:
     """A corpus spec as a char-level int32 token array.
 
@@ -206,8 +194,8 @@ class LMTrainer:
                  params: dict | None = None, mesh=None, faults=None,
                  preempt: PreemptionGuard | None = None, registry=None,
                  clock=None):
-        check_lm_supported(cfg)
-        if mesh is None and math.prod(lm_axes(cfg).values()) > 1:
+        axes = check_lm_supported(cfg)
+        if mesh is None and math.prod(axes.values()) > 1:
             raise ValueError(
                 f"num_devices={cfg.num_devices}, mesh_shape="
                 f"{cfg.mesh_shape!r}: an LMTrainer is one rank; pass the "
@@ -224,9 +212,9 @@ class LMTrainer:
         self.mesh = mesh = mesh or device_mesh(self.device)
         n_data = mesh.shape.get(DATA_AXIS, 1)
         self.n_seq = n_seq = mesh.shape.get(SEQ_AXIS, 1)
-        check_batch_divides(cfg.batch_size, n_data)
-        check_elastic_and_accum(cfg.elastic_width, cfg.grad_accum,
-                                cfg.batch_size, n_data)
+        self.n_model = mesh.shape.get(MODEL_AXIS, 1)
+        self.n_pipe = mesh.shape.get(PIPE_AXIS, 1)
+        self.n_expert = mesh.shape.get(EXPERT_AXIS, 1)
 
         tokens = load_corpus(cfg.corpus)
         vocab = int(tokens.max()) + 1
@@ -247,7 +235,6 @@ class LMTrainer:
                 f"--ce-chunk {cfg.ce_chunk} must divide the sequence "
                 f"{cfg.seq_len}")
         check_sample_flags(cfg)
-        check_moe_flags(cfg)
 
         self.model = TransformerLM(
             vocab=vocab, dim=cfg.dim, heads=cfg.heads, depth=cfg.depth,
@@ -262,13 +249,29 @@ class LMTrainer:
             self.log.warning("warmup_steps %d >= steps %d; clamped to %d",
                              cfg.warmup_steps, cfg.steps, warmup)
         self.warmup_steps = warmup
+        # The sharded meshes clip in their step, with the norm over the
+        # world. The optimizer's chain is the reference's all the same
+        # (its checkpoint names follow it): its pipelined, TP x SP and
+        # FSDP x SP steps clip in-step and hold no clip in the chain; on
+        # its GSPMD meshes optax clips the global gradient, whose norm
+        # the in-step clip takes here.
+        sharded = (self.n_pipe > 1 or self.n_model > 1
+                   or (cfg.fsdp and n_data > 1))
+        clip_in_step = self.n_pipe > 1 or n_seq > 1 and (
+            self.n_model > 1 or cfg.fsdp)
         self.optimizer = make_optimizer(
             cfg.lr, opt="adamw", schedule=cfg.lr_schedule,
             total_steps=cfg.steps or None, warmup_steps=warmup,
-            weight_decay=cfg.weight_decay, grad_clip=cfg.grad_clip)
+            weight_decay=cfg.weight_decay,
+            grad_clip=0.0 if clip_in_step else cfg.grad_clip)
         self._compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
-        self.attn_impl = pick_attn_impl(cfg.attn_impl, cfg.seq_len,
-                                        self.device, self.model.head_dim)
+        if n_seq > 1:
+            self.attn_impl = pick_ring_impl(cfg.attn_impl, cfg.seq_len,
+                                            n_seq, self.device,
+                                            self.model.head_dim)
+        else:
+            self.attn_impl = pick_attn_impl(cfg.attn_impl, cfg.seq_len,
+                                            self.device, self.model.head_dim)
         if cfg.moe_dispatch_chunk and n_data > 1 and not cfg.elastic_width:
             # The ranks route each micro-batch as one global batch; a chunk
             # must divide a rank's tokens or be a whole number of them.
@@ -277,10 +280,25 @@ class LMTrainer:
                                  cfg.moe_dispatch_chunk, n_data)
         dispatch_dtype = (getattr(torch, cfg.moe_dispatch_dtype)
                           if cfg.moe_dispatch_dtype else None)
-        if n_seq > 1:
-            self.attn_impl = pick_ring_impl(cfg.attn_impl, cfg.seq_len,
-                                            n_seq, self.device,
-                                            self.model.head_dim)
+        self.par = None
+        if sharded:
+            from ..parallel.lm_shard import ShardedLM
+
+            self.par = ShardedLM(
+                self.model, mesh, attn_impl=self.attn_impl, fsdp=cfg.fsdp,
+                compute_dtype=self._compute_dtype, remat=cfg.remat,
+                ce_chunk=cfg.ce_chunk, grad_accum=cfg.grad_accum,
+                moe_dispatch_dtype=dispatch_dtype)
+            self.train_step = self.par.make_train_step(
+                self.optimizer, grad_clip=cfg.grad_clip)
+        elif self.n_expert > 1:
+            from ..parallel.ep import make_ep_lm_train_step
+
+            self.train_step = make_ep_lm_train_step(
+                self.model, self.optimizer, mesh, attn_impl=self.attn_impl,
+                remat=cfg.remat, compute_dtype=self._compute_dtype,
+                ce_chunk=cfg.ce_chunk, grad_accum=cfg.grad_accum)
+        elif n_seq > 1:
             self.train_step = make_sp_lm_train_step(
                 self.model, self.optimizer, mesh, impl=self.attn_impl,
                 data_axis=DATA_AXIS if n_data > 1 else None, remat=cfg.remat,
@@ -304,9 +322,16 @@ class LMTrainer:
         self.state = make_lm_state(self.model, self.optimizer, cfg.seed,
                                    params=params, device=self.device)
         replicate(self.state["params"], mesh)
+        codec = None
+        if self.par is not None:
+            self.state = self.par.place(self.state["params"], self.optimizer)
+            opt = self.optimizer
+            codec = (lambda st: self.par.checkpoint_arrays(st, opt),
+                     lambda st, arrays: self.par.load_arrays(st, arrays, opt))
+        self._standard = None
         self.recovery = Recovery(cfg, mesh, self.optimizer,
                                  metrics=self.metrics, logger=self.log,
-                                 faults=faults, preempt=preempt)
+                                 faults=faults, preempt=preempt, codec=codec)
 
     # ------------------------------------------------------------------
 
@@ -331,11 +356,40 @@ class LMTrainer:
         tokens, targets = self._shard(self._sample_batch(0))
         grads, _ = self.train_step.grads(self.state, self._to_device(tokens),
                                          self._to_device(targets))
+        if self.par is not None:
+            grads = [t.clone() for t in self.par.standard_leaves(grads)]
         return grads
 
+    def full_leaves(self) -> list[torch.Tensor]:
+        """The whole params' leaves in the standard tree's order, on every
+        rank (on a sharded mesh one all-reduce of the blocks)."""
+        return tree_leaves(self.standard_params())
+
+    def standard_params(self) -> dict:
+        """The whole params in the standard tree, on every rank: the live
+        ones on a data mesh; on a sharded one, put together from the
+        blocks (a collective, made once a step: every rank calls it)."""
+        if self.par is None:
+            return self.state["params"]
+        if self._standard is None or self._standard[0] != self.state["step"]:
+            self._standard = (self.state["step"],
+                              self.par.standard_params(self.state))
+        return self._standard[1]
+
     def _shard(self, batch):
-        """This rank's block of a (B, S) batch: its data-axis rows, and
-        under a seq axis its shard's columns."""
+        """This rank's block of a (B, S) batch: its data-axis rows (on a
+        pipe axis each microbatch's, in microbatch order; on an expert
+        axis its rows of data x expert), and under a seq axis its shard's
+        columns."""
+        if self.n_pipe > 1:
+            from ..parallel.pp_lm import pp_lm_shard_batch
+
+            return tuple(pp_lm_shard_batch(t, self.mesh, self.n_pipe)
+                         for t in batch)
+        if self.n_expert > 1:
+            from ..parallel.ep import ep_shard_batch
+
+            return tuple(ep_shard_batch(t, self.mesh) for t in batch)
         if self.n_seq > 1:
             return sp_shard_batch(batch, self.mesh)
         return dp_shard_batch(batch, self.mesh)
@@ -443,14 +497,16 @@ class LMTrainer:
         """Mean next-token NLL over the held-out windows in one batched
         forward (equal windows: the batch mean is the mean of the window
         means), with flash attention when training used it (flash or
-        ring-flash), else the oracle; the full sequence on every rank."""
+        ring-flash), else the oracle; the full sequence on every rank, from
+        the whole standard params."""
+        params = self.standard_params()
         wins = self.eval_windows()
         if not len(wins):
             return float("nan")
         attn_fn = get_attn_fn("flash" if self.attn_impl in ("flash",
                                                             "ring_flash")
                               else "oracle")
-        loss = lm_loss(self.model, self.state["params"],
+        loss = lm_loss(self.model, params,
                        self._to_device(wins[:, :-1]),
                        self._to_device(wins[:, 1:]), attn_fn=attn_fn,
                        compute_dtype=self._compute_dtype, moe_aux_weight=0.0,
@@ -464,7 +520,11 @@ class LMTrainer:
         decode path (`models/generate.py`): the prompt from the eval tail,
         greedy by default, with the decode dtypes resolved for this
         model's heads (int8 weights take K2 on the card); with
-        --sample-speculative-k, prompt-lookup speculation. Returns
+        --sample-speculative-k, prompt-lookup speculation. On a sharded
+        mesh the decode runs from the whole standard params
+        (`standard_params`, which every rank must have made at this step:
+        `train()` makes them for its eval); a model axis keeps float32
+        weights, as the reference's model-parallel decode does. Returns
         (prompt, continuation) as int32 numpy arrays."""
         from ..data import prng
         from ..models.generate import (
@@ -492,9 +552,13 @@ class LMTrainer:
         prompt = self._to_device(np.asarray(stream[:p], np.int64)[None, :])
         model = self.model
         heads = dict(heads=model.heads, kv_heads=model.n_kv)
-        params = quantize_decode_params(
-            self.state["params"],
-            pick_weights_dtype(cfg.decode_weights_dtype, **heads))
+        wdt = pick_weights_dtype(cfg.decode_weights_dtype, **heads)
+        if wdt != "float32" and self.n_model > 1:
+            raise ValueError(
+                "--decode-weights-dtype requires an unsharded sample path "
+                "(model-parallel decode keeps f32 weights; set "
+                "--decode-weights-dtype float32)")
+        params = quantize_decode_params(self.standard_params(), wdt)
         cache_dtype = pick_cache_dtype(cfg.decode_cache_dtype, **heads)
         key = prng.key(seed) if temperature > 0 else None
         sampling = dict(temperature=temperature, key=key,

@@ -225,13 +225,15 @@ def lm_rank(mesh, cfg, params=None, *, grads: bool = False,
     (None: the seeded init), trained for cfg.steps and evaluated
     (`LMTrainer.train()`), then, with cfg.sample_tokens, a sample on rank
     0 logged as the reference's command logs it. The rank's mesh may have
-    a seq axis (its block of every batch, `parallel/sp.py`). Returns the
+    any of the LM's axes (its block of every batch and of the params).
+    Returns the
     exit code, the losses logged (every cfg.log_every steps), the
     result's final and eval losses, the launches and collectives of
     `train()` (the steps and the eval), its wall seconds, the trainer's
     records, the sample's tokens (rank 0 with cfg.sample_tokens, else
     None), and, if asked, step 0's gradients (before training) and the
-    final params (numpy, in `tree_leaves` order)."""
+    final params (numpy, whole, in the standard tree's `tree_leaves`
+    order)."""
     log = get_logger()
     faults = FaultInjector(cfg.fault_plan) if cfg.fault_plan else None
     registry = MetricsRegistry()    # one for every supervised attempt
@@ -271,7 +273,9 @@ def lm_rank(mesh, cfg, params=None, *, grads: bool = False,
                seconds=time.perf_counter() - t0, counts=tally.take(),
                records=metrics.rows, sample=None)
     if final_params:
-        res["params"] = _numpy(tree_leaves(trainer.state["params"]))
+        res["params"] = _numpy(trainer.full_leaves())
+    if cfg.sample_tokens:
+        trainer.standard_params()   # on every rank (a sharded mesh gathers)
     if cfg.sample_tokens and (mesh is None or mesh.rank == 0):
         _, cont = trainer.sample(cfg.sample_tokens,
                                  temperature=cfg.sample_temperature,
@@ -283,7 +287,21 @@ def lm_rank(mesh, cfg, params=None, *, grads: bool = False,
     return res
 
 
-def lm_rank_each(mesh, cfgs, **kw) -> list[dict]:
-    """`lm_rank` of each config in turn on this rank's mesh, with the
-    same keyword arguments: several runs in one spawn of the ranks."""
-    return [lm_rank(mesh, cfg, **kw) for cfg in cfgs]
+def lm_rank_runs(mesh, runs: list[tuple]) -> list[dict]:
+    """`lm_rank(m, cfg, params, **kw)` for each (cfg, params, kw) of
+    `runs` in turn, on this rank's mesh of cfg's axes
+    (`utils.config.lm_axes`, built here over the ranks' group, so that
+    one spawn of the ranks runs meshes of several shapes), each result
+    with the run's wall seconds (`wall_s`)."""
+    from ..parallel.mesh import make_mesh
+    from ..utils.config import lm_axes
+
+    out = []
+    for cfg, params, kw in runs:
+        t0 = time.perf_counter()
+        axes = lm_axes(cfg)
+        m = mesh if axes == mesh.shape else make_mesh(
+            axes, devices=[mesh.device] * mesh.world)
+        out.append({**lm_rank(m, cfg, params, **kw),
+                    "wall_s": time.perf_counter() - t0})
+    return out

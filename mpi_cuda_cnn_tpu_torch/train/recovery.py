@@ -12,10 +12,13 @@ meeting it at a barrier (`parallel.distributed`); the resume and the
 rollback read the newest file that verifies, after a barrier, on every
 rank; a trainer whose ranks hold blocks of the state gives its own
 `codec` (the arrays of the whole state made on every rank, and each
-rank's share of restored arrays installed). Making those arrays is a
-collective, so on such a trainer the ranks agree on a preemption at
-every step boundary (one all-reduce of the flags): a signal that reaches
-one rank drains them all at the same step. The NaN guard checks a step
+rank's share of restored arrays installed). In a world of several ranks
+the ranks agree on a preemption at every step boundary (one all-reduce
+of the flags over the world), whatever the mesh: a signal that reaches
+one rank drains them all at the same step, so that no rank meets the
+snapshot's barrier (or, on a sharded mesh, the collective that makes its
+arrays) while its peers enter the next step's collectives. A world of
+one rank makes no collective. The NaN guard checks a step
 on the device and undoes a bad update from a device copy of the state
 taken before it (the update runs in place), leaving the step counter
 advanced: it counts batches consumed, so a later resume lands on the
@@ -143,7 +146,7 @@ class Recovery:
                 if f.kind == "preempt":
                     self.preempt.request()
             self.drain_events()
-        if self.codec is not None:
+        if self.mesh.group is not None and self.mesh.world > 1:
             self._agree_preemption()
         if self.preempt.requested:
             drain_preemption(

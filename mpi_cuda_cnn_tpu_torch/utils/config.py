@@ -9,20 +9,20 @@ those as flags, with the JAX package's names and defaults.
 `--use-kernels` takes the place of `--use-pallas`: the hand-written CUDA
 kernels instead of PyTorch's own ops (off by default, as there).
 
-The flags of features this port does not have yet stay, so that a run
-asking for one stops at once: `check_lm_supported` (LM, ROADMAP queue F)
-raises NotImplementedError naming the queue entry that will bring it.
-The CNN's meshes are all ported, one rank per device: the data axis
-(`--num-devices N`, `--mesh-shape data:N`, `parallel/dp.py`), the model
-axis of tensor parallelism and `--fsdp` (`parallel/tp.py`,
-`parallel/fsdp.py`), and the pipe axis of pipeline parallelism with
-`--num-microbatches` (`parallel/pp.py`); an axis of another name holds
-replicas of the data-parallel step, as in the reference's trainer. For
-the LM the data axis and the seq axis of sequence parallelism
-(`--mesh-shape seq:P` or `data:N,seq:P`, with
-`--attn-impl auto|flash|oracle|ring|ring_flash|ulysses`,
-`parallel/sp.py`). Checkpoints, fault plans, the NaN guard and
-the supervisor are ported (`train/checkpoint.py`, `faults.py`); as in
+Every feature of both reference trainers is ported, one rank per
+device. The CNN's meshes: the data axis (`--num-devices N`,
+`--mesh-shape data:N`, `parallel/dp.py`), the model axis of tensor
+parallelism and `--fsdp` (`parallel/tp.py`, `parallel/fsdp.py`), and the
+pipe axis of pipeline parallelism with `--num-microbatches`
+(`parallel/pp.py`). The LM's: the data axis, the seq axis of sequence
+parallelism (`--attn-impl auto|flash|oracle|ring|ring_flash|ulysses`,
+`parallel/sp.py`), the model axis (`parallel/tp.py`, `parallel/tp_sp.py`),
+the pipe axis (`parallel/pp_lm.py`, `parallel/tp_pp_lm.py`), the expert
+axis (`parallel/ep.py`) and `--fsdp`, as the reference composes them
+(`check_lm_supported`). In both, an axis of another name holds replicas
+of the data-parallel step, as in the reference's trainers. Checkpoints,
+fault plans, the NaN guard and the supervisor are ported
+(`train/checkpoint.py`, `faults.py`); as in
 the reference, `--nan-policy` and `--fault-plan` are checked when the
 flags are parsed (exit 2), the plan against the command's hook sites.
 So are gradient accumulation, rematerialization, bf16 params,
@@ -313,12 +313,14 @@ class LMConfig:
     attn_impl: str = "auto"          # auto | flash | oracle; with a seq
                                      # axis also ring | ring_flash | ulysses
     remat: bool = False
-    fsdp: bool = False               # refused (queue F item 1)
+    fsdp: bool = False               # shard params + optimizer state
+                                     # over 'data' (parallel/fsdp.py)
     ce_chunk: int = 0                # >0: chunked fused cross-entropy
     device: str = "auto"             # auto (= cuda) | cuda | cpu
     num_devices: int = 0             # 0 = all visible (1 on the CPU)
-    mesh_shape: str = "data"         # "data", "data:N", "seq:P" or
-                                     # "data:N,seq:P"
+    mesh_shape: str = "data"         # axes data, seq, model, pipe and
+                                     # expert: "data:N", "data:2,model:2",
+                                     # "pipe:2,model:2,seq:2", ...
 
     checkpoint_dir: str | None = None
     checkpoint_every: int = 0           # steps; 0 = only at the end
@@ -340,55 +342,171 @@ class LMConfig:
     decode_weights_dtype: str = "float32"
 
 
-LM_MESH_AXES = ("data", "seq")
-
-# (field, value that means "off", ROADMAP queue F item, what it is)
-_LM_REFUSED = (
-    ("fsdp", False, 1, "FSDP"),
-)
+LM_MESH_AXES = ("data", "seq", "model", "pipe", "expert")
 
 
 def lm_axes(cfg: LMConfig) -> dict[str, int]:
-    """The LM's mesh axes (`data_axes` with the data and seq axes)."""
-    return data_axes(cfg.num_devices, cfg.mesh_shape, queue="F",
-                     ported=LM_MESH_AXES)
+    """The LM's mesh: the axes of `--mesh-shape` as named (an axis of
+    another name holds replicas, as in the reference's trainer), "data"
+    first, of size 1, when it names none."""
+    axes = data_axes(cfg.num_devices, cfg.mesh_shape, ported=None)
+    return axes if "data" in axes else {"data": 1, **axes}
 
 
-def check_lm_supported(cfg: LMConfig) -> None:
-    """Raise NotImplementedError for a feature of the reference's LM
-    trainer that this port does not have yet (ROADMAP queue F: other
-    axes, FSDP, MoE under a seq axis), and ValueError for what the
-    reference's trainer refuses: a batch the data axis does not divide, a
-    sequence the seq axis does not divide, --elastic-width under a seq
-    axis, a --grad-accum / --elastic-width that `check_elastic_and_accum`
-    refuses. An unknown --attn-impl, or a sequence-parallel one without a
-    seq axis, is the trainer's ValueError, as there."""
-    axes = lm_axes(cfg)
-    for name, off, item, what in _LM_REFUSED:
-        if getattr(cfg, name) != off:
-            flag = "--" + name.replace("_", "-")
-            raise NotImplementedError(
-                f"{flag}={getattr(cfg, name)!r}: {what} is not ported yet "
-                f"(ROADMAP queue F item {item})")
-    n_seq = axes.get("seq", 1)
-    if n_seq > 1:
-        if cfg.moe_experts:
-            raise NotImplementedError(
-                f"--moe-experts={cfg.moe_experts} under a 'seq' axis: MoE "
-                "rides EP x SP there, which is not ported yet (ROADMAP "
-                "queue F item 1)")
-        if cfg.elastic_width:
+def _check_lm_mesh(cfg: LMConfig, n: dict[str, int]) -> None:
+    """The reference trainer's checks of the mesh and the flags that ride
+    it (`train/lm_trainer.py` :225-349), in its order and words."""
+    n_data, n_seq, n_model, n_pipe, n_expert = (
+        n.get(a, 1) for a in ("data", "seq", "model", "pipe", "expert"))
+    if n_expert > 1 and (n_seq > 1 or n_model > 1 or n_pipe > 1
+                         or cfg.fsdp):
+        raise ValueError(
+            "an 'expert' mesh axis composes with 'data' only (EP x DP, "
+            "parallel/ep.py make_ep_lm_train_step); MoE under a 'seq' axis "
+            "rides EP x SP instead — drop the other axes/--fsdp or the "
+            "expert axis")
+    if cfg.batch_size % (n_data * n_expert):
+        raise ValueError(
+            f"batch_size {cfg.batch_size} not divisible by data x expert "
+            f"shards ({n_data} x {n_expert})")
+    if cfg.moe_dispatch_chunk and (n_expert > 1 or n_seq > 1 or n_model > 1
+                                   or n_pipe > 1):
+        raise ValueError(
+            "--moe-dispatch-chunk is the SINGLE-DEVICE (or pure-DP) "
+            "quadratic-dispatch lever; expert/seq/model/pipe meshes already "
+            "shard the routed tokens — drop one of the two")
+    if cfg.moe_dispatch_chunk and not cfg.moe_experts:
+        raise ValueError(
+            "--moe-dispatch-chunk needs an MoE model (--moe-experts)")
+    if cfg.moe_dispatch_dtype:
+        if not cfg.moe_experts:
+            raise ValueError(
+                "--moe-dispatch-dtype needs an MoE model (--moe-experts)")
+        if cfg.moe_dispatch_dtype not in ("bfloat16", "float32"):
+            raise ValueError(
+                f"--moe-dispatch-dtype {cfg.moe_dispatch_dtype!r} must be "
+                "'bfloat16' or 'float32'")
+        if n_expert > 1 or n_seq > 1 or n_pipe > 1:
+            raise ValueError(
+                "--moe-dispatch-dtype rides the plain jitted step "
+                "(data/model/FSDP meshes); the expert/seq/pipe shard_map "
+                "steps don't thread it — drop one of the two (bf16 compute "
+                "already gives bf16 dispatch there)")
+    if n_model > 1 and n_seq > 1:
+        if cfg.fsdp:
+            raise ValueError(
+                "--fsdp does not compose with the TP x SP shard_map step; "
+                "drop it or use data:N,model:M")
+        allowed = ("auto", "oracle", "ring", "ring_flash", "flash")
+        if n_pipe == 1:
+            allowed += ("ulysses",)
+        if cfg.attn_impl not in allowed:
+            raise ValueError(
+                f"--attn-impl {cfg.attn_impl!r} is not wired into this mesh "
+                "(TP x SP runs ring/ring_flash/ulysses on the local heads; "
+                "with a 'pipe' axis, ring/ring_flash only); use auto")
+    if n_pipe > 1 and cfg.fsdp:
+        raise ValueError(
+            "the LM's 'pipe' axis composes with 'data', 'model', and 'seq' "
+            "(up to the full 4D pipe x model x seq x data mesh; "
+            "parallel/pp_lm.py, tp_pp_lm.py) but not with --fsdp; drop the "
+            "flag or the pipe axis")
+    if n_pipe > 1 and cfg.batch_size % (n_pipe * n_data):
+        raise ValueError(
+            f"batch_size {cfg.batch_size} not divisible by num_microbatches "
+            f"x data-axis ({n_pipe} x {n_data})")
+    if n_pipe > 1 and n_seq == 1 and \
+            cfg.attn_impl not in ("auto", "oracle", "flash"):
+        raise ValueError(
+            f"--attn-impl {cfg.attn_impl!r} needs a 'seq' mesh axis (ring "
+            "attention shards positions); the pipelined stages see the full "
+            "sequence — use auto, flash, or oracle")
+    check_batch_divides(cfg.batch_size, n_data)
+    if cfg.grad_accum > 1:
+        if n_pipe > 1 or (n_seq > 1 and n_model > 1):
+            raise ValueError(
+                "--grad-accum is not wired into this mesh: the 'pipe' axis "
+                "already accumulates over --num-microbatches, and the TP x "
+                "SP step doesn't chunk — drop the flag or those axes (plain/"
+                "TP/FSDP/SP/EP meshes all accept it)")
+        per_shard = cfg.batch_size // (n_data * n_expert)
+        if per_shard % cfg.grad_accum:
+            raise ValueError(f"per-shard batch {per_shard} not divisible by "
+                             f"grad_accum {cfg.grad_accum}")
+    if cfg.seq_len % n_seq:
+        raise ValueError(f"seq_len {cfg.seq_len} not divisible by seq-axis "
+                         f"size {n_seq}")
+    if cfg.fsdp and n_data <= 1:
+        raise ValueError("--fsdp needs a 'data' mesh axis of size > 1 "
+                         f"(mesh_shape={cfg.mesh_shape!r})")
+    if cfg.elastic_width:
+        from ..parallel.elastic import check_elastic_width
+
+        if n_seq > 1 or n_model > 1 or n_pipe > 1 or n_expert > 1 \
+                or cfg.fsdp:
             raise ValueError(
                 "--elastic-width needs a pure data-parallel mesh "
                 f"(mesh_shape={cfg.mesh_shape!r}/--fsdp shard the state; "
                 "cross-width bitwise resume is only defined for replicated "
                 "params)")
-        if cfg.seq_len % n_seq:
-            raise ValueError(f"seq_len {cfg.seq_len} not divisible by "
-                             f"seq-axis size {n_seq}")
-    check_batch_divides(cfg.batch_size, axes["data"])
-    check_elastic_and_accum(cfg.elastic_width, cfg.grad_accum,
-                            cfg.batch_size, axes["data"])
+        if cfg.grad_accum > 1:
+            raise ValueError(
+                "--elastic-width already scans canonical microbatches; "
+                "--grad-accum is redundant with it")
+        if cfg.moe_dispatch_chunk or cfg.moe_dispatch_dtype:
+            raise ValueError(
+                "--moe-dispatch-chunk/--moe-dispatch-dtype ride the plain "
+                "jitted step; the elastic shard_map step does not thread "
+                "them — drop one of the two")
+        check_elastic_width(cfg.elastic_width, cfg.batch_size, n_data)
+
+
+def _check_lm_layout(cfg: LMConfig, n: dict[str, int]) -> None:
+    """The checks the reference makes as it builds a sharded state or
+    step (`_check_pp_lm`, `_check_tp_sp`, the TP x SP Ulysses rule, the
+    expert axis' need of an MoE model), in its words."""
+    n_seq, n_model, n_pipe, n_expert = (
+        n.get(a, 1) for a in ("seq", "model", "pipe", "expert"))
+    if n_pipe > 1 and cfg.depth % n_pipe:
+        raise ValueError(f"depth {cfg.depth} not divisible by pipe-axis "
+                         f"size {n_pipe}")
+    if n_model > 1 and (n_seq > 1 or n_pipe > 1):
+        kv = cfg.kv_heads or cfg.heads
+        if cfg.heads % n_model or kv % n_model:
+            raise ValueError(
+                f"the model-axis size {n_model} must divide both heads "
+                f"{cfg.heads} and kv_heads {kv}")
+        if (4 * cfg.dim) % n_model:
+            raise ValueError(f"MLP hidden {4 * cfg.dim} not divisible by "
+                             f"model-axis size {n_model}")
+        if n_seq > 1 and n_pipe == 1 and cfg.attn_impl == "ulysses" and \
+                (cfg.heads // n_model) % n_seq:
+            raise ValueError(
+                f"impl='ulysses' under TP x SP needs the TP-local heads "
+                f"({cfg.heads}/{n_model} = {cfg.heads // n_model}) divisible "
+                f"by the seq-axis size {n_seq}; use ring")
+    if n_expert > 1:
+        if not cfg.moe_experts:
+            raise ValueError(
+                "an 'expert' mesh axis needs an MoE model (--moe-experts); "
+                "for dense models the axis is just data parallelism — use a "
+                "'data' axis")
+        if cfg.moe_experts % n_expert:
+            raise ValueError(f"experts {cfg.moe_experts} not divisible by "
+                             f"expert-axis size {n_expert}")
+
+
+def check_lm_supported(cfg: LMConfig) -> dict[str, int]:
+    """The reference LM trainer's checks of its mesh and flags, as
+    ValueErrors in its words (every mesh and flag of its trainer is
+    ported): the axes' compositions and divisibilities, the flags each
+    mesh refuses, and the layout checks its sharded states make. An
+    unknown --attn-impl, or a sequence-parallel one without a seq axis,
+    is the trainer's ValueError, as there. Returns the mesh's axes."""
+    axes = lm_axes(cfg)
+    _check_lm_mesh(cfg, axes)
+    _check_lm_layout(cfg, axes)
+    return axes
 
 
 NAN_POLICIES = ("off", "abort", "skip", "restore")

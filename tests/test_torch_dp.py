@@ -132,12 +132,16 @@ def test_dp_matches_the_jax_dp_trainer(jax_dp_runs, port_dp_runs, w, route):
 
 @pytest.mark.parametrize("w", WORLDS)
 def test_one_all_reduce_per_step_and_one_broadcast(port_dp_runs, w):
-    for ranks in port_dp_runs[w].values():
+    for route, ranks in port_dp_runs[w].items():
+        # and one all-reduce of the preemption flags at every chunk
+        # boundary: the device route's epoch is one chunk, the per-batch
+        # route ends one at every step
+        flags = 1 if route == "device" else STEPS
         for res in ranks:
             assert res["init"]["collectives"] == {"all_reduce": 0,
                                                   "broadcast": 1}
-            assert res["epoch_counts"]["collectives"] == {"all_reduce": STEPS,
-                                                          "broadcast": 0}
+            assert res["epoch_counts"]["collectives"] == {
+                "all_reduce": STEPS + flags, "broadcast": 0}
             # the eval's correct counts: one sum over the ranks
             assert res["eval_counts"]["collectives"] == {"all_reduce": 1,
                                                          "broadcast": 0}

@@ -429,6 +429,51 @@ def test_a_preemption_on_one_rank_drains_every_rank_of_a_sharded_mesh(
             np.testing.assert_array_equal(a, b)
 
 
+def _preempt_rank_one_lm(mesh, cfg, ck):
+    """`_preempt_rank_one` of the LM trainer."""
+    cut = dataclasses.replace(cfg, checkpoint_dir=ck, fault_plan=(
+        "preempt@train.step:3" if mesh.rank == 1 else None))
+    return (lm_rank(mesh, cut),
+            lm_rank(mesh, dataclasses.replace(cfg, checkpoint_dir=ck,
+                                              resume=True),
+                    final_params=True),
+            lm_rank(mesh, cfg, final_params=True))
+
+
+@pytest.mark.parametrize("trainer", ["cnn", "lm"])
+def test_a_preemption_on_one_rank_drains_every_rank_of_a_data_mesh(
+        tmp_path, trainer):
+    """data:2, whose params are replicated and whose checkpoint rank 0
+    writes alone: rank 1's guard alone is flagged (at step 5 of the CNN,
+    3 of the LM), the ranks agree at that boundary (one all-reduce of the
+    flags at every boundary of a world of several ranks), both exit 75
+    with the snapshot written, and the resume ends bit for bit where the
+    uninterrupted run ends. Were the flags not agreed, rank 1 would wait
+    at the snapshot's barrier while rank 0 entered the next step's
+    all-reduce."""
+    ck = str(tmp_path / "ck")
+    if trainer == "cnn":
+        ranks = run_ranks(_preempt_rank_one, 2, args=(
+            _cfg(num_devices=2, scan=False), dict(num_train=64,
+                                                  num_test=32), ck),
+            timeout=300)
+        cut_step, end = 5, "step"
+    else:
+        ranks = run_ranks(_preempt_rank_one_lm, 2, args=(
+            LMConfig(**dict(_LM, num_devices=2)), ck), timeout=300)
+        cut_step, end = 3, None
+    assert (tmp_path / "ck" / f"ckpt_{cut_step}.npz").exists()
+    for cut, resumed, full in ranks:
+        assert cut["exit"] == EXIT_PREEMPTED
+        assert {"event": "ckpt", "step": cut_step, "reason": "preempt"} \
+            in cut["records"]
+        assert resumed["exit"] == 0 and full["exit"] == 0
+        if end:
+            assert resumed[end] == full[end] == 8
+        for a, b in zip(resumed["params"], full["params"], strict=True):
+            np.testing.assert_array_equal(a, b)
+
+
 def test_preemption_guard_answers_sigterm():
     """SIGTERM sets the flag (no exit), a second notice goes to the
     previous handler; the handlers are put back on exit."""

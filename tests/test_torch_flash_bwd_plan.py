@@ -5,7 +5,9 @@
 `flash_bwd_dkv` hand to `csrc/flash_bwd_dq.cu` and `csrc/flash_bwd_dkv.cu`),
 at every attention shape the port launches them at: chip_smoke.py's
 kernel cases (the LM flagship, GQA 8/2, D 32, D 128 and non-causal, in
-float32 and bf16), the LM phases' model (`lm`, `lm-bench`, `lm_profile`,
+float32 and bf16, and each rank's shapes of the `lm_mesh` phase,
+`lm_mesh_shapes`: its rows, positions, heads and kv heads on the LM's
+sharded meshes), the LM phases' model (`lm`, `lm-bench`, `lm_profile`,
 `lm_agree`) in float32 and bf16, and every head dim the kernels are built
 for in both types. Both types share one geometry: 128 threads, a block
 per (batch, query head, 64-row tile), the GQA group summed from a
@@ -57,6 +59,9 @@ def _shapes() -> dict:
         out[f"chip_smoke {dtype} B{b} H{h}/{hkv} D{d}"] = (dtype, b, s, h, hkv, d)
     for dtype, b, s, h, hkv, d, causal in chip_smoke.FLASH_EXTRA_SHAPES:
         out[f"chip_smoke {dtype} B{b} H{h}/{hkv} D{d} causal={causal}"] = (
+            dtype, b, s, h, hkv, d)
+    for dtype, b, s, h, hkv, d, causal in chip_smoke.lm_mesh_shapes():
+        out[f"lm_mesh {dtype} B{b} S{s} H{h}/{hkv} D{d} causal={causal}"] = (
             dtype, b, s, h, hkv, d)
     cfg = parse_lm_args(chip_smoke.LM_MODEL_ARGS)
     bench = lm_bench._parser().parse_args([])

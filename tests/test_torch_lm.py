@@ -45,7 +45,7 @@ from mpi_cuda_cnn_tpu_torch.train.lm import (
 from mpi_cuda_cnn_tpu_torch.train.lm_bench import lm_bench, lm_bench_main
 from mpi_cuda_cnn_tpu_torch.train.lm_trainer import LMTrainer, load_corpus
 from mpi_cuda_cnn_tpu_torch.train.optimizer import make_optimizer
-from mpi_cuda_cnn_tpu_torch.utils.config import _LM_REFUSED, LMConfig, parse_lm_args
+from mpi_cuda_cnn_tpu_torch.utils.config import LMConfig, parse_lm_args
 from mpi_cuda_cnn_tpu_torch.utils.logging import get_logger
 import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 
@@ -398,37 +398,34 @@ def test_cli_lm_bench_runs_on_the_cpu(capsys):
     assert len(out["lines"]) == 1 and out["lines"][0]["attn"] == "flash"
 
 
-def _refusal_argv(name, off):
-    flag = "--" + name.replace("_", "-")
-    if isinstance(off, bool):
-        return [flag]
-    if isinstance(off, int):
-        return [flag, "2"]
-    return [flag, {"nan_policy": "skip",
-                   "moe_dispatch_dtype": "bfloat16"}.get(name, "x")]
-
-
-@pytest.mark.parametrize("name,off,item,what", _LM_REFUSED,
-                         ids=[r[0] for r in _LM_REFUSED])
-def test_lm_refusals_exit_2_naming_queue_f(name, off, item, what, log_lines):
-    argv = _refusal_argv(name, off)
+@pytest.mark.parametrize("argv,says", [
+    (["--fsdp"], "--fsdp needs a 'data' mesh axis of size > 1")],
+    ids=["fsdp"])
+def test_lm_refusals_exit_2_naming_queue_f(argv, says, log_lines):
+    """--fsdp is ported; without a data axis of size > 1 it is the
+    reference trainer's ValueError, exit 2."""
     assert main(["lm", *TINY, *argv]) == 2
-    assert any(f"queue F item {item}" in m for m in log_lines)
-    with pytest.raises(NotImplementedError, match=f"queue F item {item}"):
+    assert any(says in m for m in log_lines)
+    with pytest.raises(ValueError, match=re.escape(says)):
         LMTrainer(parse_lm_args([*TINY, *argv]))
 
 
 @pytest.mark.parametrize("argv,says", [
-    (["--mesh-shape", "data:2,model:2"], "queue F item 1"),
-    (["--mesh-shape", "pipe:2"], "queue F item 1"),
-    (["--mesh-shape", "seq:2", "--moe-experts", "2"], "queue F item 1"),
+    (["--mesh-shape", "model:2,seq:2", "--fsdp"],
+     "--fsdp does not compose with the TP x SP shard_map step"),
+    (["--mesh-shape", "pipe:2"], "depth 1 not divisible by pipe-axis size 2"),
+    (["--mesh-shape", "seq:2", "--moe-experts", "2",
+      "--moe-dispatch-chunk", "8"],
+     "--moe-dispatch-chunk is the SINGLE-DEVICE (or pure-DP)"),
     (["--attn-impl", "ring"], "unknown attention impl 'ring'"),
     (["--attn-impl", "ulysses"], "unknown attention impl 'ulysses'")],
     ids=["model_mesh", "pipe_mesh", "seq_mesh", "ring", "ulysses"])
 def test_lm_mesh_and_attention_refusals(argv, says, log_lines):
-    """The model and pipe axes, and MoE under the seq axis, are not
-    ported (queue F item 1); a sequence-parallel attention without a seq
-    axis is the reference trainer's ValueError. Exit 2 either way."""
+    """The model, pipe and seq axes are ported; what the reference's
+    trainer refuses on them (FSDP under TP x SP, a depth the pipe axis
+    does not divide, a dispatch chunk under a seq axis), and a
+    sequence-parallel attention without a seq axis, are its ValueErrors,
+    in its words. Exit 2 either way."""
     assert main(["lm", *TINY, *argv]) == 2
     assert any(says in m for m in log_lines)
 

@@ -68,27 +68,36 @@ def test_lm_dp_matches_the_jax_dp_trainer(runs):
                                    rtol=LOSS_RTOL)
         np.testing.assert_allclose(res["eval_loss"], jres.eval_loss,
                                    rtol=LOSS_RTOL)
-        # one all-reduce per step, none in the replicated eval
-        assert res["counts"]["collectives"] == {"all_reduce": STEPS,
+        # one all-reduce per step and one of the preemption flags at its
+        # end, none in the replicated eval
+        assert res["counts"]["collectives"] == {"all_reduce": 2 * STEPS,
                                                 "broadcast": 0}
     assert runs["ranks"][0]["losses"] == runs["ranks"][1]["losses"]
 
 
-@pytest.mark.parametrize("kw", [dict(mesh_shape="data:2,model:2"),
-                                dict(mesh_shape="data:2,seq:2",
-                                     moe_experts=4),
-                                dict(fsdp=True, num_devices=2),
-                                dict(elastic_width=4,
-                                     mesh_shape="data:2,model:2")],
-                         ids=["model", "seq", "fsdp", "elastic"])
-def test_what_the_lm_data_mesh_still_refuses(kw):
-    with pytest.raises(NotImplementedError, match="queue F item 1"):
-        check_lm_supported(LMConfig(**kw))
+@pytest.mark.parametrize("kw,want", [
+    (dict(mesh_shape="data:2,model:2"), {"data": 2, "model": 2}),
+    (dict(mesh_shape="data:2,seq:2", moe_experts=4), {"data": 2, "seq": 2}),
+    (dict(fsdp=True, num_devices=2), {"data": 2}),
+    (dict(elastic_width=4, mesh_shape="data:2,model:2"),
+     "--elastic-width needs a pure data-parallel mesh")],
+    ids=["model", "seq", "fsdp", "elastic"])
+def test_what_the_lm_data_mesh_still_refuses(kw, want):
+    """The model axis, MoE under a seq axis and --fsdp are ported: their
+    meshes come back; the elastic width beside a model axis is the
+    reference trainer's ValueError."""
+    if isinstance(want, dict):
+        assert check_lm_supported(LMConfig(**kw)) == want
+    else:
+        with pytest.raises(ValueError, match=want):
+            check_lm_supported(LMConfig(**kw))
 
 
 def test_lm_batch_not_divisible_by_the_data_axis_raises():
-    with pytest.raises(ValueError, match="batch_size 6 not divisible by "
-                                         "data-axis size 4"):
+    # the reference trainer's first check of the batch is over data x
+    # expert, the rows an EP x DP rank takes
+    with pytest.raises(ValueError, match=r"batch_size 6 not divisible by "
+                                         r"data x expert shards \(4 x 1\)"):
         check_lm_supported(LMConfig(batch_size=6, num_devices=4))
     with pytest.raises(ValueError, match="an LMTrainer is one rank"):
         LMTrainer(LMConfig(device="cpu", num_devices=2, **BASE))
@@ -188,11 +197,12 @@ def test_moe_dp_routes_the_global_batch_as_jax(case, monkeypatch):
         np.testing.assert_allclose(res["losses"], want, rtol=MOE_LOSS_RTOL)
         np.testing.assert_allclose(res["eval_loss"], jres.eval_loss,
                                    rtol=MOE_LOSS_RTOL)
-        # the step's all-reduce, and one a MoE layer a micro-batch (two
-        # under remat: the backward runs each block's forward again)
+        # the step's all-reduce, the preemption flags' at its end, and one
+        # a MoE layer a micro-batch (two under remat: the backward runs
+        # each block's forward again)
         forwards = 2 if kw.get("remat") else 1
         assert res["counts"]["collectives"]["all_reduce"] == \
-            kw["steps"] * (1 + forwards * micro * kw["depth"])
+            kw["steps"] * (2 + forwards * micro * kw["depth"])
 
 
 def test_moe_elastic_is_width_invariant_and_matches_jax():

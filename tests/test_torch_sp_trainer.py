@@ -123,8 +123,9 @@ def test_sp_trainer_matches_the_jax_trainer(port_runs, name):
             rel = np.linalg.norm(got - want) / max(np.linalg.norm(want),
                                                    1e-30)
             assert rel <= PARAM_REL_L2, (name, rel)
-        # one all-reduce a step (data x seq), none in the replicated eval
-        assert res["counts"]["collectives"]["all_reduce"] == STEPS
+        # one all-reduce a step (data x seq) and one of the preemption
+        # flags at its end, none in the replicated eval
+        assert res["counts"]["collectives"]["all_reduce"] == 2 * STEPS
 
 
 def test_each_rank_takes_its_block_of_the_windows():
@@ -160,17 +161,19 @@ def test_ring_impl_follows_the_reference_rule():
 @pytest.mark.parametrize("flags", [
     dict(mesh_shape="seq:2", moe_experts=4),
     dict(mesh_shape="data:2,seq:2", fsdp=True)], ids=["moe", "fsdp"])
-def test_moe_and_fsdp_under_seq_exit_2_naming_queue_f_item_1(flags,
-                                                             log_lines):
+def test_moe_and_fsdp_under_seq_exit_2_naming_queue_f_item_1(flags, capfd):
+    """MoE under a seq axis (EP x SP) and --fsdp beside it (FSDP x SP)
+    are ported: the command runs on gloo CPU ranks and exits 0."""
     argv = ["lm", "--device", "cpu", "--corpus", "synthetic", "--dim", "32",
             "--depth", "1", "--heads", "2", "--seq-len", "64",
             "--batch-size", "4", "--steps", "1"]
     for k, v in flags.items():
         argv += [f"--{k.replace('_', '-')}"] + ([] if v is True else [str(v)])
-    assert main(argv) == 2
-    assert any("ROADMAP queue F item 1" in m for m in log_lines)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue F item 1"):
-        check_lm_supported(LMConfig(**flags))
+    axes = check_lm_supported(LMConfig(**flags))
+    assert {a: n for a, n in axes.items() if n > 1} == \
+        _axes(flags["mesh_shape"])
+    assert main(argv) == 0
+    assert capfd.readouterr().err.count("lm done: steps=1") == 1
 
 
 @pytest.mark.parametrize("flags,match", [
