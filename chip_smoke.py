@@ -17,11 +17,12 @@ final line:
             for the mma.sync kernels (gemm, conv_direct, conv_dw,
             conv_gemm, flash_fwd, flash_bwd_dq, flash_bwd_dkv), and
             in each head-dim instance of the float32 flash functions
-            themselves (forward and backward, 3xTF32; `build_hmma`
-            line); the flash kernels at D 64 in both types (the
-            float32 forward: reported at every head dim, registers
-            and spill bytes) and every bf16 instance of gemm,
-            conv_gemm and conv_dw must show no ptxas spill stores.
+            themselves (16, 32, 64, 80, 96, 128 and 256; forward and
+            backward, 3xTF32; `build_hmma` line); the flash kernels at
+            D 64 in both types and every bf16 instance of gemm,
+            conv_gemm and conv_dw must show no ptxas spill stores;
+            every flash instance's registers and spill bytes are
+            reported (`flash_instances`).
 3. kernels  each kernel against its plain PyTorch version on the card
             at the shapes its path gives it (one `kernel_case` line per
             shape): max error against the stated tolerance (bf16 flash
@@ -58,7 +59,12 @@ final line:
             kv heads, B 2), with SDPA's forward, forward + backward
             and backward alone as the yardsticks; in both types also
             at D 32 and D 128 (B 2, S 1024, 4 over 2 heads, causal)
-            and non-causal at D 64. float32 K7, K8 and K9 (3xTF32)
+            and non-causal at D 64; at the head dims beyond (D 24 and
+            48, which the wrapper pads to 32 and 64, and the instances
+            80, 96 and 256; B 2, S 256, 8 heads MHA and over 2 kv heads,
+            causal and not, both types, marked `head_dims`), and at the
+            flagship's geometry at D 80 and 96 (30 calls, with
+            SDPA's times). float32 K7, K8 and K9 (3xTF32)
             are held to a relative L2 error too, and run twice at the
             flagship and GQA shapes and are held equal bit for bit.
             One rank's shapes of the dp phases at world 2, float32: K3
@@ -131,7 +137,7 @@ final line:
             The shared-card times are a correctness run, not a scaling
             figure.
 7b. lm_dp   the lm phase's flagship at world 2 (two gloo ranks on
-            cuda:0), 5 steps from one init against 5 one-device
+            cuda:0), 3 steps from one init against 3 one-device
             `LMTrainer` steps: K7/K8/K9 8/8/8 a step on every rank, the
             losses and the first step's averaged gradients within stated
             tolerances.
@@ -151,7 +157,15 @@ final line:
             attention: 30 steps and the eval, launches of K7/K8/K9 held
             to 8/8/8 per step and 8/0/0 per eval, the loss held to fall
             well below the first step's.
-8a. lm_moe  the flagship with 8 experts a block, top-2, cf 1.25: (a)
+8a. lm_head_dims  `lm` with flash attention at the flagship's depth,
+            sequence and batch at d 768 over 8 heads, head dim 96
+            (Phi-3-mini's), MHA and over 2 kv heads, in float32 and in
+            bf16 compute, a few steps and the eval each: K7/K8/K9 held
+            to 8/8/8 per step and 8/0/0 per eval, the first step's
+            gradients on the kernels and on the oracle within the
+            lm_agree limits per leaf (1e-4 float32, 2e-2 bf16), the
+            held-out loss below its value before the steps.
+8b. lm_moe  the flagship with 8 experts a block, top-2, cf 1.25: (a)
             `lm` in bf16 with flash attention and 512-token routing
             chunks, 30 steps and the eval, K7/K8/K9 held to 8/8/8 per
             step and 8/0/0 per eval, the loss to fall below 0.7 x the
@@ -167,7 +181,7 @@ final line:
             and torch.profiler's
             split of one MoE layer into router build, dispatch einsum,
             expert FFN, combine and backward.
-8b. generate  the lm and lm_moe trainers sample 256 tokens greedily
+8c. generate  the lm and lm_moe trainers sample 128 tokens greedily
             after a 1,024-token prompt with int8 decode weights: K2 held
             to 33 (dense) and 17 (MoE) launches a token; the tokens held
             to the plain path's (dequantized weights), equal or tied;
@@ -208,8 +222,15 @@ final line:
             crash after step 6: per-step losses and the final
             checkpoint's every array bit for bit the uninterrupted
             run's, K7/K8/K9 8/8/8 a step. DP: world 2 (two gloo ranks on
-            cuda:0), a crash after step 23, bit for bit the
-            uninterrupted world-2 run, rank 0 the only writer. Each line
+            cuda:0) supervised from this process as the `train` command
+            supervises a spawned world (`train.ranks.supervise_world`),
+            under --max-restarts 2: a crash after step 23 on both ranks,
+            then one in rank 0's save of ckpt_40 (`ckpt.pre_rename`, rank
+            0 alone): the world spawned again each time, resumed from
+            the checkpoint before (the fired crash not firing again),
+            bit for bit the uninterrupted world-2 run, rank 0 the only
+            writer, both crashes and restarts in rank 0's run file. Each
+            line
             carries the card's name and power limit, the runs' wall
             times and the save (blocking copy, background write) and
             restore times of the CNN and the LM flagship states.
@@ -233,7 +254,9 @@ Then `nvidia-smi`'s name and power limit, the kernels line
 ({"kernels": [...]}, each source's C launch function and `__global__`
 kernels; launches of K1/K2 from the serve and generate phases, of
 K3/K4/K5 from the train phase, of K6 from conv_bench and of K7/K8/K9
-from the lm and lm_moe phases) and,
+from the lm, lm_head_dims, lm_moe, lm_sp and lm_mesh phases; K7/K8/K9
+also with their times at the flagship's geometry at each timed head dim
+and the head dims held) and,
 last, the device line {"ok": true, "device": {...}}. Without a CUDA
 device, or without the package beside it, the script fails before any
 result.
@@ -387,7 +410,8 @@ TENSOR_CORE_KERNELS = ("gemm", "conv_direct", "conv_dw", "conv_gemm",
 # (library, mangled-name fragment): the float32 flash forward and backward
 # (3xTF32), whose libraries would pass the check above on their bf16
 # kernels alone.
-FLASH_HEAD_DIMS = (16, 32, 64, 128)   # the flash kernels' instances
+# the flash kernels' instances (`flash_attention.HEAD_DIMS`)
+FLASH_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 TENSOR_CORE_FUNCTIONS = (("flash_fwd", "flash_fwd_f32_kernel"),
                          ("flash_bwd_dq", "flash_bwd_dq_f32_kernel"),
                          ("flash_bwd_dkv", "flash_bwd_dkv_f32_kernel"))
@@ -583,8 +607,11 @@ CNN_MESH_NOTE = ("correctness run: the ranks share one card and gloo stages "
 # 'model'. Those of reference_cnn's whole layers that the kernels phase
 # makes already (a step at 32, 16, 8 and 4 rows; an eval batch of
 # EVAL_BATCH) are not made twice. Each time is a median of
-# MESH_CASE_REPS calls (30 elsewhere): 87 cases at 30 took 22.0 s.
-MESH_CASE_REPS = 10
+# MESH_CASE_REPS calls (30 elsewhere): 87 cases at 30 took 22.0 s; 5,
+# since every kernel case but the timed ones is a correctness case and
+# the script must fit its time limit on a slow host.
+MESH_CASE_REPS = 5
+HEAD_DIM_CASE_REPS = 10   # the head-dim cases (FLASH_HEAD_DIM_SHAPES)
 
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet): the bound of
 # every kernel on bf16 inputs, whatever units the kernel itself uses.
@@ -658,6 +685,21 @@ FLASH_F32_OUT_SHAPES = [("bfloat16", 8, 1024, 8, 8, 64, True),
                         ("bfloat16", 2, 1024, 4, 2, 16, True)]
 F32_OUT_UNROUNDED_MIN = 0.9
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# Head dims beyond the ones above, (dtype, B, S, H, Hkv, D, causal) at
+# HEAD_DIM_CASE_REPS calls: the instances 80, 96 and
+# 256, and D 24 and 48,
+# which the wrapper zero-pads to the 32 and 64 instances (`pad_route`);
+# both types, causal and not, 8 heads MHA and over 2 kv heads.
+FLASH_HEAD_DIM_SHAPES = [(dtype, 2, 256, 8, hkv, d, causal)
+                         for d in (24, 48, 80, 96, 256)
+                         for dtype in ("float32", "bfloat16")
+                         for hkv in (8, 2) for causal in (True, False)]
+# The flagship's geometry (B 8, S 2048, 8 heads, causal) at D 80 and 96
+# (Phi-2's and Phi-3-mini's head dims, instances), at 30 calls with
+# SDPA's times (`tools/flash_head_dims.py --times` adds D 48, padded to
+# 64: the padding's cost beside D 64).
+FLASH_HEAD_DIM_TIMED = [(dtype, 8, 2048, 8, 8, d) for d in (80, 96)
+                        for dtype in ("float32", "bfloat16")]
 # The lm phase: the LM flagship's width (scripts/bench_lm.py:101-116:
 # d512, 8 layers, 8 heads, seq 2048, batch 8) through `lm` on the
 # synthetic corpus (vocab 251) with flash attention: 30 steps, then the
@@ -702,7 +744,7 @@ LM_AGREE_GRAD_REL_L2 = 1e-4
 # LM_AGREE_LOSS_ATOL, the first step's averaged gradients within
 # LM_AGREE_GRAD_REL_L2 per leaf (the halves' token means averaged against
 # the whole batch's mean: float32 sums in another order).
-LM_DP_STEPS = 5
+LM_DP_STEPS = 3   # cut from 5 for the script's time limit
 LM_DP_ARGS = LM_MODEL_ARGS + ["--attn-impl", "flash", "--steps",
                               str(LM_DP_STEPS), "--warmup-steps", "2",
                               "--log-every", "1"]
@@ -714,6 +756,20 @@ LM_DP_ARGS = LM_MODEL_ARGS + ["--attn-impl", "flash", "--steps",
 # intermediates; over 8 layers such flips add up to a few 1e-3. A wrong
 # dq, dk or dv moves a leaf by far more than 2e-2.
 LM_BF16_GRAD_REL_L2 = 2e-2
+# lm_head_dims: the lm phase's flagship at d 768 over 8 heads (head dim
+# 96, Phi-3-mini's: 3072 / 32) with flash attention, MHA and GQA 8/2, in
+# float32 and bf16 compute (the bf16 run from the float32 run's initial
+# params), LM_HEAD_DIM_STEPS steps and the eval each, held as the lm
+# phase holds its run (the loss falling: the held-out loss below its
+# value before the steps; a few steps cannot halve it, and a step's own
+# batch loss can rise while AdamW's first steps at the full rate settle)
+# and their first-step gradients as lm_agree's.
+LM_HEAD_DIM = 768
+LM_HEAD_DIM_ARGS = ([a if LM_MODEL_ARGS[i - 1] != "--dim" else str(LM_HEAD_DIM)
+                     for i, a in enumerate(LM_MODEL_ARGS)]
+                    + ["--attn-impl", "flash", "--log-every", "1"])
+LM_HEAD_DIM_STEPS = 3
+LM_HEAD_DIM_KV = ([], ["--kv-heads", "2"])
 # lm_sp: the lm phase's flagship, cut to LM_SP_DEPTH layers, at
 # --mesh-shape seq:2 as two gloo ranks on cuda:0 (sequence parallelism,
 # parallel/sp.py), each holding 1,024 of the 2,048 positions of all 8
@@ -734,9 +790,10 @@ LM_SP_WORLD = 2
 LM_SP_STEPS = 3
 LM_SP_OTHER_STEPS = 1
 # The flagship cut to LM_SP_DEPTH layers (for chip_smoke.py's time
-# limit; every check as at depth 8): per step each rank launches each
+# limit, from 4, at which the whole script took up to 1,240 s on a slow
+# host; every check as at depth 8): per step each rank launches each
 # kernel once a layer a ring hop it folds, per eval K7 once a layer.
-LM_SP_DEPTH = 4
+LM_SP_DEPTH = 2
 LM_SP_ARGS = ([a if LM_MODEL_ARGS[i - 1] != "--depth" else str(LM_SP_DEPTH)
                for i, a in enumerate(LM_MODEL_ARGS)]
               + ["--mesh-shape", "seq:2", "--warmup-steps", "2",
@@ -768,7 +825,7 @@ LM_SP_NOTE = ("correctness run: the two seq ranks share one card and gloo "
 # an eval are held to the plan (`lm_mesh_plan`), and the kernels phase
 # holds K7-K9 at every shape the phase launches them (`lm_mesh_shapes`,
 # marked `lm_mesh`). The phase stays within LM_MESH_BUDGET_S.
-LM_MESH_STEPS = 2
+LM_MESH_STEPS = 1   # cut from 2 for the script's time limit
 LM_MESH_MOE = ["--moe-experts", "8", "--moe-top-k", "2"]
 LM_MESH_RUNS = (("data:2,model:2", []), ("model:2", ["--kv-heads", "2"]),
                 ("data:2", ["--fsdp"]), ("pipe:2,data:2", []),
@@ -855,6 +912,7 @@ REMAT_PER_STEP = {"gemm": 12, "conv_direct": 5, "conv_dw": 2}
 ELASTIC_PER_STEP = {k: v * FLAGS_ELASTIC for k, v in PER_STEP.items()}
 RECOVER_EVERY = 10
 RECOVER_CRASH = 23
+RECOVER_CKPT_CRASH = 40   # the dp part's crash in rank 0's save of ckpt_40
 RECOVER_PREEMPT = 17
 RECOVER_NAN = 7
 RECOVER_TEST = 2048
@@ -926,10 +984,11 @@ MOE_ROUTE_TIE = 1e-5
 # MOE_CODE_EDGE_MAX_SHARE of the codes a forward writes.
 MOE_CODE_EDGE_TOL = 1e-2
 MOE_CODE_EDGE_MAX_SHARE = 1e-4
-# (d)'s lm-bench rows at 4 of the flagship's 8 layers (for
-# chip_smoke.py's time limit; each row draws its own seeded init).
+# (d)'s lm-bench rows at 2 of the flagship's 8 layers (for
+# chip_smoke.py's time limit, cut from 4; each row draws its own
+# seeded init).
 LM_MOE_BENCH_ARGS = ["--steps", "10", "--moe-experts", "8",
-                     "--moe-top-k", "2", "--depth", "4"]
+                     "--moe-top-k", "2", "--depth", "2"]
 MOE_SPLIT_STAGES = ("ep.router_build", "ep.dispatch_einsum", "ep.expert_ffn",
                     "ep.combine_einsum")
 MOE_SPLIT_RUNS = 3
@@ -960,7 +1019,7 @@ MOE_SPLIT_RUNS = 3
 # codes, each near its edge (MOE_CODE_EDGE_*). ms a token are
 # timed on a second, warmed call of each path (the sample's first call
 # quantizes the weights).
-GEN_TOKENS = 256
+GEN_TOKENS = 128   # cut from 256 for the script's time limit
 GEN_K2_PER_TOKEN = {"dense": 33, "moe": 17}
 GEN_LOOKUP_K = 8
 GEN_TEMPERATURE = 0.8
@@ -1559,7 +1618,8 @@ def sdpa_ms(torch, q, k, v, g, causal: bool = True, reps: int = 30) -> dict:
 
 def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
                 d: int, gen, causal: bool = True,
-                f32_out: bool = False, reps: int = 30) -> list[dict]:
+                f32_out: bool = False, reps: int = 30,
+                library: bool = True) -> list[dict]:
     """K7, K8 and K9 on one attention shape (q (B, S, H, D), k/v (B, S,
     Hkv, D)), each against its plain version on the same inputs; the
     backward kernels take the plain forward's o and lse and a random
@@ -1576,7 +1636,8 @@ def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
     ds^T q), at the input type's peak (float32: three tf32 products
     each at the TF32 peak, `bound_by` "operations (3xTF32)", with the FMA
     figure beside it as `bound_fma_ms`); or each input read once and each
-    output written once at the HBM rate, if that is longer."""
+    output written once at the HBM rate, if that is longer. `library`
+    False leaves SDPA's times out (None)."""
     from mpi_cuda_cnn_tpu_torch.ops import flash_attention as fa
 
     tdt = getattr(torch, dtype)
@@ -1609,7 +1670,9 @@ def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
                                                          dvec, causal, **g32),
                           4, el * (2 * rows_q + 2 * rows_kv)
                           + oel * 2 * rows_kv + 2 * rows)}
-    lib = sdpa_ms(torch, q, k, v, g, causal, reps)
+    lib = (sdpa_ms(torch, q, k, v, g, causal, reps) if library else
+           dict.fromkeys(("library_fwd_ms", "library_fwd_bwd_ms",
+                          "library_bwd_ms")))
     pairs = s * (s + 1) // 2 if causal else s * s
     out = []
     for name, (run, plain, products, nbytes) in runs.items():
@@ -1702,14 +1765,25 @@ def phase_flash_kernels(torch, dev, gen) -> list[dict]:
             + [(*s, True, False) for s in FLASH_RANK_SHAPES]
             + [(*s, f32_out) for s in FLASH_F32_OUT_SHAPES
                for f32_out in (False, True)]
-            + [(*s, False) for s in mesh]):
-        # the flagship's and the GQA shape's times at 30 calls, the
-        # others' (held to the same tolerances) at MESH_CASE_REPS
-        reps = 30 if tuple(shape) in FLASH_SHAPES else MESH_CASE_REPS
+            + [(*s, False) for s in mesh]
+            + [(*s, False) for s in FLASH_HEAD_DIM_SHAPES]
+            + [(*s, True, False) for s in FLASH_HEAD_DIM_TIMED]):
+        # the flagship's, the GQA shape's and the head dims' flagship
+        # geometry's times at 30 calls, the others' (held to the same
+        # tolerances) at HEAD_DIM_CASE_REPS or MESH_CASE_REPS
+        timed = tuple(shape) in FLASH_SHAPES + FLASH_HEAD_DIM_TIMED
+        reps = (30 if timed else HEAD_DIM_CASE_REPS
+                if (*shape, causal) in FLASH_HEAD_DIM_SHAPES
+                else MESH_CASE_REPS)
+        # SDPA's times beside the timed shapes only (the others are
+        # correctness cases, and the script has a time limit)
         for case in flash_cases(torch, dev, *shape, gen, causal, f32_out,
-                                reps):
+                                reps, timed):
             if (*shape, causal) in mesh:
                 case["lm_mesh"] = True
+            if ((*shape, causal) in FLASH_HEAD_DIM_SHAPES
+                    or tuple(shape) in FLASH_HEAD_DIM_TIMED):
+                case["head_dims"] = True
             if (tuple(shape) in FLASH_RANK_SHAPES
                     or (*shape, causal) in FLASH_F32_OUT_SHAPES
                     or case.get("lm_mesh")):
@@ -3603,6 +3677,108 @@ def phase_lm(torch):
 
 
 
+def phase_lm_head_dims(torch, dev=None) -> dict:
+    """`lm` at head dim 96 through the flash kernels (LM_HEAD_DIM_*): for
+    each kv-head layout, a float32 run and a bf16 run from its initial
+    params; each run's first-step gradients against the oracle's, then
+    its steps and eval with the launch counts zeroed just before `train`
+    and read just after. Returns the launches of every run summed per
+    kernel. (`dev` the CPU: the same with no launch, to rehearse the phase
+    at a small LM_HEAD_DIM.)"""
+    from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+    from mpi_cuda_cnn_tpu_torch.ops.gemv import tree_map
+    from mpi_cuda_cnn_tpu_torch.train.lm import get_attn_fn, lm_loss
+    from mpi_cuda_cnn_tpu_torch.train.lm_trainer import LMTrainer
+    from mpi_cuda_cnn_tpu_torch.utils.config import parse_lm_args
+    from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
+
+    dev = dev or torch.device("cuda", 0)
+    on_card = dev.type == "cuda"
+    where = [] if on_card else ["--device", "cpu"]
+    t_phase = time.perf_counter()
+    total = {name: 0 for name in FLASH_KERNELS}
+    for kv in LM_HEAD_DIM_KV:
+        init = None
+        for dtype, limit in (("float32", LM_AGREE_GRAD_REL_L2),
+                             ("bfloat16", LM_BF16_GRAD_REL_L2)):
+            cfg = parse_lm_args(LM_HEAD_DIM_ARGS + kv + where + [
+                "--steps", str(LM_HEAD_DIM_STEPS), "--compute-dtype", dtype])
+            metrics = MetricsLogger(echo=False, capture=True)
+            t0 = time.perf_counter()
+            trainer = LMTrainer(cfg, metrics=metrics, params=init)
+            init_s = time.perf_counter() - t0
+            what = (f"lm_head_dims {dtype} D {trainer.model.head_dim} "
+                    f"kv {trainer.model.n_kv}")
+            if (trainer.attn_impl != "flash" or trainer.device.type != dev.type
+                    or trainer.model.head_dim != LM_HEAD_DIM // 8):
+                raise AssertionError(f"{what}: {trainer.attn_impl} on "
+                                     f"{trainer.device}")
+            if init is None:
+                init = tree_map(lambda t: t.detach().clone(),
+                                trainer.state["params"])
+            grad_rel = first_grads_rel_l2(torch, trainer, get_attn_fn,
+                                          lm_loss, tree_leaves)
+            worst = max(grad_rel.values())
+            if not worst <= limit:
+                raise AssertionError(f"{what}: first-step gradients of flash "
+                                     f"and the oracle apart by {grad_rel} "
+                                     f"(limit {limit})")
+            tokens, targets = (trainer._to_device(a)
+                               for a in trainer._sample_batch(0))
+            with torch.no_grad():
+                first = float(lm_loss(
+                    trainer.model, trainer.state["params"], tokens, targets,
+                    attn_fn=get_attn_fn("flash"),
+                    compute_dtype=trainer._compute_dtype))
+            eval_before = trainer.evaluate()
+            _kernels.reset_launches()
+            t0 = time.perf_counter()
+            result = trainer.train()
+            if on_card:
+                torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = dict(_kernels.launches)
+            for name in _kernels.KERNELS:
+                want = (LM_PER_STEP[name] * LM_HEAD_DIM_STEPS
+                        + LM_PER_EVAL[name]
+                        if name in LM_PER_STEP and on_card else 0)
+                if launches[name] != want:
+                    raise AssertionError(f"{what}: {name} launched "
+                                         f"{launches[name]} times, want "
+                                         f"{want}")
+            if not result.eval_loss < eval_before:
+                raise AssertionError(f"{what}: held-out loss {eval_before} "
+                                     f"before the steps, {result.eval_loss} "
+                                     f"after (first step's loss {first}, "
+                                     f"last {result.final_loss})")
+            for name in FLASH_KERNELS:
+                total[name] += launches[name]
+            emit({"phase": "lm_head_dims", "dtype": dtype,
+                  "dim": LM_HEAD_DIM, "heads": trainer.model.heads,
+                  "kv_heads": trainer.model.n_kv,
+                  "head_dim": trainer.model.head_dim,
+                  "steps": result.steps_run, "first_loss": first,
+                  "logged_losses": {r["step"]: r["loss"] for r in metrics.rows
+                                    if r["event"] == "train"},
+                  "loss": result.final_loss, "eval_loss": result.eval_loss,
+                  "eval_loss_before": eval_before,
+                  "step_ms": 1e3 * cfg.batch_size * cfg.seq_len
+                  / result.tokens_per_s, "wall_s": wall_s, "init_s": init_s,
+                  "first_grad_rel_l2_max": worst,
+                  "first_grad_rel_l2_tolerance": limit,
+                  "launches": {k: launches[k] for k in FLASH_KERNELS},
+                  "per_step": LM_PER_STEP, "per_eval": LM_PER_EVAL})
+            del trainer, tokens, targets
+            if on_card:
+                torch.cuda.empty_cache()
+    emit({"phase": "lm_head_dims", "launches": total,
+          "seconds": time.perf_counter() - t_phase})
+    if on_card:
+        torch.cuda.empty_cache()
+    return total
+
+
 def moe_route_spy(moe, force: list | None = None):
     """Wraps `moe.route_probs` and `moe._dispatch` for one forward: per
     MoE layer, the router's probabilities and its own choices, and the
@@ -4613,24 +4789,36 @@ def phase_recover_lm(torch, dev, smi: str, tmp: Path) -> dict:
 
 
 def phase_recover_dp(torch, dev, smi: str, tmp: Path) -> dict:
-    """recover at world 2 (two gloo ranks on `dev`): the uninterrupted
-    and the crashed-and-restarted run, bit for bit on every rank, rank 0
-    the only writer, launches over every attempt's steps."""
-    from mpi_cuda_cnn_tpu_torch.parallel.distributed import run_ranks
-    from mpi_cuda_cnn_tpu_torch.train.ranks import cnn_rank
+    """recover at world 2 (two gloo ranks on `dev`), the world supervised
+    from this process as the `train` command supervises a spawned world
+    (`train.ranks.supervise_world`): the uninterrupted run, and one under
+    --max-restarts 2 with two planned crashes: after step RECOVER_CRASH
+    on both ranks (the second world resumes from the checkpoint before),
+    then in rank 0's save of step RECOVER_CKPT_CRASH (`ckpt.pre_rename`:
+    rank 0 alone; the third world resumes from the one before that, the
+    first crash, fired, not firing again); bit for bit the uninterrupted
+    run on every rank, rank 0 the only writer, launches over the last
+    world's steps, both crashes and the parent's two restarts in rank 0's
+    run file."""
+    import json
+
+    from mpi_cuda_cnn_tpu_torch.train.ranks import cnn_rank, supervise_world
     from mpi_cuda_cnn_tpu_torch.utils.config import Config
 
     data = dict(num_train=AGREE_STEPS * CNN_BATCH, num_test=RECOVER_TEST)
     out = {}
-    for name, kw in (("full", {}), ("crash", dict(
-            fault_plan=f"crash@train.step:{RECOVER_CRASH}", max_restarts=1))):
+    plan = (f"crash@train.step:{RECOVER_CRASH};"
+            f"crash@ckpt.pre_rename:{RECOVER_CKPT_CRASH}")
+    for name, kw in (("full", {}),
+                     ("crash", dict(fault_plan=plan, max_restarts=2))):
+        sink = tmp / f"{name}.jsonl"
         cfg = Config(model="reference_cnn", epochs=1, batch_size=CNN_BATCH,
                      lr=0.1, seed=0, device=str(dev), use_kernels=True,
                      log_every=0, eval_every=0, checkpoint_dir=str(tmp / name),
-                     checkpoint_every_steps=RECOVER_EVERY, **kw)
+                     checkpoint_every_steps=RECOVER_EVERY,
+                     metrics_jsonl=str(sink), **kw)
         t0 = time.perf_counter()
-        ranks = run_ranks(cnn_rank, DP_WORLD, devices=[dev] * DP_WORLD,
-                          args=(cfg, data), timeout=DP_RANKS_TIMEOUT_S)
+        ranks = supervise_world(cnn_rank, [dev] * DP_WORLD, (cfg, data))
         wall = time.perf_counter() - t0
         written, launches = [], []
         for r, res in enumerate(ranks):
@@ -4644,17 +4832,20 @@ def phase_recover_dp(torch, dev, smi: str, tmp: Path) -> dict:
         if written[1:] != [0] * (DP_WORLD - 1) or written[0] < 1:
             raise AssertionError(f"recover dp {name}: checkpoint files "
                                  f"written per rank {written}")
+        faults = [json.loads(ln)["kind"] for ln in sink.read_text().splitlines()
+                  if '"event": "fault"' in ln]
+        if faults != ([] if name == "full"
+                      else ["injected_crash", "restart"] * 2):
+            raise AssertionError(f"recover dp {name}: rank 0's run file "
+                                 f"holds the faults {faults}")
         out[name] = {"ranks": ranks, "wall_s": wall, "written": written,
                      "launches": launches}
     for r in range(DP_WORLD):
-        res = out["crash"]["ranks"][r]
-        if faults_of(res["records"]) != ["injected_crash", "restart"]:
-            raise AssertionError(f"recover dp rank {r}: faults "
-                                 f"{faults_of(res['records'])}")
-        same_params(f"recover dp rank {r}", res["params"],
+        same_params(f"recover dp rank {r}", out["crash"]["ranks"][r]["params"],
                     out["full"]["ranks"][r]["params"])
     return {"card": smi, "world": DP_WORLD, "backend": "gloo",
-            "crash_at": RECOVER_CRASH, "bitwise": True,
+            "crash_at": RECOVER_CRASH,
+            "ckpt_crash_at": RECOVER_CKPT_CRASH, "bitwise": True,
             "written_per_rank": {k: v["written"] for k, v in out.items()},
             "wall_s": {"full": out["full"]["wall_s"],
                        "supervised": out["crash"]["wall_s"]},
@@ -5107,7 +5298,7 @@ def kernels_line(cases: list[dict], launches: dict) -> dict:
         mine = [c for c in cases if c["kernel"] == name]
         r = next(c for c in mine if rep(c) and not c.get("per_rank")
                  and not c.get("micro") and not c.get("generate")
-                 and not c.get("features"))
+                 and not c.get("features") and not c.get("head_dims"))
         summary.append({
             "name": name, "route": "cuda", "source": src,
             "entry_points": entry_points(src),
@@ -5123,8 +5314,25 @@ def kernels_line(cases: list[dict], launches: dict) -> dict:
             "library_ms": r["library_ms"],
             "shape": {k: r[k] for k in ("dtype", "B", "kk", "L", "N", "din",
                                         "dout", "role", "M", "K", "S", "H",
-                                        "Hkv", "D", "W", "C", "O") if k in r}})
+                                        "Hkv", "D", "W", "C", "O") if k in r},
+            **(head_dims_fields(mine) if name in FLASH_KERNELS else {})})
     return {"kernels": summary}
+
+
+def head_dims_fields(mine: list[dict]) -> dict:
+    """A flash kernel's head dims held against its plain version, and its
+    times at the flagship's geometry (B 8, S 2048, 8 heads, causal) at
+    each head dim timed there, both types (the flagship's D 64 too)."""
+    timed = {}
+    for c in mine:
+        if (c["B"], c["S"], c["H"], c["Hkv"], c["causal"]) == (8, 2048, 8, 8,
+                                                               True):
+            timed.setdefault(f"{c['dtype']} D{c['D']}", {
+                k: c[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "library_fwd_bwd_ms",
+                                  "library_bwd_ms", "max_abs_err")})
+    return {"head_dims_held": sorted({c["D"] for c in mine}),
+            "flagship_geometry": timed}
 
 
 def entry_points(src: str) -> list[str]:
@@ -5189,9 +5397,14 @@ def main() -> int:
     fwd_f32 = {fn: {"registers": n, "spill_stores": spill_stores(fwd_log)[fn]}
                for fn, n in registers(fwd_log).items()
                if "flash_fwd_f32_kernel" in fn}
+    flash = {lib: {fn: {"registers": n,
+                        "spill_stores": spill_stores(built["logs"][lib])[fn]}
+                   for fn, n in registers(built["logs"][lib]).items()}
+             for lib in FLASH_KERNELS}
     emit({"phase": "build", "seconds": round(built["seconds"], 3),
           "kernels": sorted(_kernels.KERNELS), "hmma": hmma,
-          "spill_stores": spills, "flash_fwd_f32": fwd_f32, "ptxas": report})
+          "spill_stores": spills, "flash_fwd_f32": fwd_f32,
+          "flash_instances": flash, "ptxas": report})
     for name in TENSOR_CORE_KERNELS:
         if not hmma[name] > 0:
             raise AssertionError(f"build: no HMMA instruction in {name}'s "
@@ -5242,6 +5455,7 @@ def main() -> int:
     emit({"phase": "train_bf16", **phase_train_bf16(torch)})
     conv_launches = phase_conv_bench(torch)
     lm_launches, lm_trainer = phase_lm(torch)
+    head_dim_launches = phase_lm_head_dims(torch)
     moe_launches, moe_trainer = phase_lm_moe(torch)
     gen_launches = phase_generate(torch, lm_trainer, moe_trainer)
     del lm_trainer, moe_trainer
@@ -5257,7 +5471,7 @@ def main() -> int:
                 **{k: train_launches[k] + cnn_mesh["launches"][k]
                    for k in PER_STEP},
                 "conv_gemm": conv_launches["conv_gemm"],
-                **{k: lm_launches[k] + moe_launches[k]
+                **{k: lm_launches[k] + head_dim_launches[k] + moe_launches[k]
                    + lm_sp["launches"][k] + lm_mesh["launches"][k]
                    for k in FLASH_KERNELS}}
     line = kernels_line(cases, launches)

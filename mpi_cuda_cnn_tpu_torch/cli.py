@@ -35,8 +35,11 @@ when any rank fails.
 `train`'s `--checkpoint-every-steps`, `--resume`), inject planned faults
 (`--fault-plan`), guard against non-finite steps (`--nan-policy`) and
 restart a crashed run from its latest checkpoint (`--max-restarts N`,
-which needs `--checkpoint-dir`; supervised inside each rank,
-`train/ranks.py`). Exit codes: 0 done; 2 a bad flag or config; 75
+which needs `--checkpoint-dir`; one process supervises itself, a spawned
+world is supervised from this process and restarted whole,
+`train.ranks.supervise_world`; under torchrun each rank runs one attempt
+and torchrun's own restarts with `--resume` take the supervisor's
+place). Exit codes: 0 done; 2 a bad flag or config; 75
 preempted (SIGTERM/SIGINT, or a planned ``preempt``) with a snapshot
 written: relaunch with `--resume`; 1 a failure, a preemption without a
 snapshot, or a world whose ranks disagree.
@@ -93,27 +96,12 @@ def rank_devices(device: str, num_devices: int, mesh_shape: str,
                                for i in range(visible)])
 
 
-def _check_supervisor(cfg, world: int) -> None:
+def _check_supervisor(cfg) -> None:
     """The reference's check: a restarted attempt resumes from the latest
-    checkpoint, so --max-restarts needs --checkpoint-dir. And in a world
-    of several ranks the supervisor restarts only the faults that fire on
-    every rank (`faults.EVERY_RANK_SITES`); a planned fault at a
-    checkpoint site fires on rank 0 alone, so it cannot be restarted
-    there. ValueError for either."""
-    from .faults import EVERY_RANK_SITES, parse_plan
-
+    checkpoint, so --max-restarts needs --checkpoint-dir (ValueError)."""
     if cfg.max_restarts > 0 and not cfg.checkpoint_dir:
         raise ValueError("--max-restarts needs --checkpoint-dir: a restarted "
                          "attempt resumes from the latest valid checkpoint")
-    if cfg.max_restarts > 0 and world > 1 and cfg.fault_plan:
-        alone = sorted({f.site for f in parse_plan(cfg.fault_plan)}
-                       - EVERY_RANK_SITES)
-        if alone:
-            raise ValueError(
-                f"--max-restarts with {world} ranks restarts only faults "
-                f"that every rank meets; {', '.join(alone)} fire(s) on "
-                "rank 0 alone (the only writer): drop the fault or run "
-                "one rank")
 
 
 def world_exit(codes: list[int]) -> int:
@@ -129,18 +117,20 @@ def world_exit(codes: list[int]) -> int:
 
 def _run_world(entry, devices: list, args: tuple,
                axes: dict | None = None) -> int:
-    """Run entry(mesh, *args) -> {"exit": code, ...} (`train/ranks.py`)
-    on the mesh of `axes` (None: the data axis of every device): in this
-    process as one rank of a torchrun world, in this process alone for
-    one device, else on one spawned rank per device. Returns the ranks'
-    exit code (`world_exit`), 1 when a rank failed."""
+    """Run entry(mesh, cfg, *rest) -> {"exit": code, ...} (`args` = (cfg,
+    *rest); `train/ranks.py`) on the mesh of `axes` (None: the data axis
+    of every device): in this process as one rank of a torchrun world, in
+    this process alone for one device (the entry supervises its
+    attempts), else on one spawned rank per device, the world supervised
+    from this process (`train.ranks.supervise_world`). Returns the ranks'
+    exit code (`world_exit`), 1 when a rank failed for good."""
     from .parallel.distributed import (
         RankError,
         initialize_distributed,
         launched_by_torchrun,
-        run_ranks,
     )
     from .parallel.mesh import make_mesh
+    from .train.ranks import supervise_world
     from .utils.logging import get_logger
 
     if launched_by_torchrun():
@@ -150,8 +140,7 @@ def _run_world(entry, devices: list, args: tuple,
         results = [entry(None, *args)]
     else:
         try:
-            results = run_ranks(entry, len(devices), devices=devices,
-                                args=args, axes=axes)
+            results = supervise_world(entry, devices, args, axes)
         except RankError as e:
             get_logger().error("%s", e)
             return 1
@@ -183,7 +172,7 @@ def run_train(argv: list[str]) -> int:
         # the mesh of those ranks (a bare axis takes all of them)
         axes = data_axes(0, cfg.mesh_shape, len(devices), ported=None)
         check_train_flags(cfg, axes)
-        _check_supervisor(cfg, len(devices))
+        _check_supervisor(cfg)
     except (NotImplementedError, RuntimeError, ValueError) as e:
         log.error("%s", e)
         return 2
@@ -231,7 +220,7 @@ def run_lm(argv: list[str]) -> int:
         # first when it names none, as `utils.config.lm_axes`
         axes = data_axes(0, cfg.mesh_shape, len(devices), ported=None)
         axes = axes if "data" in axes else {"data": 1, **axes}
-        _check_supervisor(cfg, len(devices))
+        _check_supervisor(cfg)
     except (NotImplementedError, RuntimeError, ValueError) as e:
         log.error("%s", e)
         return 2

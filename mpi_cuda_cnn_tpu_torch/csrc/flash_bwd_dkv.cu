@@ -53,8 +53,16 @@
 // With `out_f32` the bf16 path stores dk and dv in float32, unrounded (the
 // TPU wrapper's grads_f32, which the ring-flash backward of parallel/sp.py
 // accumulates its hops in): a branch of the MHA epilogue, and the group
-// sum's float instance under GQA. Head dims 16, 32, 64 and 128
-// (flash_fwd.cu's notes on D 16 hold here).
+// sum's float instance under GQA. Head dims: `with_head_dim`'s instances
+// (flash_fwd.cu's notes on D 16 and on the zero padding hold here).
+// Beyond D 128 (D 256) two (16, D) float32 accumulators would take 256
+// registers a thread: each (batch, query head, key tile) is taken by two
+// blocks (grid y S / 64 * 2, kDkvSplit), each rebuilding p^T and ds^T over
+// the full D and keeping dk and dv for its half of the columns (the
+// first products done twice: 1.5x the operations of one block); float32
+// streams q and dO in tiles of 16 queries there, so that its tiles fit in
+// 227 KB (192 rows, 199,936 bytes at D 256), masked query by query where
+// they meet the causal diagonal.
 
 #include <type_traits>
 
@@ -77,21 +85,25 @@ __global__ void __launch_bounds__(kMmaThreads)
                              float* __restrict__ part, int S, int H, int Hkv,
                              int causal, float scale, int /*out_f32*/) {
   constexpr int kLd = kLdF32<D>;  // D + 4: row stride in floats
+  constexpr int kN = kStreamRowsF32Dkv<D>;  // queries of a q/dO tile
   constexpr int kTileElems = kTile * kLd;
+  constexpr int kQElems = kN * kLd;
   constexpr int kChunks = D / 4;  // 16-byte copies per row
   constexpr int kKc = D / 8;      // k-chunks of the k q^T product
-  // Query sub-tiles a q tile is taken in: two of 32 at D 128, so the logit
-  // fragments and their (hi, lo) split fit in the registers beside the
-  // (16, 128) dk and dv accumulators.
-  constexpr int kSplit = D > 64 ? 2 : 1;
-  constexpr int kQn = kTile / kSplit;
+  // Query sub-tiles a q tile is taken in: two of 32 at D in (64, 128], so
+  // the logit fragments and their (hi, lo) split fit in the registers
+  // beside the (16, D) dk and dv accumulators (beyond D 128 the tile is
+  // 16 queries and the block's dk and dv are D / 2 columns wide).
+  constexpr int kSplit = D > 64 && D <= 128 ? 2 : 1;
+  constexpr int kQn = kN / kSplit;
+  constexpr int kDo = D / kDkvSplit<D>;  // output columns of this block
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* k_s = reinterpret_cast<float*>(smem_raw);  // (64, kLd)
   float* v_s = k_s + kTileElems;                    // (64, kLd)
-  float* q_s = v_s + kTileElems;                    // 2 x (64, kLd)
-  float* do_s = q_s + 2 * kTileElems;               // 2 x (64, kLd)
-  float* lse_s = do_s + 2 * kTileElems;             // 2 x 64
-  float* dvec_s = lse_s + 2 * kTile;                // 2 x 64
+  float* q_s = v_s + kTileElems;                    // 2 x (kN, kLd)
+  float* do_s = q_s + 2 * kQElems;                  // 2 x (kN, kLd)
+  float* lse_s = do_s + 2 * kQElems;                // 2 x kN
+  float* dvec_s = lse_s + 2 * kN;                   // 2 x kN
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.x;
@@ -99,7 +111,10 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int h = bh - b * H;
   const int group = H / Hkv;
   const int kvh = h / group;
-  const int kt = blockIdx.y;  // causal: the low key tiles see the most queries
+  // causal: the low key tiles see the most queries; dh: the half of the
+  // output columns beyond D 128
+  const int kt = blockIdx.y / kDkvSplit<D>;
+  const int dh = blockIdx.y - kt * kDkvSplit<D>;
   const int k0 = kt * kTile;
   const size_t q_rs = static_cast<size_t>(H) * D;
   const size_t kv_rs = static_cast<size_t>(Hkv) * D;
@@ -111,33 +126,34 @@ __global__ void __launch_bounds__(kMmaThreads)
     mma::cp_async16(v_s + r * kLd + c, v + kv_off + r * kv_rs + c, true);
   }
   auto load_q = [&](int qt, int st) {
-    const size_t off = ((static_cast<size_t>(b) * S + qt * kTile) * H + h) * D;
-    for (int e = tid; e < kTile * kChunks; e += kMmaThreads) {
+    const size_t off = ((static_cast<size_t>(b) * S + qt * kN) * H + h) * D;
+    for (int e = tid; e < kN * kChunks; e += kMmaThreads) {
       const int r = e / kChunks, c = (e - r * kChunks) * 4;
-      mma::cp_async16(q_s + st * kTileElems + r * kLd + c,
+      mma::cp_async16(q_s + st * kQElems + r * kLd + c,
                       q + off + r * q_rs + c, true);
-      mma::cp_async16(do_s + st * kTileElems + r * kLd + c,
+      mma::cp_async16(do_s + st * kQElems + r * kLd + c,
                       dout + off + r * q_rs + c, true);
     }
-    // 64 floats each of lse and dvec: 16 copies of 16 bytes each.
-    if (tid < 32) {
-      const size_t row = static_cast<size_t>(bh) * S + qt * kTile + (tid & 15) * 4;
-      if (tid < 16)
-        mma::cp_async16(lse_s + st * kTile + tid * 4, lse + row, true);
+    // kN floats each of lse and dvec: kN / 4 copies of 16 bytes each.
+    if (tid < kN / 2) {
+      const int c = tid % (kN / 4);
+      const size_t row = static_cast<size_t>(bh) * S + qt * kN + c * 4;
+      if (tid < kN / 4)
+        mma::cp_async16(lse_s + st * kN + c * 4, lse + row, true);
       else
-        mma::cp_async16(dvec_s + st * kTile + (tid - 16) * 4, dvec + row, true);
+        mma::cp_async16(dvec_s + st * kN + c * 4, dvec + row, true);
     }
   };
-  const int nq = S / kTile;
-  const int qt0 = causal ? kt : 0;
+  const int nq = S / kN;
+  const int qt0 = causal ? k0 / kN : 0;
   load_q(qt0, 0);
   mma::cp_async_commit();
 
   // This lane's keys of the warp's 16: g and g + 8 (half 0 and 1).
   const int g = lane >> 2, t4 = lane & 3;
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float dk_acc[kDo / 8][4], dv_acc[kDo / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < kDo / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
   // This warp's 16 keys of the k and v tiles at column 2t (frag_a_tf32).
@@ -152,10 +168,10 @@ __global__ void __launch_bounds__(kMmaThreads)
       load_q(qt + 1, st ^ 1);
       mma::cp_async_commit();
     }
-    const float* qs = q_s + st * kTileElems;
-    const float* dos = do_s + st * kTileElems;
-    const float* ls = lse_s + st * kTile;
-    const float* dvs = dvec_s + st * kTile;
+    const float* qs = q_s + st * kQElems;
+    const float* dos = do_s + st * kQElems;
+    const float* ls = lse_s + st * kN;
+    const float* dvs = dvec_s + st * kN;
 
 #pragma unroll 1
     for (int qh = 0; qh < kSplit; ++qh) {
@@ -169,25 +185,43 @@ __global__ void __launch_bounds__(kMmaThreads)
       for (int j = 0; j < kQn / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      // In chains of kFirstChain k-chunks (flash_common.cuh).
 #pragma unroll
-      for (int kc = 0; kc < kKc; ++kc) {
-        uint32_t kh[4], kl[4], vh[4], vl[4];
-        frag_a_tf32<kLd>(kh, kl, ka + kc * 8);
-        frag_a_tf32<kLd>(vh, vl, va + kc * 8);
+      for (int c0 = 0; c0 < kKc; c0 += kFirstChain) {
+        float ps[kQn / 8][4], pd[kQn / 8][4];
 #pragma unroll
-        for (int j = 0; j < kQn / 8; ++j) {
-          const int at = (qc0 + 8 * j + g) * kLd + kc * 8 + 2 * t4;
-          uint32_t bh[2], bl[2];
-          frag_b_tf32(bh, bl, qs + at);
-          mma::mma_tf32x3(s[j], kh, kl, bh, bl);
-          frag_b_tf32(bh, bl, dos + at);
-          mma::mma_tf32x3(dp[j], vh, vl, bh, bl);
+        for (int j = 0; j < kQn / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ps[j][e] = pd[j][e] = 0.f;
+#pragma unroll
+        for (int kc = c0; kc < c0 + kFirstChain && kc < kKc; ++kc) {
+          uint32_t kh[4], kl[4], vh[4], vl[4];
+          frag_a_tf32<kLd>(kh, kl, ka + kc * 8);
+          frag_a_tf32<kLd>(vh, vl, va + kc * 8);
+#pragma unroll
+          for (int j = 0; j < kQn / 8; ++j) {
+            const int at = (qc0 + 8 * j + g) * kLd + kc * 8 + 2 * t4;
+            uint32_t bh[2], bl[2];
+            frag_b_tf32(bh, bl, qs + at);
+            mma::mma_tf32x3(ps[j], kh, kl, bh, bl);
+            frag_b_tf32(bh, bl, dos + at);
+            mma::mma_tf32x3(pd[j], vh, vl, bh, bl);
+          }
         }
+#pragma unroll
+        for (int j = 0; j < kQn / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] += ps[j][e], dp[j][e] += pd[j][e];
       }
 
       // p^T = exp(s^T * scale - lse[query]) into s, ds^T into dp; the
       // lane's query columns are qc0 + j * 8 + 2 t4 + e.
-      const bool diag = causal && qt == kt;
+      // A q tile that starts before the key tile's last key meets the
+      // diagonal: its queries before a key are masked (qoff is the q
+      // tile's first query relative to the key tile).
+      const bool diag = causal && qt * kN < k0 + kTile;
+      const int qoff = qt * kN - k0;
 #pragma unroll
       for (int j = 0; j < kQn / 8; ++j) {
         const int col = qc0 + j * 8 + 2 * t4;
@@ -197,7 +231,8 @@ __global__ void __launch_bounds__(kMmaThreads)
         for (int half = 0; half < 2; ++half)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const bool keep = !diag || 16 * warp + g + 8 * half <= col + e;
+            const bool keep =
+                !diag || 16 * warp + g + 8 * half <= qoff + col + e;
             const int i = 2 * half + e;
             const float sv = keep ? s[j][i] * scale : kNegInf;
             const float p = expf(sv - (e ? l2.y : l2.x));
@@ -210,9 +245,9 @@ __global__ void __launch_bounds__(kMmaThreads)
       // split and permuted, are the A fragments of query chunk j; dO's and
       // q's rows [query][d] the row-major B with its rows in the same order
       // (flash_common.cuh).
-      const int at = (qc0 + 2 * t4) * kLd + g;
-      permuted_product_tf32x3<kQn / 8, D / 8, kLd, 4>(dv_acc, s, dos + at);
-      permuted_product_tf32x3<kQn / 8, D / 8, kLd, 4>(dk_acc, dp, qs + at);
+      const int at = (qc0 + 2 * t4) * kLd + g + dh * kDo;
+      permuted_product_tf32x3<kQn / 8, kDo / 8, kLd, 4>(dv_acc, s, dos + at);
+      permuted_product_tf32x3<kQn / 8, kDo / 8, kLd, 4>(dk_acc, dp, qs + at);
     }
   }
 
@@ -225,8 +260,8 @@ __global__ void __launch_bounds__(kMmaThreads)
     const int key = k0 + 16 * warp + g + 8 * half;
     const size_t off = ((static_cast<size_t>(b) * S + key) * Hkv + kvh) * D;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const size_t e = off + j * 8 + 2 * t4;
+    for (int j = 0; j < kDo / 8; ++j) {
+      const size_t e = off + dh * kDo + j * 8 + 2 * t4;
       const float2 kk = make_float2(dk_acc[j][2 * half], dk_acc[j][2 * half + 1]);
       const float2 vv = make_float2(dv_acc[j][2 * half], dv_acc[j][2 * half + 1]);
       if (part == nullptr) {
@@ -262,6 +297,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   // the registers.
   constexpr int kSplit = D > 64 ? 2 : 1;
   constexpr int kQn = kTile / kSplit;
+  constexpr int kDo = D / kDkvSplit<D>;  // output columns of this block
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // (64, kLd)
   bf16* v_s = k_s + kTileElems;                   // (64, kLd)
@@ -276,7 +312,10 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int h = bh - b * H;
   const int group = H / Hkv;
   const int kvh = h / group;
-  const int kt = blockIdx.y;  // causal: the low key tiles see the most queries
+  // causal: the low key tiles see the most queries; dh: the half of the
+  // output columns beyond D 128
+  const int kt = blockIdx.y / kDkvSplit<D>;
+  const int dh = blockIdx.y - kt * kDkvSplit<D>;
   const int k0 = kt * kTile;
   const size_t q_rs = static_cast<size_t>(H) * D;
   const size_t kv_rs = static_cast<size_t>(Hkv) * D;
@@ -312,9 +351,9 @@ __global__ void __launch_bounds__(kMmaThreads)
 
   // This lane's keys of the warp's 16: g and g + 8 (half 0 and 1).
   const int g = lane >> 2, t4 = lane & 3;
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float dk_acc[kDo / 8][4], dv_acc[kDo / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < kDo / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
   uint32_t kf[kHold ? kKc : 1][4], vf[kHold ? kKc : 1][4];
@@ -386,7 +425,11 @@ __global__ void __launch_bounds__(kMmaThreads)
 
       // p^T = exp(s^T * scale - lse[query]) into s, ds^T into dp; the
       // lane's query columns are qc0 + j * 8 + 2 t4 + e.
-      const bool diag = causal && qt == kt;
+      // A q tile that starts before the key tile's last key meets the
+      // diagonal: its queries before a key are masked (qoff is the q
+      // tile's first query relative to the key tile).
+      const bool diag = causal && qt * kTile < k0 + kTile;
+      const int qoff = qt * kTile - k0;
 #pragma unroll
       for (int j = 0; j < kQn / 8; ++j) {
         const int col = qc0 + j * 8 + 2 * t4;
@@ -396,7 +439,8 @@ __global__ void __launch_bounds__(kMmaThreads)
         for (int half = 0; half < 2; ++half)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const bool keep = !diag || 16 * warp + g + 8 * half <= col + e;
+            const bool keep =
+                !diag || 16 * warp + g + 8 * half <= qoff + col + e;
             const int i = 2 * half + e;
             const float sv = keep ? s[j][i] * scale : kNegInf;
             const float p = expf(sv - (e ? l2.y : l2.x));
@@ -421,9 +465,9 @@ __global__ void __launch_bounds__(kMmaThreads)
             mma::pack_bf16x2(dp[2 * kc + 1][0], dp[2 * kc + 1][1]),
             mma::pack_bf16x2(dp[2 * kc + 1][2], dp[2 * kc + 1][3])};
 #pragma unroll
-        for (int dn = 0; dn < D / 16; ++dn) {
-          const int at = (qc0 + kc * 16 + (lane & 15)) * kLd + dn * 16 +
-                         (lane >> 4) * 8;
+        for (int dn = 0; dn < kDo / 16; ++dn) {
+          const int at = (qc0 + kc * 16 + (lane & 15)) * kLd + dh * kDo +
+                         dn * 16 + (lane >> 4) * 8;
           uint32_t bb[4];
           mma::ldmatrix_x4_trans(bb, dos + at);
           mma::mma_bf16(dv_acc[2 * dn], ap, bb[0], bb[1]);
@@ -445,8 +489,8 @@ __global__ void __launch_bounds__(kMmaThreads)
     const int key = k0 + 16 * warp + g + 8 * half;
     const size_t off = ((static_cast<size_t>(b) * S + key) * Hkv + kvh) * D;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const size_t e = off + j * 8 + 2 * t4;
+    for (int j = 0; j < kDo / 8; ++j) {
+      const size_t e = off + dh * kDo + j * 8 + 2 * t4;
       if (part == nullptr && out_f32) {
         *reinterpret_cast<float2*>(static_cast<float*>(dk) + e) =
             make_float2(dk_acc[j][2 * half], dk_acc[j][2 * half + 1]);
@@ -515,17 +559,19 @@ cudaError_t group_sum(const void* part, void* dk, void* dv, long long n4,
 }
 
 // One launch of the main kernel `kern` (float32 or bf16) on the wrapper's
-// plan, which must be its own (grid (B * H, S / 64), 128 threads, its
-// dynamic shared memory), then under GQA the group sum over `sum_blocks`
-// blocks, into T or, with out_f32, float32.
-template <typename T, typename Kernel>
+// plan, which must be its own (grid (B * H, S / 64 * kDkvSplit<D>), 128
+// threads, its dynamic shared memory), then under GQA the group sum over
+// `sum_blocks` blocks, into T or, with out_f32, float32.
+template <typename T, int D, typename Kernel>
 cudaError_t launch_kernel(Kernel kern, size_t smem, const void* q,
                           const void* k, const void* v, const void* dout,
                           const void* lse, const void* dvec, void* dk,
                           void* dv, void* part, int B, int S, int H, int Hkv,
-                          int D, int causal, int out_f32, const Plan& plan,
-                          int sum_blocks, cudaStream_t stream) {
-  if (!plan.is(B * H, S / kTile, kMmaThreads, smem)) return cudaErrorInvalidValue;
+                          int causal, float scale, int out_f32,
+                          const Plan& plan, int sum_blocks,
+                          cudaStream_t stream) {
+  if (!plan.is(B * H, S / kTile * kDkvSplit<D>, kMmaThreads, smem))
+    return cudaErrorInvalidValue;
   const long long n4 = static_cast<long long>(B) * S * Hkv * D / kSumVec;
   const bool sum = H > Hkv;
   if ((part != nullptr) != sum ||
@@ -538,7 +584,7 @@ cudaError_t launch_kernel(Kernel kern, size_t smem, const void* q,
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
       static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(part), S,
-      H, Hkv, causal, softmax_scale(D), out_f32);
+      H, Hkv, causal, scale, out_f32);
   err = cudaGetLastError();
   if (err != cudaSuccess || !sum) return err;
   return out_f32 ? group_sum<float>(part, dk, dv, n4, H / Hkv, sum_blocks,
@@ -546,24 +592,28 @@ cudaError_t launch_kernel(Kernel kern, size_t smem, const void* q,
                  : group_sum<T>(part, dk, dv, n4, H / Hkv, sum_blocks, stream);
 }
 
-// Both types stage the k and v tiles and two stages of q and dO, rows
-// padded by 16 bytes, and two stages of 64 lse and 64 dvec values.
+// Both types stage the k and v tiles (64 rows) and two stages of q and
+// dO tiles of kN queries (64; float32 beyond D 128: 16), rows padded by
+// 16 bytes, and two stages of kN lse and kN dvec values.
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* dvec,
                    void* dk, void* dv, void* part, int B, int S, int H,
-                   int Hkv, int causal, int out_f32, const Plan& plan,
-                   int sum_blocks, cudaStream_t stream) {
-  constexpr size_t smem =
-      6 * kTile * (sizeof(T) * D + 16) + sizeof(float) * 4 * kTile;
+                   int Hkv, int causal, float scale, int out_f32,
+                   const Plan& plan, int sum_blocks, cudaStream_t stream) {
+  constexpr int kN =
+      std::is_same<T, float>::value ? kStreamRowsF32Dkv<D> : kTile;
+  constexpr size_t smem = (2 * kTile + 4 * kN) * (sizeof(T) * D + 16) +
+                          sizeof(float) * 4 * kN;
   if constexpr (std::is_same<T, float>::value) {
-    return launch_kernel<float>(flash_bwd_dkv_f32_kernel<D>, smem, q, k, v,
-                                dout, lse, dvec, dk, dv, part, B, S, H, Hkv,
-                                D, causal, out_f32, plan, sum_blocks, stream);
+    return launch_kernel<float, D>(flash_bwd_dkv_f32_kernel<D>, smem, q, k,
+                                   v, dout, lse, dvec, dk, dv, part, B, S, H,
+                                   Hkv, causal, scale, out_f32, plan,
+                                   sum_blocks, stream);
   } else {
-    return launch_kernel<__nv_bfloat16>(
+    return launch_kernel<__nv_bfloat16, D>(
         flash_bwd_dkv_bf16_kernel<D>, smem, q, k, v, dout, lse, dvec, dk, dv,
-        part, B, S, H, Hkv, D, causal, out_f32, plan, sum_blocks, stream);
+        part, B, S, H, Hkv, causal, scale, out_f32, plan, sum_blocks, stream);
   }
 }
 
@@ -571,24 +621,13 @@ template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* dvec,
                      void* dk, void* dv, void* part, int B, int S, int H,
-                     int Hkv, int D, int causal, int out_f32,
+                     int Hkv, int D, int causal, float scale, int out_f32,
                      const Plan& plan, int sum_blocks, cudaStream_t s) {
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, dout, lse, dvec, dk, dv, part, B, S, H,
-                           Hkv, causal, out_f32, plan, sum_blocks, s);
-    case 32:
-      return launch<T, 32>(q, k, v, dout, lse, dvec, dk, dv, part, B, S, H,
-                           Hkv, causal, out_f32, plan, sum_blocks, s);
-    case 64:
-      return launch<T, 64>(q, k, v, dout, lse, dvec, dk, dv, part, B, S, H,
-                           Hkv, causal, out_f32, plan, sum_blocks, s);
-    case 128:
-      return launch<T, 128>(q, k, v, dout, lse, dvec, dk, dv, part, B, S, H,
-                            Hkv, causal, out_f32, plan, sum_blocks, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return with_head_dim(D, [&](auto d) {
+    return launch<T, decltype(d)::value>(q, k, v, dout, lse, dvec, dk, dv,
+                                         part, B, S, H, Hkv, causal, scale,
+                                         out_f32, plan, sum_blocks, s);
+  });
 }
 
 }  // namespace
@@ -597,10 +636,12 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
 // them: dtype 0 = float32 (`flash_bwd_dkv_f32_kernel`), 1 = bfloat16
 // (`flash_bwd_dkv_bf16_kernel`); grads_f32 1 makes dk and dv float32 (for
 // bf16 inputs; float32 ones have float32 gradients either way). lse, dvec
-// (B * H, S) float32. S a multiple of 64, H a multiple of Hkv, D in {16,
-// 32, 64, 128}; every pointer
-// 16-byte aligned. The plan is the wrapper's `flash_bwd_plan`: grid
-// (grid_x, grid_y) = (B * H, S / 64), 128 threads, the kernel's dynamic
+// (B * H, S) float32. S a multiple of 64, H a multiple of Hkv, D one of
+// `with_head_dim`'s instances (flash_common.cuh); `scale` multiplies the
+// logits (the wrapper's 1 / sqrt of the head dim before its zero
+// padding); every pointer 16-byte aligned. The plan is the wrapper's
+// `flash_bwd_plan`: grid (grid_x, grid_y) = (B * H, S / 64 *
+// kDkvSplit<D>), 128 threads, the kernel's dynamic
 // shared memory, and with H > Hkv a float32 scratch `part` of
 // 2 * (H / Hkv) * B * S * Hkv * D elements and
 // `sum_blocks` = ceil(2 * B * S * Hkv * D / 4 / 256) blocks of the group
@@ -611,7 +652,8 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     const void* lse, const void* dvec,
                                     void* dk, void* dv, void* part, int B,
                                     int S, int H, int Hkv, int D, int causal,
-                                    int dtype, int grads_f32, int grid_x,
+                                    float scale, int dtype, int grads_f32,
+                                    int grid_x,
                                     int grid_y, int threads, int smem,
                                     int sum_blocks, void* stream) {
   if (B < 1 || S < kTile || S % kTile != 0 || Hkv < 1 || H % Hkv != 0 ||
@@ -624,12 +666,13 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
   switch (dtype) {
     case kDtypeF32:
       err = launch_d<float>(q, k, v, dout, lse, dvec, dk, dv, part, B, S, H,
-                            Hkv, D, causal, grads_f32, plan, sum_blocks, s);
+                            Hkv, D, causal, scale, grads_f32, plan,
+                            sum_blocks, s);
       break;
     case kDtypeBF16:
       err = launch_d<__nv_bfloat16>(q, k, v, dout, lse, dvec, dk, dv, part, B,
-                                    S, H, Hkv, D, causal, grads_f32, plan,
-                                    sum_blocks, s);
+                                    S, H, Hkv, D, causal, scale, grads_f32,
+                                    plan, sum_blocks, s);
       break;
     default:
       err = cudaErrorInvalidValue;

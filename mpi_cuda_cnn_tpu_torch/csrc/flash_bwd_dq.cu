@@ -58,8 +58,14 @@
 //
 // With `out_f32` the bf16 kernel stores dq in float32, unrounded (the TPU
 // wrapper's grads_f32, which the ring-flash backward of parallel/sp.py
-// accumulates its hops in), a branch of the epilogue. Head dims 16, 32,
-// 64 and 128 (flash_fwd.cu's notes on D 16 hold here).
+// accumulates its hops in), a branch of the epilogue. Head dims:
+// `with_head_dim`'s instances (flash_fwd.cu's notes on D 16 and on the
+// zero padding hold here). Beyond D 128 (D 256), where the (16, D) float32
+// dq takes 128 registers, both types stream k and v in tiles of 32 keys
+// (kStreamRowsDq, flash_common.cuh: a k tile meets the causal diagonal in
+// two halves, masked key by key), which also keeps float32's four tiles
+// within 227 KB (192 rows, 199,680 bytes at D 256), and float32 sums ds k
+// 4 column tiles at a time.
 
 #include <type_traits>
 
@@ -81,14 +87,18 @@ __global__ void __launch_bounds__(kMmaThreads)
                             float* __restrict__ dq, int S, int H, int Hkv,
                             int causal, float scale, int /*out_f32*/) {
   constexpr int kLd = kLdF32<D>;  // D + 4: row stride in floats
+  constexpr int kN = kStreamRowsDq<D>;  // keys of a k/v tile
   constexpr int kTileElems = kTile * kLd;
   constexpr int kChunks = D / 4;  // 16-byte copies per row
   constexpr int kKc = D / 8;      // k-chunks of the q k^T product
+  // Column tiles of ds k summed at once (fewer beyond D 128, where the
+  // (16, D) dq takes 128 registers).
+  constexpr int kGroup = D > 128 ? 4 : 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* q_s = reinterpret_cast<float*>(smem_raw);  // (64, kLd)
   float* do_s = q_s + kTileElems;                   // (64, kLd)
-  float* k_s = do_s + kTileElems;                   // (64, kLd)
-  float* v_s = k_s + kTileElems;                    // (64, kLd)
+  float* k_s = do_s + kTileElems;                   // (kN, kLd)
+  float* v_s = k_s + kN * kLd;                      // (kN, kLd)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.x;
@@ -108,8 +118,8 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
   auto load_kv = [&](int kt) {
     const size_t off =
-        ((static_cast<size_t>(b) * S + kt * kTile) * Hkv + kvh) * D;
-    for (int e = tid; e < kTile * kChunks; e += kMmaThreads) {
+        ((static_cast<size_t>(b) * S + kt * kN) * Hkv + kvh) * D;
+    for (int e = tid; e < kN * kChunks; e += kMmaThreads) {
       const int r = e / kChunks, c = (e - r * kChunks) * 4;
       mma::cp_async16(k_s + r * kLd + c, k + off + r * kv_rs + c, true);
       mma::cp_async16(v_s + r * kLd + c, v + off + r * kv_rs + c, true);
@@ -136,7 +146,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   const float* qa = q_s + (16 * warp + g) * kLd + 2 * t4;
   const float* ga = do_s + (16 * warp + g) * kLd + 2 * t4;
 
-  const int nk = causal ? qt + 1 : S / kTile;
+  const int nk = causal ? (q0 + kTile) / kN : S / kN;
   for (int kt = 0; kt < nk; ++kt) {
     if (kt > 0) {
       __syncthreads();  // every warp is done with tile kt - 1
@@ -150,37 +160,53 @@ __global__ void __launch_bounds__(kMmaThreads)
 
     // s = q k^T and dp = dO v^T: k's and v's rows [key][d] are the
     // col-major B (key 8j + g; d 2t and 2t + 1 of chunk kc, flash_common.cuh).
-    float s[kTile / 8][4], dp[kTile / 8][4];
+    float s[kN / 8][4], dp[kN / 8][4];
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
+    for (int j = 0; j < kN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    // In chains of kFirstChain k-chunks (flash_common.cuh).
 #pragma unroll
-    for (int kc = 0; kc < kKc; ++kc) {
-      uint32_t qh[4], ql[4], gh[4], gl[4];
-      frag_a_tf32<kLd>(qh, ql, qa + kc * 8);
-      frag_a_tf32<kLd>(gh, gl, ga + kc * 8);
+    for (int c0 = 0; c0 < kKc; c0 += kFirstChain) {
+      float ps[kN / 8][4], pd[kN / 8][4];
 #pragma unroll
-      for (int j = 0; j < kTile / 8; ++j) {
-        const int at = (8 * j + g) * kLd + kc * 8 + 2 * t4;
-        uint32_t bh[2], bl[2];
-        frag_b_tf32(bh, bl, ks + at);
-        mma::mma_tf32x3(s[j], qh, ql, bh, bl);
-        frag_b_tf32(bh, bl, vs + at);
-        mma::mma_tf32x3(dp[j], gh, gl, bh, bl);
+      for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ps[j][e] = pd[j][e] = 0.f;
+#pragma unroll
+      for (int kc = c0; kc < c0 + kFirstChain && kc < kKc; ++kc) {
+        uint32_t qh[4], ql[4], gh[4], gl[4];
+        frag_a_tf32<kLd>(qh, ql, qa + kc * 8);
+        frag_a_tf32<kLd>(gh, gl, ga + kc * 8);
+#pragma unroll
+        for (int j = 0; j < kN / 8; ++j) {
+          const int at = (8 * j + g) * kLd + kc * 8 + 2 * t4;
+          uint32_t bh[2], bl[2];
+          frag_b_tf32(bh, bl, ks + at);
+          mma::mma_tf32x3(ps[j], qh, ql, bh, bl);
+          frag_b_tf32(bh, bl, vs + at);
+          mma::mma_tf32x3(pd[j], gh, gl, bh, bl);
+        }
       }
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] += ps[j][e], dp[j][e] += pd[j][e];
     }
 
     // p = exp(s * scale - lse), ds = p * (dp - dvec) * scale, into s.
-    const bool diag = causal && kt == qt;
+    // (flash_fwd.cu's mask: a k tile past the q tile's first row meets
+    // the diagonal; koff is its first key relative to the q tile.)
+    const bool diag = causal && (kt + 1) * kN > q0;
+    const int koff = kt * kN - q0;
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
+    for (int j = 0; j < kN / 8; ++j)
 #pragma unroll
       for (int half = 0; half < 2; ++half)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const bool keep =
-              !diag || j * 8 + 2 * t4 + e <= 16 * warp + g + 8 * half;
+          const bool keep = !diag || koff + j * 8 + 2 * t4 + e <=
+                                         16 * warp + g + 8 * half;
           const int i = 2 * half + e;
           const float sv = keep ? s[j][i] * scale : kNegInf;
           const float p = expf(sv - lse_r[half]);
@@ -190,7 +216,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     // dq += ds k: ds's accumulators of key n-tile j, split and permuted,
     // are the A fragment of key chunk j; k's rows [key][d] are the
     // row-major B with its rows in the same order (flash_common.cuh).
-    permuted_product_tf32x3<kTile / 8, D / 8, kLd, 8>(
+    permuted_product_tf32x3<kN / 8, D / 8, kLd, kGroup>(
         acc, s, ks + 2 * t4 * kLd + g);
   }
 
@@ -217,15 +243,17 @@ __global__ void __launch_bounds__(kMmaThreads)
                              int causal, float scale, int out_f32) {
   using bf16 = __nv_bfloat16;
   constexpr int kLd = D + 8;  // row stride, 16 bytes of padding
+  constexpr int kN = kStreamRowsDq<D>;  // keys of a k/v tile
   constexpr int kTileElems = kTile * kLd;
+  constexpr int kKvElems = kN * kLd;
   constexpr int kChunks = D / 8;  // 16-byte copies per row
   constexpr int kKc = D / 16;     // k-chunks of the q k^T product
   constexpr bool kHold = D <= 64;  // q/dO fragments held in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // (64, kLd)
   bf16* do_s = q_s + kTileElems;                  // (64, kLd)
-  bf16* k_s = do_s + kTileElems;                  // 2 x (64, kLd)
-  bf16* v_s = k_s + 2 * kTileElems;               // 2 x (64, kLd)
+  bf16* k_s = do_s + kTileElems;                  // 2 x (kN, kLd)
+  bf16* v_s = k_s + 2 * kKvElems;                 // 2 x (kN, kLd)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.x;
@@ -245,12 +273,12 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
   auto load_kv = [&](int kt, int st) {
     const size_t off =
-        ((static_cast<size_t>(b) * S + kt * kTile) * Hkv + kvh) * D;
-    for (int e = tid; e < kTile * kChunks; e += kMmaThreads) {
+        ((static_cast<size_t>(b) * S + kt * kN) * Hkv + kvh) * D;
+    for (int e = tid; e < kN * kChunks; e += kMmaThreads) {
       const int r = e / kChunks, c = (e - r * kChunks) * 8;
-      mma::cp_async16(k_s + st * kTileElems + r * kLd + c,
+      mma::cp_async16(k_s + st * kKvElems + r * kLd + c,
                       k + off + r * kv_rs + c, true);
-      mma::cp_async16(v_s + st * kTileElems + r * kLd + c,
+      mma::cp_async16(v_s + st * kKvElems + r * kLd + c,
                       v + off + r * kv_rs + c, true);
     }
   };
@@ -278,7 +306,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                             (lane >> 4) * 8);
   };
 
-  const int nk = causal ? qt + 1 : S / kTile;
+  const int nk = causal ? (q0 + kTile) / kN : S / kN;
   for (int kt = 0; kt < nk; ++kt) {
     mma::cp_async_wait<0>();
     __syncthreads();  // tile kt landed; stage (kt+1)&1 is free again
@@ -295,14 +323,14 @@ __global__ void __launch_bounds__(kMmaThreads)
       load_kv(kt + 1, (kt + 1) & 1);
       mma::cp_async_commit();
     }
-    const bf16* ks = k_s + (kt & 1) * kTileElems;
-    const bf16* vs = v_s + (kt & 1) * kTileElems;
+    const bf16* ks = k_s + (kt & 1) * kKvElems;
+    const bf16* vs = v_s + (kt & 1) * kKvElems;
 
     // s = q k^T and dp = dO v^T: k's and v's rows [key][d] are the
     // col-major B operand as stored.
-    float s[kTile / 8][4], dp[kTile / 8][4];
+    float s[kN / 8][4], dp[kN / 8][4];
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
+    for (int j = 0; j < kN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
@@ -319,7 +347,7 @@ __global__ void __launch_bounds__(kMmaThreads)
         frag_a(ag, do_s, kc);
       }
 #pragma unroll
-      for (int np = 0; np < kTile / 16; ++np) {
+      for (int np = 0; np < kN / 16; ++np) {
         const int at = (np * 16 + (lane & 7) + (lane >> 4) * 8) * kLd + kc * 16 +
                        ((lane >> 3) & 1) * 8;
         uint32_t bb[4];
@@ -333,15 +361,18 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
 
     // p = exp(s * scale - lse), ds = p * (dp - dvec) * scale, into s.
-    const bool diag = causal && kt == qt;
+    // (flash_fwd.cu's mask: a k tile past the q tile's first row meets
+    // the diagonal; koff is its first key relative to the q tile.)
+    const bool diag = causal && (kt + 1) * kN > q0;
+    const int koff = kt * kN - q0;
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
+    for (int j = 0; j < kN / 8; ++j)
 #pragma unroll
       for (int half = 0; half < 2; ++half)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const bool keep =
-              !diag || j * 8 + 2 * t4 + e <= 16 * warp + g + 8 * half;
+          const bool keep = !diag || koff + j * 8 + 2 * t4 + e <=
+                                         16 * warp + g + 8 * half;
           const int i = 2 * half + e;
           const float sv = keep ? s[j][i] * scale : kNegInf;
           const float p = expf(sv - lse_r[half]);
@@ -351,7 +382,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     // dq += ds k: ds's accumulator fragments, rounded to bf16, are the A
     // fragments of key chunk kc; k's rows [key][d] go through .trans.
 #pragma unroll
-    for (int kc = 0; kc < kTile / 16; ++kc) {
+    for (int kc = 0; kc < kN / 16; ++kc) {
       const uint32_t a[4] = {mma::pack_bf16x2(s[2 * kc][0], s[2 * kc][1]),
                              mma::pack_bf16x2(s[2 * kc][2], s[2 * kc][3]),
                              mma::pack_bf16x2(s[2 * kc + 1][0], s[2 * kc + 1][1]),
@@ -394,7 +425,7 @@ template <typename T, typename Kernel>
 cudaError_t launch_kernel(Kernel kern, size_t smem, const void* q,
                           const void* k, const void* v, const void* dout,
                           const void* lse, const void* dvec, void* dq, int B,
-                          int S, int H, int Hkv, int D, int causal,
+                          int S, int H, int Hkv, int causal, float scale,
                           int out_f32, const Plan& plan, cudaStream_t stream) {
   if (!plan.is(B * H, S / kTile, kMmaThreads, smem)) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(kern, smem);
@@ -403,27 +434,30 @@ cudaError_t launch_kernel(Kernel kern, size_t smem, const void* q,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
-      static_cast<T*>(dq), S, H, Hkv, causal, softmax_scale(D), out_f32);
+      static_cast<T*>(dq), S, H, Hkv, causal, scale, out_f32);
   return cudaGetLastError();
 }
 
-// The q and dO tiles, and k and v in two stages (bf16) or one (float32),
-// rows padded by 16 bytes.
+// The q and dO tiles (64 rows), and k and v tiles of kStreamRowsDq<D> keys
+// in two stages (bf16) or one (float32), rows padded by 16 bytes.
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* dvec,
                    void* dq, int B, int S, int H, int Hkv, int causal,
-                   int out_f32, const Plan& plan, cudaStream_t stream) {
-  constexpr size_t smem =
-      (std::is_same<T, float>::value ? 4 : 6) * kTile * (sizeof(T) * D + 16);
+                   float scale, int out_f32, const Plan& plan,
+                   cudaStream_t stream) {
+  constexpr int kStages = std::is_same<T, float>::value ? 1 : 2;
+  constexpr size_t smem = (2 * kTile + 2 * kStages * kStreamRowsDq<D>) *
+                          (sizeof(T) * D + 16);
   if constexpr (std::is_same<T, float>::value) {
     return launch_kernel<float>(flash_bwd_dq_f32_kernel<D>, smem, q, k, v,
-                                dout, lse, dvec, dq, B, S, H, Hkv, D, causal,
-                                out_f32, plan, stream);
+                                dout, lse, dvec, dq, B, S, H, Hkv, causal,
+                                scale, out_f32, plan, stream);
   } else {
     return launch_kernel<__nv_bfloat16>(flash_bwd_dq_bf16_kernel<D>, smem, q,
                                         k, v, dout, lse, dvec, dq, B, S, H,
-                                        Hkv, D, causal, out_f32, plan, stream);
+                                        Hkv, causal, scale, out_f32, plan,
+                                        stream);
   }
 }
 
@@ -431,24 +465,13 @@ template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* dvec,
                      void* dq, int B, int S, int H, int Hkv, int D,
-                     int causal, int out_f32, const Plan& plan,
+                     int causal, float scale, int out_f32, const Plan& plan,
                      cudaStream_t s) {
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, dout, lse, dvec, dq, B, S, H, Hkv, causal,
-                           out_f32, plan, s);
-    case 32:
-      return launch<T, 32>(q, k, v, dout, lse, dvec, dq, B, S, H, Hkv, causal,
-                           out_f32, plan, s);
-    case 64:
-      return launch<T, 64>(q, k, v, dout, lse, dvec, dq, B, S, H, Hkv, causal,
-                           out_f32, plan, s);
-    case 128:
-      return launch<T, 128>(q, k, v, dout, lse, dvec, dq, B, S, H, Hkv,
-                            causal, out_f32, plan, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return with_head_dim(D, [&](auto d) {
+    return launch<T, decltype(d)::value>(q, k, v, dout, lse, dvec, dq, B, S,
+                                         H, Hkv, causal, scale, out_f32,
+                                         plan, s);
+  });
 }
 
 }  // namespace
@@ -457,9 +480,10 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
 // dtype 0 = float32 (`flash_bwd_dq_f32_kernel`), 1 = bfloat16
 // (`flash_bwd_dq_bf16_kernel`); grads_f32 1 makes dq float32 (for bf16
 // inputs; float32 ones have a float32 dq either way). lse, dvec (B * H, S)
-// float32. S a multiple of 64, H a multiple of Hkv, D in {16, 32, 64,
-// 128}; every pointer
-// 16-byte aligned. The plan (grid_x, grid_y, threads, smem) is the
+// float32. S a multiple of 64, H a multiple of Hkv, D one of
+// `with_head_dim`'s instances (flash_common.cuh); `scale` multiplies the
+// logits (the wrapper's 1 / sqrt of the head dim before its zero
+// padding); every pointer 16-byte aligned. The plan (grid_x, grid_y, threads, smem) is the
 // wrapper's `flash_bwd_plan`: grid (B * H, S / 64), 128 threads, and the
 // kernel's dynamic shared memory; any other plan is refused. Returns
 // cudaGetLastError().
@@ -467,9 +491,10 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* dvec,
                                    void* dq, int B, int S, int H, int Hkv,
-                                   int D, int causal, int dtype,
-                                   int grads_f32, int grid_x, int grid_y,
-                                   int threads, int smem, void* stream) {
+                                   int D, int causal, float scale,
+                                   int dtype, int grads_f32, int grid_x,
+                                   int grid_y, int threads, int smem,
+                                   void* stream) {
   if (B < 1 || S < kTile || S % kTile != 0 || Hkv < 1 || H % Hkv != 0 ||
       (grads_f32 != 0 && grads_f32 != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -480,11 +505,11 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
   switch (dtype) {
     case kDtypeF32:
       err = launch_d<float>(q, k, v, dout, lse, dvec, dq, B, S, H, Hkv, D,
-                            causal, grads_f32, plan, s);
+                            causal, scale, grads_f32, plan, s);
       break;
     case kDtypeBF16:
       err = launch_d<__nv_bfloat16>(q, k, v, dout, lse, dvec, dq, B, S, H, Hkv,
-                                    D, causal, grads_f32, plan, s);
+                                    D, causal, scale, grads_f32, plan, s);
       break;
     default:
       err = cudaErrorInvalidValue;

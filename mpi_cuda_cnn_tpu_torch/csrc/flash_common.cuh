@@ -17,6 +17,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "elem.cuh"
 #include "mma.cuh"
 
@@ -26,6 +28,47 @@ constexpr int kTile = 64;      // query rows of a q tile, keys of a k/v tile
 constexpr int kMmaThreads = 128;  // 4 warps x 16 rows
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxHeadDim = 256;   // the largest instance
+
+// The head dims the three kernels are built for (`HEAD_DIMS` in
+// ops/flash_attention.py, which pads any other D <= 256 with zeros to
+// the next of them): f(std::integral_constant<int, D>{}) for D among
+// them, cudaErrorInvalidValue for any other. 80, 96 and 256 are the
+// published head dims of Phi-2, Phi-3-mini and Gemma-7B.
+template <typename F>
+cudaError_t with_head_dim(int D, F&& f) {
+  switch (D) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 80: return f(std::integral_constant<int, 80>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Rows of a streamed tile: the keys of a K7 or K8 k/v tile, the queries
+// of a K9 q/dO tile. 64, but beyond D 128 narrower, so that the tiles fit
+// in a block's 227 KB and the logit fragments beside the (16, D) float32
+// accumulators stay small: 32 keys in K7 (float32) and K8, 16 queries in
+// K9 (float32). A streamed tile that meets the causal diagonal is masked
+// element by element (key <= query).
+template <int D>
+constexpr int kStreamRowsF32Fwd = D > 128 ? 32 : kTile;
+template <int D>
+constexpr int kStreamRowsDq = D > 128 ? 32 : kTile;
+template <int D>
+constexpr int kStreamRowsF32Dkv = D > 128 ? 16 : kTile;
+
+// K9's output columns a block owns: all D, but beyond D 128 half of them,
+// each (batch, query head, key tile) taken by two blocks that both
+// rebuild p^T and ds^T over the full D, so that the (16, D / 2) float32
+// dk and dv accumulators fit in the registers (two of (16, 256) would
+// need 256 a thread).
+template <int D>
+constexpr int kDkvSplit = D > 128 ? 2 : 1;
 
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
 template <typename Kernel>
@@ -77,8 +120,16 @@ __device__ __forceinline__ void frag_b_tf32(uint32_t (&hi)[2],
   mma::split_tf32(r.y, hi[1], lo[1]);
 }
 
+// First products (s = q k^T, dp = dO v^T and their transposes) sum over
+// D / 8 k-chunks of 8. At D 256 one chain of 32 chunks (96 tensor-core
+// sums, which may truncate) measured up to 1e-5 of max|.| off its plain
+// version on an H100; so the chunks are summed in chains of at most
+// kFirstChain (D 128's 16) from zero, each chain added in float32.
+constexpr int kFirstChain = 16;
+
 // Second products (o += p v, dq += ds k, dv += p^T dO, dk += ds^T q):
-// acc[dn] += x y[:, dn * 8 .. +8] over NJ k-chunks of 8, where x (16 x
+// acc[dn] += x y[:, dn * 8 .. +8] over NJ k-chunks of 8 (dn < ND; the
+// last group may be short, as at D 80), where x (16 x
 // 8 NJ) is held in its accumulator fragments (n-tile j = k-chunk j) and y
 // is a row-major [k][d] tile from `y` = &tile[k0 + 2t][g]. x is split and
 // permuted into A fragments (mma.cuh: slot t <-> column 2t, t + 4 <-> 2t
@@ -111,16 +162,19 @@ __device__ __forceinline__ void permuted_product_tf32x3(
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int dn = 0; dn < kGroup; ++dn) {
-        const float* p = y + 8 * j * LD + (d0 + dn) * 8;
-        uint32_t bh[2], bl[2];
-        mma::split_tf32(p[0], bh[0], bl[0]);
-        mma::split_tf32(p[LD], bh[1], bl[1]);
-        mma::mma_tf32x3(part[dn], xh[j], xl[j], bh, bl);
+        if (d0 + dn < ND) {
+          const float* p = y + 8 * j * LD + (d0 + dn) * 8;
+          uint32_t bh[2], bl[2];
+          mma::split_tf32(p[0], bh[0], bl[0]);
+          mma::split_tf32(p[LD], bh[1], bl[1]);
+          mma::mma_tf32x3(part[dn], xh[j], xl[j], bh, bl);
+        }
       }
 #pragma unroll
     for (int dn = 0; dn < kGroup; ++dn)
+      if (d0 + dn < ND)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[d0 + dn][e] += part[dn][e];
+        for (int e = 0; e < 4; ++e) acc[d0 + dn][e] += part[dn][e];
   }
 }
 
@@ -134,11 +188,5 @@ struct Plan {
            static_cast<size_t>(smem) == bytes;
   }
 };
-
-// The scale of the TPU kernels, 1 / sqrt(D) taken in double and rounded
-// once, as Python's 1.0 / d ** 0.5 times a float32 array.
-inline float softmax_scale(int D) {
-  return static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
-}
 
 }  // namespace flash

@@ -70,10 +70,18 @@
 //     unrounded (the TPU wrapper's out_f32, which the ring-flash fold of
 //     parallel/sp.py merges its partials in), a branch of the epilogue.
 //
-// Head dims 16, 32, 64 and 128. At D 16 a bf16 q k^T is one m16n8k16
-// k-step and p v two n8 tiles; a float32 one two m16n8k8 k-steps. Rows
-// of 32 or 64 bytes plus the 16-byte pad keep every `cp.async` and
-// `ldmatrix` row address 16-byte aligned.
+// Head dims: `with_head_dim`'s instances (16, 32, 64, 80, 96, 128, 256;
+// the wrapper pads any other D <= 256 with zeros to the next and passes
+// the real D's scale). At D 16 a bf16 q k^T is one m16n8k16 k-step and
+// p v two n8 tiles; a float32 one two m16n8k8 k-steps. Rows of D * 2 or
+// D * 4 bytes (D a multiple of 16) plus the 16-byte pad keep every
+// `cp.async` and `ldmatrix` row address 16-byte aligned. Beyond D 128
+// (D 256) the (16, D) float32 o takes 128 registers a thread: the bf16
+// kernel re-reads q's fragments per k tile instead of holding them, and
+// the float32 one streams k and v in tiles of 32 keys (a k tile then
+// meets the causal diagonal in two halves, masked key by key), stages q
+// as a float32 tile split as it is read, and sums p v 4 column tiles at
+// a time.
 
 #include "flash_common.cuh"
 #include "mma.cuh"
@@ -99,11 +107,16 @@ __device__ __forceinline__ void frag_a_split(uint32_t (&hi)[4],
 }
 
 // Split the staged (64, D) float32 q tile in place: its elements become
-// their tf32 hi bits and `lo` (the same layout) receives tf32(x - hi).
+// their tf32 hi bits and `lo` (the same layout) receives tf32(x - hi). A
+// row's 16-byte words are padded to whole quarter warps (8 lanes; at D 80
+// 20 words take 24 lanes, 4 idle), so that no quarter warp's 128-bit
+// access crosses into the next row's banks.
 template <int D, int LD>
 __device__ __forceinline__ void split_tile(float* t, float* lo) {
-  for (int e = threadIdx.x; e < kTile * D / 4; e += kMmaThreads) {
-    const int r = e / (D / 4), c = (e - r * (D / 4)) * 4;
+  constexpr int kWords = (D / 4 + 7) / 8 * 8;
+  for (int e = threadIdx.x; e < kTile * kWords; e += kMmaThreads) {
+    const int r = e / kWords, c = (e - r * kWords) * 4;
+    if (c >= D) continue;
     float4* px = reinterpret_cast<float4*>(t + r * LD + c);
     const float4 x = *px;
     uint4 h, l;
@@ -116,11 +129,15 @@ __device__ __forceinline__ void split_tile(float* t, float* lo) {
   }
 }
 
-// Shared-memory tiles of the float32 kernel, (64, D + 4) floats each:
-// k and v in two stages, and beyond D 64 q's hi and lo tiles. Its plan
-// (`flash_fwd_plan`) counts them.
+// Shared-memory rows of the float32 kernel, D + 4 floats each: k and v in
+// two stages of kStreamRowsF32Fwd<D> keys, and at D in (64, 128] q's hi
+// and lo tiles, beyond D 128 q's float32 tile (two stages of 32 keys and
+// q: 192 rows, 199,680 bytes at D 256, where six 64-row tiles would need
+// 399,360). Its plan (`flash_fwd_plan`) counts them.
 template <int D>
-constexpr int kF32Tiles = D <= 64 ? 4 : 6;
+constexpr int kF32Rows =
+    D <= 64 ? 4 * kTile
+            : (D <= 128 ? 6 * kTile : 4 * kStreamRowsF32Fwd<D> + kTile);
 
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -130,14 +147,20 @@ __global__ void __launch_bounds__(kMmaThreads)
                          float* __restrict__ lse, int S, int H, int Hkv,
                          int causal, float scale, int /*out_f32*/) {
   constexpr int kLd = kLdF32<D>;  // D + 4: row stride in floats
-  constexpr int kTileElems = kTile * kLd;
+  constexpr int kN = kStreamRowsF32Fwd<D>;  // keys of a k/v tile
+  constexpr int kTileElems = kN * kLd;
   constexpr int kChunks = D / 4;  // 16-byte copies per row
   constexpr int kKc = D / 8;      // k-chunks of the q k^T product
   constexpr bool kHoldQ = D <= 64;  // q's (hi, lo) fragments in registers
+  constexpr bool kSplitQ = D > 64 && D <= 128;  // q's hi and lo tiles
+  // Column tiles of p v summed at once (fewer beyond D 128, where the
+  // (16, D) o takes 128 registers).
+  constexpr int kGroup = D > 128 ? 4 : 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* tiles = reinterpret_cast<float*>(smem_raw);
-  // Tiles 0-3: k, v of stage 0 and of stage 1. Tiles 4, 5 at D > 64: q's
-  // hi and lo. q is staged in tile 2 (stage 1's k, D <= 64) or 4.
+  // Tiles 0-3 (kN rows each): k, v of stage 0 and of stage 1. Tiles 4, 5
+  // at D in (64, 128]: q's hi and lo. q is staged in tile 2 (stage 1's k,
+  // D <= 64) or from tile 4 on (64 rows).
   auto tile = [&](int i) { return tiles + i * kTileElems; };
   auto bits = [&](int i) {
     return reinterpret_cast<const uint32_t*>(tiles + i * kTileElems);
@@ -161,10 +184,10 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
   auto load_kv = [&](int kt, int st) {
     const size_t off =
-        ((static_cast<size_t>(b) * S + kt * kTile) * Hkv + kvh) * D;
+        ((static_cast<size_t>(b) * S + kt * kN) * Hkv + kvh) * D;
     float* ks = tile(2 * st);
     float* vs = tile(2 * st + 1);
-    for (int e = tid; e < kTile * kChunks; e += kMmaThreads) {
+    for (int e = tid; e < kN * kChunks; e += kMmaThreads) {
       const int r = e / kChunks, c = (e - r * kChunks) * 4;
       mma::cp_async16(ks + r * kLd + c, k + off + r * kv_rs + c, true);
       mma::cp_async16(vs + r * kLd + c, v + off + r * kv_rs + c, true);
@@ -184,11 +207,11 @@ __global__ void __launch_bounds__(kMmaThreads)
   uint32_t qh[kHoldQ ? kKc : 1][4], ql[kHoldQ ? kKc : 1][4];
   const int arow = (16 * warp + g) * kLd + 2 * t4;  // frag_a_tf32's place
 
-  const int nk = causal ? qt + 1 : S / kTile;
+  const int nk = causal ? (q0 + kTile) / kN : S / kN;
   for (int kt = 0; kt < nk; ++kt) {
     mma::cp_async_wait<0>();
     __syncthreads();  // tile kt landed; stage (kt+1)&1 is free again
-    if (kt == 0) {
+    if (kt == 0 && (kHoldQ || kSplitQ)) {
       // q split once: into registers, or in place into tiles 4 (hi) and 5.
       if constexpr (kHoldQ) {
 #pragma unroll
@@ -208,40 +231,59 @@ __global__ void __launch_bounds__(kMmaThreads)
 
     // s = q k^T: k's rows [key][d] are the col-major B (key 8j + g; d 2t
     // and 2t + 1 of chunk kc, flash_common.cuh).
-    float s[kTile / 8][4];
+    // In chains of kFirstChain k-chunks (flash_common.cuh).
+    float s[kN / 8][4];
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
+    for (int j = 0; j < kN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kc = 0; kc < kKc; ++kc) {
-      uint32_t ah[4], al[4];
-      if constexpr (kHoldQ) {
+    for (int c0 = 0; c0 < kKc; c0 += kFirstChain) {
+      float ps[kN / 8][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) ah[e] = qh[kc][e], al[e] = ql[kc][e];
-      } else {
-        frag_a_split<kLd>(ah, al, bits(4) + arow + kc * 8,
-                          bits(5) + arow + kc * 8);
+      for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ps[j][e] = 0.f;
+#pragma unroll
+      for (int kc = c0; kc < c0 + kFirstChain && kc < kKc; ++kc) {
+        uint32_t ah[4], al[4];
+        if constexpr (kHoldQ) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ah[e] = qh[kc][e], al[e] = ql[kc][e];
+        } else if constexpr (kSplitQ) {
+          frag_a_split<kLd>(ah, al, bits(4) + arow + kc * 8,
+                            bits(5) + arow + kc * 8);
+        } else {
+          frag_a_tf32<kLd>(ah, al, q_stage + arow + kc * 8);
+        }
+#pragma unroll
+        for (int j = 0; j < kN / 8; ++j) {
+          const int at = (8 * j + g) * kLd + kc * 8 + 2 * t4;
+          uint32_t bh[2], bl[2];
+          frag_b_tf32(bh, bl, ks + at);
+          mma::mma_tf32x3(ps[j], ah, al, bh, bl);
+        }
       }
 #pragma unroll
-      for (int j = 0; j < kTile / 8; ++j) {
-        const int at = (8 * j + g) * kLd + kc * 8 + 2 * t4;
-        uint32_t bh[2], bl[2];
-        frag_b_tf32(bh, bl, ks + at);
-        mma::mma_tf32x3(s[j], ah, al, bh, bl);
-      }
+      for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] += ps[j][e];
     }
 
-    const bool diag = causal && kt == qt;
+    // A k tile that reaches past the q tile's first row meets the
+    // diagonal: its keys after a row's own are masked (kt * kN - q0 is
+    // the tile's first key relative to the q tile).
+    const bool diag = causal && (kt + 1) * kN > q0;
+    const int koff = kt * kN - q0;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = 16 * warp + g + 8 * half;  // within the q tile
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < kTile / 8; ++j)
+      for (int j = 0; j < kN / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const bool keep = !diag || j * 8 + 2 * t4 + e <= row;
+          const bool keep = !diag || koff + j * 8 + 2 * t4 + e <= row;
           float& x = s[j][2 * half + e];
           x = keep ? x * scale : kNegInf;
           mx = fmaxf(mx, x);
@@ -252,10 +294,10 @@ __global__ void __launch_bounds__(kMmaThreads)
       const float alpha = expf(m[half] - m_new);
       float psum = 0.f;
 #pragma unroll
-      for (int j = 0; j < kTile / 8; ++j)
+      for (int j = 0; j < kN / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const bool keep = !diag || j * 8 + 2 * t4 + e <= row;
+          const bool keep = !diag || koff + j * 8 + 2 * t4 + e <= row;
           float& x = s[j][2 * half + e];
           x = keep ? expf(x - m_new) : 0.f;
           psum += x;
@@ -275,8 +317,8 @@ __global__ void __launch_bounds__(kMmaThreads)
     // the A fragment of key chunk j; v's rows [key][d] are the row-major B
     // with its rows in the same order (flash_common.cuh). Summed from zero
     // per tile, then added to the rescaled o.
-    permuted_product_tf32x3<kTile / 8, D / 8, kLd, 8>(acc, s,
-                                                      vs + 2 * t4 * kLd + g);
+    permuted_product_tf32x3<kN / 8, D / 8, kLd, kGroup>(
+        acc, s, vs + 2 * t4 * kLd + g);
   }
 
 #pragma unroll
@@ -304,6 +346,9 @@ __global__ void __launch_bounds__(kMmaThreads)
   constexpr int kLd = D + 8;        // row stride, 16 bytes of padding
   constexpr int kTileElems = kTile * kLd;
   constexpr int kChunks = D / 8;    // 16-byte copies per row
+  // q's fragments held in registers; beyond D 128 re-read per k tile,
+  // beside the (16, D) float32 o that takes 128 registers there.
+  constexpr bool kHoldQ = D <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // (64, kLd)
   bf16* k_s = q_s + kTileElems;                   // 2 x (64, kLd)
@@ -345,17 +390,22 @@ __global__ void __launch_bounds__(kMmaThreads)
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  uint32_t qf[D / 16][4];
+  uint32_t qf[kHoldQ ? D / 16 : 1][4];
+  // A fragment of k-chunk kc of this warp's 16 rows of q.
+  auto frag_q = [&](uint32_t(&r)[4], int kc) {
+    mma::ldmatrix_x4(r, q_s + (16 * warp + (lane & 15)) * kLd + kc * 16 +
+                            (lane >> 4) * 8);
+  };
 
   const int nk = causal ? qt + 1 : S / kTile;
   for (int kt = 0; kt < nk; ++kt) {
     mma::cp_async_wait<0>();
     __syncthreads();  // tile kt landed; stage (kt+1)&1 is free again
-    if (kt == 0) {
+    if constexpr (kHoldQ) {
+      if (kt == 0) {
 #pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc)
-        mma::ldmatrix_x4(qf[kc], q_s + (16 * warp + (lane & 15)) * kLd +
-                                     kc * 16 + (lane >> 4) * 8);
+        for (int kc = 0; kc < D / 16; ++kc) frag_q(qf[kc], kc);
+      }
     }
     if (kt + 1 < nk) {
       load_kv(kt + 1, (kt + 1) & 1);
@@ -371,15 +421,23 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc)
+    for (int kc = 0; kc < D / 16; ++kc) {
+      uint32_t aq[4];
+      if constexpr (kHoldQ) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) aq[e] = qf[kc][e];
+      } else {
+        frag_q(aq, kc);
+      }
 #pragma unroll
       for (int np = 0; np < kTile / 16; ++np) {
         uint32_t bb[4];
         mma::ldmatrix_x4(bb, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * kLd +
                                  kc * 16 + ((lane >> 3) & 1) * 8);
-        mma::mma_bf16(s[2 * np], qf[kc], bb[0], bb[1]);
-        mma::mma_bf16(s[2 * np + 1], qf[kc], bb[2], bb[3]);
+        mma::mma_bf16(s[2 * np], aq, bb[0], bb[1]);
+        mma::mma_bf16(s[2 * np + 1], aq, bb[2], bb[3]);
       }
+    }
 
     const bool diag = causal && kt == qt;
 #pragma unroll
@@ -468,35 +526,36 @@ __global__ void __launch_bounds__(kMmaThreads)
 template <typename T, typename Kernel>
 cudaError_t launch_kernel(Kernel kern, size_t smem, const void* q,
                           const void* k, const void* v, void* o, void* lse,
-                          int B, int S, int H, int Hkv, int D, int causal,
-                          int out_f32, const Plan& plan, cudaStream_t stream) {
+                          int B, int S, int H, int Hkv, int causal,
+                          float scale, int out_f32, const Plan& plan,
+                          cudaStream_t stream) {
   if (!plan.is(B * H, S / kTile, kMmaThreads, smem)) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   kern<<<dim3(plan.grid_x, plan.grid_y), kMmaThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      S, H, Hkv, causal, softmax_scale(D), out_f32);
+      S, H, Hkv, causal, scale, out_f32);
   return cudaGetLastError();
 }
 
-// float32: kF32Tiles<D> tiles of (64, D + 4) floats; bf16: q and two
-// stages of k and v, (64, D + 8) bf16 each.
+// float32: kF32Rows<D> rows of D + 4 floats; bf16: q and two stages of k
+// and v, (64, D + 8) bf16 each.
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      void* lse, int B, int S, int H, int Hkv, int causal,
-                     int dtype, int out_f32, const Plan& plan,
+                     float scale, int dtype, int out_f32, const Plan& plan,
                      cudaStream_t s) {
   if (dtype == kDtypeBF16) {
     constexpr size_t smem = sizeof(__nv_bfloat16) * 5 * kTile * (D + 8);
     return launch_kernel<__nv_bfloat16>(flash_fwd_bf16_kernel<D>, smem, q, k,
-                                        v, o, lse, B, S, H, Hkv, D, causal,
+                                        v, o, lse, B, S, H, Hkv, causal, scale,
                                         out_f32, plan, s);
   }
   if (dtype != kDtypeF32) return cudaErrorInvalidValue;
-  constexpr size_t smem = kF32Tiles<D> * kTile * (sizeof(float) * D + 16);
+  constexpr size_t smem = kF32Rows<D> * (sizeof(float) * D + 16);
   return launch_kernel<float>(flash_fwd_f32_kernel<D>, smem, q, k, v, o, lse,
-                              B, S, H, Hkv, D, causal, out_f32, plan, s);
+                              B, S, H, Hkv, causal, scale, out_f32, plan, s);
 }
 
 }  // namespace
@@ -505,42 +564,27 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
 // one type and 16-byte aligned: dtype 0 = float32 (`flash_fwd_f32_kernel`),
 // 1 = bfloat16 (`flash_fwd_bf16_kernel`); out_f32 1 makes o float32 (for
 // bf16 inputs; float32 ones have a float32 o either way). lse (B * H, S)
-// float32. S a multiple of 64, H a multiple of Hkv, D in {16, 32, 64,
-// 128}. The plan (grid_x,
-// grid_y, threads, smem) is the wrapper's `flash_fwd_plan`: grid (B * H,
-// S / 64), 128 threads and the kernel's dynamic shared memory; any other
-// plan is refused. Returns cudaGetLastError().
+// float32. S a multiple of 64, H a multiple of Hkv, D one of
+// `with_head_dim`'s instances (flash_common.cuh); `scale` multiplies the
+// logits (the wrapper's 1 / sqrt of the head dim before its zero padding).
+// The plan (grid_x, grid_y, threads, smem) is the wrapper's
+// `flash_fwd_plan`: grid (B * H, S / 64), 128 threads and the kernel's
+// dynamic shared memory; any other plan is refused. Returns
+// cudaGetLastError().
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int B, int S, int H,
-                                int Hkv, int D, int causal, int dtype,
-                                int out_f32, int grid_x, int grid_y,
-                                int threads, int smem, void* stream) {
+                                int Hkv, int D, int causal, float scale,
+                                int dtype, int out_f32, int grid_x,
+                                int grid_y, int threads, int smem,
+                                void* stream) {
   if (B < 1 || S < kTile || S % kTile != 0 || Hkv < 1 || H % Hkv != 0 ||
       (out_f32 != 0 && out_f32 != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Plan plan{grid_x, grid_y, threads, smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (D) {
-    case 16:
-      err = launch_d<16>(q, k, v, o, lse, B, S, H, Hkv, causal, dtype,
-                         out_f32, plan, s);
-      break;
-    case 32:
-      err = launch_d<32>(q, k, v, o, lse, B, S, H, Hkv, causal, dtype,
-                         out_f32, plan, s);
-      break;
-    case 64:
-      err = launch_d<64>(q, k, v, o, lse, B, S, H, Hkv, causal, dtype,
-                         out_f32, plan, s);
-      break;
-    case 128:
-      err = launch_d<128>(q, k, v, o, lse, B, S, H, Hkv, causal, dtype,
-                          out_f32, plan, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(with_head_dim(D, [&](auto d) {
+    return launch_d<decltype(d)::value>(q, k, v, o, lse, B, S, H, Hkv, causal,
+                                        scale, dtype, out_f32, plan, s);
+  }));
 }

@@ -47,7 +47,11 @@ monkeypatching. Kinds:
 
 Recovery: `supervise()` is the `--max-restarts N` loop: it runs one
 training attempt and, on a crash, runs another that resumes from the
-latest valid checkpoint, up to N times. With the step-exact resume (the
+latest valid checkpoint, up to N times. A world of several spawned ranks
+is supervised from its parent process (`train.ranks.supervise_world`):
+an attempt is a whole world, the ranks report what failed and which
+planned faults fired, and the next world starts with those marked
+fired. With the step-exact resume (the
 epoch order and the LM's windows are functions of the seed and the
 step), a crashed and restarted run ends bit for bit where the
 uninterrupted run ends.
@@ -63,7 +67,7 @@ import random
 import signal as _signal
 import threading
 import time
-from collections.abc import Callable
+from collections.abc import Callable, Iterable
 
 import numpy as np
 import torch
@@ -91,20 +95,6 @@ class InjectedIOError(OSError):
     def __init__(self, msg: str, site: str = ""):
         super().__init__(msg)
         self.site = site
-
-
-# The sites every rank of a data-parallel world reaches at the same step
-# (the checkpoint sites are rank 0's alone: only it writes).
-EVERY_RANK_SITES = frozenset({"train.step", "train.batch"})
-
-
-def fires_on_every_rank(e: BaseException) -> bool:
-    """Whether `e` is a planned crash or io fault at a site every rank
-    reaches at the same step: the ranks then fail together and may
-    restart together (`supervise`'s `restartable` in a world of several
-    ranks)."""
-    return (isinstance(e, (InjectedCrash, InjectedIOError))
-            and e.site in EVERY_RANK_SITES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -397,20 +387,23 @@ class FaultInjector:
     now marked fired) or `fire(site, value)` (the same, but crash and io
     raise at once). Each fault fires at most once and the injector is
     shared across the attempts of a supervised run, so a restarted
-    attempt does not trip the crash that ended the last one. `events`
+    attempt does not trip the crash that ended the last one; a world of
+    ranks, rebuilt in new processes for each attempt, hands its ranks the
+    plan indices that fired before (`fired`). `events`
     gathers one record per fired fault; the trainers drain it into
     their MetricsLogger (the injector also runs in the checkpoint
     writer's thread, hence the lock)."""
 
     def __init__(self, plan: list[Fault] | str | None = None, *,
                  clock: FakeClock | None = None,
-                 sleep_fn: Callable[[float], None] | None = None):
+                 sleep_fn: Callable[[float], None] | None = None,
+                 fired: Iterable[int] = ()):
         if isinstance(plan, str):
             plan = parse_plan(plan)
         self.plan = list(plan or ())
         self.clock = clock
         self._sleep_fn = sleep_fn
-        self._fired: set[int] = set()
+        self._fired: set[int] = set(fired)
         self.events: list[dict] = []
         self._lock = threading.Lock()
 
@@ -434,6 +427,11 @@ class FaultInjector:
                 })
                 hits.append(f)
         return hits
+
+    def fired(self) -> tuple[int, ...]:
+        """The plan indices that fired (or came in as `fired`), sorted."""
+        with self._lock:
+            return tuple(sorted(self._fired))
 
     def pending(self, site: str, kind: str | None = None) -> list[Fault]:
         """Unfired faults at `site` (of `kind`, if given), in plan
@@ -573,6 +571,13 @@ def step_is_finite(metrics: torch.Tensor, tensors: list[torch.Tensor]
     return not all_finite([metrics.detach().reshape(-1), *tensors]).item()
 
 
+# What the supervisor never restarts: the operator's interrupt, an exit
+# (Preempted among them: an eviction is answered by a relaunch, not a
+# retry) and the NaN guard's verdict (an organic NaN replays from the
+# checkpoint).
+PASS_THROUGH = (KeyboardInterrupt, SystemExit, NonFiniteLossError)
+
+
 def supervise(attempt_fn: Callable[[int], object], *, max_restarts: int,
               logger=None, metrics=None, registry=None,
               backoff_base: float = 0.5,
@@ -583,12 +588,11 @@ def supervise(attempt_fn: Callable[[int], object], *, max_restarts: int,
     on a crash, run it again, up to `max_restarts` more times.
     `attempt_fn` gets the attempt index (0 first) and resumes from the
     latest checkpoint for attempt > 0 (the rank entries force
-    cfg.resume). KeyboardInterrupt, SystemExit (Preempted among them: an
-    eviction is answered by a relaunch, not a retry) and
-    NonFiniteLossError (the guard's verdict; an organic NaN replays from
-    the checkpoint) pass through. Exhausted restarts re-raise the last
-    crash, as does a crash that `restartable` (None: every crash is)
-    turns down. Restarts are paced by `utils.retry.backoff_delay`
+    cfg.resume). `PASS_THROUGH` (KeyboardInterrupt, SystemExit with
+    Preempted, NonFiniteLossError) passes through. Exhausted restarts
+    re-raise the last crash, as does a crash that `restartable` (None:
+    every crash is) turns down: a world's parent turns down a world whose
+    ranks failed in one of those ways (`train.ranks.supervise_world`). Restarts are paced by `utils.retry.backoff_delay`
     (backoff_base 0: none), each logged as a ``fault`` record
     (kind="restart") when `metrics` is given and counted as
     ``train.restarts`` in `registry` (an `obs.metrics.MetricsRegistry`,
@@ -598,7 +602,7 @@ def supervise(attempt_fn: Callable[[int], object], *, max_restarts: int,
     for attempt in range(max_restarts + 1):
         try:
             return attempt_fn(attempt)
-        except (KeyboardInterrupt, SystemExit, NonFiniteLossError):
+        except PASS_THROUGH:
             raise
         except Exception as e:  # noqa: BLE001 — a supervisor catches broadly
             last = e

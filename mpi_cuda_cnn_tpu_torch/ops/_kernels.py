@@ -29,7 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 
 # kernel name -> (C launch function, its ctypes argument types)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "paged_attention": ("paged_attention_launch",
                         [_P] * 10 + [_I] * 16 + [_P]),
@@ -38,9 +38,13 @@ KERNELS = {
     "conv_direct": ("conv_direct_launch", [_P] * 3 + [_I] * 19 + [_P]),
     "conv_dw": ("conv_dw_launch", [_P] * 5 + [_I] * 22 + [_P]),
     "conv_gemm": ("conv_gemm_launch", [_P] * 3 + [_I] * 19 + [_P]),
-    "flash_fwd": ("flash_fwd_launch", [_P] * 5 + [_I] * 12 + [_P]),
-    "flash_bwd_dq": ("flash_bwd_dq_launch", [_P] * 7 + [_I] * 12 + [_P]),
-    "flash_bwd_dkv": ("flash_bwd_dkv_launch", [_P] * 9 + [_I] * 13 + [_P]),
+    # the flash kernels take (..., D, causal, scale, dtype, ...)
+    "flash_fwd": ("flash_fwd_launch", [_P] * 5 + [_I] * 6 + [_F]
+                  + [_I] * 6 + [_P]),
+    "flash_bwd_dq": ("flash_bwd_dq_launch", [_P] * 7 + [_I] * 6 + [_F]
+                     + [_I] * 6 + [_P]),
+    "flash_bwd_dkv": ("flash_bwd_dkv_launch", [_P] * 9 + [_I] * 6 + [_F]
+                      + [_I] * 7 + [_P]),
 }
 
 # The element types the float kernels take, and their dtype code in the C

@@ -138,8 +138,11 @@ def _rank_main(fn, rank: int, backend: str, devices: list[torch.device],
                store_path: str, args: tuple, kwargs: dict,
                out_dir: str, axes: dict[str, int]) -> None:
     """A spawned rank: pin its device, join the group, run fn(mesh, *args,
-    **kwargs) on its mesh of `axes` and pickle its result (or its
-    traceback) to out_dir/<rank>.pkl."""
+    **kwargs) on its mesh of `axes` and pickle its result to
+    out_dir/<rank>.pkl, or its failure: the traceback, the names of the
+    exception's classes (base classes too) and the planned faults that
+    had fired (`fired_faults`, which the rank entries set on the way
+    out; `train.ranks.supervise_world` restarts from them)."""
     out = Path(out_dir) / f"{rank}.pkl"
     world = len(devices)
     try:
@@ -154,14 +157,26 @@ def _rank_main(fn, rank: int, backend: str, devices: list[torch.device],
         with process_group(backend, rank, world, store_path):
             mesh = make_mesh(axes, devices=devices)
             result = ("ok", fn(mesh, *args, **kwargs))
-    except BaseException:
-        out.write_bytes(pickle.dumps(("error", traceback.format_exc())))
+    except BaseException as e:
+        failure = {"traceback": traceback.format_exc(),
+                   "types": [c.__name__ for c in type(e).__mro__],
+                   "fired": list(getattr(e, "fired_faults", ()))}
+        out.write_bytes(pickle.dumps(("error", failure)))
         raise
     out.write_bytes(pickle.dumps(result))
 
 
 class RankError(RuntimeError):
-    """A rank of run_ranks failed (its traceback is in the message)."""
+    """A rank of run_ranks failed (its traceback is in the message).
+    `failures`: {"rank", "types", "fired"} of each rank that reported a
+    failure (a rank stopped by the others' failure may report none);
+    `exits`: the "exit" of each rank that returned a result."""
+
+    def __init__(self, msg: str, failures: list[dict] | None = None,
+                 exits: list[int] | None = None):
+        super().__init__(msg)
+        self.failures = list(failures or ())
+        self.exits = list(exits or ())
 
 
 def run_ranks(fn, world: int, *, devices: list | None = None,
@@ -200,7 +215,7 @@ def run_ranks(fn, world: int, *, devices: list | None = None,
                 if p.is_alive():
                     p.kill()
                 p.join()
-        results, errors = [], []
+        results, errors, failures = [], [], []
         for r, p in enumerate(procs):
             path = Path(tmp) / f"{r}.pkl"
             if not path.exists():
@@ -208,10 +223,15 @@ def run_ranks(fn, world: int, *, devices: list | None = None,
                 continue
             status, value = pickle.loads(path.read_bytes())
             if status != "ok":
-                errors.append(f"rank {r}:\n{value}")
+                errors.append(f"rank {r}:\n{value['traceback']}")
+                failures.append({"rank": r, "types": value["types"],
+                                 "fired": value["fired"]})
+                continue
             results.append(value)
     if errors:
-        raise RankError("\n".join(errors))
+        raise RankError("\n".join(errors), failures,
+                        [x["exit"] for x in results
+                         if isinstance(x, dict) and "exit" in x])
     return results
 
 

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from ..data import prng
 from ..models.layers import tree_leaves
 from ..models.transformer import TransformerLM
-from ..ops.flash_attention import HEAD_DIMS
+from ..ops.flash_attention import MAX_HEAD_DIM
 from ..ops.gemv import tree_map
 from ..parallel.dp import make_dp_train_step
 from ..parallel.mesh import device_mesh
@@ -40,12 +40,13 @@ def pick_attn_impl(impl: str, seq_len: int,
                    device: torch.device | str = "cuda",
                    head_dim: int | None = None) -> str:
     """Resolve "auto": the flash kernels on a CUDA device whenever their
-    block constraint (S % 128 == 0) holds and they are built for the
-    model's `head_dim` (`HEAD_DIMS`; None = not known here), the oracle
-    on the CPU (where the kernels' plain versions are full-matrix math, no
-    faster than the oracle), for an unaligned S or for another head dim.
+    block constraint (S % 128 == 0) holds and the model's `head_dim` is
+    one they take (up to `MAX_HEAD_DIM`, zero-padded to their next
+    instance; None = not known here), the oracle on the CPU (where the
+    kernels' plain versions are full-matrix math, no faster than the
+    oracle), for an unaligned S or for a head dim beyond `MAX_HEAD_DIM`.
     An explicit "flash" is returned as asked: the kernels then refuse a
-    head dim they are not built for.
+    head dim beyond `MAX_HEAD_DIM`.
 
     The reference routes float32 below S = 3072 to the oracle
     (`_F32_FLASH_MIN_SEQ`); that crossover was measured on a TPU v5e and
@@ -54,7 +55,7 @@ def pick_attn_impl(impl: str, seq_len: int,
     if impl != "auto":
         return impl
     if (torch.device(device).type != "cuda" or seq_len % 128
-            or (head_dim is not None and head_dim not in HEAD_DIMS)):
+            or (head_dim is not None and head_dim > MAX_HEAD_DIM)):
         return "oracle"
     return "flash"
 

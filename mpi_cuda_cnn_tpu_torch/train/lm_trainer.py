@@ -62,7 +62,7 @@ from ..models.transformer import TransformerLM
 from ..obs.device import emit_step_telemetry
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import span
-from ..ops.flash_attention import HEAD_DIMS
+from ..ops.flash_attention import MAX_HEAD_DIM
 from ..models.layers import tree_leaves
 from ..parallel.dp import dp_shard_batch, replicate
 from ..parallel.moe import check_dispatch_chunk
@@ -95,15 +95,16 @@ def pick_ring_impl(impl: str, seq_len: int, n_seq: int,
     """The sequence-parallel attention of `--attn-impl` on a seq axis of
     n_seq ranks, the reference's rule: "auto" and "flash" take ring-flash
     on a CUDA device when the per-shard sequence is a multiple of 128,
-    else the plain ring; "auto" also needs the kernels built for the head
-    dim (an explicit "flash" keeps ring-flash, whose kernels then refuse
-    the head dim, as `pick_attn_impl` leaves it off the seq axis);
+    else the plain ring; "auto" also needs a head dim the kernels take
+    (up to `MAX_HEAD_DIM`; an explicit "flash" keeps ring-flash, whose
+    kernels then refuse the head dim, as `pick_attn_impl` leaves it off
+    the seq axis);
     "oracle" is the plain ring (exact, as the oracle); the others are
     taken as asked."""
     if impl in ("auto", "flash"):
         flash = (torch.device(device).type == "cuda"
                  and (seq_len // n_seq) % 128 == 0
-                 and (impl == "flash" or head_dim in HEAD_DIMS))
+                 and (impl == "flash" or head_dim <= MAX_HEAD_DIM))
         return "ring_flash" if flash else "ring"
     return "ring" if impl == "oracle" else impl
 

@@ -4,22 +4,23 @@ on each rank (in their own process for one device, on ranks spawned by
 They live in the port so that a spawned rank imports the port and
 nothing else.
 
-Each entry takes the rank's mesh first (None: one device, no mesh),
-trains through the trainer's own `train()` under the crash supervisor
-(`faults.supervise`, `--max-restarts`: a crashed attempt is rebuilt with
-`resume` and goes on from the latest checkpoint; the rank keeps its
-process group, its fault injector and its preemption guard across
-attempts, and a planned fault fires on every rank at the same step, so
-the ranks restart together; any other failure of a rank fails the
-world), and returns a picklable dict: `exit` (0; 2
+Each entry takes the rank's mesh first (None: one device, no mesh) and
+trains through the trainer's own `train()`. On one device it runs under
+the crash supervisor (`faults.supervise`, `--max-restarts`: a crashed
+attempt is rebuilt with `resume` and goes on from the latest checkpoint,
+with the same fault injector and preemption guard). A world of several
+spawned ranks is supervised from its parent (`supervise_world`): a rank
+runs one attempt, and when any rank fails the parent stops the others,
+backs off and spawns the whole world again with `resume` forced, the
+planned faults that fired marked fired (`attempt`, `fired`). Each entry
+returns a picklable dict: `exit` (0; 2
 when the trainer refuses its setup, as the commands exit; 75 when
 preempted with a snapshot written, 1 without), the result, the final
 params as numpy arrays, the trainer's records ({"event", **fields}
 dicts, `MetricsLogger.rows`), and the per-process
 counts of kernel launches (`ops._kernels.launches`), collectives
 (`parallel.dp.collectives`) and checkpoint files written
-(`train.checkpoint.counts`) of each part of the run. A crash of one rank
-alone still fails the world (`parallel.distributed.RankError`).
+(`train.checkpoint.counts`) of each part of the run.
 """
 
 from __future__ import annotations
@@ -32,10 +33,11 @@ import torch
 
 from ..data.datasets import Dataset, synthetic_stripes
 from ..faults import (
+    EXIT_PREEMPTED,
+    PASS_THROUGH,
     FaultInjector,
     Preempted,
     PreemptionGuard,
-    fires_on_every_rank,
     supervise,
 )
 from ..models.layers import tree_leaves
@@ -43,6 +45,7 @@ from ..models.presets import get_model
 from ..obs.metrics import MetricsRegistry
 from ..ops import _kernels
 from ..parallel import dp
+from ..parallel.distributed import RankError, run_ranks
 from ..utils.logging import MetricsLogger, get_logger
 from . import checkpoint
 from .lm_trainer import LMTrainer
@@ -86,8 +89,9 @@ class _PhaseLogger(MetricsLogger):
     record's phase: the steps at an "epoch" record, the eval at an "eval"
     record."""
 
-    def __init__(self, tally: _Tally, path: str | None = None):
-        super().__init__(path=path, capture=True)
+    def __init__(self, tally: _Tally, path: str | None = None,
+                 new_run: bool = True):
+        super().__init__(path=path, capture=True, new_run=new_run)
         self.tally = tally
         self.counts = {"steps": {}, "eval": {}}
 
@@ -106,29 +110,100 @@ def _sink(mesh, cfg) -> str | None:
     return cfg.metrics_jsonl if mesh is None or mesh.rank == 0 else None
 
 
-def _supervised(cfg, first, make_trainer, metrics, world: int, registry):
+def _supervised(cfg, first, make_trainer, metrics, world: int, registry,
+                faults: FaultInjector | None):
     """`first.train()` under `faults.supervise` with cfg.max_restarts
     restarts, each attempt after the first on a trainer rebuilt by
     `make_trainer` with `resume` forced. Returns (result, last trainer).
 
-    In a world of several ranks only a fault that fires on every rank at
-    the same step is restarted (`faults.fires_on_every_rank`): the ranks
-    then restart together. Any other failure is one rank's alone, and a
-    rank restarting by itself would meet its peers in another collective,
-    so it is re-raised and fails the world."""
-    trainer = first
+    In a world of several ranks the rank runs one attempt: a rank
+    restarting by itself would meet its peers in another collective, so
+    the world's parent restarts the whole world (`supervise_world`). On
+    the way out of a failed attempt the rank logs the fired faults'
+    records and sets the plan indices that fired on the exception
+    (`fired_faults`, pickled by `parallel.distributed._rank_main`)."""
+    if world == 1:
+        trainer = first
 
-    def attempt(n: int):
-        nonlocal trainer
-        if n > 0:
-            trainer = make_trainer(dataclasses.replace(cfg, resume=True))
-        return trainer.train()
+        def attempt(n: int):
+            nonlocal trainer
+            if n > 0:
+                trainer = make_trainer(dataclasses.replace(cfg, resume=True))
+            return trainer.train()
 
-    result = supervise(attempt, max_restarts=cfg.max_restarts,
-                       logger=get_logger(), metrics=metrics,
-                       registry=registry,
-                       restartable=fires_on_every_rank if world > 1 else None)
-    return result, trainer
+        result = supervise(attempt, max_restarts=cfg.max_restarts,
+                           logger=get_logger(), metrics=metrics,
+                           registry=registry)
+        return result, trainer
+    try:
+        return first.train(), first
+    except BaseException as e:
+        if faults is not None:
+            for ev in faults.drain_events():
+                metrics.log("fault", **ev)
+            e.fired_faults = faults.fired()
+        raise
+
+
+def _restartable(e: BaseException) -> bool:
+    """Whether a failed world may be restarted: no rank failed in a way
+    the supervisor passes through (`faults.PASS_THROUGH`, by the class
+    names the ranks reported) and none returned preempted."""
+    names = {c.__name__ for c in PASS_THROUGH}
+    return (isinstance(e, RankError)
+            and not any(names & set(f["types"]) for f in e.failures)
+            and EXIT_PREEMPTED not in e.exits)
+
+
+def supervise_world(entry, devices: list, args: tuple,
+                    axes: dict | None = None) -> list:
+    """entry(mesh, cfg, *rest) (`args` = (cfg, *rest); `cnn_rank`,
+    `lm_rank`) on one spawned rank per device (`run_ranks`) under the
+    reference's supervisor (`faults.supervise`, cfg.max_restarts): when
+    any rank fails, `run_ranks` stops the others and raises RankError;
+    unless a rank failed in a way the supervisor passes through or was
+    preempted (`_restartable`), the parent backs off, writes the
+    ``fault`` record (kind "restart", its delay) to cfg.metrics_jsonl,
+    rank 0's run file (no rank is alive then), and spawns the whole world
+    again with cfg.resume forced, handing its ranks the attempt index
+    (their `train.restarts` count) and the union of the plan indices that
+    the failed ranks reported fired (they do not fire again: the
+    reference keeps one injector for the supervised run). Returns the
+    ranks' results of the attempt that ended; raises the last RankError
+    when none did."""
+    cfg, *rest = args
+    fired: set[int] = set()
+
+    def attempt(n: int) -> list:
+        c = cfg if n == 0 else dataclasses.replace(cfg, resume=True)
+        try:
+            return run_ranks(entry, len(devices), devices=devices,
+                             args=(c, *rest), axes=axes,
+                             kwargs={"attempt": n,
+                                     "fired": tuple(sorted(fired))})
+        except RankError as e:
+            for f in e.failures:
+                fired.update(f["fired"])
+            raise
+
+    with MetricsLogger(path=cfg.metrics_jsonl, echo=False,
+                       new_run=False) as metrics:
+        return supervise(attempt, max_restarts=cfg.max_restarts,
+                         logger=get_logger(), metrics=metrics,
+                         registry=MetricsRegistry(),
+                         restartable=_restartable)
+
+
+def _attempt_state(cfg, attempt: int, fired: tuple[int, ...]):
+    """The rank's fault injector (None without a plan), `fired` marked
+    fired, and its registry, one for every in-process attempt, counting
+    the `attempt` restarts of the world before this one."""
+    faults = (FaultInjector(cfg.fault_plan, fired=fired)
+              if cfg.fault_plan else None)
+    registry = MetricsRegistry()
+    if attempt:
+        registry.inc("train.restarts", attempt)
+    return faults, registry
 
 
 def _preempted(e: Preempted, metrics: _PhaseLogger) -> dict:
@@ -143,7 +218,8 @@ def _preempted(e: Preempted, metrics: _PhaseLogger) -> dict:
 
 
 def cnn_rank(mesh, cfg, data, params=None, *, grads: bool = False,
-             logits: bool = False) -> dict:
+             logits: bool = False, attempt: int = 0,
+             fired: tuple[int, ...] = ()) -> dict:
     """The `train` command on one rank: a Trainer of cfg.model on `data`
     (a Dataset, or the keyword arguments of `synthetic_stripes`) from
     `params` (None: the seeded init), then `Trainer.train()` (its epochs,
@@ -153,12 +229,12 @@ def cnn_rank(mesh, cfg, data, params=None, *, grads: bool = False,
     resumed run had no step left), the result, the final params, the
     trainer's records, and, if asked, the first step's
     gradients (before training) and the logits of the whole test set
-    (after it)."""
+    (after it). `attempt` and `fired`: `supervise_world`'s."""
     ds = data if isinstance(data, Dataset) else synthetic_stripes(**data)
     model = get_model(cfg.model, input_shape=ds.input_shape)
-    faults = FaultInjector(cfg.fault_plan) if cfg.fault_plan else None
-    registry = MetricsRegistry()    # one for every supervised attempt
-    with _PhaseLogger(tally := _Tally(), _sink(mesh, cfg)) as metrics, \
+    faults, registry = _attempt_state(cfg, attempt, fired)
+    with _PhaseLogger(tally := _Tally(), _sink(mesh, cfg),
+                      new_run=attempt == 0) as metrics, \
             PreemptionGuard() as guard:
         def make_trainer(c):
             return Trainer(model, ds, c, metrics=metrics, params=params,
@@ -176,7 +252,7 @@ def cnn_rank(mesh, cfg, data, params=None, *, grads: bool = False,
         tally.take()
         try:
             result, tr = _supervised(cfg, tr, make_trainer, metrics,
-                                     tr.mesh.size, registry)
+                                     tr.mesh.size, registry, faults)
         except Preempted as e:
             metrics.file("steps")
             return {**res, **_preempted(e, metrics),
@@ -220,7 +296,8 @@ def cnn_rank_each(mesh, runs: list[tuple]) -> list[dict]:
 
 
 def lm_rank(mesh, cfg, params=None, *, grads: bool = False,
-            final_params: bool = False) -> dict:
+            final_params: bool = False, attempt: int = 0,
+            fired: tuple[int, ...] = ()) -> dict:
     """The `lm` command on one rank: an LMTrainer of `cfg` from `params`
     (None: the seeded init), trained for cfg.steps and evaluated
     (`LMTrainer.train()`), then, with cfg.sample_tokens, a sample on rank
@@ -233,11 +310,11 @@ def lm_rank(mesh, cfg, params=None, *, grads: bool = False,
     records, the sample's tokens (rank 0 with cfg.sample_tokens, else
     None), and, if asked, step 0's gradients (before training) and the
     final params (numpy, whole, in the standard tree's `tree_leaves`
-    order)."""
+    order). `attempt` and `fired`: `supervise_world`'s."""
     log = get_logger()
-    faults = FaultInjector(cfg.fault_plan) if cfg.fault_plan else None
-    registry = MetricsRegistry()    # one for every supervised attempt
-    with _PhaseLogger(tally := _Tally(), _sink(mesh, cfg)) as metrics, \
+    faults, registry = _attempt_state(cfg, attempt, fired)
+    with _PhaseLogger(tally := _Tally(), _sink(mesh, cfg),
+                      new_run=attempt == 0) as metrics, \
             PreemptionGuard() as guard:
         def make_trainer(c):
             return LMTrainer(c, metrics=metrics, params=params, mesh=mesh,
@@ -260,7 +337,7 @@ def lm_rank(mesh, cfg, params=None, *, grads: bool = False,
         try:
             result, trainer = _supervised(cfg, trainer, make_trainer,
                                           metrics, trainer.mesh.size,
-                                          registry)
+                                          registry, faults)
         except Preempted as e:
             return {**res, **_preempted(e, metrics), "counts": tally.take()}
     if trainer.device.type == "cuda":

@@ -57,20 +57,23 @@ class MetricsLogger:
     (None: none), and, with capture, kept in `rows` as {"event": event,
     **fields}. A file record is `obs.schema.make_record`'s: "t" is
     seconds since the logger was made on `clock` (time.perf_counter's
-    shape). A context manager: the file
+    shape). The file starts with a run marker line unless `new_run` is
+    False (a restarted world's attempt, or its parent, goes on with the
+    run the first attempt opened). A context manager: the file
     is closed on the way out, an exception included, so the records
     written so far survive it."""
 
     def __init__(self, path: str | Path | None = None, echo: bool = True,
-                 capture: bool = False, clock=None):
+                 capture: bool = False, clock=None, new_run: bool = True):
         self._clock = clock if clock is not None else time.perf_counter
         self._file = None
         if path is not None:
             p = Path(path)
             p.parent.mkdir(parents=True, exist_ok=True)
             self._file = p.open("a")
-            self._file.write(f"{RUN_MARKER} {utc_stamp()}\n")
-            self._file.flush()
+            if new_run:
+                self._file.write(f"{RUN_MARKER} {utc_stamp()}\n")
+                self._file.flush()
         self._echo = echo
         self._log = get_logger()
         self._t0 = self._clock()

@@ -41,7 +41,6 @@ from mpi_cuda_cnn_tpu_torch.faults import (
     Preempted,
     PreemptionGuard,
     all_finite,
-    fires_on_every_rank,
     format_plan,
     parse_plan,
     supervise,
@@ -49,10 +48,10 @@ from mpi_cuda_cnn_tpu_torch.faults import (
 )
 from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
 from mpi_cuda_cnn_tpu_torch.models.presets import get_model
-from mpi_cuda_cnn_tpu_torch.parallel.distributed import run_ranks
+from mpi_cuda_cnn_tpu_torch.parallel.distributed import RankError, run_ranks
 from mpi_cuda_cnn_tpu_torch.train.checkpoint import latest_checkpoint
 from mpi_cuda_cnn_tpu_torch.train.lm_trainer import LMTrainer
-from mpi_cuda_cnn_tpu_torch.train.ranks import cnn_rank, lm_rank
+from mpi_cuda_cnn_tpu_torch.train.ranks import _restartable, cnn_rank, lm_rank
 from mpi_cuda_cnn_tpu_torch.train.trainer import Trainer
 from mpi_cuda_cnn_tpu_torch.utils.config import Config, LMConfig
 from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger, get_logger
@@ -269,25 +268,36 @@ def test_supervisor_exhausts_restarts_and_reraises(tmp_path):
                         restarts=1, checkpoint_every_steps=1)
 
 
+def _failure(rank, exc_type, fired=()):
+    """A rank's failure as `run_ranks` reports it in RankError.failures."""
+    return {"rank": rank, "types": [c.__name__ for c in exc_type.__mro__],
+            "fired": list(fired)}
+
+
 def test_supervisor_reraises_what_it_may_not_restart():
     """`restartable` turns a crash down: it is re-raised at once, with no
-    restart (a world of several ranks restarts only the faults that fire
-    on every rank)."""
+    restart. A world's parent (`train.ranks.supervise_world`) restarts a
+    world whose ranks crashed, a real bug of one rank included, and turns
+    down one where a rank stopped on the NaN guard or an interrupt, or
+    returned preempted."""
     calls = []
 
     def attempt(n):
         calls.append(n)
-        raise InjectedCrash("at ckpt.pre_rename:3", "ckpt.pre_rename")
+        raise RankError("rank 1: NaN", [_failure(1, NonFiniteLossError)])
 
     metrics = _quiet(capture=True)
-    with pytest.raises(InjectedCrash):
+    with pytest.raises(RankError):
         supervise(attempt, max_restarts=3, metrics=metrics, backoff_base=0,
-                  restartable=fires_on_every_rank)
+                  restartable=_restartable)
     assert calls == [0] and _kinds(metrics) == []
-    assert fires_on_every_rank(InjectedCrash("x", "train.step"))
-    assert fires_on_every_rank(InjectedIOError("x", "train.batch"))
-    assert not fires_on_every_rank(InjectedIOError("x", "ckpt.manifest"))
-    assert not fires_on_every_rank(RuntimeError("a real bug"))
+    assert _restartable(RankError("x", [_failure(0, InjectedCrash, [0])]))
+    assert _restartable(RankError("x", [_failure(1, RuntimeError)]))
+    assert _restartable(RankError("x", [_failure(0, InjectedIOError)], [0]))
+    assert not _restartable(RankError("x", [_failure(1, KeyboardInterrupt)]))
+    assert not _restartable(RankError("x", [_failure(0, RuntimeError)],
+                                      [EXIT_PREEMPTED]))
+    assert not _restartable(InjectedCrash("x", "train.step"))
 
 
 def test_cli_train_supervisor_e2e(tmp_path, log_lines):

@@ -66,26 +66,34 @@ def small_blocks(monkeypatch):
         monkeypatch.setattr(jfa, name, 128)
 
 
-FWD_CASES = [  # (heads, kv heads, causal, dtype, several blocks)
-    (4, 4, True, "float32", False),
-    (4, 4, False, "float32", True),
-    (4, 2, True, "float32", True),
-    (4, 2, False, "bfloat16", False),
-    (4, 4, True, "bfloat16", True),
-    (4, 1, True, "bfloat16", True),
-]
+# Head dims beyond the first cases' 32: instances the kernels are built
+# for (80, 96) and dims the card pads to the next instance (24 -> 32,
+# 48 -> 64), in both types, MHA and GQA 4/2 (the port's plain versions on
+# the CPU; `test_pad_route_is_the_unpadded_plain_version` holds the pad
+# route to them).
+HEAD_DIMS = (24, 48, 80, 96)
+FWD_CASES = [  # (heads, kv heads, causal, dtype, several blocks, head dim)
+    (4, 4, True, "float32", False, 32),
+    (4, 4, False, "float32", True, 32),
+    (4, 2, True, "float32", True, 32),
+    (4, 2, False, "bfloat16", False, 32),
+    (4, 4, True, "bfloat16", True, 32),
+    (4, 1, True, "bfloat16", True, 32),
+] + [(4, hkv, True, dtype, True, d) for d in HEAD_DIMS
+     for dtype in ("float32", "bfloat16") for hkv in (4, 2)]
 
 
-@pytest.mark.parametrize("h,hkv,causal,dtype,multi", FWD_CASES,
+@pytest.mark.parametrize("h,hkv,causal,dtype,multi,d", FWD_CASES,
                          ids=[f"h{c[0]}kv{c[1]}-{'causal' if c[2] else 'full'}-"
                               f"{c[3]}-{'multi' if c[4] else 'one'}"
+                              + ("" if c[5] == 32 else f"-d{c[5]}")
                               for c in FWD_CASES])
 def test_flash_forward_matches_the_pallas_kernel(monkeypatch, h, hkv, causal,
-                                                 dtype, multi):
+                                                 dtype, multi, d):
     if multi:
         for name in ("BLK_Q", "BLK_K", "BLK_Q_BF16", "BLK_K_BF16"):
             monkeypatch.setattr(jfa, name, 128)
-    b, s, d = 1, 256, 32
+    b, s = 1, 256
     arrays = _arrays([(b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)], dtype, 0)
     (jq, jk, jv), (tq, tk, tv) = _both(arrays, dtype)
     jo, jlse = jax.jit(lambda q, k, v: jfa._flash_forward(
@@ -101,16 +109,21 @@ def test_flash_forward_matches_the_pallas_kernel(monkeypatch, h, hkv, causal,
     _close(fa.flash_attention(tq, tk, tv, causal), jo, FWD_TOL[dtype])
 
 
-GRAD_CASES = [(4, 4, "float32"), (4, 2, "float32"), (4, 4, "bfloat16"),
-              (4, 2, "bfloat16")]
+GRAD_CASES = [(4, 4, "float32", 32), (4, 2, "float32", 32),
+              (4, 4, "bfloat16", 32), (4, 2, "bfloat16", 32)] + [
+    (4, hkv, dtype, d) for d in HEAD_DIMS
+    for dtype in ("float32", "bfloat16") for hkv in (4, 2)]
 
 
-@pytest.mark.parametrize("h,hkv,dtype", GRAD_CASES,
-                         ids=[f"h{c[0]}kv{c[1]}-{c[2]}" for c in GRAD_CASES])
-def test_flash_gradients_match_the_pallas_kernel(small_blocks, h, hkv, dtype):
+@pytest.mark.parametrize("h,hkv,dtype,d", GRAD_CASES,
+                         ids=[f"h{c[0]}kv{c[1]}-{c[2]}"
+                              + ("" if c[3] == 32 else f"-d{c[3]}")
+                              for c in GRAD_CASES])
+def test_flash_gradients_match_the_pallas_kernel(small_blocks, h, hkv, dtype,
+                                                 d):
     """Causal; dq, dk, dv of sum(o * w) for a random w, in each input's
     type, through the backward kernels' plain versions."""
-    b, s, d = 1, 256, 32
+    b, s = 1, 256
     arrays = _arrays([(b, s, h, d), (b, s, hkv, d), (b, s, hkv, d),
                       (b, s, h, d)], dtype, 1)
     (jq, jk, jv, jw), (tq, tk, tv, tw) = _both(arrays, dtype)
@@ -126,6 +139,66 @@ def test_flash_gradients_match_the_pallas_kernel(small_blocks, h, hkv, dtype):
     for got, want, leaf in zip(tg, jg, leaves):
         assert got.dtype == leaf.dtype and got.shape == leaf.shape
         _close(got, want, GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("d", (24, 48, 80, 96, 130, 200))
+def test_pad_route_is_the_unpadded_plain_version(d):
+    """`pad_route`, the card's way to a head dim the kernels are not built
+    at, run over the plain versions: q, k, v and dO zero-padded to the
+    next instance, the real D's scale, the outputs sliced back, equal to
+    the plain versions at D within 1e-6 (float32), forward and dq, dk, dv,
+    causal and not, GQA 4/2; the padded columns come out zero."""
+    dk = fa.kernel_head_dim(d)
+    assert dk >= d and dk in fa.HEAD_DIMS
+    arrays = _arrays([(2, 128, 4, d), (2, 128, 2, d), (2, 128, 2, d),
+                      (2, 128, 4, d)], "float32", 5)
+    q, k, v, g = (torch.from_numpy(a) for a in arrays)
+    seen = []
+
+    def spy(fn):
+        def run(*args, **kw):
+            seen.append((args[0].shape[-1], kw["scale"]))
+            return fn(*args, **kw)
+        return run
+
+    for causal in (True, False):
+        o, lse = fa.flash_forward_plain(q, k, v, causal)
+        dvec = fa.row_dvec(o, g)
+        got = fa.pad_route(spy(fa.flash_forward_plain), q, k, v, causal,
+                           out_f32=False)
+        want = (o, lse)
+        got += (fa.pad_route(spy(fa.flash_bwd_dq_plain), q, k, v, g, lse,
+                             dvec, causal, grads_f32=False),)
+        want += (fa.flash_bwd_dq_plain(q, k, v, g, lse, dvec, causal),)
+        got += fa.pad_route(spy(fa.flash_bwd_dkv_plain), q, k, v, g, lse,
+                            dvec, causal, grads_f32=False)
+        want += fa.flash_bwd_dkv_plain(q, k, v, g, lse, dvec, causal)
+        for a, w in zip(got, want, strict=True):
+            assert a.shape == w.shape
+            assert a.dim() == 2 or dk == d or a.is_contiguous()  # sliced
+            np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=0,
+                                       atol=1e-6)
+        # the padded columns of every output of the padded call are zero
+        qp, kp, vp, gp = (torch.nn.functional.pad(t, (0, dk - d))
+                          for t in (q, k, v, g))
+        op, _ = fa.flash_forward_plain(qp, kp, vp, causal,
+                                       scale=1.0 / d ** 0.5)
+        dkp, dvp = fa.flash_bwd_dkv_plain(qp, kp, vp, gp, lse, dvec, causal,
+                                          scale=1.0 / d ** 0.5)
+        for t in (op, dkp, dvp):
+            assert not t[..., d:].any()
+    assert seen == [(dk, 1.0 / d ** 0.5)] * 6
+
+
+def test_flash_head_dims_beyond_the_limit_raise_on_the_card_only():
+    """A head dim beyond 256 has no kernel instance: the card's route
+    raises ValueError naming the limit (no fallback); the CPU's plain
+    versions take it."""
+    q = torch.zeros(1, 128, 2, 320)
+    with pytest.raises(ValueError, match="1..256"):
+        fa.pad_route(fa.flash_forward_plain, q, q, q, True, out_f32=False)
+    o, lse = fa.flash_forward(q, q, q, True)
+    assert o.shape == q.shape and lse.shape == (2, 128)
 
 
 def test_backward_kernels_split_as_the_reference():

@@ -10,8 +10,10 @@ float32 and bf16, and each rank's shapes of the `lm_mesh` phase,
 sharded meshes), the LM phases' model (`lm`, `lm-bench`, `lm_profile`,
 `lm_agree`) in float32 and bf16, and every head dim the kernels are built
 for in both types. Both types share one geometry: 128 threads, a block
-per (batch, query head, 64-row tile), the GQA group summed from a
-float32 scratch.
+per (batch, query head, 64-row tile; K9 beyond D 128: two, one per half
+of the output columns), the GQA group summed from a float32 scratch.
+Every head dim up to 256 maps to the instance `with_head_dim`
+(csrc/flash_common.cuh) switches to.
 
 At each, the plan must:
 - cover every (batch, query head, 64-row query tile) exactly once by K7
@@ -30,6 +32,8 @@ to their plain versions on the card by chip_smoke.py.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import pytest
@@ -109,22 +113,28 @@ def test_dkv_plan_covers_every_key_tile_once(name):
     group = h // hkv
     plan = fa.flash_bwd_plan("dkv", b, s, h, hkv, d, DTYPES[dtype])
     _check_limits(plan)
-    x, kt = np.meshgrid(np.arange(plan.grid_x), np.arange(plan.grid_y),
-                        indexing="ij")
-    cover = np.zeros((b, h, s // TILE), np.int64)
+    x, y = np.meshgrid(np.arange(plan.grid_x), np.arange(plan.grid_y),
+                       indexing="ij")
+    # block (x, y): kt = y / split, dh = y % split (the half of the
+    # output columns beyond D 128)
+    split = fa.dkv_split(d)
+    assert split == (2 if d > 128 else 1)
+    kt, dh = y // split, y % split
+    cover = np.zeros((b, h, s // TILE, split), np.int64)
     # one block per (batch, query head): the GQA group split across blocks
     assert plan.threads == 128
     bb, hh = x // h, x % h
     assert (bb < b).all() and (kt < s // TILE).all()
-    np.add.at(cover, (bb, hh, kt), 1)
+    np.add.at(cover, (bb, hh, kt, dh), 1)
     assert (cover == 1).all()
     if group == 1:
         assert plan.scratch is None and plan.sum_blocks == 0
         return
     assert plan.scratch == (2, group, b, s, hkv, d)
-    # each block writes its 64 keys of slice h % G at kv head h // G
-    written = np.zeros((group, b, s // TILE, hkv), np.int64)
-    np.add.at(written, (hh % group, bb, kt, hh // group), 1)
+    # each block writes its 64 keys (its columns) of slice h % G at kv
+    # head h // G
+    written = np.zeros((group, b, s // TILE, hkv, split), np.int64)
+    np.add.at(written, (hh % group, bb, kt, hh // group, dh), 1)
     assert (written == 1).all()
     # the group sum: thread i < 2 n4 sums 4 floats of dk (i < n4) or dv
     n = b * s * hkv * d
@@ -143,35 +153,101 @@ def test_dkv_plan_covers_every_key_tile_once(name):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 def test_plan_shared_memory_is_the_kernels_layout(dtype, d):
-    """The bytes the sources stage: (64, D) tiles of the input type,
-    each row padded by 16 bytes (float32 rows of D + 4 floats, bf16 rows
-    of D + 8): six, but four for K8 in float32 (k and v in one stage); K9
-    also two stages of 64 float32 lse and dvec values. At D 64 three
-    float32 K8 blocks and two K9 blocks fit on an SM."""
+    """The bytes the sources stage: rows of D elements of the input type,
+    each padded by 16 bytes (float32 rows of D + 4 floats, bf16 rows of
+    D + 8). K8: the q and dO tiles (64 rows) and k and v tiles of
+    `stream_rows` keys (64; 32 beyond D 128) in two stages, one in
+    float32. K9: the k and v tiles, two stages of q and dO tiles of
+    `stream_rows` queries (64; float32 beyond D 128: 16) and of as many
+    float32 lse and dvec values. At D 64 three float32 K8 blocks and two
+    K9 blocks fit on an SM."""
     elem = 4 if dtype == "float32" else 2
     dq = fa.flash_bwd_plan("dq", 1, 128, 2, 1, d, DTYPES[dtype])
     dkv = fa.flash_bwd_plan("dkv", 1, 128, 2, 1, d, DTYPES[dtype])
-    tile = 64 * (d + 16 // elem) * elem
-    assert dq.smem_bytes == (4 if elem == 4 else 6) * tile
-    assert dkv.smem_bytes == 6 * tile + 4 * 4 * 64
+    row = (d + 16 // elem) * elem
+    n_dq = 32 if d > 128 else 64
+    n_dkv = 16 if d > 128 and elem == 4 else 64
+    assert fa.stream_rows("dq", DTYPES[dtype], d) == n_dq
+    assert fa.stream_rows("dkv", DTYPES[dtype], d) == n_dkv
+    assert dq.smem_bytes == (128 + (2 if elem == 4 else 4) * n_dq) * row
+    assert dkv.smem_bytes == (128 + 4 * n_dkv) * row + 4 * 4 * n_dkv
+    if d <= 128:      # the 64-row tiles of the kernels before D 256
+        tile = 64 * row
+        assert dq.smem_bytes == (4 if elem == 4 else 6) * tile
+        assert dkv.smem_bytes == 6 * tile + 4 * 4 * 64
     if d == 64 and elem == 4:
         assert 3 * dq.smem_bytes <= 228 * 1024  # the SM's shared memory
         assert 2 * dkv.smem_bytes <= 228 * 1024
     # the row strides: float32 kLdF32<D> = D + 4 (flash_common.cuh), bf16
     # D + 8, 16 bytes of padding each
     stride = ("kLdF32<D>;" if elem == 4 else "D + 8;")
-    assert "constexpr int kLdF32 = D + 4;" in (CSRC / "flash_common.cuh").read_text()
+    common = (CSRC / "flash_common.cuh").read_text()
+    assert "constexpr int kLdF32 = D + 4;" in common
+    assert "constexpr int kStreamRowsDq = D > 128 ? 32 : kTile;" in common
+    assert "constexpr int kStreamRowsF32Dkv = D > 128 ? 16 : kTile;" in common
+    assert "constexpr int kDkvSplit = D > 128 ? 2 : 1;" in common
     for src in ("flash_bwd_dq.cu", "flash_bwd_dkv.cu"):
         text = (CSRC / src).read_text()
         kern = text[text.index(f"{src[:-3]}_{'f32' if elem == 4 else 'bf16'}_kernel("):]
         kern = kern[:kern.index("\n}\n")]
         assert f"constexpr int kLd = {stride}" in kern
-    dq_src = (CSRC / "flash_bwd_dq.cu").read_text()
-    assert ("(std::is_same<T, float>::value ? 4 : 6) * kTile * "
-            "(sizeof(T) * D + 16)") in dq_src
-    dkv_src = (CSRC / "flash_bwd_dkv.cu").read_text()
-    assert ("6 * kTile * (sizeof(T) * D + 16) + sizeof(float) * 4 * kTile"
-            in dkv_src.replace("\n", " ").replace("      ", " "))
+    one_line = " ".join((CSRC / "flash_bwd_dq.cu").read_text().split())
+    assert ("constexpr int kStages = std::is_same<T, float>::value ? 1 : 2;"
+            in one_line)
+    assert ("(2 * kTile + 2 * kStages * kStreamRowsDq<D>) * "
+            "(sizeof(T) * D + 16)") in one_line
+    one_line = " ".join((CSRC / "flash_bwd_dkv.cu").read_text().split())
+    assert ("std::is_same<T, float>::value ? kStreamRowsF32Dkv<D> : kTile;"
+            in one_line)
+    assert ("(2 * kTile + 4 * kN) * (sizeof(T) * D + 16) + "
+            "sizeof(float) * 4 * kN") in one_line
+
+
+def _switch_dims() -> list[int]:
+    """The head dims of `with_head_dim`'s switch (csrc/flash_common.cuh),
+    each case checked to hand the kernels its own D."""
+    text = (CSRC / "flash_common.cuh").read_text()
+    body = text[text.index("cudaError_t with_head_dim("):]
+    body = body[:body.index("\n}\n")]
+    cases = re.findall(r"case (\d+): return f\(std::integral_constant<int, "
+                       r"(\d+)>\{\}\);", body)
+    assert cases and all(a == b for a, b in cases)
+    assert "default: return cudaErrorInvalidValue;" in body
+    return [int(a) for a, _ in cases]
+
+
+def test_each_head_dim_maps_to_the_c_switch_instance():
+    """The wrapper's instances are the C switch's, and every D in
+    1..256 runs at the smallest of them that is >= D (`pad_route`);
+    beyond 256 it raises, naming the limit."""
+    dims = _switch_dims()
+    assert tuple(dims) == fa.HEAD_DIMS and fa.MAX_HEAD_DIM == max(dims) == 256
+    assert chip_smoke.FLASH_HEAD_DIMS == fa.HEAD_DIMS   # its HMMA check
+    for d in range(1, 257):
+        assert fa.kernel_head_dim(d) == min(c for c in dims if c >= d)
+    for d in (0, 257, 320):
+        with pytest.raises(ValueError, match="1..256"):
+            fa.kernel_head_dim(d)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_every_instance_fits_in_a_blocks_shared_memory(dtype):
+    """Every instance's K7, K8 and K9 plan at the LM flagship's geometry
+    (B 8, S 2048, 8 heads, MHA and GQA 8/2) stays within the 232,448
+    bytes (227 KB) a block may have; the plans refuse what the C switch
+    lacks."""
+    for d in fa.HEAD_DIMS:
+        for hkv in (8, 2):
+            plans = [fa.flash_fwd_plan(8, 2048, 8, hkv, d, DTYPES[dtype])] + [
+                fa.flash_bwd_plan(k, 8, 2048, 8, hkv, d, DTYPES[dtype])
+                for k in ("dq", "dkv")]
+            for plan in plans:
+                assert 0 < plan.smem_bytes <= 232_448, (d, plan)
+    for d in (24, 200, 320):
+        with pytest.raises(ValueError):
+            fa.flash_fwd_plan(8, 2048, 8, 8, d, DTYPES[dtype])
+        with pytest.raises(ValueError):
+            fa.flash_bwd_plan("dq", 8, 2048, 8, 8, d, DTYPES[dtype])
 
 
 def test_plan_refuses_what_the_kernels_lack():
@@ -201,21 +277,30 @@ def test_fwd_plan_covers_every_query_tile_once(name):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 def test_fwd_plan_shared_memory_is_the_kernels_layout(dtype, d):
-    """The bytes flash_fwd.cu stages: (64, D) tiles with each row padded
-    by 16 bytes; bf16 five (q and two stages of k and v), float32 four
-    (k and v in two stages), six at D 128 (q split into hi and lo tiles).
-    At D 64 two float32 blocks fit on an SM."""
+    """The bytes flash_fwd.cu stages: rows of D elements with each row
+    padded by 16 bytes; bf16 five 64-row tiles (q and two stages of k and
+    v), float32 four (k and v in two stages), six at D 80-128 (q split
+    into hi and lo tiles), and beyond D 128 two stages of 32-key k and v
+    tiles and q's float32 tile (192 rows). At D 64 two float32 blocks fit
+    on an SM."""
     elem = 4 if dtype == "float32" else 2
     plan = fa.flash_fwd_plan(1, 128, 2, 1, d, DTYPES[dtype])
-    tile = 64 * (d + 16 // elem) * elem
-    tiles = 5 if elem == 2 else (4 if d <= 64 else 6)
-    assert plan.smem_bytes == tiles * tile
+    row = (d + 16 // elem) * elem
+    rows = (5 * 64 if elem == 2 else 4 * 64 if d <= 64 else 6 * 64
+            if d <= 128 else 4 * 32 + 64)
+    assert plan.smem_bytes == rows * row
+    assert fa.stream_rows("fwd", DTYPES[dtype], d) == (
+        32 if d > 128 and elem == 4 else 64)
     if d == 64 and elem == 4:
         assert 2 * plan.smem_bytes <= 228 * 1024   # the SM's shared memory
     src = (CSRC / "flash_fwd.cu").read_text()
-    assert "constexpr int kF32Tiles = D <= 64 ? 4 : 6;" in src
-    assert ("kF32Tiles<D> * kTile * (sizeof(float) * D + 16)" in src)
+    one_line = " ".join(src.split())
+    assert ("constexpr int kF32Rows = D <= 64 ? 4 * kTile : (D <= 128 ? "
+            "6 * kTile : 4 * kStreamRowsF32Fwd<D> + kTile);") in one_line
+    assert "kF32Rows<D> * (sizeof(float) * D + 16)" in src
     assert "sizeof(__nv_bfloat16) * 5 * kTile * (D + 8)" in src
+    assert ("constexpr int kStreamRowsF32Fwd = D > 128 ? 32 : kTile;"
+            in (CSRC / "flash_common.cuh").read_text())
     for kern, stride in (("flash_fwd_f32_kernel(", "kLdF32<D>;"),
                          ("flash_fwd_bf16_kernel(", "D + 8;")):
         body = src[src.index(kern):]

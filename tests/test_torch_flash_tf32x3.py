@@ -275,7 +275,8 @@ def test_shared_memory_reads_take_no_extra_passes(d):
     # K7 (flash_fwd.cu), its own expressions: q at arow + kc * 8 (rows g
     # and g + 8), k at (8j + g) * kLd + kc * 8 + 2t, v at 2t * kLd + g +
     # 8j * kLd + dn * 8 (+ kLd for the second B row); the split pass reads
-    # and writes whole float4s, row r = e / (D / 4), column 4 (e % (D / 4)).
+    # and writes whole float4s, row r = e / kWords, column 4 (e % kWords),
+    # kWords = D / 4 rounded up to a multiple of 8.
     arow = (16 * np.arange(4)[:, None] + G) * ld(d) + 2 * T
     for warp in range(4):
         for kc in range(d // 8):
@@ -298,10 +299,19 @@ def test_shared_memory_reads_take_no_extra_passes(d):
     # 16-byte words of a quarter warp on one bank group, it never runs.
     if d < 32:
         return
-    for w0 in range(0, 64 * d // 4, 32):
+    # split_tile's lanes: a row's d / 4 16-byte words padded to whole
+    # quarter warps (kWords), the lanes past d idle; each quarter warp
+    # with a lane at work takes one pass
+    words = -(-d // 32) * 8
+    for w0 in range(0, 64 * words, 32):
         e = w0 + LANES
-        off = (e // (d // 4)) * ld(d) + 4 * (e % (d // 4))
-        assert _passes_128(off) == 4
+        col = 4 * (e % words)
+        off = (e // words) * ld(d) + col
+        for q, c in zip(off.reshape(4, 8), col.reshape(4, 8)):
+            w = q[c < d] // 4
+            if len(w):
+                assert max(len(np.unique(w[w % 8 == b]))
+                           for b in np.unique(w % 8)) == 1
 
 
 # ------------------------------------------------------- (d) the algorithm

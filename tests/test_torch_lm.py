@@ -34,7 +34,7 @@ from mpi_cuda_cnn_tpu_torch.data import prng
 from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
 from mpi_cuda_cnn_tpu_torch.models.transformer import TransformerLM
 from mpi_cuda_cnn_tpu_torch.ops import _kernels
-from mpi_cuda_cnn_tpu_torch.ops.flash_attention import HEAD_DIMS
+from mpi_cuda_cnn_tpu_torch.ops.flash_attention import MAX_HEAD_DIM
 from mpi_cuda_cnn_tpu_torch.train.lm import (
     count_params,
     lm_flops_per_token,
@@ -166,16 +166,17 @@ def test_pick_attn_impl():
 @pytest.mark.parametrize("device", ["cuda", "cpu"])
 @pytest.mark.parametrize("head_dim", [16, 32, 64, 96, 128, 256])
 def test_pick_attn_impl_auto_follows_the_kernels_head_dims(head_dim, device):
-    """"auto" takes the flash kernels only for a head dim they are built
-    for (16, 32, 64, 128), on a CUDA device; an explicit "flash" stays
-    flash (the kernels then refuse the head dim themselves)."""
-    built = head_dim in HEAD_DIMS
-    assert HEAD_DIMS == (16, 32, 64, 128)
-    want = "flash" if device == "cuda" and built else "oracle"
-    assert pick_attn_impl("auto", 2048, device, head_dim) == want
-    assert pick_attn_impl("auto", 2048, device, head_dim=head_dim) == want
-    assert pick_attn_impl("flash", 2048, device, head_dim) == "flash"
-    assert pick_attn_impl("oracle", 2048, device, head_dim) == "oracle"
+    """"auto" takes the flash kernels for every head dim they take (up to
+    256, zero-padded to their next instance), on a CUDA device, and the
+    oracle beyond (320); an explicit "flash" stays flash (the kernels then
+    refuse a head dim beyond 256 themselves)."""
+    assert MAX_HEAD_DIM == 256
+    for d in (head_dim, head_dim + 1 if head_dim < 256 else 320):
+        want = "flash" if device == "cuda" and d <= 256 else "oracle"
+        assert pick_attn_impl("auto", 2048, device, d) == want
+        assert pick_attn_impl("auto", 2048, device, head_dim=d) == want
+        assert pick_attn_impl("flash", 2048, device, d) == "flash"
+        assert pick_attn_impl("oracle", 2048, device, d) == "oracle"
 
 
 def test_lm_callers_pass_the_model_head_dim(monkeypatch):

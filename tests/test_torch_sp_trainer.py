@@ -148,10 +148,14 @@ def test_ring_impl_follows_the_reference_rule():
     assert pick_ring_impl("auto", 2048, 2, "cuda", 64) == "ring_flash"
     assert pick_ring_impl("flash", 2048, 2, "cuda", 16) == "ring_flash"
     assert pick_ring_impl("auto", 2048, 32, "cuda", 64) == "ring"   # s 64
-    assert pick_ring_impl("auto", 2048, 2, "cuda", 96) == "ring"
+    # every head dim up to 256 takes ring-flash (padded to the kernels'
+    # next instance), beyond it the plain ring
+    for d in (24, 80, 96, 200, 256):
+        assert pick_ring_impl("auto", 2048, 2, "cuda", d) == "ring_flash"
+    assert pick_ring_impl("auto", 2048, 2, "cuda", 320) == "ring"
     # an explicit flash is not turned into plain attention at a head dim
-    # the kernels are not built for: they refuse it, as off the seq axis
-    assert pick_ring_impl("flash", 2048, 2, "cuda", 96) == "ring_flash"
+    # the kernels do not take: they refuse it, as off the seq axis
+    assert pick_ring_impl("flash", 2048, 2, "cuda", 320) == "ring_flash"
     assert pick_ring_impl("flash", 2048, 32, "cuda", 64) == "ring"   # s 64
     assert pick_ring_impl("auto", 2048, 2, "cpu", 64) == "ring"
     assert pick_ring_impl("oracle", 2048, 2, "cuda", 64) == "ring"

@@ -8,10 +8,15 @@ falls mid-epoch: the epoch order is a function of (seed, epoch)
 (`Trainer._epoch_order`), so the resumed process rebuilds the epoch's
 permutation and skips its first k % steps_per_epoch batches. At world 2
 (two spawned gloo ranks on the CPU, through the `train` command's rank
-entry) a planned crash fires on both ranks at the same step, each rank's
-supervisor restarts it from the checkpoint that rank 0 alone wrote, and
-the world ends bit for bit where the uninterrupted world-2 run ends.
+entry) a planned crash fails the world, its parent's supervisor
+(`train.ranks.supervise_world`) spawns it again from the checkpoint that
+rank 0 alone wrote, and the world ends bit for bit where the
+uninterrupted world-2 run ends; so does a crash at rank 0's checkpoint
+site through the command.
 """
+
+import json
+import re
 
 import time
 
@@ -23,8 +28,11 @@ from mpi_cuda_cnn_tpu_torch.data.datasets import synthetic_stripes
 from mpi_cuda_cnn_tpu_torch.models.presets import get_model
 from mpi_cuda_cnn_tpu_torch.cli import main
 from mpi_cuda_cnn_tpu_torch.parallel.distributed import RankError, run_ranks
-from mpi_cuda_cnn_tpu_torch.train.checkpoint import checkpoint_meta
-from mpi_cuda_cnn_tpu_torch.train.ranks import cnn_rank
+from mpi_cuda_cnn_tpu_torch.train.checkpoint import (
+    checkpoint_meta,
+    latest_checkpoint,
+)
+from mpi_cuda_cnn_tpu_torch.train.ranks import cnn_rank, supervise_world
 from mpi_cuda_cnn_tpu_torch.train.trainer import Trainer
 from mpi_cuda_cnn_tpu_torch.utils.config import Config
 from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
@@ -123,41 +131,52 @@ def _written(res: dict) -> int:
 
 def test_world_2_crash_restart_is_bitwise_with_one_writer(tmp_path):
     """World 2 on gloo, 2 epochs of 4 steps, checkpoints every 3 steps: a
-    planned crash after step 5 fires on both ranks, each restarts from
-    ckpt_3 (written by rank 0 alone; its manifest records the world-2
-    mesh) and replays steps 4 and 5; both ranks end bit for bit where
-    the uninterrupted world-2 run ends."""
+    planned crash after step 5 fires on both ranks and fails the world;
+    the parent spawns the second world from ckpt_3 (written by rank 0
+    alone; its manifest records the world-2 mesh), which replays steps 4
+    and 5; both ranks end bit for bit where the uninterrupted world-2 run
+    ends. Rank 0's run file holds the crash and the parent's restart."""
     data = dict(num_train=64, num_test=32)
     base = dict(num_devices=2, checkpoint_every_steps=3, scan=False)
     full = run_ranks(cnn_rank, 2, args=(
         _cfg(checkpoint_dir=str(tmp_path / "full"), **base), data),
         timeout=RANKS_TIMEOUT_S)
-    crash = run_ranks(cnn_rank, 2, args=(
+    crash = supervise_world(cnn_rank, [torch.device("cpu")] * 2, (
         _cfg(checkpoint_dir=str(tmp_path / "crash"), max_restarts=1,
-             fault_plan="crash@train.step:5", **base), data),
-        timeout=RANKS_TIMEOUT_S)
+             fault_plan="crash@train.step:5",
+             metrics_jsonl=str(tmp_path / "m.jsonl"), **base), data))
     for r in range(2):
         assert crash[r]["exit"] == 0 and crash[r]["step"] == 8
         for a, b in zip(crash[r]["params"], full[r]["params"], strict=True):
             np.testing.assert_array_equal(a, b)
-        kinds = [f["kind"] for f in crash[r]["records"]
-                 if f["event"] == "fault"]
-        assert kinds == ["injected_crash", "restart"]
         resumes = [f for f in crash[r]["records"] if f["event"] == "ckpt"]
         assert [(f["reason"], f["step"]) for f in resumes] == [("resume", 3)]
-    assert [_written(res) for res in crash] == [3, 0]   # steps 3, 6, 8
+    kinds = [json.loads(ln)["kind"] for ln in
+             open(tmp_path / "m.jsonl").read().splitlines()
+             if '"event": "fault"' in ln]
+    assert kinds == ["injected_crash", "restart"]
+    # the second world wrote steps 6 and 8 (the first, step 3)
+    assert [_written(res) for res in crash] == [2, 0]
     assert [_written(res) for res in full] == [3, 0]
     meta = checkpoint_meta(tmp_path / "crash", "ckpt_8.npz")
     assert meta == {"mesh": {"axes": {"data": 2}, "devices": 2},
                     "elastic_width": 0, "process_count": 2}
 
 
-def test_world_2_crash_of_rank_0_alone_fails_the_world(tmp_path):
+def _latest(directory) -> dict:
+    with np.load(latest_checkpoint(directory)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def test_world_2_crash_of_rank_0_alone_fails_the_world(tmp_path, capfd):
     """A crash at ckpt.pre_rename fires on rank 0 alone (the only writer):
-    under --max-restarts, rank 0 must not restart by itself into a
-    broadcast while rank 1 waits at the save's barrier. The supervisor
-    re-raises it, the world fails with RankError well inside the
-    collective timeout, and the command refuses such a plan (exit 2)."""
+    rank 0 does not restart by itself into a broadcast while rank 1 waits
+    at the save's barrier: the world fails with RankError well inside the
+    collective timeout. The command supervises the world from its parent
+    (--max-restarts 1): it spawns the world again, which resumes from the
+    step-2 checkpoint, exits 0 and ends bit for bit where the
+    uninterrupted world-2 run ends (the latest checkpoint, every array,
+    and the ntests/ncorrect line rank 0 prints)."""
     data = dict(num_train=64, num_test=32)
     cfg = _cfg(num_devices=2, checkpoint_every_steps=3, scan=False,
                checkpoint_dir=str(tmp_path / "ck"), max_restarts=1,
@@ -166,8 +185,19 @@ def test_world_2_crash_of_rank_0_alone_fails_the_world(tmp_path):
     with pytest.raises(RankError, match="injected crash at ckpt.pre_rename"):
         run_ranks(cnn_rank, 2, args=(cfg, data), timeout=RANKS_TIMEOUT_S)
     assert time.monotonic() - t0 < 60
-    assert main(["train", "--dataset", "synthetic", "--device", "cpu",
-                 "--num-devices", "2", "--batch-size", "16",
-                 "--checkpoint-dir", str(tmp_path / "cli"),
-                 "--max-restarts", "1",
-                 "--fault-plan", "crash@ckpt.pre_rename:3"]) == 2
+    argv = ["train", "--dataset", "synthetic", "--device", "cpu",
+            "--num-devices", "2", "--epochs", "2", "--batch-size", "500",
+            "--log-every", "0", "--checkpoint-every-steps", "1"]
+    assert main(argv + ["--checkpoint-dir", str(tmp_path / "full")]) == 0
+    want = capfd.readouterr().err       # the ranks' stderr
+    assert main(argv + ["--checkpoint-dir", str(tmp_path / "cli"),
+                        "--max-restarts", "1",
+                        "--fault-plan", "crash@ckpt.pre_rename:3"]) == 0
+    got = capfd.readouterr().err
+    a, b = _latest(tmp_path / "cli"), _latest(tmp_path / "full")
+    assert sorted(a) == sorted(b) and int(a["step"]) == 8
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    line = re.compile(r"ntests=\d+, ncorrect=\d+")
+    assert len(line.findall(want)) == 1
+    assert line.findall(got) == line.findall(want)
