@@ -249,6 +249,23 @@ final line:
             without and with the sink; then each path's ms a step
             against the plain step's. The kernels phase holds K3/K4/K5
             at the micro-batches' shapes (M 8, M 4; marked `micro`).
+14. obs_tools  the run-file tools (`report`, `compare`, `explain`,
+            `trace`, `health`, `replay` through the port's CLI) over the
+            run files the earlier phases wrote (train_flags (g)'s
+            float32 CNN run under the profiler, serve_features' slo
+            run, the fleet phase's crash run at --log full) and those
+            written here: float32 and bf16 CNN runs of FLAGS_TIME_STEPS
+            steps, an `lm` run of FLAGS_LM_STEPS steps at the flagship,
+            a `serve-bench --requests 12 --seed 0` run (launches zeroed
+            just before each and read just after). The CNN (f32, bf16)
+            and LM `program` records say backend cuda, and their FLOPs
+            equal what the same config counts on the plain path (the
+            CNN's on the CPU, the LM's on the meta device); `report`
+            gives each an mfu; `explain`, `trace` and `replay` exit 0 on
+            the serve and fleet files; `health` gives its verdicts; and
+            `compare` of the card's serve run against the CPU's under a
+            gate of the schedule metrics and blame_crc at 0%, `equal`,
+            finds every one ok. OBS_TOOLS_BUDGET_S at most.
 
 Then `nvidia-smi`'s name and power limit, the kernels line
 ({"kernels": [...]}, each source's C launch function and `__global__`
@@ -270,6 +287,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -1033,7 +1051,24 @@ GEMM_GENERATE = [(512, 1536), (512, 512), (512, 2048), (2048, 512),
                  (512, 8192), (512, 251)]
 
 
+# obs_tools: the phase's time limit, the serve-bench run compared
+# between the card and the CPU (ci/serve_gate.json's command), and the
+# summary keys its gate holds equal in each mode.
+OBS_TOOLS_BUDGET_S = 60.0
+OBS_SERVE_ARGS = ["--requests", "12", "--seed", "0"]
+OBS_GATE_KEYS = ("decode_ticks", "prefill_chunks", "preemptions",
+                 "output_tokens", "requests", "status.finished",
+                 "state_crc", "blame_crc")
+# Where the phases keep the run files obs_tools reads (set by main).
+KEEP: Path | None = None
+
 _T0 = time.perf_counter()
+
+
+def keep(path: Path, name: str) -> None:
+    """Copy a run file a phase wrote into KEEP (when set) as `name`."""
+    if KEEP is not None:
+        KEEP.joinpath(name).write_bytes(Path(path).read_bytes())
 
 
 def emit(obj) -> None:
@@ -2442,6 +2477,8 @@ def phase_serve_features(torch) -> dict:
                                          "or no squeeze fired")
                 rec["jsonl_records"] = len(records)
                 rec["alerts"] = out["alerts"]
+                keep(Path(tmp, "features.jsonl"), "serve_slo.jsonl")
+                keep(Path(tmp, "slo.json"), "serve_slo.json")
             del out, eng, res
     p, lk, sp = runs["prefix"], runs["lookup"], runs["spill"]
     checks = {
@@ -2485,6 +2522,9 @@ def phase_fleet(torch) -> dict:
     runs = {}
     total = {k: 0 for k in SERVE_KERNELS}
     for name, flags in FLEET_RUNS:
+        if name == "crash" and KEEP is not None:   # obs_tools reads it
+            flags = flags + ["--log", "full", "--metrics-jsonl",
+                             str(KEEP / "fleet.jsonl")]
         _kernels.reset_launches()
         t0 = time.perf_counter()
         out = fleet_bench(FLEET_ARGS + flags, params=params)
@@ -5190,6 +5230,7 @@ def flags_sink(torch, dev, ds, tmp: Path) -> dict:
         flags_trainer(dev, small, metrics=m, log_every=10,
                       metrics_jsonl=str(path), profile_dir=str(prof)).train()
     recs = load_records(path, strict=True)
+    keep(path, "train_g.jsonl")
     peaks = [e["stats"] and e["stats"]["peak_bytes_in_use"]
              for r in recs if r["event"] == "memory" for e in r["devices"]]
     trace = prof / "trace.json"
@@ -5256,6 +5297,238 @@ def phase_train_flags(torch, dev=None) -> dict:
     out["seconds"] = time.perf_counter() - t0
     out["nvidia_smi"] = nvidia_smi() if dev.type == "cuda" else "cpu"
     return out
+
+
+def obs_tool(argv: list[str]) -> tuple[int, str]:
+    """(exit code, stdout) of `python -m mpi_cuda_cnn_tpu_torch <argv>`,
+    run in this process."""
+    import contextlib
+    import io
+
+    from mpi_cuda_cnn_tpu_torch.cli import main as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(argv)
+    return rc, out.getvalue()
+
+
+def program_of(path: Path) -> dict:
+    """The run file's one `program` record."""
+    from mpi_cuda_cnn_tpu_torch.obs.schema import load_records
+
+    progs = [r for r in load_records(path, strict=True)
+             if r["event"] == "program"]
+    if len(progs) != 1:
+        raise AssertionError(f"obs_tools: {path.name}: {len(progs)} program "
+                             "records, want 1")
+    return progs[0]
+
+
+def report_of(path: Path) -> dict:
+    """`report --format json` of the file's last run."""
+    rc, out = obs_tool(["report", str(path), "--format", "json"])
+    if rc != 0 or not out.strip():
+        raise AssertionError(f"obs_tools: report {path.name} exited {rc}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def cnn_plain_flops(torch, tmp: Path, dtype: str) -> float:
+    """The CNN step's FLOPs as the same config counts them on the CPU's
+    plain path (two steps of stripes, the first counted)."""
+    from mpi_cuda_cnn_tpu_torch.data.datasets import synthetic_stripes
+    from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
+
+    path = tmp / f"cpu_{dtype}.jsonl"
+    tiny = synthetic_stripes(num_train=2 * CNN_BATCH, num_test=64)
+    with MetricsLogger(path, echo=False) as m:
+        flags_trainer(torch.device("cpu"), tiny, metrics=m,
+                      compute_dtype=dtype, metrics_jsonl=str(path)).train()
+    prog = program_of(path)
+    if prog["backend"] != "cpu":
+        raise AssertionError(f"obs_tools: CPU count on {prog['backend']}")
+    return prog["flops"]
+
+
+def lm_meta_flops(torch, cfg, vocab: int) -> tuple[float, float]:
+    """The LM step of `cfg` counted on the meta device (the plain path,
+    flash attention's plain versions): (flops, bytes)."""
+    from mpi_cuda_cnn_tpu_torch.models.transformer import TransformerLM
+    from mpi_cuda_cnn_tpu_torch.obs.cost import count_step
+    from mpi_cuda_cnn_tpu_torch.train.lm import (
+        make_lm_state,
+        make_lm_train_step,
+    )
+    from mpi_cuda_cnn_tpu_torch.train.optimizer import make_optimizer
+    from mpi_cuda_cnn_tpu_torch.utils.config import COMPUTE_DTYPES
+
+    model = TransformerLM(vocab=vocab, dim=cfg.dim, heads=cfg.heads,
+                          depth=cfg.depth, max_seq=cfg.seq_len,
+                          moe_experts=cfg.moe_experts,
+                          moe_top_k=cfg.moe_top_k, kv_heads=cfg.kv_heads,
+                          pos=cfg.pos)
+    opt = make_optimizer(cfg.lr)
+    state = make_lm_state(model, opt, device="meta")
+    step = make_lm_train_step(model, opt, attn_impl=cfg.attn_impl,
+                              seq_len=cfg.seq_len, device="meta",
+                              compute_dtype=COMPUTE_DTYPES[cfg.compute_dtype],
+                              remat=cfg.remat, ce_chunk=cfg.ce_chunk)
+    tokens = torch.zeros(cfg.batch_size, cfg.seq_len, dtype=torch.long,
+                         device="meta")
+    with count_step() as count:
+        step(state, tokens, tokens)
+    return count.flops, count.bytes
+
+
+def obs_serve_compare(torch, dev, tmp: Path) -> tuple[dict, Path]:
+    """serve-bench OBS_SERVE_ARGS on the card and on the CPU, then
+    `compare` of the two under a gate of OBS_GATE_KEYS at 0%, equal."""
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+    from mpi_cuda_cnn_tpu_torch.serve.bench import serve_bench
+
+    card, cpu = tmp / "serve_card.jsonl", tmp / "serve_cpu.jsonl"
+    _kernels.reset_launches()
+    serve_bench(OBS_SERVE_ARGS + ["--device", dev.type, "--metrics-jsonl",
+                                  str(card)])
+    cuda_sync(torch, dev)
+    launches = {k: _kernels.launches[k]
+                for k in ("paged_attention", "int8_gemm")}
+    serve_bench(OBS_SERVE_ARGS + ["--device", "cpu", "--metrics-jsonl",
+                                  str(cpu)])
+    gated = [f"serve.{mode}.{key}" for mode in ("static", "continuous")
+             for key in OBS_GATE_KEYS]
+    gate = tmp / "gate.json"
+    gate.write_text(json.dumps({"metrics": {
+        name: {"tol_pct": 0, "direction": "equal"} for name in gated}}))
+    rc, out = obs_tool(["compare", str(cpu), str(card), "--gate",
+                        str(gate)])
+    verdicts = {}
+    for line in out.splitlines():
+        cells = [c.strip() for c in line.strip("|").split("|")]
+        if cells and cells[0] in gated:
+            verdicts[cells[0]] = cells[-1]
+    if rc != 0 or sorted(verdicts) != sorted(gated) or any(
+            v != "ok" for v in verdicts.values()):
+        raise AssertionError(f"obs_tools: compare of the card's serve run "
+                             f"with the CPU's exited {rc}: {verdicts}")
+    return {"gated": len(gated), "verdicts": sorted(set(verdicts.values())),
+            "launches": launches}, card
+
+
+def phase_obs_tools(torch, dev=None) -> dict:
+    """obs_tools (phase 14): the run-file tools over the card's run files,
+    and the card's `program` counts against the plain path's. (`dev` the
+    CPU, with the earlier phases' files in KEEP: a rehearsal.)"""
+    from mpi_cuda_cnn_tpu_torch.data.datasets import synthetic_stripes
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+    from mpi_cuda_cnn_tpu_torch.obs.cost import peak_flops
+    from mpi_cuda_cnn_tpu_torch.train.lm import lm_flops_per_token
+    from mpi_cuda_cnn_tpu_torch.train.lm_trainer import LMTrainer
+    from mpi_cuda_cnn_tpu_torch.utils.config import parse_lm_args
+    from mpi_cuda_cnn_tpu_torch.utils.logging import MetricsLogger
+
+    t_phase = time.perf_counter()
+    dev = dev or torch.device("cuda", 0)
+    tmp = KEEP
+    # train_flags (g)'s run (under the profiler), then float32 and bf16
+    # runs of as many steps without it, and the lm run
+    runs = {"train_g": tmp / "train_g.jsonl",
+            "train_float32": tmp / "train_float32.jsonl",
+            "train_bfloat16": tmp / "train_bfloat16.jsonl",
+            "lm": tmp / "lm.jsonl"}
+    launches = {}
+    small = synthetic_stripes(num_train=FLAGS_TIME_STEPS * CNN_BATCH,
+                              num_test=RECOVER_TEST)
+    for dtype in ("float32", "bfloat16"):
+        path = runs[f"train_{dtype}"]
+        _kernels.reset_launches()
+        with MetricsLogger(path, echo=False) as m:
+            flags_trainer(dev, small, metrics=m, log_every=10,
+                          compute_dtype=dtype,
+                          metrics_jsonl=str(path)).train()
+        cuda_sync(torch, dev)
+        launches[f"train_{dtype}"] = {k: _kernels.launches[k]
+                                      for k in PER_STEP}
+    # the lm run at the flagship
+    cfg = parse_lm_args(LM_MODEL_ARGS + [
+        "--attn-impl", "flash", "--steps", str(FLAGS_LM_STEPS),
+        "--warmup-steps", "1", "--log-every", "1", "--device", str(dev),
+        "--metrics-jsonl", str(runs["lm"])])
+    _kernels.reset_launches()
+    with MetricsLogger(runs["lm"], echo=False) as m:
+        trainer = LMTrainer(cfg, metrics=m)
+        trainer.train()
+    cuda_sync(torch, dev)
+    launches["lm"] = {k: _kernels.launches[k] for k in FLASH_KERNELS}
+    model = trainer.model
+    del trainer
+    empty_cache(torch, dev)
+    for name, got in launches.items():
+        if dev.type == "cuda" and not all(n > 0 for n in got.values()):
+            raise AssertionError(f"obs_tools {name}: launches {got}")
+    # the program records against the plain path's counts
+    programs = {}
+    plain = {"train_float32": cnn_plain_flops(torch, tmp, "float32"),
+             "train_bfloat16": cnn_plain_flops(torch, tmp, "bfloat16")}
+    plain["train_g"] = plain["train_float32"]
+    plain["lm"], lm_meta_bytes = lm_meta_flops(torch, cfg, model.vocab)
+    for name, path in runs.items():
+        prog, rep = program_of(path), report_of(path)
+        (row,) = rep["programs"]
+        mfu_known = isinstance(row["mfu"], float) or dev.type != "cuda"
+        if prog["backend"] != dev.type or prog["flops"] != plain[name] or \
+                not mfu_known:
+            raise AssertionError(
+                f"obs_tools {name}: program {prog['label']} on "
+                f"{prog['backend']}, flops {prog['flops']} (plain path "
+                f"{plain[name]}), report mfu {row['mfu']}")
+        step_ms = sum(rep["step_phases"]["per_step_ms"].values())
+        programs[name] = {
+            "label": prog["label"], "counting": prog["counting"],
+            "compute_dtype": prog["compute_dtype"],
+            "flops": prog["flops"], "plain_flops": plain[name],
+            "bytes": prog["bytes"], "collectives": prog["collectives"],
+            "step_ms": step_ms, "mfu": row["mfu"]}
+    tokens = cfg.batch_size * cfg.seq_len
+    analytic = lm_flops_per_token(model, cfg.seq_len) * tokens
+    lm = programs["lm"]
+    peak = peak_flops(lm["compute_dtype"], backend="cuda")
+    lm.update({"meta_bytes": lm_meta_bytes, "analytic_flops": analytic,
+               "flops_over_analytic": lm["flops"] / analytic,
+               "analytic_mfu": (analytic / (lm["step_ms"] / 1e3) / peak
+                                if dev.type == "cuda" else None)})
+    # the tools over the serve and fleet files
+    files = {"serve_slo": tmp / "serve_slo.jsonl",
+             "fleet_crash": tmp / "fleet.jsonl"}
+    exits = {}
+    for name, path in files.items():
+        for tool in ("explain", "trace", "replay"):
+            rc, out = obs_tool([tool, str(path)])
+            exits[f"{tool} {name}"] = rc
+            if rc != 0 or not out:
+                raise AssertionError(f"obs_tools: {tool} {path.name} "
+                                     f"exited {rc}")
+    rc, out = obs_tool(["health", str(files["serve_slo"]), "--slo",
+                        str(tmp / "serve_slo.json"), "--format", "json"])
+    health = json.loads(out)
+    if rc not in (0, 1) or not health["verdicts"]:
+        raise AssertionError(f"obs_tools: health exited {rc}: {health}")
+    serve, card = obs_serve_compare(torch, dev, tmp)
+    for tool in ("explain", "trace", "replay"):
+        rc, out = obs_tool([tool, str(card)])
+        exits[f"{tool} serve_card"] = rc
+        if rc != 0 or not out:
+            raise AssertionError(f"obs_tools: {tool} serve_card exited {rc}")
+    phase_s = time.perf_counter() - t_phase
+    if phase_s > OBS_TOOLS_BUDGET_S:
+        raise AssertionError(f"obs_tools took {phase_s:.1f} s, over its "
+                             f"{OBS_TOOLS_BUDGET_S} s budget")
+    return {"programs": programs, "launches": launches, "exits": exits,
+            "health": {"healthy": health["healthy"],
+                       "verdicts": len(health["verdicts"]),
+                       "alerts_fired": health["alerts_fired"]},
+            "serve_compare": serve, "phase_s": phase_s,
+            "nvidia_smi": nvidia_smi() if dev.type == "cuda" else "cpu"}
 
 
 def kernels_line(cases: list[dict], launches: dict) -> dict:
@@ -5374,6 +5647,9 @@ def main() -> int:
     from mpi_cuda_cnn_tpu_torch.ops import _kernels
 
     disable_tf32()   # the library yardsticks and plain versions in float32
+    global KEEP
+    kept = tempfile.TemporaryDirectory(prefix="runs-")
+    KEEP = Path(kept.name)
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "name": kind, "nvidia_smi": smi,
@@ -5465,6 +5741,8 @@ def main() -> int:
     emit({"phase": "lm_agree", **phase_lm_agree(torch)})
     phase_recover(torch)
     emit({"phase": "train_flags", **phase_train_flags(torch)})
+    emit({"phase": "obs_tools", **phase_obs_tools(torch)})
+    kept.cleanup()
     launches = {**{k: serve_launches[k] + gen_launches[k]
                    + features["launches"][k] + fleet["launches"][k]
                    for k in ("paged_attention", "int8_gemm")},

@@ -17,6 +17,25 @@
                   kernel and the implicit-GEMM kernel
                   (bench/conv_shapes.py)
 
+The run-file tools read the JSONL that `train`, `lm`, `serve-bench` and
+`fleet-bench` write with --metrics-jsonl (or the JAX package's), import
+nothing of the card's stack beyond torch, and print what the
+reference's tools print:
+
+    report        summary tables of a run (obs/report.py)
+    compare       a run against a baseline under a gate, exit 1 on a
+                  regression (obs/regress.py)
+    explain       causal blame of each request's latency (obs/causal.py)
+    trace         per-request lifecycles and the slot Gantt
+                  (obs/timeline.py)
+    health        per-tenant SLO verdicts, exit 1 on a violation
+                  (obs/health.py)
+    top           a live dashboard over a run file (obs/top.py)
+    replay        the tick trail folded back into the serving state, its
+                  digests checked (obs/replay.py)
+    diverge       the first tick where two trails disagree
+                  (obs/diverge.py)
+
 Every command runs on the card unless given --device cpu. `train` and
 `lm` take `--num-devices N` / `--mesh-shape data:N` (N = 0: every visible
 card, 1 on the CPU); `train` also the model and pipe axes and FSDP
@@ -51,7 +70,20 @@ import sys
 
 _USAGE = ("usage: python -m mpi_cuda_cnn_tpu_torch "
           "{train,train-bench,serve-bench,fleet-bench,lm,lm-bench,"
-          "conv-bench} [flags]")
+          "conv-bench,report,compare,explain,trace,health,top,replay,"
+          "diverge} [flags]")
+
+# the run-file tools: command -> (module under obs/, its main)
+_TOOLS = {
+    "report": ("report", "report_main"),
+    "compare": ("regress", "compare_main"),
+    "explain": ("causal", "explain_main"),
+    "trace": ("timeline", "trace_main"),
+    "health": ("health", "health_main"),
+    "top": ("top", "top_main"),
+    "replay": ("replay", "replay_main"),
+    "diverge": ("diverge", "diverge_main"),
+}
 
 
 def rank_devices(device: str, num_devices: int, mesh_shape: str,
@@ -255,5 +287,11 @@ def main(argv: list[str] | None = None) -> int:
         from .bench.conv_shapes import conv_bench_main
 
         return conv_bench_main(argv[1:])
+    if argv and argv[0] in _TOOLS:
+        import importlib
+
+        module, fn = _TOOLS[argv[0]]
+        return getattr(importlib.import_module(f".obs.{module}", __package__),
+                       fn)(argv[1:])
     print(_USAGE, file=sys.stderr)
     return 2

@@ -368,12 +368,31 @@ class AlertEngine:
         return alerts_crc(self.alerts)
 
 
+def alert_site(a: dict) -> str:
+    """The alert's location label, by specificity: tenant (burn),
+    per-group (grouped rules), field (threshold/rate), watched family
+    (absence)."""
+    return (a.get("tenant") or a.get("group") or a.get("field")
+            or a.get("family") or "")
+
+
+def format_alert(a: dict) -> str:
+    """The one-line alert rendering `health` and the `top` ALERTS panel
+    share, so the two cannot drift as alert kinds grow context
+    fields."""
+    tick = f" tick {a['tick']}" if a.get("tick") is not None else ""
+    return (f"[{a.get('seq')}] {a.get('rule')} "
+            f"({a.get('kind')}, {a.get('severity')}) "
+            f"{alert_site(a)} at t={a.get('at'):g}{tick}")
+
+
 def alerts_crc(alerts: list[dict]) -> int:
     """crc32 over the canonical identity of every alert in sequence —
-    the one number that pins it. The identity covers (seq, rule, kind, group, tenant, tick, at): enough
-    to pin ordering, cause, and timing without depending on rounding of
-    derived context fields — absent keys hash as null, so the CRC of a
-    sequence rebuilt from logged records matches the live engine's."""
+    the one number that pins it. The identity covers (seq, rule, kind,
+    group, tenant, tick, at): enough to pin ordering, cause, and timing
+    without depending on rounding of derived context fields — absent
+    keys hash as null, so the CRC of a sequence rebuilt from logged
+    records matches the live engine's."""
     key = [[a.get("seq"), a.get("rule"), a.get("kind"), a.get("group"),
             a.get("tenant"), a.get("tick"), a.get("at")]
            for a in alerts]

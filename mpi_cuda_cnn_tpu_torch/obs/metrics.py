@@ -100,6 +100,27 @@ class Histogram:
         self.min = value if self.min is None else min(self.min, value)
         self.max = value if self.max is None else max(self.max, value)
 
+    def percentile(self, q: float) -> float | None:
+        """The q-th percentile (0..100) estimated from the bucket counts
+        by linear interpolation inside the winning bucket, clamped to the
+        exact observed min and max (so p0 and p100 are exact)."""
+        if self.count == 0:
+            return None
+        rank = max(1, math.ceil(q / 100.0 * self.count))
+        seen = 0
+        for i, c in enumerate(self.counts):
+            if c == 0:
+                continue
+            if seen + c >= rank:
+                lo = self.bounds[i - 1] if i > 0 else (
+                    self.min if self.min is not None else 0.0)
+                hi = self.bounds[i] if i < len(self.bounds) else self.max
+                frac = (rank - seen) / c
+                est = lo + (hi - lo) * frac
+                return min(max(est, self.min), self.max)
+            seen += c
+        return self.max
+
     def to_fields(self) -> dict:
         """The record form: the nonzero buckets as [index, count] pairs."""
         return {
@@ -109,6 +130,20 @@ class Histogram:
             "max": self.max if self.max is None else round(self.max, 4),
             "buckets": [[i, c] for i, c in enumerate(self.counts) if c],
         }
+
+    @classmethod
+    def from_fields(cls, fields: dict,
+                    bounds: list[float] | None = None) -> Histogram:
+        """Rebuild from to_fields() output (the reader's half: `top` and
+        `report` take percentiles of a record's histogram)."""
+        h = cls(bounds)
+        for i, c in fields.get("buckets", []):
+            h.counts[i] = int(c)
+        h.count = int(fields.get("count", sum(h.counts)))
+        h.sum = float(fields.get("sum", 0.0))
+        h.min = fields.get("min")
+        h.max = fields.get("max")
+        return h
 
 
 class MetricsRegistry:
@@ -158,3 +193,14 @@ class MetricsRegistry:
         open (nothing otherwise)."""
         if metrics is not None and metrics.jsonl_enabled:
             metrics.log("metrics", **self.snapshot_fields(**extra))
+
+
+def percentiles_from_record(rec: dict, name: str,
+                            qs=(50, 95, 99)) -> dict[str, float | None]:
+    """p50/p95/p99 (by default) of one named histogram inside a
+    `metrics` record, the reader's helper `top` and `report` share."""
+    fields = rec.get("histograms", {}).get(name)
+    if not fields:
+        return {f"p{q}": None for q in qs}
+    h = Histogram.from_fields(fields)
+    return {f"p{q}": h.percentile(q) for q in qs}

@@ -13,7 +13,7 @@ comments split an append-mode file into runs (`iter_runs`).
 from __future__ import annotations
 
 import json
-from collections.abc import Iterator
+from collections.abc import Iterable, Iterator
 from pathlib import Path
 
 SCHEMA_VERSION = 1
@@ -128,3 +128,24 @@ def _iter_lines(path: str | Path, *, strict: bool):
 
 def load_records(path: str | Path, *, strict: bool = False) -> list[dict]:
     return list(iter_records(path, strict=strict))
+
+
+def dump_records(records: Iterable[dict], path: str | Path) -> None:
+    """Write records as JSONL (the round-trip twin of load_records)."""
+    with Path(path).open("w") as fh:
+        for rec in records:
+            fh.write(json.dumps(rec) + "\n")
+
+
+def fmt_cell(v, prec: int = 6) -> str:
+    """The one table-cell formatter every obs renderer (report, trace,
+    top, compare) shares: None is an em-dash (a moment that never
+    happened), floats render at `prec` significant digits, dicts as
+    sorted k:v pairs. The goldens under tests/data pin it."""
+    if v is None:
+        return "—"
+    if isinstance(v, float):
+        return f"{v:.{prec}g}"
+    if isinstance(v, dict):
+        return ", ".join(f"{k}:{n}" for k, n in sorted(v.items())) or "—"
+    return str(v)

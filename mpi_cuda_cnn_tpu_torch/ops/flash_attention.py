@@ -48,7 +48,10 @@ their hops in float32).
 
 Every function takes its plain PyTorch version (full-matrix float32
 math, `*_plain`) for CPU tensors, and only for them. A CUDA tensor
-launches the kernel or raises; there is no fallback.
+launches the kernel or raises; there is no fallback. While a step is
+counted (`obs/cost.py`), each kernel call adds its nominal work at the
+real D (`attention_flops`: the full S x S square, causal or not) to the
+open counter.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..obs import cost as _cost
 from . import _kernels
 from .attention import NEG_INF
 
@@ -145,6 +149,18 @@ def _logits(qf: torch.Tensor, kf: torch.Tensor, causal: bool,
     pos = torch.arange(s, device=qf.device)
     mask = pos[None, :] <= pos[:, None]
     return torch.where(mask, logits, NEG_INF), mask
+
+
+# products of S x S x D a kernel computes: K7 q k^T and p v; K8 q k^T,
+# dO v^T and ds k; K9 those two and ds^T q, p^T dO
+_SQUARE_PRODUCTS = {"fwd": 2, "dq": 3, "dkv": 4}
+
+
+def attention_flops(kernel: str, b: int, s: int, h: int, d: int) -> int:
+    """The nominal work of K7 ("fwd"), K8 ("dq") or K9 ("dkv") for q
+    (b, s, h, d) (`obs/cost.py`): 2 b h s^2 d a product over the full
+    square, as FlopCounterMode counts the plain versions."""
+    return _SQUARE_PRODUCTS[kernel] * 2 * b * h * s * s * d
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +260,11 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_shapes(q, k, v)
     if not q.is_cuda:
         return flash_forward_plain(q, k, v, causal, out_f32)
-    return pad_route(_flash_forward_launch, q, k, v, causal, out_f32=out_f32)
+    o, lse = pad_route(_flash_forward_launch, q, k, v, causal,
+                       out_f32=out_f32)
+    if _cost.OPEN is not None:
+        _cost.OPEN.kernel(attention_flops("fwd", *q.shape), q, k, v, o, lse)
+    return o, lse
 
 
 def _flash_forward_launch(q, k, v, causal: bool, out_f32: bool,
@@ -392,8 +412,12 @@ def flash_bwd_dq(q, k, v, g, lse, dvec, causal: bool,
     _check_bwd("flash_bwd_dq", q, g, lse, dvec)
     if not q.is_cuda:
         return flash_bwd_dq_plain(q, k, v, g, lse, dvec, causal, grads_f32)
-    return pad_route(_flash_bwd_dq_launch, q, k, v, g, lse, dvec, causal,
-                     grads_f32=grads_f32)
+    dq = pad_route(_flash_bwd_dq_launch, q, k, v, g, lse, dvec, causal,
+                   grads_f32=grads_f32)
+    if _cost.OPEN is not None:
+        _cost.OPEN.kernel(attention_flops("dq", *q.shape), q, k, v, g, lse,
+                          dvec, dq)
+    return dq
 
 
 def _flash_bwd_dq_launch(q, k, v, g, lse, dvec, causal: bool,
@@ -428,8 +452,12 @@ def flash_bwd_dkv(q, k, v, g, lse, dvec, causal: bool,
     _check_bwd("flash_bwd_dkv", q, g, lse, dvec)
     if not q.is_cuda:
         return flash_bwd_dkv_plain(q, k, v, g, lse, dvec, causal, grads_f32)
-    return pad_route(_flash_bwd_dkv_launch, q, k, v, g, lse, dvec, causal,
-                     grads_f32=grads_f32)
+    dk, dv = pad_route(_flash_bwd_dkv_launch, q, k, v, g, lse, dvec, causal,
+                       grads_f32=grads_f32)
+    if _cost.OPEN is not None:
+        _cost.OPEN.kernel(attention_flops("dkv", *q.shape), q, k, v, g, lse,
+                          dvec, dk, dv)
+    return dk, dv
 
 
 def _flash_bwd_dkv_launch(q, k, v, g, lse, dvec, causal: bool,

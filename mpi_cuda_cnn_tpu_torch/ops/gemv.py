@@ -17,6 +17,8 @@ the kernel to the plain version on the card.
 holds, the split of din across blocks, the threads' k-lanes, copy widths,
 grid, shared memory, the splits' scratch and counters), computed on the
 host and handed to the C launch function, which refuses any other.
+While a step is counted (`obs/cost.py`), a launch adds its nominal work
+(`int8_gemv_flops`) to the open counter.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..obs import cost as _cost
 from . import _kernels
 from .kernel_ops import _counter_buffer
 
@@ -128,6 +131,12 @@ def int8_gemv_plain(x: torch.Tensor, w: QuantW) -> torch.Tensor:
     """Plain PyTorch version of the kernel: x (N, din) float32 @ the
     dequantized weight -> (N, dout) float32."""
     return x.to(torch.float32) @ dequantize_weight(w)
+
+
+def int8_gemv_flops(n: int, din: int, dout: int) -> int:
+    """K2's nominal work (`obs/cost.py`): 2 N din dout, as FlopCounterMode
+    counts `int8_gemv_plain` (the dequantizing multiply counts none)."""
+    return 2 * n * din * dout
 
 
 TILE_N = 32            # K2: output columns of a tile
@@ -248,6 +257,8 @@ def int8_gemv(x: torch.Tensor, w: QuantW) -> torch.Tensor:
         torch.cuda.current_stream(x.device).cuda_stream)
     _kernels.check("int8_gemm", err)
     _kernels.launches["int8_gemm"] += 1
+    if _cost.OPEN is not None:
+        _cost.OPEN.kernel(int8_gemv_flops(n, din, dout), x, w.q, w.s, y)
     return y
 
 

@@ -37,7 +37,8 @@ to the input's type first. Per `reference_cnn` training step that is K3
 Every wrapper takes its plain version for CPU tensors, and only for
 them. A CUDA tensor launches the kernel (one count in
 `_kernels.launches` per wrapper call that launched) or raises; there is
-no fallback.
+no fallback. While a step is counted (`obs/cost.py`), each launch adds
+its nominal work (`gemm_flops`, `conv_flops`) to the open counter.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..obs import cost as _cost
 from . import _kernels
 
 _K3_BN = 32           # K3: output columns of a tile
@@ -122,6 +124,12 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
     y = ((a.t() if trans_a else a).float()
          @ (b.t() if trans_b else b).float()).to(a.dtype)
     return y if bias is None else y + bias
+
+
+def gemm_flops(m: int, n: int, k: int) -> int:
+    """K3's nominal work (`obs/cost.py`): 2mnk, what FlopCounterMode
+    counts of `gemm_plain` (the bias add counts none)."""
+    return 2 * m * n * k
 
 
 class GemmPlan(NamedTuple):
@@ -239,6 +247,8 @@ def _gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool,
         int(plan.a_vec), int(plan.b_vec), dtype, _stream(a))
     _kernels.check("gemm", err)
     _kernels.launches["gemm"] += 1
+    if _cost.OPEN is not None:
+        _cost.OPEN.kernel(gemm_flops(m, n, k), a, b, bias, c)
     return c
 
 
@@ -316,6 +326,15 @@ def conv_direct_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                     kx:kx + stride * (ow - 1) + 1:stride]
             acc = acc + win.reshape(-1, c) @ w[ky, kx]
     return acc.reshape(n, oh, ow, o).to(dtype)
+
+
+def conv_flops(n: int, oh: int, ow: int, c: int, o: int, kh: int,
+               kw: int) -> int:
+    """The nominal work of K4, K5 and K6 (`obs/cost.py`): a product of
+    (n*oh*ow, c) by (c, o) per tap, every tap counted (padding, and the
+    dilation zeros of the input gradient, included), as FlopCounterMode
+    counts their plain versions."""
+    return 2 * n * oh * ow * c * o * kh * kw
 
 
 class ConvPlan(NamedTuple):
@@ -410,6 +429,8 @@ def _conv_direct_cuda(x: torch.Tensor, w: torch.Tensor, *, stride: int,
         plan.grid_m, plan.grid_n, dtype, _stream(x))
     _kernels.check("conv_direct", err)
     _kernels.launches["conv_direct"] += 1
+    if _cost.OPEN is not None:
+        _cost.OPEN.kernel(conv_flops(n, oh, ow, c, o, kh, kw), x, w, y)
     return y
 
 
@@ -616,6 +637,8 @@ def _conv_dw_cuda(x: torch.Tensor, g: torch.Tensor, *, stride: int,
         _stream(x))
     _kernels.check("conv_dw", err)
     _kernels.launches["conv_dw"] += 1
+    if _cost.OPEN is not None:
+        _cost.OPEN.kernel(conv_flops(n, oh, ow, c, o, kh, kw), x, g, dw)
     return dw
 
 
@@ -761,6 +784,8 @@ def _conv_gemm_cuda(x: torch.Tensor, w: torch.Tensor, *,
         _stream(x))
     _kernels.check("conv_gemm", err)
     _kernels.launches["conv_gemm"] += 1
+    if _cost.OPEN is not None:
+        _cost.OPEN.kernel(conv_flops(n, oh, ow, c, o, kh, kw), x, w, y)
     return y
 
 

@@ -17,7 +17,9 @@ Shapes: q (B, kk, H, hd); the layer's page dict c holds k/v
 (P, ps, Hkv, hd) in float32, bfloat16 or int8 (+ float32 scales ks/vs
 (P, ps, Hkv, 1) for int8); positions (B, kk) int32; block_table
 (B, npages) int32. Row j of slot b attends key positions <=
-positions[b, j]. Returns (B, kk, H*hd) float32.
+positions[b, j]. Returns (B, kk, H*hd) float32. While a step is
+counted (`obs/cost.py`), a launch adds its nominal work
+(`paged_attention_flops`) to the open counter.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.generate import attend_kv
+from ..obs import cost as _cost
 from . import _kernels
 from .kernel_ops import _counter_buffer
 
@@ -106,6 +109,14 @@ def paged_attention_plan(b: int, kk: int, h: int, hkv: int, hd: int, ps: int,
     return PagedPlan(warps, row_groups, splits, pps, copy_bytes,
                      tiles * splits, 32 * warps, smem,
                      scratch, tiles if splits > 1 else 0)
+
+
+def paged_attention_flops(b: int, kk: int, h: int, hd: int,
+                          keys: int) -> int:
+    """K1's nominal work (`obs/cost.py`): q k^T and p v over every key of
+    the block table's extent (`keys` = npages * page_size), masked or
+    not, as FlopCounterMode counts `paged_attend_plain`."""
+    return 2 * 2 * b * kk * h * keys * hd
 
 
 def paged_attend_plain(q: torch.Tensor, c: dict, positions: torch.Tensor,
@@ -190,4 +201,9 @@ def paged_attend(q: torch.Tensor, c: dict, positions: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     _kernels.check("paged_attention", err)
     _kernels.launches["paged_attention"] += 1
+    if _cost.OPEN is not None:
+        pages = b * npages * ps * hkv * (hd * k.element_size()
+                                         + (8 if code == 2 else 0))
+        _cost.OPEN.kernel(paged_attention_flops(b, kk, h, hd, npages * ps),
+                          q, block_table, positions, out, nbytes=2 * pages)
     return out

@@ -517,6 +517,7 @@ def serve_bench(argv: list[str] | None = None, *, params=None,
     from ..data import prng
     from ..faults import FaultInjector
     from ..models.transformer import TransformerLM
+    from ..obs.causal import CATEGORIES, BlameAccumulator
     from ..obs.metrics import MetricsRegistry
     from ..ops import _kernels
     from ..utils.logging import MetricsLogger
@@ -640,12 +641,20 @@ def serve_bench(argv: list[str] | None = None, *, params=None,
             # One registry per mode; tick records stream to the JSONL
             # (and the alert engine) as they happen.
             registry = MetricsRegistry()
-            tick_sink = None
+            base_sink = None
             if metrics.jsonl_enabled or alert_engine is not None:
-                def tick_sink(rec, _snap_every=64, _registry=registry):
+                def base_sink(rec, _snap_every=64, _registry=registry):
                     metrics.log("tick", **rec)
                     if (rec["tick"] + 1) % _snap_every == 0:
                         _registry.emit(metrics, mode=rec["mode"])
+            # Causal blame folds the live ticks, always, so every summary
+            # carries blame_crc and the per-category totals.
+            blame = BlameAccumulator()
+
+            def tick_sink(rec, _base=base_sink, _blame=blame):
+                _blame.ingest_tick(rec)
+                if _base is not None:
+                    _base(rec)
             before = dict(_kernels.launches)
             draft_before = proposer.forwards if proposer is not None else 0
             result = engine.run(
@@ -661,6 +670,14 @@ def serve_bench(argv: list[str] | None = None, *, params=None,
                 torch.cuda.synchronize(device)
             results[mode] = result
             s = result.summary()
+            # The blame stamp: the crc and per-category totals `compare`
+            # flattens as serve.<mode>.blame_*, and the `blame` record.
+            bf = blame.summary_fields(mode)
+            s["blame_crc"] = bf["crc"]
+            s["blame_quota_ticks"] = bf["quota_ticks"]
+            for cat in CATEGORIES:
+                s[f"blame_{cat}"] = bf["categories"][cat]
+            metrics.log("blame", **bf)
             summaries[mode] = s
             registry.set("serve.tokens_per_s", s["tokens_per_s"])
             registry.emit(metrics, mode=mode, final=True)
@@ -1018,6 +1035,7 @@ def fleet_bench(argv: list[str] | None = None, *, params=None) -> dict:
     import time
 
     from ..faults import FakeClock, FaultInjector
+    from ..obs.causal import CATEGORIES, BlameAccumulator
     from ..obs.metrics import MetricsRegistry
     from ..ops import _kernels
     from ..utils.logging import MetricsLogger
@@ -1130,23 +1148,36 @@ def fleet_bench(argv: list[str] | None = None, *, params=None) -> dict:
     with MetricsLogger(path=args.metrics_jsonl, echo=False) as metrics:
         if alert_engine is not None:
             alert_engine.attach(metrics)
-        fleet_sink = replica_tick_sink = None
+        base_fleet = base_replica = None
         if metrics.jsonl_enabled and args.log == "full":
-            def fleet_sink(rec):
+            def base_fleet(rec):
                 metrics.log("fleet", **rec)
 
-            def replica_tick_sink(rec):
+            def base_replica(rec):
                 metrics.log("tick", **rec)
         elif alert_engine is not None:
             # Summary mode keeps per-tick records out of the JSONL, but
             # the live rule engine still sees them.
-            def fleet_sink(rec):
+            def base_fleet(rec):
                 for a in alert_engine.ingest(rec, event="fleet"):
                     metrics.log("alert", **a)
 
-            def replica_tick_sink(rec):
+            def base_replica(rec):
                 for a in alert_engine.ingest(rec, event="tick"):
                     metrics.log("alert", **a)
+        # Causal blame folds the sinks live, always (also under --log
+        # summary, whose per-tick records never reach the JSONL).
+        blame = BlameAccumulator()
+
+        def fleet_sink(rec):
+            blame.ingest_fleet(rec)
+            if base_fleet is not None:
+                base_fleet(rec)
+
+        def replica_tick_sink(rec):
+            blame.ingest_tick(rec)
+            if base_replica is not None:
+                base_replica(rec)
         fleet = Fleet(
             compute_factory, replicas=args.replicas, slots=args.slots,
             num_pages=pages, page_size=args.page_size, max_len=max_len,
@@ -1171,6 +1202,12 @@ def fleet_bench(argv: list[str] | None = None, *, params=None) -> dict:
             torch.cuda.synchronize(device)
         wall_s = time.perf_counter() - t_wall
         s = result.summary()
+        bf = blame.summary_fields("fleet")
+        s["blame_crc"] = bf["crc"]
+        s["blame_quota_ticks"] = bf["quota_ticks"]
+        for cat in CATEGORIES:
+            s[f"blame_{cat}"] = bf["categories"][cat]
+        metrics.log("blame", **bf)
         s["wall_s"] = round(wall_s, 3)
         s["wall_tokens_per_s"] = round(
             result.output_tokens / max(wall_s, 1e-9), 1)

@@ -20,10 +20,11 @@ Timing: after 3 warm-up steps, wall time over `--steps` steps that ends
 in `torch.cuda.synchronize` (the loss is read once, at the end). Tokens
 and init come from seed 0, as in the reference.
 `mfu` uses the analytic model FLOPs (`lm_flops_per_token`) against the
-H100 SXM data sheet's dense peaks: 989 TFLOP/s for the bf16 rows (tensor
-cores) and 67 TFLOP/s for the float32 rows (TF32 is off, so float32
-products run outside the tensor cores); `--peak-tflops` overrides the
-bf16 peak (float32 scales with it). On the CPU `mfu` is null.
+H100 SXM data sheet's dense peaks (`obs/cost.py`'s table): 989 TFLOP/s
+for the bf16 rows (tensor cores) and 67 TFLOP/s for the float32 rows
+(TF32 is off, so float32 products run outside the tensor cores);
+`--peak-tflops` overrides the bf16 peak (float32 scales with it). On the
+CPU `mfu` is null.
 
     python -m mpi_cuda_cnn_tpu_torch lm-bench
     python -m mpi_cuda_cnn_tpu_torch lm-bench --device cpu --dim 32 \\
@@ -40,8 +41,6 @@ import time
 import numpy as np
 import torch
 
-H100_BF16_TFLOPS = 989.0   # dense bf16 tensor-core peak, H100 SXM
-H100_F32_TFLOPS = 67.0     # float32 outside the tensor cores, H100 SXM
 WARMUP = 3                 # untimed steps per config (the reference's)
 SEED = 0                   # init and token seed (the reference's)
 
@@ -138,6 +137,7 @@ def lm_bench(argv: list[str] | None = None) -> dict:
     from .._device import resolve_device
     from ..data import prng
     from ..models.transformer import TransformerLM
+    from ..obs.cost import peak_flops
     from ..ops import _kernels
     from .lm import count_params, lm_flops_per_token
 
@@ -156,9 +156,9 @@ def lm_bench(argv: list[str] | None = None) -> dict:
                           kv_heads=args.kv_heads, pos=args.pos,
                           moe_experts=args.moe_experts,
                           moe_top_k=args.moe_top_k)
-    bf16_peak = args.peak_tflops or H100_BF16_TFLOPS
-    peaks = {"bfloat16": bf16_peak,
-             "float32": bf16_peak * H100_F32_TFLOPS / H100_BF16_TFLOPS}
+    peaks = {dt: peak_flops(dt, backend="cuda",
+                            override_tflops=args.peak_tflops) / 1e12
+             for dt in ("bfloat16", "float32")}
     if args.quick:
         configs = [("bfloat16", "flash", args.ce_chunk)]
     elif args.ce_chunk:

@@ -25,7 +25,8 @@ tokens routed as one global batch (`parallel/moe.py`), with
 `moe_dispatch_chunk` and `moe_dispatch_dtype`; `sample` generates after
 training (`models/generate.py`), and the sampling flags are checked at
 construction, so that a typo fails before the run. With a JSONL sink
-the trainer writes the reference's records: "train" and a "metrics"
+the trainer writes the reference's records: "program" for its first
+step, counted as it runs (`obs/cost.py`), "train" and a "metrics"
 snapshot at every log step, then "step_phases", "memory", a final
 "metrics" and the eval's "span". With a seq axis (`--mesh-shape seq:P`
 or `data:N,seq:P`) the step is the sequence-parallel one of
@@ -59,6 +60,7 @@ import torch
 from .._device import resolve_device
 from ..faults import PreemptionGuard, RollbackToCheckpoint
 from ..models.transformer import TransformerLM
+from ..obs.cost import ProgramLog
 from ..obs.device import emit_step_telemetry
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import span
@@ -416,6 +418,7 @@ class LMTrainer:
         timer = StepTimer(clock=self._clock)
         timer.start()
         reg = self.registry
+        programs = ProgramLog(self.metrics, self.device, cfg.compute_dtype)
         last_t, last_step = t0, start_step
         try:
             step = start_step
@@ -425,7 +428,9 @@ class LMTrainer:
                     tokens = self._to_device(tokens)
                     targets = self._to_device(targets)
                 snap = rec.snapshot(self.state)
-                with timer.phase("dispatch"):
+                # the first step with a sink open runs counted and logs
+                # its `program` record (obs/cost.py)
+                with programs.dispatch("lm_train_step", timer):
                     self.state, m = self.train_step(self.state, tokens,
                                                     targets)
                 try:

@@ -70,9 +70,12 @@ Telemetry follows the JAX trainer: each epoch's timer splits its wall
 time into the data, dispatch, device and checkpoint phases; with a
 JSONL sink the trainer writes the "step_phases", "memory", "metrics"
 (the registry, shared across supervised attempts), "epoch", "eval",
-"span" and "train" records; `profile_dir` traces the epochs with
-`torch.profiler`. Without a sink nothing is written and no host sync
-is added.
+"span" and "train" records, and a "program" record of its first step
+("scan_epoch" on the device-resident route, "train_step" per batch),
+counted as it runs (`obs/cost.py`; that step is a chunk of its own on
+every rank, and its time is kept out of the phases); `profile_dir`
+traces the epochs with `torch.profiler`. Without a sink nothing is
+written and no host sync is added.
 """
 
 from __future__ import annotations
@@ -98,6 +101,7 @@ from ..models.layers import tree_leaves
 from ..ops.activations import stable_softmax
 from ..ops.gemv import tree_map
 from ..ops.losses import softmax_cross_entropy, squared_error_total
+from ..obs.cost import ProgramLog
 from ..obs.device import emit_step_telemetry
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import span
@@ -280,6 +284,9 @@ class Trainer:
         self._dev_labels = None
         self._classes = torch.arange(dataset.num_classes, device=self.device)
         self._warned: set[str] = set()
+        self.programs = ProgramLog(self.metrics, self.device,
+                                   config.compute_dtype,
+                                   configured=bool(config.metrics_jsonl))
         self.recovery = Recovery(config, mesh, self.optimizer,
                                  metrics=self.metrics, logger=self.log,
                                  faults=faults, preempt=preempt,
@@ -508,7 +515,7 @@ class Trainer:
         with self._timer.phase("data"):
             x, y = self._host_batch(rows, global_step)
         snap = self.recovery.snapshot(self.state)
-        with self._timer.phase("dispatch"):
+        with self.programs.dispatch("train_step", self._timer):
             m = self.train_step(x, y)
         if not self.recovery.check_step(self.state, m, global_step, snap):
             return False
@@ -554,8 +561,12 @@ class Trainer:
         ngood, done = 0, skip_steps
         while done < nsteps:
             if device_data:
-                end = self._chunk_end(base, done)
-                with timer.phase("dispatch"):
+                # the counted step is a chunk of its own on every rank
+                # (the steps are the same however the epoch is cut)
+                end = (done + 1 if self.programs.first("scan_epoch")
+                       else self._chunk_end(base, done))
+                with self.programs.dispatch("scan_epoch", timer,
+                                            counting="static-body"):
                     self.state = self._scan_epoch(
                         self.state, self._dev_images, self._dev_labels,
                         perm[done:end], sums)

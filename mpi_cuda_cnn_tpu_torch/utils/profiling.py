@@ -39,6 +39,7 @@ class StepTimer:
         self.excluded_s = 0.0
         self.phase_s: dict[str, float] = {}
         self._t0 = None
+        self._excluded_steps = 0
 
     def start(self) -> None:
         self._t0 = self._clock()
@@ -48,7 +49,8 @@ class StepTimer:
             raise RuntimeError("StepTimer.stop() before start()")
         dt = self._clock() - self._t0
         self._t0 = None
-        self.steps += n_steps
+        self.steps += n_steps - self._excluded_steps
+        self._excluded_steps = 0
         self.total_s += dt
         return dt
 
@@ -63,15 +65,17 @@ class StepTimer:
                                   + self._clock() - t0)
 
     @contextlib.contextmanager
-    def exclude(self):
+    def exclude(self, steps: int = 0):
         """Take the block's wall time out of the running interval (kept
-        in `excluded_s`)."""
+        in `excluded_s`), and the `steps` steps it runs out of the next
+        `stop`'s count, so the mean is over the steps timed."""
         t0 = self._clock()
         try:
             yield
         finally:
             dt = self._clock() - t0
             self.excluded_s += dt
+            self._excluded_steps += steps
             if self._t0 is not None:
                 self._t0 += dt
 

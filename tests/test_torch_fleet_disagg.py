@@ -140,7 +140,7 @@ def test_engine_disagg_int8_gqa_moves_scales_and_matches_jax():
 def test_fleet_bench_engine_cpu_matches_jax():
     """`fleet-bench --compute engine --device cpu` at a GQA int8 width with
     a disaggregated pool pair and a zombie crash: the port's lines equal
-    the JAX bench's (but the wall clock, blame and the port's device,
+    the JAX bench's (but the wall clock and the port's device,
     launch and forward counts); on the CPU no kernel launches, and the
     forwards summed over every incarnation cover the fleet's own
     counts."""
@@ -159,7 +159,7 @@ def test_fleet_bench_engine_cpu_matches_jax():
 
     def strip(x):
         return {k: v for k, v in x.items() if k not in extra
-                and not k.startswith(("blame_", "wall_"))}
+                and not k.startswith("wall_")}
 
     assert [strip(x) for x in lines] == [strip(x) for x in jlines]
     line = lines[0]

@@ -213,7 +213,7 @@ def _main(fn, argv):
 
 def _strip(line):
     return {k: v for k, v in line.items()
-            if not k.startswith(("blame_", "wall_"))}
+            if not k.startswith("wall_")}
 
 
 BASE = ("--requests 60 --rate 600 --prompt-max 40 --out-max 24 --seed 2 "
@@ -287,7 +287,7 @@ def test_fleet_bench_errors_match_jax(tmp_path, monkeypatch):
 
 def test_fleet_bench_metrics_jsonl_matches_jax(tmp_path):
     """--metrics-jsonl at --log full: the same record stream (every
-    event, field and value but the wall clock and blame)."""
+    event, field and value but the wall clock)."""
     from mpi_cuda_cnn_tpu_torch.obs.schema import load_records, validate_record
 
     argv = shlex.split(BASE + " " + BENCH_CASES["pools"])
@@ -297,28 +297,23 @@ def test_fleet_bench_metrics_jsonl_matches_jax(tmp_path):
         assert _main(fn, argv + ["--metrics-jsonl", str(paths[side])])[0] == 0
 
     def events(path):
-        out = []
-        for r in load_records(path, strict=True):
-            if r["event"] == "blame":
-                continue
-            out.append({k: v for k, v in r.items()
-                        if k not in ("t", "wall_s", "wall_tokens_per_s")
-                        and not k.startswith("blame_")})
-        return out
+        return [{k: v for k, v in r.items()
+                 if k not in ("t", "wall_s", "wall_tokens_per_s")}
+                for r in load_records(path, strict=True)]
 
     ours = events(paths["torch"])
     for r in load_records(paths["torch"], strict=True):
         validate_record(r)
     assert ours == events(paths["jax"])
     assert {"fleet", "tick", "handoff", "request", "serve", "fault",
-            "metrics"} <= {r["event"] for r in ours}
+            "metrics", "blame"} <= {r["event"] for r in ours}
 
 
 @pytest.mark.slow
 def test_ci_fleet_gate_storm_matches_jax():
     """The 10^5-request storm of ci/fleet_gate.json through both packages'
     fleet-bench: equal trace_crc (and every other summary key but the
-    wall clock and blame)."""
+    wall clock)."""
     doc = json.loads((REPO / "ci" / "fleet_gate.json").read_text())["_doc"]
     cmd = " ".join(line.strip().rstrip("\\") for line in doc[1:4])
     argv = shlex.split(cmd.split("fleet-bench", 1)[1])

@@ -5,11 +5,12 @@ JAX package on the CPU (the twin of tests/test_obs.py).
 
 The port's run files are read by the JAX package's own reader
 (`obs.schema.load_records`, every record validated) and report
-(`obs.report.summarize`). For the same run the event sequence is the JAX
-trainers', except the `program` records, which the JAX package draws
-from XLA's cost analysis (`obs/cost.py`) and the port does not write
-(ROADMAP A9). Step, epoch and eval counts are equal; losses agree within
-LOSS_RTOL (tests/test_torch_train.py's bound); times are not compared.
+(`obs.report.summarize`), and by the port's own report, which gives the
+same summary. For the same run the event sequence is the JAX trainers',
+the `program` records included (the port counts its step as it runs,
+`obs/cost.py`; the JAX package reads XLA's cost analysis). Step, epoch
+and eval counts are equal; losses agree within LOSS_RTOL
+(tests/test_torch_train.py's bound); times are not compared.
 """
 
 import json
@@ -45,6 +46,7 @@ from mpi_cuda_cnn_tpu_torch.obs.metrics import (
     MetricsRegistry,
     log_bucket_bounds,
 )
+from mpi_cuda_cnn_tpu_torch.obs.report import summarize
 from mpi_cuda_cnn_tpu_torch.obs.trace import current_path, span
 from mpi_cuda_cnn_tpu_torch.train.lm_trainer import LMTrainer
 from mpi_cuda_cnn_tpu_torch.train.trainer import Trainer
@@ -58,7 +60,15 @@ N_TRAIN, N_TEST, BATCH = 256, 64, 32
 
 
 def _events(recs) -> list[str]:
-    return [r["event"] for r in recs if r["event"] != "program"]
+    return [r["event"] for r in recs]
+
+
+def _same_summary(recs) -> dict:
+    """The port's report summary of `recs`, checked equal to the JAX
+    report's."""
+    ours = summarize(recs)
+    assert ours == jax_summarize(recs)
+    return ours
 
 
 def test_schema_tables_are_the_references():
@@ -202,13 +212,14 @@ def test_cnn_file_is_the_jax_trainers(jax_cnn_file, tmp_path, scan):
                 synthetic_stripes(N_TRAIN, N_TEST), cfg, metrics=m,
                 params=params_from_jax(init)).train()
     got = jax_load_records(path, strict=True)
+    assert schema.load_records(path, strict=True) == got
     assert _events(got) == _events(want)
-    summary = jax_summarize(got)
+    summary = _same_summary(got)
     assert summary["events"]["epoch"] == 2 and summary["train"]["records"] \
         == summary["events"]["train"]
-    for g, w in zip([r for r in got if r["event"] != "program"],
-                    [r for r in want if r["event"] != "program"]):
-        for key in ("step", "epoch", "ntests", "ncorrect", "steps", "name"):
+    for g, w in zip(got, want):
+        for key in ("step", "epoch", "ntests", "ncorrect", "steps", "name",
+                    "steps_per_dispatch"):
             if key in w:
                 assert g[key] == w[key], (g, w)
         if g["event"] == "train":
@@ -216,6 +227,10 @@ def test_cnn_file_is_the_jax_trainers(jax_cnn_file, tmp_path, scan):
         assert set(w) <= set(g) | {"t"}
     mem = [r for r in got if r["event"] == "memory"]
     assert mem and all(e["stats"] is None for r in mem for e in r["devices"])
+    (prog,) = [r for r in got if r["event"] == "program"]
+    assert (prog["label"], prog["counting"]) == (
+        ("scan_epoch", "static-body") if scan else ("train_step", "program"))
+    assert prog["backend"] == "cpu" and summary["programs"][0]["mfu"] is None
     last = [r for r in got if r["event"] == "metrics"][-1]
     assert last["counters"]["train.steps"] == 2 * N_TRAIN // BATCH
 
@@ -235,13 +250,17 @@ def test_lm_file_is_the_jax_trainers(tmp_path):
                   params=params_from_jax(init)).train()
     want, got = jax_load_records(jpath), jax_load_records(path, strict=True)
     assert _events(got) == _events(want) == [
-        "train", "metrics", "train", "metrics", "step_phases", "memory",
-        "metrics", "span"]
+        "program", "train", "metrics", "train", "metrics", "step_phases",
+        "memory", "metrics", "span"]
+    assert {k: got[0][k] for k in ("label", "counting", "steps_per_dispatch",
+                                   "compute_dtype")} == \
+        {k: want[0][k] for k in ("label", "counting", "steps_per_dispatch",
+                                 "compute_dtype")}
     for g, w in zip(*(filter(lambda r: r["event"] == "train", x)
                       for x in (got, want))):
         assert g["step"] == w["step"]
         np.testing.assert_allclose(g["loss"], w["loss"], rtol=LOSS_RTOL)
-    assert jax_summarize(got)["train"]["last_step"] == 4
+    assert _same_summary(got)["train"]["last_step"] == 4
     final = [r for r in got if r["event"] == "metrics"][-1]
     assert final["final"] is True and final["counters"]["train.steps"] == 4
 
@@ -255,6 +274,8 @@ def test_cli_world_2_has_one_writer(tmp_path):
     recs = jax_load_records(path, strict=True)
     assert [r["event"] for r in recs].count("epoch") == 1
     assert [r["event"] for r in recs].count("eval") == 1
+    (prog,) = [r for r in recs if r["event"] == "program"]
+    assert prog["collectives"] == {"all-reduce": 1}   # the step's one
 
 
 def test_cli_lm_sink_and_supervised_registry(tmp_path):

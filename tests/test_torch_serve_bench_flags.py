@@ -88,8 +88,7 @@ CPU = ["--device", "cpu", "--dim", "32", "--depth", "1", "--heads", "4",
        "--out-max", "12", "--page-size", "8", "--prefill-chunk", "8",
        "--slots", "3", "--seed", "2"]
 JAX_CPU = [("gather" if a == "cuda" else a) for a in CPU]
-# Keys only the port prints, and the reference's causal-blame stamps
-# (obs/causal.py is not ported).
+# Keys only the port prints.
 PORT_ONLY = {"device", "kernel_launches", "draft_forwards",
              "warmup_forwards"}
 # Summary values that do not depend on the wall clock at rate 0.
@@ -100,7 +99,8 @@ DETERMINISTIC = ("mode", "requests", "statuses", "output_tokens",
                  "prefix_evictions", "tier_spills", "tier_readmits",
                  "tier_refusals", "tier_host_evictions", "spec_rounds",
                  "spec_proposed", "spec_accepted", "spec", "spec_k",
-                 "cache_dtype", "weights_dtype")
+                 "cache_dtype", "weights_dtype", "blame_crc",
+                 "blame_quota_ticks")
 
 
 def _lines(main, argv, capsys):
@@ -120,8 +120,7 @@ def test_serve_bench_new_flags_print_the_reference_summary(tmp_path, capsys):
                  CPU + flags, capsys)
     assert len(got) == len(want) == 3      # static, continuous, comparison
     for g, w in zip(got[:2], want[:2]):
-        assert set(g) - PORT_ONLY == {k for k in w
-                                      if not k.startswith("blame_")}
+        assert set(g) - PORT_ONLY == set(w)
         for key in DETERMINISTIC:
             assert g[key] == w[key], key
         assert {t: b["statuses"] for t, b in g["tenants"].items()} == \
@@ -153,8 +152,7 @@ def test_serve_bench_slo_sessions_trace_and_jsonl(tmp_path, capsys):
     got = _lines(bench.serve_bench_main, CPU + flags, capsys)
     want = _lines(jax_bench.serve_bench_main, JAX_CPU + flags[:-2], capsys)
     assert [line.get("mode") for line in got] == ["continuous", None]
-    assert set(got[0]) - PORT_ONLY == {k for k in want[0]
-                                       if not k.startswith("blame_")}
+    assert set(got[0]) - PORT_ONLY == set(want[0])
     assert got[0]["requests"] == want[0]["requests"] > 8
     assert got[0]["draft_forwards"] > 0
     assert got[1]["metric"] == "serve_alerts_fired" and got[1]["value"] > 0
