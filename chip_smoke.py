@@ -181,7 +181,7 @@ final line:
             and torch.profiler's
             split of one MoE layer into router build, dispatch einsum,
             expert FFN, combine and backward.
-8c. generate  the lm and lm_moe trainers sample 128 tokens greedily
+8c. generate  the lm and lm_moe trainers sample 64 tokens greedily
             after a 1,024-token prompt with int8 decode weights: K2 held
             to 33 (dense) and 17 (MoE) launches a token; the tokens held
             to the plain path's (dequantized weights), equal or tied;
@@ -193,11 +193,11 @@ final line:
             generate's products (N 1 and 8) and K1 at the engine's MHA
             pages (marked `generate`).
 9. lm_bench `lm-bench` at the flagship (vocab 8192): {f32, bf16} x
-            {oracle, flash} and bf16 + flash + chunked CE, 10 timed
+            {oracle, flash} and bf16 + flash + chunked CE, 4 timed
             steps each; tokens/s and mfu per row, then the summary.
 10. lm_profile  torch.profiler over flagship f32 and bf16 flash steps:
             device busy ms per step, idle share, the flash kernels' ms.
-11. lm_agree  10 float32 steps from one init with attention on the
+11. lm_agree  5 float32 steps from one init with attention on the
             kernels and on the oracle (TF32 off); the first step's
             gradients (per leaf), per-step losses and params within
             stated tolerances; then the first step's gradients in bf16
@@ -266,12 +266,30 @@ final line:
             `compare` of the card's serve run against the CPU's under a
             gate of the schedule metrics and blame_crc at 0%, `equal`,
             finds every one ok. OBS_TOOLS_BUDGET_S at most.
+15. tools_search  the last tools and the trainers' string driver, each
+            path's launches zeroed just before it and read just after:
+            (a) `runtime_abi` from the reference's config JSON ("tpu",
+            "use_pallas"): reference_cnn on ABI_TRAIN IDX stripes, one
+            epoch, evaluate, save, a fresh init, load, evaluate again
+            (the params restored bit for bit, the evals equal, K3/K4/K5
+            the epoch's steps x 9/3/2 and 3/2/0 an eval batch); (b) its
+            LM at the flagship, ABI_LM_STEPS flash steps and the eval
+            (K7/K8/K9 8/8/8 a step, 8/0/0 the eval); (c) `autosize`
+            twice, `compare` under ci/autosize_gate.json, and its
+            frontier through `fleet-bench --compute engine --autoscale
+            on --autoscale-frontier` at FLEET_ARGS (every request ends
+            with exactly its budget, K1/K2 depth and 5 depth + 1 a
+            forward); (d) `chaos` twice at 8 episodes (no violation,
+            `compare` under ci/chaos_gate.json) and the planted
+            fence-revoke bug found and shrunk; (e) `lint` of the port,
+            exit 0 with no finding. TOOLS_SEARCH_BUDGET_S at most.
 
 Then `nvidia-smi`'s name and power limit, the kernels line
 ({"kernels": [...]}, each source's C launch function and `__global__`
-kernels; launches of K1/K2 from the serve and generate phases, of
-K3/K4/K5 from the train phase, of K6 from conv_bench and of K7/K8/K9
-from the lm, lm_head_dims, lm_moe, lm_sp and lm_mesh phases; K7/K8/K9
+kernels; launches of K1/K2 from the serve, generate, serve_features,
+fleet and tools_search phases, of K3/K4/K5 from the train, cnn_mesh and
+tools_search phases, of K6 from conv_bench and of K7/K8/K9 from the lm,
+lm_head_dims, lm_moe, lm_sp, lm_mesh and tools_search phases; K7/K8/K9
 also with their times at the flagship's geometry at each timed head dim
 and the head dims held) and,
 last, the device line {"ok": true, "device": {...}}. Without a CUDA
@@ -300,11 +318,12 @@ HERE = Path(__file__).resolve().parent
 # computes in (and the bound of float32 work).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
-# median_ms's spin before each timed call: 5e6 cycles, about 2.5 ms at
+# median_ms's spin before each timed call: 2.5e6 cycles, about 1.25 ms at
 # the H100's 1.98 GHz, above any timed call's host enqueue (the plain
 # versions' few PyTorch ops take well under 1 ms); each timed call pays
-# it in the script's wall time.
-SPIN_CYCLES = 5_000_000
+# it in the script's wall time (5e6 before, halved for the script's time
+# limit).
+SPIN_CYCLES = 2_500_000
 
 SERVE_ARGS = [
     "--dim", "512", "--depth", "8", "--heads", "8", "--kv-heads", "2",
@@ -328,8 +347,9 @@ ATTN_ATOL = {"float32": 1e-4, "bfloat16": 1e-2, "int8": 1e-4}
 GEMM_RTOL_OF_MAX = 1e-4
 
 HEADS, KV_HEADS, HEAD_DIM, PAGE, TABLE_PAGES = 8, 2, 64, 16, 80
-# serve_profile: decode ticks profiled, after warm-up ones.
-SERVE_PROFILE_TICKS = 20
+# serve_profile: decode ticks profiled, after warm-up ones (20 before,
+# cut for the script's time limit).
+SERVE_PROFILE_TICKS = 10
 # serve_features: the serve phase's flagship and requests' ranges, fewer
 # requests (for the phase's 120 s), template traffic (--prefix-mix 0.9
 # --templates 4), one seed for every run (1: its 12 requests share
@@ -557,11 +577,11 @@ AGREE_PARAM_ATOL = 5e-3
 # DP_EPOCH_TRAIN samples on the device-resident route and the eval of
 # the 10,000, held as the train phase is (cut from 60,000 samples in PR
 # 20 for the script's time limit: every check kept; train_flags' epochs
-# reach 10,000/10,000 at 400 steps too). With
+# reach 10,000/10,000 at 200 steps too). With
 # two cards or more, also world min(4, cards) over NCCL, one rank a card,
 # under the same checks. A rank's failure fails the phase.
 DP_WORLD = 2
-DP_EPOCH_TRAIN = 12_800
+DP_EPOCH_TRAIN = 6_400    # 12,800 before, cut for the time limit
 DP_MAX_NCCL_WORLD = 4
 DP_GRAD_REL_L2 = 1e-5
 DP_RANKS_TIMEOUT_S = 600
@@ -629,7 +649,8 @@ CNN_MESH_NOTE = ("correctness run: the ranks share one card and gloo stages "
 # since every kernel case but the timed ones is a correctness case and
 # the script must fit its time limit on a slow host.
 MESH_CASE_REPS = 5
-HEAD_DIM_CASE_REPS = 10   # the head-dim cases (FLASH_HEAD_DIM_SHAPES)
+HEAD_DIM_CASE_REPS = 5    # the head-dim cases (FLASH_HEAD_DIM_SHAPES;
+                          # 10 before, cut for the time limit)
 
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet): the bound of
 # every kernel on bf16 inputs, whatever units the kernel itself uses.
@@ -733,11 +754,12 @@ LM_STEPS = 30
 LM_PER_STEP = {"flash_fwd": 8, "flash_bwd_dq": 8, "flash_bwd_dkv": 8}
 LM_PER_EVAL = {"flash_fwd": 8, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 LM_LOSS_DROP = 0.7      # final loss below 0.7 x the first step's
-# lm-bench at the flagship (vocab 8192): the full matrix, 10 timed steps
-# after 3 warm-up steps each.
-LM_BENCH_ARGS = ["--steps", "10"]
-LM_BENCH_STEPS = 13
-# lm_agree: 10 float32 steps of the lm phase's configuration from one
+# lm-bench at the flagship (vocab 8192): the full matrix, 4 timed steps
+# after 3 warm-up steps each (10 before, cut for the time limit).
+LM_BENCH_ARGS = ["--steps", "4"]
+LM_BENCH_STEPS = 7
+# lm_agree: 5 float32 steps (10 before, cut for the time limit) of the
+# lm phase's configuration from one
 # init, attention on the kernels and on the oracle (TF32 off). The two
 # attentions differ by float32 summation order (about 1e-6 relative), so
 # the per-step losses of 16,384 tokens agree far inside 1e-4. Params:
@@ -750,7 +772,7 @@ LM_BENCH_STEPS = 13
 # constant, so the first step's gradients of the two attentions are
 # also compared, leaf by leaf: float32 summation order moves them by
 # about 1e-6 relative (L2), a wrong dq, dk or dv by far more than 1e-4.
-LM_AGREE_ARGS = LM_MODEL_ARGS + ["--steps", "10", "--warmup-steps", "2",
+LM_AGREE_ARGS = LM_MODEL_ARGS + ["--steps", "5", "--warmup-steps", "2",
                                  "--log-every", "1"]
 LM_AGREE_LOSS_ATOL = 1e-4
 LM_AGREE_APART_SHARE = 1e-3
@@ -881,10 +903,11 @@ LM_MESH_NOTE = ("correctness run: the ranks share one card and gloo stages "
 # for bit the uninterrupted world-2 run, rank 0 the only writer.
 # train_flags: the CNN trainer's remaining flags on the card, at the
 # train phase's configuration (reference_cnn, batch 32, lr 0.1,
-# synthetic stripes 12,800 / 10,000, the kernels, the device-resident
+# synthetic stripes 6,400 / 10,000, the kernels, the device-resident
 # epoch; the 60,000 of PRs 14-18 cut in PR 19 to keep the whole script
-# inside its limit: 400 steps reach the test accuracy a whole epoch
-# does, and the step times are taken apart), and the LM's share at the lm phase's flagship (float32, flash,
+# inside its limit, and 12,800 cut again to 6,400 for it: 200 steps
+# reach the test accuracy a whole epoch does, and the step times are
+# taken apart), and the LM's share at the lm phase's flagship (float32, flash,
 # vocab 251). (a) --grad-accum 4: K3/K4/K5 36/12/8 a step (four
 # micro-batches of 8), one epoch at >= FLAGS_MIN_CORRECT / 10,000, the
 # first step's gradients within ACCUM_GRAD_REL_L2 per leaf of the
@@ -920,7 +943,7 @@ FLAGS_LM_ACCUM = 2
 FLAGS_LM_ELASTIC = 4
 FLAGS_LM_STEPS = 3
 FLAGS_TIME_STEPS = 50
-FLAGS_TRAIN, FLAGS_TESTS = 12_800, 10_000
+FLAGS_TRAIN, FLAGS_TESTS = 6_400, 10_000    # 12,800 before: time limit
 FLAGS_MIN_CORRECT = 9_900
 ACCUM_GRAD_REL_L2 = 1e-5
 BF16_PARAMS_GRAD_REL_L2 = 1e-2
@@ -934,7 +957,7 @@ RECOVER_CKPT_CRASH = 40   # the dp part's crash in rank 0's save of ckpt_40
 RECOVER_PREEMPT = 17
 RECOVER_NAN = 7
 RECOVER_TEST = 2048
-RECOVER_TIMING_REPS = 5
+RECOVER_TIMING_REPS = 3   # 5 before, cut for the time limit
 LM_RECOVER_STEPS = 10
 LM_RECOVER_EVERY = 4
 LM_RECOVER_CRASH = 6
@@ -1004,12 +1027,12 @@ MOE_CODE_EDGE_TOL = 1e-2
 MOE_CODE_EDGE_MAX_SHARE = 1e-4
 # (d)'s lm-bench rows at 2 of the flagship's 8 layers (for
 # chip_smoke.py's time limit, cut from 4; each row draws its own
-# seeded init).
-LM_MOE_BENCH_ARGS = ["--steps", "10", "--moe-experts", "8",
+# seeded init), 4 timed steps (10 before, cut for the time limit).
+LM_MOE_BENCH_ARGS = ["--steps", "4", "--moe-experts", "8",
                      "--moe-top-k", "2", "--depth", "2"]
 MOE_SPLIT_STAGES = ("ep.router_build", "ep.dispatch_einsum", "ep.expert_ffn",
                     "ep.combine_einsum")
-MOE_SPLIT_RUNS = 3
+MOE_SPLIT_RUNS = 2   # 3 before, cut for the time limit
 # generate: the lm phase's dense flagship and the lm_moe model (both
 # trained, vocab 251, max_seq 2048) sample GEN_TOKENS tokens greedily
 # from the eval tail (`LMTrainer.sample`: a 1,024-token prompt) with int8
@@ -1037,7 +1060,7 @@ MOE_SPLIT_RUNS = 3
 # codes, each near its edge (MOE_CODE_EDGE_*). ms a token are
 # timed on a second, warmed call of each path (the sample's first call
 # quantizes the weights).
-GEN_TOKENS = 128   # cut from 256 for the script's time limit
+GEN_TOKENS = 64   # cut from 256, then 128, for the script's time limit
 GEN_K2_PER_TOKEN = {"dense": 33, "moe": 17}
 GEN_LOOKUP_K = 8
 GEN_TEMPERATURE = 0.8
@@ -1059,6 +1082,21 @@ OBS_SERVE_ARGS = ["--requests", "12", "--seed", "0"]
 OBS_GATE_KEYS = ("decode_ticks", "prefill_chunks", "preemptions",
                  "output_tokens", "requests", "status.finished",
                  "state_crc", "blame_crc")
+# tools_search (phase 15): runtime_abi's CNN on ABI_TRAIN stripes (one
+# epoch of batch CNN_BATCH) and ABI_TEST test samples (one eval batch of
+# EVAL_BATCH), its LM at the flagship for ABI_LM_STEPS flash steps; the
+# capacity search's sweep, whose frontier then drives an autoscaled
+# engine fleet at FLEET_ARGS; the fault search's episodes and its
+# planted-bug canary; the lint of the port. TOOLS_SEARCH_BUDGET_S at most.
+TOOLS_SEARCH_BUDGET_S = 45.0
+ABI_TRAIN = 3_200
+ABI_TEST = 2_048
+ABI_LM_STEPS = 3
+AUTOSIZE_ARGS = ["--budget", "2", "--requests", "60", "--rate", "200",
+                 "--seed", "0"]
+CHAOS_ARGS = ["--episodes", "8", "--seed", "7"]
+CHAOS_PLANT_ARGS = ["--episodes", "2", "--seed", "7", "--plant",
+                    "skip-revoke"]
 # Where the phases keep the run files obs_tools reads (set by main).
 KEEP: Path | None = None
 
@@ -1141,7 +1179,7 @@ def spill_stores(log: str) -> dict[str, int]:
 
 def median_ms(torch, fn, reps: int = 30) -> float:
     """Median device time of one call of `fn`, from a CUDA event pair
-    around each call. A spin kernel of about 2.5 ms (SPIN_CYCLES) is
+    around each call. A spin kernel of about 1.25 ms (SPIN_CYCLES) is
     queued before each pair, so the card is still busy while the host
     enqueues the call and host time (up to that long) never shows up as
     device time."""
@@ -4451,7 +4489,7 @@ def first_grads_rel_l2(torch, trainer, get_attn_fn, lm_loss,
 
 
 def phase_lm_agree(torch) -> dict:
-    """LM_AGREE_ARGS' 10 float32 steps from one init, attention on the
+    """LM_AGREE_ARGS' 5 float32 steps from one init, attention on the
     kernels and on the oracle; the first step's gradients, per-step
     losses and final params held to the stated tolerances. Then the
     first step's gradients in bf16 compute, per leaf, flash against the
@@ -5531,6 +5569,247 @@ def phase_obs_tools(torch, dev=None) -> dict:
             "nvidia_smi": nvidia_smi() if dev.type == "cuda" else "cpu"}
 
 
+def abi_cnn(torch, dev, tmp: Path) -> dict:
+    """(a) of tools_search: runtime_abi's CNN trainer from the reference's
+    config JSON (its device and backend names: "tpu", "use_pallas"), one
+    epoch, evaluate and save; a fresh init, load and evaluate again. The
+    restored params equal the trained ones bit for bit and the second
+    eval the first; K3/K4/K5 launch the epoch's steps x PER_STEP and each
+    eval's batches x PER_EVAL, and nothing else launches."""
+    from mpi_cuda_cnn_tpu_torch import runtime_abi
+    from mpi_cuda_cnn_tpu_torch.data.datasets import (
+        synthetic_stripes,
+        write_synthetic_idx,
+    )
+    from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+
+    paths = write_synthetic_idx(tmp / "idx", synthetic_stripes(
+        num_train=ABI_TRAIN, num_test=ABI_TEST))
+    cfg = json.dumps({
+        "dataset": "idx", **{k: str(v) for k, v in paths.items()},
+        "model": "reference_cnn", "epochs": 1, "lr": 0.1,
+        "batch_size": CNN_BATCH, "seed": 0, "use_pallas": True,
+        "device": "tpu" if dev.type == "cuda" else "jax-cpu",
+        "log_every": 1000000000})
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    init = json.loads(runtime_abi.init(cfg))
+    epoch = json.loads(runtime_abi.train_epoch())
+    first = json.loads(runtime_abi.evaluate())
+    saved = json.loads(runtime_abi.save(str(tmp / "abi_ckpt")))
+    trainer = runtime_abi._trainer()
+    trained = [t.detach().clone() for t in tree_leaves(trainer.params)]
+    eval_batches = math.ceil(ABI_TEST / trainer._eval_batch)
+    runtime_abi.init(cfg)                # a fresh trainer: the seeded init
+    restored = json.loads(runtime_abi.load(str(tmp / "abi_ckpt")))
+    trainer = runtime_abi._trainer()
+    same = all(torch.equal(a, b)
+               for a, b in zip(trained, tree_leaves(trainer.params)))
+    second = json.loads(runtime_abi.evaluate())
+    cuda_sync(torch, dev)
+    wall_s = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    steps = epoch["steps"]
+    want = {k: (PER_STEP.get(k, 0) * steps
+                + 2 * eval_batches * PER_EVAL.get(k, 0)
+                if dev.type == "cuda" else 0) for k in _kernels.KERNELS}
+    on_device = {t.device.type for t in tree_leaves(trainer.params)}
+    if (launches != want or steps != ABI_TRAIN // CNN_BATCH or not same
+            or first != second or init["n_params"] != 360_810
+            or on_device != {dev.type} or trainer.backend != "cuda"
+            or not math.isfinite(epoch["loss"])
+            or first["ncorrect"] < (1 - ACCURACY_MARGIN) * ABI_TEST):
+        raise AssertionError(
+            f"tools_search abi cnn: launches {launches} (want {want}), "
+            f"{steps} steps, params restored {same}, evals {first} / "
+            f"{second}, init {init}, params on {on_device}, epoch {epoch}")
+    del trained
+    return {"init": init, "epoch": epoch, "eval": first, "saved": saved,
+            "restored": restored, "eval_after_load": second,
+            "eval_batches": eval_batches, "launches": {
+                k: launches[k] for k in PER_STEP}, "wall_s": wall_s}
+
+
+def abi_lm(torch, dev) -> dict:
+    """(b) of tools_search: runtime_abi's LM at the flagship (LM_MODEL_ARGS
+    as the reference's LMConfig JSON, device "tpu"), ABI_LM_STEPS flash
+    steps and the eval: K7/K8/K9 launch LM_PER_STEP a step and
+    LM_PER_EVAL in the eval."""
+    import dataclasses
+
+    from mpi_cuda_cnn_tpu_torch import runtime_abi
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+    from mpi_cuda_cnn_tpu_torch.utils.config import parse_lm_args
+
+    cfg = dataclasses.asdict(parse_lm_args(LM_MODEL_ARGS + [
+        "--attn-impl", "flash", "--steps", str(ABI_LM_STEPS),
+        "--warmup-steps", "1", "--log-every", "0"]))
+    cfg["device"] = "tpu" if dev.type == "cuda" else "jax-cpu"
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    init = json.loads(runtime_abi.lm_init(json.dumps(cfg)))
+    trainer = runtime_abi._STATE["lm"]
+    res = json.loads(runtime_abi.lm_train())
+    cuda_sync(torch, dev)
+    wall_s = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    want = {k: (LM_PER_STEP.get(k, 0) * ABI_LM_STEPS + LM_PER_EVAL.get(k, 0)
+                if dev.type == "cuda" else 0) for k in _kernels.KERNELS}
+    if (launches != want or res["steps_run"] != ABI_LM_STEPS
+            or (dev.type == "cuda" and trainer.attn_impl != "flash")
+            or trainer.device.type != dev.type
+            or not all(math.isfinite(res[k])
+                       for k in ("final_loss", "eval_loss"))):
+        raise AssertionError(
+            f"tools_search abi lm: launches {launches} (want {want}), "
+            f"{trainer.attn_impl} on {trainer.device}, result {res}")
+    return {"init": init, "result": res, "wall_s": wall_s,
+            "launches": {k: launches[k] for k in FLASH_KERNELS}}
+
+
+def autosize_fleet(torch, tmp: Path) -> dict:
+    """(c) of tools_search: `autosize` twice (byte-equal stdout and
+    records, `compare` under ci/autosize_gate.json exits 0), then its
+    frontier record through `fleet-bench --compute engine --autoscale on
+    --autoscale-frontier` at FLEET_ARGS on one replica: the autoscaler
+    holds the frontier's per-chip rate, every request finishes with
+    exactly its budget of tokens, and K1/K2 launch depth and 5 depth + 1
+    times each forward of every engine incarnation."""
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+    from mpi_cuda_cnn_tpu_torch.serve.autoscale import load_frontier
+    from mpi_cuda_cnn_tpu_torch.serve.bench import SERVE_KERNELS, fleet_bench
+
+    runs = [tmp / "autosize_a.jsonl", tmp / "autosize_b.jsonl"]
+    outs = [obs_tool(["autosize", *AUTOSIZE_ARGS, "--metrics-jsonl",
+                      str(p)]) for p in runs]
+    gate, _ = obs_tool(["compare", *map(str, runs), "--gate",
+                        str(HERE / "ci" / "autosize_gate.json")])
+    if (outs[0] != outs[1] or outs[0][0] != 0 or gate != 0
+            or runs[0].read_bytes() != runs[1].read_bytes()):
+        raise AssertionError(f"tools_search autosize: exits "
+                             f"{[o[0] for o in outs]}, gate {gate}")
+    per_chip = load_frontier(runs[0])
+    recommendation = next(line for line in outs[0][1].splitlines()
+                          if line.startswith("recommendation: "))
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fleet_bench(FLEET_ARGS + ["--replicas", "1", "--autoscale", "on",
+                                    "--autoscale-frontier", str(runs[0])])
+    wall_s = time.perf_counter() - t0
+    launches = {k: _kernels.launches[k] for k in SERVE_KERNELS}
+    line, res, args = out["lines"][0], out["result"], out["args"]
+    model, engines = out["model"], [c.engine for c in out["computes"]]
+    if line["statuses"] != {"finished": args.requests}:
+        raise AssertionError(f"tools_search fleet: statuses "
+                             f"{line['statuses']}")
+    for r in res.requests:
+        if len(r.out) != r.max_new_tokens:
+            raise AssertionError(f"tools_search fleet: request {r.rid} "
+                                 f"holds {len(r.out)} tokens, budget "
+                                 f"{r.max_new_tokens}")
+    fw = line["forwards"]
+    forwards = fw["decode_ticks"] + fw["prefill_chunks"]
+    want = {"paged_attention": model.depth * forwards,
+            "int8_gemm": (5 * model.depth + 1) * forwards}
+    if engines[0].device.type != "cuda":
+        want = {k: 0 for k in want}
+    if (launches != want or line["kernel_launches"] != want
+            or out["fleet"].autoscaler.per_chip_rps != per_chip):
+        raise AssertionError(
+            f"tools_search fleet: launches {launches} (line "
+            f"{line['kernel_launches']}), want {want} ({forwards} forwards "
+            f"over {fw['replicas']} incarnations); autoscaler per chip "
+            f"{out['fleet'].autoscaler.per_chip_rps}, frontier {per_chip}")
+    return {"autosize": recommendation, "frontier_per_chip_rps": per_chip,
+            "fleet": {"wall_s": wall_s, "fleet_ticks": line["fleet_ticks"],
+                      "forwards": fw, "kernel_launches": launches,
+                      **{k: line[k] for k in (
+                          "replicas", "scale_ups", "scale_downs",
+                          "scale_crc", "joins", "output_tokens",
+                          "trace_crc", "state_crc")}},
+            "launches": launches}
+
+
+def chaos_search(tmp: Path) -> dict:
+    """(d) of tools_search: `chaos` twice (no violation, byte-equal
+    records, `compare` under ci/chaos_gate.json exits 0), then the
+    planted fence-revoke bug found (exit 1) and shrunk to at most two
+    faults."""
+    from mpi_cuda_cnn_tpu_torch.faults import parse_plan
+    from mpi_cuda_cnn_tpu_torch.obs.schema import load_records
+
+    runs = [tmp / "chaos_a.jsonl", tmp / "chaos_b.jsonl"]
+    outs = [obs_tool(["chaos", *CHAOS_ARGS, "--metrics-jsonl", str(p)])
+            for p in runs]
+    gate, _ = obs_tool(["compare", *map(str, runs), "--gate",
+                        str(HERE / "ci" / "chaos_gate.json")])
+    summary = load_records(runs[0])[-1]
+    if (outs[0] != outs[1] or outs[0][0] != 0 or gate != 0
+            or runs[0].read_bytes() != runs[1].read_bytes()
+            or summary["violations"] != 0):
+        raise AssertionError(f"tools_search chaos: exits "
+                             f"{[o[0] for o in outs]}, gate {gate}, "
+                             f"summary {summary}")
+    planted = tmp / "chaos_plant.jsonl"
+    rc, out = obs_tool(["chaos", *CHAOS_PLANT_ARGS, "--metrics-jsonl",
+                        str(planted)])
+    plant = load_records(planted)[-1]
+    if rc != 1 or not 1 <= len(parse_plan(plant["min_plan"])) <= 2:
+        raise AssertionError(f"tools_search chaos plant: exit {rc}, "
+                             f"summary {plant}")
+    return {"episodes": summary["episodes"],
+            "episodes_crc": summary["episodes_crc"],
+            "plant": {k: plant[k] for k in ("failed_episode", "min_plan",
+                                            "shrink_probes")},
+            "repro": next(line for line in out.splitlines()
+                          if line.startswith("repro: "))}
+
+
+def phase_tools_search(torch, dev=None) -> dict:
+    """tools_search (phase 15): runtime_abi's two trainers on the card
+    (`abi_cnn`, `abi_lm`), the capacity search and its frontier through
+    an autoscaled engine fleet (`autosize_fleet`), the fault search
+    (`chaos_search`), and `lint` of the port under its manifest and empty
+    baseline (exit 0, no finding). (`dev` the CPU: a rehearsal, with
+    FLEET_ARGS and LM_MODEL_ARGS small and --device cpu in FLEET_ARGS.)
+    Returns the phase's record and the launches per kernel of its
+    paths."""
+    from mpi_cuda_cnn_tpu_torch import runtime_abi
+
+    t_phase = time.perf_counter()
+    dev = dev or torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory(prefix="tools-") as name:
+        tmp = Path(name)
+        cnn = abi_cnn(torch, dev, tmp)
+        lm = abi_lm(torch, dev)
+        runtime_abi._STATE.clear()
+        empty_cache(torch, dev)
+        fleet = autosize_fleet(torch, tmp)
+        chaos = chaos_search(tmp)
+    rc, out = obs_tool(["lint", "--manifest",
+                        str(HERE / "ci" / "torch_lint_manifest.json"),
+                        "--baseline",
+                        str(HERE / "ci" / "torch_lint_baseline.json"),
+                        "--format", "json"])
+    lint = json.loads(out)
+    if rc != 0 or lint["findings"]:
+        raise AssertionError(f"tools_search lint: exit {rc}, findings "
+                             f"{lint['findings']}")
+    phase_s = time.perf_counter() - t_phase
+    if phase_s > TOOLS_SEARCH_BUDGET_S:
+        raise AssertionError(f"tools_search took {phase_s:.1f} s, over its "
+                             f"{TOOLS_SEARCH_BUDGET_S} s budget")
+    return {"record": {"abi_cnn": cnn, "abi_lm": lm,
+                       "autosize": {k: fleet[k] for k in (
+                           "autosize", "frontier_per_chip_rps", "fleet")},
+                       "chaos": chaos, "lint": {"exit": rc,
+                                                "rules": lint["rules"]},
+                       "phase_s": phase_s},
+            "launches": {**cnn["launches"], **lm["launches"],
+                         **fleet["launches"]}}
+
+
 def kernels_line(cases: list[dict], launches: dict) -> dict:
     """The per-kernel record: launches from each kernel's own paths (serve
     and generate for K1/K2, train for K3/K4/K5, conv_bench for K6, lm and
@@ -5743,15 +6022,19 @@ def main() -> int:
     emit({"phase": "train_flags", **phase_train_flags(torch)})
     emit({"phase": "obs_tools", **phase_obs_tools(torch)})
     kept.cleanup()
+    tools = phase_tools_search(torch)
+    emit({"phase": "tools_search", "device": kind, "nvidia_smi": smi,
+          **tools["record"]})
     launches = {**{k: serve_launches[k] + gen_launches[k]
                    + features["launches"][k] + fleet["launches"][k]
+                   + tools["launches"][k]
                    for k in ("paged_attention", "int8_gemm")},
                 **{k: train_launches[k] + cnn_mesh["launches"][k]
-                   for k in PER_STEP},
+                   + tools["launches"][k] for k in PER_STEP},
                 "conv_gemm": conv_launches["conv_gemm"],
                 **{k: lm_launches[k] + head_dim_launches[k] + moe_launches[k]
                    + lm_sp["launches"][k] + lm_mesh["launches"][k]
-                   for k in FLASH_KERNELS}}
+                   + tools["launches"][k] for k in FLASH_KERNELS}}
     line = kernels_line(cases, launches)
     print(smi, flush=True)
     emit(line)

@@ -36,6 +36,24 @@ reference's tools print:
     diverge       the first tick where two trails disagree
                   (obs/diverge.py)
 
+Three more tools need no card and print what the reference's print for
+the same flags:
+
+    autosize      the goodput frontier of candidate fleet topologies at
+                  a chip budget, over seeded SimCompute storms, and the
+                  recommended one (obs/autosize.py); its frontier record
+                  is what `fleet-bench --autoscale-frontier` reads
+    chaos         seeded fault-schedule search over the fleet storm under
+                  an invariant oracle, each violation shrunk to a one-line
+                  --fault-plan repro, exit 1 on a violation (chaos/)
+    lint          the static analyzer of the port's contracts, exit 1 on a
+                  finding (analysis/; its manifest is
+                  ci/torch_lint_manifest.json)
+
+`runtime_abi.py` drives both trainers from JSON strings, as the
+reference's C front end does; it is called from Python (the reference's
+native/ driver imports the JAX package by name).
+
 Every command runs on the card unless given --device cpu. `train` and
 `lm` take `--num-devices N` / `--mesh-shape data:N` (N = 0: every visible
 card, 1 on the CPU); `train` also the model and pipe axes and FSDP
@@ -71,18 +89,21 @@ import sys
 _USAGE = ("usage: python -m mpi_cuda_cnn_tpu_torch "
           "{train,train-bench,serve-bench,fleet-bench,lm,lm-bench,"
           "conv-bench,report,compare,explain,trace,health,top,replay,"
-          "diverge} [flags]")
+          "diverge,autosize,chaos,lint} [flags]")
 
-# the run-file tools: command -> (module under obs/, its main)
+# the tools that need no card: command -> (module, its main)
 _TOOLS = {
-    "report": ("report", "report_main"),
-    "compare": ("regress", "compare_main"),
-    "explain": ("causal", "explain_main"),
-    "trace": ("timeline", "trace_main"),
-    "health": ("health", "health_main"),
-    "top": ("top", "top_main"),
-    "replay": ("replay", "replay_main"),
-    "diverge": ("diverge", "diverge_main"),
+    "report": ("obs.report", "report_main"),
+    "compare": ("obs.regress", "compare_main"),
+    "explain": ("obs.causal", "explain_main"),
+    "trace": ("obs.timeline", "trace_main"),
+    "health": ("obs.health", "health_main"),
+    "top": ("obs.top", "top_main"),
+    "replay": ("obs.replay", "replay_main"),
+    "diverge": ("obs.diverge", "diverge_main"),
+    "autosize": ("obs.autosize", "autosize_main"),
+    "chaos": ("chaos.cli", "chaos_main"),
+    "lint": ("analysis.cli", "lint_main"),
 }
 
 
@@ -291,7 +312,7 @@ def main(argv: list[str] | None = None) -> int:
         import importlib
 
         module, fn = _TOOLS[argv[0]]
-        return getattr(importlib.import_module(f".obs.{module}", __package__),
+        return getattr(importlib.import_module(f".{module}", __package__),
                        fn)(argv[1:])
     print(_USAGE, file=sys.stderr)
     return 2

@@ -70,7 +70,6 @@ import time
 from collections.abc import Callable, Iterable
 
 import numpy as np
-import torch
 
 from .utils.retry import backoff_delay
 
@@ -548,17 +547,21 @@ class NanGuard:
             raise RollbackToCheckpoint
 
 
-@torch.no_grad()
 def all_finite(tensors: list[torch.Tensor]) -> torch.Tensor:
     """One device flag, 0.0 when every floating tensor of `tensors` is
     finite (integer tensors always are), else 1.0. One multi-tensor
     launch per device and dtype: PyTorch's AMP check, which scales every
     tensor in place by its `inv_scale`, here exactly 1 (a bitwise no-op:
     x * 1.0 == x for every finite x, -0.0 included)."""
+    # Imported here: only the trainers call this, and the module itself
+    # stays torch-free for the tools that read fault plans.
+    import torch  # mctpu: disable=MCT001
+
     floats = [t for t in tensors if t.is_floating_point()]
-    found = torch.zeros(1, device=floats[0].device)
-    torch._amp_foreach_non_finite_check_and_unscale_(
-        floats, found, torch.ones(1, device=found.device))
+    with torch.no_grad():
+        found = torch.zeros(1, device=floats[0].device)
+        torch._amp_foreach_non_finite_check_and_unscale_(
+            floats, found, torch.ones(1, device=found.device))
     return found
 
 
@@ -581,6 +584,8 @@ PASS_THROUGH = (KeyboardInterrupt, SystemExit, NonFiniteLossError)
 def supervise(attempt_fn: Callable[[int], object], *, max_restarts: int,
               logger=None, metrics=None, registry=None,
               backoff_base: float = 0.5,
+              # injectable U[0,1) default: tests pass a constant
+              # mctpu: disable=MCT004
               sleep=time.sleep, jitter=random.random,
               restartable: Callable[[BaseException], bool] | None = None
               ) -> object:

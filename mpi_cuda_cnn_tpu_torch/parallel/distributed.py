@@ -32,7 +32,6 @@ import datetime
 import os
 import pickle
 import tempfile
-import time
 import traceback
 from contextlib import contextmanager
 from multiprocessing.connection import wait
@@ -43,6 +42,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from .._device import local_card
+from ..utils.clock import monotonic
 from ..utils.logging import get_logger
 from .mesh import DATA_AXIS, local_device_count, make_mesh
 
@@ -238,10 +238,10 @@ def run_ranks(fn, world: int, *, devices: list | None = None,
 def _wait_all(procs, timeout: float | None) -> None:
     """Wait for every process to exit. When one exits non-zero, give the
     others a few seconds (their collectives fail) and stop waiting."""
-    deadline = None if timeout is None else time.monotonic() + timeout
+    deadline = None if timeout is None else monotonic() + timeout
     failed_at = None
     while any(p.is_alive() for p in procs):
-        now = time.monotonic()
+        now = monotonic()
         if deadline is not None and now > deadline:
             raise TimeoutError(f"ranks still running after {timeout} s")
         if failed_at is not None and now > failed_at + 10:
@@ -249,4 +249,4 @@ def _wait_all(procs, timeout: float | None) -> None:
         wait([p.sentinel for p in procs if p.is_alive()], timeout=1)
         if failed_at is None and any(p.exitcode not in (None, 0)
                                      for p in procs):
-            failed_at = time.monotonic()
+            failed_at = monotonic()

@@ -130,7 +130,8 @@ def load_frontier(path: str | Path) -> float:
     if per_chip is None or per_chip <= 0:
         raise ValueError(
             f"{path}: no goodput frontier record with best_per_chip_rps "
-            "> 0 — run `mctpu autosize --metrics-jsonl` to produce one")
+            "> 0 — run `python -m mpi_cuda_cnn_tpu_torch autosize "
+            "--metrics-jsonl` to produce one")
     return per_chip
 
 

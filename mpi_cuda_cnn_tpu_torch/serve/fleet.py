@@ -360,6 +360,7 @@ class ReplicaCore:
                 sched.note_prefill_complete(slot)
                 # Sanctioned sync (engine.run's rule): int() only on
                 # the completing chunk, where the token is emitted.
+                # mctpu: disable=MCT007
                 self._emit(slot.req, int(nxt), now)
                 prefill_rec.append("emit")
                 if slot.req.done:

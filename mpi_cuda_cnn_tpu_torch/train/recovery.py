@@ -109,11 +109,17 @@ class Recovery:
         validate_resume_meta(path, mesh=self.mesh,
                              elastic_width=self.cfg.elastic_width,
                              metrics=self.metrics, logger=self.log)
-        if self.codec is not None:
-            self.codec[1](state, restored)
-        else:
-            load_checkpoint_arrays(state, restored, self.optimizer)
+        self.install(state, restored)
         return path
+
+    def install(self, state: dict, arrays: dict) -> None:
+        """Copy checkpoint arrays (the reference's, `arrays`' inverse)
+        into the live state in place: each tensor keeps its device and,
+        on a sharded path, each rank takes its blocks."""
+        if self.codec is not None:
+            self.codec[1](state, arrays)
+        else:
+            load_checkpoint_arrays(state, arrays, self.optimizer)
 
     def resume(self, state: dict) -> bool:
         """With cfg.resume, restore the latest checkpoint (protected from

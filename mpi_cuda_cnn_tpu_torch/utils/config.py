@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import sys
 
 import torch
@@ -42,8 +43,56 @@ import torch
 from ..faults import fault_plan_arg
 
 
+# The reference's --device names -> the port's: its accelerator is the
+# card here, and the C driver's "jax-cpu" pins the CPU.
+_REFERENCE_DEVICES = {"tpu": "cuda", "jax-cpu": "cpu"}
+
+
+def port_device(name: str) -> str:
+    """A device name of either package's configs as the port's: "tpu" ->
+    "cuda", "jax-cpu" -> "cpu"; "auto", "cuda", "cuda:N" and "cpu" as
+    they are. ValueError on anything else (no name falls back to the
+    CPU; a card that is not there raises when the trainer resolves
+    it)."""
+    name = _REFERENCE_DEVICES.get(name, name)
+    if name in ("auto", "cuda", "cpu") or (
+            name.startswith("cuda:") and name[5:].isdigit()):
+        return name
+    raise ValueError(f"unknown device {name!r} (want auto|cuda|cpu, or "
+                     "the reference's tpu|jax-cpu)")
+
+
+class _JsonConfig:
+    """The JSON round trip of both config families, the wire format of
+    the reference's C ABI (native/tpu_abi.h): `from_json` reads the JSON
+    the reference's `from_json` reads. Its field names that the port
+    spells differently are renamed (`_RENAMED`), the ones that have no
+    meaning here are accepted and dropped (`_INERT`), and its device
+    names are mapped (`port_device`)."""
+
+    _RENAMED: dict = {}
+    _INERT: tuple = ()
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, text: str):
+        raw = json.loads(text)
+        for old, new in cls._RENAMED.items():
+            if old in raw:
+                if new in raw:
+                    raise ValueError(f"config names both {old!r} and {new!r}")
+                raw[new] = raw.pop(old)
+        for key in cls._INERT:
+            raw.pop(key, None)
+        if "device" in raw:
+            raw["device"] = port_device(raw["device"])
+        return cls(**raw)
+
+
 @dataclasses.dataclass
-class Config:
+class Config(_JsonConfig):
     # Data: either a registered dataset name, or the reference's 4 IDX paths.
     dataset: str = "synthetic"
     data_dir: str | None = None
@@ -109,6 +158,11 @@ class Config:
     profile_dir: str | None = None  # a torch.profiler trace of train()
     metrics_jsonl: str | None = None  # schema-stamped JSONL records
     eval_every: int = 1           # epochs
+
+    # The reference's `use_pallas` is `use_kernels` here; its `donate`
+    # (XLA buffer donation) has no meaning: the update is in place.
+    _RENAMED = {"use_pallas": "use_kernels"}
+    _INERT = ("donate",)
 
 
 # --compute-dtype of both trainers -> the dtype the forward casts to
@@ -283,7 +337,7 @@ def check_supported(cfg: Config) -> dict[str, int]:
 
 
 @dataclasses.dataclass
-class LMConfig:
+class LMConfig(_JsonConfig):
     """Config of the `lm` command (train/lm_trainer.py): the reference's
     `LMConfig` fields, names and defaults."""
 

@@ -12,7 +12,10 @@ from __future__ import annotations
 import random
 
 
-def backoff_delay(attempt: int, base: float, jitter=random.random) -> float:
+def backoff_delay(attempt: int, base: float,
+                  # injectable U[0,1) default: tests pass a constant
+                  # mctpu: disable=MCT004
+                  jitter=random.random) -> float:
     """Delay in seconds before retry number `attempt` (0-based: the delay
     after the first failure is attempt 0). `jitter` returns U[0,1); tests
     pass a constant."""

@@ -326,8 +326,12 @@ def test_load_frontier_matches_jax(tmp_path):
     bad.write_text(json.dumps({"event": "goodput", "kind": "frontier",
                                "best_per_chip_rps": 0}) + "\n")
     for p in (good, bad):
-        assert (_outcome(autoscale.load_frontier, p)
-                == _outcome(jax_autoscale.load_frontier, p))
+        ok, got = _outcome(autoscale.load_frontier, p)
+        if not ok:      # the port's message names its own autosize command
+            got = (got[0], got[1].replace(
+                "`python -m mpi_cuda_cnn_tpu_torch autosize ",
+                "`mctpu autosize "))
+        assert (ok, got) == _outcome(jax_autoscale.load_frontier, p)
 
 
 # ------------------------------------------------------------ workloads

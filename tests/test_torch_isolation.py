@@ -43,6 +43,29 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert n_modules >= 20, out.stdout
 
 
+# The three tools that need no card, run as a port user runs them, with
+# neither jax nor the JAX package importable.
+_TOOLS_PROBE = """
+import sys
+sys.modules["jax"] = None
+sys.modules["mpi_cuda_cnn_tpu"] = None
+from mpi_cuda_cnn_tpu_torch.cli import main
+codes = [main(["autosize", "--budget", "2", "--requests", "8"]),
+         main(["chaos", "--episodes", "1", "--seed", "3"]),
+         main(["lint"])]
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m == "mpi_cuda_cnn_tpu" or m.startswith("mpi_cuda_cnn_tpu.")))
+print(codes, leaked)
+assert codes == [0, 0, 0] and not leaked, (codes, leaked)
+"""
+
+
+def test_autosize_chaos_lint_run_without_jax():
+    out = subprocess.run([sys.executable, "-c", _TOOLS_PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 @pytest.fixture
 def no_gpu(monkeypatch):
     """A machine without a card, whatever this one has."""
