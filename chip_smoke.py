@@ -62,9 +62,19 @@ final line:
             and non-causal at D 64; at the head dims beyond (D 24 and
             48, which the wrapper pads to 32 and 64, and the instances
             80, 96 and 256; B 2, S 256, 8 heads MHA and over 2 kv heads,
-            causal and not, both types, marked `head_dims`), and at the
-            flagship's geometry at D 80 and 96 (30 calls, with
-            SDPA's times). float32 K7, K8 and K9 (3xTF32)
+            causal and not, both types, marked `head_dims`), and at
+            the flagship's geometry at D 80 and 96 (30 calls, with
+            SDPA's times), and beyond the largest instance on the wide
+            kernels at D 320 and 512 (B 2, S 256, 8 over 2 heads,
+            causal, both types, 30 calls with SDPA's times; marked
+            `head_dims` and `wide`; non-causal too, and bf16 with
+            float32 outputs at D 320 causal and not, the ring-flash
+            hop's mode, marked `head_dims`). K1 also at head dims 6, 7,
+            10, 20, 320, 321 and 512 in all three page types (decode;
+            D 7 and 320 also the prefill chunk; marked `head_dims`),
+            and K2 at
+            spec-bench's draft and verify products (marked `generate`
+            and `spec`). float32 K7, K8 and K9 (3xTF32)
             are held to a relative L2 error too, and run twice at the
             flagship and GQA shapes and are held equal bit for bit.
             One rank's shapes of the dp phases at world 2, float32: K3
@@ -164,7 +174,10 @@ final line:
             to 8/8/8 per step and 8/0/0 per eval, the first step's
             gradients on the kernels and on the oracle within the
             lm_agree limits per leaf (1e-4 float32, 2e-2 bf16), the
-            held-out loss below its value before the steps.
+            held-out loss below its value before the steps; then one
+            float32 run at head dim 320 (d 640 over 2 heads, 2 layers)
+            on the wide kernels, held the same way (2/2/2 a step, 2/0/0
+            an eval).
 8b. lm_moe  the flagship with 8 experts a block, top-2, cf 1.25: (a)
             `lm` in bf16 with flash attention and 512-token routing
             chunks, 30 steps and the eval, K7/K8/K9 held to 8/8/8 per
@@ -189,9 +202,17 @@ final line:
             tokens a round); a temperature-0.8 run against its plain
             twin; then an MoE `PagedEngine` on K1 + K2 (int8 pages and
             weights; 8 and 17 launches a forward) against its plain
-            twin, equal or tied. The kernels phase holds K2 at
-            generate's products (N 1 and 8) and K1 at the engine's MHA
-            pages (marked `generate`).
+            twin, equal or tied; then spec_generate: `spec-bench` at
+            its default widths (a d512 x 8 target, a d128 x 1 draft,
+            both trained once on the cyclic corpus; 64 tokens, k 2, 4,
+            8, greedy and at T 0.8, lookup rows, a random draft) on
+            float32 weights, timed, and on int8 weights from the same
+            pair, every mode's call untimed: every greedy row equal to plain
+            greedy, K2 exactly 33 a target forward and 5 a draft
+            forward with int8 weights, none in float32, the trained
+            draft's mean accepted tokens at each k. The kernels phase
+            holds K2 at generate's products (N 1 and 8) and K1 at the
+            engine's MHA pages (marked `generate`).
 9. lm_bench `lm-bench` at the flagship (vocab 8192): {f32, bf16} x
             {oracle, flash} and bf16 + flash + chunked CE, 4 timed
             steps each; tokens/s and mfu per row, then the summary.
@@ -291,8 +312,8 @@ fleet and tools_search phases, of K3/K4/K5 from the train, cnn_mesh and
 tools_search phases, of K6 from conv_bench and of K7/K8/K9 from the lm,
 lm_head_dims, lm_moe, lm_sp, lm_mesh and tools_search phases; K7/K8/K9
 also with their times at the flagship's geometry at each timed head dim
-and the head dims held) and,
-last, the device line {"ok": true, "device": {...}}. Without a CUDA
+and at the wide head dims, and the head dims held; K1 with its head dims
+held and its decode times at each) and, last, the device line {"ok": true, "device": {...}}. Without a CUDA
 device, or without the package beside it, the script fails before any
 result.
 """
@@ -467,6 +488,19 @@ NO_SPILL = (("gemm", "gemm_kernelI13__nv_bfloat16"),
             ("conv_gemm", "conv_gemm_kernelI13__nv_bfloat16"),
             ("conv_dw", "conv_dw_kernelI13__nv_bfloat16"))
 GEMM_SHAPES = [(512, 512), (512, 256), (512, 2048), (2048, 512), (512, 8192)]
+# K1 at head dims other than the serve flagship's 64 (marked
+# `head_dims`): not a multiple of 4 (6, 10: a scalar dot tail, plain
+# loads where a bf16 or int8 row is not 4-byte aligned), odd (7: also
+# the odd last value column, 2- and 1-byte page copies and the unaligned
+# output store), 20, and beyond 256 (320, 512: the output columns in
+# chunks; 321, a last chunk of odd width), each in float32, bf16 and int8
+# pages at the decode tick (B 8, kk 1), D 7 and 320 also at the prefill
+# chunk (B 1, kk 32); the serve flagship's 8 query / 2 kv heads over
+# TABLE_PAGES pages.
+PAGED_HEAD_DIMS = [(dtype, 8, 1, d) for d in (6, 7, 10, 20, 320, 321, 512)
+                   for dtype in ("float32", "bfloat16", "int8")] + [
+    (dtype, 1, 32, d) for d in (7, 320)
+    for dtype in ("float32", "bfloat16", "int8")]
 # K2 off the serving shapes (N, din, dout): one slot; a ragged N, din and
 # dout (8-byte copies of q); an odd dout and a din that is not a multiple
 # of 4 (byte copies of q, 4-byte copies of x).
@@ -649,8 +683,9 @@ CNN_MESH_NOTE = ("correctness run: the ranks share one card and gloo stages "
 # since every kernel case but the timed ones is a correctness case and
 # the script must fit its time limit on a slow host.
 MESH_CASE_REPS = 5
-HEAD_DIM_CASE_REPS = 5    # the head-dim cases (FLASH_HEAD_DIM_SHAPES;
-                          # 10 before, cut for the time limit)
+HEAD_DIM_CASE_REPS = 3    # the head-dim cases (FLASH_HEAD_DIM_SHAPES,
+                          # FLASH_WIDE_CHECK_SHAPES; 10, then 5 before,
+                          # cut for the time limit)
 
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet): the bound of
 # every kernel on bf16 inputs, whatever units the kernel itself uses.
@@ -724,11 +759,16 @@ FLASH_F32_OUT_SHAPES = [("bfloat16", 8, 1024, 8, 8, 64, True),
                         ("bfloat16", 2, 1024, 4, 2, 16, True)]
 F32_OUT_UNROUNDED_MIN = 0.9
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# The flash cases' plain versions are timed over at most PLAIN_REPS calls
+# (the timed shapes' 30 before, cut for the script's time limit: at the
+# flagship a float32 plain call takes 7-10 ms).
+PLAIN_REPS = 10
 # Head dims beyond the ones above, (dtype, B, S, H, Hkv, D, causal) at
 # HEAD_DIM_CASE_REPS calls: the instances 80, 96 and
 # 256, and D 24 and 48,
 # which the wrapper zero-pads to the 32 and 64 instances (`pad_route`);
-# both types, causal and not, 8 heads MHA and over 2 kv heads.
+# both types, causal and not (ring-flash folds its full blocks
+# non-causal), 8 heads MHA and over 2 kv heads.
 FLASH_HEAD_DIM_SHAPES = [(dtype, 2, 256, 8, hkv, d, causal)
                          for d in (24, 48, 80, 96, 256)
                          for dtype in ("float32", "bfloat16")
@@ -739,6 +779,23 @@ FLASH_HEAD_DIM_SHAPES = [(dtype, 2, 256, 8, hkv, d, causal)
 # 64: the padding's cost beside D 64).
 FLASH_HEAD_DIM_TIMED = [(dtype, 8, 2048, 8, 8, d) for d in (80, 96)
                         for dtype in ("float32", "bfloat16")]
+# Head dims beyond the largest instance (256), which the wide kernels
+# take (each block a chunk of the output columns, q.k^T streamed over D
+# through shared memory; float32 on FMAs in both types): D 320 and 512,
+# both types, causal, 8 query over 2 kv heads, at 30 calls with SDPA's
+# times (marked `head_dims` and `wide`).
+FLASH_WIDE_SHAPES = [(dtype, 2, 256, 8, 2, d) for d in (320, 512)
+                     for dtype in ("float32", "bfloat16")]
+# And, held at HEAD_DIM_CASE_REPS calls without SDPA, (dtype, B, S, H,
+# Hkv, D, causal, f32_out): the wide kernels non-causal at D 320 and 512
+# in both types, and the ring-flash hop's float32-output mode on bf16
+# inputs (K7 `out_f32`, K8/K9 `grads_f32`; `lm --mesh-shape seq:2` at D
+# 320 folds a diagonal block causal and a full block non-causal) at D 320.
+FLASH_WIDE_CHECK_SHAPES = (
+    [(dtype, 2, 256, 8, 2, d, False, False) for d in (320, 512)
+     for dtype in ("float32", "bfloat16")]
+    + [("bfloat16", 2, 256, 8, 2, 320, causal, True)
+       for causal in (True, False)])
 # The lm phase: the LM flagship's width (scripts/bench_lm.py:101-116:
 # d512, 8 layers, 8 heads, seq 2048, batch 8) through `lm` on the
 # synthetic corpus (vocab 251) with flash attention: 30 steps, then the
@@ -810,6 +867,17 @@ LM_HEAD_DIM_ARGS = ([a if LM_MODEL_ARGS[i - 1] != "--dim" else str(LM_HEAD_DIM)
                     + ["--attn-impl", "flash", "--log-every", "1"])
 LM_HEAD_DIM_STEPS = 3
 LM_HEAD_DIM_KV = ([], ["--kv-heads", "2"])
+# And one float32 run at head dim LM_WIDE_HEAD_DIM, beyond the largest
+# flash instance (the wide kernels): d 640 over 2 heads, at the
+# flagship's sequence and batch, cut to LM_WIDE_DEPTH layers for the
+# script's time limit (K7/K8/K9 LM_WIDE_DEPTH a step, K7 LM_WIDE_DEPTH an
+# eval), held as the runs above.
+LM_WIDE_HEAD_DIM = 320
+LM_WIDE_DEPTH = 2
+LM_WIDE_ARGS = [{"--dim": str(2 * LM_WIDE_HEAD_DIM), "--heads": "2",
+                 "--depth": str(LM_WIDE_DEPTH)}.get(LM_MODEL_ARGS[i - 1], a)
+                for i, a in enumerate(LM_MODEL_ARGS)] + [
+    "--attn-impl", "flash", "--log-every", "1"]
 # lm_sp: the lm phase's flagship, cut to LM_SP_DEPTH layers, at
 # --mesh-shape seq:2 as two gloo ranks on cuda:0 (sequence parallelism,
 # parallel/sp.py), each holding 1,024 of the 2,048 positions of all 8
@@ -881,6 +949,14 @@ LM_MESH_RING_REF = ("seq:2", LM_MESH_MOE + ["--attn-impl", "ring",
 # spawn runs much longer than the others.
 LM_MESH_SPAWNS = ((1, 2, 6), (7, "ring"), (0, 3, 4, 8), (5,))
 LM_MESH_BUDGET_S = 150.0
+# The runs with a model axis then sample LM_MESH_SAMPLE_TOKENS greedy
+# tokens after the trainer's prompt (`LMTrainer.sample`), every rank of
+# the model line decoding from its shards with its kv heads of the
+# cache (`parallel/tp_decode.py`): held, the same tokens on every rank,
+# equal to one device's `generate` from the run's final params (or a
+# tie: the row-parallel products sum in another order), and each rank's
+# cache bytes 1 / n_model of one device's.
+LM_MESH_SAMPLE_TOKENS = 64
 LM_MESH_NOTE = ("correctness run: the ranks share one card and gloo stages "
                 "every collective and pipeline hop through the host; not a "
                 "scaling figure")
@@ -957,7 +1033,7 @@ RECOVER_CKPT_CRASH = 40   # the dp part's crash in rank 0's save of ckpt_40
 RECOVER_PREEMPT = 17
 RECOVER_NAN = 7
 RECOVER_TEST = 2048
-RECOVER_TIMING_REPS = 3   # 5 before, cut for the time limit
+RECOVER_TIMING_REPS = 2   # 5, then 3 before, cut for the time limit
 LM_RECOVER_STEPS = 10
 LM_RECOVER_EVERY = 4
 LM_RECOVER_CRASH = 6
@@ -1067,6 +1143,33 @@ GEN_TEMPERATURE = 0.8
 GEN_SEED = 0
 GEN_SERVE = dict(n=8, vocab=251, prompt_min=64, prompt_max=512, out_min=16,
                  out_max=64, rate=0.0, seed=0)
+# spec_generate, the generate phase's last part: `spec-bench` at its
+# default widths (a target of d512 x 8 layers, 8 heads; a draft of d128
+# x 1; vocab 251; both trained on the cyclic corpus, once) with
+# SPEC_ARGS, for each of SPEC_WEIGHTS (its --weights-dtype; int8 takes
+# K2 in the target and the draft): the first timed, the others from the
+# same trained pair with every mode's untimed call alone (no time rows:
+# the int8 run holds the kernel's counts and the tokens). Held: every
+# greedy row's tokens equal to plain greedy's (the bench's in-run check,
+# `greedy_exact`), no row skipped, the trained draft accepting more than
+# the random one at k 4; K1 never launched and K2 never in float32; with
+# int8 weights, of each mode's untimed call, K2 exactly (4 x depth + 1) a
+# target forward (wqkv, wo, w1, w2 a layer and the head; the prefill and
+# each verify block) plus (4 x draft depth + 1) a draft forward (its
+# prefill and each draft step). Reported: the rows and the trained
+# draft's mean accepted tokens a round at each k.
+SPEC_ARGS = ["--tokens", "64", "--train-steps", "150",
+             "--self-corpus-steps", "0"]
+SPEC_WEIGHTS = ("float32", "int8")
+# K2 at spec-bench's other products, (N, din, dout): the draft's (N 1
+# a step, N 64 its prefill) and the target's verify blocks at k 2 and 4
+# and its lookup prefill (N 300; N 1 and 8: GEMM_GENERATE).
+GEMM_SPEC = ([(n, *s) for n in (1, 64) for s in ((128, 384), (128, 128),
+                                                  (128, 512), (512, 128),
+                                                  (128, 251))]
+             + [(n, *s) for n in (2, 4, 300)
+                for s in ((512, 1536), (512, 512), (512, 2048), (2048, 512),
+                          (512, 251))])
 # K2 at generate's products, (din, dout), at N 1 (generate, B 1) and N 8
 # (the lookup verify block): the dense flagship's wqkv, wo, w1, w2, its
 # head at vocab 8192 and at the synthetic corpus's 251.
@@ -1707,8 +1810,10 @@ def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
     head) times 2 D flops for each of the kernel's products (K7: q k^T and
     p v; K8: also dO v^T and ds k, less p v; K9: q k^T, dO v^T, p^T dO and
     ds^T q), at the input type's peak (float32: three tf32 products
-    each at the TF32 peak, `bound_by` "operations (3xTF32)", with the FMA
-    figure beside it as `bound_fma_ms`); or each input read once and each
+    each at the TF32 peak, the card's best rate for float32-accurate
+    products whatever units the kernel uses (the wide kernels above D 256
+    use FMAs), `bound_by` "operations (3xTF32)", with the FMA figure
+    beside it as `bound_fma_ms`); or each input read once and each
     output written once at the HBM rate, if that is longer. `library`
     False leaves SDPA's times out (None)."""
     from mpi_cuda_cnn_tpu_torch.ops import flash_attention as fa
@@ -1820,7 +1925,8 @@ def flash_cases(torch, dev, dtype: str, b: int, s: int, h: int, hkv: int,
                     "max_abs_err": err, "tolerance": tol, **(rel or {}),
                     **unrounded, **repeat,
                     "ms": median_ms(torch, run, reps),
-                    "plain_ms": median_ms(torch, plain, reps),
+                    "plain_ms": median_ms(torch, plain,
+                                          min(reps, PLAIN_REPS)),
                     "library_ms": (lib["library_fwd_ms"]
                                    if name == "flash_fwd" else None),
                     **lib, "flops": flops, "bound_ms": bound_ms,
@@ -1840,13 +1946,18 @@ def phase_flash_kernels(torch, dev, gen) -> list[dict]:
                for f32_out in (False, True)]
             + [(*s, False) for s in mesh]
             + [(*s, False) for s in FLASH_HEAD_DIM_SHAPES]
-            + [(*s, True, False) for s in FLASH_HEAD_DIM_TIMED]):
-        # the flagship's, the GQA shape's and the head dims' flagship
-        # geometry's times at 30 calls, the others' (held to the same
-        # tolerances) at HEAD_DIM_CASE_REPS or MESH_CASE_REPS
-        timed = tuple(shape) in FLASH_SHAPES + FLASH_HEAD_DIM_TIMED
+            + [(*s, True, False) for s in FLASH_HEAD_DIM_TIMED]
+            + [(*s, True, False) for s in FLASH_WIDE_SHAPES]
+            + FLASH_WIDE_CHECK_SHAPES):
+        # the flagship's, the GQA shape's, the head dims' flagship
+        # geometry's and the wide shapes' (causal) times at 30 calls, the
+        # others' (held to the same tolerances) at HEAD_DIM_CASE_REPS or
+        # MESH_CASE_REPS
+        wide_check = (*shape, causal, f32_out) in FLASH_WIDE_CHECK_SHAPES
+        timed = not wide_check and tuple(shape) in (
+            FLASH_SHAPES + FLASH_HEAD_DIM_TIMED + FLASH_WIDE_SHAPES)
         reps = (30 if timed else HEAD_DIM_CASE_REPS
-                if (*shape, causal) in FLASH_HEAD_DIM_SHAPES
+                if (*shape, causal) in FLASH_HEAD_DIM_SHAPES or wide_check
                 else MESH_CASE_REPS)
         # SDPA's times beside the timed shapes only (the others are
         # correctness cases, and the script has a time limit)
@@ -1854,9 +1965,12 @@ def phase_flash_kernels(torch, dev, gen) -> list[dict]:
                                 reps, timed):
             if (*shape, causal) in mesh:
                 case["lm_mesh"] = True
-            if ((*shape, causal) in FLASH_HEAD_DIM_SHAPES
-                    or tuple(shape) in FLASH_HEAD_DIM_TIMED):
+            if ((*shape, causal) in FLASH_HEAD_DIM_SHAPES or wide_check
+                    or tuple(shape) in FLASH_HEAD_DIM_TIMED
+                    + FLASH_WIDE_SHAPES):
                 case["head_dims"] = True
+            if tuple(shape) in FLASH_WIDE_SHAPES and not wide_check:
+                case["wide"] = True
             if (tuple(shape) in FLASH_RANK_SHAPES
                     or (*shape, causal) in FLASH_F32_OUT_SHAPES
                     or case.get("lm_mesh")):
@@ -1910,6 +2024,14 @@ def phase_kernels(torch, dev) -> list[dict]:
                                            GEN_SERVE["prompt_max"]
                                            + GEN_SERVE["out_max"]),
                                        kv_heads=HEADS), "generate": True})
+        emit({"phase": "kernel_case", **cases[-1]})
+    for n, din, dout in GEMM_SPEC:
+        cases.append({**gemm_case(torch, dev, n, din, dout, gen),
+                      "generate": True, "spec": True})
+        emit({"phase": "kernel_case", **cases[-1]})
+    for dtype, b, kk, d in PAGED_HEAD_DIMS:
+        cases.append({**attention_case(torch, dev, dtype, b, kk, gen,
+                                       head_dim=d), "head_dims": True})
         emit({"phase": "kernel_case", **cases[-1]})
     cases.extend(features_kernel_cases(torch, dev, gen, args))
     cases.extend(phase_cnn_kernels(torch, dev, gen))
@@ -3473,7 +3595,9 @@ def phase_lm_mesh(torch, dev=None, nccl: bool = False) -> dict:
         str(LM_MESH_STEPS), "--warmup-steps", "1", "--log-every", "1"]
 
     def cfg(mesh, extra):
-        return parse_lm_args(base + ["--mesh-shape", mesh, *extra])
+        sample = (["--sample-tokens", str(LM_MESH_SAMPLE_TOKENS)]
+                  if "model:" in mesh else [])
+        return parse_lm_args(base + ["--mesh-shape", mesh, *extra, *sample])
 
     def run(i):
         mesh, extra = LM_MESH_RING_REF if i == "ring" else LM_MESH_RUNS[i]
@@ -3493,7 +3617,8 @@ def phase_lm_mesh(torch, dev=None, nccl: bool = False) -> dict:
         backend, devices, mine = call
         t0 = time.perf_counter()
         ranks = run_ranks(lm_rank_runs, len(devices), devices=devices,
-                          args=([(c, None, {"grads": True})
+                          args=([(c, None, {"grads": True, "final_params":
+                                              bool(c.sample_tokens)})
                                  for _, _, c in mine],),
                           timeout=DP_RANKS_TIMEOUT_S)
         return ranks, time.perf_counter() - t0
@@ -3581,6 +3706,8 @@ def phase_lm_mesh(torch, dev=None, nccl: bool = False) -> dict:
                                    "eval) over the steps",
                    "note": LM_MESH_NOTE if backend == "gloo"
                    else "one rank a card over NCCL"}
+            if c.sample_tokens:
+                rec["sample"] = lm_mesh_sample(torch, dev, mesh, c, res_r)
             emit({"phase": "lm_mesh", **rec})
             records.append(rec)
         emit({"phase": "lm_mesh_world", "world": world, "backend": backend,
@@ -3595,6 +3722,62 @@ def phase_lm_mesh(torch, dev=None, nccl: bool = False) -> dict:
                        "dense": LM_AGREE_GRAD_REL_L2,
                        "moe": LM_MOE_GRAD_REL_L2}},
             "launches": launches}
+
+
+def lm_mesh_sample(torch, dev, mesh: str, c, res_r: list) -> dict:
+    """A model-axis run's sample (LM_MESH_SAMPLE_TOKENS): every rank's
+    tokens the same, equal to one device's greedy `generate` on `dev`
+    from the run's final params after the same prompt (or tied), and
+    every rank's cache 1 / n_model of one device's bytes."""
+    from mpi_cuda_cnn_tpu_torch.data import prng
+    from mpi_cuda_cnn_tpu_torch.models import generate as gen
+    from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
+    from mpi_cuda_cnn_tpu_torch.models.transformer import TransformerLM
+    from mpi_cuda_cnn_tpu_torch.parallel.tp import unflatten
+
+    what = f"lm_mesh {mesh} sample"
+    n_model = lm_mesh_axes(mesh)["model"]
+    first = res_r[0]
+    model = TransformerLM(                  # the synthetic corpus's vocab
+        vocab=251, dim=c.dim, heads=c.heads, depth=c.depth, max_seq=c.seq_len,
+        moe_experts=c.moe_experts, moe_top_k=c.moe_top_k,
+        kv_heads=c.kv_heads, pos=c.pos)
+    template = model.init(prng.key(0), dev)
+    leaves = [torch.from_numpy(a).to(dev) for a in first["params"]]
+    if [tuple(t.shape) for t in tree_leaves(template)] != [
+            tuple(t.shape) for t in leaves]:
+        raise AssertionError(f"{what}: the final params are not the "
+                             f"model's")
+    params = unflatten(template, leaves)
+    prompt = torch.tensor(first["sample_prompt"], dtype=torch.int64,
+                          device=dev)[None]
+    cache_dtype = gen.pick_cache_dtype(c.decode_cache_dtype,
+                                       heads=model.heads,
+                                       kv_heads=model.n_kv)
+    one = gen.LocalDecoder(model, params)
+    want = gen.generate(model, one, prompt, c.sample_tokens,
+                        cache_dtype=cache_dtype)[0].cpu().numpy()
+    for r, res in enumerate(res_r):
+        if res["sample"] != first["sample"]:
+            raise AssertionError(f"{what}: rank {r}'s tokens are not rank "
+                                 f"0's")
+        if res["sample_cache_bytes"] * n_model != one.cache_bytes:
+            raise AssertionError(
+                f"{what}: rank {r}'s cache {res['sample_cache_bytes']} "
+                f"bytes, one device's {one.cache_bytes} over model:{n_model}")
+
+    def logits_at(t):
+        ctx = torch.cat([prompt, torch.as_tensor(want[:t], device=dev)[None]],
+                        1)
+        with torch.no_grad():
+            return gen.prefill(model, params, ctx, cache_dtype)[0][0]
+
+    agree = tokens_agree(torch, what, first["sample"], want, logits_at)
+    return {"tokens": c.sample_tokens, "prompt_tokens": int(prompt.shape[1]),
+            "cache_dtype": cache_dtype, "ranks": len(res_r),
+            "cache_bytes_per_rank": first["sample_cache_bytes"],
+            "one_device_cache_bytes": one.cache_bytes,
+            "vs_one_device": agree}
 
 
 def first_step_grads_rel_l2(torch, trainer) -> dict:
@@ -3758,11 +3941,12 @@ def phase_lm(torch):
 def phase_lm_head_dims(torch, dev=None) -> dict:
     """`lm` at head dim 96 through the flash kernels (LM_HEAD_DIM_*): for
     each kv-head layout, a float32 run and a bf16 run from its initial
-    params; each run's first-step gradients against the oracle's, then
-    its steps and eval with the launch counts zeroed just before `train`
-    and read just after. Returns the launches of every run summed per
-    kernel. (`dev` the CPU: the same with no launch, to rehearse the phase
-    at a small LM_HEAD_DIM.)"""
+    params; then a float32 run at LM_WIDE_HEAD_DIM on the wide kernels
+    (LM_WIDE_*). Each run's first-step gradients against the oracle's,
+    then its steps and eval with the launch counts zeroed just before
+    `train` and read just after. Returns the launches of every run summed
+    per kernel. (`dev` the CPU: the same with no launch, to rehearse the
+    phase at a small LM_HEAD_DIM.)"""
     from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
     from mpi_cuda_cnn_tpu_torch.ops import _kernels
     from mpi_cuda_cnn_tpu_torch.ops.gemv import tree_map
@@ -3776,11 +3960,19 @@ def phase_lm_head_dims(torch, dev=None) -> dict:
     where = [] if on_card else ["--device", "cpu"]
     t_phase = time.perf_counter()
     total = {name: 0 for name in FLASH_KERNELS}
-    for kv in LM_HEAD_DIM_KV:
+    # (args, [(dtype, gradient limit), ...], head dim, depth): the runs
+    # of one args share their initial params
+    runs = [(LM_HEAD_DIM_ARGS + kv, [("float32", LM_AGREE_GRAD_REL_L2),
+                                     ("bfloat16", LM_BF16_GRAD_REL_L2)],
+             LM_HEAD_DIM // 8, 8) for kv in LM_HEAD_DIM_KV]
+    runs.append((LM_WIDE_ARGS, [("float32", LM_AGREE_GRAD_REL_L2)],
+                 LM_WIDE_HEAD_DIM, LM_WIDE_DEPTH))
+    for args, dtypes, head_dim, depth in runs:
         init = None
-        for dtype, limit in (("float32", LM_AGREE_GRAD_REL_L2),
-                             ("bfloat16", LM_BF16_GRAD_REL_L2)):
-            cfg = parse_lm_args(LM_HEAD_DIM_ARGS + kv + where + [
+        per_step = {k: v // 8 * depth for k, v in LM_PER_STEP.items()}
+        per_eval = {k: v // 8 * depth for k, v in LM_PER_EVAL.items()}
+        for dtype, limit in dtypes:
+            cfg = parse_lm_args(args + where + [
                 "--steps", str(LM_HEAD_DIM_STEPS), "--compute-dtype", dtype])
             metrics = MetricsLogger(echo=False, capture=True)
             t0 = time.perf_counter()
@@ -3789,7 +3981,8 @@ def phase_lm_head_dims(torch, dev=None) -> dict:
             what = (f"lm_head_dims {dtype} D {trainer.model.head_dim} "
                     f"kv {trainer.model.n_kv}")
             if (trainer.attn_impl != "flash" or trainer.device.type != dev.type
-                    or trainer.model.head_dim != LM_HEAD_DIM // 8):
+                    or trainer.model.head_dim != head_dim
+                    or trainer.model.depth != depth):
                 raise AssertionError(f"{what}: {trainer.attn_impl} on "
                                      f"{trainer.device}")
             if init is None:
@@ -3818,9 +4011,8 @@ def phase_lm_head_dims(torch, dev=None) -> dict:
             wall_s = time.perf_counter() - t0
             launches = dict(_kernels.launches)
             for name in _kernels.KERNELS:
-                want = (LM_PER_STEP[name] * LM_HEAD_DIM_STEPS
-                        + LM_PER_EVAL[name]
-                        if name in LM_PER_STEP and on_card else 0)
+                want = (per_step[name] * LM_HEAD_DIM_STEPS + per_eval[name]
+                        if name in per_step and on_card else 0)
                 if launches[name] != want:
                     raise AssertionError(f"{what}: {name} launched "
                                          f"{launches[name]} times, want "
@@ -3833,7 +4025,8 @@ def phase_lm_head_dims(torch, dev=None) -> dict:
             for name in FLASH_KERNELS:
                 total[name] += launches[name]
             emit({"phase": "lm_head_dims", "dtype": dtype,
-                  "dim": LM_HEAD_DIM, "heads": trainer.model.heads,
+                  "dim": trainer.model.dim, "depth": depth,
+                  "heads": trainer.model.heads,
                   "kv_heads": trainer.model.n_kv,
                   "head_dim": trainer.model.head_dim,
                   "steps": result.steps_run, "first_loss": first,
@@ -3846,7 +4039,7 @@ def phase_lm_head_dims(torch, dev=None) -> dict:
                   "first_grad_rel_l2_max": worst,
                   "first_grad_rel_l2_tolerance": limit,
                   "launches": {k: launches[k] for k in FLASH_KERNELS},
-                  "per_step": LM_PER_STEP, "per_eval": LM_PER_EVAL})
+                  "per_step": per_step, "per_eval": per_eval})
             del trainer, tokens, targets
             if on_card:
                 torch.cuda.empty_cache()
@@ -3965,6 +4158,7 @@ def phase_lm_moe(torch, dev=None):
 
     from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
     from mpi_cuda_cnn_tpu_torch.ops import _kernels
+    from mpi_cuda_cnn_tpu_torch.ops.gemv import tree_map
     from mpi_cuda_cnn_tpu_torch.train.lm import (
         count_params,
         get_attn_fn,
@@ -3983,6 +4177,9 @@ def phase_lm_moe(torch, dev=None):
     cfg = parse_lm_args(LM_MOE_TRAIN_ARGS + where)
     metrics = MetricsLogger(echo=False, capture=True)
     trainer = LMTrainer(cfg, metrics=metrics)
+    # (b) starts from the same seeded init: kept, not drawn again (the
+    # MoE flagship's init takes about 16 s on the host)
+    init = tree_map(lambda t: t.detach().clone(), trainer.state["params"])
     if trainer.attn_impl != "flash" or trainer.device.type != dev.type:
         raise AssertionError(f"lm_moe: {trainer.attn_impl} on "
                              f"{trainer.device}")
@@ -4029,7 +4226,8 @@ def phase_lm_moe(torch, dev=None):
     # (b) float32, chunk 512: flash against the oracle, first gradients.
     f32 = LMTrainer(parse_lm_args(LM_MOE_ARGS + where + [
         "--attn-impl", "flash", "--moe-dispatch-chunk", str(LM_MOE_CHUNK)]),
-        metrics=MetricsLogger(echo=False))
+        metrics=MetricsLogger(echo=False), params=init)
+    del init
     batch = f32.cfg.batch_size
     g_flash, r_flash, peak_chunk = moe_grads(
         torch, f32, batch, LM_MOE_CHUNK, "flash", lm_loss, get_attn_fn,
@@ -4402,8 +4600,77 @@ def phase_generate(torch, dense, moe_trainer) -> dict:
           "launches": {k: launches[k] for k in per_forward},
           "per_forward": per_forward, "wall_s": wall_s,
           "state_crc": res.state_crc, "agree": agree})
-    return {"paged_attention": launches["paged_attention"],
-            "int8_gemm": k2 + launches["int8_gemm"]}
+    spec = spec_generate(torch, dev)
+    return {"paged_attention": launches["paged_attention"]
+            + spec["paged_attention"],
+            "int8_gemm": k2 + launches["int8_gemm"] + spec["int8_gemm"]}
+
+
+def spec_generate(torch, dev=None, extra: tuple = ()) -> dict:
+    """The generate phase's spec_generate part (SPEC_ARGS): `spec-bench`
+    once for each of SPEC_WEIGHTS, the first timed and training the pair,
+    the others untimed from that pair; launches zeroed just before each
+    run and read just after. One line a run; returns the launches of K1
+    and K2 summed over the runs. (`dev` the CPU, with narrower `extra`
+    flags: the same with no launch, to rehearse the part.)"""
+    from mpi_cuda_cnn_tpu_torch.bench.speculative import _parser, spec_bench
+    from mpi_cuda_cnn_tpu_torch.ops import _kernels
+
+    dev = dev or torch.device("cuda", 0)
+    on_card = dev.type == "cuda"
+    smi = nvidia_smi() if on_card else "cpu"
+    total = {"paged_attention": 0, "int8_gemm": 0}
+    trained = None
+    for wdt in SPEC_WEIGHTS:
+        argv = SPEC_ARGS + list(extra) + ["--weights-dtype", wdt,
+                                          "--device", dev.type]
+        args = _parser().parse_args(argv)
+        int8 = wdt == "int8" and on_card
+        per_target = 4 * args.depth + 1 if int8 else 0
+        per_draft = 4 * args.draft_depth + 1 if int8 else 0
+        cuda_sync(torch, dev)
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        timed = trained is None
+        res = spec_bench(argv, trained=trained, timed=timed)
+        trained = res["trained"]
+        cuda_sync(torch, dev)
+        wall_s = time.perf_counter() - t0
+        launches = dict(_kernels.launches)
+        what = f"spec_generate {wdt}"
+        if any(n for k, n in launches.items() if k != "int8_gemm") or (
+                not int8 and launches["int8_gemm"]):
+            raise AssertionError(f"{what}: launches {launches}")
+        for mode, st in res["stats"].items():
+            k = re.search(r"_k(\d+)", mode)
+            want = (1 + st["rounds"]) * per_target
+            if "draft" in mode:
+                want += (1 + int(k.group(1)) * st["rounds"]) * per_draft
+            got = res["launches"][mode]
+            if got.get("int8_gemm", 0) != want or set(got) - {"int8_gemm"}:
+                raise AssertionError(f"{what} {mode}: launches {got}, want "
+                                     f"int8_gemm {want} ({st['rounds']} "
+                                     f"rounds)")
+        for row in res["rows"]:
+            if "skipped" in row or row.get("greedy_exact") is False:
+                raise AssertionError(f"{what}: row {row}")
+        accepted = {k: res["stats"][f"draft_k{k}"]["mean_accepted"]
+                    for k in map(int, args.ks.split(","))}
+        if not accepted[4] > res["stats"]["random_draft_k4"]["mean_accepted"]:
+            raise AssertionError(f"{what}: the trained draft accepts "
+                                 f"{accepted[4]} at k 4, the random one "
+                                 f"{res['stats']['random_draft_k4']}")
+        for name in total:
+            total[name] += launches[name]
+        emit({"phase": "generate", "part": "spec_generate",
+              "nvidia_smi": smi, "weights_dtype": wdt, "argv": argv,
+              "timed": timed, "wall_s": wall_s, "rows": res["rows"],
+              "summary": res["summary"],
+              "mean_accepted": accepted, "stats": res["stats"],
+              "k2_per_forward": {"target": per_target, "draft": per_draft},
+              "launches": {k: launches[k] for k in total},
+              "launches_by_mode": res["launches"]})
+    return total
 
 
 def serve_args():
@@ -5867,24 +6134,41 @@ def kernels_line(cases: list[dict], launches: dict) -> dict:
             "shape": {k: r[k] for k in ("dtype", "B", "kk", "L", "N", "din",
                                         "dout", "role", "M", "K", "S", "H",
                                         "Hkv", "D", "W", "C", "O") if k in r},
-            **(head_dims_fields(mine) if name in FLASH_KERNELS else {})})
+            **(head_dims_fields(mine) if name in FLASH_KERNELS else {}),
+            **(paged_head_dims_fields(mine) if name == "paged_attention"
+               else {})})
     return {"kernels": summary}
+
+
+def paged_head_dims_fields(mine: list[dict]) -> dict:
+    """K1's head dims held against its plain version, and its times at
+    the decode tick (B 8, kk 1, TABLE_PAGES pages) at each head dim of
+    PAGED_HEAD_DIMS, each page type."""
+    return {"head_dims_held": sorted({c["D"] for c in mine}),
+            "head_dims_decode": {
+                f"{c['dtype']} D{c['D']}": {
+                    k: c[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms",
+                                      "max_abs_err")}
+                for c in mine if c.get("head_dims") and c["kk"] == 1}}
 
 
 def head_dims_fields(mine: list[dict]) -> dict:
     """A flash kernel's head dims held against its plain version, and its
     times at the flagship's geometry (B 8, S 2048, 8 heads, causal) at
     each head dim timed there, both types (the flagship's D 64 too)."""
-    timed = {}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_fwd_bwd_ms", "library_bwd_ms", "max_abs_err")
+    timed, wide = {}, {}
     for c in mine:
         if (c["B"], c["S"], c["H"], c["Hkv"], c["causal"]) == (8, 2048, 8, 8,
                                                                True):
-            timed.setdefault(f"{c['dtype']} D{c['D']}", {
-                k: c[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms", "library_fwd_bwd_ms",
-                                  "library_bwd_ms", "max_abs_err")})
+            timed.setdefault(f"{c['dtype']} D{c['D']}",
+                             {k: c[k] for k in keys})
+        if c.get("wide"):
+            wide[f"{c['dtype']} D{c['D']}"] = {k: c[k] for k in keys}
     return {"head_dims_held": sorted({c["D"] for c in mine}),
-            "flagship_geometry": timed}
+            "flagship_geometry": timed, "wide": wide}
 
 
 def entry_points(src: str) -> list[str]:

@@ -16,6 +16,9 @@
     conv-bench    per-shape conv forward times: PyTorch's conv, the direct
                   kernel and the implicit-GEMM kernel
                   (bench/conv_shapes.py)
+    spec-bench    plain greedy against draft-model and prompt-lookup
+                  speculative decoding at B 1, after training both models
+                  on the cyclic corpus (bench/speculative.py)
 
 The run-file tools read the JSONL that `train`, `lm`, `serve-bench` and
 `fleet-bench` write with --metrics-jsonl (or the JAX package's), import
@@ -88,7 +91,7 @@ import sys
 
 _USAGE = ("usage: python -m mpi_cuda_cnn_tpu_torch "
           "{train,train-bench,serve-bench,fleet-bench,lm,lm-bench,"
-          "conv-bench,report,compare,explain,trace,health,top,replay,"
+          "conv-bench,spec-bench,report,compare,explain,trace,health,top,replay,"
           "diverge,autosize,chaos,lint} [flags]")
 
 # the tools that need no card: command -> (module, its main)
@@ -308,6 +311,10 @@ def main(argv: list[str] | None = None) -> int:
         from .bench.conv_shapes import conv_bench_main
 
         return conv_bench_main(argv[1:])
+    if argv and argv[0] == "spec-bench":
+        from .bench.speculative import spec_bench_main
+
+        return spec_bench_main(argv[1:])
     if argv and argv[0] in _TOOLS:
         import importlib
 

@@ -617,12 +617,119 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   }
 }
 
+// Head dims above 256 (flash_common.cuh's wide kernels): block (x, y)
+// owns key tile y / (D / 64) of (batch, kv head) x and dk's and dv's
+// columns 64 (y % (D / 64)) .. + 63, and sums its kv head's query group
+// itself, the group's heads in order. Per (query head, q tile): s and dp
+// over the whole D (`wide_first`, rows the queries), p and ds rounded to
+// T into xa beside the chunk's q columns in xb, dk += ds^T q from zero;
+// then p beside dO's columns, dv += p^T dO from zero.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+    flash_bwd_dkv_wide_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              const T* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ dvec,
+                              void* __restrict__ dk, void* __restrict__ dv,
+                              int S, int H, int Hkv, int D, int causal,
+                              float scale, int out_f32) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const WideTile xa = reinterpret_cast<WideTile>(smem_raw);
+  const WideTile xb = xa + kTile;
+  const int nchunk = D / kWideCols;
+  const int bk = blockIdx.x, b = bk / Hkv, hk = bk - b * Hkv;
+  const int group = H / Hkv;
+  const int nq = S / kTile;
+  const int kt = static_cast<int>(blockIdx.y) / nchunk;  // longest first
+  const int c0 = (static_cast<int>(blockIdx.y) % nchunk) * kWideCols;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int k0 = kt * kTile;
+  const size_t qs = static_cast<size_t>(H) * D, ks = static_cast<size_t>(Hkv) * D;
+  const size_t kbase = (static_cast<size_t>(b) * S + k0) * ks + static_cast<size_t>(hk) * D;
+  float acc_k[4][4], acc_v[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+  for (int g = 0; g < group; ++g) {
+    const int h = hk * group + g;
+    const size_t bh = static_cast<size_t>(b) * H + h;
+    for (int qt = causal ? kt : 0; qt < nq; ++qt) {
+      const int q0 = qt * kTile;
+      const size_t qbase = (static_cast<size_t>(b) * S + q0) * qs + static_cast<size_t>(h) * D;
+      float sc[4][4], dp[4][4];
+      wide_first(sc, q, qbase, qs, k, kbase, ks, D, xa, xb, ty, tx);
+      wide_first(dp, dout, qbase, qs, v, kbase, ks, D, xa, xb, ty, tx);
+      // rows 4 ty + i are queries, columns 4 tx + j keys
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float lr = lse[bh * S + q0 + 4 * ty + i];
+        const float dr = dvec[bh * S + q0 + 4 * ty + i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool masked = causal && k0 + 4 * tx + j > q0 + 4 * ty + i;
+          const float p = masked ? 0.f : expf(sc[i][j] * scale - lr);
+          sc[i][j] = round_to<T>(p);
+          dp[i][j] = round_to<T>(p * (dp[i][j] - dr) * scale);
+        }
+      }
+      float part[4][4];
+      __syncthreads();  // dp's last chunk is read
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) xa[4 * ty + i][4 * tx + j] = dp[i][j];
+      wide_load(xb, q, qbase + c0, qs, false);
+      __syncthreads();
+      wide_product(part, xa, xb, ty, tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc_k[i][j] += part[i][j];
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) xa[4 * ty + i][4 * tx + j] = sc[i][j];
+      wide_load(xb, dout, qbase + c0, qs, false);
+      __syncthreads();
+      wide_product(part, xa, xb, ty, tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc_v[i][j] += part[i][j];
+    }
+  }
+  const bool f32 = out_f32 != 0 || std::is_same<T, float>::value;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const size_t at = (static_cast<size_t>(b) * S + k0 + 4 * ty + i) * ks +
+                      static_cast<size_t>(hk) * D + c0 + 4 * tx;
+    wide_store4<T>(dk, at, f32, acc_k[i]);
+    wide_store4<T>(dv, at, f32, acc_v[i]);
+  }
+}
+
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* dvec,
                      void* dk, void* dv, void* part, int B, int S, int H,
                      int Hkv, int D, int causal, float scale, int out_f32,
                      const Plan& plan, int sum_blocks, cudaStream_t s) {
+  if (wide_head_dim(D)) {  // grid (B * Hkv, S / 64 * D / 64), no scratch
+    if (!plan.is(B * Hkv, S / kTile * (D / kWideCols), kWideThreads,
+                 kWideSmem) || part != nullptr || sum_blocks != 0)
+      return cudaErrorInvalidValue;
+    flash_bwd_dkv_wide_kernel<T><<<dim3(plan.grid_x, plan.grid_y),
+                                   kWideThreads, kWideSmem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(dvec), dk,
+        dv, S, H, Hkv, D, causal, scale, out_f32);
+    return cudaGetLastError();
+  }
   return with_head_dim(D, [&](auto d) {
     return launch<T, decltype(d)::value>(q, k, v, dout, lse, dvec, dk, dv,
                                          part, B, S, H, Hkv, causal, scale,
@@ -637,7 +744,10 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
 // (`flash_bwd_dkv_bf16_kernel`); grads_f32 1 makes dk and dv float32 (for
 // bf16 inputs; float32 ones have float32 gradients either way). lse, dvec
 // (B * H, S) float32. S a multiple of 64, H a multiple of Hkv, D one of
-// `with_head_dim`'s instances (flash_common.cuh); `scale` multiplies the
+// `with_head_dim`'s instances (flash_common.cuh) or above 256 a multiple
+// of 64 (`flash_bwd_dkv_wide_kernel`: grid (B * Hkv, S / 64 * D / 64),
+// 256 threads, kWideSmem bytes, the group summed in the block: part null
+// and sum_blocks 0); `scale` multiplies the
 // logits (the wrapper's 1 / sqrt of the head dim before its zero
 // padding); every pointer 16-byte aligned. The plan is the wrapper's
 // `flash_bwd_plan`: grid (grid_x, grid_y) = (B * H, S / 64 *

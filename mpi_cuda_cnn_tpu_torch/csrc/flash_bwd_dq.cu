@@ -461,12 +461,91 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   }
 }
 
+// Head dims above 256 (flash_common.cuh's wide kernels): block (x, y)
+// owns query tile y / (D / 64) of (batch, query head) x and dq's columns
+// 64 (y % (D / 64)) .. + 63. Per k tile: s = q k^T and dp = dO v^T over
+// the whole D (`wide_first`), p = exp(s scale - lse), ds = p (dp - dvec)
+// scale rounded to T into xa (transposed) beside the chunk's k columns in
+// xb, and dq += ds k from zero.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+    flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ dvec,
+                             void* __restrict__ dq, int S, int H, int Hkv,
+                             int D, int causal, float scale, int out_f32) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const WideTile xa = reinterpret_cast<WideTile>(smem_raw);
+  const WideTile xb = xa + kTile;
+  const int nchunk = D / kWideCols;
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int hk = h / (H / Hkv);
+  const int nq = S / kTile;
+  const int qt = nq - 1 - static_cast<int>(blockIdx.y) / nchunk;
+  const int c0 = (static_cast<int>(blockIdx.y) % nchunk) * kWideCols;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int q0 = qt * kTile;
+  const size_t qs = static_cast<size_t>(H) * D, ks = static_cast<size_t>(Hkv) * D;
+  const size_t qbase = (static_cast<size_t>(b) * S + q0) * qs + static_cast<size_t>(h) * D;
+  float lr[4], dr[4], acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    lr[i] = lse[static_cast<size_t>(bh) * S + q0 + 4 * ty + i];
+    dr[i] = dvec[static_cast<size_t>(bh) * S + q0 + 4 * ty + i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+  const int kt_end = causal ? qt : nq - 1;
+  for (int kt = 0; kt <= kt_end; ++kt) {
+    const int k0 = kt * kTile;
+    const size_t kbase = (static_cast<size_t>(b) * S + k0) * ks + static_cast<size_t>(hk) * D;
+    float sc[4][4], dp[4][4];
+    wide_first(sc, q, qbase, qs, k, kbase, ks, D, xa, xb, ty, tx);
+    wide_first(dp, dout, qbase, qs, v, kbase, ks, D, xa, xb, ty, tx);
+    __syncthreads();  // dp's last chunk is read
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool masked = causal && k0 + 4 * tx + j > q0 + 4 * ty + i;
+        const float p = masked ? 0.f : expf(sc[i][j] * scale - lr[i]);
+        xa[4 * tx + j][4 * ty + i] = round_to<T>(p * (dp[i][j] - dr[i]) * scale);
+      }
+    wide_load(xb, k, kbase + c0, ks, false);
+    __syncthreads();
+    float part[4][4];
+    wide_product(part, xa, xb, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    wide_store4<T>(dq, (static_cast<size_t>(b) * S + q0 + 4 * ty + i) * qs +
+                           static_cast<size_t>(h) * D + c0 + 4 * tx,
+                   out_f32 != 0 || std::is_same<T, float>::value, acc[i]);
+}
+
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* dvec,
                      void* dq, int B, int S, int H, int Hkv, int D,
                      int causal, float scale, int out_f32, const Plan& plan,
                      cudaStream_t s) {
+  if (wide_head_dim(D)) {  // grid (B * H, S / 64 * D / 64)
+    if (!plan.is(B * H, S / kTile * (D / kWideCols), kWideThreads, kWideSmem))
+      return cudaErrorInvalidValue;
+    flash_bwd_dq_wide_kernel<T><<<dim3(plan.grid_x, plan.grid_y), kWideThreads,
+                                  kWideSmem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(dvec), dq, S,
+        H, Hkv, D, causal, scale, out_f32);
+    return cudaGetLastError();
+  }
   return with_head_dim(D, [&](auto d) {
     return launch<T, decltype(d)::value>(q, k, v, dout, lse, dvec, dq, B, S,
                                          H, Hkv, causal, scale, out_f32,
@@ -481,7 +560,9 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
 // (`flash_bwd_dq_bf16_kernel`); grads_f32 1 makes dq float32 (for bf16
 // inputs; float32 ones have a float32 dq either way). lse, dvec (B * H, S)
 // float32. S a multiple of 64, H a multiple of Hkv, D one of
-// `with_head_dim`'s instances (flash_common.cuh); `scale` multiplies the
+// `with_head_dim`'s instances (flash_common.cuh) or above 256 a multiple
+// of 64 (`flash_bwd_dq_wide_kernel`: grid (B * H, S / 64 * D / 64), 256
+// threads, kWideSmem bytes); `scale` multiplies the
 // logits (the wrapper's 1 / sqrt of the head dim before its zero
 // padding); every pointer 16-byte aligned. The plan (grid_x, grid_y, threads, smem) is the
 // wrapper's `flash_bwd_plan`: grid (B * H, S / 64), 128 threads, and the

@@ -178,6 +178,139 @@ __device__ __forceinline__ void permuted_product_tf32x3(
   }
 }
 
+// ---------------------------------------------------------------------------
+// Head dims above kMaxHeadDim: the wide kernels (`flash_fwd_wide_kernel`,
+// `flash_bwd_dq_wide_kernel`, `flash_bwd_dkv_wide_kernel`), for any D that
+// is a multiple of kWideCols (the wrapper zero-pads any other D above 256
+// to the next one). A simple design, on the CUDA cores in float32 for both
+// input types:
+//   - a block owns one 64-row tile of its outputs (K7's o and K8's dq:
+//     query rows; K9's dk and dv: keys) and kWideCols of their columns, so
+//     its accumulators are 4 x 4 floats a thread whatever D is; the
+//     column chunks of one tile are blocks of their own, and each computes
+//     the tile's logits (and K8's and K9's dO v^T) over the whole D again;
+//   - the first products (q k^T, dO v^T) stream D in chunks of kWideCols
+//     columns through two (64, 64) float32 tiles in shared memory, each
+//     chunk summed from zero and added in float32, so shared memory no
+//     longer bounds D;
+//   - the second products (p v, ds k, ds^T q, p^T dO) take the (64, 64)
+//     p or ds tile, rounded to the input type as the mma kernels round it,
+//     and the chunk's columns of the other operand through the same two
+//     tiles;
+//   - 256 threads, 16 x 16, thread (ty, tx) holding rows 4 ty .. 4 ty + 3
+//     and columns 4 tx .. 4 tx + 3 of each 64 x 64 tile; a row's max and
+//     sum run over its 16 threads (one half-warp) by xor-shuffles;
+//   - K9 sums the GQA group inside the block (the group's query heads one
+//     after another), so it needs no second kernel and no scratch.
+constexpr int kWideThreads = 256;
+constexpr int kWideCols = 64;
+constexpr int kWideLd = kTile + 4;  // a staged row: 64 floats + 16 bytes
+constexpr size_t kWideSmem = 2 * kTile * kWideLd * sizeof(float);
+
+inline bool wide_head_dim(int D) {
+  return D > kMaxHeadDim && D % kWideCols == 0;
+}
+
+using WideTile = float (*)[kWideLd];
+
+// The (64, 64) block of rows r0 .. r0 + 63 and columns c0 .. c0 + 63 of a
+// row-major tensor whose rows are `stride` elements apart, from `base` =
+// the offset of (r0, c0), as float32 into `dst`: dst[r][c], or
+// transposed dst[c][r].
+template <typename T>
+__device__ __forceinline__ void wide_load(WideTile dst, const T* src,
+                                          size_t base, size_t stride,
+                                          bool transpose) {
+  for (int e = threadIdx.x; e < kTile * kWideCols; e += kWideThreads) {
+    const int r = e / kWideCols, c = e - r * kWideCols;
+    const float x = to_f32(src[base + static_cast<size_t>(r) * stride + c]);
+    if (transpose)
+      dst[c][r] = x;
+    else
+      dst[r][c] = x;
+  }
+}
+
+// part[i][j] = sum over k < 64 of x[k][4 ty + i] * y[k][4 tx + j], from
+// zero, k in order.
+__device__ __forceinline__ void wide_product(float (&part)[4][4], WideTile x,
+                                             WideTile y, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) part[i][j] = 0.f;
+#pragma unroll 8
+  for (int k = 0; k < kTile; ++k) {
+    const float4 a = *reinterpret_cast<const float4*>(&x[k][4 * ty]);
+    const float4 b = *reinterpret_cast<const float4*>(&y[k][4 * tx]);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) part[i][j] = fmaf(av[i], bv[j], part[i][j]);
+  }
+}
+
+// s[i][j] = sum over d < D of a[4 ty + i][d] * b[4 tx + j][d], for the
+// 64-row blocks of a and b at `a_base` and `b_base` (rows `a_stride` and
+// `b_stride` elements apart), D streamed in chunks of kWideCols through
+// the tiles xa and xb (transposed), each chunk summed from zero and added.
+// Starts and ends with the block in step (the tiles are free after it
+// once every thread has passed a __syncthreads).
+template <typename T>
+__device__ __forceinline__ void wide_first(float (&s)[4][4], const T* a,
+                                           size_t a_base, size_t a_stride,
+                                           const T* b, size_t b_base,
+                                           size_t b_stride, int D,
+                                           WideTile xa, WideTile xb, int ty,
+                                           int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+  for (int d0 = 0; d0 < D; d0 += kWideCols) {
+    __syncthreads();  // the tiles' last readers are done
+    wide_load(xa, a, a_base + d0, a_stride, true);
+    wide_load(xb, b, b_base + d0, b_stride, true);
+    __syncthreads();
+    float part[4][4];
+    wide_product(part, xa, xb, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] += part[i][j];
+  }
+}
+
+// Max and sum over the 16 threads of a row (lanes that differ in bits
+// 0-3 of their index).
+__device__ __forceinline__ float wide_row_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float wide_row_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// Four neighbouring output columns of a row, as float32 or rounded to T.
+template <typename T>
+__device__ __forceinline__ void wide_store4(void* out, size_t at, bool f32,
+                                            const float (&x)[4]) {
+  if (f32) {
+    *reinterpret_cast<float4*>(static_cast<float*>(out) + at) =
+        make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+    T* o = static_cast<T*>(out) + at;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = from_f32<T>(x[j]);
+  }
+}
+
 // The launch geometry the wrapper planned (`flash_fwd_plan` and
 // `flash_bwd_plan` in ops/flash_attention.py); the launch functions refuse
 // a plan that is not their kernel's own.

@@ -521,6 +521,112 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
+// Head dims above 256 (flash_common.cuh's wide kernels): block (x, y)
+// owns query tile S / 64 - 1 - y / (D / 64) of (batch, query head) x and
+// output columns 64 (y % (D / 64)) .. + 63. Per k tile: the logits over
+// the whole D (`wide_first`), the online softmax of each row over its 16
+// threads, p rounded to T into xa (transposed) beside the chunk's v
+// columns in xb, and o += p v from zero. The chunk-0 blocks write lse.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+    flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, void* __restrict__ o,
+                          float* __restrict__ lse, int S, int H, int Hkv,
+                          int D, int causal, float scale, int out_f32) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const WideTile xa = reinterpret_cast<WideTile>(smem_raw);
+  const WideTile xb = xa + kTile;
+  const int nchunk = D / kWideCols;
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int hk = h / (H / Hkv);
+  const int nq = S / kTile;
+  const int qt = nq - 1 - static_cast<int>(blockIdx.y) / nchunk;
+  const int c0 = (static_cast<int>(blockIdx.y) % nchunk) * kWideCols;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int q0 = qt * kTile;
+  const size_t qs = static_cast<size_t>(H) * D, ks = static_cast<size_t>(Hkv) * D;
+  const size_t qbase = (static_cast<size_t>(b) * S + q0) * qs + static_cast<size_t>(h) * D;
+  float m[4], l[4], acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+  const int kt_end = causal ? qt : nq - 1;
+  for (int kt = 0; kt <= kt_end; ++kt) {
+    const int k0 = kt * kTile;
+    const size_t kbase = (static_cast<size_t>(b) * S + k0) * ks + static_cast<size_t>(hk) * D;
+    float sc[4][4];
+    wide_first(sc, q, qbase, qs, k, kbase, ks, D, xa, xb, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mt = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool masked = causal && k0 + 4 * tx + j > q0 + 4 * ty + i;
+        sc[i][j] = masked ? kNegInf : sc[i][j] * scale;
+        mt = fmaxf(mt, sc[i][j]);
+      }
+      const float m_new = fmaxf(m[i], wide_row_max(mt));
+      const float alpha = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool masked = causal && k0 + 4 * tx + j > q0 + 4 * ty + i;
+        sc[i][j] = masked ? 0.f : expf(sc[i][j] - m_new);
+        rs += sc[i][j];
+      }
+      l[i] = l[i] * alpha + wide_row_sum(rs);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
+      m[i] = m_new;
+    }
+    __syncthreads();  // the logits' last chunk is read
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xa[4 * tx + j][4 * ty + i] = round_to<T>(sc[i][j]);
+    wide_load(xb, v, kbase + c0, ks, false);
+    __syncthreads();
+    float part[4][4];
+    wide_product(part, xa, xb, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    const float lc = fmaxf(l[i], 1e-30f);
+    float out[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[j] = acc[i][j] / lc;
+    wide_store4<T>(o, (static_cast<size_t>(b) * S + row) * qs + static_cast<size_t>(h) * D + c0 + 4 * tx,
+                   out_f32 != 0 || std::is_same<T, float>::value, out);
+    if (c0 == 0 && tx == 0) lse[static_cast<size_t>(bh) * S + row] = m[i] + logf(lc);
+  }
+}
+
+// The wide kernel on the wrapper's plan: grid (B * H, S / 64 * D / 64),
+// kWideThreads threads, kWideSmem bytes.
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
+                        void* lse, int B, int S, int H, int Hkv, int D,
+                        int causal, float scale, int out_f32, const Plan& plan,
+                        cudaStream_t stream) {
+  if (!plan.is(B * H, S / kTile * (D / kWideCols), kWideThreads, kWideSmem))
+    return cudaErrorInvalidValue;
+  flash_fwd_wide_kernel<T><<<dim3(plan.grid_x, plan.grid_y), kWideThreads,
+                             kWideSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), o, static_cast<float*>(lse), S, H, Hkv, D,
+      causal, scale, out_f32);
+  return cudaGetLastError();
+}
+
 // One launch of `kern` on the wrapper's plan, which must be the kernel's
 // own: grid (B * H, S / 64), 128 threads, its dynamic shared memory.
 template <typename T, typename Kernel>
@@ -565,7 +671,9 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
 // 1 = bfloat16 (`flash_fwd_bf16_kernel`); out_f32 1 makes o float32 (for
 // bf16 inputs; float32 ones have a float32 o either way). lse (B * H, S)
 // float32. S a multiple of 64, H a multiple of Hkv, D one of
-// `with_head_dim`'s instances (flash_common.cuh); `scale` multiplies the
+// `with_head_dim`'s instances (flash_common.cuh) or above 256 a multiple
+// of 64 (`flash_fwd_wide_kernel`: grid (B * H, S / 64 * D / 64), 256
+// threads, kWideSmem bytes); `scale` multiplies the
 // logits (the wrapper's 1 / sqrt of the head dim before its zero padding).
 // The plan (grid_x, grid_y, threads, smem) is the wrapper's
 // `flash_fwd_plan`: grid (B * H, S / 64), 128 threads and the kernel's
@@ -583,6 +691,15 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
   }
   const Plan plan{grid_x, grid_y, threads, smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide_head_dim(D)) {
+    if (dtype == kDtypeF32)
+      return static_cast<int>(launch_wide<float>(q, k, v, o, lse, B, S, H, Hkv, D,
+                                                 causal, scale, out_f32, plan, s));
+    if (dtype == kDtypeBF16)
+      return static_cast<int>(launch_wide<__nv_bfloat16>(
+          q, k, v, o, lse, B, S, H, Hkv, D, causal, scale, out_f32, plan, s));
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(with_head_dim(D, [&](auto d) {
     return launch_d<decltype(d)::value>(q, k, v, o, lse, B, S, H, Hkv, causal,
                                         scale, dtype, out_f32, plan, s);

@@ -2,16 +2,27 @@
 reference's `models/generate.py`).
 
 - the auto dtype routing of the cache and the decode weights;
-- `init_cache`, `prefill` (one `model.apply` whose attention captures
-  each block's k/v into max_seq-sized buffers, and attends with the plain
-  causal attention), `decode_step` and `decode_block` (k tokens at
-  positions [pos, pos + k) of the contiguous cache, `attend_contiguous`);
+- `init_cache`, and the decoders' `prefill` (one forward whose
+  attention captures each block's k/v into max_seq-sized buffers, and
+  attends with the plain causal attention) and `block` (k tokens at
+  positions [pos, pos + k) of the contiguous cache, `attend_contiguous`),
+  written once in `CacheDecoder`; `prefill` and `decode_block` are the
+  one-device `LocalDecoder`'s;
 - `token_forward`, the one cached-decode forward skeleton (embedding,
   QKV, the dense or MoE MLP, the head; serving's paged path runs it too)
   and `attend_kv`, the masked GQA read over materialized cache rows;
-- `filter_logits` (top-k / top-p), `generate` (greedy or sampled), and
-  `lookup_speculative_generate` (draft-free prompt-lookup speculation,
-  exact greedy at temperature 0, rejection sampling above).
+- `filter_logits` (top-k / top-p), `generate` (greedy or sampled),
+  `lookup_speculative_generate` (draft-free prompt-lookup speculation)
+  and `speculative_generate` (a draft model proposes, the target
+  verifies), both exact greedy at temperature 0 and rejection sampling
+  above.
+
+The three loops run on a decoder: an object with the model, `prefill`
+and `block` (the prompt pass and a k-token cached forward). Given a
+params tree they make the one-device `LocalDecoder`;
+`parallel/tp_decode.py` gives the model-parallel one, whose rank holds
+its shards of the weights and its heads of the cache. Both are
+`CacheDecoder`s, differing only in the forwards they run.
 
 Weight products go through `qmatmul`, so int8 `QuantW` weights
 (`ops.gemv.quantize_decode_params`) take the int8 kernel K2 on the card.
@@ -162,8 +173,9 @@ def _cache_dtype(dtype) -> torch.dtype:
 
 
 def _empty_layer(model: TransformerLM, batch: int, dtype: torch.dtype,
-                 device) -> dict:
-    shape = (batch, model.max_seq, model.n_kv, model.head_dim)
+                 device, n_kv: int | None = None) -> dict:
+    """One layer's empty buffers, of `n_kv` heads (default all)."""
+    shape = (batch, model.max_seq, n_kv or model.n_kv, model.head_dim)
     layer = {"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
     if dtype == torch.int8:
@@ -197,30 +209,6 @@ def _write(c: dict, k: torch.Tensor, v: torch.Tensor, pos: int) -> None:
         c["v"][:, pos:pos + n] = v.to(c["v"].dtype)
 
 
-def prefill(model: TransformerLM, params: dict, prompt: torch.Tensor,
-            cache_dtype="float32"):
-    """The batched prompt pass: one `model.apply` (MoE blocks under
-    `moe_inference`) whose attention stores each block's k/v in
-    max_seq-sized buffers of `cache_dtype` and attends with the plain
-    causal attention at full precision. Returns (float32 logits of the
-    last position (B, vocab), cache)."""
-    b, s0 = prompt.shape
-    if s0 > model.max_seq:
-        raise ValueError(f"prompt length {s0} exceeds max_seq {model.max_seq}")
-    dtype = _cache_dtype(cache_dtype)
-    cache: list[dict] = []
-
-    def capture_attn(q, k, v):
-        c = _empty_layer(model, b, dtype, prompt.device)
-        _write(c, k, v, 0)
-        cache.append(c)
-        return attention(q, k, v, causal=True)
-
-    logits = model.apply(params, prompt, attn_fn=capture_attn,
-                         moe_inference=True)
-    return logits[:, -1, :].to(torch.float32), cache
-
-
 def attend_contiguous(c: dict, q, k, v, pos: int, positions: torch.Tensor):
     """Write k/v at [pos, pos + k) of one layer's contiguous buffers (in
     place), then attend each row i over the keys at positions <=
@@ -231,30 +219,113 @@ def attend_contiguous(c: dict, q, k, v, pos: int, positions: torch.Tensor):
     return attend_kv(q, c["k"], c["v"], mask, c.get("ks"), c.get("vs")), c
 
 
+def cache_bytes(cache: list[dict]) -> int:
+    """The bytes a cache's buffers hold (k, v and int8 scales, every
+    layer)."""
+    return sum(t.numel() * t.element_size() for c in cache
+               for t in c.values())
+
+
+class CacheDecoder:
+    """A decoder of the decode loops over the contiguous cache: `prefill`
+    and `block` here, the forwards they run from a subclass
+    (`_prompt_logits`, `_block_logits`) with `model` and `n_kv`, the kv
+    heads a layer of its cache holds; `cache_bytes` is the size of its
+    last prefill's cache."""
+
+    model: TransformerLM
+    n_kv: int
+    cache_bytes = 0
+
+    def _prompt_logits(self, prompt: torch.Tensor, capture):
+        """The float32 logits (B, vocab) of the prompt's last position,
+        with capture(q, k, v) as each block's attention in order."""
+        raise NotImplementedError
+
+    def _block_logits(self, toks: torch.Tensor, positions: torch.Tensor,
+                      attend):
+        """The float32 logits (B, k, vocab) of toks (B, k) at `positions`
+        (k,), with attend(i, q, k, v) as block i's attention."""
+        raise NotImplementedError
+
+    def prefill(self, prompt: torch.Tensor, cache_dtype="float32"):
+        """The batched prompt pass: each block's k/v stored in
+        max_seq-sized buffers of `cache_dtype`, attended with the plain
+        causal attention at full precision. Returns (float32 logits of
+        the last position (B, vocab), cache)."""
+        b, s0 = prompt.shape
+        if s0 > self.model.max_seq:
+            raise ValueError(f"prompt length {s0} exceeds max_seq "
+                             f"{self.model.max_seq}")
+        dtype = _cache_dtype(cache_dtype)
+        cache: list[dict] = []
+
+        def capture(q, k, v):
+            c = _empty_layer(self.model, b, dtype, prompt.device, self.n_kv)
+            _write(c, k, v, 0)
+            cache.append(c)
+            return attention(q, k, v, causal=True)
+
+        logits = self._prompt_logits(prompt, capture)
+        self.cache_bytes = cache_bytes(cache)
+        return logits, cache
+
+    def block(self, toks: torch.Tensor, pos: int, cache: list[dict]):
+        """k tokens per row at positions [pos, pos + k): every block
+        writes its k cache slots first, then row i attends over keys <=
+        pos + i, so stale entries past an accepted prefix are overwritten
+        or masked. Returns (logits (B, k, vocab) float32, cache)."""
+        kk = toks.shape[1]
+        if pos + kk > self.model.max_seq:
+            raise ValueError(f"block [{pos}, {pos + kk}) out of range "
+                             f"(max_seq {self.model.max_seq})")
+        positions = pos + torch.arange(kk, device=toks.device)
+
+        def attend(i, q, k, v):
+            return attend_contiguous(cache[i], q, k, v, pos, positions)[0]
+
+        return self._block_logits(toks, positions, attend), cache
+
+
+class LocalDecoder(CacheDecoder):
+    """The one-device decoder over the whole params: the prompt pass is
+    one `model.apply` (MoE blocks under `moe_inference`), a block
+    `token_forward`."""
+
+    def __init__(self, model: TransformerLM, params: dict):
+        self.model, self.params = model, params
+        self.n_kv = model.n_kv
+
+    def _prompt_logits(self, prompt, capture):
+        logits = self.model.apply(self.params, prompt, attn_fn=capture,
+                                  moe_inference=True)
+        return logits[:, -1, :].to(torch.float32)
+
+    def _block_logits(self, toks, positions, attend):
+        return token_forward(self.model, self.params, toks, positions, attend)
+
+
+def prefill(model: TransformerLM, params: dict, prompt: torch.Tensor,
+            cache_dtype="float32"):
+    """The one-device prompt pass (`LocalDecoder.prefill`). Returns
+    (float32 logits of the last position (B, vocab), cache)."""
+    return LocalDecoder(model, params).prefill(prompt, cache_dtype)
+
+
 def decode_block(model: TransformerLM, params: dict, toks: torch.Tensor,
                  pos: int, cache: list[dict]):
-    """k tokens per row at positions [pos, pos + k): every block writes
-    its k cache slots first, then row i attends over keys <= pos + i, so
-    stale entries past an accepted prefix are overwritten or masked.
-    Returns (logits (B, k, vocab) float32, cache)."""
-    kk = toks.shape[1]
-    if pos + kk > model.max_seq:
-        raise ValueError(f"block [{pos}, {pos + kk}) out of range (max_seq "
-                         f"{model.max_seq})")
-    positions = pos + torch.arange(kk, device=toks.device)
-
-    def attend(i, q, k, v):
-        return attend_contiguous(cache[i], q, k, v, pos, positions)[0]
-
-    return token_forward(model, params, toks, positions, attend), cache
+    """k tokens per row at positions [pos, pos + k) on one device
+    (`LocalDecoder.block`). Returns (logits (B, k, vocab) float32,
+    cache)."""
+    return LocalDecoder(model, params).block(toks, pos, cache)
 
 
-def decode_step(model: TransformerLM, params: dict, tok: torch.Tensor,
-                pos: int, cache: list[dict]):
-    """One token per row (B,) at position `pos`: the k = 1 case of
-    `decode_block`. Returns (logits (B, vocab), cache)."""
-    logits, cache = decode_block(model, params, tok[:, None], pos, cache)
-    return logits[:, 0, :], cache
+def decoder(model: TransformerLM, params):
+    """`params` itself when it is a decoder (it has `prefill` and
+    `block`), else the `LocalDecoder` of the params tree."""
+    if hasattr(params, "prefill") and hasattr(params, "block"):
+        return params
+    return LocalDecoder(model, params)
 
 
 # ---------------------------------------------------------------------------
@@ -317,7 +388,7 @@ def _validate_sampling(temperature: float, key, top_k: int, top_p: float,
 
 
 @torch.no_grad()
-def generate(model: TransformerLM, params: dict, prompt: torch.Tensor,
+def generate(model: TransformerLM, params, prompt: torch.Tensor,
              num_tokens: int, *, temperature: float = 0.0,
              key: np.ndarray | None = None, cache_dtype="float32",
              top_k: int = 0, top_p: float = 0.0) -> torch.Tensor:
@@ -325,9 +396,9 @@ def generate(model: TransformerLM, params: dict, prompt: torch.Tensor,
     cached decode steps: greedy argmax at temperature 0, else a sample of
     the temperature-scaled, `filter_logits`-restricted logits with `key`
     (a `data.prng` key: step i's noise from the i-th split, as the
-    reference's scan splits its carry). Returns (B, num_tokens) int64 on
-    the prompt's device. Greedy tokens stay on the device and feed the
-    next step."""
+    reference's scan splits its carry). `params` is a params tree or a
+    decoder (`decoder`). Returns (B, num_tokens) int64 on the prompt's
+    device. Greedy tokens stay on the device and feed the next step."""
     b, s0 = prompt.shape
     if num_tokens < 1:
         raise ValueError("num_tokens must be >= 1")
@@ -347,11 +418,13 @@ def generate(model: TransformerLM, params: dict, prompt: torch.Tensor,
                            top_p)
         return torch.argmax(lg + noise[i], dim=-1)
 
-    logits, cache = prefill(model, params, prompt, cache_dtype)
+    dec = decoder(model, params)
+    logits, cache = dec.prefill(prompt, cache_dtype)
     toks = []
     for i in range(num_tokens - 1):
         toks.append(sample(logits, i))
-        logits, cache = decode_step(model, params, toks[-1], s0 + i, cache)
+        logits, cache = dec.block(toks[-1][:, None], s0 + i, cache)
+        logits = logits[:, 0, :]
     toks.append(sample(logits, num_tokens - 1))
     return torch.stack(toks, dim=1)
 
@@ -380,13 +453,15 @@ def _accept_and_emit(u: np.ndarray, y: np.ndarray, out: np.ndarray,
 
 def _spec_sample_rows(tl: torch.Tensor, props: torch.Tensor,
                       key: np.ndarray, temperature: float, top_k: int,
-                      top_p: float):
-    """Rejection sampling of one verify block against the one-hot law of
-    prompt-lookup proposals: accept proposal x w.p. p(x), replace a
-    reject by a sample of p with x zeroed (p itself where that row is
-    all zero), sample the bonus row from p. tl (k, V) target logits,
-    props (k - 1,) proposals on the device. Returns (y (k,), accept
-    (k - 1,)) on the device."""
+                      top_p: float, qs: torch.Tensor | None = None):
+    """Rejection sampling of one verify block (the speculative sampling
+    theorem): accept proposal x w.p. min(1, p(x)/q(x)), replace a reject
+    by a sample of the residual norm(max(p - q, 0)) (p itself where that
+    row is all zero), sample the bonus row from p. tl (k, V) target
+    logits, props (k - 1,) proposals on the device, qs (k - 1, V) the
+    laws they were drawn from (a draft model's), None for the one-hot
+    law of prompt-lookup proposals. Returns (y (k,), accept (k - 1,)) on
+    the device."""
     kk, v = tl.shape
     p = _filtered_probs(tl, temperature, top_k, top_p)            # (k, V)
     ku, kr, kb = prng.split(key, 3)
@@ -397,9 +472,12 @@ def _spec_sample_rows(tl: torch.Tensor, props: torch.Tensor,
     unif = draws[:kk - 1]
     g_res = draws[kk - 1:kk - 1 + (kk - 1) * v].view(kk - 1, v)
     g_bonus = draws[kk - 1 + (kk - 1) * v:]
-    qs = torch.zeros_like(p[:-1]).scatter_(-1, props[:, None], 1.0)
+    if qs is None:
+        qs = torch.zeros_like(p[:-1]).scatter_(-1, props[:, None], 1.0)
     p_prop = torch.gather(p[:-1], -1, props[:, None])[:, 0]
-    accept = unif < p_prop                # u * q(x) < p(x), q(x) = 1
+    q_prop = torch.gather(qs, -1, props[:, None])[:, 0]
+    # u q(x) < p(x)  <=>  u < min(1, p/q); q(x) = 0 accepts iff p(x) > 0
+    accept = unif * q_prop < p_prop
     res = torch.clamp_min(p[:-1] - qs, 0.0)
     res = torch.where(res.sum(-1, keepdim=True) > 0.0, res, p[:-1])
     res_tok = torch.argmax(g_res + torch.log(res), dim=-1)
@@ -414,6 +492,21 @@ def _spec_stats(n_out: int, rounds: int, num_tokens: int) -> dict:
     return {"rounds": int(rounds),
             "mean_accepted": (min(int(n_out), num_tokens) - 1)
             / max(int(rounds), 1)}
+
+
+def _first_token(tl: torch.Tensor, key, temperature: float, top_k: int,
+                 top_p: float):
+    """The first generated token of a speculative loop, the target's own
+    pick of the prompt's logits tl (1, V): the argmax, or a sample with
+    the second key of a split of `key` (the loop goes on with the
+    first). Returns (key, token as an int)."""
+    if temperature <= 0:
+        return key, int(torch.argmax(tl, dim=-1)[0])
+    key, k0 = prng.split(key, 2)
+    noise = torch.from_numpy(prng.gumbel(k0, tl.shape)).to(tl.device)
+    cur = torch.argmax(noise + torch.log(
+        _filtered_probs(tl, temperature, top_k, top_p)), dim=-1)
+    return key, int(cur[0])
 
 
 def _propose(ctx: np.ndarray, pos: int, cur: int, k: int,
@@ -435,7 +528,7 @@ def _propose(ctx: np.ndarray, pos: int, cur: int, k: int,
 
 
 @torch.no_grad()
-def lookup_speculative_generate(model: TransformerLM, params: dict,
+def lookup_speculative_generate(model: TransformerLM, params,
                                 prompt: torch.Tensor, num_tokens: int, *,
                                 k: int = 8, ngram: int = 2,
                                 cache_dtype="float32",
@@ -448,8 +541,9 @@ def lookup_speculative_generate(model: TransformerLM, params: dict,
     ngram tail, verify them with one `decode_block` forward, and emit the
     accepted prefix plus one. Temperature 0: exactly `generate`'s greedy
     tokens (up to float rounding of the block forward); above it,
-    rejection sampling whose output law is plain sampling's. Returns
-    tokens (1, num_tokens) int64 on the prompt's device, and with
+    rejection sampling whose output law is plain sampling's. `params` is
+    a params tree or a decoder (`decoder`). Returns tokens
+    (1, num_tokens) int64 on the prompt's device, and with
     `return_stats` also {"rounds", "mean_accepted"}."""
     b, s0 = prompt.shape
     if b != 1:
@@ -471,15 +565,9 @@ def lookup_speculative_generate(model: TransformerLM, params: dict,
     _validate_sampling(temperature, key, top_k, top_p, model.vocab)
     sampling = temperature > 0
     dev = prompt.device
-    tl, cache = prefill(model, params, prompt, cache_dtype)
-    if sampling:
-        key, k0 = prng.split(key, 2)
-        noise = torch.from_numpy(prng.gumbel(k0, tl.shape)).to(dev)
-        cur = torch.argmax(noise + torch.log(
-            _filtered_probs(tl, temperature, top_k, top_p)), dim=-1)
-    else:
-        cur = torch.argmax(tl, dim=-1)
-    cur = int(cur[0])
+    dec = decoder(model, params)
+    tl, cache = dec.prefill(prompt, cache_dtype)
+    key, cur = _first_token(tl, key, temperature, top_k, top_p)
     ctx = np.zeros(model.max_seq, np.int64)
     ctx[:s0] = prompt[0].cpu().numpy()
     ctx[s0] = cur
@@ -489,7 +577,7 @@ def lookup_speculative_generate(model: TransformerLM, params: dict,
     while n_out < num_tokens:
         u = np.concatenate([[cur], _propose(ctx, pos, cur, k, ngram)])
         ud = torch.from_numpy(u).to(dev)
-        tl, cache = decode_block(model, params, ud[None], pos, cache)
+        tl, cache = dec.block(ud[None], pos, cache)
         # One read back a round: the picks (and, sampling, the
         # acceptances) decide the emitted count, the reference's
         # while_loop condition.
@@ -504,6 +592,109 @@ def lookup_speculative_generate(model: TransformerLM, params: dict,
             y = torch.argmax(tl[0], dim=-1).cpu().numpy()
             j, cur = _accept_and_emit(u, y, out, n_out)
         ctx[pos + 1:pos + 1 + k] = y
+        pos, n_out, rounds = pos + j, n_out + j, rounds + 1
+    toks = torch.from_numpy(out[None, :num_tokens]).to(dev)
+    if return_stats:
+        return toks, _spec_stats(n_out, rounds, num_tokens)
+    return toks
+
+
+# ---------------------------------------------------------------------------
+# Draft-model speculative decoding
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def speculative_generate(model: TransformerLM, params,
+                         draft_model: TransformerLM, draft_params,
+                         prompt: torch.Tensor, num_tokens: int, *, k: int = 4,
+                         cache_dtype="float32", temperature: float = 0.0,
+                         key: np.ndarray | None = None, top_k: int = 0,
+                         top_p: float = 0.0, return_stats: bool = False):
+    """Speculative decoding with a draft model, B = 1: each round the
+    draft takes k cached steps from the last emitted token (feeding each
+    of its proposals, so that its cache follows the verified prefix),
+    the target scores the round's k inputs in one `decode_block`
+    forward, and the accepted prefix plus one token is emitted.
+
+    Temperature 0: greedy exact-match acceptance, so the tokens are the
+    target's own greedy continuation (up to float rounding of the block
+    forward). Above it (`key` needed, top_k / top_p as in `generate`):
+    the draft samples its own filtered law q and the target accepts by
+    rejection sampling (`_spec_sample_rows`), so the output law is plain
+    sampling's for any draft. The keys split as the reference's loop
+    splits them: the first token from the second key of one split, then
+    three keys a round (the carry, the draft's, the verify's) and one
+    split of the draft's key a draft step. The target's and the draft's
+    params are params trees (int8 `QuantW` weights take K2 on the card)
+    or decoders (`decoder`). Returns tokens (1, num_tokens) int64 on the
+    prompt's device, and with `return_stats` also {"rounds",
+    "mean_accepted"}."""
+    b, s0 = prompt.shape
+    if b != 1:
+        raise ValueError(f"speculative decoding is the B=1 latency path "
+                         f"(got batch {b}); use generate() for batches")
+    if num_tokens < 1:
+        raise ValueError("num_tokens must be >= 1")
+    if k < 2:
+        raise ValueError(f"k must be >= 2 (k={k} would draft nothing)")
+    if model.vocab != draft_model.vocab:
+        raise ValueError(
+            f"target vocab {model.vocab} != draft vocab {draft_model.vocab}")
+    if s0 + num_tokens + k > min(model.max_seq, draft_model.max_seq):
+        raise ValueError(
+            f"prompt {s0} + {num_tokens} tokens + k={k} speculative slack "
+            f"exceeds max_seq (target {model.max_seq}, draft "
+            f"{draft_model.max_seq}; BOTH caches hold every position)")
+    _validate_sampling(temperature, key, top_k, top_p, model.vocab)
+    sampling = temperature > 0
+    dev = prompt.device
+    tgt, dft = decoder(model, params), decoder(draft_model, draft_params)
+    tl, t_cache = tgt.prefill(prompt, cache_dtype)
+    # the draft's prompt logits go unused: the first token is the target's
+    _, d_cache = dft.prefill(prompt, cache_dtype)
+    key, cur = _first_token(tl, key, temperature, top_k, top_p)
+    out = np.zeros(num_tokens + k, np.int64)
+    out[0] = cur
+    pos, n_out, rounds = s0, 1, 0
+    while n_out < num_tokens:
+        qs = noise = None
+        if sampling:
+            key, kd, kv = prng.split(key, 3)
+            steps = []
+            for _ in range(k):
+                kd, ks = prng.split(kd, 2)
+                steps.append(prng.gumbel(ks, (1, model.vocab)))
+            noise = torch.from_numpy(np.stack(steps)).to(dev)  # one copy
+            qs = []
+        tok = torch.full((1, 1), cur, dtype=torch.int64, device=dev)
+        inputs = [tok]
+        for i in range(k):
+            dl, d_cache = dft.block(inputs[-1], pos + i, d_cache)
+            dl = dl[:, 0, :]
+            if sampling:
+                q = _filtered_probs(dl, temperature, top_k, top_p)
+                qs.append(q[0])
+                nxt = torch.argmax(noise[i] + torch.log(q), dim=-1)
+            else:
+                nxt = torch.argmax(dl, dim=-1)
+            inputs.append(nxt[:, None])
+        # the k verify inputs: the last token and the first k - 1
+        # proposals (the k-th is never fed anywhere)
+        u = torch.cat(inputs[:k], dim=1)                       # (1, k)
+        tl, t_cache = tgt.block(u, pos, t_cache)
+        # One read back a round: the inputs and picks (and, sampling, the
+        # acceptances) decide the emitted count.
+        if sampling:
+            y, accept = _spec_sample_rows(tl[0], u[0, 1:], kv, temperature,
+                                          top_k, top_p,
+                                          qs=torch.stack(qs[:k - 1]))
+            both = torch.cat([y, accept.to(y.dtype)]).cpu().numpy()
+            j, cur = _emit_rows(both[:k], both[k:].astype(bool), out, n_out)
+        else:
+            both = torch.cat([u[0], torch.argmax(tl[0], dim=-1)]
+                             ).cpu().numpy()
+            j, cur = _accept_and_emit(both[:k], both[k:], out, n_out)
         pos, n_out, rounds = pos + j, n_out + j, rounds + 1
     toks = torch.from_numpy(out[None, :num_tokens]).to(dev)
     if return_stats:

@@ -32,7 +32,7 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "paged_attention": ("paged_attention_launch",
-                        [_P] * 10 + [_I] * 16 + [_P]),
+                        [_P] * 10 + [_I] * 18 + [_P]),
     "int8_gemm": ("int8_gemm_launch", [_P] * 6 + [_I] * 12 + [_P]),
     "gemm": ("gemm_launch", [_P] * 6 + [_I] * 11 + [_P]),
     "conv_direct": ("conv_direct_launch", [_P] * 3 + [_I] * 19 + [_P]),

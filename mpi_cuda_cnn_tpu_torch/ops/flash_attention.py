@@ -30,17 +30,21 @@ one K9 launch per backward.
 The reference's contracts are kept: q (B, S, H, D), k/v (B, S, Hkv, D)
 with H % Hkv == 0; S a multiple of 128 (ValueError otherwise, on any
 device); scale 1/sqrt(D); dvec = rowsum(dO * O) in float32, computed
-outside the kernels. The kernels are built at the head dims `HEAD_DIMS`;
-on the card any other D up to `MAX_HEAD_DIM` goes through `pad_route`:
-q, k, v and dO are zero-padded along D to the next instance
-(`kernel_head_dim`), which leaves q k^T, the softmax and dO v^T as they
-are and the extra output and gradient columns zero, the kernels take
-the real D's scale, and the outputs are sliced back. A D beyond
-`MAX_HEAD_DIM` raises ValueError on the card (no fallback); the plain
-versions take any D. Dtype policy: float32 inputs compute in float32;
-bf16 inputs stay bf16 operands with float32 logits, softmax and
-accumulators, p rounded to bf16 before the PV product and ds / p^T before
-the backward products; any other type computes as float32. The output
+outside the kernels. The tensor-core kernels are built at the head dims
+`HEAD_DIMS` (up to `MAX_HEAD_DIM`, 256); above it each kernel has a wide
+form (`flash_common.cuh`: the output columns split across blocks in
+chunks of `WIDE_COLS`, each block computing the logits over the whole D
+again, D streamed through shared memory in chunks), which takes any
+multiple of `WIDE_COLS`. On the card any other D goes through
+`pad_route`: q, k, v and dO are zero-padded along D to the next
+instance or multiple (`kernel_head_dim`), which leaves q k^T, the
+softmax and dO v^T as they are and the extra output and gradient columns
+zero, the kernels take the real D's scale, and the outputs are sliced
+back. So every D the reference takes runs on the kernels. Dtype policy:
+float32 inputs compute in float32; bf16 inputs stay bf16 operands with
+float32 logits, softmax and accumulators, p rounded to bf16 before the
+PV product and ds / p^T before the backward products; any other type
+computes as float32. The output
 comes back in q's type and each gradient in its input's type, or, with
 the reference's `out_f32` / `grads_f32`, in float32 unrounded (the
 ring-flash fold and backward of `parallel/sp.py` merge and accumulate
@@ -68,7 +72,10 @@ from .attention import NEG_INF
 # csrc/flash_common.cuh); 80, 96 and 256 are the published head dims of
 # Phi-2, Phi-3-mini and Gemma-7B
 HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
-MAX_HEAD_DIM = HEAD_DIMS[-1]
+MAX_HEAD_DIM = HEAD_DIMS[-1]    # the largest tensor-core instance
+WIDE_COLS = 64              # above it: the wide kernels' column chunk
+_WIDE_THREADS = 256         # the wide kernels: 16 x 16 threads
+_WIDE_SMEM = 2 * 64 * (64 + 4) * 4   # two (64, 64) float32 tiles, rows + 16 B
 _TILE = 64                  # rows of a query tile, keys of a key tile
 _MMA_THREADS = 128          # K7, K8 and K9: 4 warps x 16 rows
 _ROW_PAD = 16               # bytes of padding after each staged tile row
@@ -91,12 +98,21 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def kernel_head_dim(d: int) -> int:
-    """The instance the kernels run head dim `d` at: the smallest of
-    `HEAD_DIMS` that is >= d. ValueError beyond `MAX_HEAD_DIM`."""
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"flash attention kernels take head dims 1.."
-                         f"{MAX_HEAD_DIM}; got {d}")
+    """The head dim the kernels run `d` at: the smallest of `HEAD_DIMS`
+    that is >= d, and above `MAX_HEAD_DIM` the next multiple of
+    `WIDE_COLS` (the wide kernels). ValueError below 1."""
+    if d < 1:
+        raise ValueError(f"flash attention kernels take head dims >= 1; "
+                         f"got {d}")
+    if d > MAX_HEAD_DIM:
+        return -(-d // WIDE_COLS) * WIDE_COLS
     return next(k for k in HEAD_DIMS if k >= d)
+
+
+def is_wide(d: int) -> bool:
+    """Whether head dim `d` (a kernel head dim) runs on the wide
+    kernels."""
+    return d > MAX_HEAD_DIM
 
 
 def pad_route(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -193,9 +209,11 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_plan(name: str, d: int, dtype: torch.dtype) -> None:
-    if dtype not in (torch.float32, torch.bfloat16) or d not in HEAD_DIMS:
+    if dtype not in (torch.float32, torch.bfloat16) or \
+            kernel_head_dim(d) != d:
         raise ValueError(f"{name}: {dtype} at head dim {d} (instances "
-                         f"{HEAD_DIMS})")
+                         f"{HEAD_DIMS}, or above {MAX_HEAD_DIM} a multiple "
+                         f"of {WIDE_COLS})")
 
 
 def stream_rows(kernel: str, dtype: torch.dtype, d: int) -> int:
@@ -221,7 +239,8 @@ def dkv_split(d: int) -> int:
 class FlashFwdPlan(NamedTuple):
     """K7's launch: a (grid_x, grid_y) grid of `threads`-thread blocks with
     `smem_bytes` of dynamic shared memory; block (x, y) owns query tile
-    grid_y - 1 - y of (batch, query head) x."""
+    grid_y - 1 - y of (batch, query head) x (wide: query tile
+    S / 64 - 1 - y // (d / 64), output columns 64 (y % (d / 64)) ..)."""
     grid_x: int
     grid_y: int
     threads: int
@@ -239,8 +258,13 @@ def flash_fwd_plan(b: int, s: int, h: int, hkv: int, d: int,
     float32 (3xTF32): k and v in two stages, four tiles (q staged in the
     second and split into registers); at d 80-128 two more for q split in
     place into hi and lo; beyond d 128 two stages of 32-key k and v tiles
-    and q's float32 tile (`kStreamRowsF32Fwd`, 192 rows)."""
+    and q's float32 tile (`kStreamRowsF32Fwd`, 192 rows). Above d 256 the
+    wide kernel: a block a (query tile, 64 output columns), 256 threads,
+    two (64, 64) float32 tiles."""
     _check_plan("flash_fwd_plan", d, dtype)
+    if is_wide(d):
+        return FlashFwdPlan(b * h, s // _TILE * (d // WIDE_COLS),
+                            _WIDE_THREADS, _WIDE_SMEM)
     elem = torch.finfo(dtype).bits // 8
     if dtype == torch.bfloat16:
         rows = 5 * _TILE
@@ -373,10 +397,17 @@ def flash_bwd_plan(kernel: str, b: int, s: int, h: int, hkv: int, d: int,
     tiles of `stream_rows` keys, one stage in float32 (so three blocks fit
     on an SM at d 64). K9: the k and v tiles (64 rows), two stages of q and
     dO tiles of `stream_rows` queries and of as many float32 lse and dvec
-    values. K9's grid has `dkv_split(d)` blocks a key tile."""
+    values. K9's grid has `dkv_split(d)` blocks a key tile. Above d 256
+    the wide kernels: a block a (tile, 64 output columns), 256 threads,
+    two (64, 64) float32 tiles; K9's blocks are (batch, kv head) x key
+    tiles and sum the query group themselves (no scratch)."""
     if kernel not in ("dq", "dkv"):
         raise ValueError(f"flash_bwd_plan: {kernel!r}")
     _check_plan("flash_bwd_plan", d, dtype)
+    if is_wide(d):
+        return FlashBwdPlan(b * (h if kernel == "dq" else hkv),
+                            s // _TILE * (d // WIDE_COLS), _WIDE_THREADS,
+                            _WIDE_SMEM, None, 0)
     group = h // hkv
     elem = torch.finfo(dtype).bits // 8
     n = stream_rows(kernel, dtype, d)
@@ -517,8 +548,9 @@ def _for_kernel(name: str, kdt: torch.dtype, *tensors: torch.Tensor,
         raise ValueError(f"{name}: all tensors must be on one CUDA device, "
                          f"got {[str(t.device) for t in tensors]}")
     d = d or tensors[0].shape[-1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+    if kernel_head_dim(d) != d:
+        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS} nor a "
+                         f"multiple of {WIDE_COLS} above {MAX_HEAD_DIM}")
     out = tuple(t.to(kdt).contiguous() for t in tensors)
     return tuple(t.clone() if t.data_ptr() % 16 else t for t in out)
 
@@ -544,6 +576,6 @@ class _FlashFn(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> torch.Tensor:
     """Fused scaled-dot-product attention, forward on K7, backward on K8
-    and K9. q (B, S, H, D); k/v (B, S, Hkv, D), H % Hkv == 0, D <=
-    `MAX_HEAD_DIM` on the card; S a multiple of 128."""
+    and K9. q (B, S, H, D); k/v (B, S, Hkv, D), H % Hkv == 0, any D; S a
+    multiple of 128."""
     return _FlashFn.apply(q, k, v, causal)

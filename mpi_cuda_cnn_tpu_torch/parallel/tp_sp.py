@@ -109,15 +109,18 @@ def tp_block_apply(model, blk: dict, x: torch.Tensor, *, attn,
                    pos: torch.Tensor, mesh: Mesh,
                    compute_dtype: torch.dtype | None = None,
                    attn_sliced: bool = True, mlp_sliced: bool = True,
-                   moe_group=None, moe_dispatch_dtype=None):
+                   moe_group=None, moe_dispatch_dtype=None,
+                   moe_inference: bool = False):
     """One Megatron block on this rank's heads and hidden slice: x
     (B, S, D) replicated over the model line -> (x, aux), aux the MoE
     balance loss (0 dense), the same on every rank of the line. `blk`
     holds this rank's blocks of the head-structured leaves; `attn(q, k,
     v)` runs on the local heads; `moe_group` routes the tokens as
-    `moe_mlp`'s `group` (None: this rank's tokens alone)."""
+    `moe_mlp`'s `group` (None: this rank's tokens alone);
+    `moe_inference` runs every expert with no drop (`moe_mlp_inference`,
+    the decode's MoE; aux 0)."""
     from ..models.transformer import _layernorm, _weight_cast
-    from .moe import moe_mlp
+    from .moe import moe_mlp, moe_mlp_inference
 
     w = _weight_cast(compute_dtype)
     b, s, d = x.shape
@@ -146,10 +149,16 @@ def tp_block_apply(model, blk: dict, x: torch.Tensor, *, attn,
         moe_p = tree_map(w, blk["moe"])
         if mlp_sliced:
             moe_p["gate"] = CopyToModel.apply(moe_p["gate"], mesh)
-        part, aux = moe_mlp(y.reshape(b * s, d), moe_p,
-                            n_experts=model.moe_experts,
-                            top_k=model.moe_top_k, group=moe_group,
-                            dispatch_dtype=moe_dispatch_dtype)
+        if moe_inference:
+            part = moe_mlp_inference(y.reshape(b * s, d), moe_p,
+                                     n_experts=model.moe_experts,
+                                     top_k=model.moe_top_k)
+            aux = torch.zeros((), device=x.device)
+        else:
+            part, aux = moe_mlp(y.reshape(b * s, d), moe_p,
+                                n_experts=model.moe_experts,
+                                top_k=model.moe_top_k, group=moe_group,
+                                dispatch_dtype=moe_dispatch_dtype)
         part = part.reshape(b, s, d).to(x.dtype)
     else:
         part = F.gelu(y @ w(blk["w1"]), approximate="tanh") @ w(blk["w2"])

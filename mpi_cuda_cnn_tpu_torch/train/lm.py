@@ -30,23 +30,17 @@ import torch.nn.functional as F
 from ..data import prng
 from ..models.layers import tree_leaves
 from ..models.transformer import TransformerLM
-from ..ops.flash_attention import MAX_HEAD_DIM
 from ..ops.gemv import tree_map
 from ..parallel.dp import make_dp_train_step
 from ..parallel.mesh import device_mesh
 
 
 def pick_attn_impl(impl: str, seq_len: int,
-                   device: torch.device | str = "cuda",
-                   head_dim: int | None = None) -> str:
+                   device: torch.device | str = "cuda") -> str:
     """Resolve "auto": the flash kernels on a CUDA device whenever their
-    block constraint (S % 128 == 0) holds and the model's `head_dim` is
-    one they take (up to `MAX_HEAD_DIM`, zero-padded to their next
-    instance; None = not known here), the oracle on the CPU (where the
-    kernels' plain versions are full-matrix math, no faster than the
-    oracle), for an unaligned S or for a head dim beyond `MAX_HEAD_DIM`.
-    An explicit "flash" is returned as asked: the kernels then refuse a
-    head dim beyond `MAX_HEAD_DIM`.
+    block constraint (S % 128 == 0) holds (they take every head dim), the
+    oracle on the CPU (where the kernels' plain versions are full-matrix
+    math, no faster than the oracle) and for an unaligned S.
 
     The reference routes float32 below S = 3072 to the oracle
     (`_F32_FLASH_MIN_SEQ`); that crossover was measured on a TPU v5e and
@@ -54,8 +48,7 @@ def pick_attn_impl(impl: str, seq_len: int,
     the card are the data for this card's own."""
     if impl != "auto":
         return impl
-    if (torch.device(device).type != "cuda" or seq_len % 128
-            or (head_dim is not None and head_dim > MAX_HEAD_DIM)):
+    if torch.device(device).type != "cuda" or seq_len % 128:
         return "oracle"
     return "flash"
 
@@ -178,8 +171,7 @@ def make_lm_train_step(model: TransformerLM, optimizer, *,
     routes its global batch; under the elastic reduction each canonical
     micro-batch routes by itself, as the reference's elastic step does.
     `moe_dispatch_chunk` and `moe_dispatch_dtype` are `moe_mlp`'s."""
-    impl = pick_attn_impl(attn_impl, seq_len or model.max_seq, device,
-                          model.head_dim)
+    impl = pick_attn_impl(attn_impl, seq_len or model.max_seq, device)
     attn_fn = get_attn_fn(impl)
     mesh = mesh or device_mesh(torch.device(device))
     group = None if elastic_width or mesh.group is None else mesh
@@ -218,8 +210,7 @@ def make_elastic_lm_train_step(model: TransformerLM, optimizer, mesh, *,
     B/W0-row micro-batches, whatever the world, so a run saved at one
     width resumes bit for bit at another. Returns (step, the resolved
     attention impl), as the reference's does."""
-    impl = pick_attn_impl(attn_impl, seq_len or model.max_seq, mesh.device,
-                          model.head_dim)
+    impl = pick_attn_impl(attn_impl, seq_len or model.max_seq, mesh.device)
     step = make_lm_train_step(
         model, optimizer, attn_impl=impl, seq_len=seq_len,
         device=mesh.device, compute_dtype=compute_dtype, remat=remat,

@@ -42,7 +42,9 @@ all-to-all'd over 'expert'). On a 'model' or 'pipe' axis, and under
 TP, FSDP x SP, TP x SP, GPipe with data, seq and model up to the 4D
 mesh), the clip in the step with the norm over the world, checkpoints
 in the reference's tree of the mesh (`Recovery`'s codec), and the eval
-and the sample from the whole standard tree, gathered on every rank.
+and the sample on a mesh without a model axis from the whole standard
+tree, gathered on every rank; with one, every rank of the model line
+decodes from its shards (`parallel/tp_decode.py`).
 The reference's checks of the mesh and its flags are
 `utils.config.check_lm_supported`.
 """
@@ -64,7 +66,6 @@ from ..obs.cost import ProgramLog
 from ..obs.device import emit_step_telemetry
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import span
-from ..ops.flash_attention import MAX_HEAD_DIM
 from ..models.layers import tree_leaves
 from ..parallel.dp import dp_shard_batch, replicate
 from ..parallel.moe import check_dispatch_chunk
@@ -93,20 +94,16 @@ from .recovery import Recovery
 
 
 def pick_ring_impl(impl: str, seq_len: int, n_seq: int,
-                   device: torch.device | str, head_dim: int) -> str:
+                   device: torch.device | str) -> str:
     """The sequence-parallel attention of `--attn-impl` on a seq axis of
     n_seq ranks, the reference's rule: "auto" and "flash" take ring-flash
-    on a CUDA device when the per-shard sequence is a multiple of 128,
-    else the plain ring; "auto" also needs a head dim the kernels take
-    (up to `MAX_HEAD_DIM`; an explicit "flash" keeps ring-flash, whose
-    kernels then refuse the head dim, as `pick_attn_impl` leaves it off
-    the seq axis);
-    "oracle" is the plain ring (exact, as the oracle); the others are
-    taken as asked."""
+    on a CUDA device when the per-shard sequence is a multiple of 128
+    (the kernels take every head dim), else
+    the plain ring; "oracle" is the plain ring (exact, as the oracle);
+    the others are taken as asked."""
     if impl in ("auto", "flash"):
         flash = (torch.device(device).type == "cuda"
-                 and (seq_len // n_seq) % 128 == 0
-                 and (impl == "flash" or head_dim <= MAX_HEAD_DIM))
+                 and (seq_len // n_seq) % 128 == 0)
         return "ring_flash" if flash else "ring"
     return "ring" if impl == "oracle" else impl
 
@@ -270,11 +267,10 @@ class LMTrainer:
         self._compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         if n_seq > 1:
             self.attn_impl = pick_ring_impl(cfg.attn_impl, cfg.seq_len,
-                                            n_seq, self.device,
-                                            self.model.head_dim)
+                                            n_seq, self.device)
         else:
             self.attn_impl = pick_attn_impl(cfg.attn_impl, cfg.seq_len,
-                                            self.device, self.model.head_dim)
+                                            self.device)
         if cfg.moe_dispatch_chunk and n_data > 1 and not cfg.elastic_width:
             # The ranks route each micro-batch as one global batch; a chunk
             # must divide a rank's tokens or be a whole number of them.
@@ -332,6 +328,7 @@ class LMTrainer:
             codec = (lambda st: self.par.checkpoint_arrays(st, opt),
                      lambda st, arrays: self.par.load_arrays(st, arrays, opt))
         self._standard = None
+        self.sample_cache_bytes = 0     # the last sample's cache, this rank
         self.recovery = Recovery(cfg, mesh, self.optimizer,
                                  metrics=self.metrics, logger=self.log,
                                  faults=faults, preempt=preempt, codec=codec)
@@ -526,14 +523,22 @@ class LMTrainer:
         decode path (`models/generate.py`): the prompt from the eval tail,
         greedy by default, with the decode dtypes resolved for this
         model's heads (int8 weights take K2 on the card); with
-        --sample-speculative-k, prompt-lookup speculation. On a sharded
-        mesh the decode runs from the whole standard params
-        (`standard_params`, which every rank must have made at this step:
-        `train()` makes them for its eval); a model axis keeps float32
-        weights, as the reference's model-parallel decode does. Returns
-        (prompt, continuation) as int32 numpy arrays."""
+        --sample-speculative-k, prompt-lookup speculation. On a mesh with
+        a model axis every rank of the model line decodes together from
+        its shards, with its heads of the cache (`parallel/tp_decode.py`;
+        every rank must call this): on the plain model mesh the rank's
+        live shards (its FSDP split gathered over the data line), on the
+        head-structured and packed layouts (TP x SP, TP x PP) its shards
+        sliced from `standard_params`, as the reference re-places the
+        params it converts; float32 weights, as the reference's
+        model-parallel decode keeps them. On another sharded mesh the
+        decode runs from the whole standard params (`standard_params`,
+        which every rank must have made at this step: `train()` makes
+        them for its eval). Returns (prompt, continuation) as int32 numpy
+        arrays."""
         from ..data import prng
         from ..models.generate import (
+            decoder,
             generate,
             lookup_speculative_generate,
             pick_cache_dtype,
@@ -564,7 +569,16 @@ class LMTrainer:
                 "--decode-weights-dtype requires an unsharded sample path "
                 "(model-parallel decode keeps f32 weights; set "
                 "--decode-weights-dtype float32)")
-        params = quantize_decode_params(self.standard_params(), wdt)
+        if self.n_model > 1:
+            from ..parallel.tp_decode import TPDecoder
+
+            dec = (TPDecoder.from_sharded(self.par, self.state)
+                   if self.par.ckpt_form == "standard" else
+                   TPDecoder.from_params(model, self.standard_params(),
+                                         self.mesh))
+        else:
+            dec = decoder(model, quantize_decode_params(
+                self.standard_params(), wdt))
         cache_dtype = pick_cache_dtype(cfg.decode_cache_dtype, **heads)
         key = prng.key(seed) if temperature > 0 else None
         sampling = dict(temperature=temperature, key=key,
@@ -576,10 +590,11 @@ class LMTrainer:
                     f"--sample-speculative-k needs a prompt of >= 2 "
                     f"tokens (resolved prompt length {p}; raise "
                     f"prompt_len or seq_len)")
-            toks = lookup_speculative_generate(model, params, prompt,
+            toks = lookup_speculative_generate(model, dec, prompt,
                                                num_tokens, k=spec_k,
                                                **sampling)
         else:
-            toks = generate(model, params, prompt, num_tokens, **sampling)
+            toks = generate(model, dec, prompt, num_tokens, **sampling)
+        self.sample_cache_bytes = dec.cache_bytes
         return (np.asarray(stream[:p], np.int32),
                 toks[0].cpu().numpy().astype(np.int32))

@@ -300,15 +300,17 @@ def lm_rank(mesh, cfg, params=None, *, grads: bool = False,
             fired: tuple[int, ...] = ()) -> dict:
     """The `lm` command on one rank: an LMTrainer of `cfg` from `params`
     (None: the seeded init), trained for cfg.steps and evaluated
-    (`LMTrainer.train()`), then, with cfg.sample_tokens, a sample on rank
-    0 logged as the reference's command logs it. The rank's mesh may have
-    any of the LM's axes (its block of every batch and of the params).
-    Returns the
+    (`LMTrainer.train()`), then, with cfg.sample_tokens, a sample (on
+    rank 0, or on every rank of each model line where the mesh has a
+    model axis), logged by rank 0 as the reference's command logs it.
+    The rank's mesh may have any of the LM's axes (its block of every
+    batch and of the params). Returns the
     exit code, the losses logged (every cfg.log_every steps), the
     result's final and eval losses, the launches and collectives of
     `train()` (the steps and the eval), its wall seconds, the trainer's
-    records, the sample's tokens (rank 0 with cfg.sample_tokens, else
-    None), and, if asked, step 0's gradients (before training) and the
+    records, the sample's tokens, prompt and this rank's cache bytes
+    (where the rank sampled, else a sample of None), and, if asked, step
+    0's gradients (before training) and the
     final params (numpy, whole, in the standard tree's `tree_leaves`
     order). `attempt` and `fired`: `supervise_world`'s."""
     log = get_logger()
@@ -351,16 +353,25 @@ def lm_rank(mesh, cfg, params=None, *, grads: bool = False,
                records=metrics.rows, sample=None)
     if final_params:
         res["params"] = _numpy(trainer.full_leaves())
-    if cfg.sample_tokens:
-        trainer.standard_params()   # on every rank (a sharded mesh gathers)
-    if cfg.sample_tokens and (mesh is None or mesh.rank == 0):
-        _, cont = trainer.sample(cfg.sample_tokens,
+    lead = mesh is None or mesh.rank == 0
+    # A model axis decodes on every rank of its line, from the rank's
+    # shards; another mesh on rank 0, from the whole params the eval made
+    # on every rank at this step (made again on every rank if a step
+    # moved them since: no rank may gather alone).
+    if cfg.sample_tokens and trainer.n_model == 1:
+        trainer.standard_params()
+    if cfg.sample_tokens and (lead or trainer.n_model > 1):
+        prompt, cont = trainer.sample(cfg.sample_tokens,
                                  temperature=cfg.sample_temperature,
                                  seed=cfg.seed)
-        # Char-level corpora decode as bytes; the rest prints as escapes.
-        text = bytes(int(t) & 0xFF for t in cont)
-        log.info("sample (%d tokens): %r", cfg.sample_tokens, text)
+        if lead:
+            # Char-level corpora decode as bytes; the rest prints as
+            # escapes.
+            text = bytes(int(t) & 0xFF for t in cont)
+            log.info("sample (%d tokens): %r", cfg.sample_tokens, text)
         res["sample"] = cont.tolist()
+        res["sample_prompt"] = prompt.tolist()
+        res["sample_cache_bytes"] = trainer.sample_cache_bytes
     return res
 
 

@@ -6,7 +6,8 @@ closing sync); timing a window of n calls and one of 2n calls and taking
 (T(2n) - T(n)) / n cancels the fixed cost, as the reference's recipe does
 for its jitted scan windows. Eager PyTorch needs no scan: there is no
 common-subexpression or dead-code elimination to defeat, so a window is
-n plain calls.
+n plain calls. `two_point` is the core both use: its `run(m)` times m
+dependent iterations itself (a generate call of m tokens, say).
 """
 
 from __future__ import annotations
@@ -15,6 +16,20 @@ import statistics
 import time
 
 import torch
+
+
+def two_point(run, n: int, *, reps: int = 3) -> float:
+    """The median over `reps` of (run(2n) - run(n)) / n, where `run(m)`
+    performs m dependent iterations, waits for them and returns their
+    time (in any unit: the result is in the same)."""
+    if n < 1 or reps < 1:
+        raise ValueError(f"two_point: n {n} and reps {reps} must be >= 1")
+    samples = []
+    for _ in range(reps):
+        t1 = run(n)
+        t2 = run(2 * n)
+        samples.append((t2 - t1) / n)
+    return statistics.median(samples)
 
 
 def two_point_ms(fn, n: int, *args, reps: int = 3) -> float:
@@ -43,9 +58,4 @@ def two_point_ms(fn, n: int, *args, reps: int = 3) -> float:
         return 1e3 * (time.perf_counter() - t0)
 
     window(n)
-    samples = []
-    for _ in range(reps):
-        t1 = window(n)
-        t2 = window(2 * n)
-        samples.append((t2 - t1) / n)
-    return statistics.median(samples)
+    return two_point(window, n, reps=reps)

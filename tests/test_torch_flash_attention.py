@@ -191,12 +191,25 @@ def test_pad_route_is_the_unpadded_plain_version(d):
 
 
 def test_flash_head_dims_beyond_the_limit_raise_on_the_card_only():
-    """A head dim beyond 256 has no kernel instance: the card's route
-    raises ValueError naming the limit (no fallback); the CPU's plain
-    versions take it."""
-    q = torch.zeros(1, 128, 2, 320)
-    with pytest.raises(ValueError, match="1..256"):
-        fa.pad_route(fa.flash_forward_plain, q, q, q, True, out_f32=False)
+    """Beyond 256 the card's route takes the wide kernels (no head dim is
+    refused any more): D 300 is zero-padded to 320, the next multiple of
+    64, and gives the unpadded plain version's o and lse; D 320 and 512
+    pass as they are; the CPU's plain versions take every D."""
+    gen = torch.Generator().manual_seed(7)
+    for d, dk in ((300, 320), (320, 320), (512, 512)):
+        assert fa.kernel_head_dim(d) == dk
+        q, k, v = (torch.randn(1, 128, 2, d, generator=gen) for _ in range(3))
+        seen = []
+
+        def fwd(*args, scale, **kw):
+            seen.append((args[0].shape[-1], scale))
+            return fa.flash_forward_plain(*args, scale=scale, **kw)
+
+        o, lse = fa.pad_route(fwd, q, k, v, True, out_f32=False)
+        want_o, want_lse = fa.flash_forward_plain(q, k, v, True)
+        assert seen == [(dk, 1.0 / d ** 0.5)]
+        torch.testing.assert_close(o, want_o, rtol=0, atol=1e-6)
+        torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-6)
     o, lse = fa.flash_forward(q, q, q, True)
     assert o.shape == q.shape and lse.shape == (2, 128)
 

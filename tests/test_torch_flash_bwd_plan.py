@@ -219,31 +219,39 @@ def _switch_dims() -> list[int]:
 def test_each_head_dim_maps_to_the_c_switch_instance():
     """The wrapper's instances are the C switch's, and every D in
     1..256 runs at the smallest of them that is >= D (`pad_route`);
-    beyond 256 it raises, naming the limit."""
+    beyond 256 at the next multiple of the wide kernels' column chunk
+    (`WIDE_COLS`, 64); below 1 it raises."""
     dims = _switch_dims()
     assert tuple(dims) == fa.HEAD_DIMS and fa.MAX_HEAD_DIM == max(dims) == 256
     assert chip_smoke.FLASH_HEAD_DIMS == fa.HEAD_DIMS   # its HMMA check
     for d in range(1, 257):
         assert fa.kernel_head_dim(d) == min(c for c in dims if c >= d)
-    for d in (0, 257, 320):
-        with pytest.raises(ValueError, match="1..256"):
+        assert not fa.is_wide(fa.kernel_head_dim(d))
+    assert fa.WIDE_COLS == 64
+    for d, want in ((257, 320), (300, 320), (320, 320), (321, 384),
+                    (512, 512), (1000, 1024)):
+        assert fa.kernel_head_dim(d) == want and fa.is_wide(want)
+    for d in (0, -1):
+        with pytest.raises(ValueError, match=">= 1"):
             fa.kernel_head_dim(d)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_every_instance_fits_in_a_blocks_shared_memory(dtype):
     """Every instance's K7, K8 and K9 plan at the LM flagship's geometry
-    (B 8, S 2048, 8 heads, MHA and GQA 8/2) stays within the 232,448
-    bytes (227 KB) a block may have; the plans refuse what the C switch
-    lacks."""
-    for d in fa.HEAD_DIMS:
+    (B 8, S 2048, 8 heads, MHA and GQA 8/2), and the wide kernels' at D
+    320 and 512, stays within the 232,448 bytes (227 KB) a block may
+    have; the plans refuse what the kernels lack (a D between the
+    instances, or above 256 not a multiple of 64: `pad_route` pads
+    those)."""
+    for d in fa.HEAD_DIMS + (320, 512):
         for hkv in (8, 2):
             plans = [fa.flash_fwd_plan(8, 2048, 8, hkv, d, DTYPES[dtype])] + [
                 fa.flash_bwd_plan(k, 8, 2048, 8, hkv, d, DTYPES[dtype])
                 for k in ("dq", "dkv")]
             for plan in plans:
                 assert 0 < plan.smem_bytes <= 232_448, (d, plan)
-    for d in (24, 200, 320):
+    for d in (24, 200, 300):
         with pytest.raises(ValueError):
             fa.flash_fwd_plan(8, 2048, 8, 8, d, DTYPES[dtype])
         with pytest.raises(ValueError):

@@ -145,8 +145,9 @@ def test_greedy_generate_matches_jax(moe, kv, pos, cache, weights):
 
 @pytest.mark.parametrize("cache", ["float32", "int8"])
 def test_init_cache_and_decode_steps_match_jax(cache):
-    """Token by token from an empty cache (`init_cache`, `decode_step`),
-    then a 3-token `decode_block`: the JAX package's logits."""
+    """Token by token from an empty cache (`init_cache`; the JAX
+    `decode_step`, the port's one-token `decode_block`), then a 3-token
+    `decode_block`: the JAX package's logits."""
     jm, tm, jp, tp = _pair(kv_heads=2, moe_experts=4, moe_top_k=2)
     toks = _prompt(2, 8, seed=4)
     jc = jgen.init_cache(jm, 2, jnp.dtype(cache))
@@ -154,9 +155,9 @@ def test_init_cache_and_decode_steps_match_jax(cache):
     assert [sorted(c) for c in tc] == [sorted(c) for c in jc]
     for i in range(5):
         jl, jc = jgen.decode_step(jm, jp, jnp.asarray(toks[:, i]), i, jc)
-        tl, tc = tgen.decode_step(tm, tp, torch.from_numpy(toks[:, i]).long(),
-                                  i, tc)
-        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+        tl, tc = tgen.decode_block(
+            tm, tp, torch.from_numpy(toks[:, i:i + 1]).long(), i, tc)
+        np.testing.assert_allclose(tl[:, 0].numpy(), np.asarray(jl), rtol=0,
                                    atol=1e-5)
     jl, _ = jgen.decode_block(jm, jp, jnp.asarray(toks[:, 5:]), 5, jc)
     tl, _ = tgen.decode_block(tm, tp, torch.from_numpy(toks[:, 5:]).long(), 5,

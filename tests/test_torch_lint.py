@@ -398,6 +398,24 @@ def test_port_tree_is_finding_free(monkeypatch):
     assert rc == 0 and "0 finding(s)" in err
 
 
+@pytest.mark.parametrize("rel", [
+    "mpi_cuda_cnn_tpu_torch/bench/speculative.py",
+    "mpi_cuda_cnn_tpu_torch/parallel/tp_decode.py",
+    "mpi_cuda_cnn_tpu_torch/models/generate.py"])
+def test_decode_modules_are_in_the_scan_and_finding_free(rel):
+    """The draft-model speculative decoding, its bench and the
+    model-parallel decoder lie in the manifest's default scan scope and
+    lint with no finding under every rule."""
+    from mpi_cuda_cnn_tpu_torch.analysis.core import collect_files
+
+    manifest = load_manifest(REPO / "ci" / "torch_lint_manifest.json")
+    scanned = {f.resolve() for f in collect_files(REPO.resolve(),
+                                                  list(manifest.paths))}
+    assert (REPO / rel).resolve() in scanned
+    assert lint_paths([rel], root=REPO, manifest=manifest,
+                      rules=all_rules()) == []
+
+
 def test_manifest_is_the_reference_manifests_counterpart():
     """torch_free is the JAX manifest's jax_free list under the port's
     package, and each hot-loop file exists with its functions."""

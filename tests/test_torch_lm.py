@@ -34,6 +34,7 @@ from mpi_cuda_cnn_tpu_torch.data import prng
 from mpi_cuda_cnn_tpu_torch.models.layers import tree_leaves
 from mpi_cuda_cnn_tpu_torch.models.transformer import TransformerLM
 from mpi_cuda_cnn_tpu_torch.ops import _kernels
+from mpi_cuda_cnn_tpu_torch.ops import flash_attention as fa
 from mpi_cuda_cnn_tpu_torch.ops.flash_attention import MAX_HEAD_DIM
 from mpi_cuda_cnn_tpu_torch.train.lm import (
     count_params,
@@ -166,43 +167,45 @@ def test_pick_attn_impl():
 @pytest.mark.parametrize("device", ["cuda", "cpu"])
 @pytest.mark.parametrize("head_dim", [16, 32, 64, 96, 128, 256])
 def test_pick_attn_impl_auto_follows_the_kernels_head_dims(head_dim, device):
-    """"auto" takes the flash kernels for every head dim they take (up to
-    256, zero-padded to their next instance), on a CUDA device, and the
-    oracle beyond (320); an explicit "flash" stays flash (the kernels then
-    refuse a head dim beyond 256 themselves)."""
+    """"auto" takes the flash kernels on a CUDA device whatever the head
+    dim, since they take every D (up to 256 zero-padded to their next
+    instance, beyond it the wide kernels, 320 and 1000 here); an explicit
+    "flash" stays flash."""
     assert MAX_HEAD_DIM == 256
-    for d in (head_dim, head_dim + 1 if head_dim < 256 else 320):
-        want = "flash" if device == "cuda" and d <= 256 else "oracle"
-        assert pick_attn_impl("auto", 2048, device, d) == want
-        assert pick_attn_impl("auto", 2048, device, head_dim=d) == want
-        assert pick_attn_impl("flash", 2048, device, d) == "flash"
-        assert pick_attn_impl("oracle", 2048, device, d) == "oracle"
+    want = "flash" if device == "cuda" else "oracle"
+    assert pick_attn_impl("auto", 2048, device) == want
+    assert pick_attn_impl("flash", 2048, device) == "flash"
+    assert pick_attn_impl("oracle", 2048, device) == "oracle"
+    for d in (head_dim, head_dim + 1 if head_dim < 256 else 320, 1000):
+        assert fa.kernel_head_dim(d) >= d
 
 
 def test_lm_callers_pass_the_model_head_dim(monkeypatch):
-    """Both callers of pick_attn_impl hand it the model's head dim, so
-    that "auto" never resolves to kernels that are not built for it:
-    `lm --dim 32 --heads 2` and `--dim 256 --heads 16` (head dim 16)."""
+    """Both callers of pick_attn_impl hand it the run's sequence length
+    and device, which alone decide "auto" now that the kernels take every
+    head dim (the model's head dim is no longer passed): `lm --dim 32
+    --heads 2` and `--dim 256 --heads 16` (head dim 16)."""
     import mpi_cuda_cnn_tpu_torch.train.lm as lm_mod
     import mpi_cuda_cnn_tpu_torch.train.lm_trainer as trainer_mod
 
     seen = []
 
-    def spy(impl, seq_len, device="cuda", head_dim=None):
-        seen.append(head_dim)
-        return pick_attn_impl(impl, seq_len, device, head_dim)
+    def spy(impl, seq_len, device="cuda"):
+        seen.append((impl, seq_len, torch.device(device).type))
+        return pick_attn_impl(impl, seq_len, device)
 
     monkeypatch.setattr(lm_mod, "pick_attn_impl", spy)
     monkeypatch.setattr(trainer_mod, "pick_attn_impl", spy)
     trainer = LMTrainer(parse_lm_args(TINY))   # dim 32 over 2 heads
     assert trainer.attn_impl == "oracle"     # the CPU
-    assert seen == [16, 16]
+    # the trainer resolves "auto"; the step it builds gets the result
+    assert seen == [("auto", 128, "cpu"), ("oracle", 128, "cpu")]
     seen.clear()
     model = TransformerLM(vocab=64, dim=256, heads=16, depth=1, max_seq=128)
     opt = make_optimizer(1e-3, opt="adamw", schedule="constant")
     make_lm_train_step(model, opt, attn_impl="auto", seq_len=128,
                        device="cpu")
-    assert seen == [16]
+    assert seen == [("auto", 128, "cpu")]
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,8 @@ import torch_cpu  # noqa: F401  (one torch thread, see its docstring)
 FSDP = (("fsdp", True),)
 CASES = [Case("data:2", FSDP, sample=True),
          Case("data:2", FSDP + MOE),
-         Case("data:2,model:2", FSDP + (("kv_heads", 2), ("pos", "rope"))),
+         Case("data:2,model:2", FSDP + (("kv_heads", 2), ("pos", "rope")),
+              sample=True),
          Case("data:2,seq:2", FSDP + (("grad_clip", 0.05),))]
 
 

@@ -85,14 +85,22 @@ SHAPES = _shapes()
 
 
 def _blocks(plan):
-    """(slot, kv head, row group, split) of every block, as the kernel
-    decodes blockIdx.x (split fastest)."""
+    """(split, row group, tile = slot * Hkv + kv head) of every block, as
+    the kernel decodes blockIdx.x (slot, kv head, row group, column
+    chunk, split; split fastest), with `chunk_of` also the chunk."""
+    sp, rg, tile, _ = chunk_of(plan)
+    return sp, rg, tile
+
+
+def chunk_of(plan):
     bid = np.arange(plan.grid)
     sp = bid % plan.splits
     rest = bid // plan.splits
+    ch = rest % plan.chunks
+    rest = rest // plan.chunks
     rg = rest % plan.row_groups
     rest = rest // plan.row_groups
-    return sp, rg, rest
+    return sp, rg, rest, ch
 
 
 @pytest.mark.parametrize("name", SHAPES)
@@ -134,9 +142,13 @@ def test_plan_fills_the_card_at_decode():
 
 
 def test_plan_refuses_what_the_kernel_lacks():
-    for args in ((8, 1, 8, 2, 6, 16, 80, torch.int8),       # hd % 4
-                 (8, 1, 8, 2, 512, 16, 80, torch.float32),  # hd > 256
-                 (8, 1, 8, 3, 64, 16, 80, torch.int8),      # H % Hkv
+    """The reference's one refusal (H % Hkv), pages of a type the kernel
+    has no instance of, and a head dim whose one page stage does not fit
+    in shared memory (tests/test_torch_paged_head_dims.py holds the head
+    dims it takes)."""
+    for args in ((8, 1, 8, 2, 4096, 16, 80, torch.float32),  # one stage
+                 (8, 1, 8, 2, 0, 16, 80, torch.int8),        # no head dim
+                 (8, 1, 8, 3, 64, 16, 80, torch.int8),       # H % Hkv
                  (8, 1, 8, 2, 64, 16, 80, torch.float16)):
         with pytest.raises(ValueError):
             paged_attention_plan(*args)

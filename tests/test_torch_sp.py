@@ -193,7 +193,7 @@ def test_f32_outputs_match_the_pallas_kernels(d, hkv):
 
 def test_head_dim_16_is_built_for():
     assert 16 in fa.HEAD_DIMS
-    assert pick_attn_impl("auto", 2048, "cuda", 16) == "flash"
+    assert pick_attn_impl("auto", 2048, "cuda") == "flash"
     for dtype in (torch.float32, torch.bfloat16):
         elem = 4 if dtype == torch.float32 else 2
         fwd = fa.flash_fwd_plan(8, 2048, 8, 8, 16, dtype)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 from mpi_cuda_cnn_tpu_torch.cli import main
+from mpi_cuda_cnn_tpu_torch.ops import flash_attention as fa
 from mpi_cuda_cnn_tpu_torch.parallel import mesh as port_mesh
 from mpi_cuda_cnn_tpu_torch.parallel.distributed import run_ranks
 from mpi_cuda_cnn_tpu_torch.parallel.sp import sp_shard_batch
@@ -145,21 +146,17 @@ def test_each_rank_takes_its_block_of_the_windows():
 
 
 def test_ring_impl_follows_the_reference_rule():
-    assert pick_ring_impl("auto", 2048, 2, "cuda", 64) == "ring_flash"
-    assert pick_ring_impl("flash", 2048, 2, "cuda", 16) == "ring_flash"
-    assert pick_ring_impl("auto", 2048, 32, "cuda", 64) == "ring"   # s 64
-    # every head dim up to 256 takes ring-flash (padded to the kernels'
-    # next instance), beyond it the plain ring
-    for d in (24, 80, 96, 200, 256):
-        assert pick_ring_impl("auto", 2048, 2, "cuda", d) == "ring_flash"
-    assert pick_ring_impl("auto", 2048, 2, "cuda", 320) == "ring"
-    # an explicit flash is not turned into plain attention at a head dim
-    # the kernels do not take: they refuse it, as off the seq axis
-    assert pick_ring_impl("flash", 2048, 2, "cuda", 320) == "ring_flash"
-    assert pick_ring_impl("flash", 2048, 32, "cuda", 64) == "ring"   # s 64
-    assert pick_ring_impl("auto", 2048, 2, "cpu", 64) == "ring"
-    assert pick_ring_impl("oracle", 2048, 2, "cuda", 64) == "ring"
-    assert pick_ring_impl("ulysses", 2048, 2, "cuda", 64) == "ulysses"
+    assert pick_ring_impl("auto", 2048, 2, "cuda") == "ring_flash"
+    assert pick_ring_impl("flash", 2048, 2, "cuda") == "ring_flash"
+    assert pick_ring_impl("auto", 2048, 32, "cuda") == "ring"   # s 64
+    # the rule takes no head dim: the kernels take every one (up to 256
+    # padded to their next instance, beyond it the wide kernels)
+    for d in (24, 80, 96, 200, 256, 320):
+        assert fa.kernel_head_dim(d) >= d
+    assert pick_ring_impl("flash", 2048, 32, "cuda") == "ring"   # s 64
+    assert pick_ring_impl("auto", 2048, 2, "cpu") == "ring"
+    assert pick_ring_impl("oracle", 2048, 2, "cuda") == "ring"
+    assert pick_ring_impl("ulysses", 2048, 2, "cuda") == "ulysses"
 
 
 @pytest.mark.parametrize("flags", [

@@ -32,8 +32,11 @@ the JAX case's checkpoint. Held:
 - the port's resume of the JAX file, and the JAX trainer's restore of
   the port's file, bit for bit;
 - where a case asks (`sample`), the port's greedy tokens after that
-  resume (from the whole params gathered on every rank) equal the JAX
-  trainer's `sample` on its mesh from the same params.
+  resume equal the JAX trainer's `sample` on its mesh from the same
+  params: on a mesh with a model axis on every rank, each decoding from
+  its shards with a cache of 1 / n_model of one device's bytes
+  (`parallel/tp_decode.py`), on another mesh on rank 0 from the whole
+  params.
 
 The JAX package is imported where it runs: a spawned rank imports the
 port only.
@@ -280,7 +283,16 @@ def assert_case(case: Case, port: tuple, want: dict, tmp) -> None:
         for p, j in zip(res["params"], want["params"], strict=True):
             np.testing.assert_array_equal(p, j)
     if case.sample:
-        assert resumes[0]["sample"] == want["sample"], case.id
+        n_model = int(dict(p.split(":") for p in case.mesh.split(","))
+                      .get("model", 1))
+        sampled = [r for r in resumes if r["sample"] is not None]
+        assert len(sampled) == (case.world if n_model > 1 else 1), case.id
+        for res in sampled:
+            assert res["sample"] == want["sample"], case.id
+        if n_model > 1:
+            whole = one_device_cache_bytes(case)
+            for res in sampled:
+                assert res["sample_cache_bytes"] * n_model == whole, case.id
     tr = want["trainer"]
     restored, path = restore_latest(tmp / f"port-{case.id}",
                                     tr.state)
@@ -289,6 +301,29 @@ def assert_case(case: Case, port: tuple, want: dict, tmp) -> None:
     for p, j in zip(_leaves(tr._host_params()), runs[0]["params"],
                     strict=True):
         np.testing.assert_array_equal(p, j)
+
+
+def one_device_cache_bytes(case: Case) -> int:
+    """The bytes of one device's decode cache for `case`'s model at the
+    sample's default cache dtype (the port's `LocalDecoder` prefill of
+    one token: the buffers hold max_seq positions)."""
+    import torch
+
+    from mpi_cuda_cnn_tpu_torch.data import prng
+    from mpi_cuda_cnn_tpu_torch.models.generate import (
+        LocalDecoder,
+        pick_cache_dtype,
+    )
+    from mpi_cuda_cnn_tpu_torch.models.transformer import TransformerLM
+
+    cfg = case.cfg
+    model = TransformerLM(**{k: cfg[k] for k in _MODEL_KEYS if k in cfg},
+                          vocab=251, max_seq=cfg["seq_len"])
+    dec = LocalDecoder(model, model.init(prng.key(0)))
+    dec.prefill(torch.zeros((1, 1), dtype=torch.int64), pick_cache_dtype(
+        LMConfig().decode_cache_dtype, heads=model.heads,
+        kv_heads=model.n_kv))
+    return dec.cache_bytes
 
 
 def run_world(cases: list[Case], tmp) -> dict:

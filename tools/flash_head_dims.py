@@ -6,7 +6,9 @@ bytes from the ptxas report; then holds every kernel to its plain version
 (`chip_smoke.flash_cases`, its tolerances) at D in `CHECK_DIMS` (the
 instances 16, 32, 64, 80, 96, 128, 256 and the padded 24, 48, 200), both
 types, causal and not, MHA 4/4 and GQA 8/2, B 2, S 256, and the bf16
-float32-output mode at D 80 and 256; then, with --times, the D 80 and D 96
+float32-output mode (ring-flash's) at D 80 and 256, causal and not, GQA
+8/2 (`--dims` replaces both lists, e.g. with the wide head dims 300,320,
+512); then, with --times, the D 80 and D 96
 flagship geometry (B 8, S 2048, 8 heads, causal) and D 48 beside D 64 (the
 padding's cost) at 30 calls with their bound and SDPA's times.
 
@@ -36,7 +38,13 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--times", action="store_true")
     ap.add_argument("--out", default=None, help="a JSONL copy of the lines")
+    ap.add_argument("--dims", default=None,
+                    help="comma-separated head dims in place of CHECK_DIMS "
+                         "(and of F32_OUT_DIMS), e.g. the wide 300,320,512")
     args = ap.parse_args()
+    check_dims, f32_out_dims = CHECK_DIMS, F32_OUT_DIMS
+    if args.dims:
+        check_dims = f32_out_dims = tuple(int(x) for x in args.dims.split(","))
     sys.path.insert(0, os.getcwd())
     import torch
 
@@ -70,9 +78,10 @@ def main() -> int:
     gen = torch.Generator().manual_seed(3)
     n, failed = 0, []
     shapes = [(dtype, 2, 256, h, hkv, d, causal, False)
-              for d in CHECK_DIMS for dtype in ("float32", "bfloat16")
+              for d in check_dims for dtype in ("float32", "bfloat16")
               for h, hkv in ((4, 4), (8, 2)) for causal in (True, False)]
-    shapes += [("bfloat16", 2, 256, 8, 2, d, True, True) for d in F32_OUT_DIMS]
+    shapes += [("bfloat16", 2, 256, 8, 2, d, causal, True)
+               for d in f32_out_dims for causal in (True, False)]
     if args.times:
         shapes += [(*s, True, False) for s in TIMED]
     for dtype, b, s, h, hkv, d, causal, f32_out in shapes:
